@@ -1,0 +1,103 @@
+"""Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
+
+The kernels have a plain C interface, so one ``nvcc -shared`` call builds
+them in seconds, with no PyTorch headers.  The library is built at first use
+into ``csrc/build/`` (listed in ``.gitignore``) and named after a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "check", "find_nvcc", "load_library"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_lock = threading.Lock()
+_lib = None
+# Seconds the last build took (None: the library was already built) and
+# nvcc's report of registers and shared memory per kernel.
+build_seconds = None
+build_log = ""
+
+
+def find_nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libdst_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _build(path: Path) -> None:
+    global build_seconds, build_log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(p) for p in _sources() if p.suffix == ".cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    path.with_suffix(".log").write_text(build_log)
+    os.replace(tmp, path)  # atomic: a concurrent process sees all or nothing
+
+
+def _declare(lib) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dst_flash_attn_fwd.argtypes = ([p] * 5 + [i] * 4 + [ll] * 12
+                                       + [ctypes.c_float, i, p])
+    lib.dst_flash_attn_fwd.restype = i
+    lib.dst_error_string.argtypes = [i]
+    lib.dst_error_string.restype = ctypes.c_char_p
+
+
+def load_library():
+    """The kernels' shared library, built from ``csrc/`` on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = _library_path()
+            if not path.is_file():
+                _build(path)
+            lib = ctypes.CDLL(str(path))
+            _declare(lib)
+            _lib = lib
+    return _lib
+
+
+def check(lib, err: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if err != 0:
+        msg = lib.dst_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")

@@ -1,0 +1,74 @@
+"""JAX (Flax) parameters -> the port's state_dict.
+
+The inverse of ``diff_sampler_tpu/models/torch_import.py::state_dict_to_params``:
+
+  * 4-D conv kernels: HWIO -> OIHW
+  * 2-D linear kernels: (in, out) -> (out, in)
+  * norm ``scale`` -> ``weight``
+  * ``enc_16x16_block0`` -> ``enc.16x16_block0`` (and ``dec_*`` alike)
+
+The JAX params come as nested dicts of numpy arrays (``np.asarray`` of each
+leaf of a Flax params tree), so this module needs no jax.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["params_from_jax", "load_jax_params", "absent_from_jax"]
+
+_SPLIT_PREFIXES = ("enc_", "dec_")
+
+
+def absent_from_jax(key: str) -> bool:
+    """State_dict keys a JAX params tree never holds: the resample filter
+    buffers, which the JAX package recomputes from the config, and
+    ``map_augment``, which the JAX init creates only when augment labels are
+    passed (reference checkpoints carry it; sampling never applies it)."""
+    parts = key.split(".")
+    return parts[-1] == "resample_filter" or parts[-2:] == ["map_augment", "weight"]
+
+
+def _name(part: str) -> str:
+    for p in _SPLIT_PREFIXES:
+        if part.startswith(p):
+            return f"{p[:-1]}.{part[len(p):]}"
+    return part
+
+
+def params_from_jax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flatten a nested JAX params dict into a torch state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in params.items():
+        if isinstance(val, Mapping):
+            out.update(params_from_jax(val, f"{prefix}{_name(key)}."))
+            continue
+        arr = np.asarray(val, dtype=np.float32)
+        leaf = key
+        if key == "kernel":
+            leaf = "weight"
+            if arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 2:
+                arr = arr.T
+            else:
+                raise ValueError(f"unexpected kernel rank for {prefix}{key}: {arr.shape}")
+        elif key == "scale":
+            leaf = "weight"
+        out[prefix + leaf] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def load_jax_params(module: torch.nn.Module, params: Mapping[str, Any]) -> torch.nn.Module:
+    """Load JAX params into ``module`` in place.  Every key must match, apart
+    from the keys ``absent_from_jax`` names, which keep their values."""
+    sd = params_from_jax(params)
+    missing, unexpected = module.load_state_dict(sd, strict=False)
+    bad_missing = [k for k in missing if not absent_from_jax(k)]
+    if bad_missing or unexpected:
+        raise KeyError(f"JAX params do not match the module: missing {bad_missing}, "
+                       f"unexpected {list(unexpected)}")
+    return module

@@ -1,0 +1,74 @@
+"""Model factory: dataset name -> EDM denoiser module.
+
+Counterpart of ``diff_sampler_tpu/models/factory.py`` for the pixel EDM
+tier.  The architecture table is the JAX package's ``EDM_ARCHS`` (itself
+``sfd-main/training/training_loop.py:59-77``), repeated here because that
+module imports jax.  The ``imagenet64`` (DhariwalUNet) entry, the other
+model tiers and checkpoint loading come with later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from .precond import EDMPrecond
+
+__all__ = ["EDM_ARCHS", "build_edm_model", "create_model", "init_params"]
+
+# dataset -> (interface kwargs, SongUNet kwargs)
+EDM_ARCHS: Dict[str, Tuple[Dict[str, Any], Dict[str, Any]]] = {
+    "cifar10": (
+        dict(img_resolution=32, img_channels=3, label_dim=0, model_type="SongUNet"),
+        dict(embedding_type="positional", encoder_type="standard",
+             decoder_type="standard", channel_mult_noise=1,
+             resample_filter=[1, 1], model_channels=128,
+             channel_mult=[2, 2, 2], dropout=0.13, augment_dim=9),
+    ),
+    "ffhq": (
+        dict(img_resolution=64, img_channels=3, label_dim=0, model_type="SongUNet"),
+        dict(embedding_type="positional", encoder_type="standard",
+             decoder_type="standard", channel_mult_noise=1,
+             resample_filter=[1, 1], model_channels=128,
+             channel_mult=[1, 2, 2, 2], dropout=0.05, augment_dim=9),
+    ),
+}
+EDM_ARCHS["afhqv2"] = EDM_ARCHS["ffhq"]
+
+
+def build_edm_model(dataset_name: str, *, dtype: torch.dtype = torch.float32,
+                    sigma_min: Optional[float] = None, sigma_max: float = 80.0,
+                    device=None) -> EDMPrecond:
+    """The EDMPrecond module of a dataset, in eval mode, with its parameters
+    allocated on ``device`` but not yet initialised (``init_params`` or
+    ``convert.load_jax_params`` fills them)."""
+    interface, kwargs = EDM_ARCHS[dataset_name]
+    return EDMPrecond(sigma_min=sigma_min if sigma_min is not None else 0.002,
+                      sigma_max=sigma_max, dtype=dtype, model_kwargs=dict(kwargs),
+                      device=device, **interface).eval()
+
+
+@torch.no_grad()
+def init_params(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
+    """Initialise every parameter and buffer of ``module`` in place from one
+    CPU generator seeded with ``seed``, so the weights do not depend on the
+    device.  Returns the module."""
+    g = torch.Generator().manual_seed(seed)
+    for m in module.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(g)
+    return module
+
+
+def create_model(dataset_name: str, model_path: Optional[str] = None, *,
+                 dtype: torch.dtype = torch.float32, device=None):
+    """Returns (module, model_source).  Only ``model_path='random'`` (freshly
+    initialised weights from seed 0) is ported so far."""
+    if dataset_name not in EDM_ARCHS:
+        raise NotImplementedError(
+            f"model tier for {dataset_name!r} is not ported yet; "
+            f"available: {sorted(EDM_ARCHS)}")
+    if model_path != "random":
+        raise NotImplementedError("checkpoint loading is not ported yet; use model_path='random'")
+    return init_params(build_edm_model(dataset_name, dtype=dtype, device=device)), "edm"

@@ -1,0 +1,80 @@
+"""EDM preconditioning and the bound denoiser the samplers consume.
+
+Counterpart of ``diff_sampler_tpu/models/precond.py`` (``EDMPrecond``,
+``BoundDenoiser``, ``bind``).  The other preconditioners (CM, CG, CFG) come
+with their model tiers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from .unets import SongUNet
+
+__all__ = ["EDMPrecond", "BoundDenoiser", "bind"]
+
+MODEL_TYPES = {"SongUNet": SongUNet}
+
+
+class EDMPrecond(nn.Module):
+    """EDM c_skip / c_out / c_in / c_noise preconditioning on NHWC images.
+
+    ``dtype`` is the inner model's compute dtype (its parameters stay f32
+    and are cast per layer); the preconditioning math stays f32."""
+
+    def __init__(self, img_resolution: int, img_channels: int, label_dim: int = 0,
+                 sigma_min: float = 0.002, sigma_max: float = 80.0, sigma_data: float = 0.5,
+                 model_type: str = "SongUNet", model_kwargs: Optional[Dict[str, Any]] = None,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        if model_type not in MODEL_TYPES:
+            raise NotImplementedError(f"model_type {model_type!r} is not ported yet")
+        self.img_resolution, self.img_channels = img_resolution, img_channels
+        self.label_dim = label_dim
+        self.sigma_min, self.sigma_max, self.sigma_data = sigma_min, sigma_max, sigma_data
+        self.dtype = dtype
+        self.model = MODEL_TYPES[model_type](
+            img_resolution=img_resolution, in_channels=img_channels,
+            out_channels=img_channels, label_dim=label_dim, device=device,
+            **(model_kwargs or {}))
+
+    def forward(self, x, sigma):
+        """x: [N, H, W, C]; sigma: a scalar or [N] (float or tensor)."""
+        x = x.float()
+        sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device).reshape(-1, 1, 1, 1)
+        sd = self.sigma_data
+        c_skip = sd ** 2 / (sigma ** 2 + sd ** 2)
+        c_out = sigma * sd / (sigma ** 2 + sd ** 2).sqrt()
+        c_in = 1 / (sd ** 2 + sigma ** 2).sqrt()
+        c_noise = sigma.log() / 4
+        f_x = self.model((c_in * x).to(self.dtype), c_noise.reshape(-1))
+        return c_skip * x + c_out * f_x.float()
+
+
+@dataclasses.dataclass
+class BoundDenoiser:
+    """``denoise(x, t) -> D(x, t)``, the callable the samplers take."""
+
+    fn: Callable
+    sigma_min: float
+    sigma_max: float
+
+    def __call__(self, x, t):
+        return self.fn(x, t)
+
+
+def bind(precond: EDMPrecond) -> BoundDenoiser:
+    """The sampling denoiser of a preconditioner: its forward, run without
+    autograd.  The module must be in eval mode, so that dropout is off."""
+    if precond.training:
+        raise ValueError("bind() needs the module in eval mode: call .eval() first")
+
+    @torch.no_grad()
+    def fn(x, t):
+        return precond(x, t)
+
+    return BoundDenoiser(fn, precond.sigma_min, precond.sigma_max)

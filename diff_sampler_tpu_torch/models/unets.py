@@ -1,0 +1,253 @@
+"""EDM-family U-Nets on NHWC activations: ``UNetBlock`` and ``SongUNet``
+(DDPM++ / NCSN++).
+
+Counterpart of ``diff_sampler_tpu/models/unets.py``.  Module names are the
+reference state_dict's: ``enc.16x16_block0.conv0.weight``,
+``map_layer0.weight``, ... so a reference checkpoint loads with no rewrite.
+The SFD extensions (step condition, skip tuning) and ``DhariwalUNet`` are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import Conv2d, FourierEmbedding, GroupNorm, Linear, attention, positional_embedding
+
+__all__ = ["UNetBlock", "SongUNet"]
+
+
+class UNetBlock(nn.Module):
+    """DDPM++ / NCSN++ / ADM residual block, with optional self-attention."""
+
+    def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
+                 up: bool = False, down: bool = False, attention: bool = False,
+                 num_heads: Optional[int] = None, channels_per_head: int = 64,
+                 dropout: float = 0.0, skip_scale: float = 1.0, eps: float = 1e-5,
+                 resample_filter: Sequence[float] = (1, 1), resample_proj: bool = False,
+                 adaptive_scale: bool = True, init: Optional[Dict] = None,
+                 init_zero: Optional[Dict] = None, init_attn: Optional[Dict] = None,
+                 device=None):
+        super().__init__()
+        init = dict(init or {})
+        init_zero = dict(init_zero) if init_zero is not None else dict(init_weight=0)
+        init_attn = dict(init_attn) if init_attn is not None else init
+        self.num_heads = (0 if not attention else num_heads if num_heads is not None
+                          else out_channels // channels_per_head)
+        self.skip_scale = skip_scale
+        self.adaptive_scale = adaptive_scale
+
+        self.norm0 = GroupNorm(in_channels, eps=eps, device=device)
+        self.conv0 = Conv2d(in_channels, out_channels, kernel=3, up=up, down=down,
+                            resample_filter=resample_filter, device=device, **init)
+        self.affine = Linear(emb_channels, out_channels * (2 if adaptive_scale else 1),
+                             device=device, **init)
+        self.norm1 = GroupNorm(out_channels, eps=eps, device=device)
+        self.dropout = nn.Dropout(dropout)
+        self.conv1 = Conv2d(out_channels, out_channels, kernel=3, device=device, **init_zero)
+        self.skip = None
+        if out_channels != in_channels or up or down:
+            kernel = 1 if resample_proj or out_channels != in_channels else 0
+            self.skip = Conv2d(in_channels, out_channels, kernel=kernel, up=up, down=down,
+                               resample_filter=resample_filter, device=device, **init)
+        if self.num_heads:
+            self.norm2 = GroupNorm(out_channels, eps=eps, device=device)
+            self.qkv = Conv2d(out_channels, out_channels * 3, kernel=1, device=device,
+                              **init_attn)
+            self.proj = Conv2d(out_channels, out_channels, kernel=1, device=device,
+                               **init_zero)
+
+    def forward(self, x, emb):
+        orig = x
+        x = self.conv0(F.silu(self.norm0(x)))
+        params = self.affine(emb)[:, None, None, :].to(x.dtype)
+        if self.adaptive_scale:
+            scale, shift = params.chunk(2, dim=-1)
+            x = F.silu(shift + self.norm1(x) * (scale + 1))
+        else:
+            # the embedding is added before the norm
+            x = F.silu(self.norm1(x + params))
+        x = self.conv1(self.dropout(x))
+        x = (x + (self.skip(orig) if self.skip is not None else orig)) * self.skip_scale
+        if self.num_heads:
+            a = attention(self.qkv(self.norm2(x)), self.num_heads)
+            x = (x + self.proj(a)) * self.skip_scale
+        return x
+
+
+def _song_layout(img_resolution, in_channels, out_channels, model_channels,
+                 channel_mult, num_blocks, attn_resolutions, encoder_type, decoder_type):
+    """Static layer layout of SongUNet: ordered (name, kind, kwargs) lists for
+    the encoder and decoder.  Names are the reference's module keys under
+    ``enc`` / ``dec``; kind is one of conv, block, aux_down, aux_skip,
+    aux_residual, aux_up, aux_norm, aux_conv.  Mirrors the JAX package's
+    ``_song_layout``, including the attention forced on at ``in0`` of the
+    lowest resolution."""
+    enc: List[Tuple[str, str, dict]] = []
+    cout = in_channels
+    caux = in_channels
+    for level, mult in enumerate(channel_mult):
+        res = img_resolution >> level
+        if level == 0:
+            cin, cout = cout, model_channels
+            enc.append((f"{res}x{res}_conv", "conv", dict(cin=cin, cout=cout)))
+        else:
+            enc.append((f"{res}x{res}_down", "block",
+                        dict(cin=cout, cout=cout, up=False, down=True, attn=False)))
+            if encoder_type == "skip":
+                enc.append((f"{res}x{res}_aux_down", "aux_down", dict(cin=caux, cout=caux)))
+                enc.append((f"{res}x{res}_aux_skip", "aux_skip", dict(cin=caux, cout=cout)))
+            if encoder_type == "residual":
+                enc.append((f"{res}x{res}_aux_residual", "aux_residual",
+                            dict(cin=caux, cout=cout)))
+                caux = cout
+        for idx in range(num_blocks):
+            cin, cout = cout, model_channels * mult
+            enc.append((f"{res}x{res}_block{idx}", "block",
+                        dict(cin=cin, cout=cout, up=False, down=False,
+                             attn=res in attn_resolutions)))
+    skips = [kw["cout"] for name, _, kw in enc if "aux" not in name]
+
+    dec: List[Tuple[str, str, dict]] = []
+    for level, mult in reversed(list(enumerate(channel_mult))):
+        res = img_resolution >> level
+        if level == len(channel_mult) - 1:
+            dec.append((f"{res}x{res}_in0", "block",
+                        dict(cin=cout, cout=cout, up=False, down=False, attn=True)))
+            dec.append((f"{res}x{res}_in1", "block",
+                        dict(cin=cout, cout=cout, up=False, down=False, attn=False)))
+        else:
+            dec.append((f"{res}x{res}_up", "block",
+                        dict(cin=cout, cout=cout, up=True, down=False, attn=False)))
+        for idx in range(num_blocks + 1):
+            cin = cout + skips.pop()
+            cout = model_channels * mult
+            attn = idx == num_blocks and res in attn_resolutions
+            dec.append((f"{res}x{res}_block{idx}", "block",
+                        dict(cin=cin, cout=cout, up=False, down=False, attn=attn)))
+        if decoder_type == "skip" or level == 0:
+            if decoder_type == "skip" and level < len(channel_mult) - 1:
+                dec.append((f"{res}x{res}_aux_up", "aux_up",
+                            dict(cin=out_channels, cout=out_channels)))
+            dec.append((f"{res}x{res}_aux_norm", "aux_norm", dict(c=cout)))
+            dec.append((f"{res}x{res}_aux_conv", "aux_conv", dict(cin=cout, cout=out_channels)))
+    return enc, dec
+
+
+class SongUNet(nn.Module):
+    """DDPM++ / NCSN++ U-Net.  ``augment_dim`` creates ``map_augment`` so
+    reference checkpoints load; sampling never applies it.  Class
+    conditioning (``label_dim > 0``) is not ported yet."""
+
+    def __init__(self, img_resolution: int, in_channels: int, out_channels: int,
+                 label_dim: int = 0, augment_dim: int = 0, model_channels: int = 128,
+                 channel_mult: Sequence[int] = (1, 2, 2, 2), channel_mult_emb: int = 4,
+                 num_blocks: int = 4, attn_resolutions: Sequence[int] = (16,),
+                 dropout: float = 0.10, label_dropout: float = 0.0,
+                 embedding_type: str = "positional", channel_mult_noise: int = 1,
+                 encoder_type: str = "standard", decoder_type: str = "standard",
+                 resample_filter: Sequence[float] = (1, 1), device=None):
+        if label_dim:
+            raise NotImplementedError("class-conditional SongUNet is not ported yet")
+        if embedding_type not in ("positional", "fourier"):
+            raise ValueError(f"unknown embedding_type {embedding_type!r}")
+        super().__init__()
+        emb_channels = model_channels * channel_mult_emb
+        noise_channels = model_channels * channel_mult_noise
+        init = dict(init_mode="xavier_uniform")
+        init_zero = dict(init_mode="xavier_uniform", init_weight=1e-5)
+        init_attn = dict(init_mode="xavier_uniform", init_weight=math.sqrt(0.2))
+        block_kwargs = dict(emb_channels=emb_channels, num_heads=1, dropout=dropout,
+                            skip_scale=math.sqrt(0.5), eps=1e-6,
+                            resample_filter=resample_filter, resample_proj=True,
+                            adaptive_scale=False, init=init, init_zero=init_zero,
+                            init_attn=init_attn, device=device)
+        self.noise_channels = noise_channels
+
+        # Mapping tower.
+        self.map_noise = (FourierEmbedding(noise_channels, device=device)
+                          if embedding_type == "fourier" else None)
+        self.map_augment = (Linear(augment_dim, noise_channels, bias=False, device=device,
+                                   **init) if augment_dim else None)
+        self.map_layer0 = Linear(noise_channels, emb_channels, device=device, **init)
+        self.map_layer1 = Linear(emb_channels, emb_channels, device=device, **init)
+
+        enc_layout, dec_layout = _song_layout(
+            img_resolution, in_channels, out_channels, model_channels, tuple(channel_mult),
+            num_blocks, tuple(attn_resolutions), encoder_type, decoder_type)
+        self.enc_layout = [(name, kind) for name, kind, _ in enc_layout]
+        self.dec_layout = [(name, kind) for name, kind, _ in dec_layout]
+        self.enc = nn.ModuleDict()
+        for name, kind, kw in enc_layout:
+            if kind == "conv":
+                self.enc[name] = Conv2d(kw["cin"], kw["cout"], kernel=3, device=device, **init)
+            elif kind == "aux_down":
+                self.enc[name] = Conv2d(kw["cin"], kw["cout"], kernel=0, down=True,
+                                        resample_filter=resample_filter, device=device)
+            elif kind == "aux_skip":
+                self.enc[name] = Conv2d(kw["cin"], kw["cout"], kernel=1, device=device, **init)
+            elif kind == "aux_residual":
+                self.enc[name] = Conv2d(kw["cin"], kw["cout"], kernel=3, down=True,
+                                        resample_filter=resample_filter, fused_resample=True,
+                                        device=device, **init)
+            else:
+                self.enc[name] = UNetBlock(kw["cin"], kw["cout"], down=kw["down"],
+                                           attention=kw["attn"], **block_kwargs)
+        self.dec = nn.ModuleDict()
+        for name, kind, kw in dec_layout:
+            if kind == "aux_up":
+                self.dec[name] = Conv2d(kw["cin"], kw["cout"], kernel=0, up=True,
+                                        resample_filter=resample_filter, device=device)
+            elif kind == "aux_norm":
+                self.dec[name] = GroupNorm(kw["c"], eps=1e-6, device=device)
+            elif kind == "aux_conv":
+                self.dec[name] = Conv2d(kw["cin"], kw["cout"], kernel=3, device=device,
+                                        **init_zero)
+            else:
+                self.dec[name] = UNetBlock(kw["cin"], kw["cout"], up=kw["up"],
+                                           attention=kw["attn"], **block_kwargs)
+
+    def forward(self, x, noise_labels):
+        """x: [N, H, W, C] in the compute dtype; noise_labels: [N] or [1]."""
+        if self.map_noise is not None:
+            emb = self.map_noise(noise_labels)
+        else:
+            emb = positional_embedding(noise_labels, self.noise_channels, endpoint=True)
+        emb = emb.reshape(emb.shape[0], 2, -1).flip(1).reshape(emb.shape)  # swap sin/cos
+        emb = F.silu(self.map_layer0(emb))
+        emb = F.silu(self.map_layer1(emb))
+
+        skips = []
+        aux = x
+        for name, kind in self.enc_layout:
+            layer = self.enc[name]
+            if kind == "aux_down":
+                aux = layer(aux)
+            elif kind == "aux_skip":
+                x = skips[-1] = x + layer(aux)
+            elif kind == "aux_residual":
+                x = skips[-1] = aux = (x + layer(aux)) / math.sqrt(2)
+            else:
+                x = layer(x, emb) if kind == "block" else layer(x)
+                skips.append(x)
+
+        aux = tmp = None
+        for name, kind in self.dec_layout:
+            layer = self.dec[name]
+            if kind == "aux_up":
+                aux = layer(aux)
+            elif kind == "aux_norm":
+                tmp = layer(x)
+            elif kind == "aux_conv":
+                tmp = layer(F.silu(tmp))
+                aux = tmp if aux is None else tmp + aux
+            else:
+                if x.shape[-1] != layer.norm0.weight.shape[0]:
+                    x = torch.cat([x, skips.pop()], dim=-1)
+                x = layer(x, emb)
+        return aux

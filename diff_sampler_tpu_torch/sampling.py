@@ -1,0 +1,124 @@
+"""High-level generation API: seeds -> images.
+
+Counterpart of ``diff_sampler_tpu/sampling.py`` on one device.  Image i is
+a pure function of seed i at any batch size: each seed has its own latent
+generator, and a short last batch is padded by repeating its last seed.
+Public shapes stay NHWC, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .ops import get_schedule
+from .solvers import count_nfe, get_sampler
+from .utils.rng import stacked_randn
+
+__all__ = ["SolverConfig", "build_sample_fn", "generate", "to_uint8"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Solver and schedule settings (the reference's SOLVER_FLAGS and
+    SCHEDULE_FLAGS), for the samplers ported so far."""
+
+    solver: str = "heun"
+    num_steps: int = 6
+    schedule_type: str = "polynomial"
+    schedule_rho: float = 7.0
+    afs: bool = False
+    denoise_to_zero: bool = False
+    max_order: Optional[int] = None  # default: 4 (lms family)
+
+    def resolve_t_steps(self, sigma_min: float, sigma_max: float) -> np.ndarray:
+        """The sigma schedule over the model's range (float64)."""
+        return get_schedule(self.num_steps, sigma_min, sigma_max, self.schedule_type,
+                            self.schedule_rho)
+
+    def sampler_kwargs(self) -> dict:
+        kw = dict(afs=self.afs, denoise_to_zero=self.denoise_to_zero)
+        if self.max_order is not None:
+            kw["max_order"] = self.max_order
+        return kw
+
+    def nfe(self) -> int:
+        return count_nfe(self.solver, self.num_steps, self.afs, self.denoise_to_zero)
+
+
+def build_sample_fn(denoise, cfg: SolverConfig) -> Callable:
+    """``latents -> samples`` (f32) for a bound denoiser."""
+    t_steps = cfg.resolve_t_steps(denoise.sigma_min, denoise.sigma_max)
+    sampler = get_sampler(cfg.solver)
+    kw = cfg.sampler_kwargs()
+
+    @torch.no_grad()
+    def fn(latents):
+        return sampler(denoise, latents, t_steps, **kw).x
+
+    return fn
+
+
+def _start_copy_to_host(x: torch.Tensor):
+    """Enqueue the device-to-host copy of ``x`` behind the work that makes
+    it; returns (host tensor, event that marks the copy done, or None)."""
+    x = x.float()
+    if x.device.type != "cuda":
+        return x, None
+    host = torch.empty(x.shape, dtype=torch.float32, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def generate(denoise, seeds: Sequence[int], sample_shape: Tuple[int, ...],
+             cfg: SolverConfig, *, max_batch_size: int = 64, device="cpu",
+             batch_callback=None) -> np.ndarray:
+    """Generate one sample per seed, ``max_batch_size`` at a time.
+
+    sample_shape: per-sample shape, e.g. (32, 32, 3) NHWC.  Returns a float32
+    numpy array [len(seeds), *sample_shape].
+
+    One batch stays in flight: batch i+1 is enqueued on the device before
+    the host waits for batch i, so the host's copy and ``batch_callback``
+    overlap the device's work on the next batch.
+    ``batch_callback(start, images)`` gets each batch in seed order with the
+    padding stripped (float32 numpy); the result is the same with or
+    without it.
+    """
+    seeds = np.asarray(list(seeds), dtype=np.int64)
+    n = len(seeds)
+    fn = build_sample_fn(denoise, cfg)
+    batch = max(1, min(max_batch_size, n))
+    out = np.empty((n,) + tuple(sample_shape), dtype=np.float32)
+
+    def drain(pending):
+        start, m, host, done = pending
+        if done is not None:
+            done.synchronize()
+        out[start:start + m] = host.numpy()[:m]
+        if batch_callback is not None:
+            batch_callback(start, out[start:start + m])
+
+    pending = None  # (start, chunk length, host tensor, copy-done event)
+    for start in range(0, n, batch):
+        chunk = seeds[start:start + batch]
+        pad = batch - len(chunk)
+        chunk_p = np.concatenate([chunk, chunk[-1:].repeat(pad)]) if pad else chunk
+        host, done = _start_copy_to_host(fn(stacked_randn(chunk_p.tolist(), sample_shape,
+                                                          device=device)))
+        if pending is not None:
+            drain(pending)  # the device works on this batch meanwhile
+        pending = (start, len(chunk), host, done)
+    if pending is not None:
+        drain(pending)
+    return out
+
+
+def to_uint8(x: np.ndarray) -> np.ndarray:
+    """[-1, 1] floats -> uint8 pixels, as the reference's ``sample.py`` does."""
+    return np.clip(np.asarray(x) * 127.5 + 128, 0, 255).astype(np.uint8)

@@ -1,0 +1,181 @@
+"""ODE samplers for few-NFE diffusion sampling: euler, heun, ipndm, ipndm_v.
+
+Counterpart of ``diff_sampler_tpu/solvers/samplers.py``.  The JAX package
+runs each sampler as one ``lax.scan``; here the step loop is a Python loop
+that enqueues work on the device and never waits for it.  Every per-step
+scalar comes from ``diff_sampler_tpu.ops.multistep`` in float64 and is cast
+to the working dtype before use, as the JAX package does.
+
+Conventions shared with the JAX package (and the reference):
+  * ``x0 = latents * t_steps[0]``;
+  * AFS: the first step takes the analytic ``d = x / sqrt(1 + t^2)``;
+  * ``denoise_to_zero``: one final full denoise at ``t_steps[-1]``;
+  * ``return_inters``: the trajectory including x0 (and the
+    denoise-to-zero output) in ``xs``, the per-step gradients in ``eps``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..ops import multistep
+
+Denoiser = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+__all__ = [
+    "SampleResult",
+    "euler_sampler",
+    "heun_sampler",
+    "ipndm_sampler",
+    "ipndm_v_sampler",
+    "SOLVER_REGISTRY",
+    "get_sampler",
+    "count_nfe",
+]
+
+
+class SampleResult(NamedTuple):
+    """x: final sample.  xs: [num_steps(+1), B, ...] trajectory including the
+    initial state (and the denoise-to-zero output if requested).  eps:
+    [num_steps-1, B, ...] per-step gradients.  None unless requested."""
+
+    x: torch.Tensor
+    xs: Optional[torch.Tensor] = None
+    eps: Optional[torch.Tensor] = None
+
+
+def _as_dtype(values, dtype) -> List[float]:
+    """float64 host values rounded to the working dtype, as Python floats."""
+    return torch.as_tensor(np.asarray(values, np.float64)).to(dtype).double().tolist()
+
+
+def _prepare(latents, t_steps, dtype):
+    """x0 and the schedule as a device tensor of ``dtype``."""
+    t = torch.tensor(_as_dtype(t_steps, dtype), dtype=dtype, device=latents.device)
+    return latents.to(dtype) * t[0], t
+
+
+def _eps_from(denoise: Denoiser, x, t, afs: bool):
+    """d = (x - D(x, t)) / t, or the analytic first step under AFS."""
+    if afs:
+        return x / (1.0 + t ** 2).sqrt()
+    return (x - denoise(x, t)) / t
+
+
+def _finalize(denoise, x, t_last, xs, eps, denoise_to_zero, return_inters):
+    if denoise_to_zero:
+        x = denoise(x, t_last)
+        if return_inters:
+            xs.append(x)
+    if not return_inters:
+        return SampleResult(x=x)
+    return SampleResult(x=x, xs=torch.stack(xs), eps=torch.stack(eps))
+
+
+def _lms_sample(denoise: Denoiser, latents, t_steps, C, *, afs=False,
+                denoise_to_zero=False, return_inters=False, dtype=torch.float32):
+    """x_{i+1} = x_i + C[i,0] d_i + C[i,1] d_{i-1} + C[i,2] d_{i-2} + C[i,3] d_{i-3}."""
+    x, t = _prepare(latents, t_steps, dtype)
+    coeffs = [_as_dtype(row, dtype) for row in np.asarray(C)]
+    hist: List[torch.Tensor] = []  # d_{i-1}, d_{i-2}, ... newest first
+    xs, eps = [x], []
+    for i, c in enumerate(coeffs):
+        d = _eps_from(denoise, x, t[i], afs and i == 0)
+        x_new = x + c[0] * d
+        for ck, dk in zip(c[1:], hist):
+            if ck != 0.0:
+                x_new = x_new + ck * dk
+        hist = [d] + hist[: multistep.MAX_LMS_ORDER - 2]
+        x = x_new
+        if return_inters:
+            xs.append(x)
+            eps.append(d)
+    return _finalize(denoise, x, t[-1], xs, eps, denoise_to_zero, return_inters)
+
+
+def euler_sampler(denoise, latents, t_steps, *, afs=False, denoise_to_zero=False,
+                  return_inters=False, dtype=torch.float32, **_):
+    """Euler / DDIM sampler."""
+    return _lms_sample(denoise, latents, t_steps, multistep.euler_coeffs(t_steps),
+                       afs=afs, denoise_to_zero=denoise_to_zero,
+                       return_inters=return_inters, dtype=dtype)
+
+
+def ipndm_sampler(denoise, latents, t_steps, *, max_order=4, afs=False,
+                  denoise_to_zero=False, return_inters=False, dtype=torch.float32, **_):
+    """Improved PNDM: fixed-step Adams-Bashforth."""
+    return _lms_sample(denoise, latents, t_steps, multistep.ipndm_coeffs(t_steps, max_order),
+                       afs=afs, denoise_to_zero=denoise_to_zero,
+                       return_inters=return_inters, dtype=dtype)
+
+
+def ipndm_v_sampler(denoise, latents, t_steps, *, max_order=4, afs=False,
+                    denoise_to_zero=False, return_inters=False, dtype=torch.float32, **_):
+    """Variable-step Adams-Bashforth."""
+    return _lms_sample(denoise, latents, t_steps,
+                       multistep.ipndm_v_coeffs(t_steps, max_order),
+                       afs=afs, denoise_to_zero=denoise_to_zero,
+                       return_inters=return_inters, dtype=dtype)
+
+
+def _two_eval_sample(denoise, latents, t_steps, t_mid, w_cur, w_mid, *, afs,
+                     denoise_to_zero, return_inters, dtype):
+    """Single-step solvers with two denoiser calls per step:
+
+    x_e   = x + (t_mid - t_cur) * d_cur
+    d_mid = (x_e - D(x_e, t_mid)) / t_mid
+    x'    = x + (t_next - t_cur) * (w_cur * d_cur + w_mid * d_mid)
+    """
+    x, t = _prepare(latents, t_steps, dtype)
+    t_mid = torch.tensor(_as_dtype(t_mid, dtype), dtype=dtype, device=latents.device)
+    xs, eps = [x], []
+    for i in range(len(t_mid)):
+        d = _eps_from(denoise, x, t[i], afs and i == 0)
+        x_e = x + (t_mid[i] - t[i]) * d
+        d_mid = (x_e - denoise(x_e, t_mid[i])) / t_mid[i]
+        x = x + (t[i + 1] - t[i]) * (w_cur * d + w_mid * d_mid)
+        if return_inters:
+            xs.append(x)
+            eps.append(d)
+    return _finalize(denoise, x, t[-1], xs, eps, denoise_to_zero, return_inters)
+
+
+def heun_sampler(denoise, latents, t_steps, *, afs=False, denoise_to_zero=False,
+                 return_inters=False, dtype=torch.float32, **_):
+    """EDM's Heun second-order sampler: t_mid = t_next, equal weights."""
+    t = np.asarray(t_steps, dtype=np.float64)
+    return _two_eval_sample(denoise, latents, t_steps, t[1:], 0.5, 0.5, afs=afs,
+                            denoise_to_zero=denoise_to_zero,
+                            return_inters=return_inters, dtype=dtype)
+
+
+SOLVER_REGISTRY = {
+    "euler": euler_sampler,
+    "heun": heun_sampler,
+    "ipndm": ipndm_sampler,
+    "ipndm_v": ipndm_v_sampler,
+}
+
+
+def get_sampler(name: str):
+    try:
+        return SOLVER_REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown or not yet ported solver {name!r}; "
+                         f"available: {sorted(SOLVER_REGISTRY)}") from None
+
+
+def count_nfe(solver: str, num_steps: int, afs: bool = False,
+              denoise_to_zero: bool = False, cfg_doubled: bool = False) -> int:
+    """Denoiser evaluations of one sampling run, by the reference's
+    convention (``diff-solvers-main/sample.py:210-219``)."""
+    if solver in ("dpm", "heun"):
+        nfe = 2 * (num_steps - 1) - 1 if afs else 2 * (num_steps - 1)
+    else:
+        nfe = num_steps - 2 if afs else num_steps - 1
+    if denoise_to_zero:
+        nfe += 1
+    return 2 * nfe if cfg_doubled else nfe

@@ -1,0 +1,38 @@
+"""The port imports torch and never jax or flax.
+
+A fresh interpreter with jax and flax blocked by a ``sys.meta_path`` finder
+imports the package, every submodule, and ``chip_smoke.py``.
+"""
+
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import diff_sampler_tpu_torch as pkg
+names = [pkg.__name__] + [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_with_jax_and_flax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 15  # package, subpackages and modules
