@@ -1,7 +1,8 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
 
-The kernels have a plain C interface, so one ``nvcc -shared`` call builds
-them in seconds, with no PyTorch headers.  The library is built at first use
+The kernels have a plain C interface, so they build in seconds, with no
+PyTorch headers: one ``nvcc -c`` per source, all started together, then one
+``nvcc -shared`` link.  The library is built at first use
 into ``csrc/build/`` (listed in ``.gitignore``) and named after a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is.  Nothing here runs at import time.
@@ -23,7 +24,7 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "check", "find_nvcc", "load_library"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -59,16 +60,31 @@ def _library_path() -> Path:
 def _build(path: Path) -> None:
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources() if p.suffix == ".cu")]
+    tag = f"{path.stem}.{os.getpid()}"
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [proc.returncode for proc in procs if proc.returncode != 0]
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        failed = [link.returncode] if link.returncode != 0 else []
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_log = "".join(logs)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed ({failed}):\n{build_log}")
     path.with_suffix(".log").write_text(build_log)
     os.replace(tmp, path)  # atomic: a concurrent process sees all or nothing
 
@@ -78,6 +94,11 @@ def _declare(lib) -> None:
     lib.dst_flash_attn_fwd.argtypes = ([p] * 5 + [i] * 4 + [ll] * 12
                                        + [ctypes.c_float, i, p])
     lib.dst_flash_attn_fwd.restype = i
+    # q, k, v, dO, lse, delta, then dq (or dk, dv); B, T, H, d; 16 strides
+    lib.dst_flash_attn_bwd_dq.argtypes = [p] * 7 + [i] * 4 + [ll] * 16 + [ctypes.c_float, i, p]
+    lib.dst_flash_attn_bwd_dq.restype = i
+    lib.dst_flash_attn_bwd_dkv.argtypes = [p] * 8 + [i] * 4 + [ll] * 16 + [ctypes.c_float, i, p]
+    lib.dst_flash_attn_bwd_dkv.restype = i
     lib.dst_error_string.argtypes = [i]
     lib.dst_error_string.restype = ctypes.c_char_p
 

@@ -7,6 +7,11 @@ with random weights, on the poly-7 schedule:
       --model_path=random --solver=ipndm --num_steps=6 --seeds=0-255 \\
       --batch=256 --bf16=True --device=cuda --outdir=out/
 
+With ``--predictor`` (an AMED run directory, its ``predictor.npz`` or the
+experiment number under ``./exps``) it samples with the trained AMED
+predictor instead, and every solver setting comes from the predictor's
+config sidecar.
+
 PNG writes for batch i run on the host while the device samples batch i+1
 (``sampling.generate``'s batch callback).
 """
@@ -14,13 +19,19 @@ PNG writes for batch i run on the host while the device samples batch i+1
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
+from ..models.convert import load_jax_params
 from ..models.factory import EDM_ARCHS, create_model
 from ..models.precond import bind
-from ..sampling import SolverConfig, generate, to_uint8
+from ..ops import get_schedule
+from ..sampling import SolverConfig, generate, generate_batches, to_uint8
 from ..solvers import SOLVER_REGISTRY
+from ..solvers.amed import AMED_SOLVER_REGISTRY, bind_with_bottleneck
+from ..training.amed import AMEDConfig, predictor_from_config
+from ..utils import checkpoint as ckpt
 from ..utils.image import parse_int_list, save_images
 
 
@@ -38,6 +49,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset_name", required=True, choices=sorted(EDM_ARCHS))
     p.add_argument("--model_path", default="random",
                    help="'random' (seeded random weights); checkpoints are not ported yet")
+    p.add_argument("--predictor", default=None,
+                   help="AMED predictor: run dir, predictor.npz, or experiment number")
     p.add_argument("--batch", dest="max_batch_size", type=int, default=64)
     p.add_argument("--seeds", default="0-63")
     p.add_argument("--outdir", default=None)
@@ -57,8 +70,12 @@ def main(argv=None) -> None:
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     module, source = create_model(args.dataset_name, args.model_path, dtype=dtype,
                                   device=device)
-    den = bind(module)
     shape = (module.img_resolution, module.img_resolution, module.img_channels)
+    if args.predictor is not None:
+        _amed_sample(module, args.predictor, seeds, shape, args.max_batch_size, args.outdir,
+                     args.dataset_name, device)
+        return
+    den = bind(module)
     cfg = SolverConfig(solver=args.solver, num_steps=args.num_steps)
     print(f"Solver: {args.solver} | NFE: {cfg.nfe()} | schedule: "
           f"{cfg.schedule_type}(rho={cfg.schedule_rho}) | source: {source} | "
@@ -70,6 +87,61 @@ def main(argv=None) -> None:
 
     generate(den, seeds, shape, cfg, max_batch_size=args.max_batch_size, device=device,
              batch_callback=save_batch)
+    print(f"Saved {len(seeds)} images to {out_base}")
+
+
+def _resolve_snapshot(path_or_exp, outdir_base="./exps"):
+    """AMED run dir / its predictor.npz / experiment number under
+    ``outdir_base`` -> (npz path, the run's predictor_config.json)."""
+    path = str(path_or_exp)
+    if path.isdigit():
+        run_dir = ckpt.find_run_dir(outdir_base, int(path))
+        if run_dir is None:
+            raise FileNotFoundError(f"no experiment #{path} in {outdir_base}")
+        path = run_dir
+    npz = os.path.join(path, "predictor.npz") if os.path.isdir(path) else path
+    cfg_path = os.path.join(os.path.dirname(npz), "predictor_config.json")
+    if not os.path.isfile(cfg_path):
+        raise FileNotFoundError(f"no predictor_config.json beside {npz}: the solver "
+                                "settings of the predictor are unknown")
+    return npz, ckpt.load_config(cfg_path)
+
+
+def build_amed_sample_fn(module, predictor, device):
+    """(``latents -> samples`` under ``torch.no_grad``, its AMEDConfig) for
+    an AMED predictor (run dir, .npz or experiment number) over ``module``:
+    every solver setting comes from the predictor's config sidecar."""
+    npz, cfg_dict = _resolve_snapshot(predictor)
+    cfg = AMEDConfig(**{k: v for k, v in cfg_dict.items()
+                        if k in AMEDConfig.__dataclass_fields__})
+    pred = load_jax_params(predictor_from_config(cfg, device=device),
+                           ckpt.load_params(npz)["params"]).eval()
+    den_b = bind_with_bottleneck(module)
+    t_steps = get_schedule(cfg.num_steps, cfg.sigma_min, cfg.sigma_max, cfg.schedule_type,
+                           cfg.schedule_rho)
+    sampler = AMED_SOLVER_REGISTRY[cfg.sampler_stu]
+
+    @torch.no_grad()
+    def sample_fn(latents):
+        return sampler(den_b, pred, latents, t_steps, afs=cfg.afs, max_order=cfg.max_order,
+                       predict_x0=cfg.predict_x0, lower_order_final=cfg.lower_order_final).x
+
+    return sample_fn, cfg
+
+
+def _amed_sample(module, predictor, seeds, shape, max_batch_size, outdir, dataset_name,
+                 device):
+    sample_fn, cfg = build_amed_sample_fn(module, predictor, device)
+    nfe = 2 * (cfg.num_steps - 1) - (1 if cfg.afs else 0)
+    print(f"AMED: student={cfg.sampler_stu} steps={cfg.num_steps} NFE={nfe} "
+          f"(restored from predictor config) | device: {device}")
+    out_base = outdir or f"samples/{dataset_name}-amed-{cfg.sampler_stu}"
+
+    def save_batch(start, chunk):
+        save_images(to_uint8(chunk), seeds[start:start + len(chunk)], out_base)
+
+    generate_batches(sample_fn, seeds, shape, max_batch_size=max_batch_size, device=device,
+                     batch_callback=save_batch)
     print(f"Saved {len(seeds)} images to {out_base}")
 
 

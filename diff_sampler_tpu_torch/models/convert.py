@@ -1,26 +1,33 @@
-"""JAX (Flax) parameters -> the port's state_dict.
+"""JAX (Flax) parameters <-> the port's state_dict.
 
-The inverse of ``diff_sampler_tpu/models/torch_import.py::state_dict_to_params``:
+``params_from_jax`` is the inverse of
+``diff_sampler_tpu/models/torch_import.py::state_dict_to_params``:
 
   * 4-D conv kernels: HWIO -> OIHW
   * 2-D linear kernels: (in, out) -> (out, in)
   * norm ``scale`` -> ``weight``
   * ``enc_16x16_block0`` -> ``enc.16x16_block0`` (and ``dec_*`` alike)
 
-The JAX params come as nested dicts of numpy arrays (``np.asarray`` of each
-leaf of a Flax params tree), so this module needs no jax.
+``params_to_jax`` is its inverse, for modules the port trains (the AMED
+predictor), whose params the JAX package then loads.  The JAX params are
+nested dicts of numpy arrays (``np.asarray`` of each leaf of a Flax params
+tree), so this module needs no jax.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "load_jax_params", "absent_from_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "load_jax_params", "absent_from_jax"]
 
 _SPLIT_PREFIXES = ("enc_", "dec_")
+# U-Net level names after the prefix: ``16x16_block0``, ``8x8_aux_norm``...
+# (the AMED predictor's ``enc_layer0`` is not split)
+_LEVEL = re.compile(r"^\d+x\d+_")
 
 
 def absent_from_jax(key: str) -> bool:
@@ -34,7 +41,7 @@ def absent_from_jax(key: str) -> bool:
 
 def _name(part: str) -> str:
     for p in _SPLIT_PREFIXES:
-        if part.startswith(p):
+        if part.startswith(p) and _LEVEL.match(part[len(p):]):
             return f"{p[:-1]}.{part[len(p):]}"
     return part
 
@@ -46,7 +53,7 @@ def params_from_jax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, to
         if isinstance(val, Mapping):
             out.update(params_from_jax(val, f"{prefix}{_name(key)}."))
             continue
-        arr = np.asarray(val, dtype=np.float32)
+        arr = np.array(val, dtype=np.float32)  # a writable copy
         leaf = key
         if key == "kernel":
             leaf = "weight"
@@ -59,6 +66,36 @@ def params_from_jax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, to
         elif key == "scale":
             leaf = "weight"
         out[prefix + leaf] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """A state_dict as the nested JAX params dict (numpy f32 leaves): conv
+    weights OIHW -> HWIO ``kernel``, linear weights (out, in) -> (in, out)
+    ``kernel``, 1-D (norm) weights -> ``scale``, ``enc.X`` -> ``enc_X``.
+    The keys ``absent_from_jax`` names are left out."""
+    out: Dict[str, Any] = {}
+    for key, val in state_dict.items():
+        if absent_from_jax(key):
+            continue
+        parts = []
+        for part in key.split("."):
+            if parts and parts[-1] + "_" in _SPLIT_PREFIXES:
+                part = f"{parts.pop()}_{part}"
+            parts.append(part)
+        arr = val.detach().cpu().float().numpy()
+        leaf = parts[-1]
+        if leaf == "weight":
+            if arr.ndim == 4:
+                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:
+                leaf, arr = "kernel", arr.T
+            else:
+                leaf = "scale"
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
     return out
 
 

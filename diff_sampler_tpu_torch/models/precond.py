@@ -44,6 +44,15 @@ class EDMPrecond(nn.Module):
 
     def forward(self, x, sigma):
         """x: [N, H, W, C]; sigma: a scalar or [N] (float or tensor)."""
+        return self._precondition(x, sigma, None)
+
+    def with_bottleneck(self, x, sigma, module_name: str):
+        """(D(x, sigma), the raw output activation of the inner model's
+        encoder layer ``module_name``, a JAX module name such as
+        ``enc_8x8_block3``): the AMED predictor's input tap."""
+        return self._precondition(x, sigma, module_name)
+
+    def _precondition(self, x, sigma, bottleneck):
         x = x.float()
         sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device).reshape(-1, 1, 1, 1)
         sd = self.sigma_data
@@ -51,8 +60,11 @@ class EDMPrecond(nn.Module):
         c_out = sigma * sd / (sigma ** 2 + sd ** 2).sqrt()
         c_in = 1 / (sd ** 2 + sigma ** 2).sqrt()
         c_noise = sigma.log() / 4
-        f_x = self.model((c_in * x).to(self.dtype), c_noise.reshape(-1))
-        return c_skip * x + c_out * f_x.float()
+        f_x = self.model((c_in * x).to(self.dtype), c_noise.reshape(-1), bottleneck=bottleneck)
+        if bottleneck is None:
+            return c_skip * x + c_out * f_x.float()
+        f_x, tap = f_x
+        return c_skip * x + c_out * f_x.float(), tap
 
 
 @dataclasses.dataclass

@@ -212,8 +212,13 @@ class SongUNet(nn.Module):
                 self.dec[name] = UNetBlock(kw["cin"], kw["cout"], up=kw["up"],
                                            attention=kw["attn"], **block_kwargs)
 
-    def forward(self, x, noise_labels):
-        """x: [N, H, W, C] in the compute dtype; noise_labels: [N] or [1]."""
+    def forward(self, x, noise_labels, bottleneck: Optional[str] = None):
+        """x: [N, H, W, C] in the compute dtype; noise_labels: [N] or [1].
+
+        ``bottleneck`` names an encoder layer by its JAX module name (e.g.
+        ``enc_8x8_block3``, the AMED tap); the call then returns
+        (output, that layer's output activation) -- the explicit counterpart
+        of the JAX package's ``capture_intermediates``."""
         if self.map_noise is not None:
             emb = self.map_noise(noise_labels)
         else:
@@ -224,6 +229,7 @@ class SongUNet(nn.Module):
 
         skips = []
         aux = x
+        tap = None
         for name, kind in self.enc_layout:
             layer = self.enc[name]
             if kind == "aux_down":
@@ -235,6 +241,8 @@ class SongUNet(nn.Module):
             else:
                 x = layer(x, emb) if kind == "block" else layer(x)
                 skips.append(x)
+            if bottleneck == f"enc_{name}":
+                tap = x
 
         aux = tmp = None
         for name, kind in self.dec_layout:
@@ -250,4 +258,8 @@ class SongUNet(nn.Module):
                 if x.shape[-1] != layer.norm0.weight.shape[0]:
                     x = torch.cat([x, skips.pop()], dim=-1)
                 x = layer(x, emb)
-        return aux
+        if bottleneck is None:
+            return aux
+        if tap is None:
+            raise ValueError(f"no encoder layer {bottleneck!r}")
+        return aux, tap

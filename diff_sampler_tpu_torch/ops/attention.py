@@ -1,13 +1,23 @@
-"""Scaled-dot-product attention: the plain version and kernel K1's wrapper.
+"""Scaled-dot-product attention: the plain versions and the wrappers of
+kernels K1 (forward) and K2 (backward).
 
-``flash_attention_mh`` is the wrapper of the hand-written CUDA kernel in
+``flash_attention_mh`` wraps the hand-written CUDA kernel in
 ``csrc/flash_attn_fwd.cu``, which replaces
-``diff_sampler_tpu/ops/pallas_attention.py::_attn_kernel_mh``.  On a CUDA
-tensor it launches that kernel or raises; only a tensor on the CPU takes the
-plain ``reference_sdpa``.  At the CIFAR-10 shapes (H=1, d=256, T=256) the
-kernel is bound by its f32 multiply-adds on the CUDA cores, not by device
-memory: it reads q, k and v once per query tile and never writes the
-[T, T] logits, which the plain version materialises in f32.
+``diff_sampler_tpu/ops/pallas_attention.py::_attn_kernel_mh``.
+``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` wrap the two
+kernels of ``csrc/flash_attn_bwd.cu``, which replace ``_bwd_dq_kernel_mh``
+and ``_bwd_dkv_kernel_mh``.  On a CUDA tensor each wrapper launches its
+kernel or raises; only a tensor on the CPU takes the plain version
+(``reference_sdpa``, ``reference_sdpa_bwd``).  At the CIFAR-10 shapes
+(H=1, d=256, T=256) the kernels are bound by their f32 multiply-adds on the
+CUDA cores, not by device memory: they read q, k and v once per tile and
+never write the [T, T] logits, which the plain versions materialise in f32.
+
+``sdpa`` is differentiable: it runs the ``torch.autograd.Function``
+``_FlashAttentionMH`` (K1 forward, K2 backward, as the JAX package's
+``flash_attention_mh`` is a ``jax.custom_vjp``).  Under ``torch.no_grad``,
+or on inputs that need no gradient, the Function records no graph, so what
+it saves is freed with its output's context.
 
 Layout: q, k, v are [B, T, H, d] (the token layout of the U-Nets); they may
 be strided views, such as the interleaved split of the qkv projection.
@@ -21,7 +31,9 @@ import torch
 
 from .. import _build
 
-__all__ = ["HEAD_DIMS", "flash_attention_mh", "reference_sdpa", "sdpa"]
+__all__ = ["HEAD_DIMS", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "flash_attention_mh", "flash_attention_mh_bwd", "reference_sdpa",
+           "reference_sdpa_bwd", "reference_sdpa_bwd_dkv", "reference_sdpa_bwd_dq", "sdpa"]
 
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -83,9 +95,140 @@ def flash_attention_mh(q, k, v, scale):
 flash_attention_mh.launches = 0  # kernel launches since the last reset
 
 
+def reference_sdpa_bwd(q, k, v, out, lse, do, scale):
+    """Plain attention backward from the forward's saved tensors, the math of
+    kernel K2: delta = rowsum(dO * out), then ``reference_sdpa_bwd_dq`` and
+    ``reference_sdpa_bwd_dkv``.  Returns (dq, dk, dv) [B, T, H, d] in the
+    input dtype."""
+    do = do.to(q.dtype)
+    delta = _delta(out, do)
+    return (reference_sdpa_bwd_dq(q, k, v, do, lse, delta, scale),
+            *reference_sdpa_bwd_dkv(q, k, v, do, lse, delta, scale))
+
+
+def _scores_grad(q, k, v, do, lse, delta, scale):
+    """P = exp(scale q.k - lse) and dS = P * (dO.v - delta), both [B, H, Tq, Tk]
+    in f32 and rounded to the storage dtype (as K2 rounds them before their
+    products)."""
+    dt = q.dtype
+    p = torch.exp(scale * torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+                  - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    return p.to(dt).float(), ds.to(dt).float()
+
+
+def reference_sdpa_bwd_dq(q, k, v, do, lse, delta, scale):
+    """Plain version of K2's dQ kernel: dq = scale * dS.k."""
+    _, ds = _scores_grad(q, k, v, do, lse, delta, scale)
+    return (scale * torch.einsum("bhqk,bkhd->bqhd", ds, k.float())).to(q.dtype)
+
+
+def reference_sdpa_bwd_dkv(q, k, v, do, lse, delta, scale):
+    """Plain version of K2's dK/dV kernel: dk = scale * dS^T.q, dv = P^T.dO."""
+    p, ds = _scores_grad(q, k, v, do, lse, delta, scale)
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _delta(out, do):
+    """rowsum(dO * out) in f32, [B, H, T] contiguous."""
+    return torch.einsum("bthd,bthd->bht", do.float(), out.float()).contiguous()
+
+
+def _bwd_launch(entry, what, outs, q, k, v, do, lse, delta, scale):
+    """Checks the inputs of a K2 kernel and launches it into ``outs``;
+    returns whether it launched (not for an empty batch)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    _check(q, k, v)
+    b, t, h, d = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} must match q {tuple(q.shape)} "
+                         f"{q.dtype}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b, h, t) or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous f32 [B, H, T], got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    if not (do.device == lse.device == delta.device == q.device):
+        raise ValueError("the backward's tensors lie on different devices")
+    if not outs[0].numel():
+        return False
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(o.data_ptr() for o in outs), b, t, h, d, *q.stride(),
+            *k.stride(), *v.stride(), *do.stride(), float(scale), _DTYPE_CODES[q.dtype],
+            stream)
+    _build.check(lib, err, what)
+    return True
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale):
+    """dq [B, T, H, d] from q, k, v and dO ([B, T, H, d], strided, one
+    dtype), the forward's lse and delta ([B, H, T] f32, contiguous).
+    Kernel K2's dQ kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if q.device.type == "cpu":
+        return reference_sdpa_bwd_dq(q, k, v, do, lse, delta, scale)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if _bwd_launch("dst_flash_attn_bwd_dq", "flash attention backward (dQ)", (dq,),
+                   q, k, v, do, lse, delta, scale):
+        flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale):
+    """(dk, dv) [B, T, H, d]; inputs as ``flash_attention_bwd_dq``.  Kernel
+    K2's dK/dV kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return reference_sdpa_bwd_dkv(q, k, v, do, lse, delta, scale)
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if _bwd_launch("dst_flash_attn_bwd_dkv", "flash attention backward (dK/dV)", (dk, dv),
+                   q, k, v, do, lse, delta, scale):
+        flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq.launches = 0  # kernel launches since the last reset
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_mh_bwd(q, k, v, out, lse, do, scale):
+    """Multi-head attention backward from the forward's (out, lse) and the
+    output cotangent dO: delta in plain PyTorch, then K2's dQ and dK/dV
+    kernels (their plain versions on a CPU tensor).  Returns (dq, dk, dv) in
+    the input dtype."""
+    do = do.to(q.dtype)
+    delta = _delta(out, do)
+    return (flash_attention_bwd_dq(q, k, v, do, lse, delta, scale),
+            *flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+
+
+class _FlashAttentionMH(torch.autograd.Function):
+    """K1 forward, K2 backward (the plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_attention_mh(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_mh_bwd(q, k, v, out, lse, do, ctx.scale), None)
+
+
 def sdpa(q, k, v, scale=None):
     """Scaled-dot-product attention on [B, T, H, d]; returns [B, T, H, d].
-    Every CUDA call goes through kernel K1, whatever T."""
+    Every CUDA call goes through kernel K1, whatever T, and its gradient
+    through kernel K2."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return flash_attention_mh(q, k, v, scale)[0]
+    return _FlashAttentionMH.apply(q, k, v, scale)

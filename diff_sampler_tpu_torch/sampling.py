@@ -18,7 +18,7 @@ from .ops import get_schedule
 from .solvers import count_nfe, get_sampler
 from .utils.rng import stacked_randn
 
-__all__ = ["SolverConfig", "build_sample_fn", "generate", "to_uint8"]
+__all__ = ["SolverConfig", "build_sample_fn", "generate", "generate_batches", "to_uint8"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,10 +78,21 @@ def _start_copy_to_host(x: torch.Tensor):
 def generate(denoise, seeds: Sequence[int], sample_shape: Tuple[int, ...],
              cfg: SolverConfig, *, max_batch_size: int = 64, device="cpu",
              batch_callback=None) -> np.ndarray:
-    """Generate one sample per seed, ``max_batch_size`` at a time.
+    """Generate one sample per seed with the solver of ``cfg``,
+    ``max_batch_size`` at a time (``generate_batches``).
 
     sample_shape: per-sample shape, e.g. (32, 32, 3) NHWC.  Returns a float32
-    numpy array [len(seeds), *sample_shape].
+    numpy array [len(seeds), *sample_shape]."""
+    return generate_batches(build_sample_fn(denoise, cfg), seeds, sample_shape,
+                            max_batch_size=max_batch_size, device=device,
+                            batch_callback=batch_callback)
+
+
+def generate_batches(sample_fn: Callable, seeds: Sequence[int], sample_shape: Tuple[int, ...],
+                     *, max_batch_size: int = 64, device="cpu",
+                     batch_callback=None) -> np.ndarray:
+    """``sample_fn(latents) -> samples`` on each batch of per-seed latents,
+    ``max_batch_size`` at a time; returns [len(seeds), *sample_shape] f32.
 
     One batch stays in flight: batch i+1 is enqueued on the device before
     the host waits for batch i, so the host's copy and ``batch_callback``
@@ -92,7 +103,6 @@ def generate(denoise, seeds: Sequence[int], sample_shape: Tuple[int, ...],
     """
     seeds = np.asarray(list(seeds), dtype=np.int64)
     n = len(seeds)
-    fn = build_sample_fn(denoise, cfg)
     batch = max(1, min(max_batch_size, n))
     out = np.empty((n,) + tuple(sample_shape), dtype=np.float32)
 
@@ -109,8 +119,8 @@ def generate(denoise, seeds: Sequence[int], sample_shape: Tuple[int, ...],
         chunk = seeds[start:start + batch]
         pad = batch - len(chunk)
         chunk_p = np.concatenate([chunk, chunk[-1:].repeat(pad)]) if pad else chunk
-        host, done = _start_copy_to_host(fn(stacked_randn(chunk_p.tolist(), sample_shape,
-                                                          device=device)))
+        latents = stacked_randn(chunk_p.tolist(), sample_shape, device=device)
+        host, done = _start_copy_to_host(sample_fn(latents))
         if pending is not None:
             drain(pending)  # the device works on this batch meanwhile
         pending = (start, len(chunk), host, done)

@@ -1,4 +1,5 @@
-"""ODE samplers for few-NFE diffusion sampling: euler, heun, ipndm, ipndm_v.
+"""ODE samplers for few-NFE diffusion sampling: euler, heun, dpm (DPM-Solver-2),
+ipndm, ipndm_v, dpmpp (DPM-Solver++ multistep).
 
 Counterpart of ``diff_sampler_tpu/solvers/samplers.py``.  The JAX package
 runs each sampler as one ``lax.scan``; here the step loop is a Python loop
@@ -27,10 +28,13 @@ Denoiser = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 __all__ = [
     "SampleResult",
+    "dynamic_thresholding",
     "euler_sampler",
     "heun_sampler",
+    "dpm_2_sampler",
     "ipndm_sampler",
     "ipndm_v_sampler",
+    "dpm_pp_sampler",
     "SOLVER_REGISTRY",
     "get_sampler",
     "count_nfe",
@@ -45,6 +49,14 @@ class SampleResult(NamedTuple):
     x: torch.Tensor
     xs: Optional[torch.Tensor] = None
     eps: Optional[torch.Tensor] = None
+
+
+def dynamic_thresholding(x0: torch.Tensor, p: float = 0.995) -> torch.Tensor:
+    """Imagen-style dynamic thresholding: clip each sample at the p-quantile
+    of its |x0| (at least 1) and divide by it."""
+    s = torch.quantile(x0.abs().reshape(x0.shape[0], -1), p, dim=1)
+    s = s.clamp_min(1.0).reshape((-1,) + (1,) * (x0.dim() - 1))
+    return torch.clamp(x0, -s, s) / s
 
 
 def _as_dtype(values, dtype) -> List[float]:
@@ -152,11 +164,50 @@ def heun_sampler(denoise, latents, t_steps, *, afs=False, denoise_to_zero=False,
                             return_inters=return_inters, dtype=dtype)
 
 
+def dpm_2_sampler(denoise, latents, t_steps, *, r=0.5, afs=False, denoise_to_zero=False,
+                  return_inters=False, dtype=torch.float32, **_):
+    """DPM-Solver-2 with the geometric midpoint t_mid = t_next^r * t_cur^(1-r)."""
+    t = np.asarray(t_steps, dtype=np.float64)
+    t_mid = t[1:] ** r * t[:-1] ** (1.0 - r)
+    return _two_eval_sample(denoise, latents, t_steps, t_mid, 1.0 - 1.0 / (2.0 * r),
+                            1.0 / (2.0 * r), afs=afs, denoise_to_zero=denoise_to_zero,
+                            return_inters=return_inters, dtype=dtype)
+
+
+def dpm_pp_sampler(denoise, latents, t_steps, *, max_order=3, predict_x0=True,
+                   lower_order_final=True, afs=False, denoise_to_zero=False,
+                   return_inters=False, dtype=torch.float32, **_):
+    """DPM-Solver++ multistep: x_{i+1} = A[i] x_i + B[i,0] m_i + B[i,1] m_{i-1}
+    + B[i,2] m_{i-2}, where m is the thresholded data prediction
+    (``predict_x0``) or the gradient d."""
+    co = multistep.dpm_pp_coeffs(t_steps, max_order, predict_x0, lower_order_final)
+    x, t = _prepare(latents, t_steps, dtype)
+    a_row = _as_dtype(co.A, dtype)
+    b_rows = [_as_dtype(row, dtype) for row in np.asarray(co.B)]
+    hist: List[torch.Tensor] = []  # m_{i-1}, m_{i-2}, newest first
+    xs, eps = [x], []
+    for i, (a, b) in enumerate(zip(a_row, b_rows)):
+        d = _eps_from(denoise, x, t[i], afs and i == 0)
+        m0 = dynamic_thresholding(x - t[i] * d) if predict_x0 else d
+        x_new = a * x + b[0] * m0
+        for bk, mk in zip(b[1:], hist):
+            if bk != 0.0:
+                x_new = x_new + bk * mk
+        hist = [m0] + hist[:1]
+        x = x_new
+        if return_inters:
+            xs.append(x)
+            eps.append(d)
+    return _finalize(denoise, x, t[-1], xs, eps, denoise_to_zero, return_inters)
+
+
 SOLVER_REGISTRY = {
     "euler": euler_sampler,
     "heun": heun_sampler,
+    "dpm": dpm_2_sampler,
     "ipndm": ipndm_sampler,
     "ipndm_v": ipndm_v_sampler,
+    "dpmpp": dpm_pp_sampler,
 }
 
 

@@ -1,0 +1,148 @@
+"""AMED predictor training.
+
+Counterpart of ``diff_sampler_tpu/training/amed.py``, one call per
+trajectory:
+
+  * teacher trajectory: the base solver with M inserted steps per segment,
+    run under ``torch.no_grad`` with ``return_inters`` and sliced at the
+    student's knots;
+  * per-segment student: the AMED-family sampler over one segment with
+    ``train=True``; gradients flow through the frozen U-Net (which
+    ``bind_with_bottleneck`` froze) into the predictor's r / c_n / a_n;
+  * one optimizer step per segment, after summing the gradients of the
+    ``batch_gpu`` microbatches (a Python loop here, a ``lax.scan`` in JAX),
+    dividing by their count and ``nan_to_num``;
+  * handoff: single-step students (euler / dpm / amed) restart each segment
+    from the teacher's state; multistep students continue from their own
+    detached output;
+  * loss = sum((student - teacher)^2) / microbatch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..ops import get_schedule
+from ..solvers import get_sampler
+from ..solvers.amed import AMEDPredictor, _amed_family
+
+__all__ = ["AMEDConfig", "make_amed_train_step", "predictor_from_config",
+           "teacher_slice_indices"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AMEDConfig:
+    """The reference's training defaults (``amed-solver-main/train.py``),
+    the fields of the JAX package's ``AMEDConfig``; saved as the JSON sidecar
+    ``predictor_config.json`` that sampling restores."""
+
+    dataset_name: str = "cifar10"
+    num_steps: int = 4
+    sampler_stu: str = "amed"  # amed | euler | ipndm | dpm | dpmpp
+    sampler_tea: str = "heun"
+    M: int = 1
+    schedule_type: str = "polynomial"
+    schedule_rho: float = 7.0
+    afs: bool = False
+    scale_dir: float = 0.01
+    scale_time: float = 0.0
+    max_order: int = 4
+    predict_x0: bool = True
+    lower_order_final: bool = True
+    sigma_min: float = 0.002
+    sigma_max: float = 80.0
+    guidance_type: Optional[str] = None
+    guidance_rate: float = 1.0
+    lr: float = 5e-3
+    total_kimg: int = 10
+    batch: int = 512
+    # microbatch of gradient accumulation (the reference's --batch-gpu);
+    # None: the whole batch at once
+    batch_gpu: Optional[int] = None
+    # recompute the frozen net's activations in the student backward
+    # (torch.utils.checkpoint per net call) instead of storing them
+    remat_traj: bool = False
+
+
+def predictor_from_config(cfg: AMEDConfig, bottleneck_dim: int = 64,
+                          device=None) -> AMEDPredictor:
+    """An uninitialised predictor for ``cfg`` (``init_params`` or
+    ``convert.load_jax_params`` fills it)."""
+    return AMEDPredictor(bottleneck_input_dim=bottleneck_dim, scale_dir=cfg.scale_dir,
+                         scale_time=cfg.scale_time, device=device)
+
+
+def teacher_slice_indices(num_steps: int, M: int) -> list:
+    """Indices of the student's knots 1..num_steps-1 in the teacher's
+    trajectory of (M + 1) * (num_steps - 1) + 1 points."""
+    return [i * (M + 1) for i in range(1, num_steps)]
+
+
+def make_amed_train_step(predictor: AMEDPredictor, denoise_b, cfg: AMEDConfig,
+                         optimizer: torch.optim.Optimizer):
+    """The per-trajectory training step.
+
+    denoise_b: a ``BottleneckDenoiser`` over the FROZEN pre-trained net.
+    optimizer: over ``predictor.parameters()``; stepped once per segment.
+    Returns ``train_step(latents) -> metrics``, latents ~ N(0, 1) of shape
+    [batch, H, W, C]; metrics hold ``loss_per_step`` (a [num_steps - 1]
+    tensor, each the mean over microbatches) and ``loss``, on the device.
+    """
+    t_steps = get_schedule(cfg.num_steps, cfg.sigma_min, cfg.sigma_max, cfg.schedule_type,
+                           cfg.schedule_rho)
+    n_tea = (cfg.M + 1) * (cfg.num_steps - 1) + 1
+    tea_t = get_schedule(n_tea, cfg.sigma_min, cfg.sigma_max, cfg.schedule_type,
+                         cfg.schedule_rho)
+    tea_idx = teacher_slice_indices(cfg.num_steps, cfg.M)
+    tea_sampler = get_sampler(cfg.sampler_tea)
+    single_step_stu = cfg.sampler_stu in ("euler", "dpm", "amed")
+    params = [p for p in predictor.parameters() if p.requires_grad]
+
+    @torch.no_grad()
+    def teacher_traj(latents):
+        out = tea_sampler(denoise_b, latents, tea_t, return_inters=True,
+                          max_order=cfg.max_order, predict_x0=cfg.predict_x0,
+                          lower_order_final=cfg.lower_order_final)
+        return out.xs[tea_idx]  # [num_steps - 1, mb, ...]
+
+    def train_step(latents):
+        batch = latents.shape[0]
+        mb = cfg.batch_gpu or batch
+        if batch % mb:
+            raise ValueError(f"batch {batch} not divisible by batch_gpu {mb}")
+        micro = list(latents.split(mb))
+        teas = [teacher_traj(lat) for lat in micro]
+        t0 = torch.tensor(t_steps[0], dtype=torch.float32, device=latents.device)
+        xs = [lat * t0 for lat in micro]
+        buffers = [([], []) for _ in micro]  # multistep history per microbatch
+        losses = []
+        for step_idx in range(cfg.num_steps - 1):
+            seg_t = t_steps[step_idx: step_idx + 2]
+            optimizer.zero_grad(set_to_none=True)
+            seg_losses, stus = [], []
+            for a, (x_in, tea) in enumerate(zip(xs, teas)):
+                res, buffers[a], _ = _amed_family(
+                    denoise_b, predictor, x_in / float(seg_t[0]), seg_t,
+                    mode=cfg.sampler_stu, afs=cfg.afs, max_order=cfg.max_order,
+                    predict_x0=cfg.predict_x0, lower_order_final=cfg.lower_order_final,
+                    buffer_in=buffers[a][0], buffer_t_in=buffers[a][1], train=True,
+                    step_idx=step_idx, total_num_steps=cfg.num_steps, remat=cfg.remat_traj)
+                loss = ((res.x - tea[step_idx]) ** 2).sum() / x_in.shape[0]
+                loss.backward()  # sums into .grad across microbatches
+                seg_losses.append(loss.detach())
+                stus.append(res.x.detach())
+            with torch.no_grad():
+                for p in params:
+                    if p.grad is not None:
+                        p.grad = torch.nan_to_num(p.grad / len(micro), nan=0.0, posinf=1e5,
+                                                  neginf=-1e5)
+            optimizer.step()
+            losses.append(torch.stack(seg_losses).mean())
+            xs = [tea[step_idx] for tea in teas] if single_step_stu else stus
+        losses = torch.stack(losses)
+        return {"loss_per_step": losses, "loss": losses.mean()}
+
+    return train_step

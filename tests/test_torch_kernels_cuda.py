@@ -1,5 +1,5 @@
-"""Kernel K1 (the CUDA flash-attention forward) against its plain version,
-on the card.
+"""Kernels K1 (the CUDA flash-attention forward) and K2 (its backward)
+against their plain versions, on the card.
 
 Marked ``cuda``: without a CUDA device each test skips.  The file imports no
 jax package module, so it also runs where flax is not installed:
@@ -8,7 +8,9 @@ jax package module, so it also runs where flax is not installed:
 
 Tolerances: f32 1e-5 max abs (both sides accumulate in f32, in other
 orders); bf16 2^-5, one bf16 step of an output below 4 plus the bf16
-rounding of the softmax weights; lse (f32 on both sides) 1e-5.
+rounding of the softmax weights; lse (f32 on both sides) 1e-5.  K2, relative
+to max|plain grad|: f32 1e-4; bf16 2^-6 (both sides round P, dS and the
+grads to bf16 from f32 values that may differ in the last bit).
 """
 
 import pytest
@@ -49,3 +51,46 @@ def test_kernel_rejects_unsupported_head_dim(cuda):
     q = torch.zeros(1, 64, 1, 40, device="cuda")
     with pytest.raises(ValueError, match="head dim 40"):
         A.flash_attention_mh(q, q, q, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,d", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernel_matches_plain_and_is_deterministic(cuda, b, t, h, d, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator("cuda").manual_seed(1)
+    qkv = torch.randn(b, t, h * d * 3, generator=g, device="cuda").to(dt)
+    q, k, v = qkv.reshape(b, t, h, d, 3).unbind(-1)
+    do = torch.randn(b, h, t, d, generator=g, device="cuda").to(dt).transpose(1, 2)
+    out, lse = A.flash_attention_mh(q, k, v, d ** -0.5)
+    before = (A.flash_attention_bwd_dq.launches, A.flash_attention_bwd_dkv.launches)
+    got = A.flash_attention_mh_bwd(q, k, v, out, lse, do, d ** -0.5)
+    again = A.flash_attention_mh_bwd(q, k, v, out, lse, do, d ** -0.5)
+    ref = A.reference_sdpa_bwd(q, k, v, out, lse, do, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (A.flash_attention_bwd_dq.launches, A.flash_attention_bwd_dkv.launches) == (
+        before[0] + 2, before[1] + 2)
+    rel = 1e-4 if dt == torch.float32 else 2 ** -6
+    for name, x, y, z in zip("qkv", got, ref, again):
+        assert x.dtype == dt and x.shape == (b, t, h, d)
+        bound = rel * y.float().abs().max().item()
+        assert (x.float() - y.float()).abs().max().item() <= bound, name
+        assert torch.equal(x, z), name
+
+
+@pytest.mark.cuda
+def test_sdpa_gradient_flows_through_the_kernels(cuda):
+    """On a CUDA tensor the gradient of sum(sdpa(q, k, v) * g) reaches q, k
+    and v through K2 and equals the plain one."""
+    g = torch.Generator("cuda").manual_seed(2)
+    leaves = [torch.randn(4, 256, 1, 256, generator=g, device="cuda").requires_grad_()
+              for _ in range(3)]
+    cot = torch.randn(4, 256, 1, 256, generator=g, device="cuda")
+    before = A.flash_attention_bwd_dq.launches
+    got = torch.autograd.grad((A.sdpa(*leaves) * cot).sum(), leaves, allow_unused=True)
+    assert A.flash_attention_bwd_dq.launches == before + 1
+    out, _ = A.reference_sdpa(*leaves, 256 ** -0.5)
+    want = torch.autograd.grad((out * cot).sum(), leaves)
+    for name, x, y in zip("qkv", got, want):
+        assert x is not None, f"no gradient reaches {name}"
+        assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item(), name

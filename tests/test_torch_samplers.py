@@ -18,7 +18,7 @@ from diff_sampler_tpu.ops import get_schedule
 from diff_sampler_tpu.solvers import samplers as JS
 from diff_sampler_tpu_torch.solvers import samplers as TS
 
-SOLVERS = ["euler", "heun", "ipndm", "ipndm_v"]
+SOLVERS = ["euler", "heun", "dpm", "ipndm", "ipndm_v", "dpmpp"]
 SHAPE = (4, 6, 6, 3)
 S2 = 0.25
 SIGMA_MAX = 80.0
@@ -76,10 +76,24 @@ def test_trajectory_and_denoise_to_zero_match_jax(solver, denoise_to_zero):
 
 
 @pytest.mark.parametrize("max_order", [1, 2, 3])
-@pytest.mark.parametrize("solver", ["ipndm", "ipndm_v"])
+@pytest.mark.parametrize("solver", ["ipndm", "ipndm_v", "dpmpp"])
 def test_lower_orders_match_jax(solver, max_order):
     ours, ref = _run(solver, 6, max_order=max_order)
     _close(ours.x, ref.x)
+
+
+@pytest.mark.parametrize("lower_order_final", [False, True])
+def test_dpmpp_noise_prediction_matches_jax(lower_order_final):
+    ours, ref = _run("dpmpp", 6, predict_x0=False, lower_order_final=lower_order_final)
+    _close(ours.x, ref.x)
+
+
+def test_dynamic_thresholding_matches_jax():
+    x0 = np.random.RandomState(3).randn(*SHAPE).astype(np.float32) * 3
+    x0[0] *= 0.1  # a sample whose quantile is below 1: divided by 1
+    ref = np.asarray(JS.dynamic_thresholding(jnp.asarray(x0)))
+    ours = TS.dynamic_thresholding(torch.from_numpy(x0)).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-6)
 
 
 def test_samples_land_on_the_data_distribution():

@@ -32,6 +32,16 @@ TINY = dict(model_channels=16, channel_mult=[1, 2], num_blocks=1, attn_resolutio
 SHAPE = (16, 16, 3)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the test run puts several workers on the CPU,
+    where torch's default of one thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rescaled(params, seed):
     rng = np.random.RandomState(seed)
 

@@ -31,6 +31,16 @@ NCSNPP_TINY = dict(model_channels=16, channel_mult=[1, 2, 2], num_blocks=1,
 SIGMAS = [80.0, 10.0, 1.0, 0.1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the test run puts several workers on the CPU,
+    where torch's default of one thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rescaled(params, seed):
     rng = np.random.RandomState(seed)
 
