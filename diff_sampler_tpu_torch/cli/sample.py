@@ -7,10 +7,12 @@ with random weights, on the poly-7 schedule:
       --model_path=random --solver=ipndm --num_steps=6 --seeds=0-255 \\
       --batch=256 --bf16=True --device=cuda --outdir=out/
 
-With ``--predictor`` (an AMED run directory, its ``predictor.npz`` or the
-experiment number under ``./exps``) it samples with the trained AMED
-predictor instead, and every solver setting comes from the predictor's
-config sidecar.
+A class-conditional net (``--dataset_name=imagenet64``) samples each seed
+with its own random class label, as the JAX CLI does.  With ``--predictor``
+(an AMED run directory, its ``predictor.npz`` or the experiment number
+under ``./exps``) it samples with the trained AMED predictor instead, and
+every solver setting comes from the predictor's config sidecar; the net is
+bound without labels there, as the JAX CLI binds an EDM net for AMED.
 
 PNG writes for batch i run on the host while the device samples batch i+1
 (``sampling.generate``'s batch callback).
@@ -86,7 +88,7 @@ def main(argv=None) -> None:
         save_images(to_uint8(chunk), seeds[start:start + len(chunk)], out_base)
 
     generate(den, seeds, shape, cfg, max_batch_size=args.max_batch_size, device=device,
-             batch_callback=save_batch)
+             label_dim=module.label_dim, batch_callback=save_batch)
     print(f"Saved {len(seeds)} images to {out_base}")
 
 
@@ -140,8 +142,9 @@ def _amed_sample(module, predictor, seeds, shape, max_batch_size, outdir, datase
     def save_batch(start, chunk):
         save_images(to_uint8(chunk), seeds[start:start + len(chunk)], out_base)
 
-    generate_batches(sample_fn, seeds, shape, max_batch_size=max_batch_size, device=device,
-                     batch_callback=save_batch)
+    # the net is bound without labels (see the module docstring)
+    generate_batches(lambda latents, _: sample_fn(latents), seeds, shape,
+                     max_batch_size=max_batch_size, device=device, batch_callback=save_batch)
     print(f"Saved {len(seeds)} images to {out_base}")
 
 

@@ -1,7 +1,9 @@
 """AMED predictor training CLI of the port.
 
 Counterpart of ``diff_sampler_tpu/cli/train_amed.py`` for the pixel EDM tier
-(cifar10, ffhq, afhqv2), with the same options and defaults:
+(cifar10, ffhq, afhqv2, and the class-conditional imagenet64, whose net is
+bound without labels as in the JAX CLI), with the same options and
+defaults:
 
   python -m diff_sampler_tpu_torch.cli.train_amed --dataset_name=cifar10 \\
       --model_path=random --batch=512 --total_kimg=10 --device=cuda
@@ -35,7 +37,6 @@ from .sample import _bool
 
 # Tiers of the JAX CLI that later slices of the port bring (ROADMAP.md Queue 1).
 _LATER_TIERS = {
-    "imagenet64": "slice 2 (DhariwalUNet)",
     "lsun_bedroom": "slice 3 (ADM/CM 256 px)",
     "lsun_cat": "slice 3 (ADM/CM 256 px)",
     "imagenet256": "slice 3 (ADM/CM 256 px)",

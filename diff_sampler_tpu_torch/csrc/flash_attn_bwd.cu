@@ -1,9 +1,13 @@
-// Multi-head flash-attention backward (kernel K2) for sm_90a: two kernels,
-// dQ and dK/dV.
+// Multi-head flash-attention backward (kernel K2: a dQ kernel and a dK/dV
+// kernel) for sm_90a.
 //
 // Replaces diff_sampler_tpu/ops/pallas_attention.py::_bwd_dq_kernel_mh and
-// ::_bwd_dkv_kernel_mh (launched by _flash_bwd_mh).  Same math, per
-// (batch, head), from the forward's output and log-sum-exp:
+// ::_bwd_dkv_kernel_mh and, at head dims < 128, their packed twins
+// ::_bwd_dq_kernel_mh_packed and ::_bwd_dkv_kernel_mh_packed (K2p; all
+// launched by _flash_bwd_mh).  Packing heads into one block-diagonal matmul
+// fills the MXU's lanes and has no purpose here: the d = 32 and d = 64
+// instantiations below compute K2p's function one head per block.  Same
+// math, per (batch, head), from the forward's output and log-sum-exp:
 //   * delta = rowsum(dO * out) in f32, computed by the caller (plain PyTorch,
 //     as the JAX package computes it outside Pallas with an einsum);
 //   * P  = exp(scale * q.k^T - lse) in f32, recomputed, never stored;
@@ -24,11 +28,14 @@
 //
 // Design: as kernel K1, 256 threads in 16 row groups x 16 column groups,
 // tiles staged in shared memory as f32 (bf16 converts exactly), products on
-// the CUDA cores with f32 FMAs, accumulators in registers.  At the CIFAR-10
-// shapes (T=256, D=256) the kernels are bound by those FMAs (four [T, T, D]
-// products per (b, h) against K1's two); tensor cores (wgmma) and TMA are
-// left for later.  Tiles are 32 x 32 at D=256, so that K, V, Q and dO tiles
-// (4 x 33 KB in f32) fit the 227 KB of shared memory, and 64 x 64 below.
+// the CUDA cores with f32 FMAs, accumulators in registers.  Bound: those
+// FMAs and their shared-memory loads (four [T, T, D] products per (b, h)
+// against K1's two); tensor cores (wgmma) and TMA are left for later.  Tiles
+// are 32 x 32 at D=256, so that K, V, Q and dO tiles (4 x 33 KB in f32) fit
+// the 227 KB of shared memory, and 64 x 64 below (90 KB for dQ and 111 KB
+// for dK/dV at D=64: two blocks per SM, so one block's tile loads overlap
+// the other's products).  Tiles of several heads per block, loaded in one
+// pass, multiply the shared memory per block and lost on the H100 (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,15 +72,19 @@ struct Layout {
   static constexpr int kCols = kGroups * kVec;           // output columns per thread
 };
 
-// Rows [t0, t0 + ROWS) of one (batch, head) slice into shared memory as f32,
-// zero past seq_len.
+// Rows [t0, t0 + ROWS) of one head into shared memory as f32, zero past
+// seq_len, at row stride D + 4.  Two sources (K and V, or Q and dO) load in
+// one pass.
 template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, Strides s, int t0,
-                                          int seq_len) {
+__device__ __forceinline__ void load_tiles(float* dst0, const T* src0, Strides s0, float* dst1,
+                                           const T* src1, Strides s1, int t0, int seq_len) {
+  constexpr int S = Layout<D>::kStride;
   for (int idx = threadIdx.x; idx < ROWS * D; idx += kThreads) {
     const int r = idx / D, e = idx % D;
     const int t = t0 + r;
-    dst[r * Layout<D>::kStride + e] = t < seq_len ? to_f32(src[t * s.t + e * s.e]) : 0.f;
+    const bool in = t < seq_len;
+    dst0[r * S + e] = in ? to_f32(src0[t * s0.t + e * s0.e]) : 0.f;
+    dst1[r * S + e] = in ? to_f32(src1[t * s1.t + e * s1.e]) : 0.f;
   }
 }
 
@@ -168,8 +179,10 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[R][Layout<
 template <int D, int BQ, int BK>
 struct DqTile {
   static constexpr int kPStride = BK + 16;  // second half-warp lands on other banks
+  static constexpr int kQTile = BQ * Layout<D>::kStride;  // floats of a Q / dO tile
+  static constexpr int kKTile = BK * Layout<D>::kStride;  // of a K / V tile
   static constexpr size_t kSmemBytes =
-      sizeof(float) * (2 * BQ * Layout<D>::kStride + 2 * BK * Layout<D>::kStride + BQ * kPStride);
+      sizeof(float) * (2 * kQTile + 2 * kKTile + BQ * kPStride);
 };
 
 // dQ for one (BQ-query tile, head, batch), looping over key tiles.
@@ -184,18 +197,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   constexpr int R = BQ / 16, C = BK / 16;
 
   extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sDO = sQ + BQ * L::kStride;
-  float* sK = sDO + BQ * L::kStride;
-  float* sV = sK + BK * L::kStride;
-  float* sDS = sV + BK * L::kStride;
+  float* sQ = smem;               // [BQ][D + 4]
+  float* sDO = sQ + Tl::kQTile;   // [BQ][D + 4]
+  float* sK = sDO + Tl::kQTile;   // [BK][D + 4]
+  float* sV = sK + Tl::kKTile;    // [BK][D + 4]
+  float* sDS = sV + Tl::kKTile;   // [BQ][BK + 16]
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
-  load_tile<T, D, BQ>(sQ, q + b * sq.b + h * sq.h, sq, q0, seq_len);
-  load_tile<T, D, BQ>(sDO, dout + b * sdo.b + h * sdo.h, sdo, q0, seq_len);
+  load_tiles<T, D, BQ>(sQ, q + b * sq.b + h * sq.h, sq, sDO, dout + b * sdo.b + h * sdo.h,
+                       sdo, q0, seq_len);
 
   const long long stat0 = (static_cast<long long>(b) * num_heads + h) * seq_len;
   float row_lse[R], row_delta[R];
@@ -213,8 +227,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   for (int k0 = 0; k0 < seq_len; k0 += BK) {
     __syncthreads();  // the previous tile's K and dS are no longer read
-    load_tile<T, D, BK>(sK, kb, sk, k0, seq_len);
-    load_tile<T, D, BK>(sV, vb, sv, k0, seq_len);
+    load_tiles<T, D, BK>(sK, kb, sk, sV, vb, sv, k0, seq_len);
     __syncthreads();
 
     float s[R][C], dp[R][C];
@@ -226,7 +239,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       for (int j = 0; j < C; ++j) {
         const bool in = k0 + tx + 16 * j < seq_len;
         const float p = in ? expf(scale * s[i][j] - row_lse[i]) : 0.f;
-        sDS[(ty + 16 * i) * Tl::kPStride + tx + 16 * j] = round_to<T>(p * (dp[i][j] - row_delta[i]));
+        sDS[(ty + 16 * i) * Tl::kPStride + tx + 16 * j] =
+            round_to<T>(p * (dp[i][j] - row_delta[i]));
       }
     __syncthreads();
     tile_accumulate<D, R, BK, Tl::kPStride>(sDS, sK, ty, tx, acc);
@@ -237,9 +251,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 template <int D, int BQ, int BK>
 struct DkvTile {
   static constexpr int kPStride = BQ + 16;
+  static constexpr int kKTile = BK * Layout<D>::kStride;  // floats of a K / V tile
+  static constexpr int kQTile = BQ * Layout<D>::kStride;  // of a Q / dO tile
   static constexpr size_t kSmemBytes =
-      sizeof(float) * (2 * BK * Layout<D>::kStride + 2 * BQ * Layout<D>::kStride +
-                       2 * BK * kPStride + 2 * BQ);
+      sizeof(float) * (2 * kKTile + 2 * kQTile + 2 * BK * kPStride + 2 * BQ);
 };
 
 // dK and dV for one (BK-key tile, head, batch), looping over query tiles.
@@ -255,22 +270,23 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   constexpr int R = BK / 16, C = BQ / 16;
 
   extern __shared__ __align__(16) float smem[];
-  float* sK = smem;
-  float* sV = sK + BK * L::kStride;
-  float* sQ = sV + BK * L::kStride;
-  float* sDO = sQ + BQ * L::kStride;
-  float* sP = sDO + BQ * L::kStride;
-  float* sDS = sP + BK * Tl::kPStride;
-  float* sLse = sDS + BK * Tl::kPStride;
-  float* sDelta = sLse + BQ;
+  float* sK = smem;                       // [BK][D + 4]
+  float* sV = sK + Tl::kKTile;            // [BK][D + 4]
+  float* sQ = sV + Tl::kKTile;            // [BQ][D + 4]
+  float* sDO = sQ + Tl::kQTile;           // [BQ][D + 4]
+  float* sP = sDO + Tl::kQTile;           // [BK][BQ + 16]
+  float* sDS = sP + BK * Tl::kPStride;    // [BK][BQ + 16]
+  float* sLse = sDS + BK * Tl::kPStride;  // [BQ]
+  float* sDelta = sLse + BQ;              // [BQ]
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+
   const T* qb = q + b * sq.b + h * sq.h;
   const T* dob = dout + b * sdo.b + h * sdo.h;
-  load_tile<T, D, BK>(sK, k + b * sk.b + h * sk.h, sk, k0, seq_len);
-  load_tile<T, D, BK>(sV, v + b * sv.b + h * sv.h, sv, k0, seq_len);
   const long long stat0 = (static_cast<long long>(b) * num_heads + h) * seq_len;
+  load_tiles<T, D, BK>(sK, k + b * sk.b + h * sk.h, sk, sV, v + b * sv.b + h * sv.h, sv, k0,
+                       seq_len);
 
   float acc_k[R][L::kCols], acc_v[R][L::kCols];
 #pragma unroll
@@ -280,8 +296,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   for (int q0 = 0; q0 < seq_len; q0 += BQ) {
     __syncthreads();  // the previous tile's Q, dO, P and dS are no longer read
-    load_tile<T, D, BQ>(sQ, qb, sq, q0, seq_len);
-    load_tile<T, D, BQ>(sDO, dob, sdo, q0, seq_len);
+    load_tiles<T, D, BQ>(sQ, qb, sq, sDO, dob, sdo, q0, seq_len);
     for (int r = threadIdx.x; r < BQ; r += kThreads) {
       const bool in = q0 + r < seq_len;
       sLse[r] = in ? lse[stat0 + q0 + r] : 0.f;
@@ -311,7 +326,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   store_rows<T, D, R>(dv, acc_v, 1.f, b, h, k0, seq_len, num_heads, ty, tx);
 }
 
-// Tile sizes per head dim: 32 x 32 at D=256 (shared memory), 64 x 64 below.
+// Tile sizes: 32 x 32 at D=256 (shared memory) and 64 x 64 below.
 template <int D>
 struct Tiles {
   static constexpr int kQ = D >= 256 ? 32 : 64;
@@ -396,37 +411,47 @@ int dispatch(int dtype, int d, const Args& a) {
   return static_cast<int>(err);
 }
 
+// One entry's work: d1 is null for the dQ kernel.
+int backward(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* d0, void* d1, int batch, int seq_len,
+             int num_heads, int head_dim, const long long* st, float scale, int dtype,
+             void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+               d0, d1, batch, seq_len, num_heads, Strides{st[0], st[1], st[2], st[3]},
+               Strides{st[4], st[5], st[6], st[7]}, Strides{st[8], st[9], st[10], st[11]},
+               Strides{st[12], st[13], st[14], st[15]}, scale, static_cast<cudaStream_t>(stream)};
+  return d1 == nullptr ? dispatch<true>(dtype, head_dim, a) : dispatch<false>(dtype, head_dim, a);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, ordered
 // (batch, token, head, channel), for q, k, v and dO in turn.  lse and delta
-// are contiguous [B, H, T] f32.  Each returns the cudaError_t of its launch.
+// are contiguous [B, H, T] f32; head_dim is 32, 64, 128 or 256.  Each
+// returns the cudaError_t of its launch.
+#define DST_STRIDE_ARGS                                                                       \
+  long long qsb, long long qst, long long qsh, long long qse, long long ksb, long long kst,    \
+      long long ksh, long long kse, long long vsb, long long vst, long long vsh, long long vse, \
+      long long gsb, long long gst, long long gsh, long long gse
+#define DST_STRIDES \
+  { qsb, qst, qsh, qse, ksb, kst, ksh, kse, vsb, vst, vsh, vse, gsb, gst, gsh, gse }
+
 extern "C" int dst_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* delta,
                                      void* dq, int batch, int seq_len, int num_heads,
-                                     int head_dim, long long qsb, long long qst, long long qsh,
-                                     long long qse, long long ksb, long long kst, long long ksh,
-                                     long long kse, long long vsb, long long vst, long long vsh,
-                                     long long vse, long long gsb, long long gst, long long gsh,
-                                     long long gse, float scale, int dtype, void* stream) {
-  const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               dq, nullptr, batch, seq_len, num_heads, Strides{qsb, qst, qsh, qse},
-               Strides{ksb, kst, ksh, kse}, Strides{vsb, vst, vsh, vse},
-               Strides{gsb, gst, gsh, gse}, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(dtype, head_dim, a);
+                                     int head_dim, DST_STRIDE_ARGS, float scale, int dtype,
+                                     void* stream) {
+  const long long st[16] = DST_STRIDES;
+  return backward(q, k, v, dout, lse, delta, dq, nullptr, batch, seq_len, num_heads,
+                  head_dim, st, scale, dtype, stream);
 }
 
 extern "C" int dst_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dk, void* dv, int batch, int seq_len, int num_heads,
-                                      int head_dim, long long qsb, long long qst, long long qsh,
-                                      long long qse, long long ksb, long long kst, long long ksh,
-                                      long long kse, long long vsb, long long vst, long long vsh,
-                                      long long vse, long long gsb, long long gst, long long gsh,
-                                      long long gse, float scale, int dtype, void* stream) {
-  const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               dk, dv, batch, seq_len, num_heads, Strides{qsb, qst, qsh, qse},
-               Strides{ksb, kst, ksh, kse}, Strides{vsb, vst, vsh, vse},
-               Strides{gsb, gst, gsh, gse}, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(dtype, head_dim, a);
+                                      int head_dim, DST_STRIDE_ARGS, float scale, int dtype,
+                                      void* stream) {
+  const long long st[16] = DST_STRIDES;
+  return backward(q, k, v, dout, lse, delta, dk, dv, batch, seq_len, num_heads,
+                  head_dim, st, scale, dtype, stream);
 }

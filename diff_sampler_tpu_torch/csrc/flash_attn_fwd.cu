@@ -1,7 +1,11 @@
 // Multi-head flash-attention forward (kernel K1) for sm_90a.
 //
-// Replaces diff_sampler_tpu/ops/pallas_attention.py::_attn_kernel_mh (launched
-// by _flash_fwd_mh_res).  Same math, not the same blocking:
+// Replaces diff_sampler_tpu/ops/pallas_attention.py::_attn_kernel_mh and, at
+// head dims < 128, its packed twin ::_attn_kernel_mh_packed (K1b; both
+// launched by _flash_fwd_mh_res).  The TPU kernel packs 128 / d heads into
+// one block-diagonal matmul to fill the MXU's 128 lanes; that has no purpose
+// on this card, and the d = 32 and d = 64 instantiations below compute K1b's
+// function one head per block.  Same math, not the same blocking:
 //   * non-causal softmax attention per (batch, head);
 //   * f32 logits, the scale applied to the f32 q.k product;
 //   * online softmax over key tiles in f32;
@@ -18,8 +22,17 @@
 // the block.  Q, K, V and P tiles are staged in shared memory as f32 (bf16
 // values convert exactly), products run on the CUDA cores with f32 FMAs, and
 // every thread keeps 4 query rows of the output accumulator in registers.
-// On this card the CIFAR shapes (T=256, d=256) are bound by those FMAs: the
-// tensor cores (wgmma) and asynchronous tile loads (TMA) are left for later.
+//
+// Bound: f32 FMAs and shared-memory loads on the CUDA cores (4 B H T^2 D
+// flops), at the CIFAR shapes (T=256, d=256) and the ImageNet-64 ones (d=64)
+// alike; on the tensor cores' 989 TFLOP/s in bf16 the latter would be bound
+// by their bytes.  The kernel does nothing about that yet: tensor cores (mma /
+// wgmma) and TMA are left for later.  What it keeps is occupancy: 71 KB of
+// shared memory at d = 64, three blocks per SM, so one block's tile loads
+// overlap another's products.  Giving one block several heads and loading
+// their tiles in one pass, as the packed TPU kernel's layout suggests, was
+// measured on the H100 and lost (PERF.md): it multiplies the shared memory
+// per block and leaves fewer blocks to overlap.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

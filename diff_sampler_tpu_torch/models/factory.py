@@ -2,9 +2,9 @@
 
 Counterpart of ``diff_sampler_tpu/models/factory.py`` for the pixel EDM
 tier.  The architecture table is the JAX package's ``EDM_ARCHS`` (itself
-``sfd-main/training/training_loop.py:59-77``), repeated here because that
-module imports jax.  The ``imagenet64`` (DhariwalUNet) entry, the other
-model tiers and checkpoint loading come with later slices.
+``sfd-main/training/training_loop.py:59-77``), repeated here because the
+port imports nothing of the JAX package.  The other model tiers and
+checkpoint loading come with later slices.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from .precond import EDMPrecond
 
 __all__ = ["EDM_ARCHS", "build_edm_model", "create_model", "init_params"]
 
-# dataset -> (interface kwargs, SongUNet kwargs)
+# dataset -> (interface kwargs, SongUNet / DhariwalUNet kwargs)
 EDM_ARCHS: Dict[str, Tuple[Dict[str, Any], Dict[str, Any]]] = {
     "cifar10": (
         dict(img_resolution=32, img_channels=3, label_dim=0, model_type="SongUNet"),
@@ -33,13 +33,17 @@ EDM_ARCHS: Dict[str, Tuple[Dict[str, Any], Dict[str, Any]]] = {
              resample_filter=[1, 1], model_channels=128,
              channel_mult=[1, 2, 2, 2], dropout=0.05, augment_dim=9),
     ),
+    "imagenet64": (
+        dict(img_resolution=64, img_channels=3, label_dim=1000, model_type="DhariwalUNet"),
+        dict(model_channels=192, channel_mult=[1, 2, 3, 4]),
+    ),
 }
 EDM_ARCHS["afhqv2"] = EDM_ARCHS["ffhq"]
 
 
 def build_edm_model(dataset_name: str, *, dtype: torch.dtype = torch.float32,
                     sigma_min: Optional[float] = None, sigma_max: float = 80.0,
-                    device=None) -> EDMPrecond:
+                    device="cuda") -> EDMPrecond:
     """The EDMPrecond module of a dataset, in eval mode, with its parameters
     allocated on ``device`` but not yet initialised (``init_params`` or
     ``convert.load_jax_params`` fills them)."""
@@ -62,7 +66,7 @@ def init_params(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
 
 
 def create_model(dataset_name: str, model_path: Optional[str] = None, *,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device="cuda"):
     """Returns (module, model_source).  Only ``model_path='random'`` (freshly
     initialised weights from seed 0) is ported so far."""
     if dataset_name not in EDM_ARCHS:

@@ -1,8 +1,8 @@
 """EDM preconditioning and the bound denoiser the samplers consume.
 
-Counterpart of ``diff_sampler_tpu/models/precond.py`` (``EDMPrecond``,
-``BoundDenoiser``, ``bind``).  The other preconditioners (CM, CG, CFG) come
-with their model tiers.
+Counterpart of ``diff_sampler_tpu/models/precond.py`` (``EDMPrecond`` over
+SongUNet or DhariwalUNet, ``BoundDenoiser``, ``bind``).  The other
+preconditioners (CM, CG, CFG) come with their model tiers.
 """
 
 from __future__ import annotations
@@ -13,11 +13,11 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch import nn
 
-from .unets import SongUNet
+from .unets import DhariwalUNet, SongUNet
 
 __all__ = ["EDMPrecond", "BoundDenoiser", "bind"]
 
-MODEL_TYPES = {"SongUNet": SongUNet}
+MODEL_TYPES = {"SongUNet": SongUNet, "DhariwalUNet": DhariwalUNet}
 
 
 class EDMPrecond(nn.Module):
@@ -42,25 +42,37 @@ class EDMPrecond(nn.Module):
             out_channels=img_channels, label_dim=label_dim, device=device,
             **(model_kwargs or {}))
 
-    def forward(self, x, sigma):
-        """x: [N, H, W, C]; sigma: a scalar or [N] (float or tensor)."""
-        return self._precondition(x, sigma, None)
+    def forward(self, x, sigma, class_labels=None):
+        """x: [N, H, W, C]; sigma: a scalar or [N] (float or tensor);
+        class_labels: one-hot [N, label_dim] or [1, label_dim], or None.  As
+        in the JAX package, an unconditional net ignores them and a
+        conditional one takes None as a zero one-hot row for every sample."""
+        return self._precondition(x, sigma, class_labels, None)
 
-    def with_bottleneck(self, x, sigma, module_name: str):
+    def with_bottleneck(self, x, sigma, module_name: str, class_labels=None):
         """(D(x, sigma), the raw output activation of the inner model's
         encoder layer ``module_name``, a JAX module name such as
         ``enc_8x8_block3``): the AMED predictor's input tap."""
-        return self._precondition(x, sigma, module_name)
+        return self._precondition(x, sigma, class_labels, module_name)
 
-    def _precondition(self, x, sigma, bottleneck):
+    def _labels(self, class_labels, device):
+        if self.label_dim == 0:
+            return None
+        if class_labels is None:
+            return torch.zeros((1, self.label_dim), dtype=torch.float32, device=device)
+        return class_labels.float().reshape(-1, self.label_dim)
+
+    def _precondition(self, x, sigma, class_labels, bottleneck):
         x = x.float()
+        class_labels = self._labels(class_labels, x.device)
         sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device).reshape(-1, 1, 1, 1)
         sd = self.sigma_data
         c_skip = sd ** 2 / (sigma ** 2 + sd ** 2)
         c_out = sigma * sd / (sigma ** 2 + sd ** 2).sqrt()
         c_in = 1 / (sd ** 2 + sigma ** 2).sqrt()
         c_noise = sigma.log() / 4
-        f_x = self.model((c_in * x).to(self.dtype), c_noise.reshape(-1), bottleneck=bottleneck)
+        f_x = self.model((c_in * x).to(self.dtype), c_noise.reshape(-1), class_labels,
+                         bottleneck=bottleneck)
         if bottleneck is None:
             return c_skip * x + c_out * f_x.float()
         f_x, tap = f_x
@@ -69,24 +81,30 @@ class EDMPrecond(nn.Module):
 
 @dataclasses.dataclass
 class BoundDenoiser:
-    """``denoise(x, t) -> D(x, t)``, the callable the samplers take."""
+    """``denoise(x, t) -> D(x, t)``, the callable the samplers take; the
+    ``bind`` of a conditional net also takes ``denoise(x, t, class_labels)``
+    (``sampling.generate`` calls it so with each batch's labels)."""
 
     fn: Callable
     sigma_min: float
     sigma_max: float
 
-    def __call__(self, x, t):
-        return self.fn(x, t)
+    def __call__(self, x, t, *cond):
+        return self.fn(x, t, *cond)
 
 
-def bind(precond: EDMPrecond) -> BoundDenoiser:
+def bind(precond: EDMPrecond, class_labels=None) -> BoundDenoiser:
     """The sampling denoiser of a preconditioner: its forward, run without
-    autograd.  The module must be in eval mode, so that dropout is off."""
+    autograd, with ``class_labels`` bound (None: a conditional net gets zero
+    one-hot rows, as in the JAX package).  The module must be in eval mode,
+    so that dropout is off."""
     if precond.training:
         raise ValueError("bind() needs the module in eval mode: call .eval() first")
 
+    bound = class_labels
+
     @torch.no_grad()
-    def fn(x, t):
-        return precond(x, t)
+    def fn(x, t, class_labels=None):
+        return precond(x, t, bound if class_labels is None else class_labels)
 
     return BoundDenoiser(fn, precond.sigma_min, precond.sigma_max)

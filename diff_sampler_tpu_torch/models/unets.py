@@ -1,11 +1,12 @@
-"""EDM-family U-Nets on NHWC activations: ``UNetBlock`` and ``SongUNet``
-(DDPM++ / NCSN++).
+"""EDM-family U-Nets on NHWC activations: ``UNetBlock``, ``SongUNet``
+(DDPM++ / NCSN++) and ``DhariwalUNet`` (ADM).
 
 Counterpart of ``diff_sampler_tpu/models/unets.py``.  Module names are the
 reference state_dict's: ``enc.16x16_block0.conv0.weight``,
-``map_layer0.weight``, ... so a reference checkpoint loads with no rewrite.
-The SFD extensions (step condition, skip tuning) and ``DhariwalUNet`` are
-not ported yet.
+``map_layer0.weight``, ``map_label.weight``, ... so a reference checkpoint
+loads with no rewrite.  The nets are for inference and for gradients
+through a frozen net: dropout, label dropout and the SFD extensions (step
+condition, skip tuning, rematerialisation) are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from torch import nn
 
 from .layers import Conv2d, FourierEmbedding, GroupNorm, Linear, attention, positional_embedding
 
-__all__ = ["UNetBlock", "SongUNet"]
+__all__ = ["UNetBlock", "SongUNet", "DhariwalUNet"]
 
 
 class UNetBlock(nn.Module):
@@ -212,8 +213,9 @@ class SongUNet(nn.Module):
                 self.dec[name] = UNetBlock(kw["cin"], kw["cout"], up=kw["up"],
                                            attention=kw["attn"], **block_kwargs)
 
-    def forward(self, x, noise_labels, bottleneck: Optional[str] = None):
-        """x: [N, H, W, C] in the compute dtype; noise_labels: [N] or [1].
+    def forward(self, x, noise_labels, class_labels=None, bottleneck: Optional[str] = None):
+        """x: [N, H, W, C] in the compute dtype; noise_labels: [N] or [1];
+        class_labels: None (the net is unconditional).
 
         ``bottleneck`` names an encoder layer by its JAX module name (e.g.
         ``enc_8x8_block3``, the AMED tap); the call then returns
@@ -263,3 +265,141 @@ class SongUNet(nn.Module):
         if tap is None:
             raise ValueError(f"no encoder layer {bottleneck!r}")
         return aux, tap
+
+
+def _dhariwal_layout(img_resolution, in_channels, model_channels, channel_mult, num_blocks,
+                     attn_resolutions):
+    """Static layer layout of DhariwalUNet: ordered (name, kind, kwargs) lists
+    for the encoder and decoder, as the JAX package's ``DhariwalUNet`` builds
+    them (``networks_edm.py:395-409``).  kind is conv or block; every
+    decoder block at an attention resolution has attention."""
+    enc: List[Tuple[str, str, dict]] = []
+    cout = in_channels
+    for level, mult in enumerate(channel_mult):
+        res = img_resolution >> level
+        if level == 0:
+            cin, cout = cout, model_channels * mult
+            enc.append((f"{res}x{res}_conv", "conv", dict(cin=cin, cout=cout)))
+        else:
+            enc.append((f"{res}x{res}_down", "block",
+                        dict(cin=cout, cout=cout, up=False, down=True, attn=False)))
+        for idx in range(num_blocks):
+            cin, cout = cout, model_channels * mult
+            enc.append((f"{res}x{res}_block{idx}", "block",
+                        dict(cin=cin, cout=cout, up=False, down=False,
+                             attn=res in attn_resolutions)))
+    skips = [kw["cout"] for _, _, kw in enc]
+
+    dec: List[Tuple[str, str, dict]] = []
+    for level, mult in reversed(list(enumerate(channel_mult))):
+        res = img_resolution >> level
+        if level == len(channel_mult) - 1:
+            dec.append((f"{res}x{res}_in0", "block",
+                        dict(cin=cout, cout=cout, up=False, down=False, attn=True)))
+            dec.append((f"{res}x{res}_in1", "block",
+                        dict(cin=cout, cout=cout, up=False, down=False, attn=False)))
+        else:
+            dec.append((f"{res}x{res}_up", "block",
+                        dict(cin=cout, cout=cout, up=True, down=False, attn=False)))
+        for idx in range(num_blocks + 1):
+            cin = cout + skips.pop()
+            cout = model_channels * mult
+            dec.append((f"{res}x{res}_block{idx}", "block",
+                        dict(cin=cin, cout=cout, up=False, down=False,
+                             attn=res in attn_resolutions)))
+    return enc, dec
+
+
+class DhariwalUNet(nn.Module):
+    """ADM U-Net (the reference's re-implementation), class-conditional
+    through ``map_label`` when ``label_dim > 0``.
+
+    It differs from SongUNet in more than its layout: the noise embedding
+    keeps its [cos | sin] order and spaces its frequencies without the
+    endpoint; ``map_layer1`` has no SiLU until the label embedding (a
+    bias-free Linear, kaiming-normal at scale sqrt(label_dim)) is added;
+    blocks use adaptive scale, eps 1e-5, skip scale 1 and 64 channels per
+    attention head; the zero-init layers (``conv1``, ``proj``, ``out_conv``)
+    are exactly zero at init; and the net ends with ``out_norm`` -> SiLU ->
+    ``out_conv``.  ``augment_dim`` creates ``map_augment`` so reference
+    checkpoints load; sampling never applies it."""
+
+    def __init__(self, img_resolution: int, in_channels: int, out_channels: int,
+                 label_dim: int = 0, augment_dim: int = 0, model_channels: int = 192,
+                 channel_mult: Sequence[int] = (1, 2, 3, 4), channel_mult_emb: int = 4,
+                 num_blocks: int = 3, attn_resolutions: Sequence[int] = (32, 16, 8),
+                 dropout: float = 0.10, label_dropout: float = 0.0, device=None):
+        super().__init__()
+        emb_channels = model_channels * channel_mult_emb
+        init = dict(init_mode="kaiming_uniform", init_weight=math.sqrt(1 / 3),
+                    init_bias=math.sqrt(1 / 3))
+        init_zero = dict(init_mode="kaiming_uniform", init_weight=0.0, init_bias=0.0)
+        block_kwargs = dict(emb_channels=emb_channels, channels_per_head=64, dropout=dropout,
+                            init=init, init_zero=init_zero, device=device)
+        self.model_channels = model_channels
+
+        # Mapping tower.
+        self.map_augment = (Linear(augment_dim, model_channels, bias=False, device=device,
+                                   **init_zero) if augment_dim else None)
+        self.map_layer0 = Linear(model_channels, emb_channels, device=device, **init)
+        self.map_layer1 = Linear(emb_channels, emb_channels, device=device, **init)
+        self.map_label = (Linear(label_dim, emb_channels, bias=False, init_mode="kaiming_normal",
+                                 init_weight=math.sqrt(label_dim), device=device)
+                          if label_dim else None)
+
+        enc_layout, dec_layout = _dhariwal_layout(
+            img_resolution, in_channels, model_channels, tuple(channel_mult), num_blocks,
+            tuple(attn_resolutions))
+        self.enc_layout = [(name, kind) for name, kind, _ in enc_layout]
+        self.dec_layout = [name for name, _, _ in dec_layout]
+        self.enc = nn.ModuleDict()
+        for name, kind, kw in enc_layout:
+            if kind == "conv":
+                self.enc[name] = Conv2d(kw["cin"], kw["cout"], kernel=3, device=device, **init)
+            else:
+                self.enc[name] = UNetBlock(kw["cin"], kw["cout"], down=kw["down"],
+                                           attention=kw["attn"], **block_kwargs)
+        self.dec = nn.ModuleDict()
+        for name, _, kw in dec_layout:
+            self.dec[name] = UNetBlock(kw["cin"], kw["cout"], up=kw["up"], attention=kw["attn"],
+                                       **block_kwargs)
+        cout = dec_layout[-1][2]["cout"]
+        self.out_norm = GroupNorm(cout, device=device)
+        self.out_conv = Conv2d(cout, out_channels, kernel=3, device=device, **init_zero)
+
+    def forward(self, x, noise_labels, class_labels=None, bottleneck: Optional[str] = None):
+        """x: [N, H, W, C] in the compute dtype; noise_labels: [N] or [1];
+        class_labels: [N, label_dim] or [1, label_dim] (one-hot rows; a
+        conditional net needs them, ``EDMPrecond`` supplies zeros).
+
+        ``bottleneck`` names an encoder layer by its JAX module name (the
+        AMED tap of a conditional net is ``enc_8x8_block2``); the call then
+        returns (output, that layer's output activation)."""
+        emb = positional_embedding(noise_labels, self.model_channels)
+        emb = F.silu(self.map_layer0(emb))
+        emb = self.map_layer1(emb)
+        if self.map_label is not None:
+            if class_labels is None:
+                raise ValueError("a class-conditional DhariwalUNet needs class_labels")
+            emb = emb + self.map_label(class_labels.to(emb.dtype))
+        emb = F.silu(emb)
+
+        skips = []
+        tap = None
+        for name, kind in self.enc_layout:
+            layer = self.enc[name]
+            x = layer(x, emb) if kind == "block" else layer(x)
+            skips.append(x)
+            if bottleneck == f"enc_{name}":
+                tap = x
+        for name in self.dec_layout:
+            layer = self.dec[name]
+            if x.shape[-1] != layer.norm0.weight.shape[0]:
+                x = torch.cat([x, skips.pop()], dim=-1)
+            x = layer(x, emb)
+        x = self.out_conv(F.silu(self.out_norm(x)))
+        if bottleneck is None:
+            return x
+        if tap is None:
+            raise ValueError(f"no encoder layer {bottleneck!r}")
+        return x, tap

@@ -1,7 +1,8 @@
-"""Operators of the port.  The noise schedules and multistep coefficients are
-host-side numpy, shared with the JAX package (its ``ops`` package imports no
-jax)."""
+"""Operators of the port: attention (kernels K1 and K2 and their plain
+versions), GroupNorm, and the host-side numpy noise schedules and
+multistep coefficients (the port's own copies of the JAX package's)."""
 
-from diff_sampler_tpu.ops import get_schedule, multistep, schedules
+from . import multistep, schedules
+from .schedules import get_schedule
 
 __all__ = ["get_schedule", "multistep", "schedules"]

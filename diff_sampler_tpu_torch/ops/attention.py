@@ -1,20 +1,23 @@
 """Scaled-dot-product attention: the plain versions and the wrappers of
 kernels K1 (forward) and K2 (backward).
 
-``flash_attention_mh`` wraps the hand-written CUDA kernel in
+``flash_attention_mh`` (K1) wraps the hand-written CUDA kernel of
 ``csrc/flash_attn_fwd.cu``, which replaces
-``diff_sampler_tpu/ops/pallas_attention.py::_attn_kernel_mh``.
-``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` wrap the two
-kernels of ``csrc/flash_attn_bwd.cu``, which replace ``_bwd_dq_kernel_mh``
-and ``_bwd_dkv_kernel_mh``.  On a CUDA tensor each wrapper launches its
-kernel or raises; only a tensor on the CPU takes the plain version
-(``reference_sdpa``, ``reference_sdpa_bwd``).  At the CIFAR-10 shapes
-(H=1, d=256, T=256) the kernels are bound by their f32 multiply-adds on the
-CUDA cores, not by device memory: they read q, k and v once per tile and
-never write the [T, T] logits, which the plain versions materialise in f32.
+``diff_sampler_tpu/ops/pallas_attention.py::_attn_kernel_mh`` and, at head
+dims below 128, its packed twin ``_attn_kernel_mh_packed`` (K1b).
+``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv`` (K2) wrap the
+kernels of ``csrc/flash_attn_bwd.cu``, which replace ``_bwd_dq_kernel_mh``,
+``_bwd_dkv_kernel_mh`` and, below 128, their packed twins (K2p).  The TPU
+packs 128 // d heads into one matmul to fill the MXU's lanes; here every
+head dim takes one head per block.  On a CUDA tensor each wrapper launches
+its kernel or raises; only a tensor on the CPU takes the plain version
+(``reference_sdpa``, ``reference_sdpa_bwd_dq`` / ``_dkv``).  The kernels
+are bound by their f32 multiply-adds on the CUDA cores, not by device
+memory: they read q, k and v once per tile and never write the [T, T]
+logits, which the plain versions materialise in f32.
 
 ``sdpa`` is differentiable: it runs the ``torch.autograd.Function``
-``_FlashAttentionMH`` (K1 forward, K2 backward, as the JAX package's
+``_FlashAttentionMH``, K1 forward and K2 backward (the JAX
 ``flash_attention_mh`` is a ``jax.custom_vjp``).  Under ``torch.no_grad``,
 or on inputs that need no gradient, the Function records no graph, so what
 it saves is freed with its output's context.
@@ -68,8 +71,8 @@ def _check(q, k, v):
 
 def flash_attention_mh(q, k, v, scale):
     """Multi-head attention forward.  Returns (out [B, T, H, d] in the input
-    dtype, lse [B, H, T] f32).  Kernel K1 on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    dtype, lse [B, H, T] f32).  Kernel K1 (any d of ``HEAD_DIMS``) on a CUDA
+    tensor, the plain version on a CPU tensor."""
     if q.device.type == "cpu":
         return reference_sdpa(q, k, v, scale)
     if q.device.type != "cuda":
@@ -227,8 +230,8 @@ class _FlashAttentionMH(torch.autograd.Function):
 
 def sdpa(q, k, v, scale=None):
     """Scaled-dot-product attention on [B, T, H, d]; returns [B, T, H, d].
-    Every CUDA call goes through kernel K1, whatever T, and its gradient
-    through kernel K2."""
+    Every CUDA call goes through kernel K1, whatever T and d, and its
+    gradient through kernel K2."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _FlashAttentionMH.apply(q, k, v, scale)

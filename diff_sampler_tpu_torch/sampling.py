@@ -2,8 +2,9 @@
 
 Counterpart of ``diff_sampler_tpu/sampling.py`` on one device.  Image i is
 a pure function of seed i at any batch size: each seed has its own latent
-generator, and a short last batch is padded by repeating its last seed.
-Public shapes stay NHWC, as in the JAX package.
+generator (and, for a class-conditional net, its own label generator), and
+a short last batch is padded by repeating its last seed.  Public shapes stay
+NHWC, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -13,10 +14,12 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from .models.precond import BoundDenoiser
 from .ops import get_schedule
 from .solvers import count_nfe, get_sampler
-from .utils.rng import stacked_randn
+from .utils.rng import stacked_randint, stacked_randn
 
 __all__ = ["SolverConfig", "build_sample_fn", "generate", "generate_batches", "to_uint8"]
 
@@ -76,23 +79,48 @@ def _start_copy_to_host(x: torch.Tensor):
 
 
 def generate(denoise, seeds: Sequence[int], sample_shape: Tuple[int, ...],
-             cfg: SolverConfig, *, max_batch_size: int = 64, device="cpu",
+             cfg: SolverConfig, *, max_batch_size: int = 64, device="cuda",
+             label_dim: int = 0, class_idx: Optional[int] = None,
              batch_callback=None) -> np.ndarray:
     """Generate one sample per seed with the solver of ``cfg``,
     ``max_batch_size`` at a time (``generate_batches``).
 
     sample_shape: per-sample shape, e.g. (32, 32, 3) NHWC.  Returns a float32
-    numpy array [len(seeds), *sample_shape]."""
-    return generate_batches(build_sample_fn(denoise, cfg), seeds, sample_shape,
-                            max_batch_size=max_batch_size, device=device,
+    numpy array [len(seeds), *sample_shape].
+
+    The denoiser is called as ``denoise(x, t, class_labels)``, as a
+    ``bind``-ed EDMPrecond takes it: None for an unconditional net
+    (``label_dim=0``); else one-hot labels drawn per seed
+    (``stacked_randint``: seed i gets the same class at any batch split, as
+    the reference's ``sample.py`` and the JAX package draw them), or
+    ``class_idx`` for every seed."""
+    def sample_fn(latents, labels):
+        den = BoundDenoiser(lambda x, t: denoise(x, t, labels), denoise.sigma_min,
+                            denoise.sigma_max)
+        return build_sample_fn(den, cfg)(latents)
+
+    return generate_batches(sample_fn, seeds, sample_shape, max_batch_size=max_batch_size,
+                            device=device, label_dim=label_dim, class_idx=class_idx,
                             batch_callback=batch_callback)
 
 
+def _labels(seeds, label_dim: int, class_idx: Optional[int], device) -> torch.Tensor:
+    """One-hot f32 [len(seeds), label_dim]: each seed's own class, or
+    ``class_idx`` for every seed."""
+    if class_idx is not None:
+        idx = torch.full((len(seeds),), int(class_idx), dtype=torch.int64, device=device)
+    else:
+        idx = stacked_randint(seeds, (), 0, label_dim, device=device)
+    return F.one_hot(idx, label_dim).float()
+
+
 def generate_batches(sample_fn: Callable, seeds: Sequence[int], sample_shape: Tuple[int, ...],
-                     *, max_batch_size: int = 64, device="cpu",
-                     batch_callback=None) -> np.ndarray:
-    """``sample_fn(latents) -> samples`` on each batch of per-seed latents,
-    ``max_batch_size`` at a time; returns [len(seeds), *sample_shape] f32.
+                     *, max_batch_size: int = 64, device="cuda", label_dim: int = 0,
+                     class_idx: Optional[int] = None, batch_callback=None) -> np.ndarray:
+    """``sample_fn(latents, labels) -> samples`` on each batch of per-seed
+    latents, ``max_batch_size`` at a time; returns [len(seeds),
+    *sample_shape] f32.  ``labels`` is None when ``label_dim`` is 0, else the
+    per-seed one-hot labels of ``generate``, padded as the latents are.
 
     One batch stays in flight: batch i+1 is enqueued on the device before
     the host waits for batch i, so the host's copy and ``batch_callback``
@@ -120,7 +148,9 @@ def generate_batches(sample_fn: Callable, seeds: Sequence[int], sample_shape: Tu
         pad = batch - len(chunk)
         chunk_p = np.concatenate([chunk, chunk[-1:].repeat(pad)]) if pad else chunk
         latents = stacked_randn(chunk_p.tolist(), sample_shape, device=device)
-        host, done = _start_copy_to_host(sample_fn(latents))
+        labels = _labels(chunk_p.tolist(), label_dim, class_idx, device) if label_dim else None
+        x = sample_fn(latents, labels)
+        host, done = _start_copy_to_host(x)
         if pending is not None:
             drain(pending)  # the device works on this batch meanwhile
         pending = (start, len(chunk), host, done)

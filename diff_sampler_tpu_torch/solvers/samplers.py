@@ -4,7 +4,8 @@ ipndm, ipndm_v, dpmpp (DPM-Solver++ multistep).
 Counterpart of ``diff_sampler_tpu/solvers/samplers.py``.  The JAX package
 runs each sampler as one ``lax.scan``; here the step loop is a Python loop
 that enqueues work on the device and never waits for it.  Every per-step
-scalar comes from ``diff_sampler_tpu.ops.multistep`` in float64 and is cast
+scalar comes from ``ops.multistep`` (the port's copy of the JAX package's
+host-side coefficients) in float64 and is cast
 to the working dtype before use, as the JAX package does.
 
 Conventions shared with the JAX package (and the reference):

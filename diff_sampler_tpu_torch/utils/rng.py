@@ -26,7 +26,7 @@ def _generator(seed: int, device) -> torch.Generator:
 
 
 def stacked_randn(seeds: Sequence[int], shape: Sequence[int], dtype=torch.float32,
-                  device="cpu") -> torch.Tensor:
+                  device="cuda") -> torch.Tensor:
     """[len(seeds), *shape] standard normals; row i depends only on seeds[i]
     (and the device's generator)."""
     rows = [torch.randn(tuple(shape), generator=_generator(s, device), device=device)
@@ -35,7 +35,7 @@ def stacked_randn(seeds: Sequence[int], shape: Sequence[int], dtype=torch.float3
 
 
 def stacked_randint(seeds: Sequence[int], shape: Sequence[int], low: int, high: int,
-                    device="cpu") -> torch.Tensor:
+                    device="cuda") -> torch.Tensor:
     """[len(seeds), *shape] uniform ints in [low, high); row i depends only on
     seeds[i], from a stream independent of ``stacked_randn``'s."""
     rows = [torch.randint(low, high, tuple(shape),

@@ -22,7 +22,8 @@ from diff_sampler_tpu_torch.cli import train_amed as cli_train
 from diff_sampler_tpu_torch.models import factory
 from diff_sampler_tpu_torch.models.convert import load_jax_params, params_to_jax
 from diff_sampler_tpu_torch.ops import get_schedule
-from diff_sampler_tpu_torch.sampling import to_uint8
+from diff_sampler_tpu_torch.models.precond import bind
+from diff_sampler_tpu_torch.sampling import SolverConfig, generate, to_uint8
 from diff_sampler_tpu_torch.solvers import amed as TA
 from diff_sampler_tpu_torch.utils import checkpoint as ckpt
 from diff_sampler_tpu_torch.utils.image import encode_png
@@ -122,11 +123,11 @@ def test_sample_predictor_restores_the_sidecar(tiny_cifar, tmp_path, monkeypatch
     assert "student=euler steps=3 NFE=4" in capsys.readouterr().out
 
     # the same images, from the same (seeded) net and predictor directly
-    module, _ = factory.create_model("cifar10", "random")
+    module, _ = factory.create_model("cifar10", "random", device="cpu")
     t_steps = get_schedule(3, cfg.sigma_min, cfg.sigma_max, "polynomial", 7.0)
     with torch.no_grad():
         x = TA.amed_euler_sampler(TA.bind_with_bottleneck(module), pred.eval(),
-                                  stacked_randn(seeds, (8, 8, 3)), t_steps).x
+                                  stacked_randn(seeds, (8, 8, 3), device="cpu"), t_steps).x
     want = to_uint8(x.numpy())
     for i, seed in enumerate(seeds):
         with open(os.path.join("out", "000000", f"{seed:06d}.png"), "rb") as f:
@@ -134,8 +135,8 @@ def test_sample_predictor_restores_the_sidecar(tiny_cifar, tmp_path, monkeypatch
 
 
 def test_train_amed_rejects_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        cli_train.main(["--dataset_name=imagenet64", f"--outdir={tmp_path}"])
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        cli_train.main(["--dataset_name=imagenet256", f"--outdir={tmp_path}"])
     with pytest.raises(NotImplementedError, match="slice 10"):
         cli_train.main(["--dataset_name=cifar10", "--tp=2", f"--outdir={tmp_path}"])
     assert not os.listdir(tmp_path)
@@ -161,3 +162,59 @@ def test_checkpoint_files_and_run_dirs_match_the_jax_package(tmp_path):
     assert jckpt.create_run_dir(str(tmp_path / "exps"), "y").endswith("00002-y")
     assert ckpt.find_run_dir(str(tmp_path / "exps"), 1) == runs[1]
     assert ckpt.find_run_dir(str(tmp_path / "exps"), 7) is None
+
+
+# A tiny stand-in for the class-conditional imagenet64 entry: DhariwalUNet at
+# 8x8, 8 channels (no attention head fits), one level of 3 blocks, so the
+# AMED tap ``enc_8x8_block2`` exists.
+TINY_IN64 = (dict(img_resolution=8, img_channels=3, label_dim=3, model_type="DhariwalUNet"),
+             dict(model_channels=8, channel_mult=[1], num_blocks=3, attn_resolutions=[8],
+                  dropout=0.0))
+
+
+def test_imagenet64_trains_and_samples_through_the_clis(tmp_path, monkeypatch, capsys):
+    """train_amed on the conditional tier (the net bound without labels, as
+    in the JAX CLI), then sample --predictor, whose PNGs are the AMED sampler
+    on the unlabelled net; plain sampling draws a label per seed."""
+    monkeypatch.setitem(factory.EDM_ARCHS, "imagenet64", TINY_IN64)
+    monkeypatch.chdir(tmp_path)
+    run = cli_train.main(["--dataset_name=imagenet64", "--model_path=random", "--batch=1000",
+                          "--num_steps=3", "--total_kimg=1", "--afs=True", "--device=cpu",
+                          "--outdir=exps"])
+    assert os.path.basename(run) == "00000-imagenet64-3-3-amed-heun"
+    cfg = cli_train.AMEDConfig(**ckpt.load_config(os.path.join(run, "predictor_config.json")))
+    assert cfg.dataset_name == "imagenet64" and cfg.afs
+    with open(os.path.join(run, "stats.jsonl")) as f:
+        assert np.isfinite(json.loads(f.readline())["Loss/loss"]["mean"])
+
+    seeds = list(range(3))
+    cli_sample.main(["--dataset_name=imagenet64", f"--predictor={run}", "--seeds=0-2",
+                     "--device=cpu", "--outdir=amed"])
+    assert "student=amed steps=3 NFE=3" in capsys.readouterr().out
+    module, _ = factory.create_model("imagenet64", "random", device="cpu")
+    pred = load_jax_params(cli_train.predictor_from_config(cfg),
+                           ckpt.load_params(os.path.join(run, "predictor.npz"))["params"])
+    t_steps = get_schedule(3, cfg.sigma_min, cfg.sigma_max, "polynomial", 7.0)
+    with torch.no_grad():
+        x = TA.amed_sampler(TA.bind_with_bottleneck(module), pred.eval(),
+                            stacked_randn(seeds, (8, 8, 3), device="cpu"), t_steps,
+                            afs=True).x
+    want = to_uint8(x.numpy())
+    for i, seed in enumerate(seeds):
+        with open(os.path.join("amed", "000000", f"{seed:06d}.png"), "rb") as f:
+            assert f.read() == encode_png(want[i])
+
+    # the random net's zero-init out_conv makes D = c_skip * x whatever the
+    # labels, so the CLI is also checked to ask generate for them
+    asked = []
+    monkeypatch.setattr(cli_sample, "generate",
+                        lambda *a, **kw: asked.append(kw["label_dim"]) or generate(*a, **kw))
+    cli_sample.main(["--dataset_name=imagenet64", "--model_path=random", "--solver=euler",
+                     "--num_steps=3", "--seeds=0-2", "--device=cpu", "--outdir=plain"])
+    assert asked == [3]
+    want = to_uint8(generate(bind(module), seeds, (8, 8, 3),
+                             SolverConfig(solver="euler", num_steps=3), device="cpu",
+                             label_dim=3))
+    for i, seed in enumerate(seeds):
+        with open(os.path.join("plain", "000000", f"{seed:06d}.png"), "rb") as f:
+            assert f.read() == encode_png(want[i])

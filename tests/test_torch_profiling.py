@@ -16,6 +16,18 @@ def _ev(name, ts, dur, cat="kernel"):
     ("void flash_fwd_kernel<float, 256>(FwdParams)", "K1"),
     ("void flash_bwd_dq_kernel<__nv_bfloat16, 256>(BwdParams)", "K2 dQ"),
     ("void flash_bwd_dkv_kernel<float, 64>(BwdParams)", "K2 dK/dV"),
+    ("void (anonymous namespace)::flash_fwd_kernel<float, (int)64, (int)64>(float)", "K1"),
+    ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, (int)64, (int)64>"
+     "(const T1 *)", "K1"),
+    ("void flash_fwd_kernel<float, 32, 64>(const float *)", "K1"),
+    ("_ZN50_GLOBAL__N__0_17flash_attn_bwd_cu20flash_bwd_dq_kernelIfLi64ELi64ELi64EEEvPKT_",
+     "K2 dQ"),
+    ("_ZN50_GLOBAL__N__0_17flash_attn_bwd_cu20flash_bwd_dq_kernelIfLi256ELi32ELi32EEEvPKT_",
+     "K2 dQ"),
+    ("void flash_bwd_dkv_kernel<__nv_bfloat16, (int)32, (int)64, (int)64>(const T1 *)",
+     "K2 dK/dV"),
+    ("void flash_bwd_dkv_kernel<float, (int)256, (int)32, (int)32>(const T1 *)",
+     "K2 dK/dV"),
     ("sm90_xmma_fprop_implicit_gemm_tf32f32_tf32f32_f32_nhwckrsc_nhwc", "convs and GEMMs"),
     ("void at::native::conv_depthwise2d_forward_kernel<1, float, int>", "convs and GEMMs"),
     ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float>>", "reductions"),

@@ -82,9 +82,9 @@ def tiny_den():
 def test_generate_rows_are_per_seed(tiny_den):
     cfg = S.SolverConfig(solver="ipndm", num_steps=4)
     seeds = list(range(10))
-    full = S.generate(tiny_den, seeds, SHAPE, cfg, max_batch_size=10)
-    split = S.generate(tiny_den, seeds, SHAPE, cfg, max_batch_size=3)
-    some = S.generate(tiny_den, [7, 2], SHAPE, cfg, max_batch_size=3)
+    full = S.generate(tiny_den, seeds, SHAPE, cfg, max_batch_size=10, device="cpu")
+    split = S.generate(tiny_den, seeds, SHAPE, cfg, max_batch_size=3, device="cpu")
+    some = S.generate(tiny_den, [7, 2], SHAPE, cfg, max_batch_size=3, device="cpu")
     assert full.shape == (10, *SHAPE) and full.dtype == np.float32
     assert np.isfinite(full).all()
     # the CPU's conv kernels may block a batch of 3 and of 10 differently
@@ -96,9 +96,9 @@ def test_generate_rows_are_per_seed(tiny_den):
 def test_generate_same_with_callback_and_in_seed_order(tiny_den):
     cfg = S.SolverConfig(solver="euler", num_steps=3)
     seeds = [5, 1, 9, 4, 0]
-    plain = S.generate(tiny_den, seeds, SHAPE, cfg, max_batch_size=2)
+    plain = S.generate(tiny_den, seeds, SHAPE, cfg, max_batch_size=2, device="cpu")
     got = []
-    cb = S.generate(tiny_den, seeds, SHAPE, cfg, max_batch_size=2,
+    cb = S.generate(tiny_den, seeds, SHAPE, cfg, max_batch_size=2, device="cpu",
                     batch_callback=lambda start, x: got.append((start, x.copy())))
     assert np.array_equal(plain, cb)
     assert [s for s, _ in got] == [0, 2, 4]
@@ -122,13 +122,13 @@ def test_solver_config_nfe_matches_jax():
 
 
 def test_stacked_randn_rows_depend_only_on_their_seed():
-    a = stacked_randn([3, 5, 7], (4, 4, 3))
-    b = stacked_randn([5], (4, 4, 3))
+    a = stacked_randn([3, 5, 7], (4, 4, 3), device="cpu")
+    b = stacked_randn([5], (4, 4, 3), device="cpu")
     assert a.shape == (3, 4, 4, 3) and a.dtype == torch.float32
     assert torch.equal(a[1], b[0]) and not torch.equal(a[0], a[1])
-    assert stacked_randn([5], (2,), dtype=torch.bfloat16).dtype == torch.bfloat16
-    r = stacked_randint([3, 5], (6,), 0, 10)
-    assert torch.equal(r[1], stacked_randint([5], (6,), 0, 10)[0])
+    assert stacked_randn([5], (2,), dtype=torch.bfloat16, device="cpu").dtype == torch.bfloat16
+    r = stacked_randint([3, 5], (6,), 0, 10, device="cpu")
+    assert torch.equal(r[1], stacked_randint([5], (6,), 0, 10, device="cpu")[0])
     assert r.min() >= 0 and r.max() < 10
 
 
@@ -158,10 +158,10 @@ def test_cli_writes_pngs_of_generate_output(tmp_path, monkeypatch):
                    for d, _, fs in os.walk(outdir) for f in fs)
     assert files == ["000000/000998.png", "000000/000999.png", "001000/001000.png"]
 
-    module, _ = factory.create_model("tiny16", "random")
+    module, _ = factory.create_model("tiny16", "random", device="cpu")
     want = S.to_uint8(S.generate(bind(module), [998, 999, 1000], SHAPE,
                                  S.SolverConfig(solver="ipndm", num_steps=3),
-                                 max_batch_size=2))
+                                 max_batch_size=2, device="cpu"))
     for img, name in zip(want, files):
         np.testing.assert_array_equal(np.asarray(PIL.Image.open(outdir / name)), img)
 
@@ -170,3 +170,13 @@ def test_cli_refuses_cuda_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--dataset_name=cifar10", "--device=cuda"])
+
+
+def test_generate_runs_on_the_card_by_default(tiny_den):
+    """With no ``device``, generate draws its latents on CUDA: on a machine
+    without a card (as where the tier-1 tests run) it raises instead of
+    running on the CPU."""
+    assert not torch.cuda.is_available()
+    cfg = S.SolverConfig(solver="euler", num_steps=2)
+    with pytest.raises((RuntimeError, AssertionError)):
+        S.generate(tiny_den, [0, 1], SHAPE, cfg)

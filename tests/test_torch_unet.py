@@ -150,10 +150,10 @@ def test_tiny_forward_on_cpu_never_counts_kernel_launches(ddpmpp):
 
 
 def test_create_model_random_is_seeded_and_eval():
-    a, source = create_model("cifar10", "random")
-    b, _ = create_model("cifar10", "random")
+    a, source = create_model("cifar10", "random", device="cpu")
+    b, _ = create_model("cifar10", "random", device="cpu")
     assert source == "edm" and not a.training
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
     with pytest.raises(NotImplementedError):
-        create_model("cifar10", "some.pkl")
+        create_model("cifar10", "some.pkl", device="cpu")
