@@ -3,14 +3,14 @@ NVIDIA GPU.  Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases, each printing as it goes:
+Phases, each printing as it goes and then its seconds:
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, nvcc, whether triton imports.
-2. Build kernels K1 (flash-attention forward) and K2 (its backward) from
-   ``csrc/`` with nvcc, one process per source; print each kernel's
-   registers and spills.  At head dims below 128 the same kernels stand in
-   for the JAX package's packed twins (K1b, K2p).
+2. Build kernels K1 (flash-attention forward), K2 (its backward) and K3
+   (fused GroupNorm) from ``csrc/`` with nvcc, one process per source; print
+   each kernel's registers and spills.  At head dims below 128 K1 / K2 stand
+   in for the JAX package's packed and streamed twins (K1b, K2p, K2b).
 3. K1 against its plain PyTorch version at the CIFAR-10 path's shapes, on
    the strided q/k/v views that ``attention()`` hands it: max abs error of
    the output and of the log-sum-exp against stated tolerances (bf16 out:
@@ -18,13 +18,15 @@ Phases, each printing as it goes:
    times of K1, the plain version and ``F.scaled_dot_product_attention``
    (CUDA events, after warm-up, in turns).
 4. The full-width CIFAR-10 EDMPrecond, random weights redrawn at unit scale:
-   D(x, sigma) in f32 with K1 against the plain attention, TF32 off; K1 runs
-   6 times per forward.
+   D(x, sigma) in f32 with K1 + K3 against the plain attention and the plain
+   GroupNorm, TF32 off, 1e-4 * max; exactly 6 K1 and 73 K3 launches per
+   forward.
 5. The CIFAR-10 sampling path: ``generate`` on 256 seeds, batch 256, bf16
    inner model, ipndm on the poly-7 schedule at NFE 5/10/35; finite output,
-   per-seed rows, K1 launches = 6 x NFE x batches, images/sec; then the
-   sampling CLI on the same seeds, whose PNGs must encode the NFE-5 images
-   exactly.
+   per-seed rows, K1 launches = 6 x NFE and K3 launches = 73 x NFE, images/sec;
+   then the sampling CLI on the same seeds, whose PNGs must encode the NFE-5
+   images exactly; a ``torch.profiler`` breakdown of one batch-256 forward,
+   and its time with K3 against the plain GroupNorm.
 6. Kernel K2 (the dQ and the dK/dV kernels) against its plain PyTorch
    version at the AMED path's shapes (batch 512, T=256 and T=64, H=1,
    d=256) in f32 and bf16, a d=64 multi-head shape and a ragged T, on the
@@ -34,13 +36,14 @@ Phases, each printing as it goes:
    from two runs.
 7. The gradient of sum(D(x, sigma) * g) with respect to x and sigma through
    the full-width f32 CIFAR-10 EDMPrecond (unit-scale weights, TF32 off),
-   with K1 + K2 against the plain attention; K2 runs 6 times per backward.
+   with K1 + K2 + K3 against the plain attention and the plain GroupNorm;
+   exactly 6 K2 pairs per backward.
 8. The CIFAR-10 AMED path: ``cli.train_amed`` at the CLI defaults (batch 512
    at once, f32 net, 4 steps, student amed, teacher heun) for two
    iterations, with peak memory and sec/kimg; the loss is finite, the
-   predictor moves, its files are written, and K1 / K2 launch exactly as
+   predictor moves, its files are written, and K1 / K2 / K3 launch exactly as
    predicted.  Then ``cli.sample --predictor`` on 256 seeds from the saved
-   predictor: finite images, K1 launches = 6 x NFE, images/sec.
+   predictor: finite images, exact launches, images/sec.
 9. K1 against its plain version at the ImageNet-64 shapes (d=64, where the
    JAX package takes the packed K1b: T=1024 H=6, T=256 H=9, T=64 H=12) at
    sampling batch 256 in bf16 and at the AMED microbatch in f32, and one
@@ -52,26 +55,61 @@ Phases, each printing as it goes:
    version and the library backward.
 11. The full-width ImageNet-64 EDMPrecond (DhariwalUNet, 296M parameters),
    f32, unit-scale weights, TF32 off, batch 8 with one-hot labels: D with
-   K1, and d sum(D g) / d(x, sigma) with K1 + K2, against the plain
-   attention; exactly 22 K1 launches per forward and 22 K2 pairs per
-   backward.
+   K1 + K3, and d sum(D g) / d(x, sigma) with K1 + K2 + K3, against the
+   plain attention and the plain GroupNorm; exactly 22 K1 and 95 K3
+   launches per forward and 22 K2 pairs per backward.
 12. The ImageNet-64 sampling path: ``generate`` on 256 seeds, batch 256,
    bf16, ipndm, poly-7, NFE 5/10/35, per-seed labels: finite images, K1
-   launches = 22 x NFE, per-seed rows, the sampling CLI's PNGs, images/sec.
+   launches = 22 x NFE, K3 95 x NFE, per-seed rows, the sampling CLI's PNGs,
+   images/sec.
 13. The ImageNet-64 AMED path: ``cli.train_amed --dataset_name=imagenet64
    --afs=True`` at batch 512 with ``--batch_gpu`` accumulation for two
    iterations (finite losses, the predictor moves, launches as predicted,
    sec/kimg, peak memory), then ``cli.sample --predictor`` at NFE 5 on 256
    seeds (launches, images/sec).
 14. A ``torch.profiler`` breakdown of one batch-256 bf16 ImageNet-64
-   forward by ``utils/profiling.py::CATEGORIES`` (K1 its own line).
+   forward by ``utils/profiling.py::CATEGORIES`` (K1 and K3 their own lines),
+   and its time with K3 against the plain GroupNorm.
+15. K3 against its plain version (``reference_groupnorm_silu``) at the LSUN
+   LDM's shapes: the U-Net's four levels in bf16 at batch 64 (group sizes 7,
+   14, 21, 49), with and without SiLU, the VQ decoder's three levels in f32
+   at batch 16, CIFAR-10's 32x32 level at its sampling batch (bf16) and
+   AMED batch (f32), and ImageNet-64's levels at its AMED microbatch (f32,
+   group sizes 6 to 24) and its 64x64 level at its sampling batch (bf16):
+   errors against stated tolerances,
+   two runs bit-identical, the times of K3, the plain version and
+   ``F.group_norm`` (+ ``F.silu``) on the channels-last NCHW view, and the
+   bound by bytes.
+16. K1 at the LSUN LDM's attention shapes (d=32, 14 / 21 / 28 heads) and K2
+   at K2b's shape (the AMED microbatch, T=1024, 14 heads, f32) and K2p's
+   (T=256, 21 heads), on the legacy qkv views ([B, T, H, 3d], head stride
+   3d) with a non-contiguous dO, as phases 9-10 do.
+17. The full-width LSUN-Bedroom LDM U-Net (274M parameters) under its
+   CFGPrecond, f32, unit-scale weights, TF32 off, batch 8: D and d sum(D g)
+   / d(x, sigma) with K1 + K2 + K3 against the all-plain model (plain
+   attention and plain GroupNorm), 1e-4 * max; exactly 16 K1 and 61 K3
+   launches per forward and 16 K2 pairs per backward.
+18. The LSUN LDM sampling path: ``generate`` on 64 seeds, batch 64, bf16,
+   ipndm on the discrete schedule (rho 1) at NFE 5 and 10, then the VQ
+   decode to 256 x 256 in chunks of 16, f32: finite images, per-seed rows,
+   exact launches (16 K1 and 61 K3 per net call, 24 K3 per decoded chunk),
+   images/sec with and without the decode, the sampling CLI's PNGs.
+19. The LSUN LDM AMED path: ``cli.train_amed --dataset_name=lsun_bedroom_ldm
+   --afs=True`` at batch 512 with ``--batch_gpu`` accumulation for two
+   iterations (sec/kimg, peak memory, exact launches, and the dQ and dK/dV
+   kernels' launches at each (T, H) as their wrappers count them), then
+   ``cli.sample --predictor`` at NFE 5 on 64 seeds.
+20. ``torch.profiler`` over one batch-64 bf16 LDM U-Net forward and one
+   batch-16 VQ decode, device time by category, and each one's time with
+   K3 against the plain GroupNorm.
 
 The last three lines are the card's name and power limit, a JSON object on
 the kernels and ``{"ok": true, "device": {...}}``.  The JSON lists K1 and
-K2 twice: at the CIFAR-10 paths (d=256, launches of phases 5 and 8) and at
+K2 at the CIFAR-10 paths (d=256, launches of phases 5 and 8), K1 and K2 at
 the ImageNet-64 paths (d=64, in place of K1b and K2p, launches of phases 12
-and 13), each with its error and times at that path's main shape and its
-bound on this card.
+and 13), K2 at the LSUN LDM's T=1024 level (in place of K2b, launches of
+phase 19 at that shape) and K3 (launches of phase 18), each with its error
+and times at that path's main shape and its bound on this card.
 Any failed check raises, so the script
 exits non-zero with no result; so does a machine without CUDA.
 """
@@ -95,11 +133,12 @@ import torch.nn.functional as F
 from diff_sampler_tpu_torch import _build
 from diff_sampler_tpu_torch.cli import sample as cli_sample
 from diff_sampler_tpu_torch.cli import train_amed as cli_train_amed
-from diff_sampler_tpu_torch.models import layers
+from diff_sampler_tpu_torch.models import adm, layers
 from diff_sampler_tpu_torch.models.convert import params_to_jax
 from diff_sampler_tpu_torch.models.factory import create_model, init_params
 from diff_sampler_tpu_torch.models.precond import bind
 from diff_sampler_tpu_torch.ops import attention as A
+from diff_sampler_tpu_torch.ops import groupnorm as G
 from diff_sampler_tpu_torch.sampling import SolverConfig, generate, to_uint8
 from diff_sampler_tpu_torch.training.amed import AMEDConfig, predictor_from_config
 from diff_sampler_tpu_torch.utils import checkpoint as ckpt
@@ -134,6 +173,7 @@ K1_SHAPES = [
     (16, 200, 2, 64, torch.float32),
 ]
 ATTENTION_SITES = 6  # per CIFAR-10 SongUNet forward (models/unets.py layout)
+CIFAR_GN_SITES = 73  # K3 per CIFAR-10 SongUNet forward
 BATCH = 256
 NFE_STEPS = [(5, 6), (10, 11), (35, 36)]  # (NFE, num_steps) for ipndm
 # (B, T, H, d, dtype) of K2: the AMED path's two attention shapes at the CLI's
@@ -171,8 +211,9 @@ PEAK_BYTES_PER_S = 3.35e12
 
 # The ImageNet-64 path (EDM_ARCHS["imagenet64"], DhariwalUNet, d=64): 22
 # attention sites per forward, 7 at 32x32 (T=1024, 6 heads), 7 at 16x16
-# (T=256, 9 heads) and 8 at 8x8 (T=64, 12 heads).
+# (T=256, 9 heads) and 8 at 8x8 (T=64, 12 heads); 95 GroupNorms.
 IN64_SITES = 22
+IN64_GN_SITES = 95
 IN64_LEVELS = [(1024, 6), (256, 9), (64, 12)]  # (T, H)
 # AMED on ImageNet-64 at the CLI's batch 512 accumulates microbatches of 128
 IN64_BATCH_GPU = 128
@@ -186,6 +227,59 @@ IN64_K1_SHAPES = ([(BATCH, t, h, 64, torch.bfloat16) for t, h in IN64_LEVELS]
 # f32 (the path's dtype) and bf16
 IN64_K2_SHAPES = ([(IN64_BATCH_GPU, t, h, 64, torch.float32) for t, h in IN64_LEVELS]
                   + [(IN64_BATCH_GPU, 1024, 6, 64, torch.bfloat16)])
+
+# The LSUN-Bedroom LDM path (LDM_CONFIGS["lsun_bedroom_ldm"], BASELINE config
+# 4's net): 64x64x3 latents, legacy attention at d=32 on 16 sites per U-Net
+# forward, 5 at 32x32 (T=1024, 14 heads), 5 at 16x16 (T=256, 21 heads), 6 at
+# 8x8 (T=64, 28 heads); 61 GroupNorms per U-Net forward, 24 per VQ decode.
+LDM = "lsun_bedroom_ldm"
+LDM_SITES = 16
+LDM_GN_SITES = 61
+DECODE_GN_SITES = 24
+LDM_LEVELS = [(1024, 14), (256, 21), (64, 28)]
+LDM_LATENT = (64, 64, 3)
+LDM_IMAGE = (256, 256, 3)
+LDM_BATCH = 64  # cli.sample's default batch
+LDM_NFE_STEPS = [(5, 6), (10, 11)]
+DECODE_CHUNK = 16  # the CLI decodes 16 latents at a time, in f32
+# AMED on the LDM at the CLI's batch 512 accumulates microbatches of 128, the
+# largest power of two that fits (38.5 GiB peak; 256 runs out of the 80 GB)
+LDM_BATCH_GPU = 128
+LDM_AMED_AFS = True  # NFE 5 at 4 steps
+LDM_K1_SHAPES = ([(LDM_BATCH, t, h, 32, torch.bfloat16) for t, h in LDM_LEVELS]
+                 + [(LDM_BATCH_GPU, t, h, 32, torch.float32) for t, h in LDM_LEVELS])
+# K2 where the JAX package streams K2b (the first: T=1024 in f32 at the AMED
+# microbatch, the main shape), in bf16, and where it takes K2p (T=256, T=64)
+LDM_K2_SHAPES = [(LDM_BATCH_GPU, 1024, 14, 32, torch.float32),
+                 (LDM_BATCH_GPU, 1024, 14, 32, torch.bfloat16),
+                 (LDM_BATCH_GPU, 256, 21, 32, torch.float32),
+                 (LDM_BATCH_GPU, 64, 28, 32, torch.float32)]
+# (N, H, W, C, dtype, eps, silu) of K3: the LDM U-Net's four levels in bf16 at
+# the sampling batch (the first, with SiLU, is the main shape), the VQ
+# decoder's three levels in f32 at its chunk of 16; CIFAR-10's 32x32 level
+# (eps 1e-6, SiLU off as its GroupNorm layers call it) in bf16 at the sampling
+# batch and in f32 at the AMED batch; ImageNet-64's four levels (group sizes
+# 6 to 24, eps 1e-5) in f32 at the AMED microbatch, and its 64x64 level in
+# bf16 at the sampling batch
+GN_SHAPES = ([(LDM_BATCH, 64, 64, 224, torch.bfloat16, 1e-5, True),
+              (LDM_BATCH, 32, 32, 448, torch.bfloat16, 1e-5, True),
+              (LDM_BATCH, 16, 16, 672, torch.bfloat16, 1e-5, True),
+              (LDM_BATCH, 8, 8, 1568, torch.bfloat16, 1e-5, True)]
+             + [(LDM_BATCH, s, s, c, torch.bfloat16, 1e-5, False)
+                for s, c in ((64, 224), (32, 448), (16, 672), (8, 1568))]
+             + [(DECODE_CHUNK, 64, 64, 512, torch.float32, 1e-6, True),
+                (DECODE_CHUNK, 128, 128, 256, torch.float32, 1e-6, True),
+                (DECODE_CHUNK, 256, 256, 128, torch.float32, 1e-6, True),
+                (BATCH, 32, 32, 256, torch.bfloat16, 1e-6, False),
+                (AMED_BATCH, 32, 32, 256, torch.float32, 1e-6, False),
+                (BATCH, 64, 64, 192, torch.bfloat16, 1e-5, False)]
+             + [(IN64_BATCH_GPU, s, s, c, torch.float32, 1e-5, False)
+                for s, c in ((64, 192), (32, 384), (16, 576), (8, 768))])
+# Tolerance of K3 against the plain version, relative to max(1, max|plain
+# out|): f32 1e-5 (K3 sums in f64 across chunks and two passes; the plain
+# version takes E[x^2] - E[x]^2 in f32); bf16 2^-7, one bf16 step of the
+# largest output for an element whose f32 values straddle a rounding boundary.
+GN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 
 def _check(ok: bool, what: str) -> None:
@@ -222,6 +316,10 @@ def _turns(fns: dict, reps: int = 20, warmup: int = 3) -> dict:
     return {name: sum(v) / len(v) for name, v in times.items()}
 
 
+def _events():
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+
 def _attention_bound(kind: str, b: int, t: int, h: int, d: int, dtype) -> tuple:
     """(bound_ms, bound_by) of one attention kernel on this card's published
     peaks.  kind: "fwd" (S = QK^T, O = PV: out and lse from q, k, v), "dq"
@@ -234,6 +332,17 @@ def _attention_bound(kind: str, b: int, t: int, h: int, d: int, dtype) -> tuple:
     nbytes = {"fwd": 4 * tensor + stats, "dq": 5 * tensor + 2 * stats,
               "dkv": 6 * tensor + 2 * stats}[kind]
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _groupnorm_bound(n: int, h: int, w: int, c: int, dtype, silu: bool) -> tuple:
+    """(bound_ms, bound_by) of one K3 call: x read once and out written once
+    (scale and bias, 8c bytes), against its f32 operations on the CUDA cores
+    (per element: 3 for the statistics, 2 for x * a + b, 4 for SiLU)."""
+    elems = n * h * w * c
+    nbytes = 2 * elems * torch.empty((), dtype=dtype).element_size() + 8 * c
+    flops = elems * (5 + (4 if silu else 0))
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -274,20 +383,26 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _build.load_library()
     if _build.build_seconds is None:
-        print(f"[build] K1/K2 library already built, loaded in "
+        print(f"[build] kernel library already built, loaded in "
               f"{time.perf_counter() - t0:.3f} s")
         return
-    print(f"[build] K1 and K2 built with nvcc in {_build.build_seconds:.2f} s, one "
+    print(f"[build] K1, K2 and K3 built with nvcc in {_build.build_seconds:.2f} s, one "
           f"process per source ({' '.join(_build.NVCC_FLAGS)})")
     for line in _build.build_log.splitlines():
         # ptxas names each kernel by its mangled name: print it as
-        # flash_<...>_kernel<dtype, d>, then its registers and spills
+        # flash_<...>_kernel<dtype, d> or gn_<...>_kernel, then its
+        # registers and spills
         entry = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(13__nv_bfloat16|f)"
                           r"((?:Li\d+E)+)E", line)
+        gn = re.search(r"(gn_[a-z_]+_kernel)(I(13__nv_bfloat16|f)((?:Li\d+E)*)E)?", line)
         if entry and "Compiling entry function" in line:
             dtype = "bf16" if entry.group(2) != "f" else "f32"
             ints = re.findall(r"Li(\d+)E", entry.group(3))
             print(f"[build] {entry.group(1)}<{dtype}, d={ints[0]}>:")
+        elif gn and "Compiling entry function" in line:
+            dtype = "bf16" if gn.group(3) == "13__nv_bfloat16" else "f32"
+            vec = re.findall(r"Li(\d+)E", gn.group(4) or "")
+            print(f"[build] {gn.group(1)}<{dtype}{', vec=' + vec[0] if vec else ''}>:")
         elif "registers" in line or "spill" in line:
             print(f"[build]   {line.strip()}")
 
@@ -299,11 +414,21 @@ def _qkv_views(b, t, h, d, dtype, g):
     return qkv.reshape(b, t, h, d, 3).unbind(-1)
 
 
-def phase_kernel() -> dict:
-    g = torch.Generator("cuda").manual_seed(0)
+def _legacy_views(b, t, h, d, dtype, g):
+    """q, k, v as ``models.adm.legacy_attention`` hands them to sdpa:
+    strided views of one [B, T, H, 3d] projection (head stride 3d, token
+    stride 3Hd)."""
+    parts = torch.randn(b, t, h, 3 * d, generator=g, device="cuda").to(dtype)
+    return parts[..., :d], parts[..., d:2 * d], parts[..., 2 * d:]
+
+
+def _k1_checks(tag: str, shapes, views, seed: int, reps: int, warmup: int) -> dict:
+    """K1 against its plain version at ``shapes`` on ``views``; prints the
+    errors and times and returns the kernels-line fields of the first."""
+    g = torch.Generator("cuda").manual_seed(seed)
     main = None
-    for b, t, h, d, dtype in K1_SHAPES:
-        q, k, v = _qkv_views(b, t, h, d, dtype, g)
+    for b, t, h, d, dtype in shapes:
+        q, k, v = views(b, t, h, d, dtype, g)
         scale = d ** -0.5
         out, lse = A.flash_attention_mh(q, k, v, scale)
         ref_out, ref_lse = A.reference_sdpa(q, k, v, scale)
@@ -311,22 +436,68 @@ def phase_kernel() -> dict:
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
         tol = _out_tol(dtype, ref_out)
+        del out, lse, ref_out, ref_lse
         times = _turns({"kernel": lambda: A.flash_attention_mh(q, k, v, scale),
                         "plain": lambda: A.reference_sdpa(q, k, v, scale),
-                        "library": _library_fwd(q, k, v, scale)})
+                        "library": _library_fwd(q, k, v, scale)}, reps=reps, warmup=warmup)
         bound_ms, bound_by = _attention_bound("fwd", b, t, h, d, dtype)
         name = str(dtype).replace("torch.", "")
-        print(f"[K1] B={b} T={t} H={h} d={d} {name}: out err {err_out:.3g} "
-              f"(tol {tol:.3g}), lse err {err_lse:.3g} (tol {LSE_TOL:.3g}); "
-              f"kernel {times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, "
+        print(f"[{tag}] B={b} T={t} H={h} d={d} {name}: out err {err_out:.3g} (tol "
+              f"{tol:.3g}), lse err {err_lse:.3g} (tol {LSE_TOL:.3g}); K1 "
+              f"{times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, "
               f"F.scaled_dot_product_attention {times['library']:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+              f"{bound_ms:.4f} ms ({bound_by}); "
+              f"{2 * 2 * b * h * t * t * d / times['kernel'] / 1e9:.2f} TFLOP/s")
         _check(err_out <= tol and err_lse <= LSE_TOL,
                f"K1 disagrees with the plain version at {(b, t, h, d, name)}")
-        if main is None:  # the first shape is the main path's
+        if main is None:  # the first shape is the path's main one
             main = dict(max_abs_err=err_out, ms=times["kernel"], plain_ms=times["plain"],
                         library_ms=times["library"], bound_ms=bound_ms, bound_by=bound_by)
+    torch.cuda.empty_cache()
     return main
+
+
+def _strided_do(b, t, h, d, dtype, g):
+    """A non-contiguous dO: the [B, T, H, d] transpose of a [B, H, T, d]."""
+    return torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype).transpose(1, 2)
+
+
+def _k2_checks(tag: str, shapes, views, seed: int) -> dict:
+    """K2 against its plain version at ``shapes`` on ``views`` with a
+    non-contiguous dO, two runs bit-identical; returns the kernels-line
+    fields of the dQ and dK/dV kernels at the first shape."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    main = None
+    for b, t, h, d, dtype in shapes:
+        q, k, v = views(b, t, h, d, dtype, g)
+        do = _strided_do(b, t, h, d, dtype, g)
+        scale = d ** -0.5
+        out, lse = A.flash_attention_mh(q, k, v, scale)
+        grads = A.flash_attention_mh_bwd(q, k, v, out, lse, do, scale)
+        again = A.flash_attention_mh_bwd(q, k, v, out, lse, do, scale)
+        ref = A.reference_sdpa_bwd(q, k, v, out, lse, do, scale)
+        torch.cuda.synchronize()
+        errs = [(x.float() - y.float()).abs().max().item() for x, y in zip(grads, ref)]
+        tols = [K2_TOL[dtype] * y.float().abs().max().item() for y in ref]
+        same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        del grads, again, ref
+        delta = torch.einsum("bthd,bthd->bht", do.float(), out.float()).contiguous()
+        times = _backward_times(q, k, v, out, lse, do, do.to(dtype), delta, scale)
+        name = str(dtype).replace("torch.", "")
+        print(f"[{tag}] B={b} T={t} H={h} d={d} {name}: max abs err dq {errs[0]:.3g} (tol "
+              f"{tols[0]:.3g}), dk {errs[1]:.3g} (tol {tols[1]:.3g}), dv {errs[2]:.3g} (tol "
+              f"{tols[2]:.3g}); two runs bit-identical: {same}; {_fmt_times(times)}")
+        _check(all(e <= tol for e, tol in zip(errs, tols)),
+               f"K2 disagrees with the plain version at {(b, t, h, d, name)}")
+        _check(same, f"K2 is not deterministic at {(b, t, h, d, name)}")
+        if main is None:  # the first shape is the path's main one
+            main = _backward_main(errs, times, b, t, h, d, dtype)
+    torch.cuda.empty_cache()
+    return main
+
+
+def phase_kernel() -> dict:
+    return _k1_checks("K1", K1_SHAPES, _qkv_views, seed=0, reps=20, warmup=3)
 
 
 @torch.no_grad()
@@ -340,44 +511,39 @@ def _redraw_unit_scale(module, seed: int) -> None:
         p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(fan_in))
 
 
-def phase_denoiser_f32() -> None:
+def _cifar_f32():
+    """The full-width f32 CIFAR-10 EDMPrecond with unit-scale weights, frozen,
+    TF32 off; x at sigma 80, 10, 1, 0.1 in turn, those sigmas, a cotangent."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"[D f32] torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
-          f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     module, _ = create_model("cifar10", "random", device="cuda")
     _redraw_unit_scale(module, seed=1)
-    den = bind(module)
+    module.requires_grad_(False)
     sigma = torch.tensor([80.0, 10.0, 1.0, 0.1] * 2, device="cuda")
     x = stacked_randn(range(8), (32, 32, 3), device="cuda") * sigma[:, None, None, None]
+    cot = stacked_randn(range(100, 108), (32, 32, 3), device="cuda")
+    print(f"[CIFAR-10 f32] full-width EDMPrecond, batch 8, sigma {sigma.tolist()}, "
+          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+          f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    return module, x, sigma, cot
 
-    before = A.flash_attention_mh.launches
-    d_kernel = den(x, sigma)
-    launched = A.flash_attention_mh.launches - before
-    real_sdpa = layers.sdpa
-    layers.sdpa = lambda q, k, v, scale=None: A.reference_sdpa(q, k, v, scale)[0]
-    try:
-        d_plain = den(x, sigma)
-    finally:
-        layers.sdpa = real_sdpa
-    torch.cuda.synchronize()
-    err = (d_kernel - d_plain).abs().max().item()
-    bound = 1e-4 * d_plain.abs().max().item()
-    print(f"[D f32] full-width CIFAR-10 EDMPrecond, sigma {sigma.tolist()}: max|D| "
-          f"{d_plain.abs().max().item():.4g}, K1 vs plain attention max abs err {err:.3g} "
-          f"(tol 1e-4 * max|D| = {bound:.3g}), K1 launches per forward {launched}")
-    _check(torch.isfinite(d_kernel).all().item(), "D(x, sigma) is not finite")
-    _check(launched == ATTENTION_SITES, f"{launched} K1 launches in one forward")
-    _check(err <= bound, "D(x, sigma) with K1 disagrees with the plain attention")
+
+def phase_denoiser_f32() -> None:
+    module, x, sigma, _ = _cifar_f32()
+    den = bind(module)
+    _plain_vs_kernels("D f32", _plain_net_patches(layers), forward=lambda: den(x, sigma),
+                      per_forward=dict(k1=ATTENTION_SITES, gn=CIFAR_GN_SITES))
 
 
 _COUNTED = {"k1": A.flash_attention_mh, "dq": A.flash_attention_bwd_dq,
-            "dkv": A.flash_attention_bwd_dkv}
+            "dkv": A.flash_attention_bwd_dkv, "gn": G.groupnorm_silu}
 
 
 def _reset_counts() -> None:
     for fn in _COUNTED.values():
         fn.launches = 0
+    A.flash_attention_bwd_dq.launches_by_shape = {}
+    A.flash_attention_bwd_dkv.launches_by_shape = {}
 
 
 def _counts() -> dict:
@@ -389,127 +555,113 @@ def _only(**launches) -> dict:
     return {**dict.fromkeys(_COUNTED, 0), **launches}
 
 
-def _drive_sampling(tag: str, den, shape, sites: int, kernel: str, label_dim: int = 0):
+def _per_calls(per_call: dict, calls: int) -> dict:
+    """The counts of ``calls`` net forwards, each launching ``per_call``."""
+    return {name: n * calls for name, n in per_call.items()}
+
+
+def _drive_sampling(tag: str, den, shape, per_call: dict, label_dim: int = 0,
+                    batch: int = BATCH, nfe_steps=NFE_STEPS, schedule=("polynomial", 7.0),
+                    **gen_kw):
     """A sampling path as ``generate`` runs it: after a warm-up call (cuDNN
-    plans and the allocator stay out of the timing), 256 seeds at batch 256
-    with ipndm on the poly-7 schedule at NFE 5/10/35, with the counts set to
-    0 just before.  Checks finite images, ``sites`` launches of ``kernel``
-    per net call and no other kernel, and seeds 0-7 at batch 8 against the
-    batch-256 rows.  Returns (the NFE-5 images, the launches of ``kernel``)."""
-    seeds = list(range(BATCH))
-    kw = dict(max_batch_size=BATCH, device="cuda", label_dim=label_dim)
-    generate(den, seeds, shape, SolverConfig(solver="ipndm", num_steps=6), **kw)
+    plans and the allocator stay out of the timing), ``batch`` seeds at
+    batch ``batch`` with ipndm on ``schedule`` at each NFE, with the counts
+    set to 0 just before.  Checks finite samples, exactly ``per_call``
+    launches per net call and no other kernel, and seeds 0-7 at batch 8
+    against the full batch's rows.  Returns (the first NFE's samples, the
+    counts, its device seconds)."""
+    seeds = list(range(batch))
+    kw = dict(max_batch_size=batch, device="cuda", label_dim=label_dim, **gen_kw)
+    sched = dict(schedule_type=schedule[0], schedule_rho=schedule[1])
+    first_steps = nfe_steps[0][1]
+    generate(den, seeds, shape, SolverConfig(solver="ipndm", num_steps=first_steps, **sched),
+             **kw)
     torch.cuda.synchronize()
 
     _reset_counts()
-    expected = 0
-    images = {}
-    for nfe, steps in NFE_STEPS:
-        cfg = SolverConfig(solver="ipndm", num_steps=steps, schedule_type="polynomial",
-                           schedule_rho=7.0)
+    calls = 0
+    samples, seconds = {}, {}
+    for nfe, steps in nfe_steps:
+        cfg = SolverConfig(solver="ipndm", num_steps=steps, **sched)
         _check(cfg.nfe() == nfe, f"ipndm at {steps} steps is NFE {cfg.nfe()}")
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start, end = _events()
         t0 = time.perf_counter()
         start.record()
-        images[nfe] = generate(den, seeds, shape, cfg, **kw)
+        samples[nfe] = generate(den, seeds, shape, cfg, **kw)
         end.record()
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
-        device_s = start.elapsed_time(end) / 1000
-        expected += sites * nfe * math.ceil(len(seeds) / BATCH)
-        print(f"[{tag}] ipndm NFE {nfe}, batch {BATCH}, bf16"
-              f"{', per-seed labels' if label_dim else ''}: {BATCH / device_s:.2f} images/s "
-              f"(CUDA events, {device_s:.4f} s; host clock {host_s:.4f} s); {kernel} launches "
-              f"so far {_counts()[kernel]}, expected {expected}")
+        seconds[nfe] = start.elapsed_time(end) / 1000
+        calls += nfe * math.ceil(len(seeds) / batch)
+        print(f"[{tag}] ipndm NFE {nfe}, batch {batch}, bf16, {schedule[0]} schedule"
+              f"{', per-seed labels' if label_dim else ''}: {batch / seconds[nfe]:.2f} "
+              f"samples/s (CUDA events, {seconds[nfe]:.4f} s; host clock {host_s:.4f} s); "
+              f"launches so far {_counts()}, expected {_per_calls(per_call, calls)}")
     counts = _counts()
-    _check(counts == _only(**{kernel: expected}),
-           f"{tag}: launches {counts}, expected {expected} of {kernel} and no other")
-    for nfe, x in images.items():
-        _check(x.shape == (BATCH, *shape) and np.isfinite(x).all(),
+    _check(counts == _only(**_per_calls(per_call, calls)),
+           f"{tag}: launches {counts}, expected {_per_calls(per_call, calls)} and no other")
+    for nfe, x in samples.items():
+        _check(x.shape == (batch, *shape) and np.isfinite(x).all(),
                f"{tag}: NFE {nfe} output is not finite or has shape {x.shape}")
 
-    few = generate(den, seeds[:8], shape, SolverConfig(solver="ipndm", num_steps=6),
+    nfe0 = nfe_steps[0][0]
+    few = generate(den, seeds[:8], shape,
+                   SolverConfig(solver="ipndm", num_steps=first_steps, **sched),
                    **dict(kw, max_batch_size=8))
-    err = np.abs(few - images[5][:8]).max()
-    bound = 1e-2 * np.abs(images[5][:8]).max()
-    print(f"[{tag}] seeds 0-7 at batch 8 vs batch 256, NFE 5: max abs diff {err:.3g} "
+    err = np.abs(few - samples[nfe0][:8]).max()
+    bound = 1e-2 * np.abs(samples[nfe0][:8]).max()
+    print(f"[{tag}] seeds 0-7 at batch 8 vs batch {batch}, NFE {nfe0}: max abs diff {err:.3g} "
           f"(tol 1e-2 * max|x| = {bound:.3g}; cuDNN may pick other bf16 conv algorithms)")
     _check(err <= bound, f"{tag}: per-seed rows depend on the batch")
-    return images[5], counts[kernel]
+    return samples[nfe0], counts, seconds[nfe0]
 
 
-def _check_cli_pngs(tag: str, argv: list, images: np.ndarray) -> None:
+def _check_cli_pngs(tag: str, argv: list, images: np.ndarray, batch: int = BATCH) -> None:
     """The sampling CLI as a user runs it, on the seeds, weights and config of
-    ``images`` (seeds 0-255): its PNGs must be byte for byte their encoding."""
+    ``images`` (seeds 0 to batch - 1): its PNGs must be byte for byte their
+    encoding."""
     with tempfile.TemporaryDirectory() as outdir:
-        cli_sample.main([*argv, f"--seeds=0-{BATCH - 1}", f"--batch={BATCH}", "--device=cuda",
+        cli_sample.main([*argv, f"--seeds=0-{batch - 1}", f"--batch={batch}", "--device=cuda",
                          f"--outdir={outdir}"])
         want = to_uint8(images)
         same = 0
-        for seed in range(BATCH):
+        for seed in range(batch):
             with open(os.path.join(outdir, f"{seed - seed % 1000:06d}", f"{seed:06d}.png"),
                       "rb") as f:
                 same += f.read() == encode_png(want[seed])
-    print(f"[{tag}] CLI wrote {same} of {BATCH} PNGs identical to the NFE-5 run's images")
-    _check(same == BATCH, f"{tag}: CLI PNGs differ from generate's images")
+    print(f"[{tag}] CLI wrote {same} of {batch} PNGs identical to the first NFE's images")
+    _check(same == batch, f"{tag}: CLI PNGs differ from generate's images")
 
 
 def phase_main_path() -> int:
     module, _ = create_model("cifar10", "random", dtype=torch.bfloat16, device="cuda")
     shape = (module.img_resolution, module.img_resolution, module.img_channels)
-    images, launches = _drive_sampling("main", bind(module), shape, ATTENTION_SITES, "k1")
+    images, counts, _ = _drive_sampling("main", bind(module), shape,
+                                        dict(k1=ATTENTION_SITES, gn=CIFAR_GN_SITES))
     _check_cli_pngs("main", ["--dataset_name=cifar10", "--model_path=random", "--solver=ipndm",
                              "--num_steps=6", "--bf16=True"], images)
-    return launches
-
-
-def _strided_do(b, t, h, d, dtype, g):
-    """A non-contiguous dO: the [B, T, H, d] transpose of a [B, H, T, d]."""
-    return torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype).transpose(1, 2)
+    sigma = torch.full((BATCH,), 2.5, device="cuda")
+    x = stacked_randn(range(BATCH), shape, device="cuda") * 2.5
+    tag = f"CIFAR-10 profile, one batch-{BATCH} bf16 forward"
+    _profile(tag, lambda: module(x, sigma), {"K1": ATTENTION_SITES, "K3": 3 * CIFAR_GN_SITES})
+    _with_plain_groupnorm(tag, lambda: module(x, sigma), [layers])
+    return counts["k1"]
 
 
 def phase_backward_kernel() -> dict:
-    g = torch.Generator("cuda").manual_seed(2)
-    main = None
-    for b, t, h, d, dtype in K2_SHAPES:
-        q, k, v = _qkv_views(b, t, h, d, dtype, g)
-        do = _strided_do(b, t, h, d, dtype, g)
-        scale = d ** -0.5
-        out, lse = A.flash_attention_mh(q, k, v, scale)
-        grads = A.flash_attention_mh_bwd(q, k, v, out, lse, do, scale)
-        again = A.flash_attention_mh_bwd(q, k, v, out, lse, do, scale)
-        ref = A.reference_sdpa_bwd(q, k, v, out, lse, do, scale)
-        torch.cuda.synchronize()
-        errs = [(x.float() - y.float()).abs().max().item() for x, y in zip(grads, ref)]
-        tols = [K2_TOL[dtype] * y.float().abs().max().item() for y in ref]
-        same = all(torch.equal(x, y) for x, y in zip(grads, again))
-        delta = torch.einsum("bthd,bthd->bht", do.float(), out.float()).contiguous()
-        do_c = do.to(dtype)
-        times = _backward_times(
-            A.flash_attention_bwd_dq, A.flash_attention_bwd_dkv, A.flash_attention_mh_bwd,
-            q, k, v, out, lse, do, do_c, delta, scale)
-        name = str(dtype).replace("torch.", "")
-        print(f"[K2] B={b} T={t} H={h} d={d} {name}: max abs err dq {errs[0]:.3g} "
-              f"(tol {tols[0]:.3g}), dk {errs[1]:.3g} (tol {tols[1]:.3g}), dv {errs[2]:.3g} "
-              f"(tol {tols[2]:.3g}); two runs bit-identical: {same}; {_fmt_times(times)}")
-        _check(all(e <= tol for e, tol in zip(errs, tols)),
-               f"K2 disagrees with the plain version at {(b, t, h, d, name)}")
-        _check(same, f"K2 is not deterministic at {(b, t, h, d, name)}")
-        if main is None:  # the first shape is the AMED path's
-            main = _backward_main(errs, times, b, t, h, d, dtype)
-    return main
+    return _k2_checks("K2", K2_SHAPES, _qkv_views, seed=2)
 
 
-def _backward_times(dq_fn, dkv_fn, bwd_fn, q, k, v, out, lse, do, do_c, delta, scale) -> dict:
+def _backward_times(q, k, v, out, lse, do, do_c, delta, scale) -> dict:
     """ms of the dQ and dK/dV kernels and of the whole backward (delta
     included), each beside its plain version, and of the library backward."""
     times = {}
     for name, kernel, plain in (
-            ("dq", lambda: dq_fn(q, k, v, do_c, lse, delta, scale),
+            ("dq", lambda: A.flash_attention_bwd_dq(q, k, v, do_c, lse, delta, scale),
              lambda: A.reference_sdpa_bwd_dq(q, k, v, do_c, lse, delta, scale)),
-            ("dkv", lambda: dkv_fn(q, k, v, do_c, lse, delta, scale),
+            ("dkv", lambda: A.flash_attention_bwd_dkv(q, k, v, do_c, lse, delta, scale),
              lambda: A.reference_sdpa_bwd_dkv(q, k, v, do_c, lse, delta, scale)),
-            ("bwd", lambda: bwd_fn(q, k, v, out, lse, do, scale),
+            ("bwd", lambda: A.flash_attention_mh_bwd(q, k, v, out, lse, do, scale),
              lambda: A.reference_sdpa_bwd(q, k, v, out, lse, do, scale))):
         got = _turns({"kernel": kernel, "plain": plain}, reps=5)
         times[name] = (got["kernel"], got["plain"])
@@ -535,43 +687,22 @@ def _backward_main(errs, times, b, t, h, d, dtype) -> dict:
     return out
 
 
-def phase_gradient_f32() -> None:
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    module, _ = create_model("cifar10", "random", device="cuda")
-    _redraw_unit_scale(module, seed=1)
-    module.requires_grad_(False)
-    sigma0 = torch.tensor([80.0, 10.0, 1.0, 0.1] * 2, device="cuda")
-    x0 = stacked_randn(range(8), (32, 32, 3), device="cuda") * sigma0[:, None, None, None]
-    cot = stacked_randn(range(100, 108), (32, 32, 3), device="cuda")
-
+def _grads_fn(module, x0, sigma0, cot, *args):
+    """d sum(module(x, sigma, *args) * cot) / d(x, sigma)."""
     def grads():
         x, sigma = x0.clone().requires_grad_(), sigma0.clone().requires_grad_()
-        (module(x, sigma) * cot).sum().backward()
+        (module(x, sigma, *args) * cot).sum().backward()
         return x.grad, sigma.grad
 
-    before = (A.flash_attention_bwd_dq.launches, A.flash_attention_bwd_dkv.launches)
-    gx, gs = grads()
-    launched = (A.flash_attention_bwd_dq.launches - before[0],
-                A.flash_attention_bwd_dkv.launches - before[1])
-    real_sdpa = layers.sdpa
-    layers.sdpa = lambda q, k, v, scale=None: A.reference_sdpa(q, k, v, scale)[0]
-    try:
-        px, ps = grads()
-    finally:
-        layers.sdpa = real_sdpa
-    torch.cuda.synchronize()
-    for name, got, want in (("x", gx, px), ("sigma", gs, ps)):
-        err = (got - want).abs().max().item()
-        bound = 1e-4 * want.abs().max().item()
-        print(f"[grad f32] full-width CIFAR-10 EDMPrecond, batch 8: d sum(D * g) / d{name}: "
-              f"max|grad| {want.abs().max().item():.4g}, K1+K2 vs plain attention max abs "
-              f"err {err:.3g} (tol 1e-4 * max|grad| = {bound:.3g})")
-        _check(torch.isfinite(got).all().item(), f"the gradient in {name} is not finite")
-        _check(err <= bound, f"the gradient in {name} with K2 disagrees with the plain one")
-    print(f"[grad f32] K2 launches per backward: dQ {launched[0]}, dK/dV {launched[1]}")
-    _check(launched == (ATTENTION_SITES, ATTENTION_SITES),
-           f"K2 launched {launched} times in one backward")
+    return grads
+
+
+def phase_gradient_f32() -> None:
+    module, x, sigma, cot = _cifar_f32()
+    _plain_vs_kernels("grad f32", _plain_net_patches(layers),
+                      grads=_grads_fn(module, x, sigma, cot),
+                      per_backward=dict(k1=ATTENTION_SITES, dq=ATTENTION_SITES,
+                                        dkv=ATTENTION_SITES, gn=CIFAR_GN_SITES))
 
 
 def _train_amed(tag: str, argv: list, batch_gpu) -> tuple:
@@ -586,7 +717,7 @@ def _train_amed(tag: str, argv: list, batch_gpu) -> tuple:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start, end = _events()
     t0 = time.perf_counter()
     start.record()
     run_dir = cli_train_amed.main(argv)
@@ -623,15 +754,18 @@ def _train_amed(tag: str, argv: list, batch_gpu) -> tuple:
 
 
 def _sample_with_predictor(tag: str, dataset: str, run_dir: str, outdir: str, shape,
-                           nfe: int, sites: int, kernel: str) -> None:
-    """``cli.sample --predictor`` on 256 seeds (finite batches, a PNG per
-    seed, ``sites`` launches of ``kernel`` per net call and no other kernel),
-    then the AMED sampler alone after a warm-up call, for images/sec."""
+                           nfe: int, per_call: dict, batch: int = BATCH, image_shape=None,
+                           decode: dict = None) -> None:
+    """``cli.sample --predictor`` on ``batch`` seeds (finite batches, a PNG
+    per seed, exactly ``per_call`` launches per net call, plus ``decode``
+    for a latent tier's decode, and no other kernel), then the AMED sampler
+    alone after a warm-up call, for samples/sec."""
     seen = []
     real_to_uint8 = cli_sample.to_uint8
+    image_shape = tuple(image_shape or shape)
 
     def checked_to_uint8(x):
-        seen.append(bool(np.isfinite(x).all()) and x.shape[1:] == tuple(shape))
+        seen.append(bool(np.isfinite(x).all()) and x.shape[1:] == image_shape)
         return real_to_uint8(x)
 
     _reset_counts()
@@ -639,24 +773,26 @@ def _sample_with_predictor(tag: str, dataset: str, run_dir: str, outdir: str, sh
     t0 = time.perf_counter()
     try:
         cli_sample.main([f"--dataset_name={dataset}", f"--predictor={run_dir}",
-                         f"--seeds=0-{BATCH - 1}", f"--batch={BATCH}", "--device=cuda",
+                         f"--seeds=0-{batch - 1}", f"--batch={batch}", "--device=cuda",
                          f"--outdir={outdir}"])
     finally:
         cli_sample.to_uint8 = real_to_uint8
     cli_s = time.perf_counter() - t0
     counts = _counts()
+    want = _per_calls(per_call, nfe)
+    for name, n in (decode or {}).items():
+        want[name] = want.get(name, 0) + n
     pngs = glob.glob(os.path.join(outdir, "*", "*.png"))
     print(f"[{tag}] sample --predictor: NFE {nfe}, {len(pngs)} PNGs, finite batches {seen}, "
-          f"launches {counts} (expected {sites * nfe} {kernel}), whole CLI call {cli_s:.3f} s "
-          f"host clock")
-    _check(len(pngs) == BATCH and seen and all(seen), f"{tag}: samples missing or not finite")
-    _check(counts == _only(**{kernel: sites * nfe}), f"{tag}: launch counts of the sampling")
+          f"launches {counts} (expected {want}), whole CLI call {cli_s:.3f} s host clock")
+    _check(len(pngs) == batch and seen and all(seen), f"{tag}: samples missing or not finite")
+    _check(counts == _only(**want), f"{tag}: launch counts of the sampling")
 
     module, _ = create_model(dataset, "random", device="cuda")
     fn, _ = cli_sample.build_amed_sample_fn(module, run_dir, "cuda")
-    lat = stacked_randn(range(BATCH), shape, device="cuda")
+    lat = stacked_randn(range(batch), shape, device="cuda")
     fn(lat)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start, end = _events()
     start.record()
     t0 = time.perf_counter()
     x = fn(lat)
@@ -664,8 +800,8 @@ def _sample_with_predictor(tag: str, dataset: str, run_dir: str, outdir: str, sh
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     device_s = start.elapsed_time(end) / 1000
-    print(f"[{tag}] AMED sampling, NFE {nfe}, batch {BATCH}, f32 net: {BATCH / device_s:.2f} "
-          f"images/s (CUDA events, {device_s:.4f} s; host clock {host_s:.4f} s)")
+    print(f"[{tag}] AMED sampling, NFE {nfe}, batch {batch}, f32 net: {batch / device_s:.2f} "
+          f"samples/s (CUDA events, {device_s:.4f} s; host clock {host_s:.4f} s)")
     _check(torch.isfinite(x).all().item(), f"{tag}: AMED samples are not finite")
     del module, fn
     torch.cuda.empty_cache()
@@ -680,80 +816,24 @@ def phase_amed(workdir: str) -> dict:
     # teacher makes 2 calls per fine step, M + 1 = 2 fine steps per segment;
     # the amed student 2 calls per segment, the second one differentiated
     segments = AMED_STEPS - 1
-    want = _only(k1=ATTENTION_SITES * (2 * 2 * segments + 2 * segments) * AMED_ITERS,
+    calls = (2 * 2 * segments + 2 * segments) * AMED_ITERS
+    want = _only(k1=ATTENTION_SITES * calls, gn=CIFAR_GN_SITES * calls,
                  dq=ATTENTION_SITES * segments * AMED_ITERS,
                  dkv=ATTENTION_SITES * segments * AMED_ITERS)
     print(f"[AMED] launches {counts}, expected {want}")
     _check(counts == want, "launch counts of the AMED training")
     _sample_with_predictor("AMED", "cifar10", run_dir, os.path.join(workdir, "amed_samples"),
-                           (32, 32, 3), nfe=2 * segments, sites=ATTENTION_SITES, kernel="k1")
+                           (32, 32, 3), nfe=2 * segments,
+                           per_call=dict(k1=ATTENTION_SITES, gn=CIFAR_GN_SITES))
     return counts
 
 
 def phase_in64_kernel() -> dict:
-    g = torch.Generator("cuda").manual_seed(3)
-    main = None
-    for b, t, h, d, dtype in IN64_K1_SHAPES:
-        q, k, v = _qkv_views(b, t, h, d, dtype, g)
-        scale = d ** -0.5
-        out, lse = A.flash_attention_mh(q, k, v, scale)
-        ref_out, ref_lse = A.reference_sdpa(q, k, v, scale)
-        torch.cuda.synchronize()
-        err_out = (out.float() - ref_out.float()).abs().max().item()
-        err_lse = (lse - ref_lse).abs().max().item()
-        tol = _out_tol(dtype, ref_out)
-        del out, lse, ref_out, ref_lse
-        times = _turns({"kernel": lambda: A.flash_attention_mh(q, k, v, scale),
-                        "plain": lambda: A.reference_sdpa(q, k, v, scale),
-                        "library": _library_fwd(q, k, v, scale)}, reps=5, warmup=2)
-        bound_ms, bound_by = _attention_bound("fwd", b, t, h, d, dtype)
-        name = str(dtype).replace("torch.", "")
-        print(f"[IN64 K1] B={b} T={t} H={h} d={d} {name}: out err {err_out:.3g} (tol "
-              f"{tol:.3g}), lse err {err_lse:.3g} (tol {LSE_TOL:.3g}); K1 "
-              f"{times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, "
-              f"F.scaled_dot_product_attention {times['library']:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}); "
-              f"{2 * 2 * b * h * t * t * d / times['kernel'] / 1e9:.2f} TFLOP/s")
-        _check(err_out <= tol and err_lse <= LSE_TOL,
-               f"K1 disagrees with the plain version at {(b, t, h, d, name)}")
-        if main is None:  # the first shape is the sampling path's costliest
-            main = dict(max_abs_err=err_out, ms=times["kernel"], plain_ms=times["plain"],
-                        library_ms=times["library"], bound_ms=bound_ms, bound_by=bound_by)
-    torch.cuda.empty_cache()
-    return main
+    return _k1_checks("IN64 K1", IN64_K1_SHAPES, _qkv_views, seed=3, reps=5, warmup=2)
 
 
 def phase_in64_backward_kernel() -> dict:
-    g = torch.Generator("cuda").manual_seed(4)
-    main = None
-    for b, t, h, d, dtype in IN64_K2_SHAPES:
-        q, k, v = _qkv_views(b, t, h, d, dtype, g)
-        do = _strided_do(b, t, h, d, dtype, g)
-        scale = d ** -0.5
-        out, lse = A.flash_attention_mh(q, k, v, scale)
-        grads = A.flash_attention_mh_bwd(q, k, v, out, lse, do, scale)
-        again = A.flash_attention_mh_bwd(q, k, v, out, lse, do, scale)
-        ref = A.reference_sdpa_bwd(q, k, v, out, lse, do, scale)
-        torch.cuda.synchronize()
-        errs = [(x.float() - y.float()).abs().max().item() for x, y in zip(grads, ref)]
-        tols = [K2_TOL[dtype] * y.float().abs().max().item() for y in ref]
-        same = all(torch.equal(x, y) for x, y in zip(grads, again))
-        del grads, again, ref
-        delta = torch.einsum("bthd,bthd->bht", do.float(), out.float()).contiguous()
-        times = _backward_times(
-            A.flash_attention_bwd_dq, A.flash_attention_bwd_dkv, A.flash_attention_mh_bwd,
-            q, k, v, out, lse, do, do.to(dtype), delta, scale)
-        name = str(dtype).replace("torch.", "")
-        print(f"[IN64 K2] B={b} T={t} H={h} d={d} {name}: max abs err dq {errs[0]:.3g} (tol "
-              f"{tols[0]:.3g}), dk {errs[1]:.3g} (tol {tols[1]:.3g}), dv {errs[2]:.3g} (tol "
-              f"{tols[2]:.3g}); two runs bit-identical: {same}; {_fmt_times(times)}")
-        _check(all(e <= tol for e, tol in zip(errs, tols)),
-               f"K2 disagrees with the plain version at {(b, t, h, d, name)}")
-        _check(same, f"K2 is not deterministic at {(b, t, h, d, name)}")
-        if main is None:  # the first shape is the AMED path's costliest
-            main = _backward_main(errs, times, b, t, h, d, dtype)
-    torch.cuda.empty_cache()
-    return main
+    return _k2_checks("IN64 K2", IN64_K2_SHAPES, _qkv_views, seed=4)
 
 
 def _in64_inputs(n: int, device="cuda"):
@@ -762,6 +842,61 @@ def _in64_inputs(n: int, device="cuda"):
     x = stacked_randn(range(n), (64, 64, 3), device=device) * sigma[:, None, None, None]
     labels = F.one_hot(torch.arange(n, device=device) * 97 % 1000, 1000).float()
     return x, sigma, labels
+
+
+def _plain_vs_kernels(tag: str, plain_patches, forward=None, per_forward: dict = None,
+                      grads=None, per_backward: dict = None) -> None:
+    """D (``forward``) and d sum(D g) / d(x, sigma) (``grads``), each where
+    given, through the kernels against the same with ``plain_patches``
+    ((module, name, plain function) set in turn) at 1e-4 * max, and exactly
+    ``per_forward`` / ``per_backward`` launches."""
+    fns = {"D": forward, "grads": grads}
+    fns = {key: fn for key, fn in fns.items() if fn is not None}
+    got, counts = {}, {}
+    for key, fn in fns.items():
+        _reset_counts()
+        got[key] = fn()
+        counts[key] = _counts()
+    real = [(mod, name, getattr(mod, name)) for mod, name, _ in plain_patches]
+    try:
+        for mod, name, plain in plain_patches:
+            setattr(mod, name, plain)
+        want = {key: fn() for key, fn in fns.items()}
+    finally:
+        for mod, name, fn in real:
+            setattr(mod, name, fn)
+    torch.cuda.synchronize()
+    what = " + ".join(name for _, name, _ in plain_patches)
+    pairs = []
+    if forward is not None:
+        pairs.append(("D", got["D"], want["D"]))
+    if grads is not None:
+        pairs += [("d sum(D * g) / dx", got["grads"][0], want["grads"][0]),
+                  ("d sum(D * g) / dsigma", got["grads"][1], want["grads"][1])]
+    for name, g, w in pairs:
+        err = (g - w).abs().max().item()
+        bound = 1e-4 * w.abs().max().item()
+        print(f"[{tag}] {name}: max {w.abs().max().item():.4g}, kernels vs plain {what} max abs "
+              f"err {err:.3g} (tol 1e-4 * max = {bound:.3g})")
+        _check(torch.isfinite(g).all().item(), f"{tag}: {name} is not finite")
+        _check(err <= bound, f"{tag}: {name} with the kernels disagrees with the plain versions")
+    for key, want_counts in (("D", per_forward), ("grads", per_backward)):
+        if key in counts:
+            print(f"[{tag}] launches in one {'forward' if key == 'D' else 'forward + backward'}: "
+                  f"{counts[key]}")
+            _check(counts[key] == _only(**want_counts), f"{tag}: launches {counts[key]}, "
+                   f"expected {want_counts} and no other")
+
+
+def _plain_net_patches(module):
+    """The plain attention and the plain GroupNorm in place of K1 + K2 and K3
+    in the layers of ``module`` (``models.layers`` or ``models.adm``)."""
+    return [(module, "sdpa", _plain_sdpa),
+            (module, "groupnorm_silu", G.reference_groupnorm_silu)]
+
+
+def _plain_sdpa(q, k, v, scale=None):
+    return A.reference_sdpa(q, k, v, scale)[0]
 
 
 def phase_in64_denoiser_and_gradient() -> None:
@@ -777,49 +912,15 @@ def phase_in64_denoiser_and_gradient() -> None:
         with torch.no_grad():
             return module(x0, sigma0, labels)
 
-    def grads():
-        x, sigma = x0.clone().requires_grad_(), sigma0.clone().requires_grad_()
-        (module(x, sigma, labels) * cot).sum().backward()
-        return x.grad, sigma.grad
-
-    real_sdpa = layers.sdpa
-    plain_sdpa = lambda q, k, v, scale=None: A.reference_sdpa(q, k, v, scale)[0]  # noqa: E731
-    _reset_counts()
-    d_kernel = forward()
-    fwd_counts = _counts()
-    _reset_counts()
-    gx, gs = grads()
-    bwd_counts = _counts()
-    layers.sdpa = plain_sdpa
-    try:
-        d_plain = forward()
-        px, ps = grads()
-    finally:
-        layers.sdpa = real_sdpa
-    torch.cuda.synchronize()
-    err = (d_kernel - d_plain).abs().max().item()
-    bound = 1e-4 * d_plain.abs().max().item()
     print(f"[IN64 D f32] full-width ImageNet-64 EDMPrecond (DhariwalUNet, "
           f"{sum(p.numel() for p in module.parameters()) / 1e6:.1f}M parameters), batch 8 with "
-          f"labels, sigma {sigma0.tolist()}: max|D| {d_plain.abs().max().item():.4g}, K1 vs "
-          f"plain attention max abs err {err:.3g} (tol 1e-4 * max|D| = {bound:.3g}); launches "
-          f"per forward {fwd_counts}")
-    _check(torch.isfinite(d_kernel).all().item(), "ImageNet-64 D is not finite")
-    _check(err <= bound, "ImageNet-64 D with K1 disagrees with the plain attention")
-    _check(fwd_counts == _only(k1=IN64_SITES),
-           f"launches in one ImageNet-64 forward: {fwd_counts}")
-    for name, got, want in (("x", gx, px), ("sigma", gs, ps)):
-        err = (got - want).abs().max().item()
-        bound = 1e-4 * want.abs().max().item()
-        print(f"[IN64 grad f32] d sum(D * g) / d{name}: max|grad| {want.abs().max().item():.4g}, "
-              f"K1+K2 vs plain attention max abs err {err:.3g} (tol 1e-4 * max|grad| = "
-              f"{bound:.3g})")
-        _check(torch.isfinite(got).all().item(), f"the ImageNet-64 gradient in {name} is not "
-                                                 "finite")
-        _check(err <= bound, f"the ImageNet-64 gradient in {name} with K2 disagrees")
-    print(f"[IN64 grad f32] launches in one forward + backward: {bwd_counts}")
-    _check(bwd_counts == _only(k1=IN64_SITES, dq=IN64_SITES, dkv=IN64_SITES),
-           f"launches in one ImageNet-64 forward + backward: {bwd_counts}")
+          f"labels, sigma {sigma0.tolist()}, K1 + K2 + K3 against plain attention and plain "
+          f"GroupNorm")
+    _plain_vs_kernels("IN64 D f32", _plain_net_patches(layers),
+                      forward=forward, per_forward=dict(k1=IN64_SITES, gn=IN64_GN_SITES),
+                      grads=_grads_fn(module, x0, sigma0, cot, labels),
+                      per_backward=dict(k1=IN64_SITES, dq=IN64_SITES, dkv=IN64_SITES,
+                                        gn=IN64_GN_SITES))
     del module
     torch.cuda.empty_cache()
 
@@ -828,11 +929,12 @@ def phase_in64_sampling():
     """Returns (K1 launches of the path, the bf16 module)."""
     module, _ = create_model("imagenet64", "random", dtype=torch.bfloat16, device="cuda")
     shape = (module.img_resolution, module.img_resolution, module.img_channels)
-    images, launches = _drive_sampling("IN64 main", bind(module), shape, IN64_SITES, "k1",
-                                       label_dim=module.label_dim)
+    images, counts, _ = _drive_sampling("IN64 main", bind(module), shape,
+                                        dict(k1=IN64_SITES, gn=IN64_GN_SITES),
+                                        label_dim=module.label_dim)
     _check_cli_pngs("IN64 main", ["--dataset_name=imagenet64", "--model_path=random",
                                   "--solver=ipndm", "--num_steps=6", "--bf16=True"], images)
-    return launches, module
+    return counts["k1"], module
 
 
 def phase_in64_amed(workdir: str) -> dict:
@@ -841,37 +943,43 @@ def phase_in64_amed(workdir: str) -> dict:
             f"--total_kimg={AMED_KIMG}", f"--afs={IN64_AMED_AFS}", "--device=cuda",
             f"--outdir={os.path.join(workdir, 'exps')}"]
     run_dir, cfg, counts = _train_amed("IN64 AMED", argv, batch_gpu=IN64_BATCH_GPU)
-    # per iteration and microbatch: the heun teacher 2 calls per fine step, M
-    # + 1 = 2 fine steps per segment; the amed student 2 calls per segment,
-    # less the first segment's first (AFS), the second one differentiated
-    segments = AMED_STEPS - 1
-    micro = AMED_ITERS * AMED_BATCH // IN64_BATCH_GPU
-    calls = 2 * 2 * segments + 2 * segments - (1 if IN64_AMED_AFS else 0)
-    want = _only(k1=IN64_SITES * calls * micro, dq=IN64_SITES * segments * micro,
-                 dkv=IN64_SITES * segments * micro)
+    want = _amed_counts(dict(k1=IN64_SITES, gn=IN64_GN_SITES), IN64_SITES, IN64_BATCH_GPU,
+                        IN64_AMED_AFS)
     print(f"[IN64 AMED] launches {counts}, expected {want}")
     _check(counts == want, "launch counts of the ImageNet-64 AMED training")
     _sample_with_predictor("IN64 AMED", "imagenet64", run_dir,
                            os.path.join(workdir, "in64_amed_samples"), (64, 64, 3),
-                           nfe=2 * segments - (1 if cfg.afs else 0), sites=IN64_SITES,
-                           kernel="k1")
+                           nfe=2 * (AMED_STEPS - 1) - (1 if cfg.afs else 0),
+                           per_call=dict(k1=IN64_SITES, gn=IN64_GN_SITES))
     return counts
 
 
-def phase_in64_profile(module) -> None:
-    """torch.profiler over one batch-256 bf16 forward of the sampling net."""
-    sigma = torch.full((BATCH,), 2.5, device="cuda")
-    x = stacked_randn(range(BATCH), (64, 64, 3), device="cuda") * 2.5
-    labels = F.one_hot(torch.arange(BATCH, device="cuda") % 1000, 1000).float()
+def _amed_counts(per_call: dict, sites: int, batch_gpu: int, afs: bool) -> dict:
+    """The launches of ``AMED_ITERS`` iterations at ``batch_gpu``: per
+    microbatch, the heun teacher 2 calls per fine step, M + 1 = 2 fine steps
+    per segment; the amed student 2 calls per segment, less the first
+    segment's first (AFS), the second one differentiated (one K2 pair per
+    attention site)."""
+    segments = AMED_STEPS - 1
+    micro = AMED_ITERS * AMED_BATCH // batch_gpu
+    calls = (2 * 2 * segments + 2 * segments - (1 if afs else 0)) * micro
+    return _only(**_per_calls(per_call, calls), dq=sites * segments * micro,
+                 dkv=sites * segments * micro)
+
+
+def _profile(tag: str, fn, want_calls: dict) -> dict:
+    """``torch.profiler`` over one call of ``fn`` after a warm-up call: prints
+    the device time by ``utils/profiling.py::CATEGORIES`` and checks the
+    kernel calls of ``want_calls`` ({category: calls})."""
     with torch.no_grad():
-        module(x, sigma, labels)  # warm-up
+        fn()  # warm-up
         torch.cuda.synchronize()
         activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start, end = _events()
         with torch.profiler.profile(activities=activities) as prof:
             t0 = time.perf_counter()
             start.record()
-            module(x, sigma, labels)
+            fn()
             end.record()
             torch.cuda.synchronize()
             host_s = time.perf_counter() - t0
@@ -880,17 +988,214 @@ def phase_in64_profile(module) -> None:
         prof.export_chrome_trace(path)
         with open(path) as f:
             out = device_breakdown(json.load(f)["traceEvents"])
-    print(f"[IN64 profile] one batch-{BATCH} bf16 forward under torch.profiler: CUDA events "
-          f"{start.elapsed_time(end):.3f} ms, host clock {host_s * 1e3:.3f} ms; device time "
-          f"{out['device_ms']:.3f} ms over a span of {out['span_ms']:.3f} ms, busy "
-          f"{out['busy_ms']:.3f} ms, idle share {out['idle_share']:.4f}")
+    print(f"[{tag}] under torch.profiler: CUDA events {start.elapsed_time(end):.3f} ms, host "
+          f"clock {host_s * 1e3:.3f} ms; device time {out['device_ms']:.3f} ms over a span of "
+          f"{out['span_ms']:.3f} ms, busy {out['busy_ms']:.3f} ms, idle share "
+          f"{out['idle_share']:.4f}")
     for name, c in sorted(out["categories"].items(), key=lambda kv: -kv[1]["ms"]):
-        print(f"[IN64 profile]   {name:<16} {c['ms']:>10.3f} ms  {c['share']:.4f}  "
-              f"{c['calls']} calls")
+        print(f"[{tag}]   {name:<16} {c['ms']:>10.3f} ms  {c['share']:.4f}  {c['calls']} calls")
     for name, ms in out["top"][:8]:
-        print(f"[IN64 profile]   top {ms:>10.3f} ms  {name[:140]}")
-    _check(out["categories"]["K1"]["calls"] == IN64_SITES,
-           f"the profile holds {out['categories']['K1']['calls']} K1 kernels")
+        print(f"[{tag}]   top {ms:>10.3f} ms  {name[:140]}")
+    for cat, calls in want_calls.items():
+        _check(out["categories"][cat]["calls"] == calls,
+               f"{tag}: the profile holds {out['categories'][cat]['calls']} {cat} kernels, "
+               f"expected {calls}")
+    return out
+
+
+def _with_plain_groupnorm(tag: str, fn, modules) -> None:
+    """The ms of one call of ``fn`` with K3 and with the plain GroupNorm (the
+    ``groupnorm_silu`` of ``modules`` swapped for ``reference_groupnorm_silu``),
+    CUDA events, in turns."""
+    def plain():
+        real = [(m, m.groupnorm_silu) for m in modules]
+        for m in modules:
+            m.groupnorm_silu = G.reference_groupnorm_silu
+        try:
+            return fn()
+        finally:
+            for m, f in real:
+                m.groupnorm_silu = f
+
+    with torch.no_grad():
+        times = _turns({"K3": fn, "plain": plain}, reps=3, warmup=1)
+    print(f"[{tag}] one call with K3 {times['K3']:.3f} ms, with the plain GroupNorm "
+          f"{times['plain']:.3f} ms (CUDA events, in turns)")
+
+
+def phase_in64_profile(module) -> None:
+    """torch.profiler over one batch-256 bf16 forward of the sampling net."""
+    sigma = torch.full((BATCH,), 2.5, device="cuda")
+    x = stacked_randn(range(BATCH), (64, 64, 3), device="cuda") * 2.5
+    labels = F.one_hot(torch.arange(BATCH, device="cuda") % 1000, 1000).float()
+    tag = f"IN64 profile, one batch-{BATCH} bf16 forward"
+    # K3 is three CUDA kernels per launch: statistics, finalize, apply
+    _profile(tag, lambda: module(x, sigma, labels), {"K1": IN64_SITES, "K3": 3 * IN64_GN_SITES})
+    _with_plain_groupnorm(tag, lambda: module(x, sigma, labels), [layers])
+
+
+def phase_groupnorm_kernel() -> dict:
+    """K3 against its plain version at ``GN_SHAPES``; returns the
+    kernels-line fields of the first (main) shape."""
+    g = torch.Generator("cuda").manual_seed(7)
+    main = None
+    for n, h, w, c, dtype, eps, silu in GN_SHAPES:
+        x = (torch.randn(n, h, w, c, generator=g, device="cuda") * 3 + 1).to(dtype)
+        scale = 1 + 0.5 * torch.randn(c, generator=g, device="cuda")
+        bias = torch.randn(c, generator=g, device="cuda")
+        kw = dict(groups=32, eps=eps, apply_silu=silu)
+        got = G.groupnorm_silu(x, scale, bias, **kw)
+        again = G.groupnorm_silu(x, scale, bias, **kw)
+        ref = G.reference_groupnorm_silu(x, scale, bias, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = GN_TOL[dtype] * max(1.0, ref.float().abs().max().item())
+        same = torch.equal(got, again)
+        del got, again, ref
+        x_nchw = x.permute(0, 3, 1, 2)  # channels-last memory, as cuDNN takes it
+        sc, bi = scale.to(dtype), bias.to(dtype)
+
+        def library():
+            y = F.group_norm(x_nchw, 32, sc, bi, eps)
+            return F.silu(y) if silu else y
+
+        times = _turns({"kernel": lambda: G.groupnorm_silu(x, scale, bias, **kw),
+                        "plain": lambda: G.reference_groupnorm_silu(x, scale, bias, **kw),
+                        "library": library}, reps=10, warmup=2)
+        bound_ms, bound_by = _groupnorm_bound(n, h, w, c, dtype, silu)
+        name = str(dtype).replace("torch.", "")
+        nbytes = 2 * x.numel() * x.element_size()
+        print(f"[K3] [{n}, {h}, {w}, {c}] {name} eps {eps:g} silu {silu} (group size "
+              f"{c // 32}): max abs err {err:.3g} (tol {tol:.3g}); two runs bit-identical: "
+              f"{same}; K3 {times['kernel']:.4f} ms ({nbytes / times['kernel'] / 1e6:.1f} GB/s "
+              f"of x read + out written), plain {times['plain']:.4f} ms, F.group_norm"
+              f"{' + F.silu' if silu else ''} {times['library']:.4f} ms, bound {bound_ms:.4f} "
+              f"ms ({bound_by})")
+        _check(err <= tol, f"K3 disagrees with the plain version at {(n, h, w, c, name)}")
+        _check(same, f"K3 is not deterministic at {(n, h, w, c, name)}")
+        if main is None:
+            main = dict(max_abs_err=err, ms=times["kernel"], plain_ms=times["plain"],
+                        library_ms=times["library"], bound_ms=bound_ms, bound_by=bound_by)
+        del x, x_nchw
+    torch.cuda.empty_cache()
+    return main
+
+
+def phase_ldm_attention_kernels() -> tuple:
+    """K1 at the LDM's attention shapes and K2 at K2b's and K2p's, on the
+    legacy views; returns the K2 fields at K2b's shape."""
+    _k1_checks("LDM K1", LDM_K1_SHAPES, _legacy_views, seed=8, reps=5, warmup=2)
+    return _k2_checks("LDM K2", LDM_K2_SHAPES, _legacy_views, seed=9)
+
+
+def phase_ldm_denoiser_and_gradient() -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pre, _ = create_model(LDM, "random", device="cuda")
+    unet = pre.latent_diffusion.unet
+    _redraw_unit_scale(unet, seed=1)
+    pre.latent_diffusion.requires_grad_(False)
+    sigma0 = torch.tensor([pre.sigma_max, 10.0, 1.0, 0.1] * 2, device="cuda")
+    x0 = stacked_randn(range(8), LDM_LATENT, device="cuda") * sigma0[:, None, None, None]
+    cot = stacked_randn(range(100, 108), LDM_LATENT, device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            return pre(x0, sigma0)
+
+    print(f"[LDM D f32] full-width LSUN-Bedroom LDM U-Net "
+          f"({sum(p.numel() for p in unet.parameters()) / 1e6:.1f}M parameters) under its "
+          f"CFGPrecond, batch 8, sigma {[round(s, 4) for s in sigma0.tolist()]}, K1 + K2 + K3 "
+          f"against plain attention and plain GroupNorm")
+    _plain_vs_kernels("LDM D f32", _plain_net_patches(adm),
+                      forward=forward, per_forward=dict(k1=LDM_SITES, gn=LDM_GN_SITES),
+                      grads=_grads_fn(pre, x0, sigma0, cot),
+                      per_backward=dict(k1=LDM_SITES, dq=LDM_SITES, dkv=LDM_SITES,
+                                        gn=LDM_GN_SITES))
+    del pre, unet
+    torch.cuda.empty_cache()
+
+
+def phase_ldm_sampling():
+    """Returns (K3 launches of the path, the bf16 CFGPrecond)."""
+    # torch's default precision flags, as a user runs the CLI: the f32 decode
+    # takes TF32 convs
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pre, _ = create_model(LDM, "random", dtype=torch.bfloat16, device="cuda")
+    latents, counts, sample_s = _drive_sampling(
+        "LDM main", bind(pre), LDM_LATENT, dict(k1=LDM_SITES, gn=LDM_GN_SITES),
+        batch=LDM_BATCH, nfe_steps=LDM_NFE_STEPS, schedule=("discrete", 1.0))
+    ld = pre.latent_diffusion
+    ld.decode_in_chunks(latents[:DECODE_CHUNK])  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    start, end = _events()
+    t0 = time.perf_counter()
+    start.record()
+    images = ld.decode_in_chunks(latents, chunk=DECODE_CHUNK)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    decode_s = start.elapsed_time(end) / 1000
+    decode_counts = _counts()
+    chunks = LDM_BATCH // DECODE_CHUNK
+    print(f"[LDM main] VQ decode of {LDM_BATCH} latents to {LDM_IMAGE[0]}x{LDM_IMAGE[1]}, "
+          f"{chunks} chunks of {DECODE_CHUNK}, f32: {decode_s:.4f} s CUDA events (host clock "
+          f"{host_s:.4f} s), launches {decode_counts}; images/s at NFE "
+          f"{LDM_NFE_STEPS[0][0]}: {LDM_BATCH / sample_s:.2f} without the decode, "
+          f"{LDM_BATCH / (sample_s + decode_s):.2f} with it")
+    _check(images.shape == (LDM_BATCH, *LDM_IMAGE) and np.isfinite(images).all(),
+           f"LDM decode: images not finite or of shape {images.shape}")
+    _check(decode_counts == _only(gn=DECODE_GN_SITES * chunks),
+           f"LDM decode: launches {decode_counts}")
+    _check_cli_pngs("LDM main", [f"--dataset_name={LDM}", "--model_path=random",
+                                 "--solver=ipndm", f"--num_steps={LDM_NFE_STEPS[0][1]}",
+                                 "--bf16=True"], images, batch=LDM_BATCH)
+    return counts["gn"] + decode_counts["gn"], pre
+
+
+def phase_ldm_amed(workdir: str) -> tuple:
+    """Returns (the counts of the training, its K2 dQ and dK/dV launches at
+    T=1024 H=14, as the wrappers counted them by shape)."""
+    argv = [f"--dataset_name={LDM}", "--model_path=random", f"--batch={AMED_BATCH}",
+            f"--batch_gpu={LDM_BATCH_GPU}", f"--num_steps={AMED_STEPS}",
+            f"--total_kimg={AMED_KIMG}", f"--afs={LDM_AMED_AFS}", "--device=cuda",
+            f"--outdir={os.path.join(workdir, 'exps')}"]
+    run_dir, cfg, counts = _train_amed("LDM AMED", argv, batch_gpu=LDM_BATCH_GPU)
+    by_shape = {"dq": dict(A.flash_attention_bwd_dq.launches_by_shape),
+                "dkv": dict(A.flash_attention_bwd_dkv.launches_by_shape)}
+    want = _amed_counts(dict(k1=LDM_SITES, gn=LDM_GN_SITES), LDM_SITES, LDM_BATCH_GPU,
+                        LDM_AMED_AFS)
+    micro = AMED_ITERS * AMED_BATCH // LDM_BATCH_GPU
+    want_shapes = {(t, h): n * (AMED_STEPS - 1) * micro
+                   for (t, h), n in zip(LDM_LEVELS, (5, 5, 6))}
+    print(f"[LDM AMED] launches {counts}, expected {want}; K2 launches by (T, H) {by_shape}, "
+          f"expected {want_shapes} for each kernel")
+    _check(counts == want, "launch counts of the LDM AMED training")
+    _check(by_shape["dq"] == want_shapes and by_shape["dkv"] == want_shapes,
+           "K2 launches by shape in the LDM AMED training")
+    _sample_with_predictor("LDM AMED", LDM, run_dir, os.path.join(workdir, "ldm_amed_samples"),
+                           LDM_LATENT, nfe=2 * (AMED_STEPS - 1) - (1 if cfg.afs else 0),
+                           per_call=dict(k1=LDM_SITES, gn=LDM_GN_SITES), batch=LDM_BATCH,
+                           image_shape=LDM_IMAGE,
+                           decode=dict(gn=DECODE_GN_SITES * (LDM_BATCH // DECODE_CHUNK)))
+    return counts, {name: by_shape[name].get((1024, 14), 0) for name in by_shape}
+
+
+def phase_ldm_profile(pre) -> None:
+    """torch.profiler over one batch-64 bf16 U-Net forward (through the
+    CFGPrecond) and one batch-16 f32 VQ decode."""
+    sigma = torch.full((LDM_BATCH,), 2.5, device="cuda")
+    x = stacked_randn(range(LDM_BATCH), LDM_LATENT, device="cuda") * 2.5
+    tag = f"LDM profile, one batch-{LDM_BATCH} bf16 U-Net forward"
+    _profile(tag, lambda: pre(x, sigma), {"K1": LDM_SITES, "K3": 3 * LDM_GN_SITES})
+    _with_plain_groupnorm(tag, lambda: pre(x, sigma), [adm])
+    z = stacked_randn(range(DECODE_CHUNK), LDM_LATENT, device="cuda")
+    tag = f"LDM profile, one batch-{DECODE_CHUNK} f32 VQ decode"
+    decode = lambda: pre.latent_diffusion.decode_first_stage(z)  # noqa: E731
+    _profile(tag, decode, {"K3": 3 * DECODE_GN_SITES})
+    _with_plain_groupnorm(tag, decode, [adm])
 
 
 def _kernel_entry(name, source, replaces, launches, fields) -> dict:
@@ -899,34 +1204,64 @@ def _kernel_entry(name, source, replaces, launches, fields) -> dict:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
 
 
+_CLOCKS = ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,temperature.gpu,"
+           "power.draw,clocks_throttle_reasons.active", "--format=csv,noheader"]
+
+
+def _phase(label: str, fn, *args):
+    """Run one phase and print its seconds on the host clock, then the
+    card's SM / max SM / memory clocks, temperature, power draw and active
+    throttle reasons as nvidia-smi reads them just after."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    print(f"[time] {label}: {time.perf_counter() - t0:.2f} s; card after it: {_run(_CLOCKS)}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    smi = phase_environment()
-    phase_build()
-    k1 = phase_kernel()
-    phase_denoiser_f32()
-    launches = phase_main_path()
-    k2 = phase_backward_kernel()
-    phase_gradient_f32()
+    t_start = time.perf_counter()
+    smi = _phase("phase 1, environment", phase_environment)
+    _phase("phase 2, build", phase_build)
+    k1 = _phase("phase 3, K1 at the CIFAR-10 shapes", phase_kernel)
+    _phase("phase 4, CIFAR-10 D f32", phase_denoiser_f32)
+    launches = _phase("phase 5, CIFAR-10 sampling", phase_main_path)
+    k2 = _phase("phase 6, K2 at the CIFAR-10 shapes", phase_backward_kernel)
+    _phase("phase 7, CIFAR-10 gradient f32", phase_gradient_f32)
     with tempfile.TemporaryDirectory() as workdir:
-        amed = phase_amed(workdir)
-    in64_k1 = phase_in64_kernel()
-    in64_k2 = phase_in64_backward_kernel()
-    phase_in64_denoiser_and_gradient()
-    in64_launches, module = phase_in64_sampling()
-    phase_in64_profile(module)
+        amed = _phase("phase 8, CIFAR-10 AMED", phase_amed, workdir)
+    in64_k1 = _phase("phase 9, K1 at the ImageNet-64 shapes", phase_in64_kernel)
+    in64_k2 = _phase("phase 10, K2 at the ImageNet-64 shapes", phase_in64_backward_kernel)
+    _phase("phase 11, ImageNet-64 D and gradient f32", phase_in64_denoiser_and_gradient)
+    in64_launches, module = _phase("phase 12, ImageNet-64 sampling", phase_in64_sampling)
+    _phase("phase 14, ImageNet-64 profile", phase_in64_profile, module)
     del module
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
-        in64_amed = phase_in64_amed(workdir)
+        in64_amed = _phase("phase 13, ImageNet-64 AMED", phase_in64_amed, workdir)
+    k3 = _phase("phase 15, K3 at the LSUN LDM, CIFAR-10 and ImageNet-64 shapes", phase_groupnorm_kernel)
+    k2b = _phase("phase 16, K1 / K2 at the LSUN LDM shapes", phase_ldm_attention_kernels)
+    _phase("phase 17, LSUN LDM D and gradient f32", phase_ldm_denoiser_and_gradient)
+    k3_launches, pre = _phase("phase 18, LSUN LDM sampling and decode", phase_ldm_sampling)
+    _phase("phase 20, LSUN LDM profile", phase_ldm_profile, pre)
+    del pre
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        ldm_amed, k2b_launches = _phase("phase 19, LSUN LDM AMED", phase_ldm_amed, workdir)
     for name, n in (("K1", launches), ("K2 dQ", amed["dq"]), ("K2 dK/dV", amed["dkv"]),
                     ("K1 on ImageNet-64", in64_launches),
                     ("K2 dQ on ImageNet-64", in64_amed["dq"]),
-                    ("K2 dK/dV on ImageNet-64", in64_amed["dkv"])):
+                    ("K2 dK/dV on ImageNet-64", in64_amed["dkv"]),
+                    ("K3 on the LSUN LDM", k3_launches),
+                    ("K2 dQ on the LSUN LDM at T=1024", k2b_launches["dq"]),
+                    ("K2 dK/dV on the LSUN LDM at T=1024", k2b_launches["dkv"])):
         _check(n > 0, f"{name} was not launched on its path")
+    print(f"[time] whole run: {time.perf_counter() - t_start:.2f} s")
     print(smi)
     fwd, bwd = ("diff_sampler_tpu_torch/csrc/flash_attn_fwd.cu",
                 "diff_sampler_tpu_torch/csrc/flash_attn_bwd.cu")
@@ -944,6 +1279,14 @@ def main() -> int:
                       "path)", bwd, f"{tpu}:441", in64_amed["dq"], in64_k2["dq"]),
         _kernel_entry("flash_attention_bwd_dkv at d=64 (K2 dK/dV in place of K2p, ImageNet-64 "
                       "path)", bwd, f"{tpu}:491", in64_amed["dkv"], in64_k2["dkv"]),
+        _kernel_entry("flash_attention_bwd_dq at T=1024 H=14 d=32 (K2 dQ in place of K2b, "
+                      "LSUN LDM AMED path)", bwd, f"{tpu}:699", k2b_launches["dq"], k2b["dq"]),
+        _kernel_entry("flash_attention_bwd_dkv at T=1024 H=14 d=32 (K2 dK/dV in place of K2b, "
+                      "LSUN LDM AMED path)", bwd, f"{tpu}:757", k2b_launches["dkv"],
+                      k2b["dkv"]),
+        _kernel_entry("groupnorm_silu (K3, fused GroupNorm + affine + SiLU, LSUN LDM sampling "
+                      "and decode)", "diff_sampler_tpu_torch/csrc/groupnorm.cu",
+                      "diff_sampler_tpu/ops/pallas_groupnorm.py:29", k3_launches, k3),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -99,6 +99,9 @@ def _declare(lib) -> None:
     lib.dst_flash_attn_bwd_dq.restype = i
     lib.dst_flash_attn_bwd_dkv.argtypes = [p] * 8 + [i] * 4 + [ll] * 16 + [ctypes.c_float, i, p]
     lib.dst_flash_attn_bwd_dkv.restype = i
+    # x, scale, bias, out, scratch; n, hw, c, groups, rows; eps; silu, vec, dtype
+    lib.dst_groupnorm_silu.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float] + [i] * 3 + [p]
+    lib.dst_groupnorm_silu.restype = i
     lib.dst_error_string.argtypes = [i]
     lib.dst_error_string.restype = ctypes.c_char_p
 

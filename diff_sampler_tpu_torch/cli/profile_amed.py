@@ -6,7 +6,7 @@ Builds the CIFAR-10 net (random weights, f32) and the trainer with
 ``cli.train_amed.build_trainer`` at the CLI's defaults (batch 512, 4 steps),
 runs two iterations, then one more under ``torch.profiler`` (CPU and CUDA
 activities).  Prints the iteration's host clock and CUDA-event time,
-sec/kimg, peak memory, the kernel launch counts of K1 and K2, and the device
+sec/kimg, peak memory, the kernel launch counts of K1, K2 and K3, and the device
 time by category (``utils.profiling.CATEGORIES``: kernels sorted by name),
 with the idle share and the costliest kernels.  The last line is the same
 as one JSON object.
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops import attention as A
+from ..ops import groupnorm as G
 from ..training.amed import AMEDConfig
 from ..utils.profiling import device_breakdown
 from ..utils.rng import stacked_randn
@@ -33,7 +34,7 @@ WARMUP = 2  # iterations before the profiled one: cuDNN plans, the allocator
 
 def _launches():
     return {"K1": A.flash_attention_mh.launches, "K2 dQ": A.flash_attention_bwd_dq.launches,
-            "K2 dK/dV": A.flash_attention_bwd_dkv.launches}
+            "K2 dK/dV": A.flash_attention_bwd_dkv.launches, "K3": G.groupnorm_silu.launches}
 
 
 def main() -> dict:

@@ -1,11 +1,19 @@
 """Sampling CLI of the port: seeds -> per-seed PNGs.
 
 Counterpart of ``diff_sampler_tpu/cli/sample.py`` for the pixel EDM tier
-with random weights, on the poly-7 schedule:
+and the unconditional latent tier, with random weights:
 
   python -m diff_sampler_tpu_torch.cli.sample --dataset_name=cifar10 \\
       --model_path=random --solver=ipndm --num_steps=6 --seeds=0-255 \\
       --batch=256 --bf16=True --device=cuda --outdir=out/
+  python -m diff_sampler_tpu_torch.cli.sample --dataset_name=lsun_bedroom_ldm \\
+      --model_path=random --solver=ipndm --num_steps=6 --seeds=0-63 \\
+      --bf16=True --device=cuda --outdir=out/
+
+The pixel tiers default to the poly-7 schedule.  A latent tier samples 64x64
+latents on the model's ``discrete`` schedule (rho 1) in place of that
+default, then decodes them through its VQ first stage, 16 at a time in f32,
+to 256x256 PNGs.
 
 A class-conditional net (``--dataset_name=imagenet64``) samples each seed
 with its own random class label, as the JAX CLI does.  With ``--predictor``
@@ -14,8 +22,9 @@ under ``./exps``) it samples with the trained AMED predictor instead, and
 every solver setting comes from the predictor's config sidecar; the net is
 bound without labels there, as the JAX CLI binds an EDM net for AMED.
 
-PNG writes for batch i run on the host while the device samples batch i+1
-(``sampling.generate``'s batch callback).
+PNG writes of a pixel tier's batch i run on the host while the device
+samples batch i+1 (``sampling.generate``'s batch callback); a latent tier
+writes after the decode.
 """
 
 from __future__ import annotations
@@ -26,8 +35,8 @@ import os
 import torch
 
 from ..models.convert import load_jax_params
-from ..models.factory import EDM_ARCHS, create_model
-from ..models.precond import bind
+from ..models.factory import EDM_ARCHS, LDM_CONFIGS, create_model
+from ..models.precond import CFGPrecond, bind
 from ..ops import get_schedule
 from ..sampling import SolverConfig, generate, generate_batches, to_uint8
 from ..solvers import SOLVER_REGISTRY
@@ -48,7 +57,8 @@ def _bool(s: str) -> bool:
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m diff_sampler_tpu_torch.cli.sample",
                                 description=__doc__.split("\n\n")[0])
-    p.add_argument("--dataset_name", required=True, choices=sorted(EDM_ARCHS))
+    p.add_argument("--dataset_name", required=True,
+                   choices=sorted(EDM_ARCHS) + sorted(LDM_CONFIGS))
     p.add_argument("--model_path", default="random",
                    help="'random' (seeded random weights); checkpoints are not ported yet")
     p.add_argument("--predictor", default=None,
@@ -78,11 +88,18 @@ def main(argv=None) -> None:
                      args.dataset_name, device)
         return
     den = bind(module)
-    cfg = SolverConfig(solver=args.solver, num_steps=args.num_steps)
+    # a latent tier samples on the model's discrete schedule
+    sched = dict(schedule_type="discrete", schedule_rho=1.0) if source == "ldm" else {}
+    cfg = SolverConfig(solver=args.solver, num_steps=args.num_steps, **sched)
     print(f"Solver: {args.solver} | NFE: {cfg.nfe()} | schedule: "
           f"{cfg.schedule_type}(rho={cfg.schedule_rho}) | source: {source} | "
           f"device: {device}")
     out_base = args.outdir or f"samples/{args.dataset_name}-{args.solver}-{args.num_steps}"
+    if source == "ldm":
+        latents = generate(den, seeds, shape, cfg, max_batch_size=args.max_batch_size,
+                           device=device)
+        _decode_and_save(module, latents, seeds, out_base)
+        return
 
     def save_batch(start, chunk):
         save_images(to_uint8(chunk), seeds[start:start + len(chunk)], out_base)
@@ -90,6 +107,14 @@ def main(argv=None) -> None:
     generate(den, seeds, shape, cfg, max_batch_size=args.max_batch_size, device=device,
              label_dim=module.label_dim, batch_callback=save_batch)
     print(f"Saved {len(seeds)} images to {out_base}")
+
+
+def _decode_and_save(module, latents, seeds, out_base):
+    """A latent tier's samples through its first stage to PNGs."""
+    images = module.latent_diffusion.decode_in_chunks(latents)
+    save_images(to_uint8(images), seeds, out_base)
+    print(f"Saved {len(seeds)} images ({images.shape[1]}x{images.shape[2]}, decoded) to "
+          f"{out_base}")
 
 
 def _resolve_snapshot(path_or_exp, outdir_base="./exps"):
@@ -120,7 +145,8 @@ def build_amed_sample_fn(module, predictor, device):
                            ckpt.load_params(npz)["params"]).eval()
     den_b = bind_with_bottleneck(module)
     t_steps = get_schedule(cfg.num_steps, cfg.sigma_min, cfg.sigma_max, cfg.schedule_type,
-                           cfg.schedule_rho)
+                           cfg.schedule_rho, sigma_fn=den_b.sigma_fn,
+                           sigma_inv_fn=den_b.sigma_inv_fn)
     sampler = AMED_SOLVER_REGISTRY[cfg.sampler_stu]
 
     @torch.no_grad()
@@ -138,6 +164,11 @@ def _amed_sample(module, predictor, seeds, shape, max_batch_size, outdir, datase
     print(f"AMED: student={cfg.sampler_stu} steps={cfg.num_steps} NFE={nfe} "
           f"(restored from predictor config) | device: {device}")
     out_base = outdir or f"samples/{dataset_name}-amed-{cfg.sampler_stu}"
+    if isinstance(module, CFGPrecond):
+        latents = generate_batches(lambda latents, _: sample_fn(latents), seeds, shape,
+                                   max_batch_size=max_batch_size, device=device)
+        _decode_and_save(module, latents, seeds, out_base)
+        return
 
     def save_batch(start, chunk):
         save_images(to_uint8(chunk), seeds[start:start + len(chunk)], out_base)

@@ -2,11 +2,14 @@
 
 Counterpart of ``diff_sampler_tpu/cli/train_amed.py`` for the pixel EDM tier
 (cifar10, ffhq, afhqv2, and the class-conditional imagenet64, whose net is
-bound without labels as in the JAX CLI), with the same options and
-defaults:
+bound without labels as in the JAX CLI) and the unconditional latent tier
+(lsun_bedroom_ldm, ffhq_ldm: trajectories of 64x64x3 latents, the bottleneck
+the U-Net's middle block), with the same options and defaults:
 
   python -m diff_sampler_tpu_torch.cli.train_amed --dataset_name=cifar10 \\
       --model_path=random --batch=512 --total_kimg=10 --device=cuda
+  python -m diff_sampler_tpu_torch.cli.train_amed --dataset_name=lsun_bedroom_ldm \\
+      --model_path=random --batch=512 --batch_gpu=128 --afs=True --device=cuda
 
 The run directory ``<outdir>/<id>-<desc>/`` gets ``predictor_config.json``
 (written after the model's sigma range is set: sampling restores every
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from ..models.convert import params_to_jax
-from ..models.factory import EDM_ARCHS, create_model, init_params
+from ..models.factory import EDM_ARCHS, LDM_CONFIGS, create_model, init_params
 from ..solvers.amed import bind_with_bottleneck
 from ..training.amed import AMEDConfig, make_amed_train_step, predictor_from_config
 from ..utils import checkpoint as ckpt
@@ -40,9 +43,7 @@ _LATER_TIERS = {
     "lsun_bedroom": "slice 3 (ADM/CM 256 px)",
     "lsun_cat": "slice 3 (ADM/CM 256 px)",
     "imagenet256": "slice 3 (ADM/CM 256 px)",
-    "lsun_bedroom_ldm": "slice 4 (LDM/SD)",
-    "ffhq_ldm": "slice 4 (LDM/SD)",
-    "ms_coco": "slice 4 (LDM/SD)",
+    "ms_coco": "slice 4 (Stable Diffusion)",
 }
 
 
@@ -50,7 +51,7 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m diff_sampler_tpu_torch.cli.train_amed",
                                 description=__doc__.split("\n\n")[0])
     p.add_argument("--dataset_name", required=True,
-                   choices=sorted(EDM_ARCHS) + sorted(_LATER_TIERS))
+                   choices=sorted(EDM_ARCHS) + sorted(LDM_CONFIGS) + sorted(_LATER_TIERS))
     p.add_argument("--guidance_type", choices=["cg", "cfg", "uncond"], default=None)
     p.add_argument("--guidance_rate", type=float, default=1.0)
     p.add_argument("--prompt_path", default=None)

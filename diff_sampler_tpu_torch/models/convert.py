@@ -9,9 +9,17 @@
   * ``enc_16x16_block0`` -> ``enc.16x16_block0`` (and ``dec_*`` alike)
 
 ``params_to_jax`` is its inverse, for modules the port trains (the AMED
-predictor), whose params the JAX package then loads.  The JAX params are
-nested dicts of numpy arrays (``np.asarray`` of each leaf of a Flax params
-tree), so this module needs no jax.
+predictor), whose params the JAX package then loads.
+
+``load_ldm_jax_params`` loads the JAX package's latent-diffusion param trees
+(``unet``, ``decoder``, ``post_quant_conv``, ``codebook``), whose modules are
+named by the reference's state_dict paths with '.' -> '_'
+(``diff_sampler_tpu/models/ldm.py::_mechanical``): it walks the port's own
+state_dict keys and looks each path up with its dots replaced, never
+splitting a JAX name on '_'.
+
+The JAX params are nested dicts of numpy arrays (``np.asarray`` of each leaf
+of a Flax params tree), so this module needs no jax.
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_jax", "load_jax_params", "absent_from_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "load_jax_params", "load_ldm_jax_params",
+           "absent_from_jax"]
 
 _SPLIT_PREFIXES = ("enc_", "dec_")
 # U-Net level names after the prefix: ``16x16_block0``, ``8x8_aux_norm``...
@@ -109,3 +118,48 @@ def load_jax_params(module: torch.nn.Module, params: Mapping[str, Any]) -> torch
         raise KeyError(f"JAX params do not match the module: missing {bad_missing}, "
                        f"unexpected {list(unexpected)}")
     return module
+
+
+def _unmechanical(node: Mapping[str, Any], leaf: str, ndim: int) -> np.ndarray:
+    """The torch tensor of one state_dict leaf from its JAX module's params:
+    HWIO kernels -> OIHW, (in, out) kernels -> (out, in), ``scale`` ->
+    ``weight``."""
+    if leaf != "weight":
+        return np.asarray(node[leaf], np.float32)
+    if ndim == 4:
+        return np.asarray(node["kernel"], np.float32).transpose(3, 2, 0, 1)
+    if ndim == 2:
+        return np.asarray(node["kernel"], np.float32).T
+    return np.asarray(node["scale"], np.float32)
+
+
+def load_ldm_jax_params(ld: torch.nn.Module, trees: Mapping[str, Any]) -> torch.nn.Module:
+    """Load the JAX package's LatentDiffusion param trees (``unet``,
+    ``decoder``, ``post_quant_conv``, ``codebook``) into the port's
+    ``models.ldm.LatentDiffusion`` in place.  Every state_dict key must be
+    found and every JAX module used."""
+    flat = {**{f"unet_{k}": v for k, v in trees["unet"].items()},
+            **{f"first_stage_decoder_{k}": v for k, v in trees["decoder"].items()},
+            "first_stage_post_quant_conv": trees["post_quant_conv"]}
+    sd, used, missing = {}, set(), []
+    for key, ref in ld.state_dict().items():
+        if key == "first_stage.codebook":
+            sd[key] = torch.from_numpy(np.array(trees["codebook"], np.float32))
+            continue
+        path, leaf = key.rsplit(".", 1)
+        name = path.replace(".", "_")
+        if name not in flat:
+            missing.append(key)
+            continue
+        used.add(name)
+        arr = _unmechanical(flat[name], leaf, ref.dim())
+        if arr.shape != tuple(ref.shape):
+            raise ValueError(f"{key}: JAX {name} gives {arr.shape}, the module has "
+                             f"{tuple(ref.shape)}")
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    unused = sorted(set(flat) - used)
+    if missing or unused:
+        raise KeyError(f"JAX params do not match the module: missing {missing}, "
+                       f"unused {unused}")
+    ld.load_state_dict(sd)
+    return ld

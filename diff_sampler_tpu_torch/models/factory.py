@@ -1,10 +1,13 @@
-"""Model factory: dataset name -> EDM denoiser module.
+"""Model factory: dataset name -> denoiser.
 
 Counterpart of ``diff_sampler_tpu/models/factory.py`` for the pixel EDM
-tier.  The architecture table is the JAX package's ``EDM_ARCHS`` (itself
-``sfd-main/training/training_loop.py:59-77``), repeated here because the
-port imports nothing of the JAX package.  The other model tiers and
-checkpoint loading come with later slices.
+tier and the unconditional latent tier (LSUN-Bedroom / FFHQ LDM).  The
+architecture tables are the JAX package's ``EDM_ARCHS`` (itself
+``sfd-main/training/training_loop.py:59-77``) and ``LDM_CONFIGS``, repeated
+here because the port imports nothing of the JAX package.  The ADM / CM and
+Stable Diffusion tiers and checkpoint loading come with later slices.  The
+JAX package's ``jit_params`` / ``bind_params`` routing of the big frozen nets
+works around its TPU compile service and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -13,9 +16,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from .precond import EDMPrecond
+from .ldm import LDM_CONFIGS, build_latent_diffusion
+from .precond import CFGPrecond, EDMPrecond
 
-__all__ = ["EDM_ARCHS", "build_edm_model", "create_model", "init_params"]
+__all__ = ["EDM_ARCHS", "build_edm_model", "build_ldm_model", "create_model", "init_params"]
 
 # dataset -> (interface kwargs, SongUNet / DhariwalUNet kwargs)
 EDM_ARCHS: Dict[str, Tuple[Dict[str, Any], Dict[str, Any]]] = {
@@ -65,14 +69,40 @@ def init_params(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     return module
 
 
-def create_model(dataset_name: str, model_path: Optional[str] = None, *,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
-    """Returns (module, model_source).  Only ``model_path='random'`` (freshly
-    initialised weights from seed 0) is ported so far."""
-    if dataset_name not in EDM_ARCHS:
-        raise NotImplementedError(
-            f"model tier for {dataset_name!r} is not ported yet; "
-            f"available: {sorted(EDM_ARCHS)}")
+def build_ldm_model(dataset_name: str, model_path: Optional[str] = "random", *,
+                    dtype: torch.dtype = torch.float32, device="cuda") -> CFGPrecond:
+    """An unconditional LDM checkpoint -> CFGPrecond over its LatentDiffusion
+    stack (``precond.latent_diffusion``), with sigma_min 0.006 as the
+    reference's training loop sets for LDM nets (sfd training_loop.py:94,
+    99).  ``dtype`` is the U-Net's compute dtype; the first stage runs in f32.
+    Only ``model_path='random'`` (seeded random weights) is ported so far."""
     if model_path != "random":
         raise NotImplementedError("checkpoint loading is not ported yet; use model_path='random'")
-    return init_params(build_edm_model(dataset_name, dtype=dtype, device=device)), "edm"
+    ld = build_latent_diffusion(dataset_name, dtype=dtype, device=device)
+    # the AMED tap: (eps, the middle block's output), as the JAX package's
+    # ``_capture_middle_lazy`` gives them
+    precond = CFGPrecond(
+        model_fn=lambda x, t, cond: ld.apply_model(x, t),
+        alphas_cumprod=ld.alphas_cumprod, img_resolution=ld.unet.image_size,
+        img_channels=ld.unet.in_channels, guidance_type="uncond", guidance_rate=1.0,
+        label_dim=0, model_fn_bottleneck=lambda x, t, cond: ld.unet(
+            x, t, return_bottleneck=True),
+        latent_diffusion=ld)
+    precond.sigma_min = 0.006
+    return precond
+
+
+def create_model(dataset_name: str, model_path: Optional[str] = None, *,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+    """Returns (module, model_source): an EDMPrecond and "edm", or a
+    CFGPrecond and "ldm".  Only ``model_path='random'`` (freshly initialised
+    weights from seed 0) is ported so far."""
+    if model_path != "random":
+        raise NotImplementedError("checkpoint loading is not ported yet; use model_path='random'")
+    if dataset_name in EDM_ARCHS:
+        return init_params(build_edm_model(dataset_name, dtype=dtype, device=device)), "edm"
+    if dataset_name in LDM_CONFIGS:
+        return build_ldm_model(dataset_name, model_path, dtype=dtype, device=device), "ldm"
+    raise NotImplementedError(
+        f"model tier for {dataset_name!r} is not ported yet; "
+        f"available: {sorted(EDM_ARCHS) + sorted(LDM_CONFIGS)}")

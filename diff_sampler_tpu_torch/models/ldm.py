@@ -1,0 +1,401 @@
+"""The unconditional latent-diffusion tier (LSUN-Bedroom / FFHQ LDM) on NHWC
+activations: the latent U-Net, the VQ first stage and the LatentDiffusion
+wrapper.
+
+Counterpart of ``diff_sampler_tpu/models/ldm.py`` on its legacy-attention
+branch: ``LDMUNet`` (with the AMED bottleneck tap, the middle block's
+output), the ``_VAEBase`` resnet and mid-attention, ``VAEDecoder``,
+``VQModel`` (nearest-codebook quantisation, then decode), ``LatentDiffusion``
+and the two unconditional ``LDM_CONFIGS``.  Stable Diffusion's spatial
+transformer, cross-attention, GEGLU, LayerNorm, the VAE encoders and
+``AutoencoderKL`` come with the SD slice.
+
+Module paths are the reference's torch state_dict names
+(``input_blocks.1.0.in_layers.0.weight``, ``mid.block_1.norm1.weight``,
+``up.2.upsample.conv.weight``), so the JAX package's flat param names are
+those paths with '.' -> '_' (``models.convert.load_ldm_jax_params``).  The
+VQ codebook is the parameter ``codebook`` (the reference's
+``quantize.embedding.weight``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .adm import _GN, _Conv, _Linear, legacy_attention, timestep_embedding
+
+__all__ = ["LDMUNet", "VAEDecoder", "VQModel", "LatentDiffusion", "LDM_CONFIGS",
+           "build_latent_diffusion", "linear_alphas_cumprod"]
+
+
+def linear_alphas_cumprod(linear_start: float, linear_end: float,
+                          timesteps: int = 1000) -> np.ndarray:
+    """ddpm.py register_schedule, 'linear': betas = linspace(sqrt(s), sqrt(e))^2."""
+    betas = np.linspace(linear_start ** 0.5, linear_end ** 0.5, timesteps,
+                        dtype=np.float64) ** 2
+    return np.cumprod(1.0 - betas)
+
+
+def _GN6(channels: int, device=None) -> _GN:
+    """The LDM modules' GroupNorm: 32 groups, eps 1e-6."""
+    return _GN(channels, eps=1e-6, device=device)
+
+
+def _upsample_nearest(x):
+    """2x nearest-neighbour upsampling of NHWC."""
+    n, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c)
+
+
+# ---------------------------------------------------------------------------
+# Latent U-Net (openaimodel.py UNetModel, legacy AttentionBlock branch)
+# ---------------------------------------------------------------------------
+
+
+class ResBlock(nn.Module):
+    """in_layers (GN, SiLU, conv), emb_layers (SiLU, linear), out_layers (GN,
+    SiLU, dropout, conv), skip_connection: the reference's indices name the
+    layers that hold parameters."""
+
+    def __init__(self, cin: int, cout: int, emb_dim: int, device=None):
+        super().__init__()
+        self.in_layers = nn.ModuleDict({"0": _GN(cin, device=device),
+                                        "2": _Conv(cin, cout, 3, device=device)})
+        self.emb_layers = nn.ModuleDict({"1": _Linear(emb_dim, cout, device=device)})
+        self.out_layers = nn.ModuleDict({"0": _GN(cout, device=device),
+                                         "3": _Conv(cout, cout, 3, device=device)})
+        self.skip_connection = _Conv(cin, cout, 1, device=device) if cin != cout else None
+
+    def forward(self, x, emb):
+        h = self.in_layers["2"](self.in_layers["0"](x, apply_silu=True))
+        h = h + self.emb_layers["1"](F.silu(emb))[:, None, None, :].to(h.dtype)
+        h = self.out_layers["3"](self.out_layers["0"](h, apply_silu=True))
+        return (self.skip_connection(x) if self.skip_connection is not None else x) + h
+
+
+class AttentionBlock(nn.Module):
+    """GroupNorm, 1x1 qkv conv, legacy multi-head attention, 1x1 proj_out,
+    residual."""
+
+    def __init__(self, ch: int, num_heads: int, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.norm = _GN(ch, device=device)
+        self.qkv = _Conv(ch, 3 * ch, 1, device=device)
+        self.proj_out = _Conv(ch, ch, 1, device=device)
+
+    def forward(self, x):
+        n, h, w, c = x.shape
+        a = self.qkv(self.norm(x)).reshape(n, h * w, 3 * c)
+        a = legacy_attention(a, self.num_heads)
+        return x + self.proj_out(a.reshape(n, h, w, c))
+
+
+class Downsample(nn.Module):
+    def __init__(self, ch: int, device=None):
+        super().__init__()
+        self.op = _Conv(ch, ch, 3, stride=2, device=device)
+
+    def forward(self, x):
+        return self.op(x)
+
+
+class Upsample(nn.Module):
+    def __init__(self, ch: int, device=None):
+        super().__init__()
+        self.conv = _Conv(ch, ch, 3, device=device)
+
+    def forward(self, x):
+        return self.conv(_upsample_nearest(x))
+
+
+def _run(block: nn.ModuleList, h, emb):
+    for layer in block:
+        h = layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
+    return h
+
+
+class LDMUNet(nn.Module):
+    """The latent U-Net: guided-diffusion skeleton with legacy attention
+    blocks at the downsample rates ``attention_resolutions``.
+
+    ``dtype`` is the compute dtype of the blocks (parameters stay f32 and are
+    cast per layer); the time embedding runs in f32, and the output norm and
+    conv in the input's dtype, as in the JAX module."""
+
+    def __init__(self, image_size: int, in_channels: int, out_channels: int,
+                 model_channels: int, num_res_blocks: int = 2,
+                 attention_resolutions: Sequence[int] = (4, 2, 1),
+                 channel_mult: Sequence[int] = (1, 2, 4, 4), num_heads: int = -1,
+                 num_head_channels: int = -1, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.image_size, self.in_channels, self.out_channels = image_size, in_channels, out_channels
+        self.model_channels = model_channels
+        self.dtype = dtype
+        cm = tuple(channel_mult)
+        emb_dim = model_channels * 4
+        dev = dict(device=device)
+
+        def heads(ch):  # openaimodel.py:542-556, legacy AttentionBlock branch
+            if num_head_channels == -1:
+                return num_heads
+            return ch // num_head_channels
+
+        self.time_embed = nn.ModuleDict({"0": _Linear(model_channels, emb_dim, **dev),
+                                         "2": _Linear(emb_dim, emb_dim, **dev)})
+        ch = model_channels * cm[0]
+        blocks = [nn.ModuleList([_Conv(in_channels, ch, 3, **dev)])]
+        input_chans, ds = [ch], 1
+        for level, mult in enumerate(cm):
+            for _ in range(num_res_blocks):
+                layers = [ResBlock(ch, model_channels * mult, emb_dim, **dev)]
+                ch = model_channels * mult
+                if ds in attention_resolutions:
+                    layers.append(AttentionBlock(ch, heads(ch), **dev))
+                blocks.append(nn.ModuleList(layers))
+                input_chans.append(ch)
+            if level != len(cm) - 1:
+                blocks.append(nn.ModuleList([Downsample(ch, **dev)]))
+                input_chans.append(ch)
+                ds *= 2
+        self.input_blocks = nn.ModuleList(blocks)
+        self.middle_block = nn.ModuleList([ResBlock(ch, ch, emb_dim, **dev),
+                                           AttentionBlock(ch, heads(ch), **dev),
+                                           ResBlock(ch, ch, emb_dim, **dev)])
+        blocks = []
+        for level, mult in list(enumerate(cm))[::-1]:
+            for i in range(num_res_blocks + 1):
+                layers = [ResBlock(ch + input_chans.pop(), model_channels * mult, emb_dim, **dev)]
+                ch = model_channels * mult
+                if ds in attention_resolutions:
+                    layers.append(AttentionBlock(ch, heads(ch), **dev))
+                if level and i == num_res_blocks:
+                    layers.append(Upsample(ch, **dev))
+                    ds //= 2
+                blocks.append(nn.ModuleList(layers))
+        self.output_blocks = nn.ModuleList(blocks)
+        self.out = nn.ModuleDict({"0": _GN(ch, **dev), "2": _Conv(ch, out_channels, 3, **dev)})
+
+    def forward(self, x, timesteps, *, return_bottleneck: bool = False):
+        """x: [N, H, W, C]; timesteps: [N].  Returns the output, or with
+        ``return_bottleneck`` (output, the middle block's output): the AMED
+        predictor's tap, which the reference takes with a forward hook."""
+        emb = timestep_embedding(timesteps, self.model_channels)
+        emb = self.time_embed["2"](F.silu(self.time_embed["0"](emb))).to(self.dtype)
+        h = x.to(self.dtype)
+        hs = []
+        for block in self.input_blocks:
+            h = _run(block, h, emb)
+            hs.append(h)
+        h = _run(self.middle_block, h, emb)
+        bottleneck = h
+        for block in self.output_blocks:
+            h = _run(block, torch.cat([h, hs.pop()], dim=-1), emb)
+        out = self.out["2"](self.out["0"](h.to(x.dtype), apply_silu=True))
+        if return_bottleneck:
+            return out, bottleneck
+        return out
+
+
+# ---------------------------------------------------------------------------
+# VQ first stage (modules/diffusionmodules/model.py, autoencoder.py)
+# ---------------------------------------------------------------------------
+
+
+class _VAEResnet(nn.Module):
+    def __init__(self, cin: int, cout: int, device=None):
+        super().__init__()
+        self.norm1 = _GN6(cin, device=device)
+        self.conv1 = _Conv(cin, cout, 3, device=device)
+        self.norm2 = _GN6(cout, device=device)
+        self.conv2 = _Conv(cout, cout, 3, device=device)
+        self.nin_shortcut = _Conv(cin, cout, 1, device=device) if cin != cout else None
+
+    def forward(self, x):
+        h = self.conv1(self.norm1(x, apply_silu=True))
+        h = self.conv2(self.norm2(h, apply_silu=True))
+        return (self.nin_shortcut(x) if self.nin_shortcut is not None else x) + h
+
+
+class _VAEAttn(nn.Module):
+    """Single-head attention over all positions (T = 4096, C = 512 in the
+    decoder's middle): outside any Pallas kernel in the JAX package, so plain
+    matmuls and an f32 softmax here."""
+
+    def __init__(self, c: int, device=None):
+        super().__init__()
+        self.norm = _GN6(c, device=device)
+        self.q = _Conv(c, c, 1, device=device)
+        self.k = _Conv(c, c, 1, device=device)
+        self.v = _Conv(c, c, 1, device=device)
+        self.proj_out = _Conv(c, c, 1, device=device)
+
+    def forward(self, x):
+        n, h, w, c = x.shape
+        hn = self.norm(x)
+        q, k, v = (m(hn).reshape(n, h * w, c) for m in (self.q, self.k, self.v))
+        logits = torch.bmm(q.float(), k.float().transpose(1, 2)) / math.sqrt(c)
+        wgt = torch.softmax(logits, dim=-1).to(x.dtype)
+        a = torch.bmm(wgt, v).reshape(n, h, w, c)
+        return x + self.proj_out(a)
+
+
+class VAEDecoder(nn.Module):
+    """model.py Decoder: conv_in, mid (resnet, attention, resnet), ``up``
+    levels from the lowest resolution, norm_out + SiLU, conv_out."""
+
+    def __init__(self, ch: int = 128, out_ch: int = 3, ch_mult: Sequence[int] = (1, 2, 4),
+                 num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
+                 resolution: int = 256, z_channels: int = 3, device=None):
+        super().__init__()
+        dev = dict(device=device)
+        n_res = len(ch_mult)
+        block_in = ch * ch_mult[-1]
+        curr_res = resolution // 2 ** (n_res - 1)
+        self.conv_in = _Conv(z_channels, block_in, 3, **dev)
+        self.mid = nn.ModuleDict({"block_1": _VAEResnet(block_in, block_in, **dev),
+                                  "attn_1": _VAEAttn(block_in, **dev),
+                                  "block_2": _VAEResnet(block_in, block_in, **dev)})
+        up = [None] * n_res
+        for i_level in reversed(range(n_res)):
+            block_out = ch * ch_mult[i_level]
+            blocks, attns = [], []
+            for _ in range(num_res_blocks + 1):
+                blocks.append(_VAEResnet(block_in, block_out, **dev))
+                block_in = block_out
+                if curr_res in attn_resolutions:
+                    attns.append(_VAEAttn(block_in, **dev))
+            level = nn.ModuleDict({"block": nn.ModuleList(blocks), "attn": nn.ModuleList(attns)})
+            if i_level != 0:
+                level["upsample"] = Upsample(block_in, **dev)
+                curr_res *= 2
+            up[i_level] = level
+        self.up = nn.ModuleList(up)
+        self.norm_out = _GN6(block_in, **dev)
+        self.conv_out = _Conv(block_in, out_ch, 3, **dev)
+
+    def forward(self, z):
+        h = self.conv_in(z)
+        h = self.mid["block_2"](self.mid["attn_1"](self.mid["block_1"](h)))
+        for level in reversed(self.up):
+            for i, block in enumerate(level["block"]):
+                h = block(h)
+                if len(level["attn"]):
+                    h = level["attn"][i](h)
+            if "upsample" in level:
+                h = level["upsample"](h)
+        return self.conv_out(self.norm_out(h, apply_silu=True))
+
+
+class VQModel(nn.Module):
+    """The VQ autoencoder's decode path: nearest-codebook quantisation
+    (VectorQuantizer2), post_quant_conv, decoder (VQModelInterface.decode
+    with force_not_quantize=False, as the JAX package's default)."""
+
+    def __init__(self, decoder: VAEDecoder, n_embed: int, embed_dim: int, device=None):
+        super().__init__()
+        self.decoder = decoder
+        self.post_quant_conv = _Conv(embed_dim, embed_dim, 1, device=device)
+        self.codebook = nn.Parameter(torch.empty(n_embed, embed_dim, device=device))
+
+    def quantize(self, z):
+        """The nearest codebook entry at every position of z [..., D], in f32."""
+        e = self.codebook.float()
+        zf = z.float().reshape(-1, z.shape[-1])
+        d = zf.square().sum(1, keepdim=True) - 2.0 * zf @ e.T + e.square().sum(1)[None]
+        return e[torch.argmin(d, dim=1)].reshape(z.shape)
+
+    def decode(self, z):
+        return self.decoder(self.post_quant_conv(self.quantize(z)))
+
+
+class LatentDiffusion(nn.Module):
+    """The pieces of an unconditional VQ LatentDiffusion (ddpm.py) that
+    sampling uses: the eps-predicting U-Net (``apply_model``), the first
+    stage (``decode_first_stage``) and the linear-beta ``alphas_cumprod``
+    table.  A VQ first stage decodes its latents as they are (the KL one's
+    ``scale_factor`` comes with the SD slice)."""
+
+    def __init__(self, unet: LDMUNet, first_stage: VQModel, alphas_cumprod: np.ndarray):
+        super().__init__()
+        self.unet = unet
+        self.first_stage = first_stage
+        self.alphas_cumprod = np.asarray(alphas_cumprod, np.float64)
+
+    def apply_model(self, x, t):
+        return self.unet(x, t)
+
+    def decode_first_stage(self, z):
+        return self.first_stage.decode(z)
+
+    @torch.no_grad()
+    def decode_in_chunks(self, latents: np.ndarray, chunk: int = 16) -> np.ndarray:
+        """Decode latents [N, h, w, c] (numpy) ``chunk`` at a time in f32 on
+        the module's device; returns images [N, H, W, 3] f32 numpy."""
+        device = self.first_stage.codebook.device
+        return np.concatenate([
+            self.decode_first_stage(torch.from_numpy(np.asarray(latents[i:i + chunk],
+                                                                np.float32)).to(device))
+            .float().cpu().numpy() for i in range(0, len(latents), chunk)])
+
+
+# models/ldm/configs/**.yaml: the unconditional LDM-4 (VQ-f4) nets
+LDM_CONFIGS = {
+    "lsun_bedroom_ldm": dict(
+        linear_start=0.0015, linear_end=0.0195, timesteps=1000,
+        scale_factor=1.0, conditioning_key=None, first_stage="vq",
+        unet=dict(image_size=64, in_channels=3, out_channels=3,
+                  model_channels=224, attention_resolutions=(8, 4, 2),
+                  num_res_blocks=2, channel_mult=(1, 2, 3, 4),
+                  num_head_channels=32),
+        vae=dict(z_channels=3, resolution=256, ch=128, ch_mult=(1, 2, 4),
+                 num_res_blocks=2, attn_resolutions=()),
+        n_embed=8192, embed_dim=3,
+    ),
+    "ffhq_ldm": dict(
+        linear_start=0.0015, linear_end=0.0195, timesteps=1000,
+        scale_factor=1.0, conditioning_key=None, first_stage="vq",
+        unet=dict(image_size=64, in_channels=3, out_channels=3,
+                  model_channels=224, attention_resolutions=(8, 4, 2),
+                  num_res_blocks=2, channel_mult=(1, 2, 3, 4),
+                  num_head_channels=32),
+        vae=dict(z_channels=3, resolution=256, ch=128, ch_mult=(1, 2, 4),
+                 num_res_blocks=2, attn_resolutions=()),
+        n_embed=8192, embed_dim=3,
+    ),
+}
+
+
+def build_latent_diffusion(dataset_name: str, *, dtype: torch.dtype = torch.float32,
+                           seed: int = 0, device="cuda") -> LatentDiffusion:
+    """The LatentDiffusion stack of a config with random weights, in eval
+    mode: the U-Net and decoder drawn from one generator seeded with
+    ``seed`` (``factory.init_params``), the post-quant conv the identity and
+    the codebook ``RandomState(0).randn(n_embed, z_channels)``, as the JAX
+    package's random init makes them."""
+    from .factory import init_params
+
+    cfg = LDM_CONFIGS[dataset_name]
+    if cfg["first_stage"] != "vq" or cfg["conditioning_key"] is not None:
+        raise NotImplementedError("the KL first stage and conditioning come with the SD slice")
+    vae = cfg["vae"]
+    zc = vae["z_channels"]
+    unet = LDMUNet(dtype=dtype, device=device, **cfg["unet"])
+    decoder = VAEDecoder(out_ch=3, device=device, **vae)
+    first = VQModel(decoder, cfg.get("n_embed", 16), zc, device=device)
+    ld = LatentDiffusion(unet, first, linear_alphas_cumprod(
+        cfg["linear_start"], cfg["linear_end"], cfg["timesteps"]))
+    init_params(ld, seed=seed)
+    with torch.no_grad():
+        first.post_quant_conv.weight.copy_(torch.eye(zc)[:, :, None, None])
+        first.post_quant_conv.bias.zero_()
+        first.codebook.copy_(torch.from_numpy(
+            np.random.RandomState(0).randn(cfg.get("n_embed", 16), zc).astype(np.float32)))
+    return ld.eval()

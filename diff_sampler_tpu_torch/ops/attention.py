@@ -180,7 +180,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if _bwd_launch("dst_flash_attn_bwd_dq", "flash attention backward (dQ)", (dq,),
                    q, k, v, do, lse, delta, scale):
-        flash_attention_bwd_dq.launches += 1
+        _count(flash_attention_bwd_dq, q)
     return dq
 
 
@@ -193,12 +193,22 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale):
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if _bwd_launch("dst_flash_attn_bwd_dkv", "flash attention backward (dK/dV)", (dk, dv),
                    q, k, v, do, lse, delta, scale):
-        flash_attention_bwd_dkv.launches += 1
+        _count(flash_attention_bwd_dkv, q)
     return dk, dv
 
 
-flash_attention_bwd_dq.launches = 0  # kernel launches since the last reset
+def _count(wrapper, q):
+    """One launch of a K2 kernel, in all and under its (T, H)."""
+    wrapper.launches += 1
+    key = (q.shape[1], q.shape[2])
+    wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
+
+
+# kernel launches since the last reset, in all and by (T, H)
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_by_shape = {}
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches_by_shape = {}
 
 
 def flash_attention_mh_bwd(q, k, v, out, lse, do, scale):

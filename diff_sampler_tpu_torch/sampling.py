@@ -37,10 +37,13 @@ class SolverConfig:
     denoise_to_zero: bool = False
     max_order: Optional[int] = None  # default: 4 (lms family)
 
-    def resolve_t_steps(self, sigma_min: float, sigma_max: float) -> np.ndarray:
-        """The sigma schedule over the model's range (float64)."""
+    def resolve_t_steps(self, sigma_min: float, sigma_max: float, sigma_fn=None,
+                        sigma_inv_fn=None) -> np.ndarray:
+        """The sigma schedule over the model's range (float64); the
+        ``discrete`` schedule of the latent tiers needs the model's sigma maps
+        ``sigma_fn`` / ``sigma_inv_fn``."""
         return get_schedule(self.num_steps, sigma_min, sigma_max, self.schedule_type,
-                            self.schedule_rho)
+                            self.schedule_rho, sigma_fn=sigma_fn, sigma_inv_fn=sigma_inv_fn)
 
     def sampler_kwargs(self) -> dict:
         kw = dict(afs=self.afs, denoise_to_zero=self.denoise_to_zero)
@@ -52,9 +55,11 @@ class SolverConfig:
         return count_nfe(self.solver, self.num_steps, self.afs, self.denoise_to_zero)
 
 
-def build_sample_fn(denoise, cfg: SolverConfig) -> Callable:
-    """``latents -> samples`` (f32) for a bound denoiser."""
-    t_steps = cfg.resolve_t_steps(denoise.sigma_min, denoise.sigma_max)
+def build_sample_fn(denoise: BoundDenoiser, cfg: SolverConfig) -> Callable:
+    """``latents -> samples`` (f32) for a bound denoiser, on the schedule of
+    ``cfg`` over its sigma range (and its sigma maps, for ``discrete``)."""
+    t_steps = cfg.resolve_t_steps(denoise.sigma_min, denoise.sigma_max,
+                                  sigma_fn=denoise.sigma_fn, sigma_inv_fn=denoise.sigma_inv_fn)
     sampler = get_sampler(cfg.solver)
     kw = cfg.sampler_kwargs()
 
@@ -78,7 +83,7 @@ def _start_copy_to_host(x: torch.Tensor):
     return host, done
 
 
-def generate(denoise, seeds: Sequence[int], sample_shape: Tuple[int, ...],
+def generate(denoise: BoundDenoiser, seeds: Sequence[int], sample_shape: Tuple[int, ...],
              cfg: SolverConfig, *, max_batch_size: int = 64, device="cuda",
              label_dim: int = 0, class_idx: Optional[int] = None,
              batch_callback=None) -> np.ndarray:
@@ -95,8 +100,7 @@ def generate(denoise, seeds: Sequence[int], sample_shape: Tuple[int, ...],
     the reference's ``sample.py`` and the JAX package draw them), or
     ``class_idx`` for every seed."""
     def sample_fn(latents, labels):
-        den = BoundDenoiser(lambda x, t: denoise(x, t, labels), denoise.sigma_min,
-                            denoise.sigma_max)
+        den = dataclasses.replace(denoise, fn=lambda x, t: denoise(x, t, labels))
         return build_sample_fn(den, cfg)(latents)
 
     return generate_batches(sample_fn, seeds, sample_shape, max_batch_size=max_batch_size,

@@ -7,7 +7,8 @@ Counterpart of ``diff_sampler_tpu/solvers/amed.py`` for the EDM tier:
     geometric-midpoint exponent), scale_dir (c_n) and scale_time (a_n);
   * the bottleneck tap: ``EDMPrecond.with_bottleneck`` returns the encoder
     activation explicitly (the JAX package uses ``capture_intermediates``,
-    the reference a forward hook);
+    the reference a forward hook), ``CFGPrecond.with_bottleneck`` the latent
+    U-Net's middle block;
   * the AMED solver and the euler / ipndm / dpm / dpmpp plugins, which insert
     a predicted midpoint into every step (two denoiser calls per step).
 
@@ -100,8 +101,7 @@ def bottleneck_module_name(label_dim: int, img_resolution: int,
                            model_source: str = "edm") -> str:
     """The per-tier bottleneck tap, as a JAX module name."""
     if model_source in ("ldm", "sd") or img_resolution == 256:
-        raise NotImplementedError(f"the {model_source} / {img_resolution}px bottleneck "
-                                  "(middle_block) comes with its model tier")
+        return "middle_block"
     return "enc_8x8_block2" if label_dim else "enc_8x8_block3"
 
 
@@ -109,12 +109,15 @@ def bottleneck_module_name(label_dim: int, img_resolution: int,
 class BottleneckDenoiser:
     """``denoise(x, t) -> D(x, t)``; ``with_bottleneck(x, t)`` -> (D(x, t),
     pooled bottleneck [B, 64]).  Autograd records through both: the caller
-    decides with ``torch.no_grad``."""
+    decides with ``torch.no_grad``.  ``sigma_fn`` / ``sigma_inv_fn``: as on
+    ``BoundDenoiser``."""
 
     fn: Callable
     plain_fn: Callable
     sigma_min: float
     sigma_max: float
+    sigma_fn: Optional[Callable] = None
+    sigma_inv_fn: Optional[Callable] = None
 
     def __call__(self, x, t):
         return self.plain_fn(x, t)
@@ -130,12 +133,23 @@ def _pool_bottleneck(act):
 
 
 def bind_with_bottleneck(precond) -> BottleneckDenoiser:
-    """Bind an EDMPrecond so each call can also yield the channel-pooled
-    bottleneck (at ``bottleneck_module_name``).  The net is frozen in place:
-    every parameter stops requiring a gradient, so a backward through it
-    computes input gradients only.  It must be in eval mode (dropout off)."""
+    """Bind a preconditioner so each call can also yield the channel-pooled
+    bottleneck: an EDMPrecond at ``bottleneck_module_name``, an
+    unconditional CFGPrecond (the latent tier) at its U-Net's middle block.
+    The net is frozen in place: every parameter stops requiring a gradient,
+    so a backward through it computes input gradients only.  It must be in
+    eval mode (dropout off)."""
     if precond.training:
         raise ValueError("bind_with_bottleneck() needs the module in eval mode: call .eval()")
+    if not isinstance(precond, nn.Module):  # CFGPrecond over its LatentDiffusion
+        precond.latent_diffusion.requires_grad_(False)
+
+        def fn_cfg(x, t):
+            out, act = precond.with_bottleneck(x, t)
+            return out, _pool_bottleneck(act)
+
+        return BottleneckDenoiser(fn_cfg, precond, precond.sigma_min, precond.sigma_max,
+                                  precond.sigma, precond.sigma_inv)
     precond.requires_grad_(False)
     name = bottleneck_module_name(precond.label_dim, precond.img_resolution)
 

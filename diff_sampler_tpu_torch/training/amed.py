@@ -85,17 +85,20 @@ def make_amed_train_step(predictor: AMEDPredictor, denoise_b, cfg: AMEDConfig,
                          optimizer: torch.optim.Optimizer):
     """The per-trajectory training step.
 
-    denoise_b: a ``BottleneckDenoiser`` over the FROZEN pre-trained net.
+    denoise_b: a ``BottleneckDenoiser`` over the FROZEN pre-trained net (a
+    latent tier's carries the sigma maps that its ``discrete`` schedule
+    needs).
     optimizer: over ``predictor.parameters()``; stepped once per segment.
     Returns ``train_step(latents) -> metrics``, latents ~ N(0, 1) of shape
     [batch, H, W, C]; metrics hold ``loss_per_step`` (a [num_steps - 1]
     tensor, each the mean over microbatches) and ``loss``, on the device.
     """
+    maps = dict(sigma_fn=denoise_b.sigma_fn, sigma_inv_fn=denoise_b.sigma_inv_fn)
     t_steps = get_schedule(cfg.num_steps, cfg.sigma_min, cfg.sigma_max, cfg.schedule_type,
-                           cfg.schedule_rho)
+                           cfg.schedule_rho, **maps)
     n_tea = (cfg.M + 1) * (cfg.num_steps - 1) + 1
     tea_t = get_schedule(n_tea, cfg.sigma_min, cfg.sigma_max, cfg.schedule_type,
-                         cfg.schedule_rho)
+                         cfg.schedule_rho, **maps)
     tea_idx = teacher_slice_indices(cfg.num_steps, cfg.M)
     tea_sampler = get_sampler(cfg.sampler_tea)
     single_step_stu = cfg.sampler_stu in ("euler", "dpm", "amed")

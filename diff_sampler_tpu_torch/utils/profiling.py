@@ -24,6 +24,7 @@ CATEGORIES = [
     ("K1", r"flash_fwd_kernel"),
     ("K2 dQ", r"flash_bwd_dq_kernel"),
     ("K2 dK/dV", r"flash_bwd_dkv_kernel"),
+    ("K3", r"gn_partial_stats_kernel|gn_finalize_kernel|gn_apply_kernel"),
     ("convs and GEMMs", r"conv|cudnn|implicit|gemm|xmma|cutlass|winograd|fft"),
     ("reductions", r"reduce|Reduce|softmax"),
     ("elementwise", r"elementwise|Elementwise|CatArray|copy|index|where|fill"),

@@ -1,7 +1,9 @@
-"""Kernels K1 (the CUDA flash-attention forward) and K2 (its backward)
-against their plain versions, on the card, at the CIFAR-10 shapes and at
-head dims below 128, where they stand in for the JAX package's packed
-kernels (K1b, K2p): ImageNet-64's three attention levels at a small batch.
+"""Kernels K1 (the CUDA flash-attention forward), K2 (its backward) and K3
+(the fused GroupNorm) against their plain versions, on the card: K1 / K2 at
+the CIFAR-10 shapes, at head dims below 128, where they stand in for the JAX
+package's packed kernels (K1b, K2p), at ImageNet-64's three attention levels
+at a small batch, and at the LSUN LDM's 32x32 level on its legacy qkv views,
+where the JAX package streams K2b; K3 at odd group sizes and ragged H * W.
 
 Marked ``cuda``: without a CUDA device each test skips.  The file imports no
 jax package module, so it also runs where flax is not installed:
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 from diff_sampler_tpu_torch.ops import attention as A
+from diff_sampler_tpu_torch.ops import groupnorm as G
 
 # (B, T, H, d): the CIFAR-10 shapes and others, then ImageNet-64's levels at
 # a small batch, d=32 with 5 heads and a ragged T at d=64
@@ -100,6 +103,102 @@ def test_sdpa_gradient_flows_through_the_kernels(cuda):
     for name, x, y in zip("qkv", got, want):
         assert x is not None, f"no gradient reaches {name}"
         assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernel_at_the_k2b_shape_on_legacy_views(cuda, dtype):
+    """K2 where the JAX package streams K2b: the LSUN LDM's 32x32 level (T=1024,
+    14 heads of d=32) on the legacy qkv layout, q / k / v strided views of
+    [B, T, H, 3 * d] (head stride 96, token stride 1344), dO not contiguous."""
+    dt = getattr(torch, dtype)
+    b, t, h, d = 2, 1024, 14, 32
+    g = torch.Generator("cuda").manual_seed(6)
+    parts = torch.randn(b, t, h, 3 * d, generator=g, device="cuda").to(dt)
+    q, k, v = parts[..., :d], parts[..., d:2 * d], parts[..., 2 * d:]
+    assert q.stride() == (t * h * 3 * d, h * 3 * d, 3 * d, 1)
+    do = torch.randn(b, h, t, d, generator=g, device="cuda").to(dt).transpose(1, 2)
+    out, lse = A.flash_attention_mh(q, k, v, d ** -0.5)
+    ref_out, ref_lse = A.reference_sdpa(q, k, v, d ** -0.5)
+    tol = 1e-5 if dt == torch.float32 else 2 ** -5 * min(1.0, ref_out.float().abs().max().item())
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-5
+    got = A.flash_attention_mh_bwd(q, k, v, out, lse, do, d ** -0.5)
+    again = A.flash_attention_mh_bwd(q, k, v, out, lse, do, d ** -0.5)
+    ref = A.reference_sdpa_bwd(q, k, v, out, lse, do, d ** -0.5)
+    rel = 1e-4 if dt == torch.float32 else 2 ** -6
+    for name, x, y, z in zip("qkv", got, ref, again):
+        bound = rel * y.float().abs().max().item()
+        assert (x.float() - y.float()).abs().max().item() <= bound, name
+        assert torch.equal(x, z), name
+
+
+# GroupNorm (K3) at the group sizes of the LSUN LDM (7, 21, 49 channels per
+# group over 32 groups) and of CIFAR-10 (8), on ragged H * W.  Tolerance
+# against the plain version, relative to max(1, max|plain out|): f32 1e-5
+# (K3's statistics are exact two-pass sums, the plain version's E[x^2] -
+# E[x]^2 loses a few f32 ulps of E[x^2]); bf16 2^-7, one bf16 step of the
+# largest output for an element whose f32 values straddle a rounding boundary.
+# No group here holds fewer than 9 elements: in a group of 2 the plain
+# version's E[x^2] - E[x]^2 can cancel to a few bits (6.8e-4 against K3's
+# exact sums at [1, 1, 1, 64] on the card).
+GN_CASES = [(2, 3, 5, 224), (3, 7, 9, 672), (2, 4, 4, 1568), (2, 33, 31, 256), (1, 3, 1, 96)]
+GN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _gn_inputs(n, h, w, c, dtype, seed):
+    g = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn(n, h, w, c, generator=g, device="cuda") * 3 + 1
+    x = x + torch.randn(32, generator=g, device="cuda").repeat_interleave(c // 32)
+    scale = 1 + 0.5 * torch.randn(c, generator=g, device="cuda")
+    return x.to(dtype), scale, torch.randn(c, generator=g, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c", GN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("silu,eps", [(True, 1e-5), (False, 1e-6)], ids=["silu", "no-silu"])
+def test_groupnorm_kernel_matches_plain_and_is_deterministic(cuda, n, h, w, c, dtype, silu, eps):
+    dt = getattr(torch, dtype)
+    x, scale, bias = _gn_inputs(n, h, w, c, dt, seed=c)
+    before = G.groupnorm_silu.launches
+    got = G.groupnorm_silu(x, scale, bias, groups=32, eps=eps, apply_silu=silu)
+    again = G.groupnorm_silu(x, scale, bias, groups=32, eps=eps, apply_silu=silu)
+    ref = G.reference_groupnorm_silu(x, scale, bias, groups=32, eps=eps, apply_silu=silu)
+    torch.cuda.synchronize()
+    assert G.groupnorm_silu.launches == before + 2
+    assert got.dtype == dt and got.shape == x.shape
+    bound = GN_TOL[dt] * max(1.0, ref.float().abs().max().item())
+    assert (got.float() - ref.float()).abs().max().item() <= bound
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_groupnorm_kernel_on_an_unaligned_view(cuda):
+    """A tensor whose storage starts 4 bytes in takes the scalar apply pass."""
+    x, scale, bias = _gn_inputs(2, 5, 5, 224, torch.float32, seed=1)
+    flat = torch.empty(x.numel() + 1, device="cuda")
+    view = flat[1:].view_as(x).copy_(x)
+    assert view.data_ptr() % 16
+    got = G.groupnorm_silu(view, scale, bias, groups=32)
+    assert torch.equal(got, G.groupnorm_silu(x, scale, bias, groups=32))
+
+
+@pytest.mark.cuda
+def test_groupnorm_gradient_through_the_kernel(cuda):
+    """The gradient by x, scale and bias through K3's autograd Function
+    equals the plain version's autograd gradient (the Function's backward is
+    that VJP, so they agree to f32 rounding of the saved forward)."""
+    x, scale, bias = _gn_inputs(2, 16, 16, 672, torch.float32, seed=2)
+    cot = torch.randn(x.shape, generator=torch.Generator("cuda").manual_seed(3), device="cuda")
+    leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    before = G.groupnorm_silu.launches
+    got = torch.autograd.grad((G.groupnorm_silu(*leaves, groups=32) * cot).sum(), leaves)
+    assert G.groupnorm_silu.launches == before + 1
+    want = torch.autograd.grad((G.reference_groupnorm_silu(*leaves, groups=32) * cot).sum(),
+                               leaves)
+    for name, a, b in zip(("x", "scale", "bias"), got, want):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item(), name
 
 
 @pytest.mark.cuda

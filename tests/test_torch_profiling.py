@@ -28,6 +28,11 @@ def _ev(name, ts, dur, cat="kernel"):
      "K2 dK/dV"),
     ("void flash_bwd_dkv_kernel<float, (int)256, (int)32, (int)32>(const T1 *)",
      "K2 dK/dV"),
+    ("void (anonymous namespace)::gn_partial_stats_kernel<__nv_bfloat16>(const T1 *, float *)",
+     "K3"),
+    ("_ZN12_GLOBAL__N_118gn_finalize_kernelEPKfS1_S1_S1_PfS2_iiiiif", "K3"),
+    ("void (anonymous namespace)::gn_apply_kernel<float, (int)4>(const T1 *, const float *)",
+     "K3"),
     ("sm90_xmma_fprop_implicit_gemm_tf32f32_tf32f32_f32_nhwckrsc_nhwc", "convs and GEMMs"),
     ("void at::native::conv_depthwise2d_forward_kernel<1, float, int>", "convs and GEMMs"),
     ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float>>", "reductions"),
