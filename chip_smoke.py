@@ -7,10 +7,11 @@ Phases, each printing as it goes and then its seconds:
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, nvcc, whether triton imports.
-2. Build kernels K1 (flash-attention forward), K2 (its backward) and K3
-   (fused GroupNorm) from ``csrc/`` with nvcc, one process per source; print
-   each kernel's registers and spills.  At head dims below 128 K1 / K2 stand
-   in for the JAX package's packed and streamed twins (K1b, K2p, K2b).
+2. Build kernels K1 (flash-attention forward), K2 (its backward), K1c /
+   K2c (the same on the flat layout) and K3 (fused GroupNorm) from
+   ``csrc/`` with nvcc, one process per source; print each kernel's
+   registers and spills.  At head dims below 128 K1 / K2 stand in for the
+   JAX package's packed and streamed twins (K1b, K2p, K2b).
 3. K1 against its plain PyTorch version at the CIFAR-10 path's shapes, on
    the strided q/k/v views that ``attention()`` hands it: max abs error of
    the output and of the log-sum-exp against stated tolerances (bf16 out:
@@ -102,14 +103,39 @@ Phases, each printing as it goes and then its seconds:
 20. ``torch.profiler`` over one batch-64 bf16 LDM U-Net forward and one
    batch-16 VQ decode, device time by category, and each one's time with
    K3 against the plain GroupNorm.
+21. K1 and K2 at Stable Diffusion's head dims (40 / 80 / 160, padded inside
+   the kernels): K1 at the guided sampling call's four levels in bf16 and
+   at the f32 AMED microbatch's three K1 levels, K2 at the f32 AMED shapes
+   and one bf16, against the plain versions and the library, as phases 9-10.
+22. K1c and K2c (the flat [B*H, T, d] kernels) at SD's f32 64x64 level of
+   the AMED microbatch ([128, 4096, 40]) and a ragged T, against their plain
+   versions at K1's and K2's tolerances, K2c two runs bit-identical, timed
+   in turns against the plain versions, the library and K1 on the same data
+   in the [B, T, H, d] layout.
+23. The full-width SD v1.5 U-Net (860M parameters) under its guided
+   CFGPrecond (guidance 7.5, a doubled batch of 4), f32, unit-scale weights,
+   TF32 off, seeded random contexts: D and d sum(D g) / d(x, sigma) against
+   the all-plain model, 1e-4 * max; exactly 11 K1, 5 K1c and 61 K3 launches
+   per forward, 11 K2 and 5 K2c pairs per backward.
+24. SD sampling: ``generate`` on 8 seeds with bound contexts, bf16, ipndm on
+   the discrete schedule at NFE 5 and 10 (16 K1 and 61 K3 per guided U-Net
+   call, no K1c), then the f32 KL decode of the 8 latents to 512 x 512:
+   finite images, exact launches, latents/s and images/s.
+25. SD AMED: ``train_amed.build_trainer`` for ms_coco at guidance 7.5, batch
+   8 in one microbatch, f32, AFS, two iterations (sec/kimg, peak memory,
+   exact K1 / K1c / K2 / K2c / K3 launches), then AMED sampling at NFE 5
+   through ``bind_with_bottleneck(..., cfg_doubled=True)``.
+26. ``torch.profiler`` over one guided bf16 SD U-Net call at batch 16.
 
 The last three lines are the card's name and power limit, a JSON object on
 the kernels and ``{"ok": true, "device": {...}}``.  The JSON lists K1 and
 K2 at the CIFAR-10 paths (d=256, launches of phases 5 and 8), K1 and K2 at
 the ImageNet-64 paths (d=64, in place of K1b and K2p, launches of phases 12
 and 13), K2 at the LSUN LDM's T=1024 level (in place of K2b, launches of
-phase 19 at that shape) and K3 (launches of phase 18), each with its error
-and times at that path's main shape and its bound on this card.
+phase 19 at that shape), K3 (launches of phase 18), K1 and K2 at SD's head
+dims (launches of phases 24 and 25) and K1c and K2c (launches of phase 25),
+each with its error and times at that path's main shape and its bound on
+this card.
 Any failed check raises, so the script
 exits non-zero with no result; so does a machine without CUDA.
 """
@@ -141,6 +167,8 @@ from diff_sampler_tpu_torch.ops import attention as A
 from diff_sampler_tpu_torch.ops import groupnorm as G
 from diff_sampler_tpu_torch.sampling import SolverConfig, generate, to_uint8
 from diff_sampler_tpu_torch.training.amed import AMEDConfig, predictor_from_config
+from diff_sampler_tpu_torch.training.conditioning import (make_caption_context_fn,
+                                                          make_uncond_context)
 from diff_sampler_tpu_torch.utils import checkpoint as ckpt
 from diff_sampler_tpu_torch.utils.image import encode_png
 from diff_sampler_tpu_torch.utils.profiling import device_breakdown
@@ -281,6 +309,41 @@ GN_SHAPES = ([(LDM_BATCH, 64, 64, 224, torch.bfloat16, 1e-5, True),
 # largest output for an element whose f32 values straddle a rounding boundary.
 GN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
+# The Stable Diffusion v1.5 path (LDM_CONFIGS["ms_coco"], BASELINE config 5's
+# net): 64x64x4 latents, the 860M-parameter cross-attention U-Net, 16
+# self-attention sites per U-Net call with 8 heads, 5 at 64x64 (T=4096, d=40),
+# 5 at 32x32 (T=1024, d=80), 5 at 16x16 (T=256, d=160) and the middle block's
+# at 8x8 (T=64, d=160); the KL decoder to 512x512.  In f32 the 64x64 sites take
+# K1c / K2c (flat), as the JAX package's dispatcher routes them; in bf16 all
+# 16 take K1.  Classifier-free guidance at 7.5 doubles every U-Net call.
+SD = "ms_coco"
+SD_LEVELS = [(4096, 40, 5), (1024, 80, 5), (256, 160, 5), (64, 160, 1)]  # (T, d, sites)
+SD_HEADS = 8
+SD_SITES = 16
+SD_FLAT_SITES = 5  # f32, T=4096
+SD_LATENT = (64, 64, 4)
+SD_IMAGE = (512, 512, 3)
+SD_GUIDANCE = 7.5
+SD_BATCH = 8  # images per sampling batch: 16 per U-Net call
+SD_NFE_STEPS = [(5, 6), (10, 11)]
+SD_AMED_BATCH = 8  # trajectories per AMED iteration (the --batch of train_amed)
+SD_BATCH_GPU = 8  # AMED microbatch: 16 per guided U-Net call, f32
+SD_AMED_ITERS = 2
+SD_AMED_AFS = True  # NFE 5 at 4 steps
+# K1 at SD's head dims: the sampling call's shapes in bf16 (the first is the
+# main one), the AMED microbatch's in f32 where the route keeps K1
+SD_K1_SHAPES = ([(2 * SD_BATCH, t, SD_HEADS, d, torch.bfloat16) for t, d, _ in SD_LEVELS]
+                + [(2 * SD_BATCH_GPU, t, SD_HEADS, d, torch.float32)
+                   for t, d, _ in SD_LEVELS[1:]])
+# K2 where the f32 AMED backward keeps it (the first is the main shape), and
+# its 32x32 level in bf16
+SD_K2_SHAPES = ([(2 * SD_BATCH_GPU, t, SD_HEADS, d, torch.float32) for t, d, _ in SD_LEVELS[1:]]
+                + [(2 * SD_BATCH_GPU, 1024, SD_HEADS, 80, torch.bfloat16)])
+# (B * H, T, d, dtype) of K1c / K2c: the f32 AMED microbatch's 64x64 level
+# (the main shape) and a ragged T
+SD_FLAT_SHAPES = [(2 * SD_BATCH_GPU * SD_HEADS, 4096, 40, torch.float32),
+                  (24, 1000, 40, torch.float32)]
+
 
 def _check(ok: bool, what: str) -> None:
     if not ok:
@@ -386,19 +449,19 @@ def phase_build() -> None:
         print(f"[build] kernel library already built, loaded in "
               f"{time.perf_counter() - t0:.3f} s")
         return
-    print(f"[build] K1, K2 and K3 built with nvcc in {_build.build_seconds:.2f} s, one "
+    print(f"[build] K1, K1c, K2, K2c and K3 built with nvcc in {_build.build_seconds:.2f} s, one "
           f"process per source ({' '.join(_build.NVCC_FLAGS)})")
     for line in _build.build_log.splitlines():
         # ptxas names each kernel by its mangled name: print it as
         # flash_<...>_kernel<dtype, d> or gn_<...>_kernel, then its
         # registers and spills
-        entry = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(13__nv_bfloat16|f)"
+        entry = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_flat)?_kernel)I(13__nv_bfloat16|f)"
                           r"((?:Li\d+E)+)E", line)
         gn = re.search(r"(gn_[a-z_]+_kernel)(I(13__nv_bfloat16|f)((?:Li\d+E)*)E)?", line)
         if entry and "Compiling entry function" in line:
             dtype = "bf16" if entry.group(2) != "f" else "f32"
             ints = re.findall(r"Li(\d+)E", entry.group(3))
-            print(f"[build] {entry.group(1)}<{dtype}, d={ints[0]}>:")
+            print(f"[build] {entry.group(1)}<{dtype}, padded d={ints[0]}>:")
         elif gn and "Compiling entry function" in line:
             dtype = "bf16" if gn.group(3) == "13__nv_bfloat16" else "f32"
             vec = re.findall(r"Li(\d+)E", gn.group(4) or "")
@@ -501,14 +564,15 @@ def phase_kernel() -> dict:
 
 
 @torch.no_grad()
-def _redraw_unit_scale(module, seed: int) -> None:
+def _redraw_unit_scale(module, seed: int, device: str = "cpu") -> None:
     """Replace every parameter by a seeded draw of unit scale (weights over
-    sqrt(fan_in)): a random-init EDM net outputs ~1e-5 through its zero-init
-    convs, which would hide the attention from D(x, sigma)."""
-    g = torch.Generator().manual_seed(seed)
+    sqrt(fan_in)), drawn on ``device``: a random-init EDM net outputs ~1e-5
+    through its zero-init convs, which would hide the attention from D(x,
+    sigma)."""
+    g = torch.Generator(device).manual_seed(seed)
     for p in module.parameters():
         fan_in = p[0].numel() if p.dim() > 1 else 1
-        p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(fan_in))
+        p.copy_(torch.randn(p.shape, generator=g, device=device) / math.sqrt(fan_in))
 
 
 def _cifar_f32():
@@ -536,7 +600,9 @@ def phase_denoiser_f32() -> None:
 
 
 _COUNTED = {"k1": A.flash_attention_mh, "dq": A.flash_attention_bwd_dq,
-            "dkv": A.flash_attention_bwd_dkv, "gn": G.groupnorm_silu}
+            "dkv": A.flash_attention_bwd_dkv, "gn": G.groupnorm_silu,
+            "k1c": A.flash_attention, "dqc": A.flash_attention_flat_bwd_dq,
+            "dkvc": A.flash_attention_flat_bwd_dkv}
 
 
 def _reset_counts() -> None:
@@ -1198,6 +1264,284 @@ def phase_ldm_profile(pre) -> None:
     _with_plain_groupnorm(tag, decode, [adm])
 
 
+def _sd_views(b, t, h, d, dtype, g):
+    """q, k, v as SD's attention hands them to sdpa: each a contiguous
+    [B, T, H, d] reshape of its own projection."""
+    return [torch.randn(b, t, h * d, generator=g, device="cuda").to(dtype).reshape(b, t, h, d)
+            for _ in range(3)]
+
+
+def phase_sd_attention_kernels() -> tuple:
+    """K1 and K2 at SD's head dims (40 / 80 / 160, padded inside the kernels
+    to 48 / 80 / 160); returns the fields of K1 and of K2 at their main
+    shapes."""
+    k1 = _k1_checks("SD K1", SD_K1_SHAPES, _sd_views, seed=10, reps=5, warmup=2)
+    return k1, _k2_checks("SD K2", SD_K2_SHAPES, _sd_views, seed=11)
+
+
+def phase_sd_flat_kernels() -> tuple:
+    """K1c and K2c against their plain versions at ``SD_FLAT_SHAPES``: K1's
+    and K2's gates, K2c two runs bit-identical; CUDA events in turns against
+    the plain versions, ``F.scaled_dot_product_attention`` (its backward for
+    K2c) and K1 on the same data in the [B, T, H, d] layout.  Returns the
+    kernels-line fields of K1c and of K2c at the main shape."""
+    g = torch.Generator("cuda").manual_seed(12)
+    main = None
+    for b, t, d, dtype in SD_FLAT_SHAPES:
+        q, k, v, do = (torch.randn(b, t, d, generator=g, device="cuda").to(dtype)
+                       for _ in range(4))
+        scale = d ** -0.5
+        out, lse = A.flash_attention(q, k, v, scale)
+        ref_out, ref_lse = A.reference_flash_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        err_out = (out.float() - ref_out.float()).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        tol = _out_tol(dtype, ref_out)
+        del ref_out, ref_lse
+        grads = A.flash_attention_bwd(q, k, v, out, lse, do, scale)
+        again = A.flash_attention_bwd(q, k, v, out, lse, do, scale)
+        ref = A.reference_flash_attention_bwd(q, k, v, out, lse, do, scale)
+        torch.cuda.synchronize()
+        errs = [(x.float() - y.float()).abs().max().item() for x, y in zip(grads, ref)]
+        tols = [K2_TOL[dtype] * y.float().abs().max().item() for y in ref]
+        same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        del grads, again, ref
+        heads = SD_HEADS if b % SD_HEADS == 0 else 1
+        mh = [x.reshape(b // heads, heads, t, d).transpose(1, 2) for x in (q, k, v)]
+        fwd = _turns({"kernel": lambda: A.flash_attention(q, k, v, scale),
+                      "plain": lambda: A.reference_flash_attention(q, k, v, scale),
+                      "library": _library_fwd(q[:, :, None], k[:, :, None], v[:, :, None],
+                                              scale),
+                      "K1": lambda: A.flash_attention_mh(*mh, scale)}, reps=5, warmup=2)
+        delta = torch.einsum("btd,btd->bt", do.float(), out.float()).contiguous()
+        bwd = _flat_backward_times(q, k, v, out, lse, do, delta, scale)
+        bound_ms, bound_by = _attention_bound("fwd", b, t, 1, d, dtype)
+        name = str(dtype).replace("torch.", "")
+        print(f"[SD K1c/K2c] flat B={b} T={t} d={d} {name}: out err {err_out:.3g} (tol "
+              f"{tol:.3g}), lse err {err_lse:.3g} (tol {LSE_TOL:.3g}); dq err {errs[0]:.3g} "
+              f"(tol {tols[0]:.3g}), dk {errs[1]:.3g} (tol {tols[1]:.3g}), dv {errs[2]:.3g} "
+              f"(tol {tols[2]:.3g}); K2c two runs bit-identical: {same}")
+        print(f"[SD K1c/K2c]   K1c {fwd['kernel']:.4f} ms, plain {fwd['plain']:.4f} ms, "
+              f"F.scaled_dot_product_attention {fwd['library']:.4f} ms, K1 on the same data as "
+              f"[{b // heads}, {t}, {heads}, {d}] views {fwd['K1']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); "
+              f"{2 * 2 * b * t * t * d / fwd['kernel'] / 1e9:.2f} TFLOP/s; K2c {_fmt_times(bwd)}")
+        _check(err_out <= tol and err_lse <= LSE_TOL,
+               f"K1c disagrees with the plain version at {(b, t, d, name)}")
+        _check(all(e <= tol for e, tol in zip(errs, tols)),
+               f"K2c disagrees with the plain version at {(b, t, d, name)}")
+        _check(same, f"K2c is not deterministic at {(b, t, d, name)}")
+        if main is None:  # the first shape is the path's main one
+            main = (dict(max_abs_err=err_out, ms=fwd["kernel"], plain_ms=fwd["plain"],
+                         library_ms=fwd["library"], bound_ms=bound_ms, bound_by=bound_by),
+                    _backward_main(errs, bwd, b, t, 1, d, dtype))
+        del q, k, v, do, out, lse, mh
+        torch.cuda.empty_cache()
+    return main
+
+
+def _flat_backward_times(q, k, v, out, lse, do, delta, scale) -> dict:
+    """As ``_backward_times``, for K2c on the flat layout."""
+    times = {}
+    for name, kernel, plain in (
+            ("dq", lambda: A.flash_attention_flat_bwd_dq(q, k, v, do, lse, delta, scale),
+             lambda: A.reference_flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)),
+            ("dkv", lambda: A.flash_attention_flat_bwd_dkv(q, k, v, do, lse, delta, scale),
+             lambda: A.reference_flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)),
+            ("bwd", lambda: A.flash_attention_bwd(q, k, v, out, lse, do, scale),
+             lambda: A.reference_flash_attention_bwd(q, k, v, out, lse, do, scale))):
+        got = _turns({"kernel": kernel, "plain": plain}, reps=3, warmup=1)
+        times[name] = (got["kernel"], got["plain"])
+    lib = _library_bwd(q[:, :, None], k[:, :, None], v[:, :, None], do[:, :, None], scale)
+    times["library"] = _turns({"library": lib}, reps=3, warmup=1)["library"]
+    return times
+
+
+def _gn_sites(module) -> int:
+    """GroupNorm layers of ``module``: each runs once per forward."""
+    return sum(isinstance(m, adm._GN) for m in module.modules())
+
+
+def _sd_contexts(ld, n: int) -> tuple:
+    """The seeded random contexts the SD trainer draws (no text encoder is
+    ported): n conditional rows and the one unconditional row, on the card."""
+    ctx = make_caption_context_fn(ld, None, n, seed=0, verbose=False)(0)
+    uc = make_uncond_context(ld, 1, SD_GUIDANCE)
+    return torch.from_numpy(ctx).cuda(), torch.from_numpy(uc).cuda()
+
+
+def _sd_model(dtype):
+    pre, source = create_model(SD, "random", guidance_rate=SD_GUIDANCE,
+                               dtype=dtype, device="cuda")
+    _check(source == "sd", f"ms_coco's model source is {source}")
+    return pre
+
+
+def phase_sd_denoiser_and_gradient() -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pre = _sd_model(torch.float32)
+    ld = pre.latent_diffusion
+    _redraw_unit_scale(ld.unet, seed=1, device="cuda")
+    ld.requires_grad_(False)
+    ctx, uc = _sd_contexts(ld, 2)
+    sigma0 = torch.tensor([pre.sigma_max, 1.0], device="cuda")
+    x0 = stacked_randn(range(2), SD_LATENT, device="cuda") * sigma0[:, None, None, None]
+    cot = stacked_randn(range(100, 102), SD_LATENT, device="cuda")
+    gn = _gn_sites(ld.unet)
+    mh_sites = SD_SITES - SD_FLAT_SITES
+
+    def forward():
+        with torch.no_grad():
+            return pre(x0, sigma0, ctx, uc)
+
+    print(f"[SD D f32] full-width SD v1.5 U-Net "
+          f"({sum(p.numel() for p in ld.unet.parameters()) / 1e6:.1f}M parameters) under its "
+          f"CFGPrecond at guidance {SD_GUIDANCE} (a doubled batch of 4), batch 2, seeded random "
+          f"contexts, sigma {[round(x, 4) for x in sigma0.tolist()]}, K1 + K1c + K2 + K2c + K3 "
+          f"against plain attention and plain GroupNorm")
+    _plain_vs_kernels("SD D f32", _plain_net_patches(adm), forward=forward,
+                      per_forward=dict(k1=mh_sites, k1c=SD_FLAT_SITES, gn=gn),
+                      grads=_grads_fn(pre, x0, sigma0, cot, ctx, uc),
+                      per_backward=dict(k1=mh_sites, k1c=SD_FLAT_SITES, dq=mh_sites,
+                                        dkv=mh_sites, dqc=SD_FLAT_SITES, dkvc=SD_FLAT_SITES,
+                                        gn=gn))
+    del pre, ld
+    torch.cuda.empty_cache()
+
+
+def phase_sd_sampling():
+    """Returns (K1 launches of the path, the bf16 CFGPrecond, its contexts)."""
+    # torch's default precision flags: the f32 decode takes TF32 convs
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pre = _sd_model(torch.bfloat16)
+    ld = pre.latent_diffusion
+    ctx, uc = _sd_contexts(ld, SD_BATCH)
+    den = bind(pre, condition=ctx, unconditional_condition=uc)
+    latents, counts, sample_s = _drive_sampling(
+        "SD main", den, SD_LATENT, dict(k1=SD_SITES, gn=_gn_sites(ld.unet)), batch=SD_BATCH,
+        nfe_steps=SD_NFE_STEPS, schedule=("discrete", 1.0))
+    ld.decode_in_chunks(latents, chunk=DECODE_CHUNK)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    start, end = _events()
+    t0 = time.perf_counter()
+    start.record()
+    images = ld.decode_in_chunks(latents, chunk=DECODE_CHUNK)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    decode_s = start.elapsed_time(end) / 1000
+    decode_counts = _counts()
+    nfe = SD_NFE_STEPS[0][0]
+    print(f"[SD main] KL decode of {SD_BATCH} latents to {SD_IMAGE[0]}x{SD_IMAGE[1]}, f32 in "
+          f"one chunk: {decode_s:.4f} s CUDA events (host clock {host_s:.4f} s), launches "
+          f"{decode_counts}; at NFE {nfe}: {SD_BATCH / sample_s:.3f} latents/s, "
+          f"{SD_BATCH / (sample_s + decode_s):.3f} images/s with the decode")
+    _check(images.shape == (SD_BATCH, *SD_IMAGE) and np.isfinite(images).all(),
+           f"SD decode: images not finite or of shape {images.shape}")
+    _check(decode_counts == _only(gn=_gn_sites(ld.first_stage)),
+           f"SD decode: launches {decode_counts}")
+    return counts["k1"], pre, ctx, uc
+
+
+def phase_sd_profile(pre, ctx, uc) -> None:
+    """torch.profiler over one guided bf16 sampling call: the U-Net at batch
+    2 x 8."""
+    sigma = torch.full((SD_BATCH,), 2.5, device="cuda")
+    x = stacked_randn(range(SD_BATCH), SD_LATENT, device="cuda") * 2.5
+    gn = _gn_sites(pre.latent_diffusion.unet)
+    _profile(f"SD profile, one guided bf16 U-Net call at batch {2 * SD_BATCH}",
+             lambda: pre(x, sigma, ctx, uc), {"K1": SD_SITES, "K1c": 0, "K3": 3 * gn})
+
+
+def phase_sd_amed(workdir: str) -> dict:
+    """The SD AMED trainer as ``cli.train_amed --dataset_name=ms_coco
+    --guidance_type=cfg --guidance_rate=7.5`` builds it (``build_trainer``),
+    f32, for ``SD_AMED_ITERS`` iterations at batch ``SD_AMED_BATCH`` (the
+    CLI's integer --total_kimg would run 125), then AMED sampling at NFE 5
+    with the trained predictor through ``bind_with_bottleneck(...,
+    cfg_doubled=True)``.  Returns the training's counts."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = AMEDConfig(dataset_name=SD, num_steps=AMED_STEPS, afs=SD_AMED_AFS,
+                     batch=SD_AMED_BATCH, batch_gpu=SD_BATCH_GPU, guidance_type="cfg",
+                     guidance_rate=SD_GUIDANCE)
+    module, cfg, pred, step, context_fn = cli_train_amed.build_trainer(cfg, "random", "cuda")
+    ld = module.latent_diffusion
+    gn = _gn_sites(ld.unet)
+    fresh = {k: v.clone() for k, v in pred.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses = []
+    start, end = _events()
+    t0 = time.perf_counter()
+    start.record()
+    for it in range(SD_AMED_ITERS):
+        latents = stacked_randn(range(it * cfg.batch, (it + 1) * cfg.batch), SD_LATENT,
+                                device="cuda")
+        metrics = step(latents, torch.from_numpy(context_fn(it)).cuda())
+        losses.append(metrics["loss_per_step"].cpu().tolist())
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    device_s = start.elapsed_time(end) / 1000
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    segments = AMED_STEPS - 1
+    micro = SD_AMED_ITERS * SD_AMED_BATCH // SD_BATCH_GPU
+    calls = (2 * 2 * segments + 2 * segments - (1 if SD_AMED_AFS else 0)) * micro
+    mh_sites = SD_SITES - SD_FLAT_SITES
+    want = _only(k1=mh_sites * calls, k1c=SD_FLAT_SITES * calls, gn=gn * calls,
+                 dq=mh_sites * segments * micro, dkv=mh_sites * segments * micro,
+                 dqc=SD_FLAT_SITES * segments * micro, dkvc=SD_FLAT_SITES * segments * micro)
+    moved = max((pred.state_dict()[k] - v).abs().max().item() for k, v in fresh.items())
+    kimg = SD_AMED_ITERS * SD_AMED_BATCH / 1000
+    print(f"[SD AMED] build_trainer(ms_coco, guidance_type=cfg, guidance_rate={SD_GUIDANCE}): "
+          f"batch {SD_AMED_BATCH}, batch_gpu {SD_BATCH_GPU} (a guided U-Net call of "
+          f"{2 * SD_BATCH_GPU}), f32 net, afs {SD_AMED_AFS}, {SD_AMED_ITERS} iterations: "
+          f"{host_s:.3f} s host clock, {device_s:.3f} s CUDA events ({device_s / kimg:.3f} "
+          f"s/kimg); torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB; losses per step "
+          f"{losses}; predictor moved by max abs {moved:.4g}")
+    print(f"[SD AMED] launches {counts}, expected {want}")
+    _check(all(math.isfinite(x) for row in losses for x in row), "SD AMED: losses not finite")
+    _check(moved > 0, "SD AMED: the predictor did not move")
+    _check(counts == want, "launch counts of the SD AMED training")
+
+    run_dir = os.path.join(workdir, "sd_amed")
+    os.makedirs(run_dir)
+    ckpt.save_config(os.path.join(run_dir, "predictor_config.json"), cfg)
+    ckpt.save_params(os.path.join(run_dir, "predictor.npz"), params_to_jax(pred.state_dict()))
+    ctx, uc = _sd_contexts(ld, SD_AMED_BATCH)
+    fn, _ = cli_sample.build_amed_sample_fn(module, run_dir, "cuda", cfg_doubled=True,
+                                            condition=ctx, unconditional_condition=uc)
+    lat = stacked_randn(range(SD_AMED_BATCH), SD_LATENT, device="cuda")
+    fn(lat)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    start, end = _events()
+    start.record()
+    x = fn(lat)
+    end.record()
+    torch.cuda.synchronize()
+    device_s = start.elapsed_time(end) / 1000
+    nfe = 2 * segments - (1 if cfg.afs else 0)
+    sample_counts = _counts()
+    want = _only(k1=mh_sites * nfe, k1c=SD_FLAT_SITES * nfe, gn=gn * nfe)
+    print(f"[SD AMED] AMED sampling through bind_with_bottleneck(cfg_doubled=True), NFE {nfe}, "
+          f"batch {SD_AMED_BATCH}, f32 net: {SD_AMED_BATCH / device_s:.3f} latents/s (CUDA "
+          f"events, {device_s:.4f} s); launches {sample_counts}, expected {want}")
+    _check(x.shape == (SD_AMED_BATCH, *SD_LATENT) and torch.isfinite(x).all().item(),
+           "SD AMED samples are not finite")
+    _check(sample_counts == want, "launch counts of the SD AMED sampling")
+    del module, ld, fn, pred
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _kernel_entry(name, source, replaces, launches, fields) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **{k: fields[k] for k in (
@@ -1253,13 +1597,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         ldm_amed, k2b_launches = _phase("phase 19, LSUN LDM AMED", phase_ldm_amed, workdir)
+    sd_k1, sd_k2 = _phase("phase 21, K1 / K2 at the SD head dims", phase_sd_attention_kernels)
+    sd_k1c, sd_k2c = _phase("phase 22, K1c / K2c at the SD f32 shape", phase_sd_flat_kernels)
+    _phase("phase 23, SD D and gradient f32", phase_sd_denoiser_and_gradient)
+    sd_launches, pre, ctx, uc = _phase("phase 24, SD sampling and KL decode", phase_sd_sampling)
+    _phase("phase 26, SD profile", phase_sd_profile, pre, ctx, uc)
+    del pre
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        sd_amed = _phase("phase 25, SD AMED", phase_sd_amed, workdir)
     for name, n in (("K1", launches), ("K2 dQ", amed["dq"]), ("K2 dK/dV", amed["dkv"]),
                     ("K1 on ImageNet-64", in64_launches),
                     ("K2 dQ on ImageNet-64", in64_amed["dq"]),
                     ("K2 dK/dV on ImageNet-64", in64_amed["dkv"]),
                     ("K3 on the LSUN LDM", k3_launches),
                     ("K2 dQ on the LSUN LDM at T=1024", k2b_launches["dq"]),
-                    ("K2 dK/dV on the LSUN LDM at T=1024", k2b_launches["dkv"])):
+                    ("K2 dK/dV on the LSUN LDM at T=1024", k2b_launches["dkv"]),
+                    ("K1 on SD", sd_launches), ("K2 dQ on SD", sd_amed["dq"]),
+                    ("K2 dK/dV on SD", sd_amed["dkv"]), ("K1c on SD", sd_amed["k1c"]),
+                    ("K2c dQ on SD", sd_amed["dqc"]), ("K2c dK/dV on SD", sd_amed["dkvc"])):
         _check(n > 0, f"{name} was not launched on its path")
     print(f"[time] whole run: {time.perf_counter() - t_start:.2f} s")
     print(smi)
@@ -1287,6 +1643,20 @@ def main() -> int:
         _kernel_entry("groupnorm_silu (K3, fused GroupNorm + affine + SiLU, LSUN LDM sampling "
                       "and decode)", "diff_sampler_tpu_torch/csrc/groupnorm.cu",
                       "diff_sampler_tpu/ops/pallas_groupnorm.py:29", k3_launches, k3),
+        _kernel_entry("flash_attention_mh at d=40/80/160 (K1 at the SD head dims, padded in "
+                      "the kernel; SD bf16 sampling path)", fwd, f"{tpu}:157", sd_launches,
+                      sd_k1),
+        _kernel_entry("flash_attention_bwd_dq at d=80/160 (K2 dQ at the SD head dims, SD f32 "
+                      "AMED path)", bwd, f"{tpu}:406", sd_amed["dq"], sd_k2["dq"]),
+        _kernel_entry("flash_attention_bwd_dkv at d=80/160 (K2 dK/dV at the SD head dims, SD "
+                      "f32 AMED path)", bwd, f"{tpu}:554", sd_amed["dkv"], sd_k2["dkv"]),
+        _kernel_entry("flash_attention (K1c, flat flash-attention forward, SD f32 AMED path)",
+                      fwd, f"{tpu}:49", sd_amed["k1c"], sd_k1c),
+        _kernel_entry("flash_attention_flat_bwd_dq (K2c, flat flash-attention backward, dQ, "
+                      "SD f32 AMED path)", bwd, f"{tpu}:960", sd_amed["dqc"], sd_k2c["dq"]),
+        _kernel_entry("flash_attention_flat_bwd_dkv (K2c, flat flash-attention backward, "
+                      "dK/dV, SD f32 AMED path)", bwd, f"{tpu}:994", sd_amed["dkvc"],
+                      sd_k2c["dkv"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -94,11 +94,22 @@ def _declare(lib) -> None:
     lib.dst_flash_attn_fwd.argtypes = ([p] * 5 + [i] * 4 + [ll] * 12
                                        + [ctypes.c_float, i, p])
     lib.dst_flash_attn_fwd.restype = i
+    # the flat layout: q, k, v, out, lse; B, T, d; 9 strides
+    lib.dst_flash_attn_fwd_flat.argtypes = ([p] * 5 + [i] * 3 + [ll] * 9
+                                            + [ctypes.c_float, i, p])
+    lib.dst_flash_attn_fwd_flat.restype = i
     # q, k, v, dO, lse, delta, then dq (or dk, dv); B, T, H, d; 16 strides
     lib.dst_flash_attn_bwd_dq.argtypes = [p] * 7 + [i] * 4 + [ll] * 16 + [ctypes.c_float, i, p]
     lib.dst_flash_attn_bwd_dq.restype = i
     lib.dst_flash_attn_bwd_dkv.argtypes = [p] * 8 + [i] * 4 + [ll] * 16 + [ctypes.c_float, i, p]
     lib.dst_flash_attn_bwd_dkv.restype = i
+    # the flat layout: the same pointers; B, T, d; 12 strides
+    lib.dst_flash_attn_bwd_dq_flat.argtypes = ([p] * 7 + [i] * 3 + [ll] * 12
+                                               + [ctypes.c_float, i, p])
+    lib.dst_flash_attn_bwd_dq_flat.restype = i
+    lib.dst_flash_attn_bwd_dkv_flat.argtypes = ([p] * 8 + [i] * 3 + [ll] * 12
+                                                + [ctypes.c_float, i, p])
+    lib.dst_flash_attn_bwd_dkv_flat.restype = i
     # x, scale, bias, out, scratch; n, hw, c, groups, rows; eps; silu, vec, dtype
     lib.dst_groupnorm_silu.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float] + [i] * 3 + [p]
     lib.dst_groupnorm_silu.restype = i

@@ -42,7 +42,7 @@ def main() -> dict:
         raise RuntimeError("profile_amed needs a CUDA device")
     device = torch.device("cuda")
     cfg = AMEDConfig(dataset_name="cifar10")
-    module, cfg, _, train_step = build_trainer(cfg, "random", device)
+    module, cfg, _, train_step, _ = build_trainer(cfg, "random", device)
     shape = (module.img_resolution, module.img_resolution, module.img_channels)
 
     def iteration(it):

@@ -15,6 +15,11 @@ latents on the model's ``discrete`` schedule (rho 1) in place of that
 default, then decodes them through its VQ first stage, 16 at a time in f32,
 to 256x256 PNGs.
 
+Stable Diffusion (``ms_coco``) needs prompts and the CLIP text encoder,
+which come with a later slice: until then it samples through the library,
+``bind(precond, condition=ctx, unconditional_condition=uc)`` -> ``generate``
+-> ``latent_diffusion.decode_in_chunks``, and this CLI refuses it.
+
 A class-conditional net (``--dataset_name=imagenet64``) samples each seed
 with its own random class label, as the JAX CLI does.  With ``--predictor``
 (an AMED run directory, its ``predictor.npz`` or the experiment number
@@ -75,6 +80,10 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = _parser().parse_args(argv)
+    if args.dataset_name == "ms_coco":
+        raise NotImplementedError("ms_coco sampling needs --prompt and the CLIP text encoder "
+                                  "(ROADMAP slice 4); sample it through the library: bind(pre, "
+                                  "condition=ctx, unconditional_condition=uc) -> generate")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device=cuda but CUDA is not available (pass --device=cpu)")
@@ -134,16 +143,17 @@ def _resolve_snapshot(path_or_exp, outdir_base="./exps"):
     return npz, ckpt.load_config(cfg_path)
 
 
-def build_amed_sample_fn(module, predictor, device):
+def build_amed_sample_fn(module, predictor, device, cfg_doubled: bool = False, **cond):
     """(``latents -> samples`` under ``torch.no_grad``, its AMEDConfig) for
-    an AMED predictor (run dir, .npz or experiment number) over ``module``:
-    every solver setting comes from the predictor's config sidecar."""
+    an AMED predictor (run dir, .npz or experiment number) over ``module``,
+    bound with ``cond`` as ``bind_with_bottleneck`` binds it: every solver
+    setting comes from the predictor's config sidecar."""
     npz, cfg_dict = _resolve_snapshot(predictor)
     cfg = AMEDConfig(**{k: v for k, v in cfg_dict.items()
                         if k in AMEDConfig.__dataclass_fields__})
     pred = load_jax_params(predictor_from_config(cfg, device=device),
                            ckpt.load_params(npz)["params"]).eval()
-    den_b = bind_with_bottleneck(module)
+    den_b = bind_with_bottleneck(module, cfg_doubled=cfg_doubled, **cond)
     t_steps = get_schedule(cfg.num_steps, cfg.sigma_min, cfg.sigma_max, cfg.schedule_type,
                            cfg.schedule_rho, sigma_fn=den_b.sigma_fn,
                            sigma_inv_fn=den_b.sigma_inv_fn)

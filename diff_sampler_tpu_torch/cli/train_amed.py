@@ -2,14 +2,23 @@
 
 Counterpart of ``diff_sampler_tpu/cli/train_amed.py`` for the pixel EDM tier
 (cifar10, ffhq, afhqv2, and the class-conditional imagenet64, whose net is
-bound without labels as in the JAX CLI) and the unconditional latent tier
+bound without labels as in the JAX CLI), the unconditional latent tier
 (lsun_bedroom_ldm, ffhq_ldm: trajectories of 64x64x3 latents, the bottleneck
-the U-Net's middle block), with the same options and defaults:
+the U-Net's middle block) and Stable Diffusion (ms_coco, with
+``--guidance_type=cfg``: each iteration draws one text context per
+trajectory, and at ``--guidance_rate`` other than 1 every net call runs the
+doubled (unconditional, conditional) batch, the bottleneck pooled from its
+conditional half), with the same options and defaults:
 
   python -m diff_sampler_tpu_torch.cli.train_amed --dataset_name=cifar10 \\
       --model_path=random --batch=512 --total_kimg=10 --device=cuda
   python -m diff_sampler_tpu_torch.cli.train_amed --dataset_name=lsun_bedroom_ldm \\
       --model_path=random --batch=512 --batch_gpu=128 --afs=True --device=cuda
+  python -m diff_sampler_tpu_torch.cli.train_amed --dataset_name=ms_coco \\
+      --guidance_type=cfg --guidance_rate=7.5 --model_path=random --batch=8 --device=cuda
+
+Without a CLIP text encoder (a later slice of the port) the contexts are the
+JAX package's seeded random stand-ins (``training/conditioning.py``).
 
 The run directory ``<outdir>/<id>-<desc>/`` gets ``predictor_config.json``
 (written after the model's sigma range is set: sampling restores every
@@ -32,6 +41,7 @@ from ..models.convert import params_to_jax
 from ..models.factory import EDM_ARCHS, LDM_CONFIGS, create_model, init_params
 from ..solvers.amed import bind_with_bottleneck
 from ..training.amed import AMEDConfig, make_amed_train_step, predictor_from_config
+from ..training.conditioning import make_caption_context_fn, make_uncond_context
 from ..utils import checkpoint as ckpt
 from ..utils import stats as training_stats
 from ..utils.profiling import Timer
@@ -43,7 +53,6 @@ _LATER_TIERS = {
     "lsun_bedroom": "slice 3 (ADM/CM 256 px)",
     "lsun_cat": "slice 3 (ADM/CM 256 px)",
     "imagenet256": "slice 3 (ADM/CM 256 px)",
-    "ms_coco": "slice 4 (Stable Diffusion)",
 }
 
 
@@ -90,16 +99,41 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def build_trainer(cfg: AMEDConfig, model_path, device, seed: int = 0):
+def build_trainer(cfg: AMEDConfig, model_path, device, seed: int = 0, prompt_path=None):
     """(frozen net, ``cfg`` with the net's sigma range, predictor from
-    ``seed``, its train step with Adam as ``optax.adam``)."""
-    module, _ = create_model(cfg.dataset_name, model_path, device=device)
+    ``seed``, its train step with Adam as ``optax.adam``, and for Stable
+    Diffusion the per-iteration context sampler ``it -> [batch, 77, 768]``
+    numpy that the step takes as its second argument, else None)."""
+    module, source = create_model(cfg.dataset_name, model_path,
+                                  guidance_rate=cfg.guidance_rate, device=device)
     cfg = dataclasses.replace(cfg, sigma_min=float(module.sigma_min),
                               sigma_max=float(module.sigma_max))
     pred = init_params(predictor_from_config(cfg, device=device), seed=seed)
     optimizer = torch.optim.Adam(pred.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
-    return module, cfg, pred, make_amed_train_step(pred, bind_with_bottleneck(module), cfg,
-                                                   optimizer)
+    if source != "sd":
+        return module, cfg, pred, make_amed_train_step(pred, bind_with_bottleneck(module), cfg,
+                                                       optimizer), None
+    context_fn, uncond = _make_text_conditioning(module.latent_diffusion, prompt_path,
+                                                 cfg.batch, cfg.batch_gpu or cfg.batch,
+                                                 cfg.guidance_rate, seed)
+    if uncond is not None:
+        uncond = torch.from_numpy(uncond).to(device)
+
+    def denoise_factory(ctx):
+        return bind_with_bottleneck(module, cfg_doubled=uncond is not None, condition=ctx,
+                                    unconditional_condition=uncond)
+
+    return module, cfg, pred, make_amed_train_step(pred, None, cfg, optimizer,
+                                                   denoise_factory=denoise_factory), context_fn
+
+
+def _make_text_conditioning(ld, prompt_path, batch, mb, guidance_rate, seed):
+    """(context_fn, uncond) for SD AMED training: per-iteration contexts plus
+    the constant unconditional context sized to the microbatch (None
+    without guidance), as the JAX CLI's helper of the same name."""
+    context_fn = make_caption_context_fn(ld, prompt_path, batch, seed)
+    uncond = make_uncond_context(ld, mb, guidance_rate, seed=seed)
+    return context_fn, uncond
 
 
 def main(argv=None) -> str:
@@ -111,8 +145,12 @@ def main(argv=None) -> str:
     if args.tp > 1 or args.sp > 1 or args.fsdp:
         raise NotImplementedError("--tp/--sp/--fsdp are not ported yet: they come with "
                                   "ROADMAP slice 10 (parallelism)")
-    if args.guidance_type is not None or args.prompt_path is not None:
-        raise NotImplementedError("guidance and prompts come with ROADMAP slices 3-4")
+    if args.dataset_name == "ms_coco":
+        if args.guidance_type != "cfg":
+            raise ValueError("ms_coco trains with --guidance_type=cfg")
+    elif args.guidance_type is not None or args.prompt_path is not None:
+        raise NotImplementedError("--guidance_type and --prompt_path apply to ms_coco here; "
+                                  "classifier guidance comes with ROADMAP slice 3")
     for name in ("total_kimg", "num_steps", "batch", "batch_gpu", "tick"):
         value = getattr(args, name)
         if value is not None and value < (2 if name == "num_steps" else 1):
@@ -127,6 +165,7 @@ def main(argv=None) -> str:
                      max_order=args.max_order, predict_x0=args.predict_x0,
                      lower_order_final=args.lower_order_final, lr=args.lr,
                      total_kimg=args.total_kimg, batch=args.batch, batch_gpu=args.batch_gpu,
+                     guidance_type=args.guidance_type, guidance_rate=args.guidance_rate,
                      remat_traj=args.remat_traj)
     if args.dry_run:
         print("Training options:")
@@ -142,7 +181,8 @@ def main(argv=None) -> str:
     run_dir = ckpt.create_run_dir(args.outdir, run_desc)
     print(f"Run dir: {run_dir}")
 
-    module, cfg, pred, train_step = build_trainer(cfg, args.model_path, device, args.seed)
+    module, cfg, pred, train_step, context_fn = build_trainer(cfg, args.model_path, device,
+                                                              args.seed, args.prompt_path)
     # The sidecar describes the schedule the predictor trains on: the
     # model's sigma range, set before it is written.
     ckpt.save_config(os.path.join(run_dir, "predictor_config.json"), cfg)
@@ -158,7 +198,8 @@ def main(argv=None) -> str:
         while cur_nimg < cfg.total_kimg * 1000:
             batch_seeds = np.arange(it * cfg.batch, (it + 1) * cfg.batch) + args.seed
             latents = stacked_randn(batch_seeds.tolist(), (res, res, chn), device=device)
-            metrics = train_step(latents)
+            cond = () if context_fn is None else (torch.from_numpy(context_fn(it)).to(device),)
+            metrics = train_step(latents, *cond)
             training_stats.report("Loss/loss", metrics["loss_per_step"].cpu().numpy())
             cur_nimg += cfg.batch
             it += 1

@@ -12,11 +12,15 @@
 predictor), whose params the JAX package then loads.
 
 ``load_ldm_jax_params`` loads the JAX package's latent-diffusion param trees
-(``unet``, ``decoder``, ``post_quant_conv``, ``codebook``), whose modules are
-named by the reference's state_dict paths with '.' -> '_'
-(``diff_sampler_tpu/models/ldm.py::_mechanical``): it walks the port's own
-state_dict keys and looks each path up with its dots replaced, never
-splitting a JAX name on '_'.
+(``unet``, ``decoder``, ``post_quant_conv`` and, for a VQ first stage,
+``codebook``), whose modules are named by the reference's state_dict paths
+with '.' -> '_' (``diff_sampler_tpu/models/ldm.py::_mechanical``): it walks
+the port's own state_dict keys and looks each path up with its dots
+replaced, never splitting a JAX name on '_'.  That covers Stable Diffusion's
+U-Net as it is: the spatial transformers' bias-free ``to_q`` / ``to_k`` /
+``to_v`` kernels, ``to_out_0``, ``ff_net_0_proj``, ``ff_net_2``, the
+LayerNorms ``norm1``-``norm3`` (``scale`` / ``bias``), ``proj_in`` /
+``proj_out``, and the KL stage's ``post_quant_conv``.
 
 The JAX params are nested dicts of numpy arrays (``np.asarray`` of each leaf
 of a Flax params tree), so this module needs no jax.
@@ -135,9 +139,9 @@ def _unmechanical(node: Mapping[str, Any], leaf: str, ndim: int) -> np.ndarray:
 
 def load_ldm_jax_params(ld: torch.nn.Module, trees: Mapping[str, Any]) -> torch.nn.Module:
     """Load the JAX package's LatentDiffusion param trees (``unet``,
-    ``decoder``, ``post_quant_conv``, ``codebook``) into the port's
-    ``models.ldm.LatentDiffusion`` in place.  Every state_dict key must be
-    found and every JAX module used."""
+    ``decoder``, ``post_quant_conv`` and a VQ stage's ``codebook``) into the
+    port's ``models.ldm.LatentDiffusion`` (VQ or KL) in place.  Every
+    state_dict key must be found and every JAX module used."""
     flat = {**{f"unet_{k}": v for k, v in trees["unet"].items()},
             **{f"first_stage_decoder_{k}": v for k, v in trees["decoder"].items()},
             "first_stage_post_quant_conv": trees["post_quant_conv"]}

@@ -1,13 +1,14 @@
 """Model factory: dataset name -> denoiser.
 
 Counterpart of ``diff_sampler_tpu/models/factory.py`` for the pixel EDM
-tier and the unconditional latent tier (LSUN-Bedroom / FFHQ LDM).  The
-architecture tables are the JAX package's ``EDM_ARCHS`` (itself
-``sfd-main/training/training_loop.py:59-77``) and ``LDM_CONFIGS``, repeated
-here because the port imports nothing of the JAX package.  The ADM / CM and
-Stable Diffusion tiers and checkpoint loading come with later slices.  The
-JAX package's ``jit_params`` / ``bind_params`` routing of the big frozen nets
-works around its TPU compile service and has no counterpart here.
+tier and the latent tiers (the unconditional LSUN-Bedroom / FFHQ LDM and
+Stable Diffusion v1.5, ``ms_coco``).  The architecture tables are the JAX
+package's ``EDM_ARCHS`` (itself ``sfd-main/training/training_loop.py:59-77``)
+and ``LDM_CONFIGS``, repeated here because the port imports nothing of the
+JAX package.  The ADM / CM tiers, the CLIP text encoder and checkpoint
+loading come with later slices.  The JAX package's ``jit_params`` /
+``bind_params`` routing of the big frozen nets works around its TPU compile
+service and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -70,39 +71,54 @@ def init_params(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
 
 
 def build_ldm_model(dataset_name: str, model_path: Optional[str] = "random", *,
-                    dtype: torch.dtype = torch.float32, device="cuda") -> CFGPrecond:
-    """An unconditional LDM checkpoint -> CFGPrecond over its LatentDiffusion
-    stack (``precond.latent_diffusion``), with sigma_min 0.006 as the
-    reference's training loop sets for LDM nets (sfd training_loop.py:94,
-    99).  ``dtype`` is the U-Net's compute dtype; the first stage runs in f32.
+                    guidance_rate: float = 1.0, dtype: torch.dtype = torch.float32,
+                    device="cuda") -> CFGPrecond:
+    """An LDM / SD checkpoint -> CFGPrecond over its LatentDiffusion stack
+    (``precond.latent_diffusion``), as the JAX package's ``build_ldm_model``
+    (sfd training_loop.py:86-108): ``ms_coco`` (Stable Diffusion) under
+    classifier-free guidance at ``guidance_rate``, its eps model taking the
+    text context as ``cond``, sigma_min 0.1 (sfd training_loop.py:105); the
+    unconditional LDMs with sigma_min 0.006 (:94, 99).  ``dtype`` is the
+    U-Net's compute dtype; the first stage runs in f32.
     Only ``model_path='random'`` (seeded random weights) is ported so far."""
     if model_path != "random":
         raise NotImplementedError("checkpoint loading is not ported yet; use model_path='random'")
     ld = build_latent_diffusion(dataset_name, dtype=dtype, device=device)
+    common = dict(alphas_cumprod=ld.alphas_cumprod, img_resolution=ld.unet.image_size,
+                  img_channels=ld.unet.in_channels, latent_diffusion=ld)
     # the AMED tap: (eps, the middle block's output), as the JAX package's
     # ``_capture_middle_lazy`` gives them
+    if ld.conditioning_key == "crossattn":
+        precond = CFGPrecond(
+            model_fn=ld.apply_model, guidance_type="classifier-free",
+            guidance_rate=guidance_rate, epsilon_t=1e-3, label_dim=1,
+            model_fn_bottleneck=lambda x, t, cond: ld.unet(x, t, cond, return_bottleneck=True),
+            **common)
+        precond.sigma_min = 0.1
+        return precond
     precond = CFGPrecond(
-        model_fn=lambda x, t, cond: ld.apply_model(x, t),
-        alphas_cumprod=ld.alphas_cumprod, img_resolution=ld.unet.image_size,
-        img_channels=ld.unet.in_channels, guidance_type="uncond", guidance_rate=1.0,
-        label_dim=0, model_fn_bottleneck=lambda x, t, cond: ld.unet(
-            x, t, return_bottleneck=True),
-        latent_diffusion=ld)
+        model_fn=lambda x, t, cond: ld.apply_model(x, t), guidance_type="uncond",
+        guidance_rate=1.0, label_dim=0,
+        model_fn_bottleneck=lambda x, t, cond: ld.unet(x, t, return_bottleneck=True), **common)
     precond.sigma_min = 0.006
     return precond
 
 
 def create_model(dataset_name: str, model_path: Optional[str] = None, *,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
+                 guidance_rate: float = 1.0, dtype: torch.dtype = torch.float32,
+                 device="cuda"):
     """Returns (module, model_source): an EDMPrecond and "edm", or a
-    CFGPrecond and "ldm".  Only ``model_path='random'`` (freshly initialised
-    weights from seed 0) is ported so far."""
+    CFGPrecond and "ldm" (the unconditional latent tiers) or "sd"
+    (``ms_coco``, guided at ``guidance_rate``).  Only ``model_path='random'``
+    (freshly initialised weights from seed 0) is ported so far."""
     if model_path != "random":
         raise NotImplementedError("checkpoint loading is not ported yet; use model_path='random'")
     if dataset_name in EDM_ARCHS:
         return init_params(build_edm_model(dataset_name, dtype=dtype, device=device)), "edm"
     if dataset_name in LDM_CONFIGS:
-        return build_ldm_model(dataset_name, model_path, dtype=dtype, device=device), "ldm"
+        precond = build_ldm_model(dataset_name, model_path, guidance_rate=guidance_rate,
+                                  dtype=dtype, device=device)
+        return precond, "sd" if dataset_name == "ms_coco" else "ldm"
     raise NotImplementedError(
         f"model tier for {dataset_name!r} is not ported yet; "
         f"available: {sorted(EDM_ARCHS) + sorted(LDM_CONFIGS)}")

@@ -1,26 +1,37 @@
-"""Scaled-dot-product attention: the plain versions and the wrappers of
-kernels K1 (forward) and K2 (backward).
+"""Scaled-dot-product attention: the plain versions, the wrappers of kernels
+K1 and K1c (forward) and K2 and K2c (backward), and the route between them.
 
 ``flash_attention_mh`` (K1) wraps the hand-written CUDA kernel of
-``csrc/flash_attn_fwd.cu``, which replaces
-``diff_sampler_tpu/ops/pallas_attention.py::_attn_kernel_mh`` and, at head
-dims below 128, its packed twin ``_attn_kernel_mh_packed`` (K1b).
+``csrc/flash_attn_fwd.cu`` on the multi-head [B, T, H, d] layout, which
+replaces ``diff_sampler_tpu/ops/pallas_attention.py::_attn_kernel_mh`` and,
+at head dims below 128, its packed twin ``_attn_kernel_mh_packed`` (K1b).
 ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv`` (K2) wrap the
 kernels of ``csrc/flash_attn_bwd.cu``, which replace ``_bwd_dq_kernel_mh``,
-``_bwd_dkv_kernel_mh`` and, below 128, their packed twins (K2p).  The TPU
-packs 128 // d heads into one matmul to fill the MXU's lanes; here every
-head dim takes one head per block.  On a CUDA tensor each wrapper launches
-its kernel or raises; only a tensor on the CPU takes the plain version
-(``reference_sdpa``, ``reference_sdpa_bwd_dq`` / ``_dkv``).  The kernels
-are bound by their f32 multiply-adds on the CUDA cores, not by device
-memory: they read q, k and v once per tile and never write the [T, T]
-logits, which the plain versions materialise in f32.
+``_bwd_dkv_kernel_mh`` and their packed and streamed twins (K2p, K2b).  The
+TPU packs 128 // d heads into one matmul to fill the MXU's lanes; here every
+head dim takes one head per block.
+
+``flash_attention`` (K1c) and ``flash_attention_flat_bwd_dq`` /
+``flash_attention_flat_bwd_dkv`` (K2c) are the same kernels' entries on the
+flat [B, T, d] layout (B folds batch * heads), the counterparts of the JAX
+``flash_attention`` (``_attn_kernel``) and its VJP ``_flash_bwd``
+(``_bwd_dq_kernel``, ``_bwd_dkv_kernel``).
+
+On a CUDA tensor each wrapper launches its kernel or raises; only a tensor
+on the CPU takes the plain version (``reference_sdpa`` and its backward
+pieces, ``reference_flash_attention`` and its).  The kernels take any head
+dim that is a multiple of 8 up to 256 (padded inside the kernel, see the
+sources).  They are bound by their f32 multiply-adds on the CUDA cores, not
+by device memory: they read q, k and v once per tile and never write the
+[T, T] logits, which the plain versions materialise in f32.
 
 ``sdpa`` is differentiable: it runs the ``torch.autograd.Function``
-``_FlashAttentionMH``, K1 forward and K2 backward (the JAX
-``flash_attention_mh`` is a ``jax.custom_vjp``).  Under ``torch.no_grad``,
-or on inputs that need no gradient, the Function records no graph, so what
-it saves is freed with its output's context.
+``_FlashAttentionMH`` (K1 forward, K2 backward; the JAX
+``flash_attention_mh`` is a ``jax.custom_vjp``), or ``_FlashAttention`` (K1c,
+K2c) where ``takes_flat_kernel`` says the JAX ``sdpa`` takes its flat
+kernel.  Under ``torch.no_grad``, or on inputs that need no gradient, a
+Function records no graph, so what it saves is freed with its output's
+context.
 
 Layout: q, k, v are [B, T, H, d] (the token layout of the U-Nets); they may
 be strided views, such as the interleaved split of the qkv projection.
@@ -34,18 +45,45 @@ import torch
 
 from .. import _build
 
-__all__ = ["HEAD_DIMS", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-           "flash_attention_mh", "flash_attention_mh_bwd", "reference_sdpa",
-           "reference_sdpa_bwd", "reference_sdpa_bwd_dkv", "reference_sdpa_bwd_dq", "sdpa"]
+__all__ = ["MAX_HEAD_DIM", "flash_attention", "flash_attention_bwd", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq", "flash_attention_flat_bwd_dkv",
+           "flash_attention_flat_bwd_dq", "flash_attention_mh", "flash_attention_mh_bwd",
+           "reference_flash_attention", "reference_flash_attention_bwd",
+           "reference_flash_attention_bwd_dkv", "reference_flash_attention_bwd_dq",
+           "reference_sdpa", "reference_sdpa_bwd", "reference_sdpa_bwd_dkv",
+           "reference_sdpa_bwd_dq", "sdpa", "supports_head_dim", "takes_flat_kernel"]
 
-HEAD_DIMS = (32, 64, 128, 256)
+MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_YZ = 65535
+
+
+def supports_head_dim(d: int) -> bool:
+    """The kernels take a head dim that is a multiple of 8 up to 256."""
+    return d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
+
+
+# The JAX ``sdpa`` takes its flat kernel (``flash_attention``) where the
+# multi-head kernel's VMEM plan fails, that is where the double-buffered K
+# and V rows of one batch element, 4 * T * H * d * itemsize bytes, pass its
+# 15 MiB budget (``_mh_plan``, ``_MH_VMEM_BUDGET_BYTES``); every flat shape
+# of the ported tiers also fits the flat kernel's plan (``_fits_vmem``).
+# The rule mirrors that choice and was not re-tuned for this card.
+_FLAT_ROUTE_BYTES = 15 * 2 ** 20
+
+
+def takes_flat_kernel(t: int, h: int, d: int, dtype: torch.dtype) -> bool:
+    """Whether ``sdpa`` runs K1c / K2c (the flat layout) at this shape; K1 /
+    K2 otherwise.  Of the ported tiers only Stable Diffusion's f32 64x64
+    level (T=4096, 8 heads of d=40) takes it."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return 4 * t * h * d * itemsize > _FLAT_ROUTE_BYTES
 
 
 def reference_sdpa(q, k, v, scale):
-    """Plain attention: f32 logits and softmax, the weights cast to the
-    storage dtype before the second product.  Returns (out [B, T, H, d],
-    lse [B, H, T] f32)."""
+    """Plain attention at any head dim: f32 logits and softmax, the weights
+    cast to the storage dtype before the second product.  Returns (out [B,
+    T, H, d], lse [B, H, T] f32)."""
     logits = scale * torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     lse = torch.logsumexp(logits, dim=-1)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -53,44 +91,53 @@ def reference_sdpa(q, k, v, scale):
     return out, lse
 
 
-def _check(q, k, v):
-    if not (q.shape == k.shape == v.shape) or q.dim() != 4:
-        raise ValueError(f"q, k, v must share one [B, T, H, d] shape, got "
+def _check(q, k, v, ndim):
+    """q, k, v of one shape ([B, T, H, d] for ndim 4, [B, T, d] for 3), one
+    dtype and one device, at a head dim and grid the kernels take."""
+    if not (q.shape == k.shape == v.shape) or q.dim() != ndim:
+        layout = "[B, T, H, d]" if ndim == 4 else "[B, T, d]"
+        raise ValueError(f"q, k, v must share one {layout} shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         raise TypeError(f"q, k, v must all be float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v lie on different devices")
-    b, t, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported; the kernel takes {HEAD_DIMS}")
-    if b > 65535 or h > 65535:
-        raise ValueError(f"batch {b} or heads {h} exceed the kernel's grid")
+    d = q.shape[-1]
+    if not supports_head_dim(d):
+        raise ValueError(f"head dim {d} not supported; the kernels take a multiple of 8 up "
+                         f"to {MAX_HEAD_DIM}")
+    grid = (q.shape[0], q.shape[2]) if ndim == 4 else (q.shape[0],)
+    if max(grid) > _MAX_GRID_YZ:
+        raise ValueError(f"batch or heads {grid} exceed the kernel's grid")
+
+
+def _launch_fwd(entry, what, out, lse, q, k, v, scale, dims):
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), *dims,
+            *q.stride(), *k.stride(), *v.stride(), float(scale), _DTYPE_CODES[q.dtype], stream)
+    _build.check(lib, err, what)
 
 
 def flash_attention_mh(q, k, v, scale):
     """Multi-head attention forward.  Returns (out [B, T, H, d] in the input
-    dtype, lse [B, H, T] f32).  Kernel K1 (any d of ``HEAD_DIMS``) on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    dtype, lse [B, H, T] f32).  Kernel K1 on a CUDA tensor, the plain version
+    on a CPU tensor."""
     if q.device.type == "cpu":
         return reference_sdpa(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
-    _check(q, k, v)
+    _check(q, k, v, 4)
     b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    lib = _build.load_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.dst_flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, t, h, d, *q.stride(), *k.stride(), *v.stride(),
-            float(scale), _DTYPE_CODES[q.dtype], stream)
-    _build.check(lib, err, "flash attention forward")
+    _launch_fwd("dst_flash_attn_fwd", "flash attention forward", out, lse, q, k, v, scale,
+                (b, t, h, d))
     flash_attention_mh.launches += 1
     return out, lse
 
@@ -141,18 +188,19 @@ def _delta(out, do):
 
 
 def _bwd_launch(entry, what, outs, q, k, v, do, lse, delta, scale):
-    """Checks the inputs of a K2 kernel and launches it into ``outs``;
-    returns whether it launched (not for an empty batch)."""
+    """Checks the inputs of a K2 kernel ([B, T, H, d], lse and delta [B, H,
+    T]) or a K2c kernel ([B, T, d], lse and delta [B, T]) and launches it
+    into ``outs``; returns whether it launched (not for an empty batch)."""
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
-    _check(q, k, v)
-    b, t, h, d = q.shape
+    _check(q, k, v, q.dim())
+    stats = (q.shape[0], q.shape[2], q.shape[1]) if q.dim() == 4 else q.shape[:2]
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"dO {tuple(do.shape)} {do.dtype} must match q {tuple(q.shape)} "
                          f"{q.dtype}")
     for name, x in (("lse", lse), ("delta", delta)):
-        if x.shape != (b, h, t) or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous f32 [B, H, T], got "
+        if x.shape != stats or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous f32 {tuple(stats)}, got "
                              f"{tuple(x.shape)} {x.dtype}")
     if not (do.device == lse.device == delta.device == q.device):
         raise ValueError("the backward's tensors lie on different devices")
@@ -163,7 +211,7 @@ def _bwd_launch(entry, what, outs, q, k, v, do, lse, delta, scale):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), *(o.data_ptr() for o in outs), b, t, h, d, *q.stride(),
+            delta.data_ptr(), *(o.data_ptr() for o in outs), *q.shape, *q.stride(),
             *k.stride(), *v.stride(), *do.stride(), float(scale), _DTYPE_CODES[q.dtype],
             stream)
     _build.check(lib, err, what)
@@ -222,6 +270,114 @@ def flash_attention_mh_bwd(q, k, v, out, lse, do, scale):
             *flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
 
 
+# ---------------------------------------------------------------------------
+# The flat layout: K1c and K2c
+# ---------------------------------------------------------------------------
+
+
+def _heads(*xs):
+    """[B, T, d] -> [B, T, 1, d] views, the plain multi-head versions' layout."""
+    return [x[:, :, None] for x in xs]
+
+
+def reference_flash_attention(q, k, v, scale):
+    """Plain version of K1c: ``reference_sdpa`` on the flat layout.  q, k, v
+    [B, T, d]; returns (out [B, T, d], lse [B, T] f32)."""
+    out, lse = reference_sdpa(*_heads(q, k, v), scale)
+    return out[:, :, 0], lse[:, 0]
+
+
+def reference_flash_attention_bwd_dq(q, k, v, do, lse, delta, scale):
+    """Plain version of K2c's dQ kernel, on the flat layout."""
+    return reference_sdpa_bwd_dq(*_heads(q, k, v, do), lse[:, None], delta[:, None],
+                                 scale)[:, :, 0]
+
+
+def reference_flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale):
+    """Plain version of K2c's dK/dV kernel, on the flat layout."""
+    dk, dv = reference_sdpa_bwd_dkv(*_heads(q, k, v, do), lse[:, None], delta[:, None], scale)
+    return dk[:, :, 0], dv[:, :, 0]
+
+
+def _delta_flat(out, do):
+    """rowsum(dO * out) in f32, [B, T] contiguous."""
+    return torch.einsum("btd,btd->bt", do.float(), out.float()).contiguous()
+
+
+def reference_flash_attention_bwd(q, k, v, out, lse, do, scale):
+    """Plain version of the flat backward (delta, then K2c's two kernels'
+    plain versions).  Returns (dq, dk, dv) [B, T, d] in the input dtype."""
+    do = do.to(q.dtype)
+    delta = _delta_flat(out, do)
+    return (reference_flash_attention_bwd_dq(q, k, v, do, lse, delta, scale),
+            *reference_flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+
+
+def flash_attention(q, k, v, scale):
+    """Attention forward on the flat layout, q, k, v [B, T, d] (B folds
+    batch * heads; strided).  Returns (out [B, T, d] in the input dtype, lse
+    [B, T] f32).  Kernel K1c on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if q.device.type == "cpu":
+        return reference_flash_attention(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    _check(q, k, v, 3)
+    b, t, d = q.shape
+    out = torch.empty((b, t, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, t), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    _launch_fwd("dst_flash_attn_fwd_flat", "flat flash attention forward", out, lse, q, k, v,
+                scale, (b, t, d))
+    flash_attention.launches += 1
+    return out, lse
+
+
+flash_attention.launches = 0  # kernel launches since the last reset
+
+
+def flash_attention_flat_bwd_dq(q, k, v, do, lse, delta, scale):
+    """dq [B, T, d] from q, k, v and dO ([B, T, d], strided, one dtype), the
+    forward's lse and delta ([B, T] f32, contiguous).  Kernel K2c's dQ kernel
+    on a CUDA tensor, the plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return reference_flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if _bwd_launch("dst_flash_attn_bwd_dq_flat", "flat flash attention backward (dQ)", (dq,),
+                   q, k, v, do, lse, delta, scale):
+        flash_attention_flat_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_flat_bwd_dkv(q, k, v, do, lse, delta, scale):
+    """(dk, dv) [B, T, d]; inputs as ``flash_attention_flat_bwd_dq``.  Kernel
+    K2c's dK/dV kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return reference_flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if _bwd_launch("dst_flash_attn_bwd_dkv_flat", "flat flash attention backward (dK/dV)",
+                   (dk, dv), q, k, v, do, lse, delta, scale):
+        flash_attention_flat_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_flat_bwd_dq.launches = 0  # kernel launches since the last reset
+flash_attention_flat_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, scale):
+    """Flat attention backward (the JAX ``_flash_bwd``) from the forward's
+    (out, lse) and dO: delta in plain PyTorch, then K2c's dQ and dK/dV
+    kernels (their plain versions on a CPU tensor).  Returns (dq, dk, dv)
+    [B, T, d] in the input dtype."""
+    do = do.to(q.dtype)
+    delta = _delta_flat(out, do)
+    return (flash_attention_flat_bwd_dq(q, k, v, do, lse, delta, scale),
+            *flash_attention_flat_bwd_dkv(q, k, v, do, lse, delta, scale))
+
+
 class _FlashAttentionMH(torch.autograd.Function):
     """K1 forward, K2 backward (the plain versions on the CPU)."""
 
@@ -238,10 +394,36 @@ class _FlashAttentionMH(torch.autograd.Function):
         return (*flash_attention_mh_bwd(q, k, v, out, lse, do, ctx.scale), None)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K1c forward, K2c backward on the flat layout (the plain versions on
+    the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_attention(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, lse, do, ctx.scale), None)
+
+
 def sdpa(q, k, v, scale=None):
     """Scaled-dot-product attention on [B, T, H, d]; returns [B, T, H, d].
-    Every CUDA call goes through kernel K1, whatever T and d, and its
-    gradient through kernel K2."""
+    On the card every call goes through a kernel, whatever T: K1c forward
+    and K2c backward on [B * H, T, d] copies where ``takes_flat_kernel``
+    holds (as the JAX ``sdpa`` transposes for its flat kernel), K1 and K2 on
+    the views as they are elsewhere."""
+    b, t, h, d = q.shape
     if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+        scale = 1.0 / math.sqrt(d)
+    if takes_flat_kernel(t, h, d, q.dtype):
+        def flat(x):
+            return x.transpose(1, 2).reshape(b * h, t, d)
+
+        out = _FlashAttention.apply(flat(q), flat(k), flat(v), scale)
+        return out.reshape(b, h, t, d).transpose(1, 2)
     return _FlashAttentionMH.apply(q, k, v, scale)

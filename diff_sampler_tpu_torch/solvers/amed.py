@@ -8,7 +8,8 @@ Counterpart of ``diff_sampler_tpu/solvers/amed.py`` for the EDM tier:
   * the bottleneck tap: ``EDMPrecond.with_bottleneck`` returns the encoder
     activation explicitly (the JAX package uses ``capture_intermediates``,
     the reference a forward hook), ``CFGPrecond.with_bottleneck`` the latent
-    U-Net's middle block;
+    U-Net's middle block (under doubled-batch guidance, its conditional
+    half);
   * the AMED solver and the euler / ipndm / dpm / dpmpp plugins, which insert
     a predicted midpoint into every step (two denoiser calls per step).
 
@@ -126,30 +127,44 @@ class BottleneckDenoiser:
         return self.fn(x, t)
 
 
-def _pool_bottleneck(act):
+def _pool_bottleneck(act, cfg_doubled: bool = False):
     """NHWC activation -> [B, h*w], the mean over channels (the reference
-    mean-pools the hooked bottleneck)."""
-    return act.mean(dim=-1).reshape(act.shape[0], -1)
+    mean-pools the hooked bottleneck); ``cfg_doubled`` keeps the conditional
+    half of a doubled-batch classifier-free-guidance call
+    (solvers_amed.py:33-39)."""
+    pooled = act.mean(dim=-1).reshape(act.shape[0], -1)
+    if cfg_doubled:
+        pooled = pooled[pooled.shape[0] // 2:]
+    return pooled
 
 
-def bind_with_bottleneck(precond) -> BottleneckDenoiser:
+def bind_with_bottleneck(precond, cfg_doubled: bool = False, **cond) -> BottleneckDenoiser:
     """Bind a preconditioner so each call can also yield the channel-pooled
-    bottleneck: an EDMPrecond at ``bottleneck_module_name``, an
-    unconditional CFGPrecond (the latent tier) at its U-Net's middle block.
-    The net is frozen in place: every parameter stops requiring a gradient,
-    so a backward through it computes input gradients only.  It must be in
-    eval mode (dropout off)."""
+    bottleneck: an EDMPrecond at ``bottleneck_module_name`` (without
+    conditioning), a CFGPrecond (the latent tiers) at its U-Net's middle
+    block, with its conditioning keywords (``condition=``,
+    ``unconditional_condition=``) bound; under doubled-batch guidance
+    ``cfg_doubled`` pools the conditional half.  The
+    net is frozen in place: every parameter stops requiring a gradient, so a
+    backward through it computes input gradients only.  It must be in eval
+    mode (dropout off)."""
     if precond.training:
         raise ValueError("bind_with_bottleneck() needs the module in eval mode: call .eval()")
     if not isinstance(precond, nn.Module):  # CFGPrecond over its LatentDiffusion
         precond.latent_diffusion.requires_grad_(False)
 
         def fn_cfg(x, t):
-            out, act = precond.with_bottleneck(x, t)
-            return out, _pool_bottleneck(act)
+            out, act = precond.with_bottleneck(x, t, **cond)
+            return out, _pool_bottleneck(act, cfg_doubled)
 
-        return BottleneckDenoiser(fn_cfg, precond, precond.sigma_min, precond.sigma_max,
+        def plain_cfg(x, t):
+            return precond(x, t, **cond)
+
+        return BottleneckDenoiser(fn_cfg, plain_cfg, precond.sigma_min, precond.sigma_max,
                                   precond.sigma, precond.sigma_inv)
+    if cfg_doubled or cond:
+        raise TypeError("an EDMPrecond is bound without conditioning (the AMED trainer binds "
+                        "the EDM nets without labels)")
     precond.requires_grad_(False)
     name = bottleneck_module_name(precond.label_dim, precond.img_resolution)
 

@@ -15,7 +15,9 @@ trajectory:
   * handoff: single-step students (euler / dpm / amed) restart each segment
     from the teacher's state; multistep students continue from their own
     detached output;
-  * loss = sum((student - teacher)^2) / microbatch.
+  * loss = sum((student - teacher)^2) / microbatch;
+  * a conditional tier (Stable Diffusion) binds its denoiser per
+    microbatch from that microbatch's contexts (``denoise_factory``).
 """
 
 from __future__ import annotations
@@ -82,18 +84,24 @@ def teacher_slice_indices(num_steps: int, M: int) -> list:
 
 
 def make_amed_train_step(predictor: AMEDPredictor, denoise_b, cfg: AMEDConfig,
-                         optimizer: torch.optim.Optimizer):
+                         optimizer: torch.optim.Optimizer, denoise_factory=None):
     """The per-trajectory training step.
 
     denoise_b: a ``BottleneckDenoiser`` over the FROZEN pre-trained net (a
     latent tier's carries the sigma maps that its ``discrete`` schedule
     needs).
+    denoise_factory: for a conditional tier, ``cond -> BottleneckDenoiser``
+    bound to one microbatch's conditioning (Stable Diffusion: its text
+    contexts); the step then takes them as a second argument and
+    ``denoise_b`` may be None (the sigma maps are ``denoise_factory(None)``'s).
     optimizer: over ``predictor.parameters()``; stepped once per segment.
-    Returns ``train_step(latents) -> metrics``, latents ~ N(0, 1) of shape
-    [batch, H, W, C]; metrics hold ``loss_per_step`` (a [num_steps - 1]
-    tensor, each the mean over microbatches) and ``loss``, on the device.
+    Returns ``train_step(latents[, cond]) -> metrics``, latents ~ N(0, 1) of
+    shape [batch, H, W, C], cond [batch, ...] split into microbatches as the
+    latents are; metrics hold ``loss_per_step`` (a [num_steps - 1] tensor,
+    each the mean over microbatches) and ``loss``, on the device.
     """
-    maps = dict(sigma_fn=denoise_b.sigma_fn, sigma_inv_fn=denoise_b.sigma_inv_fn)
+    probe = denoise_b if denoise_b is not None else denoise_factory(None)
+    maps = dict(sigma_fn=probe.sigma_fn, sigma_inv_fn=probe.sigma_inv_fn)
     t_steps = get_schedule(cfg.num_steps, cfg.sigma_min, cfg.sigma_max, cfg.schedule_type,
                            cfg.schedule_rho, **maps)
     n_tea = (cfg.M + 1) * (cfg.num_steps - 1) + 1
@@ -105,19 +113,23 @@ def make_amed_train_step(predictor: AMEDPredictor, denoise_b, cfg: AMEDConfig,
     params = [p for p in predictor.parameters() if p.requires_grad]
 
     @torch.no_grad()
-    def teacher_traj(latents):
-        out = tea_sampler(denoise_b, latents, tea_t, return_inters=True,
+    def teacher_traj(den, latents):
+        out = tea_sampler(den, latents, tea_t, return_inters=True,
                           max_order=cfg.max_order, predict_x0=cfg.predict_x0,
                           lower_order_final=cfg.lower_order_final)
         return out.xs[tea_idx]  # [num_steps - 1, mb, ...]
 
-    def train_step(latents):
+    def train_step(latents, cond=None):
         batch = latents.shape[0]
         mb = cfg.batch_gpu or batch
         if batch % mb:
             raise ValueError(f"batch {batch} not divisible by batch_gpu {mb}")
         micro = list(latents.split(mb))
-        teas = [teacher_traj(lat) for lat in micro]
+        if denoise_factory is None:
+            dens = [denoise_b] * len(micro)
+        else:
+            dens = [denoise_factory(c) for c in cond.split(mb)]
+        teas = [teacher_traj(den, lat) for den, lat in zip(dens, micro)]
         t0 = torch.tensor(t_steps[0], dtype=torch.float32, device=latents.device)
         xs = [lat * t0 for lat in micro]
         buffers = [([], []) for _ in micro]  # multistep history per microbatch
@@ -128,7 +140,7 @@ def make_amed_train_step(predictor: AMEDPredictor, denoise_b, cfg: AMEDConfig,
             seg_losses, stus = [], []
             for a, (x_in, tea) in enumerate(zip(xs, teas)):
                 res, buffers[a], _ = _amed_family(
-                    denoise_b, predictor, x_in / float(seg_t[0]), seg_t,
+                    dens[a], predictor, x_in / float(seg_t[0]), seg_t,
                     mode=cfg.sampler_stu, afs=cfg.afs, max_order=cfg.max_order,
                     predict_x0=cfg.predict_x0, lower_order_final=cfg.lower_order_final,
                     buffer_in=buffers[a][0], buffer_t_in=buffers[a][1], train=True,

@@ -21,6 +21,9 @@ __all__ = ["CATEGORIES", "Timer", "device_breakdown"]
 # this package by their CUDA names, then cuDNN / cuBLAS / CUTLASS GEMM and
 # conv kernels, PyTorch's reductions, then its elementwise and copy kernels.
 CATEGORIES = [
+    ("K1c", r"flash_fwd_flat_kernel"),
+    ("K2c dQ", r"flash_bwd_dq_flat_kernel"),
+    ("K2c dK/dV", r"flash_bwd_dkv_flat_kernel"),
     ("K1", r"flash_fwd_kernel"),
     ("K2 dQ", r"flash_bwd_dq_kernel"),
     ("K2 dK/dV", r"flash_bwd_dkv_kernel"),

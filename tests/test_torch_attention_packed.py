@@ -38,7 +38,9 @@ def _flat(a):
 
 
 def test_k1_takes_every_head_dim_the_jax_package_packs():
-    assert [d for d in A.HEAD_DIMS if PA._pack_factor(d) > 1] == [32, 64]
+    packed = [d for d in range(8, A.MAX_HEAD_DIM + 1, 8) if PA._pack_factor(d) > 1]
+    assert packed == list(range(8, 72, 8))  # 32, 40 and 64 among them
+    assert all(A.supports_head_dim(d) for d in packed)
 
 
 @pytest.mark.parametrize("b,t,h,d", FWD_SHAPES)

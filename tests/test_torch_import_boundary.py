@@ -43,4 +43,6 @@ def test_port_imports_with_jax_and_flax_blocked():
     names = set(proc.stdout.split())
     assert len(names) >= 30  # package, subpackages and modules
     assert {"diff_sampler_tpu_torch.models.adm", "diff_sampler_tpu_torch.models.ldm",
-            "diff_sampler_tpu_torch.ops.groupnorm"} <= names
+            "diff_sampler_tpu_torch.ops.groupnorm", "diff_sampler_tpu_torch.ops.attention",
+            "diff_sampler_tpu_torch.training.conditioning", "diff_sampler_tpu_torch.training.amed",
+            "diff_sampler_tpu_torch.cli.train_amed"} <= names

@@ -1,9 +1,12 @@
-"""Kernels K1 (the CUDA flash-attention forward), K2 (its backward) and K3
-(the fused GroupNorm) against their plain versions, on the card: K1 / K2 at
-the CIFAR-10 shapes, at head dims below 128, where they stand in for the JAX
-package's packed kernels (K1b, K2p), at ImageNet-64's three attention levels
-at a small batch, and at the LSUN LDM's 32x32 level on its legacy qkv views,
-where the JAX package streams K2b; K3 at odd group sizes and ragged H * W.
+"""Kernels K1 (the CUDA flash-attention forward), K2 (its backward), K1c and
+K2c (the same on the flat layout) and K3 (the fused GroupNorm) against their
+plain versions, on the card: K1 / K2 at the CIFAR-10 shapes, at head dims
+below 128, where they stand in for the JAX package's packed kernels (K1b,
+K2p), at ImageNet-64's three attention levels at a small batch, at the LSUN
+LDM's 32x32 level on its legacy qkv views, where the JAX package streams K2b,
+and at Stable Diffusion's head dims 40 / 80 / 160, which the kernels pad; K1c
+/ K2c at those head dims and ragged T, and the gradient of ``sdpa`` on the
+route that takes them; K3 at odd group sizes and ragged H * W.
 
 Marked ``cuda``: without a CUDA device each test skips.  The file imports no
 jax package module, so it also runs where flax is not installed:
@@ -28,7 +31,10 @@ from diff_sampler_tpu_torch.ops import groupnorm as G
 # a small batch, d=32 with 5 heads and a ragged T at d=64
 SHAPES = [(2, 64, 1, 32), (2, 256, 1, 256), (2, 200, 2, 64), (3, 100, 3, 128),
           (256, 64, 1, 256), (2, 1024, 6, 64), (3, 256, 9, 64), (4, 64, 12, 64),
-          (2, 100, 5, 32), (2, 200, 3, 64)]
+          (2, 100, 5, 32), (2, 200, 3, 64),
+          # Stable Diffusion's head dims (padded inside the kernels to 48, 80,
+          # 160) at its 32x32 / 16x16 / 8x8 levels and ragged T, and d=8
+          (2, 1024, 8, 80), (2, 256, 8, 160), (2, 64, 8, 160), (2, 77, 3, 40), (2, 130, 2, 8)]
 
 
 @pytest.fixture
@@ -57,9 +63,12 @@ def test_kernel_matches_plain_on_interleaved_views(cuda, b, t, h, d, dtype):
 
 @pytest.mark.cuda
 def test_kernel_rejects_unsupported_head_dim(cuda):
-    q = torch.zeros(1, 64, 1, 40, device="cuda")
-    with pytest.raises(ValueError, match="head dim 40"):
-        A.flash_attention_mh(q, q, q, 0.1)
+    for d in (36, 264):  # not a multiple of 8; past 256
+        q = torch.zeros(1, 64, 1, d, device="cuda")
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            A.flash_attention_mh(q, q, q, 0.1)
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            A.flash_attention(q[:, :, 0], q[:, :, 0], q[:, :, 0], 0.1)
 
 
 @pytest.mark.cuda
@@ -217,3 +226,74 @@ def test_sdpa_at_d64_runs_k1_and_k2(cuda):
     want = torch.autograd.grad((out * cot).sum(), leaves)
     for name, x, y in zip("qkv", got, want):
         assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item(), name
+
+
+# (B, T, d) of K1c / K2c: Stable Diffusion's head dims at ragged T, and the
+# 64x64 level's T=4096 at d=40
+FLAT_SHAPES = [(3, 77, 40), (2, 200, 80), (2, 130, 160), (4, 256, 40), (2, 4096, 40)]
+
+
+def _flat_inputs(b, t, d, dt, seed):
+    """q, k, v as strided [B, T, d] views of one [B, T, 3, d] tensor, and a
+    non-contiguous dO (the transpose of a [B, d, T])."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    q, k, v = torch.randn(b, t, 3, d, generator=g, device="cuda").to(dt).unbind(2)
+    do = torch.randn(b, d, t, generator=g, device="cuda").to(dt).transpose(1, 2)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d", FLAT_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flat_kernels_match_plain_and_are_deterministic(cuda, b, t, d, dtype):
+    """K1c and K2c on strided views against the plain flat versions; two
+    runs of each bit-identical; one launch each."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = _flat_inputs(b, t, d, dt, seed=d + t)
+    scale = d ** -0.5
+    counters = (A.flash_attention, A.flash_attention_flat_bwd_dq,
+                A.flash_attention_flat_bwd_dkv)
+    before = [c.launches for c in counters]
+    out, lse = A.flash_attention(q, k, v, scale)
+    grads = A.flash_attention_bwd(q, k, v, out, lse, do, scale)
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1]
+    out2, lse2 = A.flash_attention(q, k, v, scale)
+    again = A.flash_attention_bwd(q, k, v, out, lse, do, scale)
+    ref_out, ref_lse = A.reference_flash_attention(q, k, v, scale)
+    ref = A.reference_flash_attention_bwd(q, k, v, out, lse, do, scale)
+    torch.cuda.synchronize()
+    assert out.shape == (b, t, d) and lse.shape == (b, t) and out.dtype == dt
+    tol = 1e-5 if dt == torch.float32 else 2 ** -5 * min(1.0, ref_out.float().abs().max().item())
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-5
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    rel = 1e-4 if dt == torch.float32 else 2 ** -6
+    for name, x, y, z in zip("qkv", grads, ref, again):
+        assert x.dtype == dt and x.shape == (b, t, d)
+        assert (x.float() - y.float()).abs().max().item() <= rel * y.float().abs().max().item(), name
+        assert torch.equal(x, z), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,h,d", [(4096, 8, 40), (1024, 8, 80)])
+def test_sdpa_at_sd_shapes_takes_the_route_of_the_jax_package(cuda, t, h, d):
+    """sdpa on Stable Diffusion's f32 q / k / v (views of a [B, T, 3 * H * d]
+    projection): at T=4096 it runs K1c and K2c on flat copies, at T=1024 K1
+    and K2 on the views; the gradient equals the plain one either way."""
+    g = torch.Generator("cuda").manual_seed(7)
+    qkv = torch.randn(1, t, 3 * h * d, generator=g, device="cuda").requires_grad_()
+    q, k, v = (x.reshape(1, t, h, d) for x in qkv.split(h * d, dim=-1))
+    cot = torch.randn(1, t, h, d, generator=g, device="cuda")
+    counters = (A.flash_attention, A.flash_attention_flat_bwd_dq,
+                A.flash_attention_flat_bwd_dkv, A.flash_attention_mh, A.flash_attention_bwd_dq,
+                A.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    out = A.sdpa(q, k, v)
+    (got,) = torch.autograd.grad((out * cot).sum(), qkv)
+    flat = A.takes_flat_kernel(t, h, d, torch.float32)
+    assert flat == (t == 4096)
+    assert [c.launches - n for c, n in zip(counters, before)] == [flat] * 3 + [not flat] * 3
+    ref_out, _ = A.reference_sdpa(q, k, v, d ** -0.5)
+    (want,) = torch.autograd.grad((ref_out * cot).sum(), qkv)
+    assert (out - ref_out).abs().max().item() <= 1e-5
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()

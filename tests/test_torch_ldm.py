@@ -147,10 +147,15 @@ def test_configs_match_the_jax_package():
 
 
 def test_build_rejects_what_comes_with_the_sd_slice(monkeypatch):
-    """A conditioning key or a KL first stage is refused, not ignored."""
-    for change in (dict(conditioning_key="crossattn"), dict(first_stage="kl")):
+    """The SD slice brought the crossattn conditioning key and the KL first
+    stage (tests/test_torch_sd.py); what the port still does not build is
+    refused, not ignored: the reference's other conditioning keys and any
+    other first stage."""
+    for change, what in ((dict(conditioning_key="concat"), "conditioning key 'concat'"),
+                         (dict(conditioning_key="hybrid"), "conditioning key 'hybrid'"),
+                         (dict(first_stage="vq_interface"), "first stage 'vq_interface'")):
         monkeypatch.setitem(TL.LDM_CONFIGS, "lsun_bedroom_ldm", dict(TINY, **change))
-        with pytest.raises(NotImplementedError, match="SD slice"):
+        with pytest.raises(NotImplementedError, match=what):
             TL.build_latent_diffusion("lsun_bedroom_ldm", device="cpu")
 
 

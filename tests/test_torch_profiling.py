@@ -28,6 +28,12 @@ def _ev(name, ts, dur, cat="kernel"):
      "K2 dK/dV"),
     ("void flash_bwd_dkv_kernel<float, (int)256, (int)32, (int)32>(const T1 *)",
      "K2 dK/dV"),
+    ("void (anonymous namespace)::flash_fwd_flat_kernel<float, (int)48, (int)64>(const T1 *)",
+     "K1c"),
+    ("void (anonymous namespace)::flash_bwd_dq_flat_kernel<float, (int)48, (int)64, (int)64>"
+     "(Args)", "K2c dQ"),
+    ("void (anonymous namespace)::flash_bwd_dkv_flat_kernel<float, (int)48, (int)64, (int)64>"
+     "(Args)", "K2c dK/dV"),
     ("void (anonymous namespace)::gn_partial_stats_kernel<__nv_bfloat16>(const T1 *, float *)",
      "K3"),
     ("_ZN12_GLOBAL__N_118gn_finalize_kernelEPKfS1_S1_S1_PfS2_iiiiif", "K3"),
