@@ -8,9 +8,9 @@ Phases, each printing as it goes and then its seconds:
 1. Environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, nvcc, whether triton imports.
 2. Build kernels K1 (flash-attention forward), K2 (its backward), K1c /
-   K2c (the same on the flat layout) and K3 (fused GroupNorm) from
-   ``csrc/`` with nvcc, one process per source; print each kernel's
-   registers and spills.  At head dims below 128 K1 / K2 stand in for the
+   K2c (the same on the flat layout), K3 (fused GroupNorm) and K4 (direct
+   3x3 conv) from ``csrc/`` with nvcc, one process per source; print each
+   kernel's registers and spills.  At head dims below 128 K1 / K2 stand in for the
    JAX package's packed and streamed twins (K1b, K2p, K2b).
 3. K1 against its plain PyTorch version at the CIFAR-10 path's shapes, on
    the strided q/k/v views that ``attention()`` hands it: max abs error of
@@ -126,6 +126,27 @@ Phases, each printing as it goes and then its seconds:
    exact K1 / K1c / K2 / K2c / K3 launches), then AMED sampling at NFE 5
    through ``bind_with_bottleneck(..., cfg_doubled=True)``.
 26. ``torch.profiler`` over one guided bf16 SD U-Net call at batch 16.
+27. K4 through its entry points (no JAX path calls its Pallas twin):
+   ``conv3x3`` and ``gn_silu_conv3x3`` once each at the two bf16 main shapes
+   with the counts set to 0 (its launches), then each at CIFAR-10's
+   [256, 32, 32, 256] -> 256 and FFHQ's [256, 64, 64, 128] -> 128 in bf16,
+   CIFAR's in f32 and a ragged [3, 7, 5, 128] -> 384 in both, against
+   ``reference_conv3x3`` (f32 1e-5, bf16 2^-7 of max|plain out|; b ~ 0.5,
+   so a wrong halo shows), timed against the plain version and ``F.conv2d``
+   (cuDNN, TF32 off; after a SiLU pass for the fused entry point).
+28. FFHQ-64 (BASELINE config 2's net) at full width: D in f32 against the
+   all-plain model (1e-4 * max, exactly 6 K1 and 95 K3 per forward); bf16
+   sampling at batch 256 through every registry solver (DEIS tab and rhoab,
+   UniPC bh1 and bh2) at NFE 5 and 10, images/s and exact launches; the CLI
+   with ``--solver=unipc --grid=True`` (grid.png byte-equal to the grid of
+   ``generate``'s images) and ``--return_inters=True`` (trajectory.npz's
+   shape); one profiled forward.
+29. GITS on CIFAR-10 through the CLI at the reference's settings (6 steps
+   from a 61-point ipndm teacher, 256 warmup seeds at batch 256, dev metric,
+   coefficient 1.15), ``--afs=False`` then ``--afs=True``: the dp_list's
+   form, the search seconds, and images/s on the found schedule.
+30. The same on the LSUN-Bedroom LDM (BASELINE config 4) in bf16 at batch 64,
+   ``--afs=False``, then sampling and the VQ decode of 64 seeds.
 
 The last three lines are the card's name and power limit, a JSON object on
 the kernels and ``{"ok": true, "device": {...}}``.  The JSON lists K1 and
@@ -133,9 +154,9 @@ K2 at the CIFAR-10 paths (d=256, launches of phases 5 and 8), K1 and K2 at
 the ImageNet-64 paths (d=64, in place of K1b and K2p, launches of phases 12
 and 13), K2 at the LSUN LDM's T=1024 level (in place of K2b, launches of
 phase 19 at that shape), K3 (launches of phase 18), K1 and K2 at SD's head
-dims (launches of phases 24 and 25) and K1c and K2c (launches of phase 25),
-each with its error and times at that path's main shape and its bound on
-this card.
+dims (launches of phases 24 and 25), K1c and K2c (launches of phase 25) and
+K4 (launches of its entry points in phase 27), each with its error and
+times at that path's main shape and its bound on this card.
 Any failed check raises, so the script
 exits non-zero with no result; so does a machine without CUDA.
 """
@@ -164,13 +185,15 @@ from diff_sampler_tpu_torch.models.convert import params_to_jax
 from diff_sampler_tpu_torch.models.factory import create_model, init_params
 from diff_sampler_tpu_torch.models.precond import bind
 from diff_sampler_tpu_torch.ops import attention as A
+from diff_sampler_tpu_torch.ops import conv as C
 from diff_sampler_tpu_torch.ops import groupnorm as G
 from diff_sampler_tpu_torch.sampling import SolverConfig, generate, to_uint8
+from diff_sampler_tpu_torch.solvers import SOLVER_REGISTRY
 from diff_sampler_tpu_torch.training.amed import AMEDConfig, predictor_from_config
 from diff_sampler_tpu_torch.training.conditioning import (make_caption_context_fn,
                                                           make_uncond_context)
 from diff_sampler_tpu_torch.utils import checkpoint as ckpt
-from diff_sampler_tpu_torch.utils.image import encode_png
+from diff_sampler_tpu_torch.utils.image import encode_png, save_grid
 from diff_sampler_tpu_torch.utils.profiling import device_breakdown
 from diff_sampler_tpu_torch.utils.rng import stacked_randn
 
@@ -344,6 +367,45 @@ SD_K2_SHAPES = ([(2 * SD_BATCH_GPU, t, SD_HEADS, d, torch.float32) for t, d, _ i
 SD_FLAT_SHAPES = [(2 * SD_BATCH_GPU * SD_HEADS, 4096, 40, torch.float32),
                   (24, 1000, 40, torch.float32)]
 
+# K4, the direct 3x3 conv (no JAX path calls it: its entry points are the
+# path).  (N, H, W, Cin, Cout, dtype): CIFAR-10's 32x32 level at the sampling
+# batch (the shape the JAX kernel's docstring measured; the first is the main
+# one), FFHQ's 64x64 level, CIFAR's level in f32, and a ragged shape whose
+# 128-pixel tiles span images.  Each runs through conv3x3 and gn_silu_conv3x3
+# with b ~ 0.5, so a halo of silu(b) in place of 0 would show.
+CONV_SHAPES = [(BATCH, 32, 32, 256, 256, torch.bfloat16),
+               (BATCH, 64, 64, 128, 128, torch.bfloat16),
+               (BATCH, 32, 32, 256, 256, torch.float32),
+               (3, 7, 5, 128, 384, torch.bfloat16),
+               (3, 7, 5, 128, 384, torch.float32)]
+# Tolerance of K4 relative to max|plain out|: f32 1e-5 (both sum in f32 in
+# other orders); bf16 2^-7, one bf16 step of the largest output for an
+# element whose f32 sums straddle a rounding boundary.
+CONV_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+# The FFHQ-64 path (EDM_ARCHS["ffhq"], BASELINE config 2's net): a SongUNet
+# with levels 64 / 32 / 16 / 8 (128 / 256 / 256 / 256 channels), 6 attention
+# sites (T=256 at 16x16, T=64 in the middle block; one head of 256) and 95
+# GroupNorms per forward.
+FFHQ_SITES = 6
+FFHQ_GN_SITES = 95
+FFHQ_SHAPE = (64, 64, 3)
+# (solver, extra settings) at NFE 5 and 10: every solver of the registry,
+# DEIS in both modes and UniPC in both variants
+FFHQ_SOLVERS = [(name, {}) for name in sorted(SOLVER_REGISTRY) if name not in ("deis", "unipc")]
+FFHQ_SOLVERS += [("deis", dict(deis_mode="tab")), ("deis", dict(deis_mode="rhoab")),
+                 ("unipc", dict(variant="bh1")), ("unipc", dict(variant="bh2"))]
+FFHQ_NFES = [5, 10]
+FFHQ_TRAJ_SEEDS = 64  # the --return_inters CLI run
+
+# GITS through the CLI at the reference's settings (gits-main's README):
+# 6 student steps picked from a 61-point ipndm teacher over 256 warmup seeds,
+# the "dev" metric at coefficient 1.15.  CIFAR-10 at batch 256, the LSUN LDM
+# (BASELINE config 4) at batch 64 in bf16 with --afs=False (its --afs=True is
+# a known fault of the reference, ROADMAP Queue 3).
+GITS_ARGS = ["--dp=True", "--num_steps=6", "--num_steps_tea=61", "--num_warmup=256",
+             "--metric=dev", "--coeff=1.15", "--solver_tea=ipndm", "--solver=ipndm"]
+
 
 def _check(ok: bool, what: str) -> None:
     if not ok:
@@ -449,8 +511,8 @@ def phase_build() -> None:
         print(f"[build] kernel library already built, loaded in "
               f"{time.perf_counter() - t0:.3f} s")
         return
-    print(f"[build] K1, K1c, K2, K2c and K3 built with nvcc in {_build.build_seconds:.2f} s, one "
-          f"process per source ({' '.join(_build.NVCC_FLAGS)})")
+    print(f"[build] K1, K1c, K2, K2c, K3 and K4 built with nvcc in {_build.build_seconds:.2f} s, "
+          f"one process per source ({' '.join(_build.NVCC_FLAGS)})")
     for line in _build.build_log.splitlines():
         # ptxas names each kernel by its mangled name: print it as
         # flash_<...>_kernel<dtype, d> or gn_<...>_kernel, then its
@@ -458,6 +520,7 @@ def phase_build() -> None:
         entry = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_flat)?_kernel)I(13__nv_bfloat16|f)"
                           r"((?:Li\d+E)+)E", line)
         gn = re.search(r"(gn_[a-z_]+_kernel)(I(13__nv_bfloat16|f)((?:Li\d+E)*)E)?", line)
+        conv = re.search(r"(conv3x3_(?:bf16|f32)_kernel)ILb([01])E", line)
         if entry and "Compiling entry function" in line:
             dtype = "bf16" if entry.group(2) != "f" else "f32"
             ints = re.findall(r"Li(\d+)E", entry.group(3))
@@ -466,6 +529,8 @@ def phase_build() -> None:
             dtype = "bf16" if gn.group(3) == "13__nv_bfloat16" else "f32"
             vec = re.findall(r"Li(\d+)E", gn.group(4) or "")
             print(f"[build] {gn.group(1)}<{dtype}{', vec=' + vec[0] if vec else ''}>:")
+        elif conv and "Compiling entry function" in line:
+            print(f"[build] {conv.group(1)}<{'fused' if conv.group(2) == '1' else 'plain'}>:")
         elif "registers" in line or "spill" in line:
             print(f"[build]   {line.strip()}")
 
@@ -602,7 +667,7 @@ def phase_denoiser_f32() -> None:
 _COUNTED = {"k1": A.flash_attention_mh, "dq": A.flash_attention_bwd_dq,
             "dkv": A.flash_attention_bwd_dkv, "gn": G.groupnorm_silu,
             "k1c": A.flash_attention, "dqc": A.flash_attention_flat_bwd_dq,
-            "dkvc": A.flash_attention_flat_bwd_dkv}
+            "dkvc": A.flash_attention_flat_bwd_dkv, "k4": C.conv3x3}
 
 
 def _reset_counts() -> None:
@@ -1542,6 +1607,289 @@ def phase_sd_amed(workdir: str) -> dict:
     return counts
 
 
+def _conv_bound(n: int, h: int, w: int, cin: int, cout: int, dtype, fused: bool) -> tuple:
+    """(bound_ms, bound_by) of one K4 call: 2 * 9 * Cin flops per output
+    element on the tensor cores (bf16) or the CUDA cores (f32), against x, w,
+    the f32 bias (and a, b) read once and out written once."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    flops = 2 * n * h * w * cout * 9 * cin
+    nbytes = (n * h * w * (cin + cout) + 9 * cin * cout) * elt + 4 * cout
+    nbytes += 2 * 4 * n * cin if fused else 0
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _conv_inputs(n, h, w, cin, cout, dtype, g):
+    """x, w at unit output scale, a bias, and a GroupNorm fold a ~ 1, b ~ 0.5."""
+    x = torch.randn(n, h, w, cin, generator=g, device="cuda").to(dtype)
+    wt = (torch.randn(3, 3, cin, cout, generator=g, device="cuda") / (3 * cin ** 0.5)).to(dtype)
+    bias = 0.1 * torch.randn(cout, generator=g, device="cuda")
+    a = 1 + 0.1 * torch.randn(n, cin, generator=g, device="cuda")
+    b = 0.5 + 0.1 * torch.randn(n, cin, generator=g, device="cuda")
+    return x, wt, bias, a, b
+
+
+@torch.no_grad()
+def phase_conv_kernel() -> tuple:
+    """K4 through its entry points: first the path, ``conv3x3`` and
+    ``gn_silu_conv3x3`` once each at the two bf16 main shapes with the counts
+    set to 0 just before; then each entry point at every ``CONV_SHAPES``
+    shape against ``reference_conv3x3`` and timed against the plain version
+    and ``F.conv2d`` (cuDNN, TF32 off) on the channels-last NCHW view.
+    Returns (the path's K4 launches, the kernels-line fields of the first
+    shape's ``conv3x3``)."""
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator("cuda").manual_seed(11)
+    mains = CONV_SHAPES[:2]
+    inputs = [_conv_inputs(*shape, g) for shape in mains]
+    _reset_counts()
+    for x, wt, bias, a, b in inputs:
+        C.conv3x3(x, wt, bias)
+        C.gn_silu_conv3x3(x, a, b, wt, bias)
+    torch.cuda.synchronize()
+    counts = _counts()
+    print(f"[K4] the entry points once each at {len(mains)} shapes: launches {counts}")
+    _check(counts == _only(k4=2 * len(mains)), "K4 launch counts of its entry points")
+    del inputs
+
+    main = None
+    for n, h, w, cin, cout, dtype in CONV_SHAPES:
+        x, wt, bias, a, b = _conv_inputs(n, h, w, cin, cout, dtype, g)
+        x_nchw = x.permute(0, 3, 1, 2)  # channels-last memory, as cuDNN takes it
+        w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        a4, b4 = a[:, :, None, None], b[:, :, None, None]
+        name = str(dtype).replace("torch.", "")
+        for fused in (False, True):
+            if fused:
+                def kernel():
+                    return C.gn_silu_conv3x3(x, a, b, wt, bias)
+
+                def plain():
+                    return C.reference_conv3x3(x, wt, bias, a, b)
+
+                def library():
+                    z = F.silu(x_nchw.float() * a4 + b4).to(dtype)
+                    return F.conv2d(z, w_oihw, bias.to(dtype), padding=1)
+            else:
+                def kernel():
+                    return C.conv3x3(x, wt, bias)
+
+                def plain():
+                    return C.reference_conv3x3(x, wt, bias)
+
+                def library():
+                    return F.conv2d(x_nchw, w_oihw, bias.to(dtype), padding=1)
+            got, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = CONV_TOL[dtype] * ref.float().abs().max().item()
+            lib_err = (library().permute(0, 2, 3, 1).float() - ref.float()).abs().max().item()
+            del got, ref
+            reps = 10 if n * h * w >= 1 << 16 else 50
+            times = _turns({"kernel": kernel, "plain": plain, "library": library}, reps=reps,
+                           warmup=2)
+            bound_ms, bound_by = _conv_bound(n, h, w, cin, cout, dtype, fused)
+            flops = 2 * n * h * w * cout * 9 * cin
+            what = "gn_silu_conv3x3" if fused else "conv3x3"
+            print(f"[K4] {what} [{n}, {h}, {w}, {cin}] -> {cout} {name}: max abs err {err:.3g} "
+                  f"(tol {tol:.3g}; F.conv2d against the plain version {lib_err:.3g}); K4 "
+                  f"{times['kernel']:.4f} ms ({flops / times['kernel'] / 1e9:.2f} TFLOP/s), "
+                  f"plain {times['plain']:.4f} ms, F.conv2d{' after the SiLU pass' if fused else ''}"
+                  f" {times['library']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            _check(err <= tol, f"K4 disagrees with the plain version at "
+                               f"{(what, n, h, w, cin, cout, name)}")
+            if main is None:
+                main = dict(max_abs_err=err, ms=times["kernel"], plain_ms=times["plain"],
+                            library_ms=times["library"], bound_ms=bound_ms, bound_by=bound_by)
+        del x, wt, x_nchw, w_oihw
+        torch.cuda.empty_cache()
+    return counts["k4"], main
+
+
+def _ffhq_inputs(n: int):
+    """x at sigma 80, 10, 1, 0.1 in turn, and those sigmas."""
+    sigma = torch.tensor([80.0, 10.0, 1.0, 0.1] * (n // 4), device="cuda")
+    return stacked_randn(range(n), FFHQ_SHAPE, device="cuda") * sigma[:, None, None, None], sigma
+
+
+def _ffhq_steps(solver: str, nfe: int) -> tuple:
+    """(num_steps, afs) giving ``nfe`` denoiser calls: one per step, or two
+    for heun / dpm, whose odd NFE takes the analytic first step."""
+    if solver in ("heun", "dpm"):
+        return (nfe + 3) // 2, nfe % 2 == 1
+    return nfe + 1, False
+
+
+def phase_ffhq() -> tuple:
+    """The FFHQ-64 tier at full width.  Returns (the K1 launches of the
+    sampling runs, their images/s by (solver, NFE))."""
+    # D in f32 against the all-plain model
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    module, _ = create_model("ffhq", "random", device="cuda")
+    _redraw_unit_scale(module, seed=1)
+    module.requires_grad_(False)
+    x, sigma = _ffhq_inputs(8)
+    print(f"[FFHQ D f32] full-width FFHQ-64 EDMPrecond (SongUNet, "
+          f"{sum(p.numel() for p in module.parameters()) / 1e6:.1f}M parameters), batch 8, "
+          f"sigma {sigma.tolist()}")
+    den = bind(module)
+    _plain_vs_kernels("FFHQ D f32", _plain_net_patches(layers), forward=lambda: den(x, sigma),
+                      per_forward=dict(k1=FFHQ_SITES, gn=FFHQ_GN_SITES))
+    del module, den
+    torch.cuda.empty_cache()
+
+    # bf16 sampling through every solver at NFE 5 and 10
+    module, _ = create_model("ffhq", "random", dtype=torch.bfloat16, device="cuda")
+    den = bind(module)
+    seeds = list(range(BATCH))
+    kw = dict(max_batch_size=BATCH, device="cuda")
+    generate(den, seeds, FFHQ_SHAPE, SolverConfig(solver="ipndm", num_steps=6), **kw)  # warm-up
+    torch.cuda.synchronize()
+    rates, calls, first = {}, 0, {}
+    _reset_counts()
+    for solver, extra in FFHQ_SOLVERS:
+        tag = solver + "".join(f" {v}" for v in extra.values())
+        for nfe in FFHQ_NFES:
+            steps, afs = _ffhq_steps(solver, nfe)
+            cfg = SolverConfig(solver=solver, num_steps=steps, afs=afs, **extra)
+            _check(cfg.nfe() == nfe, f"{tag} at {steps} steps is NFE {cfg.nfe()}")
+            start, end = _events()
+            start.record()
+            images = generate(den, seeds, FFHQ_SHAPE, cfg, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            seconds = start.elapsed_time(end) / 1000
+            calls += nfe
+            counts = _counts()
+            rates[(tag, nfe)] = BATCH / seconds
+            print(f"[FFHQ] {tag} NFE {nfe} ({steps} steps{', AFS' if afs else ''}), batch "
+                  f"{BATCH}, bf16, poly-7: {BATCH / seconds:.2f} images/s (CUDA events, "
+                  f"{seconds:.4f} s); launches so far {counts}")
+            _check(images.shape == (BATCH, *FFHQ_SHAPE) and np.isfinite(images).all(),
+                   f"FFHQ {tag} NFE {nfe}: output not finite or of shape {images.shape}")
+            _check(counts == _only(**_per_calls(dict(k1=FFHQ_SITES, gn=FFHQ_GN_SITES), calls)),
+                   f"FFHQ {tag} NFE {nfe}: launches {counts}")
+            if nfe == FFHQ_NFES[0]:
+                first[tag] = images
+    launches = _counts()["k1"]
+
+    # the CLI: UniPC to one grid (its bytes are the grid of generate's images),
+    # then the trajectory
+    with tempfile.TemporaryDirectory() as outdir:
+        cli_sample.main(["--dataset_name=ffhq", "--model_path=random", "--solver=unipc",
+                         "--num_steps=6", "--bf16=True", "--grid=True", f"--seeds=0-{BATCH - 1}",
+                         f"--batch={BATCH}", "--device=cuda", f"--outdir={outdir}"])
+        want = os.path.join(outdir, "want.png")
+        save_grid(to_uint8(first["unipc bh2"]), want)
+        with open(os.path.join(outdir, "grid.png"), "rb") as f, open(want, "rb") as f2:
+            same = f.read() == f2.read()
+        print(f"[FFHQ] CLI --solver=unipc --grid=True: grid.png (16 x 16 tiles of 64 x 64) "
+              f"identical to the grid of generate's NFE-5 unipc images: {same}")
+        _check(same, "the FFHQ CLI grid differs from generate's images")
+        n = FFHQ_TRAJ_SEEDS
+        cli_sample.main(["--dataset_name=ffhq", "--model_path=random", "--solver=unipc",
+                         "--num_steps=6", "--bf16=True", "--return_inters=True",
+                         f"--seeds=0-{n - 1}", f"--batch={n}", "--device=cuda",
+                         f"--outdir={outdir}"])
+        xs = np.load(os.path.join(outdir, "trajectory.npz"))["xs"]
+        print(f"[FFHQ] CLI --return_inters=True: trajectory.npz xs {xs.shape}, finite "
+              f"{bool(np.isfinite(xs).all())}")
+        _check(xs.shape == (6, n, *FFHQ_SHAPE) and np.isfinite(xs).all(),
+               f"FFHQ trajectory.npz has shape {xs.shape}")
+        err = np.abs(xs[-1] - first["unipc bh2"][:n]).max()
+        print(f"[FFHQ] its last point vs generate's NFE-5 unipc images at batch {BATCH}: max abs "
+              f"diff {err:.3g} (tol 1e-2 * max|x|; cuDNN may pick other bf16 conv algorithms "
+              f"at batch {n})")
+        _check(err <= 1e-2 * np.abs(first["unipc bh2"][:n]).max(),
+               "the trajectory's end is not generate's sample")
+
+    # one profiled forward
+    sigma = torch.full((BATCH,), 2.5, device="cuda")
+    x = stacked_randn(range(BATCH), FFHQ_SHAPE, device="cuda") * 2.5
+    tag = f"FFHQ profile, one batch-{BATCH} bf16 forward"
+    _profile(tag, lambda: module(x, sigma), {"K1": FFHQ_SITES, "K3": 3 * FFHQ_GN_SITES})
+    _with_plain_groupnorm(tag, lambda: module(x, sigma), [layers])
+    del module, den
+    torch.cuda.empty_cache()
+    return launches, rates
+
+
+def _gits_cli(tag: str, argv: list, num_steps: int, afs: bool) -> dict:
+    """``cli.sample --dp=True`` as a user runs it: checks the dp_list (from 0
+    to 60, strictly increasing, num_steps entries, one more under AFS) and
+    that the whole call launched K1 and K3; returns the CLI's summary."""
+    with tempfile.TemporaryDirectory() as outdir:
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = cli_sample.main([*argv, f"--afs={afs}", "--device=cuda", f"--outdir={outdir}"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        pngs = glob.glob(os.path.join(outdir, "*", "*.png"))
+    dp = out["dp_list"]
+    print(f"[{tag}] --afs={afs}: search {out['gits_seconds']:.3f} s, dp_list {dp}; whole CLI "
+          f"call {seconds:.3f} s host clock, {len(pngs)} PNGs, launches {counts}")
+    # AFS inserts a free first step where one lies between the first two
+    lengths = (num_steps, num_steps + 1) if afs else (num_steps,)
+    _check(dp[0] == 0 and dp[-1] == 60 and all(p < q for p, q in zip(dp, dp[1:]))
+           and len(dp) in lengths, f"{tag}: dp_list {dp}")
+    _check(counts["k1"] > 0 and counts["gn"] > 0 and counts["k4"] == 0,
+           f"{tag}: launches {counts}")
+    return out
+
+
+def _time_on_schedule(tag, den, shape, dp, afs, batch, schedule=("polynomial", 7.0),
+                      unit="images") -> float:
+    """``unit``/s of ``generate`` on the found schedule (ipndm on ``dp`` of
+    the 61-point teacher schedule), CUDA events after a warm-up call."""
+    cfg = SolverConfig(solver="ipndm", num_steps=61, dp_list=tuple(dp), afs=afs,
+                       schedule_type=schedule[0], schedule_rho=schedule[1])
+    seeds = list(range(batch))
+    generate(den, seeds, shape, cfg, max_batch_size=batch, device="cuda")
+    start, end = _events()
+    start.record()
+    x = generate(den, seeds, shape, cfg, max_batch_size=batch, device="cuda")
+    end.record()
+    torch.cuda.synchronize()
+    seconds = start.elapsed_time(end) / 1000
+    print(f"[{tag}] sampling on the found schedule (NFE {cfg.nfe()}, {schedule[0]}), batch "
+          f"{batch}, bf16: {batch / seconds:.2f} {unit}/s (CUDA events, {seconds:.4f} s); "
+          f"finite {bool(np.isfinite(x).all())}")
+    _check(np.isfinite(x).all(), f"{tag}: samples on the found schedule are not finite")
+    return batch / seconds
+
+
+def phase_gits_cifar() -> dict:
+    """GITS on CIFAR-10 through the CLI, --afs=False then --afs=True."""
+    argv = ["--dataset_name=cifar10", "--model_path=random", "--bf16=True", *GITS_ARGS,
+            f"--batch={BATCH}", f"--seeds=0-{BATCH - 1}"]
+    module, _ = create_model("cifar10", "random", dtype=torch.bfloat16, device="cuda")
+    out = {}
+    for afs in (False, True):
+        res = _gits_cli("GITS CIFAR-10", argv, 6, afs)
+        rate = _time_on_schedule("GITS CIFAR-10", bind(module), (32, 32, 3), res["dp_list"],
+                                 afs, BATCH)
+        out[afs] = dict(dp_list=res["dp_list"], seconds=res["gits_seconds"], rate=rate)
+    del module
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gits_ldm() -> dict:
+    """GITS on the LSUN-Bedroom LDM through the CLI (--afs=False), 256 warmup
+    seeds at batch 64, then sampling and the VQ decode of 64 seeds."""
+    argv = ["--dataset_name=lsun_bedroom_ldm", "--model_path=random", "--bf16=True",
+            *GITS_ARGS, f"--batch={LDM_BATCH}", f"--seeds=0-{LDM_BATCH - 1}"]
+    res = _gits_cli("GITS LSUN LDM", argv, 6, False)
+    pre, _ = create_model(LDM, "random", dtype=torch.bfloat16, device="cuda")
+    rate = _time_on_schedule("GITS LSUN LDM", bind(pre), LDM_LATENT, res["dp_list"], False,
+                             LDM_BATCH, schedule=("discrete", 1.0), unit="latents")
+    del pre
+    torch.cuda.empty_cache()
+    return dict(dp_list=res["dp_list"], seconds=res["gits_seconds"], rate=rate)
+
+
 def _kernel_entry(name, source, replaces, launches, fields) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **{k: fields[k] for k in (
@@ -1606,6 +1954,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         sd_amed = _phase("phase 25, SD AMED", phase_sd_amed, workdir)
+    k4_launches, k4 = _phase("phase 27, K4 at the CIFAR-10 and FFHQ conv shapes",
+                             phase_conv_kernel)
+    ffhq_launches, _ = _phase("phase 28, FFHQ-64 D f32, sampling through every solver, CLI, "
+                              "profile", phase_ffhq)
+    _phase("phase 29, GITS on CIFAR-10 through the CLI", phase_gits_cifar)
+    _phase("phase 30, GITS on the LSUN LDM through the CLI", phase_gits_ldm)
     for name, n in (("K1", launches), ("K2 dQ", amed["dq"]), ("K2 dK/dV", amed["dkv"]),
                     ("K1 on ImageNet-64", in64_launches),
                     ("K2 dQ on ImageNet-64", in64_amed["dq"]),
@@ -1615,7 +1969,9 @@ def main() -> int:
                     ("K2 dK/dV on the LSUN LDM at T=1024", k2b_launches["dkv"]),
                     ("K1 on SD", sd_launches), ("K2 dQ on SD", sd_amed["dq"]),
                     ("K2 dK/dV on SD", sd_amed["dkv"]), ("K1c on SD", sd_amed["k1c"]),
-                    ("K2c dQ on SD", sd_amed["dqc"]), ("K2c dK/dV on SD", sd_amed["dkvc"])):
+                    ("K2c dQ on SD", sd_amed["dqc"]), ("K2c dK/dV on SD", sd_amed["dkvc"]),
+                    ("K4 through its entry points", k4_launches),
+                    ("K1 on FFHQ-64", ffhq_launches)):
         _check(n > 0, f"{name} was not launched on its path")
     print(f"[time] whole run: {time.perf_counter() - t_start:.2f} s")
     print(smi)
@@ -1657,6 +2013,10 @@ def main() -> int:
         _kernel_entry("flash_attention_flat_bwd_dkv (K2c, flat flash-attention backward, "
                       "dK/dV, SD f32 AMED path)", bwd, f"{tpu}:994", sd_amed["dkvc"],
                       sd_k2c["dkv"]),
+        _kernel_entry("conv3x3 / gn_silu_conv3x3 (K4, implicit-GEMM 3x3 conv with a fused "
+                      "GroupNorm-affine + SiLU prologue; its entry points, no JAX path)",
+                      "diff_sampler_tpu_torch/csrc/conv3x3.cu",
+                      "diff_sampler_tpu/ops/pallas_conv.py:53", k4_launches, k4),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

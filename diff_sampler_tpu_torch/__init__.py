@@ -1,23 +1,27 @@
 """diff_sampler_tpu_torch: the PyTorch and CUDA port of diff_sampler_tpu.
 
-It runs the EDM sampling paths of CIFAR-10 (SongUNet) and class-conditional
-ImageNet-64 (DhariwalUNet) -- euler / heun / dpm / ipndm / ipndm_v / dpmpp
-samplers, per-seed generation and labels, PNG output -- the latent tiers
-(the LSUN-Bedroom LDM with its VQ decode, Stable Diffusion v1.5 with
-classifier-free guidance over a text context and its KL decode), and AMED
-(predictor training through the frozen net, AMED sampling) on an NVIDIA
-Hopper card, with hand-written kernels built from ``csrc/`` at first use.  Its entry
-points run on the card unless the caller passes ``device="cpu"``.  It
-imports torch and nothing of the JAX package: the noise schedules and
-multistep coefficients are its own copies of that package's numpy code.
+It runs the EDM sampling paths of CIFAR-10 and FFHQ-64 (SongUNet) and
+class-conditional ImageNet-64 (DhariwalUNet) -- the euler / heun / dpm /
+ipndm / ipndm_v / deis / dpmpp / unipc samplers, per-seed generation and
+labels, PNG, grid and trajectory output, the GITS schedule search -- the
+latent tiers (the LSUN-Bedroom LDM with its VQ decode, Stable Diffusion v1.5
+with classifier-free guidance over a text context and its KL decode), and
+AMED (predictor training through the frozen net, AMED sampling) on an
+NVIDIA Hopper card, with hand-written kernels built from ``csrc/`` at first
+use.  Its entry points run on the card unless the caller passes
+``device="cpu"``.  It imports torch and nothing of the JAX package: the
+noise schedules and multistep coefficients are its own copies of that
+package's numpy code.
 
 Subpackages mirror the JAX package's module names:
   ops      - attention (kernels K1, K1c, K2 and K2c and their plain
-             versions), GroupNorm (K3), schedules, multistep coefficients
+             versions), GroupNorm (K3), the direct 3x3 conv (K4),
+             trajectory geometry, schedules, multistep coefficients
   models   - layers, SongUNet, DhariwalUNet, EDMPrecond, the ADM layers,
              LDMUNet, the VQ / KL first stages, CFGPrecond, factory,
-             JAX-params converter
+             JAX-params converter, analytic denoisers
   solvers  - samplers, AMED predictor and samplers
+  gits     - the GITS schedule search
   training - AMED trainer, SD's conditioning contexts
   utils    - per-seed RNG, image IO, checkpoints, training stats, timing
   cli      - sample, train_amed

@@ -113,6 +113,9 @@ def _declare(lib) -> None:
     # x, scale, bias, out, scratch; n, hw, c, groups, rows; eps; silu, vec, dtype
     lib.dst_groupnorm_silu.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float] + [i] * 3 + [p]
     lib.dst_groupnorm_silu.restype = i
+    # x, a, b, w, bias, out; n, h, w, cin, cout, fuse, dtype
+    lib.dst_conv3x3.argtypes = [p] * 6 + [i] * 7 + [p]
+    lib.dst_conv3x3.restype = i
     lib.dst_error_string.argtypes = [i]
     lib.dst_error_string.restype = ctypes.c_char_p
 

@@ -1,19 +1,33 @@
-"""Sampling CLI of the port: seeds -> per-seed PNGs.
+"""Sampling CLI of the port: seeds -> per-seed PNGs, a grid or a trajectory.
 
-Counterpart of ``diff_sampler_tpu/cli/sample.py`` for the pixel EDM tier
-and the unconditional latent tier, with random weights:
+Counterpart of ``diff_sampler_tpu/cli/sample.py`` for the pixel EDM tiers
+and the unconditional latent tiers, with random weights.  It takes the JAX
+CLI's solver, schedule and GITS flags (the reference's SOLVER_FLAGS,
+SCHEDULE_FLAGS, ADDITIONAL_FLAGS and GITS_FLAGS):
 
   python -m diff_sampler_tpu_torch.cli.sample --dataset_name=cifar10 \\
       --model_path=random --solver=ipndm --num_steps=6 --seeds=0-255 \\
       --batch=256 --bf16=True --device=cuda --outdir=out/
+  # UniPC on FFHQ-64, one grid
+  ... --dataset_name=ffhq --solver=unipc --variant=bh2 --grid=True
+  # GITS: search the schedule before sampling
+  ... --dp=True --num_steps_tea=61 --num_warmup=256 --metric=dev --coeff=1.15
   python -m diff_sampler_tpu_torch.cli.sample --dataset_name=lsun_bedroom_ldm \\
       --model_path=random --solver=ipndm --num_steps=6 --seeds=0-63 \\
       --bf16=True --device=cuda --outdir=out/
 
 The pixel tiers default to the poly-7 schedule.  A latent tier samples 64x64
-latents on the model's ``discrete`` schedule (rho 1) in place of that
-default, then decodes them through its VQ first stage, 16 at a time in f32,
-to 256x256 PNGs.
+latents on the model's ``discrete`` schedule (rho 1) where the schedule is
+left at ``polynomial`` and no ``--t_steps`` is given, then decodes them
+through its VQ first stage, 16 at a time in f32, to 256x256 PNGs; it refuses
+``--return_inters`` (the trajectory lives in latent space).
+
+With ``--dp=True`` the GITS search runs first, on that schedule at
+``--num_steps_tea`` points with the ``--solver_tea`` teacher over
+``--num_warmup`` seeds, and sampling then takes its ``dp_list`` of the
+teacher's schedule.  ``--return_inters=True`` writes ``trajectory.npz`` (key
+``xs``, [num_points, N, H, W, C]), or with ``--grid=True`` renders every
+point into ``grid.png``.
 
 Stable Diffusion (``ms_coco``) needs prompts and the CLIP text encoder,
 which come with a later slice: until then it samples through the library,
@@ -28,17 +42,21 @@ every solver setting comes from the predictor's config sidecar; the net is
 bound without labels there, as the JAX CLI binds an EDM net for AMED.
 
 PNG writes of a pixel tier's batch i run on the host while the device
-samples batch i+1 (``sampling.generate``'s batch callback); a latent tier
-writes after the decode.
+samples batch i+1 (``sampling.generate``'s batch callback); a latent tier, a
+grid and a trajectory are written after sampling.
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
 import os
+import time
 
+import numpy as np
 import torch
 
+from ..gits.search import GITSConfig, gits_schedule
 from ..models.convert import load_jax_params
 from ..models.factory import EDM_ARCHS, LDM_CONFIGS, create_model
 from ..models.precond import CFGPrecond, bind
@@ -48,7 +66,7 @@ from ..solvers import SOLVER_REGISTRY
 from ..solvers.amed import AMED_SOLVER_REGISTRY, bind_with_bottleneck
 from ..training.amed import AMEDConfig, predictor_from_config
 from ..utils import checkpoint as ckpt
-from ..utils.image import parse_int_list, save_images
+from ..utils.image import parse_int_list, save_grid, save_images
 
 
 def _bool(s: str) -> bool:
@@ -70,20 +88,58 @@ def _parser() -> argparse.ArgumentParser:
                    help="AMED predictor: run dir, predictor.npz, or experiment number")
     p.add_argument("--batch", dest="max_batch_size", type=int, default=64)
     p.add_argument("--seeds", default="0-63")
+    p.add_argument("--grid", type=_bool, default=False, help="one grid.png of every image")
     p.add_argument("--outdir", default=None)
+    p.add_argument("--subdirs", type=_bool, default=True,
+                   help="PNGs in a subdirectory per 1000 seeds")
     p.add_argument("--bf16", type=_bool, default=False, help="bfloat16 inner model")
     p.add_argument("--device", default="cuda")
+    # SOLVER_FLAGS
     p.add_argument("--solver", choices=sorted(SOLVER_REGISTRY), default="ipndm")
     p.add_argument("--num_steps", type=int, default=6)
+    p.add_argument("--afs", type=_bool, default=False, help="analytic first step")
+    p.add_argument("--denoise_to_zero", type=_bool, default=False)
+    p.add_argument("--return_inters", type=_bool, default=False,
+                   help="save the whole trajectory: trajectory.npz, or every point in the grid")
+    # SCHEDULE_FLAGS
+    p.add_argument("--schedule_type", default="polynomial",
+                   choices=["polynomial", "logsnr", "time_uniform", "discrete"])
+    p.add_argument("--schedule_rho", type=float, default=7.0)
+    p.add_argument("--sigma_min", type=float, default=None,
+                   help="lowest noise level [default: the model's]")
+    p.add_argument("--sigma_max", type=float, default=None,
+                   help="highest noise level [default: the model's]")
+    p.add_argument("--t_steps", default=None,
+                   help="explicit sigma list, e.g. '[80.0, 10.0, 1.0, 0.002]'")
+    # ADDITIONAL_FLAGS
+    p.add_argument("--max_order", type=int, default=None)
+    p.add_argument("--predict_x0", type=_bool, default=True)
+    p.add_argument("--lower_order_final", type=_bool, default=True)
+    p.add_argument("--variant", choices=["bh1", "bh2"], default="bh2")
+    p.add_argument("--deis_mode", choices=["tab", "rhoab"], default="tab")
+    p.add_argument("--r", type=float, default=0.5)
+    # GITS_FLAGS
+    p.add_argument("--dp", type=_bool, default=False, help="run the GITS schedule search")
+    p.add_argument("--metric", choices=["l1", "l2", "dev"], default="dev")
+    p.add_argument("--coeff", type=float, default=1.15)
+    p.add_argument("--num_warmup", type=int, default=256)
+    p.add_argument("--num_steps_tea", type=int, default=61)
+    p.add_argument("--solver_tea", choices=sorted(SOLVER_REGISTRY), default="ipndm")
     return p
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Runs the CLI; returns what a caller may check: the GITS ``dp_list``
+    and search seconds (None without ``--dp``) and the output directory."""
     args = _parser().parse_args(argv)
     if args.dataset_name == "ms_coco":
         raise NotImplementedError("ms_coco sampling needs --prompt and the CLIP text encoder "
                                   "(ROADMAP slice 4); sample it through the library: bind(pre, "
                                   "condition=ctx, unconditional_condition=uc) -> generate")
+    latent = args.dataset_name in LDM_CONFIGS
+    if args.return_inters and latent:
+        raise ValueError("--return_inters is not supported for latent models: the trajectory "
+                         "lives in latent space (use the library and decode each point)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device=cuda but CUDA is not available (pass --device=cpu)")
@@ -92,36 +148,96 @@ def main(argv=None) -> None:
     module, source = create_model(args.dataset_name, args.model_path, dtype=dtype,
                                   device=device)
     shape = (module.img_resolution, module.img_resolution, module.img_channels)
+    summary = dict(dp_list=None, gits_seconds=None, outdir=None)
     if args.predictor is not None:
-        _amed_sample(module, args.predictor, seeds, shape, args.max_batch_size, args.outdir,
-                     args.dataset_name, device)
-        return
+        summary["outdir"] = _amed_sample(module, args.predictor, seeds, shape,
+                                         args.max_batch_size, args.outdir, args.grid,
+                                         args.subdirs, args.dataset_name, device)
+        return summary
     den = bind(module)
-    # a latent tier samples on the model's discrete schedule
-    sched = dict(schedule_type="discrete", schedule_rho=1.0) if source == "ldm" else {}
-    cfg = SolverConfig(solver=args.solver, num_steps=args.num_steps, **sched)
+    # a latent tier samples on the model's discrete schedule, unless a
+    # schedule or a sigma list was asked for; the GITS teacher runs on it too
+    if latent and args.schedule_type == "polynomial" and args.t_steps is None:
+        args.schedule_type, args.schedule_rho = "discrete", 1.0
+    dp_list = None
+    if args.dp:
+        gcfg = GITSConfig(num_steps=args.num_steps, num_steps_tea=args.num_steps_tea,
+                          num_warmup=args.num_warmup, solver_tea=args.solver_tea,
+                          solver=args.solver, metric=args.metric, coeff=args.coeff,
+                          schedule_type=args.schedule_type, schedule_rho=args.schedule_rho,
+                          afs=args.afs, batch_size=args.max_batch_size)
+        t0 = time.perf_counter()
+        dp_list, dp_sigmas = gits_schedule(den, shape, gcfg, device=device)
+        summary.update(dp_list=dp_list, gits_seconds=time.perf_counter() - t0)
+        print(f"GITS search: {summary['gits_seconds']:.1f}s ({gcfg.num_warmup} warmup x "
+              f"{gcfg.num_steps_tea - 1}-step {gcfg.solver_tea} teacher)")
+        print(f"GITS dp_list: {dp_list}")
+        print(f"GITS schedule: {np.round(dp_sigmas, 4).tolist()}")
+        args.num_steps = args.num_steps_tea
+    cfg = SolverConfig(
+        solver=args.solver, num_steps=args.num_steps, schedule_type=args.schedule_type,
+        schedule_rho=args.schedule_rho, afs=args.afs, denoise_to_zero=args.denoise_to_zero,
+        max_order=args.max_order, predict_x0=args.predict_x0,
+        lower_order_final=args.lower_order_final, variant=args.variant,
+        deis_mode=args.deis_mode, r=args.r,
+        t_steps=tuple(ast.literal_eval(args.t_steps)) if args.t_steps else None,
+        dp_list=tuple(dp_list) if dp_list else None, sigma_min=args.sigma_min,
+        sigma_max=args.sigma_max)
     print(f"Solver: {args.solver} | NFE: {cfg.nfe()} | schedule: "
           f"{cfg.schedule_type}(rho={cfg.schedule_rho}) | source: {source} | "
           f"device: {device}")
     out_base = args.outdir or f"samples/{args.dataset_name}-{args.solver}-{args.num_steps}"
+    summary["outdir"] = out_base
     if source == "ldm":
         latents = generate(den, seeds, shape, cfg, max_batch_size=args.max_batch_size,
                            device=device)
-        _decode_and_save(module, latents, seeds, out_base)
-        return
+        _decode_and_save(module, latents, seeds, out_base, args.grid, args.subdirs)
+        return summary
+
+    stream = not args.return_inters and not args.grid
 
     def save_batch(start, chunk):
-        save_images(to_uint8(chunk), seeds[start:start + len(chunk)], out_base)
+        save_images(to_uint8(chunk), seeds[start:start + len(chunk)], out_base,
+                    subdirs=args.subdirs)
 
-    generate(den, seeds, shape, cfg, max_batch_size=args.max_batch_size, device=device,
-             label_dim=module.label_dim, batch_callback=save_batch)
-    print(f"Saved {len(seeds)} images to {out_base}")
+    images = generate(den, seeds, shape, cfg, max_batch_size=args.max_batch_size,
+                      device=device, label_dim=module.label_dim,
+                      return_inters=args.return_inters,
+                      batch_callback=save_batch if stream else None)
+    if args.return_inters:
+        # [num_points, N, ...]: the grid renders every point, else the raw array
+        if args.grid:
+            _save(images.reshape((-1,) + images.shape[2:]),
+                  range(images.shape[0] * images.shape[1]), out_base, True, False)
+        else:
+            os.makedirs(out_base, exist_ok=True)
+            np.savez(os.path.join(out_base, "trajectory.npz"), xs=images)
+            print(f"Saved trajectory {images.shape} to {out_base}/trajectory.npz")
+    elif stream:
+        print(f"Saved {len(seeds)} images to {out_base} (streamed)")
+    else:
+        _save(images, seeds, out_base, args.grid, args.subdirs)
+    return summary
 
 
-def _decode_and_save(module, latents, seeds, out_base):
+def _save(images, seeds, out_base, grid, subdirs):
+    """[-1, 1] images to ``{out_base}/grid.png`` or to per-seed PNGs."""
+    images = to_uint8(images)
+    if grid:
+        save_grid(images, os.path.join(out_base, "grid.png"))
+        print(f"Saved grid to {out_base}/grid.png")
+    else:
+        save_images(images, seeds, out_base, subdirs=subdirs)
+        print(f"Saved {len(images)} images to {out_base}")
+
+
+def _decode_and_save(module, latents, seeds, out_base, grid=False, subdirs=True):
     """A latent tier's samples through its first stage to PNGs."""
     images = module.latent_diffusion.decode_in_chunks(latents)
-    save_images(to_uint8(images), seeds, out_base)
+    if grid:
+        _save(images, seeds, out_base, True, subdirs)
+        return
+    save_images(to_uint8(images), seeds, out_base, subdirs=subdirs)
     print(f"Saved {len(seeds)} images ({images.shape[1]}x{images.shape[2]}, decoded) to "
           f"{out_base}")
 
@@ -167,8 +283,10 @@ def build_amed_sample_fn(module, predictor, device, cfg_doubled: bool = False, *
     return sample_fn, cfg
 
 
-def _amed_sample(module, predictor, seeds, shape, max_batch_size, outdir, dataset_name,
-                 device):
+def _amed_sample(module, predictor, seeds, shape, max_batch_size, outdir, grid, subdirs,
+                 dataset_name, device) -> str:
+    """AMED sampling with every setting from the predictor's config;
+    returns the output directory."""
     sample_fn, cfg = build_amed_sample_fn(module, predictor, device)
     nfe = 2 * (cfg.num_steps - 1) - (1 if cfg.afs else 0)
     print(f"AMED: student={cfg.sampler_stu} steps={cfg.num_steps} NFE={nfe} "
@@ -177,16 +295,22 @@ def _amed_sample(module, predictor, seeds, shape, max_batch_size, outdir, datase
     if isinstance(module, CFGPrecond):
         latents = generate_batches(lambda latents, _: sample_fn(latents), seeds, shape,
                                    max_batch_size=max_batch_size, device=device)
-        _decode_and_save(module, latents, seeds, out_base)
-        return
+        _decode_and_save(module, latents, seeds, out_base, grid, subdirs)
+        return out_base
 
     def save_batch(start, chunk):
-        save_images(to_uint8(chunk), seeds[start:start + len(chunk)], out_base)
+        save_images(to_uint8(chunk), seeds[start:start + len(chunk)], out_base,
+                    subdirs=subdirs)
 
     # the net is bound without labels (see the module docstring)
-    generate_batches(lambda latents, _: sample_fn(latents), seeds, shape,
-                     max_batch_size=max_batch_size, device=device, batch_callback=save_batch)
-    print(f"Saved {len(seeds)} images to {out_base}")
+    images = generate_batches(lambda latents, _: sample_fn(latents), seeds, shape,
+                              max_batch_size=max_batch_size, device=device,
+                              batch_callback=None if grid else save_batch)
+    if grid:
+        _save(images, seeds, out_base, True, subdirs)
+    else:
+        print(f"Saved {len(seeds)} images to {out_base}")
+    return out_base
 
 
 if __name__ == "__main__":

@@ -1,0 +1,132 @@
+"""Direct 3x3 conv (stride 1, SAME, NHWC) with an optional fused
+GroupNorm-affine + SiLU prologue: the plain version and the wrapper of
+kernel K4.
+
+Counterpart of ``diff_sampler_tpu/ops/pallas_conv.py`` and its entry points
+``conv3x3``, ``gn_silu_conv3x3`` and ``supported``, with the JAX layouts: x
+[N, H, W, Cin] in bf16 or f32, w [3, 3, Cin, Cout], a and b [N, Cin] (the
+per-(sample, channel) fold of GroupNorm statistics and affine), out [N, H,
+W, Cout] in x's dtype.  The rounding order is the JAX kernel's: the prologue
+``silu(x * a + b)`` in f32, rounded to x's dtype; w cast to x's dtype;
+products summed in f32; the f32 bias added; the result cast to x's dtype.
+The SAME padding is zero after the prologue, not ``silu(b)``.
+
+``reference_conv3x3`` is the plain version: 9 shifted f32 matmuls in that
+rounding order, no cuDNN.  ``conv3x3`` and ``gn_silu_conv3x3`` take it for a
+tensor on the CPU; on a CUDA tensor they launch K4 (``csrc/conv3x3.cu``) or
+raise.  K4 is forward only, as the JAX kernel is (it has no VJP): it raises
+on an input that requires grad while autograd records.
+
+No model of the JAX package calls this kernel (XLA's conv beat it on the
+TPU, so its U-Nets keep ``lax.conv``); the port's U-Nets likewise keep
+``F.conv2d``, and these entry points are the only way into K4.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+
+__all__ = ["conv3x3", "gn_silu_conv3x3", "reference_conv3x3", "supported"]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def supported(n, h, w, cin, cout) -> bool:
+    """K4's rule: Cin and Cout multiples of 8 (one 16-byte vector holds 8
+    bf16 channels), N, H, W >= 1.  It takes every shape the JAX kernel's
+    ``supported`` takes (channels multiples of 128)."""
+    return (min(n, h, w) >= 1 and cin >= 8 and cout >= 8
+            and cin % 8 == 0 and cout % 8 == 0)
+
+
+def reference_conv3x3(x, w, bias=None, a=None, b=None):
+    """The plain version: ``conv3x3(x, w, bias)``, or with ``a`` and ``b``
+    ``gn_silu_conv3x3(x, a, b, w, bias)``."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    z = x
+    if a is not None:
+        z = F.silu(x.float() * a.float()[:, None, None, :] + b.float()[:, None, None, :])
+        z = z.to(x.dtype)
+    zp = F.pad(z, (0, 0, 1, 1, 1, 1))  # zeros around the prologue's output
+    wf = w.to(x.dtype).float()
+    acc = torch.zeros(n * h * wd, cout, dtype=torch.float32, device=x.device)
+    for dy in range(3):
+        for dx in range(3):
+            acc += zp[:, dy:dy + h, dx:dx + wd, :].float().reshape(-1, cin) @ wf[dy, dx]
+    if bias is not None:
+        acc += bias.float()
+    return acc.reshape(n, h, wd, cout).to(x.dtype)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (K4 loads 16 bytes)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(x, w, bias, a, b):
+    """K4 on CUDA tensors; returns out, [N, H, W, Cout] in x's dtype."""
+    if x.dim() != 4 or x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"x must be a float32 or bfloat16 [N, H, W, Cin], got "
+                        f"{tuple(x.shape)} {x.dtype}")
+    n, h, wd, cin = x.shape
+    if w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, cin):
+        raise ValueError(f"w must be [3, 3, {cin}, Cout], got {tuple(w.shape)}")
+    cout = w.shape[-1]
+    if not supported(n, h, wd, cin, cout):
+        raise ValueError(f"K4 takes Cin and Cout multiples of 8 and N, H, W >= 1, got "
+                         f"x {tuple(x.shape)}, Cout {cout}")
+    fuse = a is not None
+    tensors = [x, w] + [t for t in (bias, a, b) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("K4 is forward only (the JAX kernel has no VJP): call it under "
+                           "torch.no_grad() or on tensors that do not require grad")
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("x, w, bias, a and b lie on different devices")
+    if bias is not None and tuple(bias.shape) != (cout,):
+        raise ValueError(f"bias must be [{cout}], got {tuple(bias.shape)}")
+    if fuse and (tuple(a.shape) != (n, cin) or tuple(b.shape) != (n, cin)):
+        raise ValueError(f"a and b must be [{n}, {cin}], got {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    x, w = _aligned(x), _aligned(w.to(x.dtype))
+    bias = _aligned(bias.float() if bias is not None
+                    else torch.zeros(cout, dtype=torch.float32, device=x.device))
+    if fuse:
+        a, b = _aligned(a.float()), _aligned(b.float())
+    out = torch.empty(n, h, wd, cout, dtype=x.dtype, device=x.device)
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dst_conv3x3(x.data_ptr(), a.data_ptr() if fuse else None,
+                              b.data_ptr() if fuse else None, w.data_ptr(), bias.data_ptr(),
+                              out.data_ptr(), n, h, wd, cin, cout, int(fuse),
+                              _DTYPE_CODES[x.dtype], stream)
+    _build.check(lib, err, "conv3x3")
+    conv3x3.launches += 1
+    return out
+
+
+def conv3x3(x, w, bias=None):
+    """Direct 3x3 SAME conv: x [N, H, W, Cin] (bf16 / f32), w [3, 3, Cin,
+    Cout], bias [Cout] or None.  K4 on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if x.device.type == "cpu":
+        return reference_conv3x3(x, w, bias)
+    return _launch(x, w, bias, None, None)
+
+
+def gn_silu_conv3x3(x, a, b, w, bias=None):
+    """``conv3x3(silu(x * a + b), w, bias)`` with a, b [N, Cin] the
+    per-(sample, channel) fold of GroupNorm: a = rsqrt(var + eps) * scale,
+    b = bias_gn - mean * a.  K4 on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if x.device.type == "cpu":
+        return reference_conv3x3(x, w, bias, a, b)
+    return _launch(x, w, bias, a, b)
+
+
+conv3x3.launches = 0  # K4 launches through either entry point since the last reset

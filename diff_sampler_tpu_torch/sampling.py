@@ -26,8 +26,9 @@ __all__ = ["SolverConfig", "build_sample_fn", "generate", "generate_batches", "t
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """Solver and schedule settings (the reference's SOLVER_FLAGS and
-    SCHEDULE_FLAGS), for the samplers ported so far."""
+    """Solver and schedule settings: the reference's SOLVER_FLAGS,
+    SCHEDULE_FLAGS and ADDITIONAL_FLAGS, as the JAX package's
+    ``SolverConfig`` holds them."""
 
     solver: str = "heun"
     num_steps: int = 6
@@ -35,29 +36,57 @@ class SolverConfig:
     schedule_rho: float = 7.0
     afs: bool = False
     denoise_to_zero: bool = False
-    max_order: Optional[int] = None  # default: 4 (lms family)
+    max_order: Optional[int] = None  # default: 4 (lms family) / 3 (dpmpp, unipc)
+    predict_x0: bool = True
+    lower_order_final: bool = True
+    variant: str = "bh2"
+    deis_mode: str = "tab"
+    r: float = 0.5
+    t_steps: Optional[Tuple[float, ...]] = None  # an explicit sigma schedule
+    dp_list: Optional[Tuple[int, ...]] = None  # GITS sub-selection of the schedule
+    # None: the model's own range.  When set they override it, as in the JAX
+    # package (the reference accepts the flags and then overwrites them with
+    # the net's range, MIGRATION.md).
+    sigma_min: Optional[float] = None
+    sigma_max: Optional[float] = None
 
     def resolve_t_steps(self, sigma_min: float, sigma_max: float, sigma_fn=None,
                         sigma_inv_fn=None) -> np.ndarray:
-        """The sigma schedule over the model's range (float64); the
-        ``discrete`` schedule of the latent tiers needs the model's sigma maps
-        ``sigma_fn`` / ``sigma_inv_fn``."""
+        """The sigma schedule (float64): ``t_steps`` if given, else the
+        schedule over the model's range (or the ``sigma_min`` / ``sigma_max``
+        override), sub-selected by ``dp_list``; the ``discrete`` schedule of
+        the latent tiers needs the model's sigma maps ``sigma_fn`` /
+        ``sigma_inv_fn``."""
+        if self.t_steps is not None:
+            return np.asarray(self.t_steps, dtype=np.float64)
+        sigma_min = self.sigma_min if self.sigma_min is not None else sigma_min
+        sigma_max = self.sigma_max if self.sigma_max is not None else sigma_max
         return get_schedule(self.num_steps, sigma_min, sigma_max, self.schedule_type,
-                            self.schedule_rho, sigma_fn=sigma_fn, sigma_inv_fn=sigma_inv_fn)
+                            self.schedule_rho, sigma_fn=sigma_fn, sigma_inv_fn=sigma_inv_fn,
+                            dp_list=self.dp_list)
 
     def sampler_kwargs(self) -> dict:
-        kw = dict(afs=self.afs, denoise_to_zero=self.denoise_to_zero)
+        kw = dict(afs=self.afs, denoise_to_zero=self.denoise_to_zero,
+                  predict_x0=self.predict_x0, lower_order_final=self.lower_order_final,
+                  variant=self.variant, deis_mode=self.deis_mode, r=self.r)
         if self.max_order is not None:
             kw["max_order"] = self.max_order
         return kw
 
-    def nfe(self) -> int:
-        return count_nfe(self.solver, self.num_steps, self.afs, self.denoise_to_zero)
+    def nfe(self, cfg_doubled: bool = False) -> int:
+        """Denoiser evaluations of one run: the schedule's length is that of
+        ``dp_list``, else of ``t_steps``, else ``num_steps``."""
+        n = len(self.t_steps) if self.t_steps is not None else self.num_steps
+        n = len(self.dp_list) if self.dp_list is not None else n
+        return count_nfe(self.solver, n, self.afs, self.denoise_to_zero, cfg_doubled)
 
 
-def build_sample_fn(denoise: BoundDenoiser, cfg: SolverConfig) -> Callable:
+def build_sample_fn(denoise: BoundDenoiser, cfg: SolverConfig, *,
+                    return_inters: bool = False) -> Callable:
     """``latents -> samples`` (f32) for a bound denoiser, on the schedule of
-    ``cfg`` over its sigma range (and its sigma maps, for ``discrete``)."""
+    ``cfg`` over its sigma range (and its sigma maps, for ``discrete``).
+    With ``return_inters`` it returns the whole ``SampleResult`` (the
+    trajectory ``xs`` is [num_points, B, ...])."""
     t_steps = cfg.resolve_t_steps(denoise.sigma_min, denoise.sigma_max,
                                   sigma_fn=denoise.sigma_fn, sigma_inv_fn=denoise.sigma_inv_fn)
     sampler = get_sampler(cfg.solver)
@@ -65,7 +94,8 @@ def build_sample_fn(denoise: BoundDenoiser, cfg: SolverConfig) -> Callable:
 
     @torch.no_grad()
     def fn(latents):
-        return sampler(denoise, latents, t_steps, **kw).x
+        out = sampler(denoise, latents, t_steps, return_inters=return_inters, **kw)
+        return out if return_inters else out.x
 
     return fn
 
@@ -86,12 +116,14 @@ def _start_copy_to_host(x: torch.Tensor):
 def generate(denoise: BoundDenoiser, seeds: Sequence[int], sample_shape: Tuple[int, ...],
              cfg: SolverConfig, *, max_batch_size: int = 64, device="cuda",
              label_dim: int = 0, class_idx: Optional[int] = None,
-             batch_callback=None) -> np.ndarray:
+             return_inters: bool = False, batch_callback=None) -> np.ndarray:
     """Generate one sample per seed with the solver of ``cfg``,
     ``max_batch_size`` at a time (``generate_batches``).
 
     sample_shape: per-sample shape, e.g. (32, 32, 3) NHWC.  Returns a float32
-    numpy array [len(seeds), *sample_shape].
+    numpy array [len(seeds), *sample_shape]; with ``return_inters``, the
+    whole trajectory [num_points, len(seeds), *sample_shape], x_T and the
+    final sample included.
 
     The denoiser is called as ``denoise(x, t, class_labels)``, as a
     ``bind``-ed EDMPrecond takes it: None for an unconditional net
@@ -101,7 +133,8 @@ def generate(denoise: BoundDenoiser, seeds: Sequence[int], sample_shape: Tuple[i
     ``class_idx`` for every seed."""
     def sample_fn(latents, labels):
         den = dataclasses.replace(denoise, fn=lambda x, t: denoise(x, t, labels))
-        return build_sample_fn(den, cfg)(latents)
+        out = build_sample_fn(den, cfg, return_inters=return_inters)(latents)
+        return out.xs if return_inters else out
 
     return generate_batches(sample_fn, seeds, sample_shape, max_batch_size=max_batch_size,
                             device=device, label_dim=label_dim, class_idx=class_idx,
@@ -123,7 +156,9 @@ def generate_batches(sample_fn: Callable, seeds: Sequence[int], sample_shape: Tu
                      class_idx: Optional[int] = None, batch_callback=None) -> np.ndarray:
     """``sample_fn(latents, labels) -> samples`` on each batch of per-seed
     latents, ``max_batch_size`` at a time; returns [len(seeds),
-    *sample_shape] f32.  ``labels`` is None when ``label_dim`` is 0, else the
+    *sample_shape] f32, or [P, len(seeds), *sample_shape] where ``sample_fn``
+    returns a trajectory [P, B, *sample_shape]: the chunks join along the
+    batch axis.  ``labels`` is None when ``label_dim`` is 0, else the
     per-seed one-hot labels of ``generate``, padded as the latents are.
 
     One batch stays in flight: batch i+1 is enqueued on the device before
@@ -136,15 +171,21 @@ def generate_batches(sample_fn: Callable, seeds: Sequence[int], sample_shape: Tu
     seeds = np.asarray(list(seeds), dtype=np.int64)
     n = len(seeds)
     batch = max(1, min(max_batch_size, n))
-    out = np.empty((n,) + tuple(sample_shape), dtype=np.float32)
+    out = None
 
     def drain(pending):
+        nonlocal out
         start, m, host, done = pending
         if done is not None:
             done.synchronize()
-        out[start:start + m] = host.numpy()[:m]
+        host = host.numpy()
+        lead = host.ndim - 1 - len(sample_shape)  # 1 for a trajectory, else 0
+        if out is None:
+            out = np.empty(host.shape[:lead] + (n,) + tuple(sample_shape), dtype=np.float32)
+        rows = (slice(None),) * lead + (slice(start, start + m),)
+        out[rows] = host[(slice(None),) * lead + (slice(0, m),)]
         if batch_callback is not None:
-            batch_callback(start, out[start:start + m])
+            batch_callback(start, out[rows])
 
     pending = None  # (start, chunk length, host tensor, copy-done event)
     for start in range(0, n, batch):
@@ -160,7 +201,7 @@ def generate_batches(sample_fn: Callable, seeds: Sequence[int], sample_shape: Tu
         pending = (start, len(chunk), host, done)
     if pending is not None:
         drain(pending)
-    return out
+    return out if out is not None else np.empty((0,) + tuple(sample_shape), np.float32)
 
 
 def to_uint8(x: np.ndarray) -> np.ndarray:

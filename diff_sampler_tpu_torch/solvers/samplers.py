@@ -1,5 +1,6 @@
 """ODE samplers for few-NFE diffusion sampling: euler, heun, dpm (DPM-Solver-2),
-ipndm, ipndm_v, dpmpp (DPM-Solver++ multistep).
+ipndm, ipndm_v, deis, dpmpp (DPM-Solver++ multistep) and unipc (UniPC
+predictor-corrector).
 
 Counterpart of ``diff_sampler_tpu/solvers/samplers.py``.  The JAX package
 runs each sampler as one ``lax.scan``; here the step loop is a Python loop
@@ -35,7 +36,9 @@ __all__ = [
     "dpm_2_sampler",
     "ipndm_sampler",
     "ipndm_v_sampler",
+    "deis_sampler",
     "dpm_pp_sampler",
+    "unipc_sampler",
     "SOLVER_REGISTRY",
     "get_sampler",
     "count_nfe",
@@ -85,7 +88,7 @@ def _finalize(denoise, x, t_last, xs, eps, denoise_to_zero, return_inters):
             xs.append(x)
     if not return_inters:
         return SampleResult(x=x)
-    return SampleResult(x=x, xs=torch.stack(xs), eps=torch.stack(eps))
+    return SampleResult(x=x, xs=torch.stack(xs), eps=torch.stack(eps) if eps else None)
 
 
 def _lms_sample(denoise: Denoiser, latents, t_steps, C, *, afs=False,
@@ -134,6 +137,18 @@ def ipndm_v_sampler(denoise, latents, t_steps, *, max_order=4, afs=False,
                        return_inters=return_inters, dtype=dtype)
 
 
+def deis_sampler(denoise, latents, t_steps, *, max_order=4, deis_mode="tab", coeffs=None,
+                 afs=False, denoise_to_zero=False, return_inters=False, dtype=torch.float32,
+                 **_):
+    """DEIS exponential integrator in the eps-space LMS form; ``coeffs``: a
+    precomputed ``multistep.deis_coeffs`` stack for ``t_steps``."""
+    if coeffs is None:
+        coeffs = multistep.deis_coeffs(t_steps, max_order, deis_mode=deis_mode)
+    return _lms_sample(denoise, latents, t_steps, coeffs, afs=afs,
+                       denoise_to_zero=denoise_to_zero, return_inters=return_inters,
+                       dtype=dtype)
+
+
 def _two_eval_sample(denoise, latents, t_steps, t_mid, w_cur, w_mid, *, afs,
                      denoise_to_zero, return_inters, dtype):
     """Single-step solvers with two denoiser calls per step:
@@ -177,11 +192,14 @@ def dpm_2_sampler(denoise, latents, t_steps, *, r=0.5, afs=False, denoise_to_zer
 
 def dpm_pp_sampler(denoise, latents, t_steps, *, max_order=3, predict_x0=True,
                    lower_order_final=True, afs=False, denoise_to_zero=False,
-                   return_inters=False, dtype=torch.float32, **_):
+                   return_inters=False, dtype=torch.float32, coeffs=None, **_):
     """DPM-Solver++ multistep: x_{i+1} = A[i] x_i + B[i,0] m_i + B[i,1] m_{i-1}
     + B[i,2] m_{i-2}, where m is the thresholded data prediction
-    (``predict_x0``) or the gradient d."""
-    co = multistep.dpm_pp_coeffs(t_steps, max_order, predict_x0, lower_order_final)
+    (``predict_x0``) or the gradient d.  ``coeffs``: a precomputed
+    ``multistep.dpm_pp_coeffs`` for ``t_steps`` (the GITS AFS search hands
+    one in per candidate schedule)."""
+    co = (coeffs if coeffs is not None else
+          multistep.dpm_pp_coeffs(t_steps, max_order, predict_x0, lower_order_final))
     x, t = _prepare(latents, t_steps, dtype)
     a_row = _as_dtype(co.A, dtype)
     b_rows = [_as_dtype(row, dtype) for row in np.asarray(co.B)]
@@ -202,13 +220,75 @@ def dpm_pp_sampler(denoise, latents, t_steps, *, max_order=3, predict_x0=True,
     return _finalize(denoise, x, t[-1], xs, eps, denoise_to_zero, return_inters)
 
 
+def unipc_sampler(denoise, latents, t_steps, *, max_order=3, predict_x0=True,
+                  lower_order_final=True, variant="bh2", afs=False, denoise_to_zero=False,
+                  return_inters=False, dtype=torch.float32, coeffs=None, **_):
+    """UniPC predictor-corrector (``variant`` bh1 / bh2).  The history holds
+    model outputs m (the thresholded data prediction, or d), newest first,
+    seeded with m at t_0.  Each step predicts x_pred from the history; where
+    ``use_corrector`` holds (every step but the last under
+    ``lower_order_final``), the model output at (x_pred, t_next) corrects it
+    and becomes the next step's newest history entry, so a step costs one
+    denoiser call either way.  ``coeffs``: a precomputed
+    ``multistep.unipc_coeffs`` for ``t_steps``.  ``return_inters`` records
+    the states only (``eps`` is None), as the JAX sampler does."""
+    co = (coeffs if coeffs is not None else
+          multistep.unipc_coeffs(t_steps, max_order, predict_x0, lower_order_final, variant))
+    x, t = _prepare(latents, t_steps, dtype)
+    t_next = torch.tensor(_as_dtype(co.t_next, dtype), dtype=dtype, device=latents.device)
+    alpha, h_phi_1, b_h, rhos_c_last = (_as_dtype(v, dtype) for v in (
+        co.alpha, co.h_phi_1, co.B_h, co.rhos_c_last))
+    inv_rks, rhos_p, rhos_c = ([_as_dtype(row, dtype) for row in np.asarray(v)]
+                               for v in (co.inv_rks, co.rhos_p, co.rhos_c))
+
+    def model_out(x_val, t_val, afs_step):
+        d = _eps_from(denoise, x_val, t_val, afs_step)
+        return dynamic_thresholding(x_val - t_val * d) if predict_x0 else d
+
+    def combine(weights, d1s):
+        out = None
+        for w, d1 in zip(weights, d1s):
+            if w != 0.0:
+                out = w * d1 if out is None else out + w * d1
+        return out
+
+    hist = [model_out(x, t[0], afs)]  # m at t_0, then newest first
+    xs = [x]
+    for i in range(len(co.t_next)):
+        m0 = hist[0]
+        # D1s_k = (m_{k+1} - m_0) / r_k over the history the step's order uses
+        d1s = [(m - m0) * r for m, r in zip(hist[1:], inv_rks[i]) if r != 0.0]
+        scale = 1.0 if predict_x0 else t_next[i]
+        x_t_ = alpha[i] * x - scale * h_phi_1[i] * m0
+        pred = combine(rhos_p[i], d1s)
+        x_pred = x_t_ if pred is None else x_t_ - scale * b_h[i] * pred
+        if co.use_corrector[i]:
+            if predict_x0:
+                model_t = dynamic_thresholding(denoise(x_pred, t_next[i]))
+            else:
+                model_t = (x_pred - denoise(x_pred, t_next[i])) / t_next[i]
+            corr = rhos_c_last[i] * (model_t - m0)
+            extra = combine(rhos_c[i], d1s)
+            if extra is not None:
+                corr = extra + corr
+            x = x_t_ - scale * b_h[i] * corr
+        else:
+            x, model_t = x_pred, m0
+        hist = [model_t] + hist[:2]
+        if return_inters:
+            xs.append(x)
+    return _finalize(denoise, x, t[-1], xs, [], denoise_to_zero, return_inters)
+
+
 SOLVER_REGISTRY = {
     "euler": euler_sampler,
     "heun": heun_sampler,
     "dpm": dpm_2_sampler,
     "ipndm": ipndm_sampler,
     "ipndm_v": ipndm_v_sampler,
+    "deis": deis_sampler,
     "dpmpp": dpm_pp_sampler,
+    "unipc": unipc_sampler,
 }
 
 
@@ -216,7 +296,7 @@ def get_sampler(name: str):
     try:
         return SOLVER_REGISTRY[name]
     except KeyError:
-        raise ValueError(f"unknown or not yet ported solver {name!r}; "
+        raise ValueError(f"unknown solver {name!r}; "
                          f"available: {sorted(SOLVER_REGISTRY)}") from None
 
 

@@ -45,4 +45,6 @@ def test_port_imports_with_jax_and_flax_blocked():
     assert {"diff_sampler_tpu_torch.models.adm", "diff_sampler_tpu_torch.models.ldm",
             "diff_sampler_tpu_torch.ops.groupnorm", "diff_sampler_tpu_torch.ops.attention",
             "diff_sampler_tpu_torch.training.conditioning", "diff_sampler_tpu_torch.training.amed",
-            "diff_sampler_tpu_torch.cli.train_amed"} <= names
+            "diff_sampler_tpu_torch.cli.train_amed", "diff_sampler_tpu_torch.ops.conv",
+            "diff_sampler_tpu_torch.ops.geometry", "diff_sampler_tpu_torch.models.analytic",
+            "diff_sampler_tpu_torch.gits", "diff_sampler_tpu_torch.gits.search"} <= names

@@ -6,7 +6,9 @@ K2p), at ImageNet-64's three attention levels at a small batch, at the LSUN
 LDM's 32x32 level on its legacy qkv views, where the JAX package streams K2b,
 and at Stable Diffusion's head dims 40 / 80 / 160, which the kernels pad; K1c
 / K2c at those head dims and ragged T, and the gradient of ``sdpa`` on the
-route that takes them; K3 at odd group sizes and ragged H * W.
+route that takes them; K3 at odd group sizes and ragged H * W; K4 (the
+direct 3x3 conv) at aligned, ragged and multi-image-tile shapes through both
+entry points.
 
 Marked ``cuda``: without a CUDA device each test skips.  The file imports no
 jax package module, so it also runs where flax is not installed:
@@ -18,13 +20,17 @@ orders); bf16 2^-5 * max|plain out| and at most 2^-5, a few bf16 steps of
 the largest output (one step is 2^-8 to 2^-7 of it) for the rounding of the
 output and of the softmax weights; lse (f32 on both sides) 1e-5.  K2, relative
 to max|plain grad|: f32 1e-4; bf16 2^-6 (both sides round P, dS and the
-grads to bf16 from f32 values that may differ in the last bit).
+grads to bf16 from f32 values that may differ in the last bit).  K4,
+relative to max|plain out|: f32 1e-5 (both sum in f32, in other orders);
+bf16 2^-7, one bf16 step of the largest output for an element whose f32
+sums straddle a rounding boundary.
 """
 
 import pytest
 import torch
 
 from diff_sampler_tpu_torch.ops import attention as A
+from diff_sampler_tpu_torch.ops import conv as C
 from diff_sampler_tpu_torch.ops import groupnorm as G
 
 # (B, T, H, d): the CIFAR-10 shapes and others, then ImageNet-64's levels at
@@ -297,3 +303,98 @@ def test_sdpa_at_sd_shapes_takes_the_route_of_the_jax_package(cuda, t, h, d):
     (want,) = torch.autograd.grad((ref_out * cot).sum(), qkv)
     assert (out - ref_out).abs().max().item() <= 1e-5
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+# (N, H, W, Cin, Cout) of K4: aligned 128-channel shapes, a 64x64 image (the
+# 128-pixel tiles span image rows), tiles that span images (8x8 and 3x5
+# images), ragged channel counts (multiples of 8 below and between 128s) and
+# a pixel count that ends mid-tile
+CONV_CASES = [(2, 8, 8, 128, 128), (3, 4, 4, 128, 256), (1, 8, 4, 256, 128),
+              (2, 64, 64, 128, 128), (5, 3, 5, 128, 384), (3, 7, 5, 128, 384),
+              (4, 9, 11, 24, 40), (2, 5, 6, 136, 72)]
+CONV_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _conv_inputs(n, h, w, cin, cout, dtype, seed):
+    """x, w at unit output scale, a bias, and a GroupNorm fold with b ~ 0.5,
+    so a halo computed as silu(b) in place of 0 would show."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn(n, h, w, cin, generator=g, device="cuda").to(dtype)
+    wt = torch.randn(3, 3, cin, cout, generator=g, device="cuda") / (3 * cin ** 0.5)
+    bias = 0.1 * torch.randn(cout, generator=g, device="cuda")
+    a = 1 + 0.1 * torch.randn(n, cin, generator=g, device="cuda")
+    b = 0.5 + 0.1 * torch.randn(n, cin, generator=g, device="cuda")
+    return x, wt.to(dtype), bias, a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout", CONV_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fused", [False, True], ids=["conv3x3", "gn_silu_conv3x3"])
+def test_conv_kernel_matches_plain(cuda, n, h, w, cin, cout, dtype, fused):
+    dt = getattr(torch, dtype)
+    x, wt, bias, a, b = _conv_inputs(n, h, w, cin, cout, dt, seed=cin + cout)
+    before = C.conv3x3.launches
+    if fused:
+        got = C.gn_silu_conv3x3(x, a, b, wt, bias)
+        ref = C.reference_conv3x3(x, wt, bias, a, b)
+    else:
+        got = C.conv3x3(x, wt, bias)
+        ref = C.reference_conv3x3(x, wt, bias)
+    torch.cuda.synchronize()
+    assert C.conv3x3.launches == before + 1
+    assert got.dtype == dt and got.shape == (n, h, w, cout)
+    bound = CONV_TOL[dt] * ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_conv_kernel_zero_halo_and_no_bias(cuda):
+    """The padding is zero after the prologue: against a plain version that
+    pads before it (silu(b) at the border), K4 differs, and only at the
+    border; without a bias the output equals a zero bias's."""
+    x, wt, _, a, b = _conv_inputs(2, 6, 7, 128, 128, torch.float32, seed=5)
+    got = C.gn_silu_conv3x3(x, a, b, wt)
+    assert torch.equal(got, C.gn_silu_conv3x3(x, a, b, wt, torch.zeros(128, device="cuda")))
+    z = torch.nn.functional.silu(x * a[:, None, None] + b[:, None, None])
+    zp = torch.nn.functional.silu(torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+                                  * a[:, None, None] + b[:, None, None])
+    wrong = C.reference_conv3x3(zp, wt)[:, 1:-1, 1:-1]
+    right = C.reference_conv3x3(z, wt)
+    assert (got - right).abs().max().item() <= 1e-5 * right.abs().max().item()
+    diff = (got - wrong).abs()
+    assert diff[:, 1:-1, 1:-1].max().item() <= 1e-5 * right.abs().max().item()
+    assert diff.max().item() > 0.1
+
+
+@pytest.mark.cuda
+def test_conv_kernel_raises_on_unsupported_input(cuda):
+    x = torch.zeros(1, 4, 4, 12, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        C.conv3x3(x, torch.zeros(3, 3, 12, 16, device="cuda"))
+    x = torch.zeros(1, 4, 4, 16, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        C.conv3x3(x, torch.zeros(3, 3, 16, 20, device="cuda"))
+    with pytest.raises(ValueError, match=r"w must be \[3, 3, 16"):
+        C.conv3x3(x, torch.zeros(1, 1, 16, 16, device="cuda"))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        C.conv3x3(x.half(), torch.zeros(3, 3, 16, 16, device="cuda"))
+    with pytest.raises(RuntimeError, match="forward only"):
+        C.conv3x3(x.requires_grad_(), torch.zeros(3, 3, 16, 16, device="cuda"))
+    with pytest.raises(RuntimeError, match="forward only"):
+        C.gn_silu_conv3x3(torch.zeros(1, 4, 4, 16, device="cuda"), torch.ones(1, 16, device="cuda"),
+                          torch.zeros(1, 16, device="cuda"),
+                          torch.zeros(3, 3, 16, 16, device="cuda", requires_grad=True))
+    with torch.no_grad():  # nothing is recorded: the kernel runs
+        assert C.conv3x3(x, torch.zeros(3, 3, 16, 16, device="cuda")).abs().max().item() == 0
+
+
+@pytest.mark.cuda
+def test_conv_kernel_on_an_unaligned_view(cuda):
+    """A view whose storage starts 4 bytes in is copied to an aligned
+    buffer first: the result is the aligned input's."""
+    x, wt, bias, _, _ = _conv_inputs(2, 5, 5, 128, 128, torch.float32, seed=6)
+    flat = torch.empty(x.numel() + 1, device="cuda")
+    view = flat[1:].view_as(x).copy_(x)
+    assert view.data_ptr() % 16
+    assert torch.equal(C.conv3x3(view, wt, bias), C.conv3x3(x, wt, bias))

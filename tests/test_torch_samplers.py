@@ -18,7 +18,7 @@ from diff_sampler_tpu.ops import get_schedule
 from diff_sampler_tpu.solvers import samplers as JS
 from diff_sampler_tpu_torch.solvers import samplers as TS
 
-SOLVERS = ["euler", "heun", "dpm", "ipndm", "ipndm_v", "dpmpp"]
+SOLVERS = ["euler", "heun", "dpm", "ipndm", "ipndm_v", "deis", "dpmpp", "unipc"]
 SHAPE = (4, 6, 6, 3)
 S2 = 0.25
 SIGMA_MAX = 80.0
@@ -72,11 +72,14 @@ def test_trajectory_and_denoise_to_zero_match_jax(solver, denoise_to_zero):
                      return_inters=True)
     _close(ours.x, ref.x)
     _close(ours.xs, ref.xs)
-    _close(ours.eps, ref.eps)
+    if ref.eps is None:  # unipc records the states only
+        assert ours.eps is None
+    else:
+        _close(ours.eps, ref.eps)
 
 
 @pytest.mark.parametrize("max_order", [1, 2, 3])
-@pytest.mark.parametrize("solver", ["ipndm", "ipndm_v", "dpmpp"])
+@pytest.mark.parametrize("solver", ["ipndm", "ipndm_v", "deis", "dpmpp", "unipc"])
 def test_lower_orders_match_jax(solver, max_order):
     ours, ref = _run(solver, 6, max_order=max_order)
     _close(ours.x, ref.x)
@@ -115,5 +118,8 @@ def test_count_nfe_matches_jax():
 
 
 def test_unported_solver_raises():
-    with pytest.raises(ValueError, match="not yet ported"):
-        TS.get_sampler("unipc")
+    """Every solver of the JAX registry is ported; a name in neither
+    registry raises."""
+    assert set(TS.SOLVER_REGISTRY) == set(JS.SOLVER_REGISTRY)
+    with pytest.raises(ValueError, match="unknown solver 'unipc2'"):
+        TS.get_sampler("unipc2")
