@@ -7,17 +7,22 @@ Phases, each printing as it goes and then its seconds:
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, nvcc, whether triton imports.
-2. Build kernels K1 (flash-attention forward), K2 (its backward), K1c /
-   K2c (the same on the flat layout), K3 (fused GroupNorm) and K4 (direct
-   3x3 conv) from ``csrc/`` with nvcc, one process per source; print each
-   kernel's registers and spills.  At head dims below 128 K1 / K2 stand in for the
-   JAX package's packed and streamed twins (K1b, K2p, K2b).
+2. Build kernels K1 (flash-attention forward: bf16 on the tensor cores,
+   f32 on the CUDA cores), K2 (its backward), K1c / K2c (the same on the
+   flat layout), K3 (fused GroupNorm) and K4 (direct 3x3 conv) from
+   ``csrc/`` with nvcc, one process per source; print each kernel's
+   registers and spills, and the HMMA (tensor-core) instructions of each
+   bf16 K1 instantiation in the library's SASS (``cuobjdump -sass``): each
+   must have some and spill nothing.  At head dims below 128 K1 / K2 stand
+   in for the JAX package's packed and streamed twins (K1b, K2p, K2b).
 3. K1 against its plain PyTorch version at the CIFAR-10 path's shapes, on
    the strided q/k/v views that ``attention()`` hands it: max abs error of
    the output and of the log-sum-exp against stated tolerances (bf16 out:
-   relative to max|plain out|), and the
+   relative to max|plain out|), two runs bit-identical, the route
+   (``fwd_route``: kernel, padded d, load mode, tiles), and the
    times of K1, the plain version and ``F.scaled_dot_product_attention``
-   (CUDA events, after warm-up, in turns).
+   (CUDA events, after warm-up, in turns); the fields of the bf16 and of
+   the f32 main shape on lines of their own.
 4. The full-width CIFAR-10 EDMPrecond, random weights redrawn at unit scale:
    D(x, sigma) in f32 with K1 + K3 against the plain attention and the plain
    GroupNorm, TF32 off, 1e-4 * max; exactly 6 K1 and 73 K3 launches per
@@ -48,8 +53,9 @@ Phases, each printing as it goes and then its seconds:
 9. K1 against its plain version at the ImageNet-64 shapes (d=64, where the
    JAX package takes the packed K1b: T=1024 H=6, T=256 H=9, T=64 H=12) at
    sampling batch 256 in bf16 and at the AMED microbatch in f32, and one
-   d=32 shape: errors against the tolerances of phase 3, and the times of
-   K1, the plain version and ``F.scaled_dot_product_attention``.
+   d=32 shape: errors against the tolerances of phase 3, two runs
+   bit-identical, and the times of K1, the plain version and
+   ``F.scaled_dot_product_attention``.
 10. K2 against its plain version at the ImageNet-64 AMED shapes (the packed
    K2p's) in f32 and bf16 with a non-contiguous dO: errors against K2's
    tolerances, two runs bit-identical, and the times of K2, the plain
@@ -156,7 +162,9 @@ and 13), K2 at the LSUN LDM's T=1024 level (in place of K2b, launches of
 phase 19 at that shape), K3 (launches of phase 18), K1 and K2 at SD's head
 dims (launches of phases 24 and 25), K1c and K2c (launches of phase 25) and
 K4 (launches of its entry points in phase 27), each with its error and
-times at that path's main shape and its bound on this card.
+times at that path's main shape and its bound on this card.  Every
+profile of a bf16 forward (phases 5, 14, 20, 26, 28) checks that no
+attention forward ran on the CUDA-core kernel.
 Any failed check raises, so the script
 exits non-zero with no result; so does a machine without CUDA.
 """
@@ -213,9 +221,11 @@ def _out_tol(dtype, ref_out) -> float:
 
 
 # (B, T, H, d, dtype): the CIFAR-10 path's two attention shapes at batch 256
-# in both dtypes, a later slice's d=64 multi-head shape, and a ragged T.
+# in both dtypes, the AMED path's at batch 512 in f32, a later slice's d=64
+# multi-head shape, and a ragged T.
 K1_SHAPES = [
     (256, 256, 1, 256, torch.bfloat16),
+    (512, 256, 1, 256, torch.float32),  # the AMED path's (batch 512, f32)
     (256, 256, 1, 256, torch.float32),
     (256, 64, 1, 256, torch.bfloat16),
     (256, 64, 1, 256, torch.float32),
@@ -504,35 +514,87 @@ def phase_environment() -> str:
     return smi
 
 
+_LOAD_NAMES = {"1": "cp.async", "2": "gather", "3": "gather from the qkv rows"}
+
+
+def _sass_hmma_counts(path: str) -> dict:
+    """{mangled kernel name: HMMA instructions} of a built library's SASS
+    (``cuobjdump -sass``, from the toolkit beside nvcc)."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          timeout=300)
+    _check(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr[-2000:]}")
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bHMMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.load_library()
     if _build.build_seconds is None:
         print(f"[build] kernel library already built, loaded in "
               f"{time.perf_counter() - t0:.3f} s")
-        return
-    print(f"[build] K1, K1c, K2, K2c, K3 and K4 built with nvcc in {_build.build_seconds:.2f} s, "
-          f"one process per source ({' '.join(_build.NVCC_FLAGS)})")
-    for line in _build.build_log.splitlines():
-        # ptxas names each kernel by its mangled name: print it as
-        # flash_<...>_kernel<dtype, d> or gn_<...>_kernel, then its
-        # registers and spills
-        entry = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_flat)?_kernel)I(13__nv_bfloat16|f)"
-                          r"((?:Li\d+E)+)E", line)
+    else:
+        print(f"[build] K1, K1c, K2, K2c, K3 and K4 built with nvcc in "
+              f"{_build.build_seconds:.2f} s, one process per source "
+              f"({' '.join(_build.NVCC_FLAGS)})")
+    # ptxas names each kernel by its mangled name: print it as
+    # flash_<...>_kernel<dtype, d, ...>, gn_<...>_kernel or conv3x3_<...>, then
+    # its registers and spills; hold every bf16 K1 instantiation (the tensor
+    # cores' flash_fwd_tc_kernel<padded d, load mode>) to 0 spill bytes
+    log = _build.build_log or _build.library_path().with_suffix(".log").read_text()
+    tc, current = {}, None
+    for line in log.splitlines():
+        compiling = "Compiling entry function" in line
+        fwd_tc = re.search(r"flash_fwd_tc_kernelILi(\d+)ELi(\d)EE", line)
+        fwd = re.search(r"(flash_fwd(?:_flat)?_kernel)ILi(\d+)ELi\d+EE", line)
+        bwd = re.search(r"(flash_bwd_(?:dq|dkv)(?:_flat)?_kernel)I(13__nv_bfloat16|f)"
+                        r"((?:Li\d+E)+)E", line)
         gn = re.search(r"(gn_[a-z_]+_kernel)(I(13__nv_bfloat16|f)((?:Li\d+E)*)E)?", line)
         conv = re.search(r"(conv3x3_(?:bf16|f32)_kernel)ILb([01])E", line)
-        if entry and "Compiling entry function" in line:
-            dtype = "bf16" if entry.group(2) != "f" else "f32"
-            ints = re.findall(r"Li(\d+)E", entry.group(3))
-            print(f"[build] {entry.group(1)}<{dtype}, padded d={ints[0]}>:")
-        elif gn and "Compiling entry function" in line:
+        if compiling:
+            current = None
+        if fwd_tc and compiling:
+            current = (int(fwd_tc.group(1)), _LOAD_NAMES[fwd_tc.group(2)])
+            tc[current] = {}
+            print(f"[build] flash_fwd_tc_kernel<bf16, padded d={current[0]}, {current[1]}>:")
+        elif fwd and compiling:
+            print(f"[build] {fwd.group(1)}<f32, padded d={fwd.group(2)}>:")
+        elif bwd and compiling:
+            dtype = "bf16" if bwd.group(2) != "f" else "f32"
+            ints = re.findall(r"Li(\d+)E", bwd.group(3))
+            print(f"[build] {bwd.group(1)}<{dtype}, padded d={ints[0]}>:")
+        elif gn and compiling:
             dtype = "bf16" if gn.group(3) == "13__nv_bfloat16" else "f32"
             vec = re.findall(r"Li(\d+)E", gn.group(4) or "")
             print(f"[build] {gn.group(1)}<{dtype}{', vec=' + vec[0] if vec else ''}>:")
-        elif conv and "Compiling entry function" in line:
+        elif conv and compiling:
             print(f"[build] {conv.group(1)}<{'fused' if conv.group(2) == '1' else 'plain'}>:")
         elif "registers" in line or "spill" in line:
             print(f"[build]   {line.strip()}")
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill and current is not None:
+                tc[current]["spill"] = int(spill.group(1)) + int(spill.group(2))
+    # 8 padded dims in cp.async and the element gather, 4 in the qkv-row gather
+    _check(len(tc) == 20, f"expected 20 bf16 K1 instantiations, ptxas compiled {len(tc)}")
+    hmma = {}
+    for name, n in _sass_hmma_counts(str(_build.library_path())).items():
+        m = re.search(r"flash_fwd_tc_kernelILi(\d+)ELi(\d)EE", name)
+        if m:
+            hmma[(int(m.group(1)), _LOAD_NAMES[m.group(2)])] = n
+    for key in sorted(tc):
+        print(f"[build] flash_fwd_tc_kernel<bf16, padded d={key[0]}, {key[1]}>: "
+              f"{hmma.get(key, 0)} HMMA instructions in its SASS, "
+              f"{tc[key].get('spill', 'unknown')} spill bytes")
+        _check(hmma.get(key, 0) > 0, f"bf16 K1 {key} has no tensor-core instruction")
+        _check(tc[key].get("spill") == 0, f"bf16 K1 {key} spills registers")
 
 
 def _qkv_views(b, t, h, d, dtype, g):
@@ -551,36 +613,56 @@ def _legacy_views(b, t, h, d, dtype, g):
 
 
 def _k1_checks(tag: str, shapes, views, seed: int, reps: int, warmup: int) -> dict:
-    """K1 against its plain version at ``shapes`` on ``views``; prints the
-    errors and times and returns the kernels-line fields of the first."""
+    """K1 against its plain version at ``shapes`` on ``views``, two runs
+    bit-identical; prints the errors, times and route (``A.fwd_route``) of
+    each shape and the kernels-line fields of the first bf16 and the first
+    f32 shape (the path's main ones); returns those of the first shape."""
     g = torch.Generator("cuda").manual_seed(seed)
-    main = None
+    main, mains = None, {}
     for b, t, h, d, dtype in shapes:
         q, k, v = views(b, t, h, d, dtype, g)
         scale = d ** -0.5
+        route = A.fwd_route(q, k, v)
         out, lse = A.flash_attention_mh(q, k, v, scale)
+        again = A.flash_attention_mh(q, k, v, scale)
         ref_out, ref_lse = A.reference_sdpa(q, k, v, scale)
         torch.cuda.synchronize()
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
+        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
         tol = _out_tol(dtype, ref_out)
-        del out, lse, ref_out, ref_lse
-        times = _turns({"kernel": lambda: A.flash_attention_mh(q, k, v, scale),
-                        "plain": lambda: A.reference_sdpa(q, k, v, scale),
-                        "library": _library_fwd(q, k, v, scale)}, reps=reps, warmup=warmup)
+        del out, lse, again, ref_out, ref_lse
+        fns = {"kernel": lambda: A.flash_attention_mh(q, k, v, scale),
+               "plain": lambda: A.reference_sdpa(q, k, v, scale),
+               "library": _library_fwd(q, k, v, scale)}
+        if route.load == "gather":  # the same data in views that take cp.async
+            qc, kc, vc = (x.contiguous() for x in (q, k, v))
+            fns["contiguous"] = lambda: A.flash_attention_mh(qc, kc, vc, scale)
+        times = _turns(fns, reps=reps, warmup=warmup)
         bound_ms, bound_by = _attention_bound("fwd", b, t, h, d, dtype)
+        if "contiguous" in times:
+            print(f"[{tag}]   K1 on contiguous copies of the same data (cp.async): "
+                  f"{times['contiguous']:.4f} ms, the views' gather {times['kernel']:.4f} ms")
         name = str(dtype).replace("torch.", "")
         print(f"[{tag}] B={b} T={t} H={h} d={d} {name}: out err {err_out:.3g} (tol "
-              f"{tol:.3g}), lse err {err_lse:.3g} (tol {LSE_TOL:.3g}); K1 "
-              f"{times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, "
+              f"{tol:.3g}), lse err {err_lse:.3g} (tol {LSE_TOL:.3g}), two runs bit-identical: "
+              f"{same}; K1 {times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, "
               f"F.scaled_dot_product_attention {times['library']:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}); "
-              f"{2 * 2 * b * h * t * t * d / times['kernel'] / 1e9:.2f} TFLOP/s")
+              f"{2 * 2 * b * h * t * t * d / times['kernel'] / 1e9:.2f} TFLOP/s; route "
+              f"{route.kernel}, padded d {route.padded_d}, {route.load}"
+              f"{' from the qkv rows' if route.span else ''}, {route.block_q} x "
+              f"{route.block_k} tiles, {route.warps} warps")
         _check(err_out <= tol and err_lse <= LSE_TOL,
                f"K1 disagrees with the plain version at {(b, t, h, d, name)}")
+        _check(same, f"K1 is not deterministic at {(b, t, h, d, name)}")
+        fields = dict(max_abs_err=err_out, ms=times["kernel"], plain_ms=times["plain"],
+                      library_ms=times["library"], bound_ms=bound_ms, bound_by=bound_by)
         if main is None:  # the first shape is the path's main one
-            main = dict(max_abs_err=err_out, ms=times["kernel"], plain_ms=times["plain"],
-                        library_ms=times["library"], bound_ms=bound_ms, bound_by=bound_by)
+            main = fields
+        if name not in mains:  # and the first of each dtype that dtype's
+            mains[name] = fields
+            print(f"[{tag}] {name} main shape [{b}, {t}, {h}, {d}]: {json.dumps(fields)}")
     torch.cuda.empty_cache()
     return main
 
@@ -1098,10 +1180,11 @@ def _amed_counts(per_call: dict, sites: int, batch_gpu: int, afs: bool) -> dict:
                  dkv=sites * segments * micro)
 
 
-def _profile(tag: str, fn, want_calls: dict) -> dict:
+def _profile(tag: str, fn, want_calls: dict, bf16: bool = True) -> dict:
     """``torch.profiler`` over one call of ``fn`` after a warm-up call: prints
     the device time by ``utils/profiling.py::CATEGORIES`` and checks the
-    kernel calls of ``want_calls`` ({category: calls})."""
+    kernel calls of ``want_calls`` ({category: calls}) and, for a bf16 call,
+    that no attention forward ran on the CUDA-core kernel (f32's)."""
     with torch.no_grad():
         fn()  # warm-up
         torch.cuda.synchronize()
@@ -1118,7 +1201,10 @@ def _profile(tag: str, fn, want_calls: dict) -> dict:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            out = device_breakdown(json.load(f)["traceEvents"])
+            events = json.load(f)["traceEvents"]
+    out = device_breakdown(events)
+    cuda_core_fwd = sum(1 for e in events if e.get("cat") == "kernel"
+                        and re.search(r"flash_fwd_(flat_)?kernel", e.get("name", "")))
     print(f"[{tag}] under torch.profiler: CUDA events {start.elapsed_time(end):.3f} ms, host "
           f"clock {host_s * 1e3:.3f} ms; device time {out['device_ms']:.3f} ms over a span of "
           f"{out['span_ms']:.3f} ms, busy {out['busy_ms']:.3f} ms, idle share "
@@ -1127,6 +1213,9 @@ def _profile(tag: str, fn, want_calls: dict) -> dict:
         print(f"[{tag}]   {name:<16} {c['ms']:>10.3f} ms  {c['share']:.4f}  {c['calls']} calls")
     for name, ms in out["top"][:8]:
         print(f"[{tag}]   top {ms:>10.3f} ms  {name[:140]}")
+    print(f"[{tag}]   attention forwards on the CUDA cores (f32's kernel): {cuda_core_fwd}")
+    if bf16:
+        _check(cuda_core_fwd == 0, f"{tag}: a bf16 attention forward ran on the CUDA cores")
     for cat, calls in want_calls.items():
         _check(out["categories"][cat]["calls"] == calls,
                f"{tag}: the profile holds {out['categories'][cat]['calls']} {cat} kernels, "
@@ -1325,7 +1414,7 @@ def phase_ldm_profile(pre) -> None:
     z = stacked_randn(range(DECODE_CHUNK), LDM_LATENT, device="cuda")
     tag = f"LDM profile, one batch-{DECODE_CHUNK} f32 VQ decode"
     decode = lambda: pre.latent_diffusion.decode_first_stage(z)  # noqa: E731
-    _profile(tag, decode, {"K3": 3 * DECODE_GN_SITES})
+    _profile(tag, decode, {"K3": 3 * DECODE_GN_SITES}, bf16=False)
     _with_plain_groupnorm(tag, decode, [adm])
 
 

@@ -19,7 +19,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "check", "find_nvcc", "load_library"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "check", "find_nvcc", "library_path", "load_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -49,7 +49,8 @@ def _sources():
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
-def _library_path() -> Path:
+def library_path() -> Path:
+    """Where the library of the current sources and flags is (or will be) built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
@@ -91,12 +92,14 @@ def _build(path: Path) -> None:
 
 def _declare(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # q, k, v, out, lse; B, T, H, d; 12 strides; scale, dtype; the route
+    # (padded d, load mode, block_q, block_k); stream
     lib.dst_flash_attn_fwd.argtypes = ([p] * 5 + [i] * 4 + [ll] * 12
-                                       + [ctypes.c_float, i, p])
+                                       + [ctypes.c_float] + [i] * 5 + [p])
     lib.dst_flash_attn_fwd.restype = i
     # the flat layout: q, k, v, out, lse; B, T, d; 9 strides
     lib.dst_flash_attn_fwd_flat.argtypes = ([p] * 5 + [i] * 3 + [ll] * 9
-                                            + [ctypes.c_float, i, p])
+                                            + [ctypes.c_float] + [i] * 5 + [p])
     lib.dst_flash_attn_fwd_flat.restype = i
     # q, k, v, dO, lse, delta, then dq (or dk, dv); B, T, H, d; 16 strides
     lib.dst_flash_attn_bwd_dq.argtypes = [p] * 7 + [i] * 4 + [ll] * 16 + [ctypes.c_float, i, p]
@@ -125,7 +128,7 @@ def load_library():
     global _lib
     with _lock:
         if _lib is None:
-            path = _library_path()
+            path = library_path()
             if not path.is_file():
                 _build(path)
             lib = ctypes.CDLL(str(path))

@@ -1,7 +1,7 @@
 """Scaled-dot-product attention: the plain versions, the wrappers of kernels
 K1 and K1c (forward) and K2 and K2c (backward), and the route between them.
 
-``flash_attention_mh`` (K1) wraps the hand-written CUDA kernel of
+``flash_attention_mh`` (K1) wraps the hand-written CUDA kernels of
 ``csrc/flash_attn_fwd.cu`` on the multi-head [B, T, H, d] layout, which
 replaces ``diff_sampler_tpu/ops/pallas_attention.py::_attn_kernel_mh`` and,
 at head dims below 128, its packed twin ``_attn_kernel_mh_packed`` (K1b).
@@ -21,9 +21,12 @@ On a CUDA tensor each wrapper launches its kernel or raises; only a tensor
 on the CPU takes the plain version (``reference_sdpa`` and its backward
 pieces, ``reference_flash_attention`` and its).  The kernels take any head
 dim that is a multiple of 8 up to 256 (padded inside the kernel, see the
-sources).  They are bound by their f32 multiply-adds on the CUDA cores, not
-by device memory: they read q, k and v once per tile and never write the
-[T, T] logits, which the plain versions materialise in f32.
+sources).  They read q, k and v once per tile and never write the [T, T]
+logits, which the plain versions materialise in f32.  ``fwd_route`` picks
+the forward kernel of a call: bf16 runs on the tensor cores (mma.sync, with
+16-byte cp.async copies where the views allow them and a gather elsewhere,
+16 bytes at a time from the interleaved qkv rows), f32 on the CUDA cores;
+the backward kernels run on the CUDA cores in both dtypes.
 
 ``sdpa`` is differentiable: it runs the ``torch.autograd.Function``
 ``_FlashAttentionMH`` (K1 forward, K2 backward; the JAX
@@ -40,14 +43,16 @@ be strided views, such as the interleaved split of the qkv projection.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 
-__all__ = ["MAX_HEAD_DIM", "flash_attention", "flash_attention_bwd", "flash_attention_bwd_dkv",
-           "flash_attention_bwd_dq", "flash_attention_flat_bwd_dkv",
-           "flash_attention_flat_bwd_dq", "flash_attention_mh", "flash_attention_mh_bwd",
+__all__ = ["CC_PADDED_DIMS", "MAX_HEAD_DIM", "TC_PADDED_DIMS", "FwdRoute", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "flash_attention_flat_bwd_dkv", "flash_attention_flat_bwd_dq",
+           "flash_attention_mh", "flash_attention_mh_bwd", "fwd_route",
            "reference_flash_attention", "reference_flash_attention_bwd",
            "reference_flash_attention_bwd_dkv", "reference_flash_attention_bwd_dq",
            "reference_sdpa", "reference_sdpa_bwd", "reference_sdpa_bwd_dkv",
@@ -61,6 +66,82 @@ _MAX_GRID_YZ = 65535
 def supports_head_dim(d: int) -> bool:
     """The kernels take a head dim that is a multiple of 8 up to 256."""
     return d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
+
+
+# The padded head dims the forward kernels are built for
+# (``csrc/flash_attn_fwd.cu``): the bf16 kernel on the tensor cores contracts
+# Q K^T in k-steps of 16, the f32 kernel on the CUDA cores splits d over 16
+# column groups.  A call takes the smallest that holds its d.
+TC_PADDED_DIMS = (16, 32, 48, 64, 80, 128, 160, 256)
+CC_PADDED_DIMS = (32, 48, 64, 80, 128, 160, 256)
+_LOAD_CODES = {"strided": 0, "cp_async": 1, "gather": 2, "qkv_span": 3}
+_SPAN_DIMS = (32, 64, 128, 256)  # padded dims whose rows split into 32-unit groups
+
+
+class FwdRoute(NamedTuple):
+    """The forward kernel a call takes, as ``dst_flash_attn_fwd`` is told it:
+    ``kernel`` "tensor_cores" (bf16) or "cuda_cores" (f32); ``load``
+    "cp_async" (16-byte copies) or "gather" (the other views) on the tensor
+    cores, "strided" (element loads) on the CUDA cores; ``span``: the gather
+    reads K and V 16 bytes at a time out of the interleaved rows of one qkv
+    projection (element loads staged in registers otherwise); query rows per
+    block, keys per tile and warps per block."""
+    kernel: str
+    padded_d: int
+    load: str
+    span: bool
+    block_q: int
+    block_k: int
+    warps: int
+
+
+def _aligned(x: torch.Tensor) -> bool:
+    """16-byte token stride, and 16-byte batch and head strides where those
+    dims have more than one entry (a size-1 dim never moves the pointer)."""
+    vec = 16 // x.element_size()
+    return all(s % vec == 0 for i, (n, s) in enumerate(zip(x.shape[:-1], x.stride()[:-1]))
+               if n > 1 or i == 1)
+
+
+def _copies16(x: torch.Tensor) -> bool:
+    """Whether every row of x ([B, T, H, d] or [B, T, d]) can be read with
+    16-byte copies: element stride 1, a 16-byte aligned base and strides."""
+    return x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and _aligned(x)
+
+
+def _qkv_span(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether q, k, v are the views of one qkv projection's interleaved (c,
+    qkv) channels (``models/layers.py::attention``): element stride 3, k one
+    element past q and v one past k, the same strides, each row's start (q)
+    16-byte aligned, and 16-byte strides."""
+    elt = q.element_size()
+    return (q.stride() == k.stride() == v.stride() and q.stride(-1) == 3
+            and k.data_ptr() == q.data_ptr() + elt and v.data_ptr() == q.data_ptr() + 2 * elt
+            and q.data_ptr() % 16 == 0 and _aligned(q))
+
+
+def fwd_route(q, k, v) -> FwdRoute:
+    """The forward kernel and its settings for q, k, v (one dtype, a head
+    dim that ``supports_head_dim``): bf16 on the tensor cores, with
+    cp.async where all three views take 16-byte copies and the gather
+    elsewhere (always for element stride 3, the interleaved qkv views);
+    f32 on the CUDA cores.  The tables mirror ``csrc/flash_attn_fwd.cu``
+    (``Tc``, ``kF32BK``), whose entry points refuse any other."""
+    d = q.shape[-1]
+    if q.dtype == torch.bfloat16:
+        padded = next(p for p in TC_PADDED_DIMS if p >= d)
+        two_tiles = 48 <= padded <= 80  # two m-tiles of 16 rows per warp
+        block_k = 64 if padded <= 64 else 32
+        warps = 4 if two_tiles else 8
+        if all(_copies16(x) for x in (q, k, v)):
+            return FwdRoute("tensor_cores", padded, "cp_async", False, 128, block_k, warps)
+        span = padded in _SPAN_DIMS and _qkv_span(q, k, v)
+        return FwdRoute("tensor_cores", padded, "gather", span, 128, block_k, warps)
+    if q.dtype == torch.float32:
+        padded = next(p for p in CC_PADDED_DIMS if p >= d)
+        return FwdRoute("cuda_cores", padded, "strided", False, 64, 32 if padded >= 128 else 64,
+                        8)
+    raise TypeError(f"no forward kernel for {q.dtype}")
 
 
 # The JAX ``sdpa`` takes its flat kernel (``flash_attention``) where the
@@ -113,12 +194,15 @@ def _check(q, k, v, ndim):
 
 
 def _launch_fwd(entry, what, out, lse, q, k, v, scale, dims):
+    route = fwd_route(q, k, v)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), *dims,
-            *q.stride(), *k.stride(), *v.stride(), float(scale), _DTYPE_CODES[q.dtype], stream)
+            *q.stride(), *k.stride(), *v.stride(), float(scale), _DTYPE_CODES[q.dtype],
+            route.padded_d, _LOAD_CODES["qkv_span" if route.span else route.load],
+            route.block_q, route.block_k, stream)
     _build.check(lib, err, what)
 
 

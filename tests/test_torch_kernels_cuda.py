@@ -1,10 +1,12 @@
-"""Kernels K1 (the CUDA flash-attention forward), K2 (its backward), K1c and
-K2c (the same on the flat layout) and K3 (the fused GroupNorm) against their
-plain versions, on the card: K1 / K2 at the CIFAR-10 shapes, at head dims
-below 128, where they stand in for the JAX package's packed kernels (K1b,
-K2p), at ImageNet-64's three attention levels at a small batch, at the LSUN
-LDM's 32x32 level on its legacy qkv views, where the JAX package streams K2b,
-and at Stable Diffusion's head dims 40 / 80 / 160, which the kernels pad; K1c
+"""Kernels K1 (the CUDA flash-attention forward: bf16 on the tensor cores,
+checked on every padded width and view layout, f32 on the CUDA cores), K2
+(its backward), K1c and K2c (the same on the flat layout) and K3 (the fused
+GroupNorm) against their plain versions, on the card: K1 / K2 at the
+CIFAR-10 shapes, at head dims below 128, where they stand in for the JAX
+package's packed kernels (K1b, K2p), at ImageNet-64's three attention
+levels at a small batch, at the LSUN LDM's 32x32 level on its legacy qkv
+views, where the JAX package streams K2b, and at Stable Diffusion's head
+dims 40 / 80 / 160, which the kernels pad; K1c
 / K2c at those head dims and ragged T, and the gradient of ``sdpa`` on the
 route that takes them; K3 at odd group sizes and ragged H * W; K4 (the
 direct 3x3 conv) at aligned, ragged and multi-image-tile shapes through both
@@ -65,6 +67,57 @@ def test_kernel_matches_plain_on_interleaved_views(cuda, b, t, h, d, dtype):
     tol = 1e-5 if dt == torch.float32 else 2 ** -5 * min(1.0, ref_out.float().abs().max().item())
     assert (out.float() - ref_out.float()).abs().max().item() <= tol
     assert (lse - ref_lse).abs().max().item() <= 1e-5
+
+
+# bf16 K1, the tensor-core kernel: every padded width, T around the 64-key
+# and 128-query tiles, on the tiers' three view layouts and an unaligned slice
+TC_DIMS = [8, 16, 32, 40, 64, 80, 128, 160, 256]
+TC_TS = [1, 63, 64, 65, 200, 1024]
+TC_LAYOUTS = ["interleaved", "legacy", "separate", "unaligned"]
+
+
+def _tc_views(layout, b, t, h, d, g):
+    """q, k, v in bf16 as SongUNet / DhariwalUNet (the interleaved (head, c,
+    qkv) split), the LDM (the legacy [N, T, heads, 3 ch] split) and SD
+    (separate contiguous projections) hand them to sdpa, or contiguous
+    views whose base lies 2 bytes past 16."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    if layout == "interleaved":
+        return randn(b, t, h * d * 3).reshape(b, t, h, d, 3).unbind(-1)
+    if layout == "legacy":
+        parts = randn(b, t, h, 3 * d)
+        return parts[..., :d], parts[..., d:2 * d], parts[..., 2 * d:]
+    if layout == "separate":
+        return [randn(b, t, h * d).reshape(b, t, h, d) for _ in range(3)]
+    return [randn(b * t * h * d + 1)[1:].reshape(b, t, h, d) for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", TC_LAYOUTS)
+@pytest.mark.parametrize("d", TC_DIMS)
+def test_bf16_tensor_core_kernel_matches_plain_and_is_deterministic(cuda, layout, d):
+    g = torch.Generator("cuda").manual_seed(d)
+    for t in TC_TS:
+        q, k, v = _tc_views(layout, 2, t, 3, d, g)
+        route = A.fwd_route(q, k, v)
+        assert route.kernel == "tensor_cores"
+        if layout in ("legacy", "separate"):
+            assert (route.load, route.span) == ("cp_async", False)
+        else:
+            span = layout == "interleaved" and route.padded_d in (32, 64, 128, 256)
+            assert (route.load, route.span) == ("gather", span)
+        before = A.flash_attention_mh.launches
+        out, lse = A.flash_attention_mh(q, k, v, d ** -0.5)
+        again = A.flash_attention_mh(q, k, v, d ** -0.5)
+        ref_out, ref_lse = A.reference_sdpa(q, k, v, d ** -0.5)
+        torch.cuda.synchronize()
+        assert A.flash_attention_mh.launches == before + 2
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        tol = 2 ** -5 * min(1.0, ref_out.float().abs().max().item())
+        assert (out.float() - ref_out.float()).abs().max().item() <= tol, (layout, d, t)
+        assert (lse - ref_lse).abs().max().item() <= 1e-5, (layout, d, t)
 
 
 @pytest.mark.cuda
