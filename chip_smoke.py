@@ -7,13 +7,13 @@ Phases, each printing as it goes and then its seconds:
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, nvcc, whether triton imports.
-2. Build kernels K1 (flash-attention forward: bf16 on the tensor cores,
-   f32 on the CUDA cores), K2 (its backward), K1c / K2c (the same on the
-   flat layout), K3 (fused GroupNorm) and K4 (direct 3x3 conv) from
-   ``csrc/`` with nvcc, one process per source; print each kernel's
-   registers and spills, and the HMMA (tensor-core) instructions of each
-   bf16 K1 instantiation in the library's SASS (``cuobjdump -sass``): each
-   must have some and spill nothing.  At head dims below 128 K1 / K2 stand
+2. Build kernels K1 (flash-attention forward on the tensor cores: bf16,
+   and f32 in 3xTF32), K2 (its backward), K1c / K2c (the same on the flat
+   layout), K3 (fused GroupNorm) and K4 (direct 3x3 conv) from ``csrc/``
+   with nvcc, one process per source; print each kernel's registers and
+   spills, and the HMMA (tensor-core) instructions of each bf16 and f32 K1 /
+   K1c instantiation in the library's SASS (``cuobjdump -sass``): each must
+   have some and spill nothing.  At head dims below 128 K1 / K2 stand
    in for the JAX package's packed and streamed twins (K1b, K2p, K2b).
 3. K1 against its plain PyTorch version at the CIFAR-10 path's shapes, on
    the strided q/k/v views that ``attention()`` hands it: max abs error of
@@ -21,12 +21,14 @@ Phases, each printing as it goes and then its seconds:
    relative to max|plain out|), two runs bit-identical, the route
    (``fwd_route``: kernel, padded d, load mode, tiles), and the
    times of K1, the plain version and ``F.scaled_dot_product_attention``
-   (CUDA events, after warm-up, in turns); the fields of the bf16 and of
-   the f32 main shape on lines of their own.
+   (CUDA events, after warm-up, in turns), K1 on contiguous copies beside
+   the gathered views; the fields of the bf16 and of the f32 main shape on
+   lines of their own, and the library's f32 kernel by name (one profiled
+   call).
 4. The full-width CIFAR-10 EDMPrecond, random weights redrawn at unit scale:
    D(x, sigma) in f32 with K1 + K3 against the plain attention and the plain
    GroupNorm, TF32 off, 1e-4 * max; exactly 6 K1 and 73 K3 launches per
-   forward.
+   forward; one profiled f32 forward.
 5. The CIFAR-10 sampling path: ``generate`` on 256 seeds, batch 256, bf16
    inner model, ipndm on the poly-7 schedule at NFE 5/10/35; finite output,
    per-seed rows, K1 launches = 6 x NFE and K3 launches = 73 x NFE, images/sec;
@@ -122,7 +124,8 @@ Phases, each printing as it goes and then its seconds:
    CFGPrecond (guidance 7.5, a doubled batch of 4), f32, unit-scale weights,
    TF32 off, seeded random contexts: D and d sum(D g) / d(x, sigma) against
    the all-plain model, 1e-4 * max; exactly 11 K1, 5 K1c and 61 K3 launches
-   per forward, 11 K2 and 5 K2c pairs per backward.
+   per forward, 11 K2 and 5 K2c pairs per backward; one profiled guided f32
+   U-Net call.
 24. SD sampling: ``generate`` on 8 seeds with bound contexts, bf16, ipndm on
    the discrete schedule at NFE 5 and 10 (16 K1 and 61 K3 per guided U-Net
    call, no K1c), then the f32 KL decode of the 8 latents to 512 x 512:
@@ -158,13 +161,14 @@ The last three lines are the card's name and power limit, a JSON object on
 the kernels and ``{"ok": true, "device": {...}}``.  The JSON lists K1 and
 K2 at the CIFAR-10 paths (d=256, launches of phases 5 and 8), K1 and K2 at
 the ImageNet-64 paths (d=64, in place of K1b and K2p, launches of phases 12
-and 13), K2 at the LSUN LDM's T=1024 level (in place of K2b, launches of
+and 13), the f32 K1 (3xTF32) at the CIFAR-10, ImageNet-64 and SD AMED
+paths (launches of phases 8, 13 and 25), K2 at the LSUN LDM's T=1024 level (in place of K2b, launches of
 phase 19 at that shape), K3 (launches of phase 18), K1 and K2 at SD's head
 dims (launches of phases 24 and 25), K1c and K2c (launches of phase 25) and
 K4 (launches of its entry points in phase 27), each with its error and
-times at that path's main shape and its bound on this card.  Every
-profile of a bf16 forward (phases 5, 14, 20, 26, 28) checks that no
-attention forward ran on the CUDA-core kernel.
+times at that path's main shape and its bound on this card (the f32
+forward's: 3xTF32 on the tensor cores).  Every profile (phases 4, 5, 14,
+20, 23, 26, 28) checks that no attention forward ran on the CUDA cores.
 Any failed check raises, so the script
 exits non-zero with no result; so does a machine without CUDA.
 """
@@ -264,10 +268,13 @@ AMED_KIMG = 1
 AMED_ITERS = math.ceil(AMED_KIMG * 1000 / AMED_BATCH)  # 2
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet, dense):
-# the tensor cores in bf16 and the CUDA cores in f32, and HBM3.  A kernel's
-# bound is the larger of its operations over the rate of its input type and
-# its bytes (each input read once, each output written once) over HBM's.
+# the tensor cores in bf16 and in TF32, the CUDA cores in f32, and HBM3.  A
+# kernel's bound is the larger of its operations over the rate of its input
+# type and its bytes (each input read once, each output written once) over
+# HBM's.  The f32 forward (K1, K1c) runs in 3xTF32 on the tensor cores:
+# three TF32 products for each f32 one.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # The ImageNet-64 path (EDM_ARCHS["imagenet64"], DhariwalUNet, d=64): 22
@@ -455,19 +462,54 @@ def _events():
     return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
 
-def _attention_bound(kind: str, b: int, t: int, h: int, d: int, dtype) -> tuple:
+def _attention_bound(kind: str, b: int, t: int, h: int, d: int, dtype,
+                     cuda_cores: bool = False) -> tuple:
     """(bound_ms, bound_by) of one attention kernel on this card's published
     peaks.  kind: "fwd" (S = QK^T, O = PV: out and lse from q, k, v), "dq"
     (S, dP = dO V^T, dQ = dS K, from q, k, v, dO, lse, delta) or "dkv" (S,
-    dP, dV = P^T dO, dK = dS^T Q); 2 flops per multiply-add."""
+    dP, dV = P^T dO, dK = dS^T Q); 2 flops per multiply-add.  The f32
+    forward counts three TF32 products per product at the TF32 rate (its
+    3xTF32 kernel), or with ``cuda_cores`` one f32 product at the CUDA
+    cores' rate (the bound of the kernel it replaced)."""
     elt = torch.empty((), dtype=dtype).element_size()
     tensor, stats = b * t * h * d * elt, b * h * t * 4
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
     flops = products * 2 * b * h * t * t * d
     nbytes = {"fwd": 4 * tensor + stats, "dq": 5 * tensor + 2 * stats,
               "dkv": 6 * tensor + 2 * stats}[kind]
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    if kind == "fwd" and dtype == torch.float32 and not cuda_cores:
+        t_ops = 3 * flops / PEAK_TF32_FLOPS
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _bound_text(kind: str, b: int, t: int, h: int, d: int, dtype) -> str:
+    """The bound of ``_attention_bound`` with what it counts; for the f32
+    forward beside the CUDA cores' bound of the kernel it replaced."""
+    bound_ms, bound_by = _attention_bound(kind, b, t, h, d, dtype)
+    if kind != "fwd" or dtype != torch.float32:
+        return f"{bound_ms:.4f} ms ({bound_by})"
+    cc_ms, cc_by = _attention_bound(kind, b, t, h, d, dtype, cuda_cores=True)
+    return (f"{bound_ms:.4f} ms ({bound_by}, 3xTF32 at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s; "
+            f"on the CUDA cores {cc_ms:.4f} ms, {cc_by})")
+
+
+def _kernel_names(fn) -> list:
+    """The device kernels of one call of ``fn``, by name (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return sorted({e["name"] for e in events if e.get("cat") == "kernel"})
 
 
 def _groupnorm_bound(n: int, h: int, w: int, c: int, dtype, silu: bool) -> tuple:
@@ -518,8 +560,9 @@ _LOAD_NAMES = {"1": "cp.async", "2": "gather", "3": "gather from the qkv rows"}
 
 
 def _sass_hmma_counts(path: str) -> dict:
-    """{mangled kernel name: HMMA instructions} of a built library's SASS
-    (``cuobjdump -sass``, from the toolkit beside nvcc)."""
+    """{mangled kernel name: (HMMA instructions, their opcodes)} of a built
+    library's SASS (``cuobjdump -sass``, from the toolkit beside nvcc); TF32
+    MMAs show as HMMA.1688.F32.TF32."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
                           timeout=300)
@@ -529,9 +572,10 @@ def _sass_hmma_counts(path: str) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = 0
+            counts[fn] = (0, set())
         elif fn is not None and re.search(r"\bHMMA\b", line):
-            counts[fn] += 1
+            n, kinds = counts[fn]
+            counts[fn] = (n + 1, kinds | {re.search(r"HMMA\S*", line).group(0)})
     return counts
 
 
@@ -547,26 +591,27 @@ def phase_build() -> None:
               f"({' '.join(_build.NVCC_FLAGS)})")
     # ptxas names each kernel by its mangled name: print it as
     # flash_<...>_kernel<dtype, d, ...>, gn_<...>_kernel or conv3x3_<...>, then
-    # its registers and spills; hold every bf16 K1 instantiation (the tensor
-    # cores' flash_fwd_tc_kernel<padded d, load mode>) to 0 spill bytes
+    # its registers and spills; hold every K1 / K1c instantiation on the
+    # tensor cores (flash_fwd_tc_kernel<padded d, load mode> in bf16,
+    # flash_fwd_tf32[_flat]_kernel<padded d, load mode> in f32) to 0 spill
+    # bytes and some HMMA in its SASS
     log = _build.build_log or _build.library_path().with_suffix(".log").read_text()
+    fwd_re = re.compile(r"(flash_fwd_tc_kernel|flash_fwd_tf32_kernel|flash_fwd_tf32_flat_kernel)"
+                        r"ILi(\d+)ELi(\d)EE")
     tc, current = {}, None
     for line in log.splitlines():
         compiling = "Compiling entry function" in line
-        fwd_tc = re.search(r"flash_fwd_tc_kernelILi(\d+)ELi(\d)EE", line)
-        fwd = re.search(r"(flash_fwd(?:_flat)?_kernel)ILi(\d+)ELi\d+EE", line)
+        fwd = fwd_re.search(line)
         bwd = re.search(r"(flash_bwd_(?:dq|dkv)(?:_flat)?_kernel)I(13__nv_bfloat16|f)"
                         r"((?:Li\d+E)+)E", line)
         gn = re.search(r"(gn_[a-z_]+_kernel)(I(13__nv_bfloat16|f)((?:Li\d+E)*)E)?", line)
         conv = re.search(r"(conv3x3_(?:bf16|f32)_kernel)ILb([01])E", line)
         if compiling:
             current = None
-        if fwd_tc and compiling:
-            current = (int(fwd_tc.group(1)), _LOAD_NAMES[fwd_tc.group(2)])
+        if fwd and compiling:
+            current = (fwd.group(1), int(fwd.group(2)), _LOAD_NAMES[fwd.group(3)])
             tc[current] = {}
-            print(f"[build] flash_fwd_tc_kernel<bf16, padded d={current[0]}, {current[1]}>:")
-        elif fwd and compiling:
-            print(f"[build] {fwd.group(1)}<f32, padded d={fwd.group(2)}>:")
+            print(f"[build] {_fwd_name(current)}:")
         elif bwd and compiling:
             dtype = "bf16" if bwd.group(2) != "f" else "f32"
             ints = re.findall(r"Li(\d+)E", bwd.group(3))
@@ -582,19 +627,34 @@ def phase_build() -> None:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if spill and current is not None:
                 tc[current]["spill"] = int(spill.group(1)) + int(spill.group(2))
-    # 8 padded dims in cp.async and the element gather, 4 in the qkv-row gather
-    _check(len(tc) == 20, f"expected 20 bf16 K1 instantiations, ptxas compiled {len(tc)}")
-    hmma = {}
-    for name, n in _sass_hmma_counts(str(_build.library_path())).items():
-        m = re.search(r"flash_fwd_tc_kernelILi(\d+)ELi(\d)EE", name)
+    # bf16: 8 padded dims in cp.async and the element gather, 4 in the qkv-row
+    # gather; f32: 8 in cp.async and the gather, 2 in the qkv-row gather, and
+    # the flat entry's 8 in cp.async and the gather
+    count = {name: sum(1 for key in tc if key[0] == name) for name in
+             ("flash_fwd_tc_kernel", "flash_fwd_tf32_kernel", "flash_fwd_tf32_flat_kernel")}
+    _check(count == {"flash_fwd_tc_kernel": 20, "flash_fwd_tf32_kernel": 18,
+                     "flash_fwd_tf32_flat_kernel": 16},
+           f"expected 20 bf16, 18 f32 and 16 flat f32 tensor-core K1 instantiations, ptxas "
+           f"compiled {count}")
+    hmma, kinds = {}, set()
+    for name, (n, kind) in _sass_hmma_counts(str(_build.library_path())).items():
+        m = fwd_re.search(name)
         if m:
-            hmma[(int(m.group(1)), _LOAD_NAMES[m.group(2)])] = n
+            hmma[(m.group(1), int(m.group(2)), _LOAD_NAMES[m.group(3)])] = n
+            if "tf32" in m.group(1):
+                kinds |= kind
     for key in sorted(tc):
-        print(f"[build] flash_fwd_tc_kernel<bf16, padded d={key[0]}, {key[1]}>: "
-              f"{hmma.get(key, 0)} HMMA instructions in its SASS, "
+        print(f"[build] {_fwd_name(key)}: {hmma.get(key, 0)} HMMA instructions in its SASS, "
               f"{tc[key].get('spill', 'unknown')} spill bytes")
-        _check(hmma.get(key, 0) > 0, f"bf16 K1 {key} has no tensor-core instruction")
-        _check(tc[key].get("spill") == 0, f"bf16 K1 {key} spills registers")
+        _check(hmma.get(key, 0) > 0, f"K1 {key} has no tensor-core instruction")
+        _check(tc[key].get("spill") == 0, f"K1 {key} spills registers")
+    print(f"[build] the f32 kernels' tensor-core instructions: {', '.join(sorted(kinds))}")
+
+
+def _fwd_name(key) -> str:
+    """flash_fwd_tc_kernel<bf16, padded d=64, cp.async> and the like."""
+    name, dp, load = key
+    return f"{name}<{'bf16' if name == 'flash_fwd_tc_kernel' else 'f32'}, padded d={dp}, {load}>"
 
 
 def _qkv_views(b, t, h, d, dtype, g):
@@ -616,9 +676,10 @@ def _k1_checks(tag: str, shapes, views, seed: int, reps: int, warmup: int) -> di
     """K1 against its plain version at ``shapes`` on ``views``, two runs
     bit-identical; prints the errors, times and route (``A.fwd_route``) of
     each shape and the kernels-line fields of the first bf16 and the first
-    f32 shape (the path's main ones); returns those of the first shape."""
+    f32 shape (the path's main ones); returns those fields by dtype name,
+    and the first shape's as "main"."""
     g = torch.Generator("cuda").manual_seed(seed)
-    main, mains = None, {}
+    mains = {}
     for b, t, h, d, dtype in shapes:
         q, k, v = views(b, t, h, d, dtype, g)
         scale = d ** -0.5
@@ -648,7 +709,7 @@ def _k1_checks(tag: str, shapes, views, seed: int, reps: int, warmup: int) -> di
               f"{tol:.3g}), lse err {err_lse:.3g} (tol {LSE_TOL:.3g}), two runs bit-identical: "
               f"{same}; K1 {times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, "
               f"F.scaled_dot_product_attention {times['library']:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}); "
+              f"{_bound_text('fwd', b, t, h, d, dtype)}; "
               f"{2 * 2 * b * h * t * t * d / times['kernel'] / 1e9:.2f} TFLOP/s; route "
               f"{route.kernel}, padded d {route.padded_d}, {route.load}"
               f"{' from the qkv rows' if route.span else ''}, {route.block_q} x "
@@ -658,13 +719,16 @@ def _k1_checks(tag: str, shapes, views, seed: int, reps: int, warmup: int) -> di
         _check(same, f"K1 is not deterministic at {(b, t, h, d, name)}")
         fields = dict(max_abs_err=err_out, ms=times["kernel"], plain_ms=times["plain"],
                       library_ms=times["library"], bound_ms=bound_ms, bound_by=bound_by)
-        if main is None:  # the first shape is the path's main one
-            main = fields
+        if not mains:  # the first shape is the path's main one
+            mains["main"] = fields
         if name not in mains:  # and the first of each dtype that dtype's
             mains[name] = fields
             print(f"[{tag}] {name} main shape [{b}, {t}, {h}, {d}]: {json.dumps(fields)}")
+            if dtype == torch.float32:
+                print(f"[{tag}]   F.scaled_dot_product_attention in f32 runs "
+                      f"{_kernel_names(fns['library'])}")
     torch.cuda.empty_cache()
-    return main
+    return mains
 
 
 def _strided_do(b, t, h, d, dtype, g):
@@ -744,6 +808,8 @@ def phase_denoiser_f32() -> None:
     den = bind(module)
     _plain_vs_kernels("D f32", _plain_net_patches(layers), forward=lambda: den(x, sigma),
                       per_forward=dict(k1=ATTENTION_SITES, gn=CIFAR_GN_SITES))
+    _profile("D f32 profile, one forward at batch 8", lambda: den(x, sigma),
+             {"K1": ATTENTION_SITES, "K3": 3 * CIFAR_GN_SITES})
 
 
 _COUNTED = {"k1": A.flash_attention_mh, "dq": A.flash_attention_bwd_dq,
@@ -1180,11 +1246,11 @@ def _amed_counts(per_call: dict, sites: int, batch_gpu: int, afs: bool) -> dict:
                  dkv=sites * segments * micro)
 
 
-def _profile(tag: str, fn, want_calls: dict, bf16: bool = True) -> dict:
+def _profile(tag: str, fn, want_calls: dict) -> dict:
     """``torch.profiler`` over one call of ``fn`` after a warm-up call: prints
     the device time by ``utils/profiling.py::CATEGORIES`` and checks the
-    kernel calls of ``want_calls`` ({category: calls}) and, for a bf16 call,
-    that no attention forward ran on the CUDA-core kernel (f32's)."""
+    kernel calls of ``want_calls`` ({category: calls}) and that no attention
+    forward ran on a CUDA-core kernel (the f32 kernels before 3xTF32)."""
     with torch.no_grad():
         fn()  # warm-up
         torch.cuda.synchronize()
@@ -1213,9 +1279,8 @@ def _profile(tag: str, fn, want_calls: dict, bf16: bool = True) -> dict:
         print(f"[{tag}]   {name:<16} {c['ms']:>10.3f} ms  {c['share']:.4f}  {c['calls']} calls")
     for name, ms in out["top"][:8]:
         print(f"[{tag}]   top {ms:>10.3f} ms  {name[:140]}")
-    print(f"[{tag}]   attention forwards on the CUDA cores (f32's kernel): {cuda_core_fwd}")
-    if bf16:
-        _check(cuda_core_fwd == 0, f"{tag}: a bf16 attention forward ran on the CUDA cores")
+    print(f"[{tag}]   attention forwards on the CUDA cores: {cuda_core_fwd}")
+    _check(cuda_core_fwd == 0, f"{tag}: an attention forward ran on the CUDA cores")
     for cat, calls in want_calls.items():
         _check(out["categories"][cat]["calls"] == calls,
                f"{tag}: the profile holds {out['categories'][cat]['calls']} {cat} kernels, "
@@ -1414,7 +1479,7 @@ def phase_ldm_profile(pre) -> None:
     z = stacked_randn(range(DECODE_CHUNK), LDM_LATENT, device="cuda")
     tag = f"LDM profile, one batch-{DECODE_CHUNK} f32 VQ decode"
     decode = lambda: pre.latent_diffusion.decode_first_stage(z)  # noqa: E731
-    _profile(tag, decode, {"K3": 3 * DECODE_GN_SITES}, bf16=False)
+    _profile(tag, decode, {"K3": 3 * DECODE_GN_SITES})
     _with_plain_groupnorm(tag, decode, [adm])
 
 
@@ -1426,9 +1491,9 @@ def _sd_views(b, t, h, d, dtype, g):
 
 
 def phase_sd_attention_kernels() -> tuple:
-    """K1 and K2 at SD's head dims (40 / 80 / 160, padded inside the kernels
-    to 48 / 80 / 160); returns the fields of K1 and of K2 at their main
-    shapes."""
+    """K1 and K2 at SD's head dims (40 / 80 / 160; the bf16 K1 and K2 pad 40
+    to 48); returns the fields of K1 (by dtype, as ``_k1_checks``) and of K2
+    at their main shapes."""
     k1 = _k1_checks("SD K1", SD_K1_SHAPES, _sd_views, seed=10, reps=5, warmup=2)
     return k1, _k2_checks("SD K2", SD_K2_SHAPES, _sd_views, seed=11)
 
@@ -1445,13 +1510,16 @@ def phase_sd_flat_kernels() -> tuple:
         q, k, v, do = (torch.randn(b, t, d, generator=g, device="cuda").to(dtype)
                        for _ in range(4))
         scale = d ** -0.5
+        route = A.fwd_route(q, k, v)
         out, lse = A.flash_attention(q, k, v, scale)
+        again = A.flash_attention(q, k, v, scale)
         ref_out, ref_lse = A.reference_flash_attention(q, k, v, scale)
         torch.cuda.synchronize()
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
+        same_fwd = torch.equal(out, again[0]) and torch.equal(lse, again[1])
         tol = _out_tol(dtype, ref_out)
-        del ref_out, ref_lse
+        del ref_out, ref_lse, again
         grads = A.flash_attention_bwd(q, k, v, out, lse, do, scale)
         again = A.flash_attention_bwd(q, k, v, out, lse, do, scale)
         ref = A.reference_flash_attention_bwd(q, k, v, out, lse, do, scale)
@@ -1474,14 +1542,17 @@ def phase_sd_flat_kernels() -> tuple:
         print(f"[SD K1c/K2c] flat B={b} T={t} d={d} {name}: out err {err_out:.3g} (tol "
               f"{tol:.3g}), lse err {err_lse:.3g} (tol {LSE_TOL:.3g}); dq err {errs[0]:.3g} "
               f"(tol {tols[0]:.3g}), dk {errs[1]:.3g} (tol {tols[1]:.3g}), dv {errs[2]:.3g} "
-              f"(tol {tols[2]:.3g}); K2c two runs bit-identical: {same}")
+              f"(tol {tols[2]:.3g}); two runs bit-identical: K1c {same_fwd}, K2c {same}; K1c "
+              f"route {route.kernel}, padded d {route.padded_d}, {route.load}, "
+              f"{route.block_q} x {route.block_k} tiles, {route.warps} warps")
         print(f"[SD K1c/K2c]   K1c {fwd['kernel']:.4f} ms, plain {fwd['plain']:.4f} ms, "
               f"F.scaled_dot_product_attention {fwd['library']:.4f} ms, K1 on the same data as "
               f"[{b // heads}, {t}, {heads}, {d}] views {fwd['K1']:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}); "
+              f"{_bound_text('fwd', b, t, 1, d, dtype)}; "
               f"{2 * 2 * b * t * t * d / fwd['kernel'] / 1e9:.2f} TFLOP/s; K2c {_fmt_times(bwd)}")
         _check(err_out <= tol and err_lse <= LSE_TOL,
                f"K1c disagrees with the plain version at {(b, t, d, name)}")
+        _check(same_fwd, f"K1c is not deterministic at {(b, t, d, name)}")
         _check(all(e <= tol for e, tol in zip(errs, tols)),
                f"K2c disagrees with the plain version at {(b, t, d, name)}")
         _check(same, f"K2c is not deterministic at {(b, t, d, name)}")
@@ -1560,6 +1631,8 @@ def phase_sd_denoiser_and_gradient() -> None:
                       per_backward=dict(k1=mh_sites, k1c=SD_FLAT_SITES, dq=mh_sites,
                                         dkv=mh_sites, dqc=SD_FLAT_SITES, dkvc=SD_FLAT_SITES,
                                         gn=gn))
+    _profile("SD D f32 profile, one guided U-Net call at batch 4", forward,
+             {"K1": mh_sites, "K1c": SD_FLAT_SITES, "K3": 3 * gn})
     del pre, ld
     torch.cuda.empty_cache()
 
@@ -2064,18 +2137,24 @@ def main() -> int:
         _check(n > 0, f"{name} was not launched on its path")
     print(f"[time] whole run: {time.perf_counter() - t_start:.2f} s")
     print(smi)
-    fwd, bwd = ("diff_sampler_tpu_torch/csrc/flash_attn_fwd.cu",
-                "diff_sampler_tpu_torch/csrc/flash_attn_bwd.cu")
+    fwd, fwd32, bwd = ("diff_sampler_tpu_torch/csrc/flash_attn_fwd.cu",
+                       "diff_sampler_tpu_torch/csrc/flash_attn_fwd_tf32.cu",
+                       "diff_sampler_tpu_torch/csrc/flash_attn_bwd.cu")
     tpu = "diff_sampler_tpu/ops/pallas_attention.py"
     print(json.dumps({"kernels": [
         _kernel_entry("flash_attention_mh (K1, multi-head flash-attention forward)", fwd,
-                      f"{tpu}:157", launches, k1),
+                      f"{tpu}:157", launches, k1["main"]),
+        _kernel_entry("flash_attention_mh in f32 (K1 in 3xTF32 on the tensor cores, CIFAR-10 "
+                      "AMED path)", fwd32, f"{tpu}:157", amed["k1"], k1["float32"]),
         _kernel_entry("flash_attention_bwd_dq (K2, flash-attention backward, dQ)", bwd,
                       f"{tpu}:406", amed["dq"], k2["dq"]),
         _kernel_entry("flash_attention_bwd_dkv (K2, flash-attention backward, dK/dV)", bwd,
                       f"{tpu}:554", amed["dkv"], k2["dkv"]),
         _kernel_entry("flash_attention_mh at d=64 (K1 in place of K1b, ImageNet-64 path)",
-                      fwd, f"{tpu}:227", in64_launches, in64_k1),
+                      fwd, f"{tpu}:227", in64_launches, in64_k1["main"]),
+        _kernel_entry("flash_attention_mh in f32 at d=64 (K1 in 3xTF32 in place of K1b, "
+                      "ImageNet-64 AMED path)", fwd32, f"{tpu}:227", in64_amed["k1"],
+                      in64_k1["float32"]),
         _kernel_entry("flash_attention_bwd_dq at d=64 (K2 dQ in place of K2p, ImageNet-64 "
                       "path)", bwd, f"{tpu}:441", in64_amed["dq"], in64_k2["dq"]),
         _kernel_entry("flash_attention_bwd_dkv at d=64 (K2 dK/dV in place of K2p, ImageNet-64 "
@@ -2090,13 +2169,15 @@ def main() -> int:
                       "diff_sampler_tpu/ops/pallas_groupnorm.py:29", k3_launches, k3),
         _kernel_entry("flash_attention_mh at d=40/80/160 (K1 at the SD head dims, padded in "
                       "the kernel; SD bf16 sampling path)", fwd, f"{tpu}:157", sd_launches,
-                      sd_k1),
+                      sd_k1["main"]),
+        _kernel_entry("flash_attention_mh in f32 at d=80/160 (K1 in 3xTF32 at the SD head dims, "
+                      "SD f32 AMED path)", fwd32, f"{tpu}:157", sd_amed["k1"], sd_k1["float32"]),
         _kernel_entry("flash_attention_bwd_dq at d=80/160 (K2 dQ at the SD head dims, SD f32 "
                       "AMED path)", bwd, f"{tpu}:406", sd_amed["dq"], sd_k2["dq"]),
         _kernel_entry("flash_attention_bwd_dkv at d=80/160 (K2 dK/dV at the SD head dims, SD "
                       "f32 AMED path)", bwd, f"{tpu}:554", sd_amed["dkv"], sd_k2["dkv"]),
-        _kernel_entry("flash_attention (K1c, flat flash-attention forward, SD f32 AMED path)",
-                      fwd, f"{tpu}:49", sd_amed["k1c"], sd_k1c),
+        _kernel_entry("flash_attention (K1c, flat flash-attention forward in 3xTF32, SD f32 "
+                      "AMED path)", fwd32, f"{tpu}:49", sd_amed["k1c"], sd_k1c),
         _kernel_entry("flash_attention_flat_bwd_dq (K2c, flat flash-attention backward, dQ, "
                       "SD f32 AMED path)", bwd, f"{tpu}:960", sd_amed["dqc"], sd_k2c["dq"]),
         _kernel_entry("flash_attention_flat_bwd_dkv (K2c, flat flash-attention backward, "

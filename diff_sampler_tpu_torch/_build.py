@@ -101,6 +101,11 @@ def _declare(lib) -> None:
     lib.dst_flash_attn_fwd_flat.argtypes = ([p] * 5 + [i] * 3 + [ll] * 9
                                             + [ctypes.c_float] + [i] * 5 + [p])
     lib.dst_flash_attn_fwd_flat.restype = i
+    # the f32 kernels' entries take the same arguments
+    lib.dst_flash_attn_fwd_tf32.argtypes = lib.dst_flash_attn_fwd.argtypes
+    lib.dst_flash_attn_fwd_tf32.restype = i
+    lib.dst_flash_attn_fwd_tf32_flat.argtypes = lib.dst_flash_attn_fwd_flat.argtypes
+    lib.dst_flash_attn_fwd_tf32_flat.restype = i
     # q, k, v, dO, lse, delta, then dq (or dk, dv); B, T, H, d; 16 strides
     lib.dst_flash_attn_bwd_dq.argtypes = [p] * 7 + [i] * 4 + [ll] * 16 + [ctypes.c_float, i, p]
     lib.dst_flash_attn_bwd_dq.restype = i

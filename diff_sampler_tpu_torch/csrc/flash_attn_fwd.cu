@@ -14,9 +14,9 @@
 //   * non-causal softmax attention per (batch, head);
 //   * f32 logits, the scale applied to the f32 q.k product;
 //   * online softmax over key tiles in f32;
-//   * P cast to the storage dtype before P@V (its row sums l taken from the
-//     f32 values), f32 accumulation;
-//   * output in the input dtype plus the per-row log-sum-exp in f32;
+//   * P cast to bf16 before P@V (its row sums l taken from the f32 values),
+//     f32 accumulation;
+//   * output in bf16 plus the per-row log-sum-exp in f32;
 //   * ragged T: keys >= T masked, query rows >= T never stored.
 //
 // Layouts.  K1: q/k/v are logical [B, T, H, d] with arbitrary element
@@ -25,11 +25,15 @@
 // [B, T, H, d], lse a contiguous [B, H, T].  K1c: q/k/v are logical
 // [B, T, d] with arbitrary strides (B folds batch * heads); out is a
 // contiguous [B, T, d], lse a contiguous [B, T]: the multi-head layout with
-// one head, which is how the bf16 kernel serves it.
+// one head, which is how the bf16 kernel serves it (the f32 kernel has a
+// flat entry of its own).
 //
-// Two kernels, by dtype (the route is ops/attention.py::fwd_route, which
-// passes the padded head dim, the load mode and the tile sizes; the entry
-// points check them against the tables here):
+// This file holds the bf16 kernel; the f32 one (3xTF32 on the tensor cores,
+// the same structure and load modes) is flash_attn_fwd_tf32.cu, and the
+// pieces both use are in flash_fwd.cuh.  The route is
+// ops/attention.py::fwd_route, which passes the padded head dim, the load
+// mode and the tile sizes; the entry points check them against the tables
+// here.
 //
 // bf16: flash_fwd_tc_kernel, on the tensor cores (FlashAttention-2's
 // structure, mma.sync m16n8k16 with f32 accumulators).  A block owns a
@@ -73,17 +77,6 @@
 // read element stride 3), warp specialisation, exp2 emulated on the FMA
 // units, and clusters that share a head's K / V tiles between blocks.
 // Deterministic: no atomics, no split over keys.
-//
-// f32: flash_fwd_kernel / flash_fwd_flat_kernel, on the CUDA cores (its gates
-// are 1e-5 absolute, which TF32 cannot hold).  One block of 256 threads per
-// (64-query tile, head, batch); the key/value loop that the TPU ran as a
-// sequential grid axis is a loop inside the block.  Q, K, V and P tiles are
-// staged in shared memory, products run as f32 FMAs, and every thread keeps
-// 4 query rows of the output accumulator in registers.  d is padded to DP,
-// the next of 32, 48, 64, 80, 128, 160, 256, each of the 16 column groups
-// owning DP / 16 output columns.  Bound: f32 FMAs and shared-memory loads (4
-// B H T^2 d flops at 67 TFLOP/s).  71 KB of shared memory at d = 64: three
-// blocks per SM, so one block's tile loads overlap another's products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,20 +84,10 @@
 
 #include <type_traits>
 
+#include "flash_fwd.cuh"
 #include "mma.cuh"
 
 namespace {
-
-struct Strides {
-  long long b, t, h, e;
-};
-
-// Rows of one (batch, head): element (t, e) of x lies at p[t * st + e * se].
-template <typename T>
-struct Rows {
-  const T* __restrict__ p;
-  long long st, se;
-};
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -112,11 +95,6 @@ struct Rows {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kLoadAsync = 1;   // cp.async, 16 bytes a copy
-constexpr int kLoadGather = 2;  // element loads staged in registers
-constexpr int kLoadSpan = 3;    // Q, K and V split out of their shared qkv rows
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // Tiles of the padded head dim DP (mirrored by ops/attention.py::fwd_route):
 // kWarps warps, each owning kMT m-tiles of 16 query rows, so that every K / V
@@ -145,11 +123,6 @@ struct Tc {
   static constexpr int kPiece = kBK / kSplit;
 };
 
-__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {  // round to nearest even
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -340,67 +313,6 @@ struct Staged {
   }
 };
 
-// The online softmax of one m-tile over one key tile, in log2 units: the raw
-// q.k accumulators s become p = 2^(sl2 s - m), m the row's running max and l
-// its sum (this lane's part).  UP: sl2 > 0, so a row's largest logit is
-// sl2 * max s (otherwise sl2 * min s).  m moves only where some row of the
-// warp would pass it by more than kSlack: then every row takes its new max
-// and rescales l and acc.  Otherwise m stays and p <= 2^kSlack, which leaves
-// out = acc / l and lse = m + log2 l exact and saves the rescale.  Keys past
-// seq_len in a ragged tile drop out (p = 0); key0 is the key of s[0][0].
-constexpr float kSlack = 8.f;
-
-template <bool UP, bool RAGGED, int NK, int ND>
-__device__ __forceinline__ void softmax_tile(float (&s)[NK][4], float (&acc)[ND][4],
-                                             float (&m)[2], float (&l)[2], float sl2, int key0,
-                                             int seq_len) {
-  const float masked = UP ? -INFINITY : INFINITY;
-  float ext[2] = {masked, masked};
-#pragma unroll
-  for (int n = 0; n < NK; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const bool out = RAGGED && key0 + 8 * n + (i & 1) >= seq_len;
-      const float x = out ? masked : s[n][i];
-      ext[i >> 1] = UP ? fmaxf(ext[i >> 1], x) : fminf(ext[i >> 1], x);
-    }
-  float top[2];
-  bool grow = false;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float e = ext[r];
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      const float o = __shfl_xor_sync(0xffffffffu, e, off);
-      e = UP ? fmaxf(e, o) : fminf(e, o);
-    }
-    top[r] = e * sl2;  // finite: every tile holds a real key
-    grow |= top[r] > m[r] + kSlack;
-  }
-  if (__any_sync(0xffffffffu, grow)) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], top[r]);
-      const float alpha = ex2(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        acc[n][2 * r] *= alpha;
-        acc[n][2 * r + 1] *= alpha;
-      }
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < NK; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float p = ex2(fmaf(s[n][i], sl2, -m[i >> 1]));
-      if (RAGGED && key0 + 8 * n + (i & 1) >= seq_len) p = 0.f;
-      l[i >> 1] += p;
-      s[n][i] = p;
-    }
-}
 
 // One 128-query tile of one (batch, head): out row t at o[t * ost], its lse
 // at lse[t].
@@ -687,291 +599,19 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;  // 16 row groups x 16 column groups
-constexpr int kBlockQ = 64;    // query rows per block
-constexpr int kRows = kBlockQ / 16;  // query rows per thread
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float half_warp_max(float x) {
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// DP: the padded head dim, a multiple of 16; each column group owns DP / 16
-// output columns, loaded kVec at a time.
-template <int DP, int BK>
-struct Tile {
-  static_assert(DP % 16 == 0, "the padded head dim is a multiple of 16");
-  static constexpr int kQStride = DP + 4;   // +4 floats: conflict-free float4 rows
-  static constexpr int kKStride = DP + 4;
-  static constexpr int kVStride = DP;
-  static constexpr int kPStride = BK + 16;  // second half-warp lands on other banks
-  static constexpr int kCols = DP / 16;                                   // per thread
-  static constexpr int kVec = kCols % 4 == 0 ? 4 : kCols % 2 == 0 ? 2 : 1;  // per load
-  static constexpr int kVGroups = kCols / kVec;                           // loads per row
-  static constexpr size_t kSmemBytes =
-      sizeof(float) * (kBlockQ * kQStride + BK * kKStride + BK * kVStride + kBlockQ * kPStride);
-};
-
-// Keys per tile of the f32 kernel (mirrored by ops/attention.py::fwd_route).
-template <int DP>
-constexpr int kF32BK = DP >= 128 ? 32 : 64;
-
-// One 64-query tile of one (batch, head): out row t at o[t * ost], its lse
-// at lse[t].
-template <int DP, int BK>
-__device__ __forceinline__ void attend(Rows<float> q, Rows<float> k, Rows<float> v,
-                                       float* __restrict__ o, long long ost,
-                                       float* __restrict__ lse, int seq_len, int d, float scale,
-                                       int q0) {
-  using L = Tile<DP, BK>;
-  constexpr int kSCols = BK / 16;  // logit columns per thread
-  constexpr int kVec = L::kVec;
-  constexpr int kOCols = L::kCols;  // output columns per thread
-
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kBlockQ * L::kQStride;
-  float* sV = sK + BK * L::kKStride;
-  float* sP = sV + BK * L::kVStride;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // column group
-  const int ty = tid >> 4;  // row group: rows ty + 16 * i
-
-  // Columns d..DP are zero in every tile: the padding.
-  for (int idx = tid; idx < kBlockQ * DP; idx += kThreads) {
-    const int r = idx / DP, e = idx % DP;
-    const int t = q0 + r;
-    sQ[r * L::kQStride + e] = t < seq_len && e < d ? q.p[t * q.st + e * q.se] : 0.f;
-  }
-
-  float acc[kRows][kOCols];
-  float m[kRows], l[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kOCols; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < seq_len; k0 += BK) {
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    for (int idx = tid; idx < BK * DP; idx += kThreads) {
-      const int r = idx / DP, e = idx % DP;
-      const int t = k0 + r;
-      const bool in = t < seq_len && e < d;
-      sK[r * L::kKStride + e] = in ? k.p[t * k.st + e * k.se] : 0.f;
-      sV[r * L::kVStride + e] = in ? v.p[t * v.st + e * v.se] : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T for rows ty + 16 i and keys tx + 16 j, over the d real
-    // columns (d is a multiple of 8).
-    float s[kRows][kSCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kSCols; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int e = 0; e < d; e += 4) {
-      float4 qv[kRows], kv[kSCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&sQ[(ty + 16 * i) * L::kQStride + e]);
-#pragma unroll
-      for (int j = 0; j < kSCols; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&sK[(tx + 16 * j) * L::kKStride + e]);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kSCols; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-        }
-    }
-
-    // Online softmax.  The 16 threads of a row group share a half warp.
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kSCols; ++j) {
-        const bool in = k0 + tx + 16 * j < seq_len;
-        s[i][j] = in ? scale * s[i][j] : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kSCols; ++j) {
-        const bool in = k0 + tx + 16 * j < seq_len;
-        const float p = in ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;
-        sP[(ty + 16 * i) * L::kPStride + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kOCols; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    // O += P V for rows ty + 16 i and columns g * 16 * kVec + tx * kVec + w.
-#pragma unroll 2
-    for (int j = 0; j < BK; j += 4) {
-      float4 pv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&sP[(ty + 16 * i) * L::kPStride + j]);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float vv[kOCols];
-#pragma unroll
-        for (int g = 0; g < L::kVGroups; ++g) {
-          const float* src = &sV[(j + jj) * L::kVStride + g * 16 * kVec + tx * kVec];
-          if constexpr (kVec == 4) {
-            const float4 t4 = *reinterpret_cast<const float4*>(src);
-            vv[g * 4 + 0] = t4.x;
-            vv[g * 4 + 1] = t4.y;
-            vv[g * 4 + 2] = t4.z;
-            vv[g * 4 + 3] = t4.w;
-          } else if constexpr (kVec == 2) {
-            const float2 t2 = *reinterpret_cast<const float2*>(src);
-            vv[g * 2 + 0] = t2.x;
-            vv[g * 2 + 1] = t2.y;
-          } else {
-            vv[g] = *src;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const float p = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y : jj == 2 ? pv[i].z : pv[i].w;
-#pragma unroll
-          for (int c = 0; c < kOCols; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= seq_len) continue;
-    float* orow = o + t * ost;
-#pragma unroll
-    for (int g = 0; g < L::kVGroups; ++g)
-#pragma unroll
-      for (int w = 0; w < kVec; ++w) {
-        const int col = g * 16 * kVec + tx * kVec + w;
-        if (col < d) orow[col] = acc[i][g * kVec + w] / l[i];
-      }
-    if (tx == 0) lse[t] = m[i] + logf(l[i]);
-  }
-}
-
-// K1 in f32: grid (query tiles, heads, batch).
-template <int DP, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                 int seq_len, int num_heads, int d, Strides sq, Strides sk, Strides sv,
-                 float scale) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long bh = static_cast<long long>(b) * num_heads + h;
-  attend<DP, BK>(Rows<float>{q + b * sq.b + h * sq.h, sq.t, sq.e},
-                 Rows<float>{k + b * sk.b + h * sk.h, sk.t, sk.e},
-                 Rows<float>{v + b * sv.b + h * sv.h, sv.t, sv.e},
-                 o + (static_cast<long long>(b) * seq_len * num_heads + h) * d,
-                 static_cast<long long>(num_heads) * d, lse + bh * seq_len, seq_len, d, scale,
-                 blockIdx.x * kBlockQ);
-}
-
-// K1c in f32: grid (query tiles, batch * heads) over the flat layout.
-template <int DP, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_flat_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      float* __restrict__ lse, int seq_len, int d, Strides sq, Strides sk,
-                      Strides sv, float scale) {
-  const long long bh = blockIdx.y;
-  attend<DP, BK>(Rows<float>{q + bh * sq.b, sq.t, sq.e}, Rows<float>{k + bh * sk.b, sk.t, sk.e},
-                 Rows<float>{v + bh * sv.b, sv.t, sv.e}, o + bh * seq_len * d, d,
-                 lse + bh * seq_len, seq_len, d, scale, blockIdx.x * kBlockQ);
-}
-
-// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
-// What ops/attention.py::fwd_route chose; the entry points check it.
-struct Route {
-  int padded_d, load, block_q, block_k;
-};
-
-struct Args {
-  const void *q, *k, *v;
-  void* o;
-  float* lse;
-  int batch, seq_len, num_heads, d;  // num_heads 0: the flat layout
-  Strides sq, sk, sv;
-  float scale;
-  cudaStream_t stream;
-};
-
-// Above 48 KB of dynamic shared memory needs an opt-in, which is per device;
-// setting it at every launch keeps no state here.
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-// Whether every view can take 16-byte copies: element stride 1, a 16-byte
-// aligned base, and 16-byte row, head and batch strides (those of a size-1
-// dim never move the pointer).  The route's rule, checked again here because
-// a misaligned cp.async faults.
-bool aligned16(const void* p, const Strides& s, const Args& a) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.e == 1 && s.t % 8 == 0 &&
-         (a.batch == 1 || s.b % 8 == 0) && (a.num_heads <= 1 || s.h % 8 == 0);
-}
-
-// Whether q, k and v are the views of one qkv projection's interleaved (c,
-// qkv) rows, which the span mode reads 16 bytes at a time: element stride 3,
-// k one element past q and v one past k, the same strides, and each row's
-// start (q) and its strides 16-byte aligned.  The route's rule, checked again
-// here.
-bool qkv_span(const Args& a) {
-  const char *q = static_cast<const char*>(a.q), *k = static_cast<const char*>(a.k),
-             *v = static_cast<const char*>(a.v);
-  const Strides &sq = a.sq, &sk = a.sk, &sv = a.sv;
-  auto same = [](const Strides& x, const Strides& y) {
-    return x.b == y.b && x.t == y.t && x.h == y.h && x.e == y.e;
-  };
-  return sq.e == 3 && same(sq, sk) && same(sq, sv) && k == q + sizeof(bf16) &&
-         v == k + sizeof(bf16) && reinterpret_cast<uintptr_t>(q) % 16 == 0 && sq.t % 8 == 0 &&
-         (a.batch == 1 || sq.b % 8 == 0) && (a.num_heads <= 1 || sq.h % 8 == 0);
-}
 
 template <int DP>
 cudaError_t launch_tc(const Args& a, const Route& r) {
   using C = Tc<DP>;
   if (r.block_q != C::kBQ || r.block_k != C::kBK) return cudaErrorInvalidValue;
   if (r.load == kLoadAsync &&
-      !(aligned16(a.q, a.sq, a) && aligned16(a.k, a.sk, a) && aligned16(a.v, a.sv, a)))
+      !(aligned16<bf16>(a.q, a.sq, a) && aligned16<bf16>(a.k, a.sk, a) &&
+        aligned16<bf16>(a.v, a.sv, a)))
     return cudaErrorInvalidValue;
-  if (r.load == kLoadSpan && !qkv_span(a)) return cudaErrorInvalidValue;
+  if (r.load == kLoadSpan && !qkv_span<bf16>(a)) return cudaErrorInvalidValue;
   auto kernel = &flash_fwd_tc_kernel<DP, kLoadAsync>;
   size_t smem = C::smem_bytes(r.load);
   if (r.load == kLoadGather) {
@@ -993,44 +633,10 @@ cudaError_t launch_tc(const Args& a, const Route& r) {
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch_f32(const Args& a, const Route& r) {
-  constexpr int BK = kF32BK<DP>;
-  constexpr size_t smem = Tile<DP, BK>::kSmemBytes;
-  if (r.block_q != kBlockQ || r.block_k != BK || r.load != 0) return cudaErrorInvalidValue;
-  const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k),
-              *v = static_cast<const float*>(a.v);
-  float* o = static_cast<float*>(a.o);
-  const unsigned tiles = (a.seq_len + kBlockQ - 1) / kBlockQ;
-  cudaError_t err;
-  if (a.num_heads == 0) {
-    auto kernel = flash_fwd_flat_kernel<DP, BK>;
-    if ((err = opt_in(kernel, smem)) != cudaSuccess) return err;
-    kernel<<<dim3(tiles, a.batch), kThreads, smem, a.stream>>>(q, k, v, o, a.lse, a.seq_len, a.d,
-                                                               a.sq, a.sk, a.sv, a.scale);
-  } else {
-    auto kernel = flash_fwd_kernel<DP, BK>;
-    if ((err = opt_in(kernel, smem)) != cudaSuccess) return err;
-    kernel<<<dim3(tiles, a.num_heads, a.batch), kThreads, smem, a.stream>>>(
-        q, k, v, o, a.lse, a.seq_len, a.num_heads, a.d, a.sq, a.sk, a.sv, a.scale);
-  }
-  return cudaGetLastError();
-}
-
 int forward(const Args& a, int dtype, const Route& r) {
   cudaError_t err = cudaErrorInvalidValue;
   if (a.d < 8 || a.d % 8 != 0 || a.d > r.padded_d) return static_cast<int>(err);
-  if (dtype == 0) {  // the padded dims of the f32 kernel
-    switch (r.padded_d) {
-      case 32: err = launch_f32<32>(a, r); break;
-      case 48: err = launch_f32<48>(a, r); break;
-      case 64: err = launch_f32<64>(a, r); break;
-      case 80: err = launch_f32<80>(a, r); break;
-      case 128: err = launch_f32<128>(a, r); break;
-      case 160: err = launch_f32<160>(a, r); break;
-      case 256: err = launch_f32<256>(a, r); break;
-    }
-  } else if (dtype == 1) {  // and of the bf16 kernel
+  if (dtype == 1) {  // the padded dims of the bf16 kernel
     switch (r.padded_d) {
       case 16: err = launch_tc<16>(a, r); break;
       case 32: err = launch_tc<32>(a, r); break;
@@ -1047,11 +653,12 @@ int forward(const Args& a, int dtype, const Route& r) {
 
 }  // namespace
 
-// K1.  dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, ordered
-// (batch, token, head, channel).  padded_d, load (0: the f32 kernel's
-// element loads, 1: cp.async, 2: gather), block_q and block_k: the route
-// (ops/attention.py::fwd_route); a route that does not match the kernels'
-// tables is refused.  Returns the cudaError_t of the launch.
+// K1 in bf16.  dtype must be 1 (bfloat16; float32 has its own entry,
+// flash_attn_fwd_tf32.cu).  Strides are in elements, ordered (batch, token,
+// head, channel).  padded_d, load (1: cp.async, 2: gather, 3: gather from
+// the qkv rows), block_q and block_k: the route (ops/attention.py::
+// fwd_route); a route that does not match the kernel's tables is refused.
+// Returns the cudaError_t of the launch.
 extern "C" int dst_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                   int batch, int seq_len, int num_heads, int head_dim,
                                   long long qsb, long long qst, long long qsh, long long qse,

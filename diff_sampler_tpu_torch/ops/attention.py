@@ -23,10 +23,12 @@ pieces, ``reference_flash_attention`` and its).  The kernels take any head
 dim that is a multiple of 8 up to 256 (padded inside the kernel, see the
 sources).  They read q, k and v once per tile and never write the [T, T]
 logits, which the plain versions materialise in f32.  ``fwd_route`` picks
-the forward kernel of a call: bf16 runs on the tensor cores (mma.sync, with
-16-byte cp.async copies where the views allow them and a gather elsewhere,
-16 bytes at a time from the interleaved qkv rows), f32 on the CUDA cores;
-the backward kernels run on the CUDA cores in both dtypes.
+the forward kernel of a call: both dtypes run on the tensor cores (mma.sync;
+bf16 in ``csrc/flash_attn_fwd.cu``, f32 in 3xTF32 in
+``csrc/flash_attn_fwd_tf32.cu``), with 16-byte cp.async copies where the
+views allow them and a gather elsewhere, 16 bytes at a time from the
+interleaved qkv rows; the backward kernels run on the CUDA cores in both
+dtypes.
 
 ``sdpa`` is differentiable: it runs the ``torch.autograd.Function``
 ``_FlashAttentionMH`` (K1 forward, K2 backward; the JAX
@@ -49,7 +51,7 @@ import torch
 
 from .. import _build
 
-__all__ = ["CC_PADDED_DIMS", "MAX_HEAD_DIM", "TC_PADDED_DIMS", "FwdRoute", "flash_attention",
+__all__ = ["MAX_HEAD_DIM", "TC_PADDED_DIMS", "TF32_PADDED_DIMS", "FwdRoute", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_flat_bwd_dkv", "flash_attention_flat_bwd_dq",
            "flash_attention_mh", "flash_attention_mh_bwd", "fwd_route",
@@ -68,24 +70,31 @@ def supports_head_dim(d: int) -> bool:
     return d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
 
 
-# The padded head dims the forward kernels are built for
-# (``csrc/flash_attn_fwd.cu``): the bf16 kernel on the tensor cores contracts
-# Q K^T in k-steps of 16, the f32 kernel on the CUDA cores splits d over 16
-# column groups.  A call takes the smallest that holds its d.
+# The padded head dims the forward kernels are built for: the bf16 kernel
+# (``csrc/flash_attn_fwd.cu``) contracts Q K^T in k-steps of 16, the f32
+# kernel (``csrc/flash_attn_fwd_tf32.cu``, 3xTF32) in k-steps of 8.  A call
+# takes the smallest that holds its d.
 TC_PADDED_DIMS = (16, 32, 48, 64, 80, 128, 160, 256)
-CC_PADDED_DIMS = (32, 48, 64, 80, 128, 160, 256)
-_LOAD_CODES = {"strided": 0, "cp_async": 1, "gather": 2, "qkv_span": 3}
-_SPAN_DIMS = (32, 64, 128, 256)  # padded dims whose rows split into 32-unit groups
+TF32_PADDED_DIMS = (16, 32, 40, 64, 80, 128, 160, 256)
+_LOAD_CODES = {"cp_async": 1, "gather": 2, "qkv_span": 3}
+# padded dims whose rows split into groups of 32 units of 16 bytes (8 bf16 or
+# 4 f32 columns) and whose raw stage fits: the gather from the qkv rows
+_SPAN_DIMS = {torch.bfloat16: (32, 64, 128, 256), torch.float32: (32, 64)}
+# the C entry of each (kernel, layout): [B, T, H, d] or flat [B, T, d]
+_FWD_ENTRIES = {("tensor_cores", 4): "dst_flash_attn_fwd",
+                ("tensor_cores", 3): "dst_flash_attn_fwd_flat",
+                ("tensor_cores_3xtf32", 4): "dst_flash_attn_fwd_tf32",
+                ("tensor_cores_3xtf32", 3): "dst_flash_attn_fwd_tf32_flat"}
 
 
 class FwdRoute(NamedTuple):
-    """The forward kernel a call takes, as ``dst_flash_attn_fwd`` is told it:
-    ``kernel`` "tensor_cores" (bf16) or "cuda_cores" (f32); ``load``
-    "cp_async" (16-byte copies) or "gather" (the other views) on the tensor
-    cores, "strided" (element loads) on the CUDA cores; ``span``: the gather
-    reads K and V 16 bytes at a time out of the interleaved rows of one qkv
-    projection (element loads staged in registers otherwise); query rows per
-    block, keys per tile and warps per block."""
+    """The forward kernel a call takes, as its C entry is told it: ``kernel``
+    "tensor_cores" (bf16, mma.sync m16n8k16) or "tensor_cores_3xtf32" (f32,
+    mma.sync m16n8k8 in 3xTF32); ``load`` "cp_async" (16-byte copies) or
+    "gather" (the other views); ``span``: the gather reads Q, K and V 16
+    bytes at a time out of the interleaved rows of one qkv projection
+    (element loads staged in registers otherwise); query rows per block, keys
+    per tile and warps per block."""
     kernel: str
     padded_d: int
     load: str
@@ -122,26 +131,34 @@ def _qkv_span(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 
 def fwd_route(q, k, v) -> FwdRoute:
     """The forward kernel and its settings for q, k, v (one dtype, a head
-    dim that ``supports_head_dim``): bf16 on the tensor cores, with
-    cp.async where all three views take 16-byte copies and the gather
-    elsewhere (always for element stride 3, the interleaved qkv views);
-    f32 on the CUDA cores.  The tables mirror ``csrc/flash_attn_fwd.cu``
-    (``Tc``, ``kF32BK``), whose entry points refuse any other."""
+    dim that ``supports_head_dim``): bf16 on the tensor cores, f32 on the
+    tensor cores in 3xTF32, each with cp.async where all three views take
+    16-byte copies and the gather elsewhere (for element stride 3, the
+    interleaved qkv views, from the qkv rows where the padded dim allows;
+    never on the flat layout in f32).  The tables mirror ``Tc`` in
+    ``csrc/flash_attn_fwd.cu`` and ``Tf`` in ``csrc/flash_attn_fwd_tf32.cu``,
+    whose entry points refuse any other route."""
     d = q.shape[-1]
     if q.dtype == torch.bfloat16:
+        kernel = "tensor_cores"
         padded = next(p for p in TC_PADDED_DIMS if p >= d)
         two_tiles = 48 <= padded <= 80  # two m-tiles of 16 rows per warp
-        block_k = 64 if padded <= 64 else 32
         warps = 4 if two_tiles else 8
-        if all(_copies16(x) for x in (q, k, v)):
-            return FwdRoute("tensor_cores", padded, "cp_async", False, 128, block_k, warps)
-        span = padded in _SPAN_DIMS and _qkv_span(q, k, v)
-        return FwdRoute("tensor_cores", padded, "gather", span, 128, block_k, warps)
-    if q.dtype == torch.float32:
-        padded = next(p for p in CC_PADDED_DIMS if p >= d)
-        return FwdRoute("cuda_cores", padded, "strided", False, 64, 32 if padded >= 128 else 64,
-                        8)
-    raise TypeError(f"no forward kernel for {q.dtype}")
+        block_k = 64 if padded <= 64 else 32
+        span_layout = True
+    elif q.dtype == torch.float32:
+        kernel = "tensor_cores_3xtf32"
+        padded = next(p for p in TF32_PADDED_DIMS if p >= d)
+        two_tiles, warps = False, 8
+        block_k = 64 if padded <= 40 else 32 if padded <= 128 else 16
+        span_layout = q.dim() == 4
+    else:
+        raise TypeError(f"no forward kernel for {q.dtype}")
+    block_q = 16 * warps * (2 if two_tiles else 1)
+    if all(_copies16(x) for x in (q, k, v)):
+        return FwdRoute(kernel, padded, "cp_async", False, block_q, block_k, warps)
+    span = span_layout and padded in _SPAN_DIMS[q.dtype] and _qkv_span(q, k, v)
+    return FwdRoute(kernel, padded, "gather", span, block_q, block_k, warps)
 
 
 # The JAX ``sdpa`` takes its flat kernel (``flash_attention``) where the
@@ -193,12 +210,12 @@ def _check(q, k, v, ndim):
         raise ValueError(f"batch or heads {grid} exceed the kernel's grid")
 
 
-def _launch_fwd(entry, what, out, lse, q, k, v, scale, dims):
+def _launch_fwd(what, out, lse, q, k, v, scale, dims):
     route = fwd_route(q, k, v)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, entry)(
+        err = getattr(lib, _FWD_ENTRIES[route.kernel, q.dim()])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), *dims,
             *q.stride(), *k.stride(), *v.stride(), float(scale), _DTYPE_CODES[q.dtype],
             route.padded_d, _LOAD_CODES["qkv_span" if route.span else route.load],
@@ -220,8 +237,7 @@ def flash_attention_mh(q, k, v, scale):
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    _launch_fwd("dst_flash_attn_fwd", "flash attention forward", out, lse, q, k, v, scale,
-                (b, t, h, d))
+    _launch_fwd("flash attention forward", out, lse, q, k, v, scale, (b, t, h, d))
     flash_attention_mh.launches += 1
     return out, lse
 
@@ -412,8 +428,7 @@ def flash_attention(q, k, v, scale):
     lse = torch.empty((b, t), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    _launch_fwd("dst_flash_attn_fwd_flat", "flat flash attention forward", out, lse, q, k, v,
-                scale, (b, t, d))
+    _launch_fwd("flat flash attention forward", out, lse, q, k, v, scale, (b, t, d))
     flash_attention.launches += 1
     return out, lse
 

@@ -18,15 +18,18 @@ from typing import Dict, Iterable
 __all__ = ["CATEGORIES", "Timer", "device_breakdown"]
 
 # (category, pattern on the kernel name); the first match wins.  Kernels of
-# this package by their CUDA names (K1: flash_fwd_tc_kernel in bf16 on the
-# tensor cores, flash_fwd_kernel in f32; bf16 K1c runs as the former), then
+# this package by their CUDA names (K1: flash_fwd_tc_kernel in bf16,
+# flash_fwd_tf32_kernel in f32, both on the tensor cores; K1c: the f32
+# kernel's flat entry flash_fwd_tf32_flat_kernel, while bf16 K1c runs as
+# flash_fwd_tc_kernel; the names of the earlier f32 kernels on the CUDA
+# cores, flash_fwd_kernel and flash_fwd_flat_kernel, file the same way), then
 # cuDNN / cuBLAS / CUTLASS GEMM and conv kernels, PyTorch's reductions, then
 # its elementwise and copy kernels.
 CATEGORIES = [
-    ("K1c", r"flash_fwd_flat_kernel"),
+    ("K1c", r"flash_fwd_(tf32_)?flat_kernel"),
     ("K2c dQ", r"flash_bwd_dq_flat_kernel"),
     ("K2c dK/dV", r"flash_bwd_dkv_flat_kernel"),
-    ("K1", r"flash_fwd_(tc_)?kernel"),
+    ("K1", r"flash_fwd_(tc_|tf32_)?kernel"),
     ("K2 dQ", r"flash_bwd_dq_kernel"),
     ("K2 dK/dV", r"flash_bwd_dkv_kernel"),
     ("K3", r"gn_partial_stats_kernel|gn_finalize_kernel|gn_apply_kernel"),

@@ -1,7 +1,8 @@
 """The route of the attention forward (``ops/attention.py::fwd_route``): which
-kernel of ``csrc/flash_attn_fwd.cu`` a call takes, at which padded head dim,
-with which load mode and tiles, on the views that the five tiers' attention
-layers hand to ``sdpa``; and the profiler categories of the kernels' names.
+kernel a call takes (bf16: ``csrc/flash_attn_fwd.cu``; f32, 3xTF32:
+``csrc/flash_attn_fwd_tf32.cu``), at which padded head dim, with which load
+mode and tiles, on the views that the five tiers' attention layers hand to
+``sdpa``; and the profiler categories of the kernels' names.
 
 The views are captured from the port's own attention functions on the CPU
 (``layers.attention``: SongUNet and DhariwalUNet, the interleaved (head, c,
@@ -11,6 +12,9 @@ separate projections), at batch 1 and each tier's published widths.  No
 kernel runs here: the card's tests (``test_torch_kernels_cuda.py``) hold
 the kernels against the plain version on these layouts.
 """
+
+import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -30,7 +34,13 @@ SEPARATE = [("ms_coco", 4096, 8, 40), ("ms_coco", 1024, 8, 80), ("ms_coco", 256,
             ("ms_coco", 64, 8, 160)]
 # the padded head dim of each tier's d, by kernel
 TC_PADDED = {32: 32, 40: 48, 64: 64, 80: 80, 160: 160, 256: 256}
-CC_PADDED = {32: 32, 40: 48, 64: 64, 80: 80, 160: 160, 256: 256}
+TF32_PADDED = {32: 32, 40: 40, 64: 64, 80: 80, 160: 160, 256: 256}
+CSRC = Path(A.__file__).resolve().parent.parent / "csrc"
+
+
+def _f32_keys(padded):
+    """Keys per tile of the f32 kernel (``Tf::kBK``)."""
+    return 64 if padded <= 40 else 32 if padded <= 128 else 16
 
 
 def _captured(monkeypatch, module, call):
@@ -86,30 +96,124 @@ def test_bf16_takes_the_tensor_cores_with_the_layouts_load_mode(monkeypatch, lay
 
 @pytest.mark.parametrize("layout,tier,t,h,d", CASES)
 def test_f32_stays_on_the_cuda_cores(monkeypatch, layout, tier, t, h, d):
+    """Every f32 level of the five tiers takes the 3xTF32 tensor-core kernel
+    (no f32 forward is left on the CUDA cores): the interleaved views the
+    gather (from the qkv rows at ImageNet-64's d=64), the others cp.async."""
     q, k, v = _views(monkeypatch, layout, t, h, d, torch.float32)
+    assert q.shape == (1, t, h, d) and q.stride(-1) == (3 if layout == "interleaved" else 1)
     route = A.fwd_route(q, k, v)
-    assert route == A.FwdRoute("cuda_cores", CC_PADDED[d], "strided", False, 64,
-                               32 if CC_PADDED[d] >= 128 else 64, 8)
+    padded = TF32_PADDED[d]
+    assert padded == d  # every tier's d is one of the f32 kernel's padded dims
+    load = ("gather", padded == 64) if layout == "interleaved" else ("cp_async", False)
+    assert route == A.FwdRoute("tensor_cores_3xtf32", padded, *load, 128, _f32_keys(padded), 8)
 
 
 def test_sd_f32_level_takes_the_flat_kernel_on_the_cuda_cores():
-    # sdpa's flat route (K1c): [B * H, T, d] copies of SD's f32 64x64 level
+    """sdpa's flat route (K1c): [B * H, T, d] copies of SD's f32 64x64 level
+    take the f32 kernel's flat entry on the tensor cores, with cp.async."""
     assert A.takes_flat_kernel(4096, 8, 40, torch.float32)
     assert not A.takes_flat_kernel(4096, 8, 40, torch.bfloat16)
     x = torch.zeros(8, 4096, 40)
-    assert A.fwd_route(x, x, x) == A.FwdRoute("cuda_cores", 48, "strided", False, 64, 64, 8)
+    assert A.fwd_route(x, x, x) == A.FwdRoute("tensor_cores_3xtf32", 40, "cp_async", False, 128,
+                                              64, 8)
     xb = x.bfloat16()
     assert A.fwd_route(xb, xb, xb).load == "cp_async"
 
 
-@pytest.mark.parametrize("d,tc,cc", [(8, 16, 32), (16, 16, 32), (24, 32, 32), (40, 48, 48),
+def test_f32_flat_views_never_read_the_qkv_rows():
+    # [B, T, d] views of one [B, T, d, 3] projection: bf16 reads the qkv rows
+    # (its flat layout is the multi-head kernel with one head), f32 takes the
+    # element gather, which its flat entry has
+    for dtype, span in ((torch.bfloat16, True), (torch.float32, False)):
+        q, k, v = torch.zeros(4, 200, 64, 3, dtype=dtype).unbind(-1)
+        assert A.fwd_route(q, k, v)[2:4] == ("gather", span)
+    # strided flat views of a [B, T, 3, d] tensor: 16-byte aligned rows
+    q, k, v = torch.zeros(3, 77, 3, 40).unbind(2)
+    assert A.fwd_route(q, k, v)[1:4] == (40, "cp_async", False)
+
+
+@pytest.mark.parametrize("d,tc,cc", [(8, 16, 16), (16, 16, 16), (24, 32, 32), (40, 48, 40),
                                      (56, 64, 64), (72, 80, 80), (96, 128, 128),
                                      (136, 160, 160), (168, 256, 256), (256, 256, 256)])
 def test_padded_head_dims(d, tc, cc):
     for dtype, padded in ((torch.bfloat16, tc), (torch.float32, cc)):
         x = torch.zeros(2, 5, 3, d, dtype=dtype)
         assert A.fwd_route(x, x, x).padded_d == padded
-        assert padded in (A.TC_PADDED_DIMS if dtype == torch.bfloat16 else A.CC_PADDED_DIMS)
+        assert padded in (A.TC_PADDED_DIMS if dtype == torch.bfloat16 else A.TF32_PADDED_DIMS)
+
+
+def _launch_cases(source, launcher):
+    return sorted(int(n) for n in re.findall(rf"case (\d+): err = {launcher}<\1>", source))
+
+
+def test_padded_dims_mirror_the_kernels_tables():
+    """The route's padded dims are the cases of the C entries' switches, and
+    its f32 keys per tile follow ``Tf::kBK``."""
+    bf16 = (CSRC / "flash_attn_fwd.cu").read_text()
+    f32 = (CSRC / "flash_attn_fwd_tf32.cu").read_text()
+    assert _launch_cases(bf16, "launch_tc") == list(A.TC_PADDED_DIMS)
+    assert _launch_cases(f32, "launch_tf32") == list(A.TF32_PADDED_DIMS)
+    assert "kBK = DP <= 40 ? 64 : DP <= 128 ? 32 : 16;" in f32
+    assert "return dp == 32 || dp == 64;" in f32  # tf32_span_dim
+    for d in range(8, 257, 8):
+        x = torch.zeros(1, 3, 1, d)
+        route = A.fwd_route(x, x, x)
+        assert route.padded_d == min(p for p in A.TF32_PADDED_DIMS if p >= d)
+        assert route.block_k == _f32_keys(route.padded_d)
+
+
+def test_f32_cp_async_only_where_every_view_takes_16_byte_copies():
+    shape = (2, 64, 3, 64)
+    x = _unaligned(shape, torch.float32)  # the base 4 bytes past 16
+    assert x.stride(-1) == 1 and x.data_ptr() % 16 == 4
+    assert A.fwd_route(x, x, x)[2:4] == ("gather", False)
+    # aligned base, a token stride that is not a multiple of 4 floats
+    y = torch.zeros(2, 64, 3, 66)[..., :64]
+    assert A.fwd_route(y, y, y)[2:4] == ("gather", False)
+    # a head stride of 66 floats (rows of 3 heads side by side, padded)
+    w = torch.zeros(2, 64, 3, 66)[..., 2:66]
+    assert w.data_ptr() % 16 == 8 and A.fwd_route(w, w, w)[2:4] == ("gather", False)
+    # element stride 2 (every other float)
+    e = torch.zeros(2, 64, 3, 128)[..., ::2]
+    assert A.fwd_route(e, e, e)[2:4] == ("gather", False)
+    z = torch.zeros(shape)
+    assert A.fwd_route(z, z, x)[2:4] == ("gather", False)  # all three must be aligned
+    assert A.fwd_route(z, z, z)[2:4] == ("cp_async", False)
+    # a token stride of 68 floats (17 16-byte units) is aligned too
+    assert A.fwd_route(*(torch.zeros(2, 64, 3, 68)[..., :64],) * 3)[2:4] == ("cp_async", False)
+
+
+@pytest.mark.parametrize("d,span", [(32, True), (64, True), (40, False), (80, False),
+                                    (128, False), (256, False)])
+def test_f32_qkv_row_gather_on_one_projections_aligned_rows(d, span):
+    """The gather from the qkv rows in f32: k 4 bytes past q, v 4 past k
+    (``_qkv_span`` is element-size aware), at the padded dims whose raw
+    stage fits (32, 64)."""
+    qkv = torch.zeros(2, 64, 3 * d * 3)
+    q, k, v = qkv.reshape(2, 64, 3, d, 3).unbind(-1)
+    assert k.data_ptr() == q.data_ptr() + 4 and v.data_ptr() == q.data_ptr() + 8
+    assert A._qkv_span(q, k, v)
+    assert A.fwd_route(q, k, v)[2:4] == ("gather", span)
+
+
+def test_f32_qkv_row_gather_refuses_other_stride3_views():
+    # element stride 3, but q, k, v not one projection's interleaved channels
+    a, b, c = (torch.zeros(2, 64, 3, 64, 3).unbind(-1) for _ in range(3))
+    assert not A._qkv_span(a[0], b[1], c[2])
+    assert A.fwd_route(a[0], b[1], c[2])[2:4] == ("gather", False)
+    # one projection's rows, 4 bytes off 16-byte alignment
+    qkv = _unaligned((2, 64, 3 * 64 * 3), torch.float32)
+    q, k, v = qkv.reshape(2, 64, 3, 64, 3).unbind(-1)
+    assert not A._qkv_span(q, k, v)
+    assert A.fwd_route(q, k, v)[2:4] == ("gather", False)
+    # a token stride that is not a multiple of 4 floats
+    qkv = torch.zeros(2, 64, 3 * 64 * 3 + 2)[..., :3 * 64 * 3]
+    q, k, v = qkv.reshape(2, 64, 3, 64, 3).unbind(-1)
+    assert not A._qkv_span(q, k, v)
+    # q, k, v in another order
+    qkv = torch.zeros(2, 64, 3 * 64 * 3)
+    q, k, v = qkv.reshape(2, 64, 3, 64, 3).unbind(-1)
+    assert not A._qkv_span(k, q, v)
 
 
 def _unaligned(shape, dtype, offset=1):
@@ -169,6 +273,15 @@ def _ev(name):
     ("void (anonymous namespace)::flash_fwd_kernel<(int)64, (int)64>(const float *)", "K1"),
     ("void (anonymous namespace)::flash_fwd_flat_kernel<(int)48, (int)64>(const float *)",
      "K1c"),
+    ("void (anonymous namespace)::flash_fwd_tf32_kernel<(int)64, (int)3>(const float *, "
+     "const float *, const float *, float *, float *, int, int, int, Strides, Strides, "
+     "Strides, float)", "K1"),
+    ("_ZN52_GLOBAL__N__0a1b2c3d_22_flash_attn_fwd_tf32_cu_9d7e4aa921flash_fwd_tf32_kernelILi256E"
+     "Li2EEEvPKfS2_S2_PfS3_iiiNS_7StridesES4_S4_f", "K1"),
+    ("void (anonymous namespace)::flash_fwd_tf32_flat_kernel<(int)40, (int)1>(const float *)",
+     "K1c"),
+    ("_ZN52_GLOBAL__N__0a1b2c3d_22_flash_attn_fwd_tf32_cu_9d7e4aa926flash_fwd_tf32_flat_kernelILi"
+     "40ELi2EEEvPKfS2_S2_PfS3_iiNS_7StridesES4_S4_f", "K1c"),
 ])
 def test_profiling_files_both_forward_kernels(name, category):
     out = device_breakdown([_ev(name)])

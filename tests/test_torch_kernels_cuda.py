@@ -1,5 +1,5 @@
-"""Kernels K1 (the CUDA flash-attention forward: bf16 on the tensor cores,
-checked on every padded width and view layout, f32 on the CUDA cores), K2
+"""Kernels K1 (the CUDA flash-attention forward on the tensor cores: bf16,
+and f32 in 3xTF32, each checked on every padded width and view layout), K2
 (its backward), K1c and K2c (the same on the flat layout) and K3 (the fused
 GroupNorm) against their plain versions, on the card: K1 / K2 at the
 CIFAR-10 shapes, at head dims below 128, where they stand in for the JAX
@@ -76,13 +76,13 @@ TC_TS = [1, 63, 64, 65, 200, 1024]
 TC_LAYOUTS = ["interleaved", "legacy", "separate", "unaligned"]
 
 
-def _tc_views(layout, b, t, h, d, g):
-    """q, k, v in bf16 as SongUNet / DhariwalUNet (the interleaved (head, c,
-    qkv) split), the LDM (the legacy [N, T, heads, 3 ch] split) and SD
-    (separate contiguous projections) hand them to sdpa, or contiguous
-    views whose base lies 2 bytes past 16."""
+def _tc_views(layout, b, t, h, d, g, dtype=torch.bfloat16):
+    """q, k, v as SongUNet / DhariwalUNet (the interleaved (head, c, qkv)
+    split), the LDM (the legacy [N, T, heads, 3 ch] split) and SD (separate
+    contiguous projections) hand them to sdpa, or contiguous views whose base
+    lies one element past 16 bytes."""
     def randn(*shape):
-        return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
 
     if layout == "interleaved":
         return randn(b, t, h * d * 3).reshape(b, t, h, d, 3).unbind(-1)
@@ -118,6 +118,62 @@ def test_bf16_tensor_core_kernel_matches_plain_and_is_deterministic(cuda, layout
         tol = 2 ** -5 * min(1.0, ref_out.float().abs().max().item())
         assert (out.float() - ref_out.float()).abs().max().item() <= tol, (layout, d, t)
         assert (lse - ref_lse).abs().max().item() <= 1e-5, (layout, d, t)
+
+
+# f32 K1, the 3xTF32 kernel: the same widths, T and layouts
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", TC_LAYOUTS)
+@pytest.mark.parametrize("d", TC_DIMS)
+def test_f32_tensor_core_kernel_matches_plain_and_is_deterministic(cuda, layout, d):
+    g = torch.Generator("cuda").manual_seed(d)
+    for t in TC_TS:
+        q, k, v = _tc_views(layout, 2, t, 3, d, g, torch.float32)
+        route = A.fwd_route(q, k, v)
+        assert route.kernel == "tensor_cores_3xtf32"
+        if layout in ("legacy", "separate"):
+            assert (route.load, route.span) == ("cp_async", False)
+        else:
+            span = layout == "interleaved" and route.padded_d in (32, 64)
+            assert (route.load, route.span) == ("gather", span)
+        before = A.flash_attention_mh.launches
+        out, lse = A.flash_attention_mh(q, k, v, d ** -0.5)
+        again = A.flash_attention_mh(q, k, v, d ** -0.5)
+        ref_out, ref_lse = A.reference_sdpa(q, k, v, d ** -0.5)
+        torch.cuda.synchronize()
+        assert A.flash_attention_mh.launches == before + 2
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        assert (out - ref_out).abs().max().item() <= 1e-5, (layout, d, t)
+        assert (lse - ref_lse).abs().max().item() <= 1e-5, (layout, d, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [64, 4096])
+@pytest.mark.parametrize("layout", ["contiguous", "views", "unaligned"])
+def test_f32_flat_kernel_matches_plain_and_is_deterministic(cuda, t, layout):
+    """K1c in f32 at SD's d=40: contiguous [B * H, T, d] copies (sdpa's
+    route), strided views of a [B, T, 3, d] tensor (cp.async) and an
+    unaligned slice (the gather)."""
+    g = torch.Generator("cuda").manual_seed(t)
+    b, d = 6, 40
+    if layout == "contiguous":
+        q, k, v = (torch.randn(b, t, d, generator=g, device="cuda") for _ in range(3))
+    elif layout == "views":
+        q, k, v = torch.randn(b, t, 3, d, generator=g, device="cuda").unbind(2)
+    else:
+        q, k, v = (torch.randn(b * t * d + 1, generator=g, device="cuda")[1:].view(b, t, d)
+                   for _ in range(3))
+    route = A.fwd_route(q, k, v)
+    assert route.kernel == "tensor_cores_3xtf32" and route.padded_d == 40
+    assert route.load == ("gather" if layout == "unaligned" else "cp_async")
+    before = A.flash_attention.launches
+    out, lse = A.flash_attention(q, k, v, d ** -0.5)
+    again = A.flash_attention(q, k, v, d ** -0.5)
+    ref_out, ref_lse = A.reference_flash_attention(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert A.flash_attention.launches == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert (out - ref_out).abs().max().item() <= 1e-5
+    assert (lse - ref_lse).abs().max().item() <= 1e-5
 
 
 @pytest.mark.cuda
