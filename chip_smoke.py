@@ -8,13 +8,15 @@ Phases, each printing as it goes and then its seconds:
 1. Environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, nvcc, whether triton imports.
 2. Build kernels K1 (flash-attention forward on the tensor cores: bf16,
-   and f32 in 3xTF32), K2 (its backward), K1c / K2c (the same on the flat
+   and f32 in 3xTF32), K2 (its backward: f32 in 3xTF32 on the tensor
+   cores, bf16 on the CUDA cores), K1c / K2c (the same on the flat
    layout), K3 (fused GroupNorm) and K4 (direct 3x3 conv) from ``csrc/``
    with nvcc, one process per source; print each kernel's registers and
    spills, and the HMMA (tensor-core) instructions of each bf16 and f32 K1 /
-   K1c instantiation in the library's SASS (``cuobjdump -sass``): each must
-   have some and spill nothing.  At head dims below 128 K1 / K2 stand
-   in for the JAX package's packed and streamed twins (K1b, K2p, K2b).
+   K1c instantiation and each f32 K2 / K2c one in the library's SASS
+   (``cuobjdump -sass``): each must have some (f32: HMMA.1688.F32.TF32) and
+   spill nothing.  At head dims below 128 K1 / K2 stand in for the JAX
+   package's packed and streamed twins (K1b, K2p, K2b).
 3. K1 against its plain PyTorch version at the CIFAR-10 path's shapes, on
    the strided q/k/v views that ``attention()`` hands it: max abs error of
    the output and of the log-sum-exp against stated tolerances (bf16 out:
@@ -41,7 +43,8 @@ Phases, each printing as it goes and then its seconds:
    strided q/k/v views and a non-contiguous dO: max abs error of dq, dk and
    dv against stated tolerances, the times of K2, the plain version and the
    backward of ``F.scaled_dot_product_attention``, and bit-identical results
-   from two runs.
+   from two runs; each shape's route (``bwd_route``) and the bounds of its
+   dQ and dK/dV kernels, in f32 3xTF32's beside the CUDA cores'.
 7. The gradient of sum(D(x, sigma) * g) with respect to x and sigma through
    the full-width f32 CIFAR-10 EDMPrecond (unit-scale weights, TF32 off),
    with K1 + K2 + K3 against the plain attention and the plain GroupNorm;
@@ -75,7 +78,9 @@ Phases, each printing as it goes and then its seconds:
    --afs=True`` at batch 512 with ``--batch_gpu`` accumulation for two
    iterations (finite losses, the predictor moves, launches as predicted,
    sec/kimg, peak memory), then ``cli.sample --predictor`` at NFE 5 on 256
-   seeds (launches, images/sec).
+   seeds (launches, images/sec); then a ``torch.profiler`` breakdown of one
+   f32 D gradient of the full net at batch 8: exactly 22 K1, 22 K2 dQ and
+   22 K2 dK/dV kernels, and no f32 attention backward on the CUDA cores.
 14. A ``torch.profiler`` breakdown of one batch-256 bf16 ImageNet-64
    forward by ``utils/profiling.py::CATEGORIES`` (K1 and K3 their own lines),
    and its time with K3 against the plain GroupNorm.
@@ -167,14 +172,17 @@ phase 19 at that shape), K3 (launches of phase 18), K1 and K2 at SD's head
 dims (launches of phases 24 and 25), K1c and K2c (launches of phase 25) and
 K4 (launches of its entry points in phase 27), each with its error and
 times at that path's main shape and its bound on this card (the f32
-forward's: 3xTF32 on the tensor cores).  Every profile (phases 4, 5, 14,
-20, 23, 26, 28) checks that no attention forward ran on the CUDA cores.
+attention kernels': 3xTF32 on the tensor cores).  Every profile (phases 4,
+5, 13, 14, 20, 23, 26, 28) checks that no attention forward and no f32
+attention backward ran on the CUDA cores, and that its trace holds every
+kernel of the repo that the wrappers launched in the profiled call.
 Any failed check raises, so the script
 exits non-zero with no result; so does a machine without CUDA.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import math
@@ -271,8 +279,8 @@ AMED_ITERS = math.ceil(AMED_KIMG * 1000 / AMED_BATCH)  # 2
 # the tensor cores in bf16 and in TF32, the CUDA cores in f32, and HBM3.  A
 # kernel's bound is the larger of its operations over the rate of its input
 # type and its bytes (each input read once, each output written once) over
-# HBM's.  The f32 forward (K1, K1c) runs in 3xTF32 on the tensor cores:
-# three TF32 products for each f32 one.
+# HBM's.  The f32 attention kernels (K1, K1c, K2, K2c) run in 3xTF32 on the
+# tensor cores: three TF32 products for each f32 one.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -467,17 +475,17 @@ def _attention_bound(kind: str, b: int, t: int, h: int, d: int, dtype,
     """(bound_ms, bound_by) of one attention kernel on this card's published
     peaks.  kind: "fwd" (S = QK^T, O = PV: out and lse from q, k, v), "dq"
     (S, dP = dO V^T, dQ = dS K, from q, k, v, dO, lse, delta) or "dkv" (S,
-    dP, dV = P^T dO, dK = dS^T Q); 2 flops per multiply-add.  The f32
-    forward counts three TF32 products per product at the TF32 rate (its
-    3xTF32 kernel), or with ``cuda_cores`` one f32 product at the CUDA
-    cores' rate (the bound of the kernel it replaced)."""
+    dP, dV = P^T dO, dK = dS^T Q); 2 flops per multiply-add.  In f32 (the
+    3xTF32 kernels, forward and backward) three TF32 products per product
+    at the TF32 rate, or with ``cuda_cores`` one f32 product at the CUDA
+    cores' rate (the bound of the kernels they replaced)."""
     elt = torch.empty((), dtype=dtype).element_size()
     tensor, stats = b * t * h * d * elt, b * h * t * 4
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
     flops = products * 2 * b * h * t * t * d
     nbytes = {"fwd": 4 * tensor + stats, "dq": 5 * tensor + 2 * stats,
               "dkv": 6 * tensor + 2 * stats}[kind]
-    if kind == "fwd" and dtype == torch.float32 and not cuda_cores:
+    if dtype == torch.float32 and not cuda_cores:
         t_ops = 3 * flops / PEAK_TF32_FLOPS
     else:
         t_ops = flops / PEAK_FLOPS[dtype]
@@ -486,29 +494,61 @@ def _attention_bound(kind: str, b: int, t: int, h: int, d: int, dtype,
 
 
 def _bound_text(kind: str, b: int, t: int, h: int, d: int, dtype) -> str:
-    """The bound of ``_attention_bound`` with what it counts; for the f32
-    forward beside the CUDA cores' bound of the kernel it replaced."""
+    """The bound of ``_attention_bound`` with what it counts; in f32
+    beside the CUDA cores' bound of the kernels that 3xTF32 replaced."""
     bound_ms, bound_by = _attention_bound(kind, b, t, h, d, dtype)
-    if kind != "fwd" or dtype != torch.float32:
+    if dtype != torch.float32:
         return f"{bound_ms:.4f} ms ({bound_by})"
     cc_ms, cc_by = _attention_bound(kind, b, t, h, d, dtype, cuda_cores=True)
     return (f"{bound_ms:.4f} ms ({bound_by}, 3xTF32 at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s; "
             f"on the CUDA cores {cc_ms:.4f} ms, {cc_by})")
 
 
-def _kernel_names(fn) -> list:
-    """The device kernels of one call of ``fn``, by name (torch.profiler)."""
-    fn()
-    torch.cuda.synchronize()
+# Idle seconds on each side of a profiled call, inside the profiler's window.
+# The profiler keeps only the device records that fall inside its window on
+# the host's clock, and places them there through a device-to-host clock
+# conversion that is off by up to a few ms in either direction from one trace
+# to the next (kernels then seem to start before their launch): with no idle
+# margin the kernels at either edge of the window are dropped from the trace.
+PROFILE_MARGIN_S = 0.05
+# The repo's own kernels by name, each wrapper launch one of them (K3 three)
+OUR_KERNELS = re.compile(r"flash_(fwd|bwd)_\w*kernel|gn_(partial_stats|finalize|apply)_kernel"
+                         r"|conv3x3_(f32|bf16)_kernel")
+
+
+def _trace(fn) -> tuple:
+    """(Chrome-trace events, CUDA-event ms, host s, launch-to-start gap us) of
+    one call of ``fn`` under ``torch.profiler``, with ``PROFILE_MARGIN_S``
+    of idle device time on each side; the gap is the smallest device start
+    less its host launch over the kernels (negative: the clocks disagree)."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    start, end = _events()
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=activities) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        t0 = time.perf_counter()
+        start.record()
         fn()
+        end.record()
         torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        time.sleep(PROFILE_MARGIN_S)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
+    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                 if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    gaps = [float(e["ts"]) - launch_ts[e["args"]["correlation"]] for e in events
+            if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in launch_ts]
+    return events, start.elapsed_time(end), host_s, min(gaps, default=float("nan"))
+
+
+def _kernel_names(fn) -> list:
+    """The device kernels of one call of ``fn``, by name (torch.profiler)."""
+    fn()
+    events = _trace(fn)[0]
     return sorted({e["name"] for e in events if e.get("cat") == "kernel"})
 
 
@@ -593,15 +633,19 @@ def phase_build() -> None:
     # flash_<...>_kernel<dtype, d, ...>, gn_<...>_kernel or conv3x3_<...>, then
     # its registers and spills; hold every K1 / K1c instantiation on the
     # tensor cores (flash_fwd_tc_kernel<padded d, load mode> in bf16,
-    # flash_fwd_tf32[_flat]_kernel<padded d, load mode> in f32) to 0 spill
-    # bytes and some HMMA in its SASS
+    # flash_fwd_tf32[_flat]_kernel<padded d, load mode> in f32) and every f32
+    # K2 / K2c one (flash_bwd_{dq,dkv}_tf32[_flat]_kernel<padded d, load
+    # mode>) to 0 spill bytes and some HMMA in its SASS (f32:
+    # HMMA.1688.F32.TF32)
     log = _build.build_log or _build.library_path().with_suffix(".log").read_text()
     fwd_re = re.compile(r"(flash_fwd_tc_kernel|flash_fwd_tf32_kernel|flash_fwd_tf32_flat_kernel)"
                         r"ILi(\d+)ELi(\d)EE")
-    tc, current = {}, None
+    bwd32_re = re.compile(r"(flash_bwd_(?:dq|dkv)_tf32(?:_flat)?_kernel)ILi(\d+)ELi(\d)EE")
+    tc, bwd32, current = {}, {}, None
     for line in log.splitlines():
         compiling = "Compiling entry function" in line
         fwd = fwd_re.search(line)
+        b32 = bwd32_re.search(line)
         bwd = re.search(r"(flash_bwd_(?:dq|dkv)(?:_flat)?_kernel)I(13__nv_bfloat16|f)"
                         r"((?:Li\d+E)+)E", line)
         gn = re.search(r"(gn_[a-z_]+_kernel)(I(13__nv_bfloat16|f)((?:Li\d+E)*)E)?", line)
@@ -612,6 +656,10 @@ def phase_build() -> None:
             current = (fwd.group(1), int(fwd.group(2)), _LOAD_NAMES[fwd.group(3)])
             tc[current] = {}
             print(f"[build] {_fwd_name(current)}:")
+        elif b32 and compiling:
+            current = (b32.group(1), int(b32.group(2)), _LOAD_NAMES[b32.group(3)])
+            bwd32[current] = {}
+            print(f"[build] {_bwd32_name(current)}:")
         elif bwd and compiling:
             dtype = "bf16" if bwd.group(2) != "f" else "f32"
             ints = re.findall(r"Li(\d+)E", bwd.group(3))
@@ -625,8 +673,12 @@ def phase_build() -> None:
         elif "registers" in line or "spill" in line:
             print(f"[build]   {line.strip()}")
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            table = bwd32 if current in bwd32 else tc
             if spill and current is not None:
-                tc[current]["spill"] = int(spill.group(1)) + int(spill.group(2))
+                table[current]["spill"] = int(spill.group(1)) + int(spill.group(2))
+            if regs and current is not None:
+                table[current]["registers"] = int(regs.group(1))
     # bf16: 8 padded dims in cp.async and the element gather, 4 in the qkv-row
     # gather; f32: 8 in cp.async and the gather, 2 in the qkv-row gather, and
     # the flat entry's 8 in cp.async and the gather
@@ -636,19 +688,41 @@ def phase_build() -> None:
                      "flash_fwd_tf32_flat_kernel": 16},
            f"expected 20 bf16, 18 f32 and 16 flat f32 tensor-core K1 instantiations, ptxas "
            f"compiled {count}")
-    hmma, kinds = {}, set()
+    hmma, kinds, bwd_kinds = {}, set(), {}
     for name, (n, kind) in _sass_hmma_counts(str(_build.library_path())).items():
         m = fwd_re.search(name)
+        b32 = bwd32_re.search(name)
         if m:
             hmma[(m.group(1), int(m.group(2)), _LOAD_NAMES[m.group(3)])] = n
             if "tf32" in m.group(1):
                 kinds |= kind
+        elif b32:
+            key = (b32.group(1), int(b32.group(2)), _LOAD_NAMES[b32.group(3)])
+            hmma[key], bwd_kinds[key] = n, kind
     for key in sorted(tc):
         print(f"[build] {_fwd_name(key)}: {hmma.get(key, 0)} HMMA instructions in its SASS, "
               f"{tc[key].get('spill', 'unknown')} spill bytes")
         _check(hmma.get(key, 0) > 0, f"K1 {key} has no tensor-core instruction")
         _check(tc[key].get("spill") == 0, f"K1 {key} spills registers")
     print(f"[build] the f32 kernels' tensor-core instructions: {', '.join(sorted(kinds))}")
+    # f32 K2 / K2c: 8 padded dims x the dQ and dK/dV kernels x both layouts
+    # in the element gather, 7 (all but 256) in cp.async
+    _check(len(bwd32) == 60, f"expected 60 f32 tensor-core K2 / K2c instantiations, ptxas "
+           f"compiled {len(bwd32)}")
+    for key in sorted(bwd32, key=lambda k: (k[1], k[0], k[2])):
+        got = bwd32[key]
+        print(f"[build] {_bwd32_name(key)}: {got.get('registers')} registers, "
+              f"{got.get('spill', 'unknown')} spill bytes, {hmma.get(key, 0)} HMMA instructions "
+              f"in its SASS ({', '.join(sorted(bwd_kinds.get(key, ())))})")
+        _check("HMMA.1688.F32.TF32" in bwd_kinds.get(key, ()),
+               f"K2 {key} has no HMMA.1688.F32.TF32 instruction")
+        _check(got.get("spill") == 0, f"K2 {key} spills registers")
+
+
+def _bwd32_name(key) -> str:
+    """flash_bwd_dq_tf32_kernel<f32, padded d=64, cp.async> and the like."""
+    name, dp, load = key
+    return f"{name}<f32, padded d={dp}, {load}>"
 
 
 def _fwd_name(key) -> str:
@@ -761,6 +835,7 @@ def _k2_checks(tag: str, shapes, views, seed: int) -> dict:
         print(f"[{tag}] B={b} T={t} H={h} d={d} {name}: max abs err dq {errs[0]:.3g} (tol "
               f"{tols[0]:.3g}), dk {errs[1]:.3g} (tol {tols[1]:.3g}), dv {errs[2]:.3g} (tol "
               f"{tols[2]:.3g}); two runs bit-identical: {same}; {_fmt_times(times)}")
+        print(f"[{tag}]   {_bwd_route_text(A.bwd_route(q, k, v, do), times, b, t, h, d, dtype)}")
         _check(all(e <= tol for e, tol in zip(errs, tols)),
                f"K2 disagrees with the plain version at {(b, t, h, d, name)}")
         _check(same, f"K2 is not deterministic at {(b, t, h, d, name)}")
@@ -946,6 +1021,18 @@ def _backward_times(q, k, v, out, lse, do, do_c, delta, scale) -> dict:
         times[name] = (got["kernel"], got["plain"])
     times["library"] = _turns({"library": _library_bwd(q, k, v, do, scale)}, reps=5)["library"]
     return times
+
+
+def _bwd_route_text(route, times, b, t, h, d, dtype) -> str:
+    """The route of a backward (``A.bwd_route``), then each kernel's bound
+    (``_bound_text``) and its useful TFLOP/s at ``times``."""
+    flops = 2 * b * h * t * t * d
+    return (f"route {route.kernel}, padded d {route.padded_d}, {route.load}, "
+            f"{route.block_rows} rows a block x {route.tile_rows} a tile, {route.warps} warps, "
+            f"{route.split_d} a m-tile; bound dQ {_bound_text('dq', b, t, h, d, dtype)}, "
+            f"{3 * flops / times['dq'][0] / 1e9:.2f} TFLOP/s; dK/dV "
+            f"{_bound_text('dkv', b, t, h, d, dtype)}, "
+            f"{4 * flops / times['dkv'][0] / 1e9:.2f} TFLOP/s")
 
 
 def _fmt_times(times: dict) -> str:
@@ -1230,6 +1317,17 @@ def phase_in64_amed(workdir: str) -> dict:
                            os.path.join(workdir, "in64_amed_samples"), (64, 64, 3),
                            nfe=2 * (AMED_STEPS - 1) - (1 if cfg.afs else 0),
                            per_call=dict(k1=IN64_SITES, gn=IN64_GN_SITES))
+    # the f32 gradient that AMED differentiates through, profiled at batch 8:
+    # every attention site's backward on the 3xTF32 kernels
+    module, _ = create_model("imagenet64", "random", device="cuda")
+    module.requires_grad_(False)
+    x0, sigma0, labels = _in64_inputs(8)
+    cot = stacked_randn(range(100, 108), (64, 64, 3), device="cuda")
+    _profile("IN64 AMED profile, one f32 D gradient at batch 8",
+             _grads_fn(module, x0, sigma0, cot, labels),
+             {"K1": IN64_SITES, "K2 dQ": IN64_SITES, "K2 dK/dV": IN64_SITES}, grad=True)
+    del module
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1246,32 +1344,27 @@ def _amed_counts(per_call: dict, sites: int, batch_gpu: int, afs: bool) -> dict:
                  dkv=sites * segments * micro)
 
 
-def _profile(tag: str, fn, want_calls: dict) -> dict:
-    """``torch.profiler`` over one call of ``fn`` after a warm-up call: prints
-    the device time by ``utils/profiling.py::CATEGORIES`` and checks the
-    kernel calls of ``want_calls`` ({category: calls}) and that no attention
-    forward ran on a CUDA-core kernel (the f32 kernels before 3xTF32)."""
-    with torch.no_grad():
+def _profile(tag: str, fn, want_calls: dict, grad: bool = False) -> dict:
+    """``torch.profiler`` over one call of ``fn`` after a warm-up call (under
+    ``torch.no_grad`` unless ``grad``): prints the device time by
+    ``utils/profiling.py::CATEGORIES`` and checks the kernel calls of
+    ``want_calls`` ({category: calls}), that no attention forward ran on a
+    CUDA-core kernel (the f32 kernels before 3xTF32) and that no f32
+    attention backward did (``bwd_route`` sends every f32 one to 3xTF32)."""
+    with contextlib.nullcontext() if grad else torch.no_grad():
         fn()  # warm-up
-        torch.cuda.synchronize()
-        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        start, end = _events()
-        with torch.profiler.profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            host_s = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
+        before = _counts()
+        events, cuda_ms, host_s, gap_us = _trace(fn)
+        launched = {name: n - before[name] for name, n in _counts().items()}
+    # the trace against the wrappers' own counts: K3 is three kernels a launch
+    ours = sum(1 for e in events if e.get("cat") == "kernel" and OUR_KERNELS.search(e["name"]))
+    want_ours = sum(launched.values()) + 2 * launched["gn"]
     out = device_breakdown(events)
     cuda_core_fwd = sum(1 for e in events if e.get("cat") == "kernel"
                         and re.search(r"flash_fwd_(flat_)?kernel", e.get("name", "")))
-    print(f"[{tag}] under torch.profiler: CUDA events {start.elapsed_time(end):.3f} ms, host "
+    cuda_core_bwd32 = sum(1 for e in events if e.get("cat") == "kernel" and re.search(
+        r"flash_bwd_d(q|kv)(_flat)?_kernel(<float|If)", e.get("name", "")))
+    print(f"[{tag}] under torch.profiler: CUDA events {cuda_ms:.3f} ms, host "
           f"clock {host_s * 1e3:.3f} ms; device time {out['device_ms']:.3f} ms over a span of "
           f"{out['span_ms']:.3f} ms, busy {out['busy_ms']:.3f} ms, idle share "
           f"{out['idle_share']:.4f}")
@@ -1279,8 +1372,15 @@ def _profile(tag: str, fn, want_calls: dict) -> dict:
         print(f"[{tag}]   {name:<16} {c['ms']:>10.3f} ms  {c['share']:.4f}  {c['calls']} calls")
     for name, ms in out["top"][:8]:
         print(f"[{tag}]   top {ms:>10.3f} ms  {name[:140]}")
-    print(f"[{tag}]   attention forwards on the CUDA cores: {cuda_core_fwd}")
+    print(f"[{tag}]   attention forwards on the CUDA cores: {cuda_core_fwd}, f32 attention "
+          f"backwards on the CUDA cores: {cuda_core_bwd32}")
+    print(f"[{tag}]   the repo's kernels in the trace: {ours}, launched by their wrappers: "
+          f"{want_ours}; smallest launch-to-start gap {gap_us:.3f} us")
+    _check(ours == want_ours, f"{tag}: the trace holds {ours} of the repo's kernels, its "
+           f"wrappers launched {want_ours}")
     _check(cuda_core_fwd == 0, f"{tag}: an attention forward ran on the CUDA cores")
+    _check(cuda_core_bwd32 == 0, f"{tag}: an f32 attention backward ran on the CUDA cores, "
+           f"which bwd_route does not name")
     for cat, calls in want_calls.items():
         _check(out["categories"][cat]["calls"] == calls,
                f"{tag}: the profile holds {out['categories'][cat]['calls']} {cat} kernels, "
@@ -1550,6 +1650,7 @@ def phase_sd_flat_kernels() -> tuple:
               f"[{b // heads}, {t}, {heads}, {d}] views {fwd['K1']:.4f} ms, bound "
               f"{_bound_text('fwd', b, t, 1, d, dtype)}; "
               f"{2 * 2 * b * t * t * d / fwd['kernel'] / 1e9:.2f} TFLOP/s; K2c {_fmt_times(bwd)}")
+        print(f"[SD K1c/K2c]   K2c {_bwd_route_text(A.bwd_route(q, k, v, do), bwd, b, t, 1, d, dtype)}")
         _check(err_out <= tol and err_lse <= LSE_TOL,
                f"K1c disagrees with the plain version at {(b, t, d, name)}")
         _check(same_fwd, f"K1c is not deterministic at {(b, t, d, name)}")
@@ -2137,33 +2238,38 @@ def main() -> int:
         _check(n > 0, f"{name} was not launched on its path")
     print(f"[time] whole run: {time.perf_counter() - t_start:.2f} s")
     print(smi)
-    fwd, fwd32, bwd = ("diff_sampler_tpu_torch/csrc/flash_attn_fwd.cu",
-                       "diff_sampler_tpu_torch/csrc/flash_attn_fwd_tf32.cu",
-                       "diff_sampler_tpu_torch/csrc/flash_attn_bwd.cu")
+    fwd, fwd32, bwd32 = ("diff_sampler_tpu_torch/csrc/flash_attn_fwd.cu",
+                         "diff_sampler_tpu_torch/csrc/flash_attn_fwd_tf32.cu",
+                         "diff_sampler_tpu_torch/csrc/flash_attn_bwd_tf32.cu")
     tpu = "diff_sampler_tpu/ops/pallas_attention.py"
     print(json.dumps({"kernels": [
         _kernel_entry("flash_attention_mh (K1, multi-head flash-attention forward)", fwd,
                       f"{tpu}:157", launches, k1["main"]),
         _kernel_entry("flash_attention_mh in f32 (K1 in 3xTF32 on the tensor cores, CIFAR-10 "
                       "AMED path)", fwd32, f"{tpu}:157", amed["k1"], k1["float32"]),
-        _kernel_entry("flash_attention_bwd_dq (K2, flash-attention backward, dQ)", bwd,
-                      f"{tpu}:406", amed["dq"], k2["dq"]),
-        _kernel_entry("flash_attention_bwd_dkv (K2, flash-attention backward, dK/dV)", bwd,
-                      f"{tpu}:554", amed["dkv"], k2["dkv"]),
+        _kernel_entry("flash_attention_bwd_dq in f32 (K2, flash-attention backward, dQ, in "
+                      "3xTF32 on the tensor cores, CIFAR-10 AMED path)", bwd32, f"{tpu}:406",
+                      amed["dq"], k2["dq"]),
+        _kernel_entry("flash_attention_bwd_dkv in f32 (K2, flash-attention backward, dK/dV, in "
+                      "3xTF32 on the tensor cores, CIFAR-10 AMED path)", bwd32, f"{tpu}:554",
+                      amed["dkv"], k2["dkv"]),
         _kernel_entry("flash_attention_mh at d=64 (K1 in place of K1b, ImageNet-64 path)",
                       fwd, f"{tpu}:227", in64_launches, in64_k1["main"]),
         _kernel_entry("flash_attention_mh in f32 at d=64 (K1 in 3xTF32 in place of K1b, "
                       "ImageNet-64 AMED path)", fwd32, f"{tpu}:227", in64_amed["k1"],
                       in64_k1["float32"]),
-        _kernel_entry("flash_attention_bwd_dq at d=64 (K2 dQ in place of K2p, ImageNet-64 "
-                      "path)", bwd, f"{tpu}:441", in64_amed["dq"], in64_k2["dq"]),
-        _kernel_entry("flash_attention_bwd_dkv at d=64 (K2 dK/dV in place of K2p, ImageNet-64 "
-                      "path)", bwd, f"{tpu}:491", in64_amed["dkv"], in64_k2["dkv"]),
-        _kernel_entry("flash_attention_bwd_dq at T=1024 H=14 d=32 (K2 dQ in place of K2b, "
-                      "LSUN LDM AMED path)", bwd, f"{tpu}:699", k2b_launches["dq"], k2b["dq"]),
-        _kernel_entry("flash_attention_bwd_dkv at T=1024 H=14 d=32 (K2 dK/dV in place of K2b, "
-                      "LSUN LDM AMED path)", bwd, f"{tpu}:757", k2b_launches["dkv"],
-                      k2b["dkv"]),
+        _kernel_entry("flash_attention_bwd_dq in f32 at d=64 (K2 dQ in 3xTF32 in place of "
+                      "K2p, ImageNet-64 AMED path)", bwd32, f"{tpu}:441", in64_amed["dq"],
+                      in64_k2["dq"]),
+        _kernel_entry("flash_attention_bwd_dkv in f32 at d=64 (K2 dK/dV in 3xTF32 in place of "
+                      "K2p, ImageNet-64 AMED path)", bwd32, f"{tpu}:491", in64_amed["dkv"],
+                      in64_k2["dkv"]),
+        _kernel_entry("flash_attention_bwd_dq in f32 at T=1024 H=14 d=32 (K2 dQ in 3xTF32 in "
+                      "place of K2b, LSUN LDM AMED path)", bwd32, f"{tpu}:699",
+                      k2b_launches["dq"], k2b["dq"]),
+        _kernel_entry("flash_attention_bwd_dkv in f32 at T=1024 H=14 d=32 (K2 dK/dV in 3xTF32 "
+                      "in place of K2b, LSUN LDM AMED path)", bwd32, f"{tpu}:757",
+                      k2b_launches["dkv"], k2b["dkv"]),
         _kernel_entry("groupnorm_silu (K3, fused GroupNorm + affine + SiLU, LSUN LDM sampling "
                       "and decode)", "diff_sampler_tpu_torch/csrc/groupnorm.cu",
                       "diff_sampler_tpu/ops/pallas_groupnorm.py:29", k3_launches, k3),
@@ -2172,17 +2278,20 @@ def main() -> int:
                       sd_k1["main"]),
         _kernel_entry("flash_attention_mh in f32 at d=80/160 (K1 in 3xTF32 at the SD head dims, "
                       "SD f32 AMED path)", fwd32, f"{tpu}:157", sd_amed["k1"], sd_k1["float32"]),
-        _kernel_entry("flash_attention_bwd_dq at d=80/160 (K2 dQ at the SD head dims, SD f32 "
-                      "AMED path)", bwd, f"{tpu}:406", sd_amed["dq"], sd_k2["dq"]),
-        _kernel_entry("flash_attention_bwd_dkv at d=80/160 (K2 dK/dV at the SD head dims, SD "
-                      "f32 AMED path)", bwd, f"{tpu}:554", sd_amed["dkv"], sd_k2["dkv"]),
+        _kernel_entry("flash_attention_bwd_dq in f32 at d=80/160 (K2 dQ in 3xTF32 at the SD "
+                      "head dims, SD f32 AMED path)", bwd32, f"{tpu}:406", sd_amed["dq"],
+                      sd_k2["dq"]),
+        _kernel_entry("flash_attention_bwd_dkv in f32 at d=80/160 (K2 dK/dV in 3xTF32 at the "
+                      "SD head dims, SD f32 AMED path)", bwd32, f"{tpu}:554", sd_amed["dkv"],
+                      sd_k2["dkv"]),
         _kernel_entry("flash_attention (K1c, flat flash-attention forward in 3xTF32, SD f32 "
                       "AMED path)", fwd32, f"{tpu}:49", sd_amed["k1c"], sd_k1c),
         _kernel_entry("flash_attention_flat_bwd_dq (K2c, flat flash-attention backward, dQ, "
-                      "SD f32 AMED path)", bwd, f"{tpu}:960", sd_amed["dqc"], sd_k2c["dq"]),
+                      "in 3xTF32, SD f32 AMED path)", bwd32, f"{tpu}:960", sd_amed["dqc"],
+                      sd_k2c["dq"]),
         _kernel_entry("flash_attention_flat_bwd_dkv (K2c, flat flash-attention backward, "
-                      "dK/dV, SD f32 AMED path)", bwd, f"{tpu}:994", sd_amed["dkvc"],
-                      sd_k2c["dkv"]),
+                      "dK/dV, in 3xTF32, SD f32 AMED path)", bwd32, f"{tpu}:994",
+                      sd_amed["dkvc"], sd_k2c["dkv"]),
         _kernel_entry("conv3x3 / gn_silu_conv3x3 (K4, implicit-GEMM 3x3 conv with a fused "
                       "GroupNorm-affine + SiLU prologue; its entry points, no JAX path)",
                       "diff_sampler_tpu_torch/csrc/conv3x3.cu",

@@ -118,6 +118,14 @@ def _declare(lib) -> None:
     lib.dst_flash_attn_bwd_dkv_flat.argtypes = ([p] * 8 + [i] * 3 + [ll] * 12
                                                 + [ctypes.c_float, i, p])
     lib.dst_flash_attn_bwd_dkv_flat.restype = i
+    # the f32 backward's entries (3xTF32): the same arguments, then the
+    # route (padded d, load mode, block rows, tile rows) before the stream
+    for kernel in ("dq", "dkv"):
+        for layout in ("", "_flat"):
+            entry = getattr(lib, f"dst_flash_attn_bwd_{kernel}_tf32{layout}")
+            entry.argtypes = (getattr(lib, f"dst_flash_attn_bwd_{kernel}{layout}").argtypes[:-2]
+                              + [i] * 5 + [p])
+            entry.restype = i
     # x, scale, bias, out, scratch; n, hw, c, groups, rows; eps; silu, vec, dtype
     lib.dst_groupnorm_silu.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float] + [i] * 3 + [p]
     lib.dst_groupnorm_silu.restype = i

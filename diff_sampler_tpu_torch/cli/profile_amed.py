@@ -30,6 +30,10 @@ from ..utils.rng import stacked_randn
 from .train_amed import build_trainer
 
 WARMUP = 2  # iterations before the profiled one: cuDNN plans, the allocator
+# Idle seconds on each side of the profiled iteration: the profiler keeps only
+# the device records inside its window on the host's clock, which its
+# device-to-host clock conversion can miss by a few ms at either edge.
+MARGIN_S = 0.05
 
 
 def _launches():
@@ -57,12 +61,14 @@ def main() -> dict:
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.profiler.profile(activities=activities) as prof:
+        time.sleep(MARGIN_S)
         t0 = time.perf_counter()
         start.record()
         loss = iteration(WARMUP)
         end.record()
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
+        time.sleep(MARGIN_S)
     device_s = start.elapsed_time(end) / 1000
     launches = {k: v - before[k] for k, v in _launches().items()}
     with tempfile.TemporaryDirectory() as tmp:

@@ -1,5 +1,8 @@
-// Flash-attention backward for sm_90a: kernel K2 (multi-head layout) and
-// kernel K2c (flat layout), each a dQ kernel and a dK/dV kernel.
+// Flash-attention backward for sm_90a on the CUDA cores, in bf16: kernel K2
+// (multi-head layout) and kernel K2c (flat layout), each a dQ kernel and a
+// dK/dV kernel.  The f32 backward runs on the tensor cores in 3xTF32
+// (flash_attn_bwd_tf32.cu, the same math and layouts); the entries here
+// refuse f32.
 //
 // K2 replaces diff_sampler_tpu/ops/pallas_attention.py::_bwd_dq_kernel_mh
 // and ::_bwd_dkv_kernel_mh and, at head dims < 128, their packed twins
@@ -75,13 +78,10 @@ struct Strides {
   long long b, t, h, e;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch and XLA do
@@ -503,17 +503,12 @@ cudaError_t dispatch_d(const Args& a) {
   return cudaErrorInvalidValue;
 }
 
-// One entry's work: d1 is null for the dQ kernel.
+// One entry's work: d1 is null for the dQ kernel.  bf16 only (dtype 1).
 int backward(const Args& a, int dtype) {
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const bool dq = a.d1 == nullptr;
-  cudaError_t err;
-  if (dtype == 0)
-    err = dq ? dispatch_d<true, float>(a) : dispatch_d<false, float>(a);
-  else if (dtype == 1)
-    err = dq ? dispatch_d<true, __nv_bfloat16>(a) : dispatch_d<false, __nv_bfloat16>(a);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(dq ? dispatch_d<true, __nv_bfloat16>(a)
+                             : dispatch_d<false, __nv_bfloat16>(a));
 }
 
 Args mh_args(const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -536,7 +531,8 @@ Args flat_args(const void* q, const void* k, const void* v, const void* dout, co
 
 }  // namespace
 
-// K2.  dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, ordered
+// K2.  dtype must be 1 (bfloat16; float32 takes the _tf32 entries of
+// flash_attn_bwd_tf32.cu).  Strides are in elements, ordered
 // (batch, token, head, channel), for q, k, v and dO in turn.  lse and delta
 // are contiguous [B, H, T] f32; head_dim is a multiple of 8 up to 256.  Each
 // returns the cudaError_t of its launch.

@@ -29,9 +29,11 @@
 // channels, 16 bytes of a row at a time, split in registers), double
 // buffered; and for any other view the element gather, here 4-byte cp.async
 // copies (ElemTileF), which runs in the cp.async pipeline (three stages where
-// they fit, two otherwise) and holds no tile in registers.  Fragments of m16n8k8.tf32 (g = lane / 4, t =
-// lane % 4): A 16x8 a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
-// t + 4); B 8x8 b0 (k = t, n = g), b1 (k = t + 4, n = g); C as in bf16.
+// they fit, two otherwise) and holds no tile in registers (ElemTileF,
+// AsyncTileF and split_tile are in tf32_tiles.cuh, shared with the f32
+// backward).  Fragments of m16n8k8.tf32 (g = lane / 4, t = lane % 4): A
+// 16x8 a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B 8x8 b0
+// (k = t, n = g), b1 (k = t + 4, n = g); C as in bf16.
 //   * S = Q K^T: ldmatrix.x4 on f32 rows seen as pairs of b16 gives a lane
 //     the 32-bit word t of row g of each 8x4-float matrix, which is the A
 //     layout for Q and the "col" B layout for K (two n-tiles a load).
@@ -67,6 +69,7 @@
 
 #include "flash_fwd.cuh"
 #include "mma.cuh"
+#include "tf32_tiles.cuh"
 
 namespace {
 
@@ -104,63 +107,6 @@ struct Tf {
 __host__ __device__ constexpr bool tf32_span_dim(int dp) {
   return dp == 32 || dp == 64;
 }
-
-// R rows of a tile of f32 (padding included) split in place: hi over x, lo
-// into xl; the block's threads share the rows, 4 floats a time.
-template <int DP, int R>
-__device__ __forceinline__ void split_tile(float* x, float* xl) {
-  constexpr int kVecs = DP / 4, kN = (R * kVecs + Tf<DP>::kThreads - 1) / Tf<DP>::kThreads;
-#pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    const int idx = threadIdx.x + i * Tf<DP>::kThreads;
-    if (kN * Tf<DP>::kThreads != R * kVecs && idx >= R * kVecs) break;
-    const int r = idx / kVecs, off = r * Tf<DP>::kStride + 4 * (idx - r * kVecs);
-    const uint4 raw = *reinterpret_cast<const uint4*>(x + off);
-    uint32_t v[4] = {raw.x, raw.y, raw.z, raw.w}, hi[4], lo[4];
-    split_tf32(v, hi, lo);
-    *reinterpret_cast<uint4*>(x + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *reinterpret_cast<uint4*>(xl + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-  }
-}
-
-// cp.async copies of rows [t0, t0 + R) of a view into a tile of R rows, 16
-// bytes (4 floats) each; rows >= seq_len and columns >= d are zero-filled.
-// Copy i of a thread is index threadIdx.x + i * kThreads of the tile's
-// row-major 16-byte units.  Where kThreads is a multiple of the units per
-// row, a thread keeps one column and its rows step by kThreads / kVecs, so
-// only its first copy is stored; otherwise each copy's row and column are
-// worked out once.  One object serves K and V (the same tile shape).
-template <int DP, int R>
-struct AsyncTileF {
-  static constexpr int kThreads = Tf<DP>::kThreads;
-  static constexpr int kVecs = DP / 4;  // 16-byte units per row
-  static constexpr int kN = (R * kVecs + kThreads - 1) / kThreads;
-  static constexpr bool kFixed = kThreads % kVecs == 0;
-  static constexpr int kRowStep = kThreads / kVecs;  // kFixed: rows between copies
-  int row[kFixed ? 1 : kN], col[kFixed ? 1 : kN];
-
-  __device__ __forceinline__ AsyncTileF() {
-#pragma unroll
-    for (int i = 0; i < (kFixed ? 1 : kN); ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      row[i] = idx / kVecs;
-      col[i] = 4 * (idx - row[i] * kVecs);
-    }
-  }
-
-  __device__ __forceinline__ void copy(float* tile, const Rows<float>& x, int t0, int seq_len,
-                                       int d) const {
-    const float* base = x.p + t0 * x.st;
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-      const int r = kFixed ? row[0] + i * kRowStep : row[i];
-      const int c = kFixed ? col[0] : col[i];
-      if (kN * kThreads != R * kVecs && r >= R) continue;  // an idle slot
-      const bool in = t0 + r < seq_len && c < d;
-      cp_async16(tile + r * Tf<DP>::kStride + c, in ? base + r * x.st + c : x.p, in);
-    }
-  }
-};
 
 // Tiles of rows [t0, t0 + R) out of the interleaved (c, qkv) rows of one qkv
 // projection: q at element 3 c, k at 3 c + 1, v at 3 c + 2 of a row that
@@ -258,27 +204,6 @@ struct NoSpanF {
   __device__ __forceinline__ void split_q(const float*, float*, int) const {}
 };
 
-// The element gather: cp.async copies of 4 bytes, element (r, e) of rows
-// [t0, t0 + R) of any view into a tile of R rows, consecutive threads on
-// consecutive elements of a row; zero past seq_len and d.  Nothing waits in
-// registers, so it runs in the cp.async pipeline.
-template <int DP, int R>
-struct ElemTileF {
-  static constexpr int kN = R * DP / Tf<DP>::kThreads;  // copies a thread
-  static_assert(kN * Tf<DP>::kThreads == R * DP, "a tile is whole rounds of the block");
-
-  __device__ __forceinline__ void copy(float* tile, const Rows<float>& x, int t0, int seq_len,
-                                       int d) const {
-#pragma unroll 4
-    for (int i = 0; i < kN; ++i) {
-      const int idx = threadIdx.x + i * Tf<DP>::kThreads;
-      const int r = idx / DP, e = idx - r * DP;
-      const bool in = t0 + r < seq_len && e < d;
-      cp_async4(tile + r * Tf<DP>::kStride + e, in ? x.p + (t0 + r) * x.st + e * x.se : x.p, in);
-    }
-  }
-};
-
 // One 128-query tile of one (batch, head): out row t at o[t * ost], its lse
 // at lse[t].
 template <int DP, int MODE>
@@ -303,9 +228,11 @@ __device__ __forceinline__ void attend_tf32(Rows<float> q, Rows<float> k, Rows<f
   // fragments stay live beside the accumulators, and two would spill).
   constexpr int kFoldQK = kKSteps <= 5 ? kKSteps : C::kSplitKV ? 4 : 1;
   // the copies of the cp.async pipelines (cp.async, the element gather)
-  using Copies = std::conditional_t<MODE == kLoadGather, ElemTileF<DP, BK>, AsyncTileF<DP, BK>>;
+  using Copies = std::conditional_t<MODE == kLoadGather, ElemTileF<DP, BK, C::kThreads>,
+                                  AsyncTileF<DP, BK, C::kThreads>>;
   using QCopies =
-      std::conditional_t<MODE == kLoadGather, ElemTileF<DP, C::kBQ>, AsyncTileF<DP, C::kBQ>>;
+      std::conditional_t<MODE == kLoadGather, ElemTileF<DP, C::kBQ, C::kThreads>,
+                         AsyncTileF<DP, C::kBQ, C::kThreads>>;
 
   // Q (f32, or hi and then lo), then per stage K, V (f32 or hi) and, split,
   // K lo, V lo, then the span mode's raw stage
@@ -394,10 +321,10 @@ __device__ __forceinline__ void attend_tf32(Rows<float> q, Rows<float> k, Rows<f
     }
     if constexpr (C::kSplitKV) {  // hi / lo of tile j (and of Q, once)
       if constexpr (C::kSplitQ) {
-        if (j == 0) split_tile<DP, C::kBQ>(sQ, sQl);
+        if (j == 0) split_tile<DP, C::kBQ, C::kThreads>(sQ, sQl);
       }
-      split_tile<DP, BK>(cK, cKl);
-      split_tile<DP, BK>(cV, cVl);
+      split_tile<DP, BK, C::kThreads>(cK, cKl);
+      split_tile<DP, BK, C::kThreads>(cV, cVl);
       __syncthreads();
     }
     // S = Q K^T in runs of kFoldQK k-steps

@@ -2,6 +2,8 @@
 // in bf16; flash_attn_fwd_tf32.cu: K1 in f32): the view and route structs,
 // the online softmax on mma accumulators, and the checks of the load modes'
 // rules, which the entry points repeat because a misaligned cp.async faults.
+// The f32 backward (flash_attn_bwd_tf32.cu) takes the views, the route, the
+// load modes, ex2 and the 16-byte check from here too.
 
 #pragma once
 
@@ -121,9 +123,10 @@ cudaError_t opt_in(Kernel kernel, size_t smem) {
 // Whether every view of elements T can take 16-byte copies: element stride 1,
 // a 16-byte aligned base, and 16-byte row, head and batch strides (those of a
 // size-1 dim never move the pointer).  The route's rule, checked again here
-// because a misaligned cp.async faults.
-template <typename T>
-bool aligned16(const void* p, const Strides& s, const Args& a) {
+// because a misaligned cp.async faults.  A: the forward's Args or the f32
+// backward's BwdArgs (batch and num_heads).
+template <typename T, typename A>
+bool aligned16(const void* p, const Strides& s, const A& a) {
   constexpr long long vec = 16 / sizeof(T);  // elements in 16 bytes
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.e == 1 && s.t % vec == 0 &&
          (a.batch == 1 || s.b % vec == 0) && (a.num_heads <= 1 || s.h % vec == 0);

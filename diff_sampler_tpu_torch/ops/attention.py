@@ -6,8 +6,9 @@ K1 and K1c (forward) and K2 and K2c (backward), and the route between them.
 replaces ``diff_sampler_tpu/ops/pallas_attention.py::_attn_kernel_mh`` and,
 at head dims below 128, its packed twin ``_attn_kernel_mh_packed`` (K1b).
 ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv`` (K2) wrap the
-kernels of ``csrc/flash_attn_bwd.cu``, which replace ``_bwd_dq_kernel_mh``,
-``_bwd_dkv_kernel_mh`` and their packed and streamed twins (K2p, K2b).  The
+kernels of ``csrc/flash_attn_bwd_tf32.cu`` (f32) and ``csrc/flash_attn_bwd.cu``
+(bf16), which replace ``_bwd_dq_kernel_mh``, ``_bwd_dkv_kernel_mh`` and
+their packed and streamed twins (K2p, K2b).  The
 TPU packs 128 // d heads into one matmul to fill the MXU's lanes; here every
 head dim takes one head per block.
 
@@ -27,8 +28,9 @@ the forward kernel of a call: both dtypes run on the tensor cores (mma.sync;
 bf16 in ``csrc/flash_attn_fwd.cu``, f32 in 3xTF32 in
 ``csrc/flash_attn_fwd_tf32.cu``), with 16-byte cp.async copies where the
 views allow them and a gather elsewhere, 16 bytes at a time from the
-interleaved qkv rows; the backward kernels run on the CUDA cores in both
-dtypes.
+interleaved qkv rows.  ``bwd_route`` picks the backward kernels of a call:
+f32 on the tensor cores in 3xTF32 (``csrc/flash_attn_bwd_tf32.cu``), bf16 on
+the CUDA cores (``csrc/flash_attn_bwd.cu``).
 
 ``sdpa`` is differentiable: it runs the ``torch.autograd.Function``
 ``_FlashAttentionMH`` (K1 forward, K2 backward; the JAX
@@ -51,7 +53,8 @@ import torch
 
 from .. import _build
 
-__all__ = ["MAX_HEAD_DIM", "TC_PADDED_DIMS", "TF32_PADDED_DIMS", "FwdRoute", "flash_attention",
+__all__ = ["CC_BWD_PADDED_DIMS", "MAX_HEAD_DIM", "TC_PADDED_DIMS", "TF32_PADDED_DIMS",
+           "BwdRoute", "FwdRoute", "bwd_route", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_flat_bwd_dkv", "flash_attention_flat_bwd_dq",
            "flash_attention_mh", "flash_attention_mh_bwd", "fwd_route",
@@ -159,6 +162,60 @@ def fwd_route(q, k, v) -> FwdRoute:
         return FwdRoute(kernel, padded, "cp_async", False, block_q, block_k, warps)
     span = span_layout and padded in _SPAN_DIMS[q.dtype] and _qkv_span(q, k, v)
     return FwdRoute(kernel, padded, "gather", span, block_q, block_k, warps)
+
+
+# The padded head dims of the bf16 backward on the CUDA cores
+# (``csrc/flash_attn_bwd.cu``, columns in 16 groups); the f32 backward
+# (``csrc/flash_attn_bwd_tf32.cu``, 3xTF32) takes ``TF32_PADDED_DIMS``.
+CC_BWD_PADDED_DIMS = (32, 48, 64, 80, 128, 160, 256)
+# the C entries of each (kernel, layout): (dQ, dK/dV)
+_BWD_ENTRIES = {("cuda_cores", 4): ("dst_flash_attn_bwd_dq", "dst_flash_attn_bwd_dkv"),
+                ("cuda_cores", 3): ("dst_flash_attn_bwd_dq_flat", "dst_flash_attn_bwd_dkv_flat"),
+                ("tensor_cores_3xtf32", 4): ("dst_flash_attn_bwd_dq_tf32",
+                                             "dst_flash_attn_bwd_dkv_tf32"),
+                ("tensor_cores_3xtf32", 3): ("dst_flash_attn_bwd_dq_tf32_flat",
+                                             "dst_flash_attn_bwd_dkv_tf32_flat")}
+
+
+class BwdRoute(NamedTuple):
+    """The backward kernels a call takes (its dQ and dK/dV kernels share
+    one route): ``kernel`` "tensor_cores_3xtf32" (f32, mma.sync m16n8k8 in
+    3xTF32) or "cuda_cores" (bf16, f32 FMAs); ``load`` "cp_async" (16-byte
+    copies) or "gather" (element loads of any view); ``block_rows`` the rows
+    a block owns (queries in
+    the dQ kernel, keys in the dK/dV kernel), ``tile_rows`` the rows of the
+    other side per streamed tile, ``warps`` per block and ``split_d`` the
+    warps that share one 16-row m-tile, each over a part of d."""
+    kernel: str
+    padded_d: int
+    load: str
+    block_rows: int
+    tile_rows: int
+    warps: int
+    split_d: int
+
+
+def bwd_route(q, k, v, do) -> BwdRoute:
+    """The backward kernels and their settings for q, k, v and dO (one
+    dtype, a head dim that ``supports_head_dim``, [B, T, H, d] or flat):
+    f32 on the tensor cores in 3xTF32, with cp.async where all four views
+    take 16-byte copies and the padded d is at most 160, the element gather
+    elsewhere; bf16 on the CUDA cores with element loads.  The tables mirror ``Bt`` in
+    ``csrc/flash_attn_bwd_tf32.cu`` and ``Tiles`` in
+    ``csrc/flash_attn_bwd.cu``; the f32 entries refuse any other route."""
+    d = q.shape[-1]
+    if q.dtype == torch.float32:
+        padded = next(p for p in TF32_PADDED_DIMS if p >= d)
+        split = 2 if padded >= 128 else 1
+        tile = 64 if padded <= 40 else 32 if padded <= 64 else 16
+        copies16 = padded <= 160 and all(_copies16(x) for x in (q, k, v, do))
+        load = "cp_async" if copies16 else "gather"
+        return BwdRoute("tensor_cores_3xtf32", padded, load, 16 * 8 // split, tile, 8, split)
+    if q.dtype == torch.bfloat16:
+        padded = next(p for p in CC_BWD_PADDED_DIMS if p >= d)
+        tile = 32 if padded >= 256 else 64
+        return BwdRoute("cuda_cores", padded, "gather", tile, tile, 8, 1)
+    raise TypeError(f"no backward kernel for {q.dtype}")
 
 
 # The JAX ``sdpa`` takes its flat kernel (``flash_attention``) where the
@@ -287,10 +344,11 @@ def _delta(out, do):
     return torch.einsum("bthd,bthd->bht", do.float(), out.float()).contiguous()
 
 
-def _bwd_launch(entry, what, outs, q, k, v, do, lse, delta, scale):
+def _bwd_launch(what, outs, q, k, v, do, lse, delta, scale):
     """Checks the inputs of a K2 kernel ([B, T, H, d], lse and delta [B, H,
-    T]) or a K2c kernel ([B, T, d], lse and delta [B, T]) and launches it
-    into ``outs``; returns whether it launched (not for an empty batch)."""
+    T]) or a K2c kernel ([B, T, d], lse and delta [B, T]) and launches the
+    kernel of ``bwd_route`` into ``outs`` (dq: the dQ kernel; dk, dv: the
+    dK/dV kernel); returns whether it launched (not for an empty batch)."""
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     _check(q, k, v, q.dim())
@@ -306,6 +364,11 @@ def _bwd_launch(entry, what, outs, q, k, v, do, lse, delta, scale):
         raise ValueError("the backward's tensors lie on different devices")
     if not outs[0].numel():
         return False
+    route = bwd_route(q, k, v, do)
+    entry = _BWD_ENTRIES[route.kernel, q.dim()][len(outs) - 1]
+    tf32 = route.kernel == "tensor_cores_3xtf32"
+    settings = ((route.padded_d, _LOAD_CODES[route.load], route.block_rows, route.tile_rows)
+                if tf32 else ())
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -313,7 +376,7 @@ def _bwd_launch(entry, what, outs, q, k, v, do, lse, delta, scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), *(o.data_ptr() for o in outs), *q.shape, *q.stride(),
             *k.stride(), *v.stride(), *do.stride(), float(scale), _DTYPE_CODES[q.dtype],
-            stream)
+            *settings, stream)
     _build.check(lib, err, what)
     return True
 
@@ -326,7 +389,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale):
     if q.device.type == "cpu":
         return reference_sdpa_bwd_dq(q, k, v, do, lse, delta, scale)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if _bwd_launch("dst_flash_attn_bwd_dq", "flash attention backward (dQ)", (dq,),
+    if _bwd_launch("flash attention backward (dQ)", (dq,),
                    q, k, v, do, lse, delta, scale):
         _count(flash_attention_bwd_dq, q)
     return dq
@@ -339,7 +402,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale):
         return reference_sdpa_bwd_dkv(q, k, v, do, lse, delta, scale)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if _bwd_launch("dst_flash_attn_bwd_dkv", "flash attention backward (dK/dV)", (dk, dv),
+    if _bwd_launch("flash attention backward (dK/dV)", (dk, dv),
                    q, k, v, do, lse, delta, scale):
         _count(flash_attention_bwd_dkv, q)
     return dk, dv
@@ -443,7 +506,7 @@ def flash_attention_flat_bwd_dq(q, k, v, do, lse, delta, scale):
     if q.device.type == "cpu":
         return reference_flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if _bwd_launch("dst_flash_attn_bwd_dq_flat", "flat flash attention backward (dQ)", (dq,),
+    if _bwd_launch("flat flash attention backward (dQ)", (dq,),
                    q, k, v, do, lse, delta, scale):
         flash_attention_flat_bwd_dq.launches += 1
     return dq
@@ -456,7 +519,7 @@ def flash_attention_flat_bwd_dkv(q, k, v, do, lse, delta, scale):
         return reference_flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if _bwd_launch("dst_flash_attn_bwd_dkv_flat", "flat flash attention backward (dK/dV)",
+    if _bwd_launch("flat flash attention backward (dK/dV)",
                    (dk, dv), q, k, v, do, lse, delta, scale):
         flash_attention_flat_bwd_dkv.launches += 1
     return dk, dv

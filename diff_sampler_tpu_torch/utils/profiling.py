@@ -22,16 +22,18 @@ __all__ = ["CATEGORIES", "Timer", "device_breakdown"]
 # flash_fwd_tf32_kernel in f32, both on the tensor cores; K1c: the f32
 # kernel's flat entry flash_fwd_tf32_flat_kernel, while bf16 K1c runs as
 # flash_fwd_tc_kernel; the names of the earlier f32 kernels on the CUDA
-# cores, flash_fwd_kernel and flash_fwd_flat_kernel, file the same way), then
+# cores, flash_fwd_kernel and flash_fwd_flat_kernel, file the same way; K2 /
+# K2c: flash_bwd_{dq,dkv}[_flat]_kernel on the CUDA cores in bf16 and
+# flash_bwd_{dq,dkv}_tf32[_flat]_kernel in f32 on the tensor cores), then
 # cuDNN / cuBLAS / CUTLASS GEMM and conv kernels, PyTorch's reductions, then
 # its elementwise and copy kernels.
 CATEGORIES = [
     ("K1c", r"flash_fwd_(tf32_)?flat_kernel"),
-    ("K2c dQ", r"flash_bwd_dq_flat_kernel"),
-    ("K2c dK/dV", r"flash_bwd_dkv_flat_kernel"),
+    ("K2c dQ", r"flash_bwd_dq_(tf32_)?flat_kernel"),
+    ("K2c dK/dV", r"flash_bwd_dkv_(tf32_)?flat_kernel"),
     ("K1", r"flash_fwd_(tc_|tf32_)?kernel"),
-    ("K2 dQ", r"flash_bwd_dq_kernel"),
-    ("K2 dK/dV", r"flash_bwd_dkv_kernel"),
+    ("K2 dQ", r"flash_bwd_dq_(tf32_)?kernel"),
+    ("K2 dK/dV", r"flash_bwd_dkv_(tf32_)?kernel"),
     ("K3", r"gn_partial_stats_kernel|gn_finalize_kernel|gn_apply_kernel"),
     ("convs and GEMMs", r"conv|cudnn|implicit|gemm|xmma|cutlass|winograd|fft"),
     ("reductions", r"reduce|Reduce|softmax"),

@@ -11,9 +11,13 @@ attention takes its plain versions (kernels K1 / K2 run on the card).
 Bounds: D(x, sigma), the pooled ``enc_8x8_block2`` tap and the sampler
 output 1e-4 * max (the U-Net parity bar); the gradient by x, sigma and the
 qkv weights 1e-4 of each one's max; one SGD AMED step: loss within 1e-4
-relative, params within 5e-4 of the step's largest move (~11: 5.5e-3; the
-17 blocks at unit scale amplify f32 rounding, and the port against itself
-with ``batch_gpu=1`` already differs by 8e-4).
+relative, each layer's params within twice the JAX step's own spread on
+that layer (jitted against eager, measured in the test), and never below
+5e-5 of the step's largest move (~11).  The 17 blocks at unit scale amplify
+f32 rounding: the jitted JAX step is up to 5.8e-4 of the move away from the
+same step run eagerly (``fc_r``), the port 5.0e-4 from the jitted and 0.8e-4
+from the eager one, so a fixed bound near 5e-4 sat at the edge of what XLA's
+rounding on one CPU or another gives.
 """
 
 import math
@@ -273,7 +277,10 @@ def _predictors(seed, **kw):
 
 def test_amed_train_step_matches_jax_with_sgd(nets):
     """One AMED trajectory on the ImageNet-64 tier's net, bound without
-    labels on both sides, SGD(0.1) (the update is linear in the gradient)."""
+    labels on both sides, SGD(0.1) (the update is linear in the gradient).
+    The port's params are held to the jitted JAX step's within twice the
+    gap between that step and the same step run eagerly, layer by layer
+    (the reference's own f32 spread; floor 5e-5 of the largest move)."""
     net, params, _ = nets
     port = _unit_port()
     name = TA.bottleneck_module_name(LABELS, RES)
@@ -287,6 +294,9 @@ def test_amed_train_step_matches_jax_with_sgd(nets):
     opt = optax.sgd(0.1)
     new, _, metrics = jax.jit(JT.make_amed_train_step(pred_j, den_j, cfg, opt))(
         p0, opt.init(p0), jnp.asarray(lat))
+    with jax.disable_jit():
+        eager, _, _ = JT.make_amed_train_step(pred_j, den_j, cfg, opt)(
+            p0, opt.init(p0), jnp.asarray(lat))
     step = TT.make_amed_train_step(pred_t, TA.bind_with_bottleneck(port), cfg,
                                    torch.optim.SGD(pred_t.parameters(), lr=0.1))
     loss_t = float(step(torch.from_numpy(lat))["loss"])
@@ -296,8 +306,11 @@ def test_amed_train_step_matches_jax_with_sgd(nets):
     moved = max(np.abs(state[f"{layer}.weight"].numpy() - leaves["kernel"].T).max()
                 for layer, leaves in p0.items())
     assert moved > 1.0
+    eager = jax.tree.map(np.asarray, eager)
     for layer, leaves in jax.tree.map(np.asarray, new).items():
+        gap = max(np.abs(leaves[name] - eager[layer][name]).max() for name in ("kernel", "bias"))
+        atol = max(2 * gap, 5e-5 * moved)
         np.testing.assert_allclose(state[f"{layer}.weight"].numpy(), leaves["kernel"].T,
-                                   rtol=0, atol=5e-4 * moved, err_msg=layer)
+                                   rtol=0, atol=atol, err_msg=layer)
         np.testing.assert_allclose(state[f"{layer}.bias"].numpy(), leaves["bias"], rtol=0,
-                                   atol=5e-4 * moved, err_msg=layer)
+                                   atol=atol, err_msg=layer)

@@ -1,6 +1,7 @@
 """Kernels K1 (the CUDA flash-attention forward on the tensor cores: bf16,
 and f32 in 3xTF32, each checked on every padded width and view layout), K2
-(its backward), K1c and K2c (the same on the flat layout) and K3 (the fused
+(its backward; f32 on the tensor cores in 3xTF32, each width and view
+layout), K1c and K2c (the same on the flat layout) and K3 (the fused
 GroupNorm) against their plain versions, on the card: K1 / K2 at the
 CIFAR-10 shapes, at head dims below 128, where they stand in for the JAX
 package's packed kernels (K1b, K2p), at ImageNet-64's three attention
@@ -21,8 +22,10 @@ Tolerances: f32 1e-5 max abs (both sides accumulate in f32, in other
 orders); bf16 2^-5 * max|plain out| and at most 2^-5, a few bf16 steps of
 the largest output (one step is 2^-8 to 2^-7 of it) for the rounding of the
 output and of the softmax weights; lse (f32 on both sides) 1e-5.  K2, relative
-to max|plain grad|: f32 1e-4; bf16 2^-6 (both sides round P, dS and the
-grads to bf16 from f32 values that may differ in the last bit).  K4,
+to max|plain grad|: f32 1e-4 (at T = 1, where dq and dk are zero in exact
+arithmetic, relative to the call's largest plain grad); bf16 2^-6 (both
+sides round P, dS and the grads to bf16 from f32 values that may differ in
+the last bit).  K4,
 relative to max|plain out|: f32 1e-5 (both sum in f32, in other orders);
 bf16 2^-7, one bf16 step of the largest output for an element whose f32
 sums straddle a rounding boundary.
@@ -174,6 +177,77 @@ def test_f32_flat_kernel_matches_plain_and_is_deterministic(cuda, t, layout):
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
     assert (out - ref_out).abs().max().item() <= 1e-5
     assert (lse - ref_lse).abs().max().item() <= 1e-5
+
+
+# f32 K2 / K2c, the 3xTF32 tensor-core backward: the same widths, T and
+# layouts, a non-contiguous dO.  At T = 1 the one key's softmax weight is 1
+# whatever the logits, so dq and dk are zero in exact arithmetic and both
+# sides return rounding noise of dP - delta; there the gate's scale is the
+# largest plain gradient of the call (dv = dO) for all three.
+def _k2_tol(ref, t):
+    tops = [y.abs().max().item() for y in ref]
+    return [1e-4 * (max(tops) if t == 1 else top) for top in tops]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", TC_LAYOUTS)
+@pytest.mark.parametrize("d", TC_DIMS)
+def test_f32_tensor_core_backward_matches_plain_and_is_deterministic(cuda, layout, d):
+    g = torch.Generator("cuda").manual_seed(d)
+    for t in TC_TS:
+        q, k, v = _tc_views(layout, 2, t, 3, d, g, torch.float32)
+        do = torch.randn(2, 3, t, d, generator=g, device="cuda").transpose(1, 2)
+        route = A.bwd_route(q, k, v, do)
+        aligned = layout in ("legacy", "separate") and route.padded_d <= 160
+        load = "cp_async" if aligned else "gather"
+        assert (route.kernel, route.load) == ("tensor_cores_3xtf32", load)
+        out, lse = A.flash_attention_mh(q, k, v, d ** -0.5)
+        before = (A.flash_attention_bwd_dq.launches, A.flash_attention_bwd_dkv.launches)
+        got = A.flash_attention_mh_bwd(q, k, v, out, lse, do, d ** -0.5)
+        again = A.flash_attention_mh_bwd(q, k, v, out, lse, do, d ** -0.5)
+        ref = A.reference_sdpa_bwd(q, k, v, out, lse, do, d ** -0.5)
+        torch.cuda.synchronize()
+        assert (A.flash_attention_bwd_dq.launches, A.flash_attention_bwd_dkv.launches) == (
+            before[0] + 2, before[1] + 2)
+        for name, x, y, z, tol in zip("qkv", got, ref, again, _k2_tol(ref, t)):
+            assert (x - y).abs().max().item() <= tol, (layout, d, t, name)
+            assert torch.equal(x, z), (layout, d, t, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [64, 4096])
+@pytest.mark.parametrize("layout", ["contiguous", "views", "unaligned"])
+def test_f32_flat_backward_matches_plain_and_is_deterministic(cuda, t, layout):
+    """K2c in f32 at SD's d=40 on the layouts of the K1c test above: the
+    3xTF32 flat entries, one launch each; a contiguous dO beside contiguous
+    q, k, v takes cp.async, the transpose of a [B, d, T] (element stride
+    T) the element gather."""
+    g = torch.Generator("cuda").manual_seed(t + 1)
+    b, d = 6, 40
+    if layout == "contiguous":
+        q, k, v = (torch.randn(b, t, d, generator=g, device="cuda") for _ in range(3))
+    elif layout == "views":
+        q, k, v = torch.randn(b, t, 3, d, generator=g, device="cuda").unbind(2)
+    else:
+        q, k, v = (torch.randn(b * t * d + 1, generator=g, device="cuda")[1:].view(b, t, d)
+                   for _ in range(3))
+    if layout == "contiguous":
+        do = torch.randn(b, t, d, generator=g, device="cuda")
+    else:
+        do = torch.randn(b, d, t, generator=g, device="cuda").transpose(1, 2)
+    load = "cp_async" if layout == "contiguous" else "gather"
+    assert A.bwd_route(q, k, v, do)[:3] == ("tensor_cores_3xtf32", 40, load)
+    out, lse = A.flash_attention(q, k, v, d ** -0.5)
+    counters = (A.flash_attention_flat_bwd_dq, A.flash_attention_flat_bwd_dkv)
+    before = [c.launches for c in counters]
+    got = A.flash_attention_bwd(q, k, v, out, lse, do, d ** -0.5)
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1]
+    again = A.flash_attention_bwd(q, k, v, out, lse, do, d ** -0.5)
+    ref = A.reference_flash_attention_bwd(q, k, v, out, lse, do, d ** -0.5)
+    torch.cuda.synchronize()
+    for name, x, y, z, tol in zip("qkv", got, ref, again, _k2_tol(ref, t)):
+        assert (x - y).abs().max().item() <= tol, name
+        assert torch.equal(x, z), name
 
 
 @pytest.mark.cuda
