@@ -90,10 +90,13 @@ Phases, each printing as it goes and then its seconds:
    at batch 16, CIFAR-10's 32x32 level at its sampling batch (bf16) and
    AMED batch (f32), and ImageNet-64's levels at its AMED microbatch (f32,
    group sizes 6 to 24) and its 64x64 level at its sampling batch (bf16):
-   errors against stated tolerances,
-   two runs bit-identical, the times of K3, the plain version and
-   ``F.group_norm`` (+ ``F.silu``) on the channels-last NCHW view, and the
-   bound by bytes.
+   each shape's route (``ops/groupnorm.py::gn_route``: the one-kernel
+   cluster slab with its cluster size, the clusters the card holds at once,
+   blocks and shared memory, or the two-kernel streamed pass), and on that
+   route and, where both apply, on the other one, errors against stated
+   tolerances and two runs bit-identical; the times of K3 on both routes,
+   the plain version and ``F.group_norm`` (+ ``F.silu``) on the
+   channels-last NCHW view, GB/s, and the bound by bytes.
 16. K1 at the LSUN LDM's attention shapes (d=32, 14 / 21 / 28 heads) and K2
    at K2b's shape (the AMED microbatch, T=1024, 14 heads, f32) and K2p's
    (T=256, 21 heads), on the legacy qkv views ([B, T, H, 3d], head stride
@@ -168,14 +171,18 @@ K2 at the CIFAR-10 paths (d=256, launches of phases 5 and 8), K1 and K2 at
 the ImageNet-64 paths (d=64, in place of K1b and K2p, launches of phases 12
 and 13), the f32 K1 (3xTF32) at the CIFAR-10, ImageNet-64 and SD AMED
 paths (launches of phases 8, 13 and 25), K2 at the LSUN LDM's T=1024 level (in place of K2b, launches of
-phase 19 at that shape), K3 (launches of phase 18), K1 and K2 at SD's head
+phase 19 at that shape), K3 at the CIFAR-10, LSUN LDM, ImageNet-64 and VQ
+decode shapes with its route there (launches of phases 5, 18, 12 and 18's
+decode), K1 and K2 at SD's head
 dims (launches of phases 24 and 25), K1c and K2c (launches of phase 25) and
 K4 (launches of its entry points in phase 27), each with its error and
 times at that path's main shape and its bound on this card (the f32
 attention kernels': 3xTF32 on the tensor cores).  Every profile (phases 4,
 5, 13, 14, 20, 23, 26, 28) checks that no attention forward and no f32
-attention backward ran on the CUDA cores, and that its trace holds every
-kernel of the repo that the wrappers launched in the profiled call.
+attention backward ran on the CUDA cores, that its trace holds every
+kernel of the repo that the wrappers launched in the profiled call (K3's
+one or two a launch, as its wrapper counts them by route), and prints K3's
+share of the device time.
 Any failed check raises, so the script
 exits non-zero with no result; so does a machine without CUDA.
 """
@@ -352,7 +359,8 @@ GN_SHAPES = ([(LDM_BATCH, 64, 64, 224, torch.bfloat16, 1e-5, True),
              + [(IN64_BATCH_GPU, s, s, c, torch.float32, 1e-5, False)
                 for s, c in ((64, 192), (32, 384), (16, 576), (8, 768))])
 # Tolerance of K3 against the plain version, relative to max(1, max|plain
-# out|): f32 1e-5 (K3 sums in f64 across chunks and two passes; the plain
+# out|): f32 1e-5 (K3's exact two-pass statistics merge blocks, chunks and
+# cluster ranks in f64; the plain
 # version takes E[x^2] - E[x]^2 in f32); bf16 2^-7, one bf16 step of the
 # largest output for an element whose f32 values straddle a rounding boundary.
 GN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
@@ -511,8 +519,9 @@ def _bound_text(kind: str, b: int, t: int, h: int, d: int, dtype) -> str:
 # to the next (kernels then seem to start before their launch): with no idle
 # margin the kernels at either edge of the window are dropped from the trace.
 PROFILE_MARGIN_S = 0.05
-# The repo's own kernels by name, each wrapper launch one of them (K3 three)
-OUR_KERNELS = re.compile(r"flash_(fwd|bwd)_\w*kernel|gn_(partial_stats|finalize|apply)_kernel"
+# The repo's own kernels by name: each wrapper launch runs one of them, K3
+# one (its cluster slab) or two (its streamed pass), as its route says
+OUR_KERNELS = re.compile(r"flash_(fwd|bwd)_\w*kernel|gn_(slab|stream_stats|stream_apply)_kernel"
                          r"|conv3x3_(f32|bf16)_kernel")
 
 
@@ -884,7 +893,7 @@ def phase_denoiser_f32() -> None:
     _plain_vs_kernels("D f32", _plain_net_patches(layers), forward=lambda: den(x, sigma),
                       per_forward=dict(k1=ATTENTION_SITES, gn=CIFAR_GN_SITES))
     _profile("D f32 profile, one forward at batch 8", lambda: den(x, sigma),
-             {"K1": ATTENTION_SITES, "K3": 3 * CIFAR_GN_SITES})
+             {"K1": ATTENTION_SITES, "K3": CIFAR_GN_SITES})
 
 
 _COUNTED = {"k1": A.flash_attention_mh, "dq": A.flash_attention_bwd_dq,
@@ -997,9 +1006,9 @@ def phase_main_path() -> int:
     sigma = torch.full((BATCH,), 2.5, device="cuda")
     x = stacked_randn(range(BATCH), shape, device="cuda") * 2.5
     tag = f"CIFAR-10 profile, one batch-{BATCH} bf16 forward"
-    _profile(tag, lambda: module(x, sigma), {"K1": ATTENTION_SITES, "K3": 3 * CIFAR_GN_SITES})
+    _profile(tag, lambda: module(x, sigma), {"K1": ATTENTION_SITES, "K3": CIFAR_GN_SITES})
     _with_plain_groupnorm(tag, lambda: module(x, sigma), [layers])
-    return counts["k1"]
+    return counts["k1"], counts["gn"]
 
 
 def phase_backward_kernel() -> dict:
@@ -1292,7 +1301,7 @@ def phase_in64_denoiser_and_gradient() -> None:
 
 
 def phase_in64_sampling():
-    """Returns (K1 launches of the path, the bf16 module)."""
+    """Returns (K1 and K3 launches of the path, the bf16 module)."""
     module, _ = create_model("imagenet64", "random", dtype=torch.bfloat16, device="cuda")
     shape = (module.img_resolution, module.img_resolution, module.img_channels)
     images, counts, _ = _drive_sampling("IN64 main", bind(module), shape,
@@ -1300,7 +1309,7 @@ def phase_in64_sampling():
                                         label_dim=module.label_dim)
     _check_cli_pngs("IN64 main", ["--dataset_name=imagenet64", "--model_path=random",
                                   "--solver=ipndm", "--num_steps=6", "--bf16=True"], images)
-    return counts["k1"], module
+    return counts["k1"], counts["gn"], module
 
 
 def phase_in64_amed(workdir: str) -> dict:
@@ -1348,17 +1357,21 @@ def _profile(tag: str, fn, want_calls: dict, grad: bool = False) -> dict:
     """``torch.profiler`` over one call of ``fn`` after a warm-up call (under
     ``torch.no_grad`` unless ``grad``): prints the device time by
     ``utils/profiling.py::CATEGORIES`` and checks the kernel calls of
-    ``want_calls`` ({category: calls}), that no attention forward ran on a
-    CUDA-core kernel (the f32 kernels before 3xTF32) and that no f32
-    attention backward did (``bwd_route`` sends every f32 one to 3xTF32)."""
+    ``want_calls`` ({category: calls}; for K3 its wrapper's launches, each of
+    which runs the CUDA kernels its route names, as the wrapper counts them),
+    that no attention forward ran on a CUDA-core kernel (the f32 kernels
+    before 3xTF32) and that no f32 attention backward did (``bwd_route``
+    sends every f32 one to 3xTF32)."""
     with contextlib.nullcontext() if grad else torch.no_grad():
         fn()  # warm-up
-        before = _counts()
+        before, gn_before = _counts(), G.groupnorm_silu.kernels
         events, cuda_ms, host_s, gap_us = _trace(fn)
         launched = {name: n - before[name] for name, n in _counts().items()}
-    # the trace against the wrappers' own counts: K3 is three kernels a launch
+        gn_kernels = G.groupnorm_silu.kernels - gn_before
+    # the trace against the wrappers' own counts: K3 runs one or two kernels a
+    # launch, as its routes say
     ours = sum(1 for e in events if e.get("cat") == "kernel" and OUR_KERNELS.search(e["name"]))
-    want_ours = sum(launched.values()) + 2 * launched["gn"]
+    want_ours = sum(launched.values()) - launched["gn"] + gn_kernels
     out = device_breakdown(events)
     cuda_core_fwd = sum(1 for e in events if e.get("cat") == "kernel"
                         and re.search(r"flash_fwd_(flat_)?kernel", e.get("name", "")))
@@ -1376,12 +1389,20 @@ def _profile(tag: str, fn, want_calls: dict, grad: bool = False) -> dict:
           f"backwards on the CUDA cores: {cuda_core_bwd32}")
     print(f"[{tag}]   the repo's kernels in the trace: {ours}, launched by their wrappers: "
           f"{want_ours}; smallest launch-to-start gap {gap_us:.3f} us")
+    k3 = out["categories"]["K3"]
+    print(f"[{tag}]   K3: {launched['gn']} launches, {gn_kernels} kernels "
+          f"({gn_kernels - launched['gn']} on the stream route), {k3['ms']:.3f} ms, share of "
+          f"device time {k3['share']:.4f}")
     _check(ours == want_ours, f"{tag}: the trace holds {ours} of the repo's kernels, its "
            f"wrappers launched {want_ours}")
     _check(cuda_core_fwd == 0, f"{tag}: an attention forward ran on the CUDA cores")
     _check(cuda_core_bwd32 == 0, f"{tag}: an f32 attention backward ran on the CUDA cores, "
            f"which bwd_route does not name")
     for cat, calls in want_calls.items():
+        if cat == "K3":
+            _check(launched["gn"] == calls, f"{tag}: {launched['gn']} K3 launches, expected "
+                   f"{calls}")
+            calls = gn_kernels
         _check(out["categories"][cat]["calls"] == calls,
                f"{tag}: the profile holds {out['categories'][cat]['calls']} {cat} kernels, "
                f"expected {calls}")
@@ -1414,29 +1435,75 @@ def phase_in64_profile(module) -> None:
     x = stacked_randn(range(BATCH), (64, 64, 3), device="cuda") * 2.5
     labels = F.one_hot(torch.arange(BATCH, device="cuda") % 1000, 1000).float()
     tag = f"IN64 profile, one batch-{BATCH} bf16 forward"
-    # K3 is three CUDA kernels per launch: statistics, finalize, apply
-    _profile(tag, lambda: module(x, sigma, labels), {"K1": IN64_SITES, "K3": 3 * IN64_GN_SITES})
+    _profile(tag, lambda: module(x, sigma, labels), {"K1": IN64_SITES, "K3": IN64_GN_SITES})
     _with_plain_groupnorm(tag, lambda: module(x, sigma, labels), [layers])
 
 
+def _gn_route_text(route, dtype, n: int, chunks: int) -> str:
+    """A K3 route as phase 15 prints it: kind, cluster (and how many the card
+    holds at once), blocks, shared memory a block, CUDA kernels."""
+    if route.kind == "slab":
+        return (f"slab, clusters of {route.cluster} ({G.active_clusters(route, dtype)} at once), "
+                f"{route.cluster * n} blocks of {route.threads} threads, {route.smem} B shared "
+                f"memory a block, 1 kernel")
+    return (f"stream, {n * chunks} blocks of {route.rows} rows and {route.threads} threads, "
+            f"{route.smem} B shared memory a statistics block, 2 kernels")
+
+
+def _gn_other_route(route, n, h, w, c, dtype):
+    """The route that K3 does not take at this shape, where both apply: the
+    stream route beside a slab, or the smallest cluster of ``G.CLUSTER_SIZES``
+    that holds the slab beside the stream route (None where none does)."""
+    elt, hw = torch.empty((), dtype=dtype).element_size(), h * w
+    if route.kind == "slab":
+        return G._stream_route(n, hw, c, elt, route.vec)
+    for size in G.CLUSTER_SIZES:
+        if size <= hw:
+            slab = G._slab_route(n, hw, c, 32, elt, route.vec, size)
+            if slab is not None:
+                return slab
+    return None
+
+
+# The GN_SHAPES entries whose numbers the kernels line carries: CIFAR-10's
+# main path, the LDM's, ImageNet-64's and the VQ decoder's
+GN_ENTRIES = {"CIFAR-10": (BATCH, 32, 32, 256, torch.bfloat16),
+              "LSUN LDM": (LDM_BATCH, 64, 64, 224, torch.bfloat16),
+              "ImageNet-64": (BATCH, 64, 64, 192, torch.bfloat16),
+              "VQ decode": (DECODE_CHUNK, 256, 256, 128, torch.float32)}
+
+
 def phase_groupnorm_kernel() -> dict:
-    """K3 against its plain version at ``GN_SHAPES``; returns the
-    kernels-line fields of the first (main) shape."""
+    """K3 against its plain version at ``GN_SHAPES``, on its route and, where
+    both apply, on the other one (the same gates, timed on the same data);
+    returns the kernels-line fields of ``GN_ENTRIES``' shapes, with the
+    route."""
     g = torch.Generator("cuda").manual_seed(7)
-    main = None
+    entries = {}
     for n, h, w, c, dtype, eps, silu in GN_SHAPES:
         x = (torch.randn(n, h, w, c, generator=g, device="cuda") * 3 + 1).to(dtype)
         scale = 1 + 0.5 * torch.randn(c, generator=g, device="cuda")
         bias = torch.randn(c, generator=g, device="cuda")
         kw = dict(groups=32, eps=eps, apply_silu=silu)
-        got = G.groupnorm_silu(x, scale, bias, **kw)
-        again = G.groupnorm_silu(x, scale, bias, **kw)
+        route = G.gn_route(n, h, w, c, dtype)
+        other = _gn_other_route(route, n, h, w, c, dtype)
         ref = G.reference_groupnorm_silu(x, scale, bias, **kw)
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
         tol = GN_TOL[dtype] * max(1.0, ref.float().abs().max().item())
-        same = torch.equal(got, again)
-        del got, again, ref
+        name = str(dtype).replace("torch.", "")
+        errs = {}
+        for which, r in (("route", route), ("other", other)):
+            if r is None:
+                continue
+            got = G._launch(x, scale, bias, 32, eps, silu, route=r)
+            again = G._launch(x, scale, bias, 32, eps, silu, route=r)
+            torch.cuda.synchronize()
+            errs[which] = (got.float() - ref.float()).abs().max().item()
+            same = torch.equal(got, again)
+            _check(errs[which] <= tol, f"K3 ({r.kind}) disagrees with the plain version at "
+                   f"{(n, h, w, c, name)}: {errs[which]:.3g} > {tol:.3g}")
+            _check(same, f"K3 ({r.kind}) is not deterministic at {(n, h, w, c, name)}")
+            del got, again
+        del ref
         x_nchw = x.permute(0, 3, 1, 2)  # channels-last memory, as cuDNN takes it
         sc, bi = scale.to(dtype), bias.to(dtype)
 
@@ -1444,26 +1511,38 @@ def phase_groupnorm_kernel() -> dict:
             y = F.group_norm(x_nchw, 32, sc, bi, eps)
             return F.silu(y) if silu else y
 
-        times = _turns({"kernel": lambda: G.groupnorm_silu(x, scale, bias, **kw),
-                        "plain": lambda: G.reference_groupnorm_silu(x, scale, bias, **kw),
-                        "library": library}, reps=10, warmup=2)
+        fns = {"kernel": lambda: G.groupnorm_silu(x, scale, bias, **kw),
+               "plain": lambda: G.reference_groupnorm_silu(x, scale, bias, **kw),
+               "library": library}
+        if other is not None:
+            fns["other"] = lambda: G._launch(x, scale, bias, 32, eps, silu, route=other)
+        times = _turns(fns, reps=10, warmup=2)
         bound_ms, bound_by = _groupnorm_bound(n, h, w, c, dtype, silu)
-        name = str(dtype).replace("torch.", "")
         nbytes = 2 * x.numel() * x.element_size()
+        chunks = -(-h * w // route.rows)
         print(f"[K3] [{n}, {h}, {w}, {c}] {name} eps {eps:g} silu {silu} (group size "
-              f"{c // 32}): max abs err {err:.3g} (tol {tol:.3g}); two runs bit-identical: "
-              f"{same}; K3 {times['kernel']:.4f} ms ({nbytes / times['kernel'] / 1e6:.1f} GB/s "
-              f"of x read + out written), plain {times['plain']:.4f} ms, F.group_norm"
-              f"{' + F.silu' if silu else ''} {times['library']:.4f} ms, bound {bound_ms:.4f} "
-              f"ms ({bound_by})")
-        _check(err <= tol, f"K3 disagrees with the plain version at {(n, h, w, c, name)}")
-        _check(same, f"K3 is not deterministic at {(n, h, w, c, name)}")
-        if main is None:
-            main = dict(max_abs_err=err, ms=times["kernel"], plain_ms=times["plain"],
-                        library_ms=times["library"], bound_ms=bound_ms, bound_by=bound_by)
+              f"{c // 32}): route {_gn_route_text(route, dtype, n, chunks)}; max abs err "
+              f"{errs['route']:.3g} (tol {tol:.3g}), two runs bit-identical; K3 "
+              f"{times['kernel']:.4f} ms ({nbytes / times['kernel'] / 1e6:.1f} GB/s of x read + "
+              f"out written, {bound_ms / times['kernel']:.3f} of the bound), plain "
+              f"{times['plain']:.4f} ms, F.group_norm{' + F.silu' if silu else ''} "
+              f"{times['library']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if other is not None:
+            print(f"[K3]    the other route on the same data: "
+                  f"{_gn_route_text(other, dtype, n, -(-h * w // other.rows))}; max abs err "
+                  f"{errs['other']:.3g}, two runs bit-identical; {times['other']:.4f} ms "
+                  f"({nbytes / times['other'] / 1e6:.1f} GB/s)")
+        for label, shape in GN_ENTRIES.items():
+            if shape == (n, h, w, c, dtype) and label not in entries:
+                entries[label] = dict(
+                    max_abs_err=errs["route"], ms=times["kernel"], plain_ms=times["plain"],
+                    library_ms=times["library"], bound_ms=bound_ms, bound_by=bound_by,
+                    route=route.kind if route.kind == "stream"
+                    else f"slab, clusters of {route.cluster}")
         del x, x_nchw
     torch.cuda.empty_cache()
-    return main
+    _check(set(entries) == set(GN_ENTRIES), f"GN_SHAPES lacks {set(GN_ENTRIES) - set(entries)}")
+    return entries
 
 
 def phase_ldm_attention_kernels() -> tuple:
@@ -1502,7 +1581,8 @@ def phase_ldm_denoiser_and_gradient() -> None:
 
 
 def phase_ldm_sampling():
-    """Returns (K3 launches of the path, the bf16 CFGPrecond)."""
+    """Returns (K3 launches of the U-Net's sampling and of the VQ decode, the
+    bf16 CFGPrecond)."""
     # torch's default precision flags, as a user runs the CLI: the f32 decode
     # takes TF32 convs
     torch.backends.cudnn.allow_tf32 = True
@@ -1537,7 +1617,7 @@ def phase_ldm_sampling():
     _check_cli_pngs("LDM main", [f"--dataset_name={LDM}", "--model_path=random",
                                  "--solver=ipndm", f"--num_steps={LDM_NFE_STEPS[0][1]}",
                                  "--bf16=True"], images, batch=LDM_BATCH)
-    return counts["gn"] + decode_counts["gn"], pre
+    return counts["gn"], decode_counts["gn"], pre
 
 
 def phase_ldm_amed(workdir: str) -> tuple:
@@ -1574,12 +1654,12 @@ def phase_ldm_profile(pre) -> None:
     sigma = torch.full((LDM_BATCH,), 2.5, device="cuda")
     x = stacked_randn(range(LDM_BATCH), LDM_LATENT, device="cuda") * 2.5
     tag = f"LDM profile, one batch-{LDM_BATCH} bf16 U-Net forward"
-    _profile(tag, lambda: pre(x, sigma), {"K1": LDM_SITES, "K3": 3 * LDM_GN_SITES})
+    _profile(tag, lambda: pre(x, sigma), {"K1": LDM_SITES, "K3": LDM_GN_SITES})
     _with_plain_groupnorm(tag, lambda: pre(x, sigma), [adm])
     z = stacked_randn(range(DECODE_CHUNK), LDM_LATENT, device="cuda")
     tag = f"LDM profile, one batch-{DECODE_CHUNK} f32 VQ decode"
     decode = lambda: pre.latent_diffusion.decode_first_stage(z)  # noqa: E731
-    _profile(tag, decode, {"K3": 3 * DECODE_GN_SITES})
+    _profile(tag, decode, {"K3": DECODE_GN_SITES})
     _with_plain_groupnorm(tag, decode, [adm])
 
 
@@ -1733,7 +1813,7 @@ def phase_sd_denoiser_and_gradient() -> None:
                                         dkv=mh_sites, dqc=SD_FLAT_SITES, dkvc=SD_FLAT_SITES,
                                         gn=gn))
     _profile("SD D f32 profile, one guided U-Net call at batch 4", forward,
-             {"K1": mh_sites, "K1c": SD_FLAT_SITES, "K3": 3 * gn})
+             {"K1": mh_sites, "K1c": SD_FLAT_SITES, "K3": gn})
     del pre, ld
     torch.cuda.empty_cache()
 
@@ -1781,7 +1861,7 @@ def phase_sd_profile(pre, ctx, uc) -> None:
     x = stacked_randn(range(SD_BATCH), SD_LATENT, device="cuda") * 2.5
     gn = _gn_sites(pre.latent_diffusion.unet)
     _profile(f"SD profile, one guided bf16 U-Net call at batch {2 * SD_BATCH}",
-             lambda: pre(x, sigma, ctx, uc), {"K1": SD_SITES, "K1c": 0, "K3": 3 * gn})
+             lambda: pre(x, sigma, ctx, uc), {"K1": SD_SITES, "K1c": 0, "K3": gn})
 
 
 def phase_sd_amed(workdir: str) -> dict:
@@ -2071,7 +2151,7 @@ def phase_ffhq() -> tuple:
     sigma = torch.full((BATCH,), 2.5, device="cuda")
     x = stacked_randn(range(BATCH), FFHQ_SHAPE, device="cuda") * 2.5
     tag = f"FFHQ profile, one batch-{BATCH} bf16 forward"
-    _profile(tag, lambda: module(x, sigma), {"K1": FFHQ_SITES, "K3": 3 * FFHQ_GN_SITES})
+    _profile(tag, lambda: module(x, sigma), {"K1": FFHQ_SITES, "K3": FFHQ_GN_SITES})
     _with_plain_groupnorm(tag, lambda: module(x, sigma), [layers])
     del module, den
     torch.cuda.empty_cache()
@@ -2185,7 +2265,7 @@ def main() -> int:
     _phase("phase 2, build", phase_build)
     k1 = _phase("phase 3, K1 at the CIFAR-10 shapes", phase_kernel)
     _phase("phase 4, CIFAR-10 D f32", phase_denoiser_f32)
-    launches = _phase("phase 5, CIFAR-10 sampling", phase_main_path)
+    launches, cifar_gn = _phase("phase 5, CIFAR-10 sampling", phase_main_path)
     k2 = _phase("phase 6, K2 at the CIFAR-10 shapes", phase_backward_kernel)
     _phase("phase 7, CIFAR-10 gradient f32", phase_gradient_f32)
     with tempfile.TemporaryDirectory() as workdir:
@@ -2193,16 +2273,18 @@ def main() -> int:
     in64_k1 = _phase("phase 9, K1 at the ImageNet-64 shapes", phase_in64_kernel)
     in64_k2 = _phase("phase 10, K2 at the ImageNet-64 shapes", phase_in64_backward_kernel)
     _phase("phase 11, ImageNet-64 D and gradient f32", phase_in64_denoiser_and_gradient)
-    in64_launches, module = _phase("phase 12, ImageNet-64 sampling", phase_in64_sampling)
+    in64_launches, in64_gn, module = _phase("phase 12, ImageNet-64 sampling",
+                                            phase_in64_sampling)
     _phase("phase 14, ImageNet-64 profile", phase_in64_profile, module)
     del module
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         in64_amed = _phase("phase 13, ImageNet-64 AMED", phase_in64_amed, workdir)
-    k3 = _phase("phase 15, K3 at the LSUN LDM, CIFAR-10 and ImageNet-64 shapes", phase_groupnorm_kernel)
+    k3 = _phase("phase 15, K3 at the LSUN LDM, CIFAR-10 and ImageNet-64 shapes",
+                phase_groupnorm_kernel)
     k2b = _phase("phase 16, K1 / K2 at the LSUN LDM shapes", phase_ldm_attention_kernels)
     _phase("phase 17, LSUN LDM D and gradient f32", phase_ldm_denoiser_and_gradient)
-    k3_launches, pre = _phase("phase 18, LSUN LDM sampling and decode", phase_ldm_sampling)
+    ldm_gn, vq_gn, pre = _phase("phase 18, LSUN LDM sampling and decode", phase_ldm_sampling)
     _phase("phase 20, LSUN LDM profile", phase_ldm_profile, pre)
     del pre
     torch.cuda.empty_cache()
@@ -2227,7 +2309,8 @@ def main() -> int:
                     ("K1 on ImageNet-64", in64_launches),
                     ("K2 dQ on ImageNet-64", in64_amed["dq"]),
                     ("K2 dK/dV on ImageNet-64", in64_amed["dkv"]),
-                    ("K3 on the LSUN LDM", k3_launches),
+                    ("K3 on CIFAR-10", cifar_gn), ("K3 on ImageNet-64", in64_gn),
+                    ("K3 on the LSUN LDM", ldm_gn), ("K3 on the VQ decode", vq_gn),
                     ("K2 dQ on the LSUN LDM at T=1024", k2b_launches["dq"]),
                     ("K2 dK/dV on the LSUN LDM at T=1024", k2b_launches["dkv"]),
                     ("K1 on SD", sd_launches), ("K2 dQ on SD", sd_amed["dq"]),
@@ -2270,9 +2353,11 @@ def main() -> int:
         _kernel_entry("flash_attention_bwd_dkv in f32 at T=1024 H=14 d=32 (K2 dK/dV in 3xTF32 "
                       "in place of K2b, LSUN LDM AMED path)", bwd32, f"{tpu}:757",
                       k2b_launches["dkv"], k2b["dkv"]),
-        _kernel_entry("groupnorm_silu (K3, fused GroupNorm + affine + SiLU, LSUN LDM sampling "
-                      "and decode)", "diff_sampler_tpu_torch/csrc/groupnorm.cu",
-                      "diff_sampler_tpu/ops/pallas_groupnorm.py:29", k3_launches, k3),
+        *(_kernel_entry(f"groupnorm_silu (K3, fused GroupNorm + affine + SiLU, {label} path, "
+                        f"route {k3[label]['route']})", "diff_sampler_tpu_torch/csrc/groupnorm.cu",
+                        "diff_sampler_tpu/ops/pallas_groupnorm.py:29", n, k3[label])
+          for label, n in (("CIFAR-10", cifar_gn), ("LSUN LDM", ldm_gn),
+                           ("ImageNet-64", in64_gn), ("VQ decode", vq_gn))),
         _kernel_entry("flash_attention_mh at d=40/80/160 (K1 at the SD head dims, padded in "
                       "the kernel; SD bf16 sampling path)", fwd, f"{tpu}:157", sd_launches,
                       sd_k1["main"]),

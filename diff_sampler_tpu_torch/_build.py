@@ -126,9 +126,13 @@ def _declare(lib) -> None:
             entry.argtypes = (getattr(lib, f"dst_flash_attn_bwd_{kernel}{layout}").argtypes[:-2]
                               + [i] * 5 + [p])
             entry.restype = i
-    # x, scale, bias, out, scratch; n, hw, c, groups, rows; eps; silu, vec, dtype
-    lib.dst_groupnorm_silu.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float] + [i] * 3 + [p]
+    # x, scale, bias, out, scratch, arrivals; n, hw, c, groups; eps; silu, vec,
+    # dtype, then the route (kind, cluster, threads, rows, smem)
+    lib.dst_groupnorm_silu.argtypes = [p] * 6 + [i] * 4 + [ctypes.c_float] + [i] * 8 + [p]
     lib.dst_groupnorm_silu.restype = i
+    # dtype, vec, cluster, threads, smem
+    lib.dst_groupnorm_active_clusters.argtypes = [i] * 5
+    lib.dst_groupnorm_active_clusters.restype = i
     # x, a, b, w, bias, out; n, h, w, cin, cout, fuse, dtype
     lib.dst_conv3x3.argtypes = [p] * 6 + [i] * 7 + [p]
     lib.dst_conv3x3.restype = i

@@ -24,7 +24,9 @@ __all__ = ["CATEGORIES", "Timer", "device_breakdown"]
 # flash_fwd_tc_kernel; the names of the earlier f32 kernels on the CUDA
 # cores, flash_fwd_kernel and flash_fwd_flat_kernel, file the same way; K2 /
 # K2c: flash_bwd_{dq,dkv}[_flat]_kernel on the CUDA cores in bf16 and
-# flash_bwd_{dq,dkv}_tf32[_flat]_kernel in f32 on the tensor cores), then
+# flash_bwd_{dq,dkv}_tf32[_flat]_kernel in f32 on the tensor cores; K3: the
+# one-kernel cluster slab gn_slab_kernel, or the streamed pass's
+# gn_stream_stats_kernel and gn_stream_apply_kernel), then
 # cuDNN / cuBLAS / CUTLASS GEMM and conv kernels, PyTorch's reductions, then
 # its elementwise and copy kernels.
 CATEGORIES = [
@@ -34,7 +36,7 @@ CATEGORIES = [
     ("K1", r"flash_fwd_(tc_|tf32_)?kernel"),
     ("K2 dQ", r"flash_bwd_dq_(tf32_)?kernel"),
     ("K2 dK/dV", r"flash_bwd_dkv_(tf32_)?kernel"),
-    ("K3", r"gn_partial_stats_kernel|gn_finalize_kernel|gn_apply_kernel"),
+    ("K3", r"gn_slab_kernel|gn_stream_stats_kernel|gn_stream_apply_kernel"),
     ("convs and GEMMs", r"conv|cudnn|implicit|gemm|xmma|cutlass|winograd|fft"),
     ("reductions", r"reduce|Reduce|softmax"),
     ("elementwise", r"elementwise|Elementwise|CatArray|copy|index|where|fill"),

@@ -9,7 +9,9 @@ levels at a small batch, at the LSUN LDM's 32x32 level on its legacy qkv
 views, where the JAX package streams K2b, and at Stable Diffusion's head
 dims 40 / 80 / 160, which the kernels pad; K1c
 / K2c at those head dims and ragged T, and the gradient of ``sdpa`` on the
-route that takes them; K3 at odd group sizes and ragged H * W; K4 (the
+route that takes them; K3 at odd group sizes and ragged H * W, on both of
+its routes (the cluster slab at every cluster size, and the streamed
+pass); K4 (the
 direct 3x3 conv) at aligned, ragged and multi-image-tile shapes through both
 entry points.
 
@@ -373,13 +375,74 @@ def test_groupnorm_kernel_matches_plain_and_is_deterministic(cuda, n, h, w, c, d
 
 @pytest.mark.cuda
 def test_groupnorm_kernel_on_an_unaligned_view(cuda):
-    """A tensor whose storage starts 4 bytes in takes the scalar apply pass."""
+    """A tensor whose storage starts 4 bytes in takes the scalar (vec 1)
+    kernels, which sum in the vector kernels' order: the same bits, on both
+    routes."""
     x, scale, bias = _gn_inputs(2, 5, 5, 224, torch.float32, seed=1)
     flat = torch.empty(x.numel() + 1, device="cuda")
     view = flat[1:].view_as(x).copy_(x)
     assert view.data_ptr() % 16
     got = G.groupnorm_silu(view, scale, bias, groups=32)
     assert torch.equal(got, G.groupnorm_silu(x, scale, bias, groups=32))
+    for cluster in (1, 3):
+        slab = G._slab_route(2, 25, 224, 32, 4, 4, cluster)
+        assert torch.equal(G._launch(view, scale, bias, 32, 1e-5, True, route=slab._replace(vec=1)),
+                           G._launch(x, scale, bias, 32, 1e-5, True, route=slab))
+    stream = G._stream_route(2, 25, 224, 4, 4)
+    assert torch.equal(G._launch(view, scale, bias, 32, 1e-5, True, route=stream._replace(vec=1)),
+                       G._launch(x, scale, bias, 32, 1e-5, True, route=stream))
+
+
+# Both routes of K3 on the same data, and the slab route at every cluster
+# size that holds the slab (1-16, ragged where H * W does not split evenly):
+# (N, H, W, C, groups) at group sizes 4, 6, 7, 8, 14, 21, 49, H * W 1, 63,
+# 1024 and 4096, N = 1, and C = 36 (not a multiple of 8: bf16 takes vec 1).
+# In f32 at 64 x 64 x 224 no cluster holds the slab: the stream route alone.
+GN_ROUTE_CASES = [(2, 32, 32, 128, 32), (2, 7, 9, 192, 32), (1, 64, 64, 224, 32),
+                  (3, 1, 1, 256, 32), (2, 16, 16, 448, 32), (2, 8, 8, 672, 32),
+                  (2, 8, 8, 1568, 32), (2, 5, 7, 36, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,groups", GN_ROUTE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("silu,eps", [(True, 1e-5), (False, 1e-6)], ids=["silu", "no-silu"])
+def test_groupnorm_routes_agree_with_plain_and_are_deterministic(cuda, n, h, w, c, groups,
+                                                                 dtype, silu, eps):
+    dt = getattr(torch, dtype)
+    g = torch.Generator("cuda").manual_seed(c + h)
+    x = (torch.randn(n, h, w, c, generator=g, device="cuda") * 3 + 1
+         + torch.randn(groups, generator=g, device="cuda").repeat_interleave(c // groups)).to(dt)
+    scale = 1 + 0.5 * torch.randn(c, generator=g, device="cuda")
+    bias = torch.randn(c, generator=g, device="cuda")
+    ref = G.reference_groupnorm_silu(x, scale, bias, groups=groups, eps=eps, apply_silu=silu)
+    bound = GN_TOL[dt] * max(1.0, ref.float().abs().max().item())
+    hw, elt, vec = h * w, x.element_size(), G._vec(c, dt)
+    slabs = [G._slab_route(n, hw, c, groups, elt, vec, s) for s in range(1, min(16, hw) + 1)]
+    routes = [r for r in slabs if r is not None] + [G._stream_route(n, hw, c, elt, vec)]
+    assert G.gn_route(n, h, w, c, dt, groups=groups) in routes
+    for route in routes:
+        before = (G.groupnorm_silu.launches, G.groupnorm_silu.kernels)
+        got = G._launch(x, scale, bias, groups, eps, silu, route=route)
+        again = G._launch(x, scale, bias, groups, eps, silu, route=route)
+        torch.cuda.synchronize()
+        assert (G.groupnorm_silu.launches - before[0], G.groupnorm_silu.kernels - before[1]) \
+            == (2, 2 * route.kernels)
+        assert got.dtype == dt and got.shape == x.shape
+        assert (got.float() - ref.float()).abs().max().item() <= bound, route
+        assert torch.equal(got, again), route
+
+
+@pytest.mark.cuda
+def test_groupnorm_refuses_a_route_its_tables_do_not_hold(cuda):
+    """A cluster above 16 blocks, or a shared-memory size that is not the
+    kernel's layout, is refused with an error; nothing runs in its place."""
+    x, scale, bias = _gn_inputs(2, 8, 8, 256, torch.bfloat16, seed=4)
+    good = G._slab_route(2, 64, 256, 32, 2, 8, 4)
+    for bad in (good._replace(cluster=17), good._replace(smem=good.smem + 16),
+                G._stream_route(2, 64, 256, 2, 8)._replace(threads=128)):
+        with pytest.raises(RuntimeError, match="GroupNorm failed"):
+            G._launch(x, scale, bias, 32, 1e-5, True, route=bad)
 
 
 @pytest.mark.cuda

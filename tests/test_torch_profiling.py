@@ -34,10 +34,11 @@ def _ev(name, ts, dur, cat="kernel"):
      "(Args)", "K2c dQ"),
     ("void (anonymous namespace)::flash_bwd_dkv_flat_kernel<float, (int)48, (int)64, (int)64>"
      "(Args)", "K2c dK/dV"),
-    ("void (anonymous namespace)::gn_partial_stats_kernel<__nv_bfloat16>(const T1 *, float *)",
-     "K3"),
-    ("_ZN12_GLOBAL__N_118gn_finalize_kernelEPKfS1_S1_S1_PfS2_iiiiif", "K3"),
-    ("void (anonymous namespace)::gn_apply_kernel<float, (int)4>(const T1 *, const float *)",
+    ("void (anonymous namespace)::gn_slab_kernel<__nv_bfloat16, 8>(__nv_bfloat16 const*, "
+     "float const*, float const*, __nv_bfloat16*, int, int, int, float, int)", "K3"),
+    ("_ZN45_GLOBAL__N__3f4b1bed_12_groupnorm_cu_424dcad322gn_stream_stats_kernelIfLi4EEEvPKT_"
+     "PKfS5_PdS6_PfS7_Pjiiiif", "K3"),
+    ("void (anonymous namespace)::gn_stream_apply_kernel<float, (int)4>(const T1 *, const float *)",
      "K3"),
     ("sm90_xmma_fprop_implicit_gemm_tf32f32_tf32f32_f32_nhwckrsc_nhwc", "convs and GEMMs"),
     ("void at::native::conv_depthwise2d_forward_kernel<1, float, int>", "convs and GEMMs"),
