@@ -8,13 +8,13 @@ Phases, each printing as it goes and then its seconds:
 1. Environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, nvcc, whether triton imports.
 2. Build kernels K1 (flash-attention forward on the tensor cores: bf16,
-   and f32 in 3xTF32), K2 (its backward: f32 in 3xTF32 on the tensor
-   cores, bf16 on the CUDA cores), K1c / K2c (the same on the flat
-   layout), K3 (fused GroupNorm) and K4 (direct 3x3 conv) from ``csrc/``
-   with nvcc, one process per source; print each kernel's registers and
-   spills, and the HMMA (tensor-core) instructions of each bf16 and f32 K1 /
-   K1c instantiation and each f32 K2 / K2c one in the library's SASS
-   (``cuobjdump -sass``): each must have some (f32: HMMA.1688.F32.TF32) and
+   and f32 in 3xTF32), K2 (its backward on the tensor cores: bf16, and f32
+   in 3xTF32), K1c / K2c (the same on the flat layout), K3 (fused
+   GroupNorm) and K4 (direct 3x3 conv) from ``csrc/`` with nvcc, one
+   process per source; print each kernel's registers and spills, and the
+   HMMA (tensor-core) instructions of each bf16 and f32 K1 / K1c and K2 /
+   K2c instantiation in the library's SASS (``cuobjdump -sass``): each must
+   have some (bf16 K2: HMMA.16816.F32.BF16; f32: HMMA.1688.F32.TF32) and
    spill nothing.  At head dims below 128 K1 / K2 stand in for the JAX
    package's packed and streamed twins (K1b, K2p, K2b).
 3. K1 against its plain PyTorch version at the CIFAR-10 path's shapes, on
@@ -43,8 +43,9 @@ Phases, each printing as it goes and then its seconds:
    strided q/k/v views and a non-contiguous dO: max abs error of dq, dk and
    dv against stated tolerances, the times of K2, the plain version and the
    backward of ``F.scaled_dot_product_attention``, and bit-identical results
-   from two runs; each shape's route (``bwd_route``) and the bounds of its
-   dQ and dK/dV kernels, in f32 3xTF32's beside the CUDA cores'.
+   from two runs; each shape's route (``bwd_route``: bf16 on the tensor
+   cores from the qkv rows, f32 in 3xTF32) and the bounds of its dQ and
+   dK/dV kernels, in f32 3xTF32's beside the CUDA cores'.
 7. The gradient of sum(D(x, sigma) * g) with respect to x and sigma through
    the full-width f32 CIFAR-10 EDMPrecond (unit-scale weights, TF32 off),
    with K1 + K2 + K3 against the plain attention and the plain GroupNorm;
@@ -98,9 +99,11 @@ Phases, each printing as it goes and then its seconds:
    the plain version and ``F.group_norm`` (+ ``F.silu``) on the
    channels-last NCHW view, GB/s, and the bound by bytes.
 16. K1 at the LSUN LDM's attention shapes (d=32, 14 / 21 / 28 heads) and K2
-   at K2b's shape (the AMED microbatch, T=1024, 14 heads, f32) and K2p's
-   (T=256, 21 heads), on the legacy qkv views ([B, T, H, 3d], head stride
-   3d) with a non-contiguous dO, as phases 9-10 do.
+   at K2b's shape (the AMED microbatch, T=1024, 14 heads, f32 and bf16) and
+   K2p's (T=256, 21 heads), on the legacy qkv views ([B, T, H, 3d], head
+   stride 3d) with a non-contiguous dO, as phases 9-10 do; then K2 in bf16
+   at the ADM-G classifier's levels on the same views at batch 64 ([64,
+   1024, 4, 64], [64, 256, 8, 64]).
 17. The full-width LSUN-Bedroom LDM U-Net (274M parameters) under its
    CFGPrecond, f32, unit-scale weights, TF32 off, batch 8: D and d sum(D g)
    / d(x, sigma) with K1 + K2 + K3 against the all-plain model (plain
@@ -124,10 +127,10 @@ Phases, each printing as it goes and then its seconds:
    at the f32 AMED microbatch's three K1 levels, K2 at the f32 AMED shapes
    and one bf16, against the plain versions and the library, as phases 9-10.
 22. K1c and K2c (the flat [B*H, T, d] kernels) at SD's f32 64x64 level of
-   the AMED microbatch ([128, 4096, 40]) and a ragged T, against their plain
-   versions at K1's and K2's tolerances, K2c two runs bit-identical, timed
-   in turns against the plain versions, the library and K1 on the same data
-   in the [B, T, H, d] layout.
+   the AMED microbatch ([128, 4096, 40]) and a ragged T, and both in bf16,
+   against their plain versions at K1's and K2's tolerances, K2c two runs
+   bit-identical, timed in turns against the plain versions, the library
+   and K1 on the same data in the [B, T, H, d] layout.
 23. The full-width SD v1.5 U-Net (860M parameters) under its guided
    CFGPrecond (guidance 7.5, a doubled batch of 4), f32, unit-scale weights,
    TF32 off, seeded random contexts: D and d sum(D g) / d(x, sigma) against
@@ -167,7 +170,9 @@ Phases, each printing as it goes and then its seconds:
 
 The last three lines are the card's name and power limit, a JSON object on
 the kernels and ``{"ok": true, "device": {...}}``.  The JSON lists K1 and
-K2 at the CIFAR-10 paths (d=256, launches of phases 5 and 8), K1 and K2 at
+K2 at the CIFAR-10 paths (d=256, launches of phases 5 and 8), K2 in bf16
+at its phase 6 main shape (no path launches it: the launches of phase 6's
+bf16 checks), K1 and K2 at
 the ImageNet-64 paths (d=64, in place of K1b and K2p, launches of phases 12
 and 13), the f32 K1 (3xTF32) at the CIFAR-10, ImageNet-64 and SD AMED
 paths (launches of phases 8, 13 and 25), K2 at the LSUN LDM's T=1024 level (in place of K2b, launches of
@@ -178,7 +183,7 @@ dims (launches of phases 24 and 25), K1c and K2c (launches of phase 25) and
 K4 (launches of its entry points in phase 27), each with its error and
 times at that path's main shape and its bound on this card (the f32
 attention kernels': 3xTF32 on the tensor cores).  Every profile (phases 4,
-5, 13, 14, 20, 23, 26, 28) checks that no attention forward and no f32
+5, 13, 14, 20, 23, 26, 28) checks that no attention forward and no
 attention backward ran on the CUDA cores, that its trace holds every
 kernel of the repo that the wrappers launched in the profiled call (K3's
 one or two a launch, as its wrapper counts them by route), and prints K3's
@@ -337,6 +342,11 @@ LDM_K2_SHAPES = [(LDM_BATCH_GPU, 1024, 14, 32, torch.float32),
                  (LDM_BATCH_GPU, 1024, 14, 32, torch.bfloat16),
                  (LDM_BATCH_GPU, 256, 21, 32, torch.float32),
                  (LDM_BATCH_GPU, 64, 28, 32, torch.float32)]
+# K2 in bf16 at the ADM-G classifier's attention levels (ADMClassifier at
+# 256 px, 4 heads of 64 at 32x32, 8 at 16x16; JAX models/adm.py) on the
+# legacy views at the sampling CLI's batch 64: the shapes of the classifier
+# gradient of bf16 guided sampling, a yardstick for when that tier is ported
+ADMG_K2_SHAPES = [(64, 1024, 4, 64, torch.bfloat16), (64, 256, 8, 64, torch.bfloat16)]
 # (N, H, W, C, dtype, eps, silu) of K3: the LDM U-Net's four levels in bf16 at
 # the sampling batch (the first, with SiLU, is the main shape), the VQ
 # decoder's three levels in f32 at its chunk of 16; CIFAR-10's 32x32 level
@@ -396,9 +406,12 @@ SD_K1_SHAPES = ([(2 * SD_BATCH, t, SD_HEADS, d, torch.bfloat16) for t, d, _ in S
 SD_K2_SHAPES = ([(2 * SD_BATCH_GPU, t, SD_HEADS, d, torch.float32) for t, d, _ in SD_LEVELS[1:]]
                 + [(2 * SD_BATCH_GPU, 1024, SD_HEADS, 80, torch.bfloat16)])
 # (B * H, T, d, dtype) of K1c / K2c: the f32 AMED microbatch's 64x64 level
-# (the main shape) and a ragged T
+# (the main shape) and a ragged T; in bf16 (no path takes the flat kernels
+# in bf16) one guided latent's 64x64 level (2 x 8 heads) and the ragged T
 SD_FLAT_SHAPES = [(2 * SD_BATCH_GPU * SD_HEADS, 4096, 40, torch.float32),
-                  (24, 1000, 40, torch.float32)]
+                  (24, 1000, 40, torch.float32),
+                  (2 * SD_HEADS, 4096, 40, torch.bfloat16),
+                  (24, 1000, 40, torch.bfloat16)]
 
 # K4, the direct 3x3 conv (no JAX path calls it: its entry points are the
 # path).  (N, H, W, Cin, Cout, dtype): CIFAR-10's 32x32 level at the sampling
@@ -642,21 +655,20 @@ def phase_build() -> None:
     # flash_<...>_kernel<dtype, d, ...>, gn_<...>_kernel or conv3x3_<...>, then
     # its registers and spills; hold every K1 / K1c instantiation on the
     # tensor cores (flash_fwd_tc_kernel<padded d, load mode> in bf16,
-    # flash_fwd_tf32[_flat]_kernel<padded d, load mode> in f32) and every f32
-    # K2 / K2c one (flash_bwd_{dq,dkv}_tf32[_flat]_kernel<padded d, load
-    # mode>) to 0 spill bytes and some HMMA in its SASS (f32:
-    # HMMA.1688.F32.TF32)
+    # flash_fwd_tf32[_flat]_kernel<padded d, load mode> in f32) and every K2 /
+    # K2c one (flash_bwd_{dq,dkv}_bf16_kernel<padded d, load mode> in bf16,
+    # flash_bwd_{dq,dkv}_tf32[_flat]_kernel<padded d, load mode> in f32) to 0
+    # spill bytes and some HMMA in its SASS (K2 in bf16: HMMA.16816.F32.BF16;
+    # f32: HMMA.1688.F32.TF32)
     log = _build.build_log or _build.library_path().with_suffix(".log").read_text()
     fwd_re = re.compile(r"(flash_fwd_tc_kernel|flash_fwd_tf32_kernel|flash_fwd_tf32_flat_kernel)"
                         r"ILi(\d+)ELi(\d)EE")
-    bwd32_re = re.compile(r"(flash_bwd_(?:dq|dkv)_tf32(?:_flat)?_kernel)ILi(\d+)ELi(\d)EE")
-    tc, bwd32, current = {}, {}, None
+    bwd_re = re.compile(r"(flash_bwd_(?:dq|dkv)_(?:tf32|bf16)(?:_flat)?_kernel)ILi(\d+)ELi(\d)EE")
+    tc, bwd, current = {}, {}, None
     for line in log.splitlines():
         compiling = "Compiling entry function" in line
         fwd = fwd_re.search(line)
-        b32 = bwd32_re.search(line)
-        bwd = re.search(r"(flash_bwd_(?:dq|dkv)(?:_flat)?_kernel)I(13__nv_bfloat16|f)"
-                        r"((?:Li\d+E)+)E", line)
+        bk = bwd_re.search(line)
         gn = re.search(r"(gn_[a-z_]+_kernel)(I(13__nv_bfloat16|f)((?:Li\d+E)*)E)?", line)
         conv = re.search(r"(conv3x3_(?:bf16|f32)_kernel)ILb([01])E", line)
         if compiling:
@@ -665,14 +677,10 @@ def phase_build() -> None:
             current = (fwd.group(1), int(fwd.group(2)), _LOAD_NAMES[fwd.group(3)])
             tc[current] = {}
             print(f"[build] {_fwd_name(current)}:")
-        elif b32 and compiling:
-            current = (b32.group(1), int(b32.group(2)), _LOAD_NAMES[b32.group(3)])
-            bwd32[current] = {}
-            print(f"[build] {_bwd32_name(current)}:")
-        elif bwd and compiling:
-            dtype = "bf16" if bwd.group(2) != "f" else "f32"
-            ints = re.findall(r"Li(\d+)E", bwd.group(3))
-            print(f"[build] {bwd.group(1)}<{dtype}, padded d={ints[0]}>:")
+        elif bk and compiling:
+            current = (bk.group(1), int(bk.group(2)), _LOAD_NAMES[bk.group(3)])
+            bwd[current] = {}
+            print(f"[build] {_bwd_name(current)}:")
         elif gn and compiling:
             dtype = "bf16" if gn.group(3) == "13__nv_bfloat16" else "f32"
             vec = re.findall(r"Li(\d+)E", gn.group(4) or "")
@@ -683,7 +691,7 @@ def phase_build() -> None:
             print(f"[build]   {line.strip()}")
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             regs = re.search(r"Used (\d+) registers", line)
-            table = bwd32 if current in bwd32 else tc
+            table = bwd if current in bwd else tc
             if spill and current is not None:
                 table[current]["spill"] = int(spill.group(1)) + int(spill.group(2))
             if regs and current is not None:
@@ -700,13 +708,13 @@ def phase_build() -> None:
     hmma, kinds, bwd_kinds = {}, set(), {}
     for name, (n, kind) in _sass_hmma_counts(str(_build.library_path())).items():
         m = fwd_re.search(name)
-        b32 = bwd32_re.search(name)
+        bk = bwd_re.search(name)
         if m:
             hmma[(m.group(1), int(m.group(2)), _LOAD_NAMES[m.group(3)])] = n
             if "tf32" in m.group(1):
                 kinds |= kind
-        elif b32:
-            key = (b32.group(1), int(b32.group(2)), _LOAD_NAMES[b32.group(3)])
+        elif bk:
+            key = (bk.group(1), int(bk.group(2)), _LOAD_NAMES[bk.group(3)])
             hmma[key], bwd_kinds[key] = n, kind
     for key in sorted(tc):
         print(f"[build] {_fwd_name(key)}: {hmma.get(key, 0)} HMMA instructions in its SASS, "
@@ -715,23 +723,26 @@ def phase_build() -> None:
         _check(tc[key].get("spill") == 0, f"K1 {key} spills registers")
     print(f"[build] the f32 kernels' tensor-core instructions: {', '.join(sorted(kinds))}")
     # f32 K2 / K2c: 8 padded dims x the dQ and dK/dV kernels x both layouts
-    # in the element gather, 7 (all but 256) in cp.async
-    _check(len(bwd32) == 60, f"expected 60 f32 tensor-core K2 / K2c instantiations, ptxas "
-           f"compiled {len(bwd32)}")
-    for key in sorted(bwd32, key=lambda k: (k[1], k[0], k[2])):
-        got = bwd32[key]
-        print(f"[build] {_bwd32_name(key)}: {got.get('registers')} registers, "
+    # in the element gather, 7 (all but 256) in cp.async; bf16 K2 / K2c (the
+    # flat layout as one head): 8 padded dims x both kernels x cp.async and
+    # the element gather, 4 x both in the qkv-row gather
+    count = {dtype: sum(1 for key in bwd if dtype in key[0]) for dtype in ("tf32", "bf16")}
+    _check(count == {"tf32": 60, "bf16": 40}, f"expected 60 f32 and 40 bf16 tensor-core K2 / "
+           f"K2c instantiations, ptxas compiled {count}")
+    for key in sorted(bwd, key=lambda k: (k[0].split("_")[3], k[1], k[0], k[2])):
+        got = bwd[key]
+        want = "HMMA.16816.F32.BF16" if "bf16" in key[0] else "HMMA.1688.F32.TF32"
+        print(f"[build] {_bwd_name(key)}: {got.get('registers')} registers, "
               f"{got.get('spill', 'unknown')} spill bytes, {hmma.get(key, 0)} HMMA instructions "
               f"in its SASS ({', '.join(sorted(bwd_kinds.get(key, ())))})")
-        _check("HMMA.1688.F32.TF32" in bwd_kinds.get(key, ()),
-               f"K2 {key} has no HMMA.1688.F32.TF32 instruction")
+        _check(want in bwd_kinds.get(key, ()), f"K2 {key} has no {want} instruction")
         _check(got.get("spill") == 0, f"K2 {key} spills registers")
 
 
-def _bwd32_name(key) -> str:
+def _bwd_name(key) -> str:
     """flash_bwd_dq_tf32_kernel<f32, padded d=64, cp.async> and the like."""
     name, dp, load = key
-    return f"{name}<f32, padded d={dp}, {load}>"
+    return f"{name}<{'bf16' if 'bf16' in name else 'f32'}, padded d={dp}, {load}>"
 
 
 def _fwd_name(key) -> str:
@@ -822,10 +833,13 @@ def _strided_do(b, t, h, d, dtype, g):
 def _k2_checks(tag: str, shapes, views, seed: int) -> dict:
     """K2 against its plain version at ``shapes`` on ``views`` with a
     non-contiguous dO, two runs bit-identical; returns the kernels-line
-    fields of the dQ and dK/dV kernels at the first shape."""
+    fields of the dQ and dK/dV kernels at the first shape ("main") and at the
+    first shape of each dtype (by its name), each kernel's with the launches
+    that the checks of its dtype made here."""
     g = torch.Generator("cuda").manual_seed(seed)
-    main = None
+    mains, launches = {}, {}
     for b, t, h, d, dtype in shapes:
+        before = (A.flash_attention_bwd_dq.launches, A.flash_attention_bwd_dkv.launches)
         q, k, v = views(b, t, h, d, dtype, g)
         do = _strided_do(b, t, h, d, dtype, g)
         scale = d ** -0.5
@@ -841,17 +855,40 @@ def _k2_checks(tag: str, shapes, views, seed: int) -> dict:
         delta = torch.einsum("bthd,bthd->bht", do.float(), out.float()).contiguous()
         times = _backward_times(q, k, v, out, lse, do, do.to(dtype), delta, scale)
         name = str(dtype).replace("torch.", "")
+        route = A.bwd_route(q, k, v, do)
         print(f"[{tag}] B={b} T={t} H={h} d={d} {name}: max abs err dq {errs[0]:.3g} (tol "
               f"{tols[0]:.3g}), dk {errs[1]:.3g} (tol {tols[1]:.3g}), dv {errs[2]:.3g} (tol "
               f"{tols[2]:.3g}); two runs bit-identical: {same}; {_fmt_times(times)}")
-        print(f"[{tag}]   {_bwd_route_text(A.bwd_route(q, k, v, do), times, b, t, h, d, dtype)}")
+        print(f"[{tag}]   {_bwd_route_text(route, times, b, t, h, d, dtype)}")
+        if route.load != "cp_async":  # the same data in views that take cp.async
+            qc, kc, vc, dc = (x.contiguous() for x in (q, k, v, do))
+            got = _turns({"dq": lambda: A.flash_attention_bwd_dq(qc, kc, vc, dc, lse, delta,
+                                                                 scale),
+                          "dkv": lambda: A.flash_attention_bwd_dkv(qc, kc, vc, dc, lse, delta,
+                                                                   scale)}, reps=5)
+            print(f"[{tag}]   K2 on contiguous copies of the same data (cp.async): dQ "
+                  f"{got['dq']:.4f} ms, dK/dV {got['dkv']:.4f} ms; the views' {route.load}: dQ "
+                  f"{times['dq'][0]:.4f}, dK/dV {times['dkv'][0]:.4f}")
+            del qc, kc, vc, dc
         _check(all(e <= tol for e, tol in zip(errs, tols)),
                f"K2 disagrees with the plain version at {(b, t, h, d, name)}")
         _check(same, f"K2 is not deterministic at {(b, t, h, d, name)}")
-        if main is None:  # the first shape is the path's main one
-            main = _backward_main(errs, times, b, t, h, d, dtype)
+        here = (A.flash_attention_bwd_dq.launches - before[0],
+                A.flash_attention_bwd_dkv.launches - before[1])
+        print(f"[{tag}]   launches of this shape's checks and timings: dQ {here[0]}, dK/dV "
+              f"{here[1]}")
+        n = launches.setdefault(name, [0, 0])
+        n[0] += here[0]
+        n[1] += here[1]
+        fields = _backward_main(errs, times, b, t, h, d, dtype)
+        if not mains:  # the first shape is the path's main one
+            mains["main"] = fields
+        if name not in mains:  # and the first of each dtype that dtype's
+            mains[name] = fields
+    for name, (dq, dkv) in launches.items():
+        mains[name]["dq"]["launches"], mains[name]["dkv"]["launches"] = dq, dkv
     torch.cuda.empty_cache()
-    return main
+    return mains
 
 
 def phase_kernel() -> dict:
@@ -1360,8 +1397,8 @@ def _profile(tag: str, fn, want_calls: dict, grad: bool = False) -> dict:
     ``want_calls`` ({category: calls}; for K3 its wrapper's launches, each of
     which runs the CUDA kernels its route names, as the wrapper counts them),
     that no attention forward ran on a CUDA-core kernel (the f32 kernels
-    before 3xTF32) and that no f32 attention backward did (``bwd_route``
-    sends every f32 one to 3xTF32)."""
+    before 3xTF32) and that no attention backward did (``bwd_route`` sends
+    every one to the tensor cores: bf16, and f32 in 3xTF32)."""
     with contextlib.nullcontext() if grad else torch.no_grad():
         fn()  # warm-up
         before, gn_before = _counts(), G.groupnorm_silu.kernels
@@ -1375,8 +1412,8 @@ def _profile(tag: str, fn, want_calls: dict, grad: bool = False) -> dict:
     out = device_breakdown(events)
     cuda_core_fwd = sum(1 for e in events if e.get("cat") == "kernel"
                         and re.search(r"flash_fwd_(flat_)?kernel", e.get("name", "")))
-    cuda_core_bwd32 = sum(1 for e in events if e.get("cat") == "kernel" and re.search(
-        r"flash_bwd_d(q|kv)(_flat)?_kernel(<float|If)", e.get("name", "")))
+    cuda_core_bwd = sum(1 for e in events if e.get("cat") == "kernel" and re.search(
+        r"flash_bwd_d(q|kv)(_flat)?_kernel", e.get("name", "")))
     print(f"[{tag}] under torch.profiler: CUDA events {cuda_ms:.3f} ms, host "
           f"clock {host_s * 1e3:.3f} ms; device time {out['device_ms']:.3f} ms over a span of "
           f"{out['span_ms']:.3f} ms, busy {out['busy_ms']:.3f} ms, idle share "
@@ -1385,8 +1422,8 @@ def _profile(tag: str, fn, want_calls: dict, grad: bool = False) -> dict:
         print(f"[{tag}]   {name:<16} {c['ms']:>10.3f} ms  {c['share']:.4f}  {c['calls']} calls")
     for name, ms in out["top"][:8]:
         print(f"[{tag}]   top {ms:>10.3f} ms  {name[:140]}")
-    print(f"[{tag}]   attention forwards on the CUDA cores: {cuda_core_fwd}, f32 attention "
-          f"backwards on the CUDA cores: {cuda_core_bwd32}")
+    print(f"[{tag}]   attention forwards on the CUDA cores: {cuda_core_fwd}, attention "
+          f"backwards on the CUDA cores: {cuda_core_bwd}")
     print(f"[{tag}]   the repo's kernels in the trace: {ours}, launched by their wrappers: "
           f"{want_ours}; smallest launch-to-start gap {gap_us:.3f} us")
     k3 = out["categories"]["K3"]
@@ -1396,7 +1433,7 @@ def _profile(tag: str, fn, want_calls: dict, grad: bool = False) -> dict:
     _check(ours == want_ours, f"{tag}: the trace holds {ours} of the repo's kernels, its "
            f"wrappers launched {want_ours}")
     _check(cuda_core_fwd == 0, f"{tag}: an attention forward ran on the CUDA cores")
-    _check(cuda_core_bwd32 == 0, f"{tag}: an f32 attention backward ran on the CUDA cores, "
+    _check(cuda_core_bwd == 0, f"{tag}: an attention backward ran on the CUDA cores, "
            f"which bwd_route does not name")
     for cat, calls in want_calls.items():
         if cat == "K3":
@@ -1547,9 +1584,12 @@ def phase_groupnorm_kernel() -> dict:
 
 def phase_ldm_attention_kernels() -> tuple:
     """K1 at the LDM's attention shapes and K2 at K2b's and K2p's, on the
-    legacy views; returns the K2 fields at K2b's shape."""
+    legacy views, and K2 in bf16 at the ADM-G classifier's attention levels
+    on the same views; returns the K2 fields at K2b's shape."""
     _k1_checks("LDM K1", LDM_K1_SHAPES, _legacy_views, seed=8, reps=5, warmup=2)
-    return _k2_checks("LDM K2", LDM_K2_SHAPES, _legacy_views, seed=9)
+    k2b = _k2_checks("LDM K2", LDM_K2_SHAPES, _legacy_views, seed=9)
+    _k2_checks("ADM-G K2", ADMG_K2_SHAPES, _legacy_views, seed=13)
+    return k2b
 
 
 def phase_ldm_denoiser_and_gradient() -> None:
@@ -2321,9 +2361,11 @@ def main() -> int:
         _check(n > 0, f"{name} was not launched on its path")
     print(f"[time] whole run: {time.perf_counter() - t_start:.2f} s")
     print(smi)
-    fwd, fwd32, bwd32 = ("diff_sampler_tpu_torch/csrc/flash_attn_fwd.cu",
-                         "diff_sampler_tpu_torch/csrc/flash_attn_fwd_tf32.cu",
-                         "diff_sampler_tpu_torch/csrc/flash_attn_bwd_tf32.cu")
+    fwd, fwd32, bwd, bwd32 = ("diff_sampler_tpu_torch/csrc/flash_attn_fwd.cu",
+                              "diff_sampler_tpu_torch/csrc/flash_attn_fwd_tf32.cu",
+                              "diff_sampler_tpu_torch/csrc/flash_attn_bwd.cu",
+                              "diff_sampler_tpu_torch/csrc/flash_attn_bwd_tf32.cu")
+    k2_16 = k2["bfloat16"]
     tpu = "diff_sampler_tpu/ops/pallas_attention.py"
     print(json.dumps({"kernels": [
         _kernel_entry("flash_attention_mh (K1, multi-head flash-attention forward)", fwd,
@@ -2332,10 +2374,16 @@ def main() -> int:
                       "AMED path)", fwd32, f"{tpu}:157", amed["k1"], k1["float32"]),
         _kernel_entry("flash_attention_bwd_dq in f32 (K2, flash-attention backward, dQ, in "
                       "3xTF32 on the tensor cores, CIFAR-10 AMED path)", bwd32, f"{tpu}:406",
-                      amed["dq"], k2["dq"]),
+                      amed["dq"], k2["main"]["dq"]),
         _kernel_entry("flash_attention_bwd_dkv in f32 (K2, flash-attention backward, dK/dV, in "
                       "3xTF32 on the tensor cores, CIFAR-10 AMED path)", bwd32, f"{tpu}:554",
-                      amed["dkv"], k2["dkv"]),
+                      amed["dkv"], k2["main"]["dkv"]),
+        _kernel_entry("flash_attention_bwd_dq in bf16 (K2, flash-attention backward, dQ, on the "
+                      "tensor cores; no path launches it: launches of phase 6's bf16 checks)",
+                      bwd, f"{tpu}:406", k2_16["dq"]["launches"], k2_16["dq"]),
+        _kernel_entry("flash_attention_bwd_dkv in bf16 (K2, flash-attention backward, dK/dV, on "
+                      "the tensor cores; no path launches it: launches of phase 6's bf16 checks)",
+                      bwd, f"{tpu}:554", k2_16["dkv"]["launches"], k2_16["dkv"]),
         _kernel_entry("flash_attention_mh at d=64 (K1 in place of K1b, ImageNet-64 path)",
                       fwd, f"{tpu}:227", in64_launches, in64_k1["main"]),
         _kernel_entry("flash_attention_mh in f32 at d=64 (K1 in 3xTF32 in place of K1b, "
@@ -2343,16 +2391,16 @@ def main() -> int:
                       in64_k1["float32"]),
         _kernel_entry("flash_attention_bwd_dq in f32 at d=64 (K2 dQ in 3xTF32 in place of "
                       "K2p, ImageNet-64 AMED path)", bwd32, f"{tpu}:441", in64_amed["dq"],
-                      in64_k2["dq"]),
+                      in64_k2["main"]["dq"]),
         _kernel_entry("flash_attention_bwd_dkv in f32 at d=64 (K2 dK/dV in 3xTF32 in place of "
                       "K2p, ImageNet-64 AMED path)", bwd32, f"{tpu}:491", in64_amed["dkv"],
-                      in64_k2["dkv"]),
+                      in64_k2["main"]["dkv"]),
         _kernel_entry("flash_attention_bwd_dq in f32 at T=1024 H=14 d=32 (K2 dQ in 3xTF32 in "
                       "place of K2b, LSUN LDM AMED path)", bwd32, f"{tpu}:699",
-                      k2b_launches["dq"], k2b["dq"]),
+                      k2b_launches["dq"], k2b["main"]["dq"]),
         _kernel_entry("flash_attention_bwd_dkv in f32 at T=1024 H=14 d=32 (K2 dK/dV in 3xTF32 "
                       "in place of K2b, LSUN LDM AMED path)", bwd32, f"{tpu}:757",
-                      k2b_launches["dkv"], k2b["dkv"]),
+                      k2b_launches["dkv"], k2b["main"]["dkv"]),
         *(_kernel_entry(f"groupnorm_silu (K3, fused GroupNorm + affine + SiLU, {label} path, "
                         f"route {k3[label]['route']})", "diff_sampler_tpu_torch/csrc/groupnorm.cu",
                         "diff_sampler_tpu/ops/pallas_groupnorm.py:29", n, k3[label])
@@ -2365,10 +2413,10 @@ def main() -> int:
                       "SD f32 AMED path)", fwd32, f"{tpu}:157", sd_amed["k1"], sd_k1["float32"]),
         _kernel_entry("flash_attention_bwd_dq in f32 at d=80/160 (K2 dQ in 3xTF32 at the SD "
                       "head dims, SD f32 AMED path)", bwd32, f"{tpu}:406", sd_amed["dq"],
-                      sd_k2["dq"]),
+                      sd_k2["main"]["dq"]),
         _kernel_entry("flash_attention_bwd_dkv in f32 at d=80/160 (K2 dK/dV in 3xTF32 at the "
                       "SD head dims, SD f32 AMED path)", bwd32, f"{tpu}:554", sd_amed["dkv"],
-                      sd_k2["dkv"]),
+                      sd_k2["main"]["dkv"]),
         _kernel_entry("flash_attention (K1c, flat flash-attention forward in 3xTF32, SD f32 "
                       "AMED path)", fwd32, f"{tpu}:49", sd_amed["k1c"], sd_k1c),
         _kernel_entry("flash_attention_flat_bwd_dq (K2c, flat flash-attention backward, dQ, "

@@ -106,26 +106,17 @@ def _declare(lib) -> None:
     lib.dst_flash_attn_fwd_tf32.restype = i
     lib.dst_flash_attn_fwd_tf32_flat.argtypes = lib.dst_flash_attn_fwd_flat.argtypes
     lib.dst_flash_attn_fwd_tf32_flat.restype = i
-    # q, k, v, dO, lse, delta, then dq (or dk, dv); B, T, H, d; 16 strides
-    lib.dst_flash_attn_bwd_dq.argtypes = [p] * 7 + [i] * 4 + [ll] * 16 + [ctypes.c_float, i, p]
-    lib.dst_flash_attn_bwd_dq.restype = i
-    lib.dst_flash_attn_bwd_dkv.argtypes = [p] * 8 + [i] * 4 + [ll] * 16 + [ctypes.c_float, i, p]
-    lib.dst_flash_attn_bwd_dkv.restype = i
-    # the flat layout: the same pointers; B, T, d; 12 strides
-    lib.dst_flash_attn_bwd_dq_flat.argtypes = ([p] * 7 + [i] * 3 + [ll] * 12
-                                               + [ctypes.c_float, i, p])
-    lib.dst_flash_attn_bwd_dq_flat.restype = i
-    lib.dst_flash_attn_bwd_dkv_flat.argtypes = ([p] * 8 + [i] * 3 + [ll] * 12
-                                                + [ctypes.c_float, i, p])
-    lib.dst_flash_attn_bwd_dkv_flat.restype = i
-    # the f32 backward's entries (3xTF32): the same arguments, then the
-    # route (padded d, load mode, block rows, tile rows) before the stream
-    for kernel in ("dq", "dkv"):
-        for layout in ("", "_flat"):
-            entry = getattr(lib, f"dst_flash_attn_bwd_{kernel}_tf32{layout}")
-            entry.argtypes = (getattr(lib, f"dst_flash_attn_bwd_{kernel}{layout}").argtypes[:-2]
-                              + [i] * 5 + [p])
-            entry.restype = i
+    # the backward, bf16 and f32 (_tf32) alike: q, k, v, dO, lse, delta, then
+    # dq (or dk, dv); B, T, H, d (the flat layout: B, T, d); 16 strides (flat:
+    # 12); scale, dtype; the route (padded d, load mode, block rows, tile
+    # rows); stream
+    for kernel, outs in (("dq", 1), ("dkv", 2)):
+        for layout, dims in (("", 4), ("_flat", 3)):
+            for dtype in ("", "_tf32"):
+                entry = getattr(lib, f"dst_flash_attn_bwd_{kernel}{dtype}{layout}")
+                entry.argtypes = ([p] * (6 + outs) + [i] * dims + [ll] * (4 * dims)
+                                  + [ctypes.c_float] + [i] * 5 + [p])
+                entry.restype = i
     # x, scale, bias, out, scratch, arrivals; n, hw, c, groups; eps; silu, vec,
     # dtype, then the route (kind, cluster, threads, rows, smem)
     lib.dst_groupnorm_silu.argtypes = [p] * 6 + [i] * 4 + [ctypes.c_float] + [i] * 8 + [p]

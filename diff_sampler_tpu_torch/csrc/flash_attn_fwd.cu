@@ -124,11 +124,6 @@ struct Tc {
 };
 
 
-__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {  // round to nearest even
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // cp.async copies of rows [t0, t0 + R) of x into a tile of R rows, 16 bytes
 // each; rows >= seq_len and columns >= d are zero-filled.  This thread's
 // copies and their offsets are worked out once, for every tile.
@@ -232,12 +227,7 @@ struct SpanTile {
       uint4 ko = make_uint4(0, 0, 0, 0), vo = ko;
       if (real) {
         const uint4* p = reinterpret_cast<const uint4*>(stage + r * kRaw + 3 * col);
-        const uint4 a = p[0], b = p[1], c = p[2];
-        // 16-bit positions: q at 3 j, k at 3 j + 1, v at 3 j + 2, j < 8
-        ko = make_uint4(__byte_perm(a.x, a.z, 0x5432), __byte_perm(a.w, b.y, 0x5432),
-                        __byte_perm(b.z, c.x, 0x5432), __byte_perm(c.y, c.w, 0x5432));
-        vo = make_uint4(__byte_perm(a.y, a.z, 0x7610), __byte_perm(b.x, b.y, 0x7610),
-                        __byte_perm(b.w, c.x, 0x7610), __byte_perm(c.z, c.w, 0x7610));
+        split_unit_kv(p[0], p[1], p[2], ko, vo);
       }
       *reinterpret_cast<uint4*>(tk + r * Tc<DP>::kStride + col) = ko;
       *reinterpret_cast<uint4*>(tv + r * Tc<DP>::kStride + col) = vo;
@@ -253,20 +243,14 @@ struct SpanTile {
       uint4 qo = make_uint4(0, 0, 0, 0);
       if (col < d) {
         const uint4* p = reinterpret_cast<const uint4*>(stage + r * kRaw + 3 * col);
-        const uint4 a = p[0], b = p[1], c = p[2];
-        qo = make_uint4(__byte_perm(a.x, a.y, 0x7610), __byte_perm(a.w, b.x, 0x7610),
-                        __byte_perm(b.z, b.w, 0x7610), __byte_perm(c.y, c.z, 0x7610));
+        qo = split_unit_q(p[0], p[1], p[2]);
       }
       *reinterpret_cast<uint4*>(tq + r * Tc<DP>::kStride + col) = qo;
     }
   }
 };
 
-// The span mode's head dims, and the other modes' stand-in for SpanTile.
-__host__ __device__ constexpr bool span_dim(int dp) {
-  return dp == 32 || dp == 64 || dp == 128 || dp == 256;
-}
-
+// The other modes' stand-in for SpanTile.
 struct NoSpan {
   __device__ __forceinline__ NoSpan(long long, int) {}
   __device__ __forceinline__ void copy(bf16*, const bf16*, long long, int, int) const {}

@@ -2,8 +2,9 @@
 // in bf16; flash_attn_fwd_tf32.cu: K1 in f32): the view and route structs,
 // the online softmax on mma accumulators, and the checks of the load modes'
 // rules, which the entry points repeat because a misaligned cp.async faults.
-// The f32 backward (flash_attn_bwd_tf32.cu) takes the views, the route, the
-// load modes, ex2 and the 16-byte check from here too.
+// The backward kernels (flash_attn_bwd.cu: K2 in bf16; flash_attn_bwd_tf32.cu:
+// K2 in f32) take the views, the route, the load modes, ex2 and the checks
+// from here too, and the bf16 backward the span mode's unit split.
 
 #pragma once
 
@@ -136,9 +137,10 @@ bool aligned16(const void* p, const Strides& s, const A& a) {
 // interleaved (c, qkv) rows, which the span mode reads 16 bytes at a time:
 // element stride 3, k one element past q and v one past k, the same strides,
 // and each row's start (q) and its strides 16-byte aligned.  The route's
-// rule, checked again here.
-template <typename T>
-bool qkv_span(const Args& a) {
+// rule, checked again here.  A: the forward's Args or the bf16 backward's
+// BwdArgs (q, k, v as void pointers, their strides, batch and num_heads).
+template <typename T, typename A>
+bool qkv_span(const A& a) {
   constexpr long long vec = 16 / sizeof(T);
   const char *q = static_cast<const char*>(a.q), *k = static_cast<const char*>(a.k),
              *v = static_cast<const char*>(a.v);
@@ -149,6 +151,29 @@ bool qkv_span(const Args& a) {
   return sq.e == 3 && same(sq, sk) && same(sq, sv) && k == q + sizeof(T) &&
          v == k + sizeof(T) && reinterpret_cast<uintptr_t>(q) % 16 == 0 && sq.t % vec == 0 &&
          (a.batch == 1 || sq.b % vec == 0) && (a.num_heads <= 1 || sq.h % vec == 0);
+}
+
+// The padded head dims whose rows split into whole groups of 32 units of 8
+// bf16 columns: the span mode's (SpanTile in flash_attn_fwd.cu, Span in
+// flash_attn_bwd.cu).
+__host__ __device__ constexpr bool span_dim(int dp) {
+  return dp == 32 || dp == 64 || dp == 128 || dp == 256;
+}
+
+// One unit of the span mode: 8 columns of one interleaved (c, qkv) row of
+// bf16, 48 bytes read as a, b, c (16-bit positions: q at 3 j, k at 3 j + 1,
+// v at 3 j + 2, j < 8), split by byte permutes into the unit's 8 columns of
+// k and v, or of q.
+__device__ __forceinline__ void split_unit_kv(const uint4& a, const uint4& b, const uint4& c,
+                                              uint4& k, uint4& v) {
+  k = make_uint4(__byte_perm(a.x, a.z, 0x5432), __byte_perm(a.w, b.y, 0x5432),
+                 __byte_perm(b.z, c.x, 0x5432), __byte_perm(c.y, c.w, 0x5432));
+  v = make_uint4(__byte_perm(a.y, a.z, 0x7610), __byte_perm(b.x, b.y, 0x7610),
+                 __byte_perm(b.w, c.x, 0x7610), __byte_perm(c.z, c.w, 0x7610));
+}
+__device__ __forceinline__ uint4 split_unit_q(const uint4& a, const uint4& b, const uint4& c) {
+  return make_uint4(__byte_perm(a.x, a.y, 0x7610), __byte_perm(a.w, b.x, 0x7610),
+                    __byte_perm(b.z, b.w, 0x7610), __byte_perm(c.y, c.z, 0x7610));
 }
 
 }  // namespace

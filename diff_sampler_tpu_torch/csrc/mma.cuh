@@ -1,7 +1,9 @@
 // Tensor-core building blocks for sm_90a shared by the kernels that use
-// them (conv3x3.cu: K4; flash_attn_fwd.cu: K1 in bf16; flash_attn_fwd_tf32.cu:
-// K1 in f32): cp.async copies (16 and 4 bytes), ldmatrix fragment loads, the mma.sync m16n8k16
-// bf16 product and the m16n8k8 TF32 product, both with f32 accumulators.
+// them (conv3x3.cu: K4; flash_attn_fwd.cu / flash_attn_bwd.cu: K1 / K2 in
+// bf16; flash_attn_fwd_tf32.cu / flash_attn_bwd_tf32.cu: K1 / K2 in f32):
+// cp.async copies (16 and 4 bytes), ldmatrix fragment loads, the mma.sync
+// m16n8k16 bf16 product and the m16n8k8 TF32 product, both with f32
+// accumulators.
 //
 // Fragment layouts of mma.m16n8k16.row.col (g = lane / 4, t = lane % 4):
 //   A 16x16: a0 (row g, cols 2t, 2t+1), a1 (row g+8, same cols),
@@ -67,6 +69,13 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// two f32 values rounded to nearest even, as one bf16x2 register (lo in
+// the low half)
+__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {

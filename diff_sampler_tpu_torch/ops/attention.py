@@ -6,8 +6,8 @@ K1 and K1c (forward) and K2 and K2c (backward), and the route between them.
 replaces ``diff_sampler_tpu/ops/pallas_attention.py::_attn_kernel_mh`` and,
 at head dims below 128, its packed twin ``_attn_kernel_mh_packed`` (K1b).
 ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv`` (K2) wrap the
-kernels of ``csrc/flash_attn_bwd_tf32.cu`` (f32) and ``csrc/flash_attn_bwd.cu``
-(bf16), which replace ``_bwd_dq_kernel_mh``, ``_bwd_dkv_kernel_mh`` and
+kernels of ``csrc/flash_attn_bwd.cu`` (bf16) and ``csrc/flash_attn_bwd_tf32.cu``
+(f32), which replace ``_bwd_dq_kernel_mh``, ``_bwd_dkv_kernel_mh`` and
 their packed and streamed twins (K2p, K2b).  The
 TPU packs 128 // d heads into one matmul to fill the MXU's lanes; here every
 head dim takes one head per block.
@@ -29,8 +29,10 @@ bf16 in ``csrc/flash_attn_fwd.cu``, f32 in 3xTF32 in
 ``csrc/flash_attn_fwd_tf32.cu``), with 16-byte cp.async copies where the
 views allow them and a gather elsewhere, 16 bytes at a time from the
 interleaved qkv rows.  ``bwd_route`` picks the backward kernels of a call:
-f32 on the tensor cores in 3xTF32 (``csrc/flash_attn_bwd_tf32.cu``), bf16 on
-the CUDA cores (``csrc/flash_attn_bwd.cu``).
+both dtypes on the tensor cores (bf16 in ``csrc/flash_attn_bwd.cu``, f32 in
+3xTF32 in ``csrc/flash_attn_bwd_tf32.cu``), with cp.async where the four
+views allow it, in bf16 from the interleaved qkv rows, and the element
+gather elsewhere.
 
 ``sdpa`` is differentiable: it runs the ``torch.autograd.Function``
 ``_FlashAttentionMH`` (K1 forward, K2 backward; the JAX
@@ -53,7 +55,7 @@ import torch
 
 from .. import _build
 
-__all__ = ["CC_BWD_PADDED_DIMS", "MAX_HEAD_DIM", "TC_PADDED_DIMS", "TF32_PADDED_DIMS",
+__all__ = ["MAX_HEAD_DIM", "TC_PADDED_DIMS", "TF32_PADDED_DIMS",
            "BwdRoute", "FwdRoute", "bwd_route", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_flat_bwd_dkv", "flash_attention_flat_bwd_dq",
@@ -73,10 +75,11 @@ def supports_head_dim(d: int) -> bool:
     return d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
 
 
-# The padded head dims the forward kernels are built for: the bf16 kernel
-# (``csrc/flash_attn_fwd.cu``) contracts Q K^T in k-steps of 16, the f32
-# kernel (``csrc/flash_attn_fwd_tf32.cu``, 3xTF32) in k-steps of 8.  A call
-# takes the smallest that holds its d.
+# The padded head dims the attention kernels are built for: the bf16
+# kernels (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``) contract
+# over d in k-steps of 16, the f32 kernels (``csrc/flash_attn_fwd_tf32.cu``,
+# ``csrc/flash_attn_bwd_tf32.cu``, 3xTF32) in k-steps of 8.  A call takes the
+# smallest that holds its d.
 TC_PADDED_DIMS = (16, 32, 48, 64, 80, 128, 160, 256)
 TF32_PADDED_DIMS = (16, 32, 40, 64, 80, 128, 160, 256)
 _LOAD_CODES = {"cp_async": 1, "gather": 2, "qkv_span": 3}
@@ -164,13 +167,10 @@ def fwd_route(q, k, v) -> FwdRoute:
     return FwdRoute(kernel, padded, "gather", span, block_q, block_k, warps)
 
 
-# The padded head dims of the bf16 backward on the CUDA cores
-# (``csrc/flash_attn_bwd.cu``, columns in 16 groups); the f32 backward
-# (``csrc/flash_attn_bwd_tf32.cu``, 3xTF32) takes ``TF32_PADDED_DIMS``.
-CC_BWD_PADDED_DIMS = (32, 48, 64, 80, 128, 160, 256)
 # the C entries of each (kernel, layout): (dQ, dK/dV)
-_BWD_ENTRIES = {("cuda_cores", 4): ("dst_flash_attn_bwd_dq", "dst_flash_attn_bwd_dkv"),
-                ("cuda_cores", 3): ("dst_flash_attn_bwd_dq_flat", "dst_flash_attn_bwd_dkv_flat"),
+_BWD_ENTRIES = {("tensor_cores", 4): ("dst_flash_attn_bwd_dq", "dst_flash_attn_bwd_dkv"),
+                ("tensor_cores", 3): ("dst_flash_attn_bwd_dq_flat",
+                                      "dst_flash_attn_bwd_dkv_flat"),
                 ("tensor_cores_3xtf32", 4): ("dst_flash_attn_bwd_dq_tf32",
                                              "dst_flash_attn_bwd_dkv_tf32"),
                 ("tensor_cores_3xtf32", 3): ("dst_flash_attn_bwd_dq_tf32_flat",
@@ -179,13 +179,15 @@ _BWD_ENTRIES = {("cuda_cores", 4): ("dst_flash_attn_bwd_dq", "dst_flash_attn_bwd
 
 class BwdRoute(NamedTuple):
     """The backward kernels a call takes (its dQ and dK/dV kernels share
-    one route): ``kernel`` "tensor_cores_3xtf32" (f32, mma.sync m16n8k8 in
-    3xTF32) or "cuda_cores" (bf16, f32 FMAs); ``load`` "cp_async" (16-byte
+    one route): ``kernel`` "tensor_cores" (bf16, mma.sync m16n8k16) or
+    "tensor_cores_3xtf32" (f32, mma.sync m16n8k8 in 3xTF32); ``load``
+    "cp_async" (16-byte copies), "qkv_span" (bf16: q, k, v 16 bytes at a
+    time from the interleaved rows of one qkv projection, dO with 16-byte
     copies) or "gather" (element loads of any view); ``block_rows`` the rows
-    a block owns (queries in
-    the dQ kernel, keys in the dK/dV kernel), ``tile_rows`` the rows of the
-    other side per streamed tile, ``warps`` per block and ``split_d`` the
-    warps that share one 16-row m-tile, each over a part of d."""
+    a block owns (queries in the dQ kernel, keys in the dK/dV kernel),
+    ``tile_rows`` the rows of the other side per streamed tile, ``warps``
+    per block and ``split_d`` the warps that share one 16-row m-tile, each
+    over a part of d."""
     kernel: str
     padded_d: int
     load: str
@@ -197,25 +199,38 @@ class BwdRoute(NamedTuple):
 
 def bwd_route(q, k, v, do) -> BwdRoute:
     """The backward kernels and their settings for q, k, v and dO (one
-    dtype, a head dim that ``supports_head_dim``, [B, T, H, d] or flat):
-    f32 on the tensor cores in 3xTF32, with cp.async where all four views
-    take 16-byte copies and the padded d is at most 160, the element gather
-    elsewhere; bf16 on the CUDA cores with element loads.  The tables mirror ``Bt`` in
-    ``csrc/flash_attn_bwd_tf32.cu`` and ``Tiles`` in
-    ``csrc/flash_attn_bwd.cu``; the f32 entries refuse any other route."""
+    dtype, a head dim that ``supports_head_dim``, [B, T, H, d] or flat),
+    both on the tensor cores, 8 warps a block, two warps sharing an m-tile
+    over halves of d from padded d 128: bf16 (mma.sync m16n8k16) with
+    cp.async where all four views take 16-byte copies, from the qkv rows
+    where q, k, v are one projection's interleaved views (multi-head layout,
+    the span's padded dims) and dO takes 16-byte copies, the element gather
+    elsewhere; f32 in 3xTF32 with cp.async where all four views take 16-byte
+    copies and the padded d is at most 160, the element gather elsewhere.
+    The tables mirror ``Bb`` in ``csrc/flash_attn_bwd.cu`` and ``Bt`` in
+    ``csrc/flash_attn_bwd_tf32.cu``, whose entries refuse any other route."""
     d = q.shape[-1]
-    if q.dtype == torch.float32:
-        padded = next(p for p in TF32_PADDED_DIMS if p >= d)
-        split = 2 if padded >= 128 else 1
-        tile = 64 if padded <= 40 else 32 if padded <= 64 else 16
-        copies16 = padded <= 160 and all(_copies16(x) for x in (q, k, v, do))
-        load = "cp_async" if copies16 else "gather"
-        return BwdRoute("tensor_cores_3xtf32", padded, load, 16 * 8 // split, tile, 8, split)
+    copies16 = all(_copies16(x) for x in (q, k, v, do))
     if q.dtype == torch.bfloat16:
-        padded = next(p for p in CC_BWD_PADDED_DIMS if p >= d)
-        tile = 32 if padded >= 256 else 64
-        return BwdRoute("cuda_cores", padded, "gather", tile, tile, 8, 1)
-    raise TypeError(f"no backward kernel for {q.dtype}")
+        kernel = "tensor_cores"
+        padded = next(p for p in TC_PADDED_DIMS if p >= d)
+        tile = 64 if padded <= 64 else 32
+        if copies16:
+            load = "cp_async"
+        elif (q.dim() == 4 and padded in _SPAN_DIMS[q.dtype] and _qkv_span(q, k, v)
+              and _copies16(do)):
+            load = "qkv_span"
+        else:
+            load = "gather"
+    elif q.dtype == torch.float32:
+        kernel = "tensor_cores_3xtf32"
+        padded = next(p for p in TF32_PADDED_DIMS if p >= d)
+        tile = 64 if padded <= 40 else 32 if padded <= 64 else 16
+        load = "cp_async" if copies16 and padded <= 160 else "gather"
+    else:
+        raise TypeError(f"no backward kernel for {q.dtype}")
+    split = 2 if padded >= 128 else 1
+    return BwdRoute(kernel, padded, load, 16 * 8 // split, tile, 8, split)
 
 
 # The JAX ``sdpa`` takes its flat kernel (``flash_attention``) where the
@@ -344,11 +359,12 @@ def _delta(out, do):
     return torch.einsum("bthd,bthd->bht", do.float(), out.float()).contiguous()
 
 
-def _bwd_launch(what, outs, q, k, v, do, lse, delta, scale):
+def _bwd_launch(what, outs, q, k, v, do, lse, delta, scale, route=None):
     """Checks the inputs of a K2 kernel ([B, T, H, d], lse and delta [B, H,
     T]) or a K2c kernel ([B, T, d], lse and delta [B, T]) and launches the
-    kernel of ``bwd_route`` into ``outs`` (dq: the dQ kernel; dk, dv: the
-    dK/dV kernel); returns whether it launched (not for an empty batch)."""
+    kernel of ``bwd_route`` (or of ``route``, which the card tests force)
+    into ``outs`` (dq: the dQ kernel; dk, dv: the dK/dV kernel); returns
+    whether it launched (not for an empty batch)."""
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     _check(q, k, v, q.dim())
@@ -364,11 +380,8 @@ def _bwd_launch(what, outs, q, k, v, do, lse, delta, scale):
         raise ValueError("the backward's tensors lie on different devices")
     if not outs[0].numel():
         return False
-    route = bwd_route(q, k, v, do)
+    route = route or bwd_route(q, k, v, do)
     entry = _BWD_ENTRIES[route.kernel, q.dim()][len(outs) - 1]
-    tf32 = route.kernel == "tensor_cores_3xtf32"
-    settings = ((route.padded_d, _LOAD_CODES[route.load], route.block_rows, route.tile_rows)
-                if tf32 else ())
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -376,7 +389,7 @@ def _bwd_launch(what, outs, q, k, v, do, lse, delta, scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), *(o.data_ptr() for o in outs), *q.shape, *q.stride(),
             *k.stride(), *v.stride(), *do.stride(), float(scale), _DTYPE_CODES[q.dtype],
-            *settings, stream)
+            route.padded_d, _LOAD_CODES[route.load], route.block_rows, route.tile_rows, stream)
     _build.check(lib, err, what)
     return True
 

@@ -23,8 +23,9 @@ __all__ = ["CATEGORIES", "Timer", "device_breakdown"]
 # kernel's flat entry flash_fwd_tf32_flat_kernel, while bf16 K1c runs as
 # flash_fwd_tc_kernel; the names of the earlier f32 kernels on the CUDA
 # cores, flash_fwd_kernel and flash_fwd_flat_kernel, file the same way; K2 /
-# K2c: flash_bwd_{dq,dkv}[_flat]_kernel on the CUDA cores in bf16 and
-# flash_bwd_{dq,dkv}_tf32[_flat]_kernel in f32 on the tensor cores; K3: the
+# K2c: flash_bwd_{dq,dkv}_bf16_kernel in bf16 (K2c as one head, so under K2)
+# and flash_bwd_{dq,dkv}_tf32[_flat]_kernel in f32, both on the tensor cores,
+# and the earlier CUDA-core names flash_bwd_{dq,dkv}[_flat]_kernel; K3: the
 # one-kernel cluster slab gn_slab_kernel, or the streamed pass's
 # gn_stream_stats_kernel and gn_stream_apply_kernel), then
 # cuDNN / cuBLAS / CUTLASS GEMM and conv kernels, PyTorch's reductions, then
@@ -34,8 +35,8 @@ CATEGORIES = [
     ("K2c dQ", r"flash_bwd_dq_(tf32_)?flat_kernel"),
     ("K2c dK/dV", r"flash_bwd_dkv_(tf32_)?flat_kernel"),
     ("K1", r"flash_fwd_(tc_|tf32_)?kernel"),
-    ("K2 dQ", r"flash_bwd_dq_(tf32_)?kernel"),
-    ("K2 dK/dV", r"flash_bwd_dkv_(tf32_)?kernel"),
+    ("K2 dQ", r"flash_bwd_dq_(tf32_|bf16_)?kernel"),
+    ("K2 dK/dV", r"flash_bwd_dkv_(tf32_|bf16_)?kernel"),
     ("K3", r"gn_slab_kernel|gn_stream_stats_kernel|gn_stream_apply_kernel"),
     ("convs and GEMMs", r"conv|cudnn|implicit|gemm|xmma|cutlass|winograd|fft"),
     ("reductions", r"reduce|Reduce|softmax"),

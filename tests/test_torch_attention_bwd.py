@@ -11,6 +11,14 @@ tests/test_pallas.py does; and against torch autograd through
 tests/test_pallas.py holds the JAX kernels to).  The CUDA kernels
 themselves are checked on the card by tests/test_torch_kernels_cuda.py and
 ``chip_smoke.py``.
+
+The plain bf16 backward, the card's yardstick for the bf16 kernels, is held
+against the JAX Pallas backward in bf16 in interpret mode on the same
+seeded inputs rounded to bf16, also on the legacy [B, T, H, 3d] views of
+the ADM classifier's attention (d=64, at a small T): within 2^-6 of
+max|grad|, the card's bf16 gate, since both round P, dS and the grads to
+bf16 from f32 values that differ in the last bits (the JAX forward's lse,
+another order of the sums).
 """
 
 import jax
@@ -23,6 +31,13 @@ from diff_sampler_tpu.ops import pallas_attention as PA
 from diff_sampler_tpu_torch.ops import attention as A
 
 SHAPES = [(2, 64, 1, 256), (2, 128, 2, 64), (2, 200, 2, 64)]  # (B, T, H, d); T=200 ragged
+# (B, T, H, d, dtype, layout) of the JAX parity test: every shape in f32 and
+# bf16, and the ADM classifier's legacy views (4 heads of 64) in bf16
+JAX_CASES = ([(*s, "float32", "separate") for s in SHAPES]
+             + [(*s, "bfloat16", "separate") for s in SHAPES]
+             + [(2, 64, 4, 64, "bfloat16", "legacy")])
+JAX_IDS = ["-".join(map(str, c[:4])) + ("" if c[4] == "float32" else "-bf16")
+           + ("-legacy" if c[5] == "legacy" else "") for c in JAX_CASES]
 
 
 def _inputs(b, t, h, d, seed):
@@ -38,8 +53,9 @@ def _plain_grads(q, k, v, cot):
     return A.reference_sdpa_bwd(qt, kt, vt, out, lse, ct, scale)
 
 
-@pytest.mark.parametrize("b,t,h,d", SHAPES)
-def test_plain_backward_matches_jax_native_flash_backward(b, t, h, d, monkeypatch):
+@pytest.mark.parametrize("b,t,h,d,dtype,layout", JAX_CASES, ids=JAX_IDS)
+def test_plain_backward_matches_jax_native_flash_backward(b, t, h, d, dtype, layout,
+                                                          monkeypatch):
     monkeypatch.setattr(PA, "_FLASH_BWD_MIN_LOGITS_BYTES", 0)
     used = {}
     real = PA._flash_bwd_mh
@@ -51,13 +67,37 @@ def test_plain_backward_matches_jax_native_flash_backward(b, t, h, d, monkeypatc
     monkeypatch.setattr(PA, "_flash_bwd_mh", spy)
     q, k, v, cot = _inputs(b, t, h, d, seed=0)
     scale = float(d ** -0.5)
-    c = jnp.asarray(cot)
-    want = jax.grad(lambda *a: (PA.flash_attention_mh(*a, scale, True) * c).sum(),
-                    argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    if dtype == "float32":
+        c = jnp.asarray(cot)
+        want = jax.grad(lambda *a: (PA.flash_attention_mh(*a, scale, True) * c).sum(),
+                        argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+        assert used.get("native"), "the JAX native mh backward was not dispatched"
+        for name, got, ref in zip("qkv", _plain_grads(q, k, v, cot), want):
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-3, atol=1e-4,
+                                       err_msg=f"d{name}")
+        return
+    # bf16: one [B, T, H, 3d] array whose slices are q, k, v (the legacy
+    # views), or three arrays
+    parts = np.concatenate([q, k, v], axis=-1)
+    pj = jnp.asarray(parts, jnp.bfloat16)
+    c = jnp.asarray(cot, jnp.bfloat16).astype(jnp.float32)
+    want = jax.grad(lambda *a: (PA.flash_attention_mh(*a, scale, True).astype(jnp.float32)
+                                * c).sum(), argnums=(0, 1, 2))(
+        pj[..., :d], pj[..., d:2 * d], pj[..., 2 * d:])
     assert used.get("native"), "the JAX native mh backward was not dispatched"
-    for name, got, ref in zip("qkv", _plain_grads(q, k, v, cot), want):
-        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-3, atol=1e-4,
-                                   err_msg=f"d{name}")
+    pt = torch.from_numpy(parts).bfloat16()
+    if layout == "legacy":
+        qt, kt, vt = pt[..., :d], pt[..., d:2 * d], pt[..., 2 * d:]
+        assert qt.stride() == (t * h * 3 * d, h * 3 * d, 3 * d, 1)
+    else:
+        qt, kt, vt = (x.contiguous() for x in (pt[..., :d], pt[..., d:2 * d], pt[..., 2 * d:]))
+    out, lse = A.reference_sdpa(qt, kt, vt, scale)
+    got = A.reference_sdpa_bwd(qt, kt, vt, out, lse, torch.from_numpy(cot).bfloat16(), scale)
+    for name, x, ref in zip("qkv", got, want):
+        ref = np.asarray(ref.astype(jnp.float32))
+        assert x.dtype == torch.bfloat16
+        err = np.abs(x.float().numpy() - ref).max()
+        assert err <= 2.0 ** -6 * np.abs(ref).max(), f"d{name}: {err}"
 
 
 @pytest.mark.parametrize("b,t,h,d", SHAPES)

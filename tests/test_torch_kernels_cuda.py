@@ -1,7 +1,7 @@
 """Kernels K1 (the CUDA flash-attention forward on the tensor cores: bf16,
 and f32 in 3xTF32, each checked on every padded width and view layout), K2
-(its backward; f32 on the tensor cores in 3xTF32, each width and view
-layout), K1c and K2c (the same on the flat layout) and K3 (the fused
+(its backward on the tensor cores: bf16, and f32 in 3xTF32, each width and
+view layout), K1c and K2c (the same on the flat layout) and K3 (the fused
 GroupNorm) against their plain versions, on the card: K1 / K2 at the
 CIFAR-10 shapes, at head dims below 128, where they stand in for the JAX
 package's packed kernels (K1b, K2p), at ImageNet-64's three attention
@@ -181,14 +181,14 @@ def test_f32_flat_kernel_matches_plain_and_is_deterministic(cuda, t, layout):
     assert (lse - ref_lse).abs().max().item() <= 1e-5
 
 
-# f32 K2 / K2c, the 3xTF32 tensor-core backward: the same widths, T and
-# layouts, a non-contiguous dO.  At T = 1 the one key's softmax weight is 1
-# whatever the logits, so dq and dk are zero in exact arithmetic and both
+# K2 / K2c on the tensor cores, f32 (3xTF32) and bf16: the same widths, T
+# and layouts, a non-contiguous dO.  At T = 1 the one key's softmax weight is
+# 1 whatever the logits, so dq and dk are zero in exact arithmetic and both
 # sides return rounding noise of dP - delta; there the gate's scale is the
 # largest plain gradient of the call (dv = dO) for all three.
-def _k2_tol(ref, t):
-    tops = [y.abs().max().item() for y in ref]
-    return [1e-4 * (max(tops) if t == 1 else top) for top in tops]
+def _k2_tol(ref, t, rel=1e-4):
+    tops = [y.float().abs().max().item() for y in ref]
+    return [rel * (max(tops) if t == 1 else top) for top in tops]
 
 
 @pytest.mark.cuda
@@ -214,6 +214,87 @@ def test_f32_tensor_core_backward_matches_plain_and_is_deterministic(cuda, layou
         for name, x, y, z, tol in zip("qkv", got, ref, again, _k2_tol(ref, t)):
             assert (x - y).abs().max().item() <= tol, (layout, d, t, name)
             assert torch.equal(x, z), (layout, d, t, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", TC_LAYOUTS)
+@pytest.mark.parametrize("d", TC_DIMS)
+def test_bf16_tensor_core_backward_matches_plain_and_is_deterministic(cuda, layout, d):
+    """bf16 K2 at every padded width and T around its tiles: cp.async on the
+    legacy split and separate projections, the qkv rows on the interleaved
+    views at padded d 32 / 64 / 128 / 256 (the element gather at the other
+    widths), the element gather on the unaligned views and wherever dO is
+    the transpose of a [B, d, T] (element stride T)."""
+    g = torch.Generator("cuda").manual_seed(d + 100)
+    for t in TC_TS:
+        q, k, v = _tc_views(layout, 2, t, 3, d, g)
+        do = torch.randn(2, 3, t, d, generator=g, device="cuda").bfloat16().transpose(1, 2)
+        do_t = torch.randn(2, 3, d, t, generator=g, device="cuda").bfloat16().permute(0, 3, 1, 2)
+        route = A.bwd_route(q, k, v, do)
+        span = layout == "interleaved" and route.padded_d in (32, 64, 128, 256)
+        load = ("cp_async" if layout in ("legacy", "separate") else
+                "qkv_span" if span else "gather")
+        assert (route.kernel, route.load) == ("tensor_cores", load)
+        assert A.bwd_route(q, k, v, do_t).load == "gather"
+        out, lse = A.flash_attention_mh(q, k, v, d ** -0.5)
+        for dout in (do, do_t):
+            before = (A.flash_attention_bwd_dq.launches, A.flash_attention_bwd_dkv.launches)
+            got = A.flash_attention_mh_bwd(q, k, v, out, lse, dout, d ** -0.5)
+            again = A.flash_attention_mh_bwd(q, k, v, out, lse, dout, d ** -0.5)
+            ref = A.reference_sdpa_bwd(q, k, v, out, lse, dout, d ** -0.5)
+            torch.cuda.synchronize()
+            assert (A.flash_attention_bwd_dq.launches, A.flash_attention_bwd_dkv.launches) == (
+                before[0] + 2, before[1] + 2)
+            for name, x, y, z, tol in zip("qkv", got, ref, again, _k2_tol(ref, t, 2 ** -6)):
+                assert x.dtype == torch.bfloat16 and x.shape == q.shape
+                assert (x.float() - y.float()).abs().max().item() <= tol, (layout, d, t, name)
+                assert torch.equal(x, z), (layout, d, t, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", TC_DIMS)
+def test_bf16_flat_backward_matches_plain_and_is_deterministic(cuda, d):
+    """bf16 K2c at every padded width, a ragged and a whole T: contiguous
+    [B, T, d] copies (cp.async) and a transposed dO (the element gather),
+    one launch of each kernel a call."""
+    g = torch.Generator("cuda").manual_seed(d + 200)
+    counters = (A.flash_attention_flat_bwd_dq, A.flash_attention_flat_bwd_dkv)
+    for t in (200, 1024):
+        q, k, v = (torch.randn(6, t, d, generator=g, device="cuda").bfloat16() for _ in range(3))
+        out, lse = A.flash_attention(q, k, v, d ** -0.5)
+        for do in (torch.randn(6, t, d, generator=g, device="cuda").bfloat16(),
+                   torch.randn(6, d, t, generator=g, device="cuda").bfloat16().transpose(1, 2)):
+            load = "cp_async" if do.is_contiguous() else "gather"
+            assert A.bwd_route(q, k, v, do)[:3] == ("tensor_cores", A.bwd_route(
+                q, k, v, q).padded_d, load)
+            before = [c.launches for c in counters]
+            got = A.flash_attention_bwd(q, k, v, out, lse, do, d ** -0.5)
+            assert [c.launches - n for c, n in zip(counters, before)] == [1, 1]
+            again = A.flash_attention_bwd(q, k, v, out, lse, do, d ** -0.5)
+            ref = A.reference_flash_attention_bwd(q, k, v, out, lse, do, d ** -0.5)
+            torch.cuda.synchronize()
+            for name, x, y, z, tol in zip("qkv", got, ref, again, _k2_tol(ref, t, 2 ** -6)):
+                assert (x.float() - y.float()).abs().max().item() <= tol, (d, t, name)
+                assert torch.equal(x, z), (d, t, name)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_refuses_a_route_its_tables_do_not_hold(cuda):
+    """The bf16 entries check the route they are given: other tiles, the
+    qkv rows on views that are not one projection's, or cp.async on an
+    unaligned dO are refused with an error; nothing runs in their place."""
+    g = torch.Generator("cuda").manual_seed(3)
+    q, k, v = _tc_views("legacy", 2, 64, 3, 64, g)
+    do = torch.randn(2, 64, 3, 64, generator=g, device="cuda").bfloat16()
+    out, lse = A.flash_attention_mh(q, k, v, 0.125)
+    delta = A._delta(out, do)
+    good = A.bwd_route(q, k, v, do)
+    unaligned = torch.randn(do.numel() + 1, generator=g, device="cuda").bfloat16()[1:]
+    for bad, dout in ((good._replace(tile_rows=32), do), (good._replace(load="qkv_span"), do),
+                      (good, unaligned.view(do.shape))):
+        with pytest.raises(RuntimeError, match="backward"):
+            A._bwd_launch("flash attention backward (dQ)", (torch.empty_like(q),), q, k, v,
+                          dout, lse, delta, 0.125, route=bad)
 
 
 @pytest.mark.cuda
