@@ -15,7 +15,9 @@ Phases, each printing as it goes and then its seconds:
    HMMA (tensor-core) instructions of each bf16 and f32 K1 / K1c and K2 /
    K2c instantiation in the library's SASS (``cuobjdump -sass``): each must
    have some (bf16 K2: HMMA.16816.F32.BF16; f32: HMMA.1688.F32.TF32) and
-   spill nothing.  At head dims below 128 K1 / K2 stand in for the JAX
+   spill nothing; each bf16 K4 instantiation (plain and fused) must run on
+   wgmma (HGMMA.*BF16) and spill nothing, its registers printed.  At head
+   dims below 128 K1 / K2 stand in for the JAX
    package's packed and streamed twins (K1b, K2p, K2b).
 3. K1 against its plain PyTorch version at the CIFAR-10 path's shapes, on
    the strided q/k/v views that ``attention()`` hands it: max abs error of
@@ -152,8 +154,10 @@ Phases, each printing as it goes and then its seconds:
    [256, 32, 32, 256] -> 256 and FFHQ's [256, 64, 64, 128] -> 128 in bf16,
    CIFAR's in f32 and a ragged [3, 7, 5, 128] -> 384 in both, against
    ``reference_conv3x3`` (f32 1e-5, bf16 2^-7 of max|plain out|; b ~ 0.5,
-   so a wrong halo shows), timed against the plain version and ``F.conv2d``
-   (cuDNN, TF32 off; after a SiLU pass for the fused entry point).
+   so a wrong halo shows), two runs bit-identical, timed against the plain
+   version and ``F.conv2d`` (cuDNN, TF32 off; after a SiLU pass for the
+   fused entry point) with the rate in TFLOP/s; at the bf16 main shapes
+   also the wrapper's copy of w for the wgmma kernel and its host time.
 28. FFHQ-64 (BASELINE config 2's net) at full width: D in f32 against the
    all-plain model (1e-4 * max, exactly 6 K1 and 95 K3 per forward); bf16
    sampling at batch 256 through every registry solver (DEIS tab and rhoab,
@@ -535,7 +539,7 @@ PROFILE_MARGIN_S = 0.05
 # The repo's own kernels by name: each wrapper launch runs one of them, K3
 # one (its cluster slab) or two (its streamed pass), as its route says
 OUR_KERNELS = re.compile(r"flash_(fwd|bwd)_\w*kernel|gn_(slab|stream_stats|stream_apply)_kernel"
-                         r"|conv3x3_(f32|bf16)_kernel")
+                         r"|conv3x3_(f32|bf16_wgmma)_kernel")
 
 
 def _trace(fn) -> tuple:
@@ -622,9 +626,10 @@ _LOAD_NAMES = {"1": "cp.async", "2": "gather", "3": "gather from the qkv rows"}
 
 
 def _sass_hmma_counts(path: str) -> dict:
-    """{mangled kernel name: (HMMA instructions, their opcodes)} of a built
-    library's SASS (``cuobjdump -sass``, from the toolkit beside nvcc); TF32
-    MMAs show as HMMA.1688.F32.TF32."""
+    """{mangled kernel name: (tensor-core instructions, their opcodes)} of a
+    built library's SASS (``cuobjdump -sass``, from the toolkit beside nvcc):
+    mma.sync shows as HMMA (TF32: HMMA.1688.F32.TF32), wgmma as HGMMA
+    (HGMMA.64x128x16.F32.BF16)."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
                           timeout=300)
@@ -635,9 +640,9 @@ def _sass_hmma_counts(path: str) -> dict:
         if m:
             fn = m.group(1)
             counts[fn] = (0, set())
-        elif fn is not None and re.search(r"\bHMMA\b", line):
+        elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
             n, kinds = counts[fn]
-            counts[fn] = (n + 1, kinds | {re.search(r"HMMA\S*", line).group(0)})
+            counts[fn] = (n + 1, kinds | {re.search(r"HG?MMA\S*", line).group(0)})
     return counts
 
 
@@ -659,18 +664,18 @@ def phase_build() -> None:
     # K2c one (flash_bwd_{dq,dkv}_bf16_kernel<padded d, load mode> in bf16,
     # flash_bwd_{dq,dkv}_tf32[_flat]_kernel<padded d, load mode> in f32) to 0
     # spill bytes and some HMMA in its SASS (K2 in bf16: HMMA.16816.F32.BF16;
-    # f32: HMMA.1688.F32.TF32)
+    # f32: HMMA.1688.F32.TF32), and each bf16 K4 one to HGMMA (wgmma)
     log = _build.build_log or _build.library_path().with_suffix(".log").read_text()
     fwd_re = re.compile(r"(flash_fwd_tc_kernel|flash_fwd_tf32_kernel|flash_fwd_tf32_flat_kernel)"
                         r"ILi(\d+)ELi(\d)EE")
     bwd_re = re.compile(r"(flash_bwd_(?:dq|dkv)_(?:tf32|bf16)(?:_flat)?_kernel)ILi(\d+)ELi(\d)EE")
-    tc, bwd, current = {}, {}, None
+    tc, bwd, convs, current = {}, {}, {}, None
     for line in log.splitlines():
         compiling = "Compiling entry function" in line
         fwd = fwd_re.search(line)
         bk = bwd_re.search(line)
         gn = re.search(r"(gn_[a-z_]+_kernel)(I(13__nv_bfloat16|f)((?:Li\d+E)*)E)?", line)
-        conv = re.search(r"(conv3x3_(?:bf16|f32)_kernel)ILb([01])E", line)
+        conv = re.search(r"(conv3x3_(?:bf16_wgmma|f32)_kernel)ILb([01])E", line)
         if compiling:
             current = None
         if fwd and compiling:
@@ -686,12 +691,14 @@ def phase_build() -> None:
             vec = re.findall(r"Li(\d+)E", gn.group(4) or "")
             print(f"[build] {gn.group(1)}<{dtype}{', vec=' + vec[0] if vec else ''}>:")
         elif conv and compiling:
-            print(f"[build] {conv.group(1)}<{'fused' if conv.group(2) == '1' else 'plain'}>:")
+            current = (conv.group(1), "fused" if conv.group(2) == "1" else "plain")
+            convs[current] = {}
+            print(f"[build] {current[0]}<{current[1]}>:")
         elif "registers" in line or "spill" in line:
             print(f"[build]   {line.strip()}")
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             regs = re.search(r"Used (\d+) registers", line)
-            table = bwd if current in bwd else tc
+            table = bwd if current in bwd else convs if current in convs else tc
             if spill and current is not None:
                 table[current]["spill"] = int(spill.group(1)) + int(spill.group(2))
             if regs and current is not None:
@@ -706,7 +713,8 @@ def phase_build() -> None:
            f"expected 20 bf16, 18 f32 and 16 flat f32 tensor-core K1 instantiations, ptxas "
            f"compiled {count}")
     hmma, kinds, bwd_kinds = {}, set(), {}
-    for name, (n, kind) in _sass_hmma_counts(str(_build.library_path())).items():
+    sass = _sass_hmma_counts(str(_build.library_path()))
+    for name, (n, kind) in sass.items():
         m = fwd_re.search(name)
         bk = bwd_re.search(name)
         if m:
@@ -737,6 +745,25 @@ def phase_build() -> None:
               f"in its SASS ({', '.join(sorted(bwd_kinds.get(key, ())))})")
         _check(want in bwd_kinds.get(key, ()), f"K2 {key} has no {want} instruction")
         _check(got.get("spill") == 0, f"K2 {key} spills registers")
+    # bf16 K4: conv3x3_bf16_wgmma_kernel<plain> and <fused> on wgmma
+    # (HGMMA.64x128x16.F32.BF16), no spills; ptxas reports the launch's
+    # 168 registers a thread, which setmaxnreg splits into 56 (warpgroup 0)
+    # and 224 (the two consumer warpgroups)
+    conv_kinds = {}
+    for name, (n, kind) in sass.items():
+        m = re.search(r"(conv3x3_bf16_wgmma_kernel)ILb([01])E", name)
+        if m:
+            conv_kinds[(m.group(1), "fused" if m.group(2) == "1" else "plain")] = (n, kind)
+    bf16_convs = sorted(key for key in convs if "bf16" in key[0])
+    _check(len(bf16_convs) == 2, f"expected 2 bf16 K4 instantiations, ptxas compiled {bf16_convs}")
+    for key in bf16_convs:
+        n, kind = conv_kinds.get(key, (0, set()))
+        print(f"[build] {key[0]}<{key[1]}>: {convs[key].get('registers')} registers, "
+              f"{convs[key].get('spill', 'unknown')} spill bytes, {n} HGMMA instructions in its "
+              f"SASS ({', '.join(sorted(kind))})")
+        _check(any(re.fullmatch(r"HGMMA\.\S*BF16", k) for k in kind),
+               f"K4 {key} has no HGMMA.*BF16 instruction")
+        _check(convs[key].get("spill") == 0, f"K4 {key} spills registers")
 
 
 def _bwd_name(key) -> str:
@@ -2017,10 +2044,10 @@ def phase_conv_kernel() -> tuple:
     """K4 through its entry points: first the path, ``conv3x3`` and
     ``gn_silu_conv3x3`` once each at the two bf16 main shapes with the counts
     set to 0 just before; then each entry point at every ``CONV_SHAPES``
-    shape against ``reference_conv3x3`` and timed against the plain version
-    and ``F.conv2d`` (cuDNN, TF32 off) on the channels-last NCHW view.
-    Returns (the path's K4 launches, the kernels-line fields of the first
-    shape's ``conv3x3``)."""
+    shape against ``reference_conv3x3``, run twice (bit-identical), and
+    timed against the plain version and ``F.conv2d`` (cuDNN, TF32 off) on
+    the channels-last NCHW view.  Returns (the path's K4 launches, the
+    kernels-line fields of the first shape's ``conv3x3``)."""
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator("cuda").manual_seed(11)
     mains = CONV_SHAPES[:2]
@@ -2062,12 +2089,13 @@ def phase_conv_kernel() -> tuple:
 
                 def library():
                     return F.conv2d(x_nchw, w_oihw, bias.to(dtype), padding=1)
-            got, ref = kernel(), plain()
+            got, again, ref = kernel(), kernel(), plain()
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs().max().item()
             tol = CONV_TOL[dtype] * ref.float().abs().max().item()
             lib_err = (library().permute(0, 2, 3, 1).float() - ref.float()).abs().max().item()
-            del got, ref
+            same = torch.equal(got, again)
+            del got, again, ref
             reps = 10 if n * h * w >= 1 << 16 else 50
             times = _turns({"kernel": kernel, "plain": plain, "library": library}, reps=reps,
                            warmup=2)
@@ -2075,12 +2103,28 @@ def phase_conv_kernel() -> tuple:
             flops = 2 * n * h * w * cout * 9 * cin
             what = "gn_silu_conv3x3" if fused else "conv3x3"
             print(f"[K4] {what} [{n}, {h}, {w}, {cin}] -> {cout} {name}: max abs err {err:.3g} "
-                  f"(tol {tol:.3g}; F.conv2d against the plain version {lib_err:.3g}); K4 "
+                  f"(tol {tol:.3g}; F.conv2d against the plain version {lib_err:.3g}; two runs "
+                  f"bit-identical {same}); K4 "
                   f"{times['kernel']:.4f} ms ({flops / times['kernel'] / 1e9:.2f} TFLOP/s), "
                   f"plain {times['plain']:.4f} ms, F.conv2d{' after the SiLU pass' if fused else ''}"
                   f" {times['library']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
             _check(err <= tol, f"K4 disagrees with the plain version at "
                                f"{(what, n, h, w, cin, cout, name)}")
+            _check(same, f"two K4 runs differ at {(what, n, h, w, cin, cout, name)}")
+            if dtype == torch.bfloat16 and not fused and n * h * w >= 1 << 16:
+                # the wrapper's own costs at this shape: the [3, 3, Cout, Cin]
+                # copy of w that the wgmma kernel's B takes (device time), and
+                # the host time of one call (the TMA maps are encoded per call)
+                wt_ms = _turns({"wt": lambda: wt.permute(0, 1, 3, 2).contiguous()}, reps=reps,
+                               warmup=2)["wt"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    kernel()
+                host_us = (time.perf_counter() - t0) / reps * 1e6
+                torch.cuda.synchronize()
+                print(f"[K4]   of it: the w copy {wt_ms:.4f} ms on the device; host time per "
+                      f"call {host_us:.1f} us (TMA maps encoded per call)")
             if main is None:
                 main = dict(max_abs_err=err, ms=times["kernel"], plain_ms=times["plain"],
                             library_ms=times["library"], bound_ms=bound_ms, bound_by=bound_by)
@@ -2425,8 +2469,9 @@ def main() -> int:
         _kernel_entry("flash_attention_flat_bwd_dkv (K2c, flat flash-attention backward, "
                       "dK/dV, in 3xTF32, SD f32 AMED path)", bwd32, f"{tpu}:994",
                       sd_amed["dkvc"], sd_k2c["dkv"]),
-        _kernel_entry("conv3x3 / gn_silu_conv3x3 (K4, implicit-GEMM 3x3 conv with a fused "
-                      "GroupNorm-affine + SiLU prologue; its entry points, no JAX path)",
+        _kernel_entry("conv3x3 / gn_silu_conv3x3 (K4, 3x3 conv with a fused GroupNorm-affine "
+                      "+ SiLU prologue; bf16: wgmma on a TMA-loaded halo tile, the prologue once "
+                      "per staged pixel; its entry points, no JAX path)",
                       "diff_sampler_tpu_torch/csrc/conv3x3.cu",
                       "diff_sampler_tpu/ops/pallas_conv.py:53", k4_launches, k4),
     ]}))

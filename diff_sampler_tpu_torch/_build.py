@@ -124,9 +124,12 @@ def _declare(lib) -> None:
     # dtype, vec, cluster, threads, smem
     lib.dst_groupnorm_active_clusters.argtypes = [i] * 5
     lib.dst_groupnorm_active_clusters.restype = i
-    # x, a, b, w, bias, out; n, h, w, cin, cout, fuse, dtype
-    lib.dst_conv3x3.argtypes = [p] * 6 + [i] * 7 + [p]
-    lib.dst_conv3x3.restype = i
+    # x, a, b, w, bias, out; n, h, w, cin, cout, fuse; the bf16 entry then
+    # the patch (tile_h, tile_w)
+    lib.dst_conv3x3_f32.argtypes = [p] * 6 + [i] * 6 + [p]
+    lib.dst_conv3x3_f32.restype = i
+    lib.dst_conv3x3_bf16.argtypes = [p] * 6 + [i] * 8 + [p]
+    lib.dst_conv3x3_bf16.restype = i
     lib.dst_error_string.argtypes = [i]
     lib.dst_error_string.restype = ctypes.c_char_p
 

@@ -1,0 +1,169 @@
+// Hopper building blocks for sm_90a (conv3x3.cu: bf16 K4): mbarriers, TMA
+// tensor loads, wgmma descriptors and the m64n128k16 bf16 product with A
+// from registers.  Kernels that stage tiles with TMA and multiply them with
+// wgmma share these: the ring of shared-memory stages filled by one thread's
+// cp.async.bulk.tensor against "full" mbarriers (transaction bytes), released
+// through "empty" mbarriers that the consumer warps arrive on.
+//
+// Swizzle: a TMA box whose inner dimension is 128 bytes, loaded with
+// CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte aligned stage, puts the 16-byte
+// chunk j of its 128-byte row r at chunk j ^ (r % 8) of that row
+// (swz128_offset).  wgmma reads such a tile through a descriptor with layout
+// type 1 (128-byte swizzle), rows 128 bytes apart in groups of 8 (stride
+// byte offset 1024); the k16 step kk of a K-major operand starts 32 * kk
+// bytes into the row.
+//
+// wgmma.m64nNk16 with A in registers: warp w of the warpgroup holds rows
+// 16w .. 16w+15 of A and D.  A's four registers are mma.sync m16n8k16's A
+// fragment (mma.cuh), which ldmatrix.x4 loads; D's register 4j + e holds
+// (row g + 8 * (e / 2), col 8j + 2t + e % 2) with g = lane / 4, t = lane % 4.
+// The products run asynchronously: A's registers and D stay in use until
+// wgmma_wait retires their group.
+
+#pragma once
+
+#include <stdint.h>
+
+#include "mma.cuh"
+
+namespace {
+
+// byte offset of 16-byte chunk `chunk` of 128-byte row `row` in a tile
+// stored with the 128-byte swizzle
+__device__ __forceinline__ uint32_t swz128_offset(uint32_t row, uint32_t chunk) {
+  return row * 128u + ((chunk ^ (row & 7u)) << 4);
+}
+
+// ldmatrix.x4 (mma.cuh) from a shared-memory address
+__device__ __forceinline__ void ldmatrix_x4_at(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// make the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// the producer's arrival, announcing the bytes its TMA loads will deliver
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed (parity 1 passes
+// on a fresh barrier: a producer waits on an empty slot with phase ^ 1)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT_AGAIN:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_AGAIN;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// order this thread's generic-proxy writes to shared memory before later
+// async-proxy (TMA) accesses of the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// TMA: the box at the given coordinates (innermost first; out-of-bounds
+// elements arrive as zeros) into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// warpgroup register budgets (all four warps of a warpgroup execute it)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// descriptor of a K-major tile stored with the 128-byte swizzle, rows of
+// 128 bytes, 8-row groups 1024 bytes apart, starting at shared address
+// `saddr` (the tile 1024-byte aligned; a k16 step adds 32 bytes)
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accesses of v across the wgmma fences
+__device__ __forceinline__ void fence_operand(float& v) { asm volatile("" : "+f"(v)::"memory"); }
+
+// d[64] = A (64 x 16, registers) * B (16 x 128, K-major in shared memory)
+// + (accumulate ? d : 0)
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_rs(float* d, const uint32_t* a,
+                                                         uint64_t desc_b, bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(static_cast<uint32_t>(accumulate)));
+}
+
+}  // namespace

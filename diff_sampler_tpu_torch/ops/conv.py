@@ -17,6 +17,13 @@ tensor on the CPU; on a CUDA tensor they launch K4 (``csrc/conv3x3.cu``) or
 raise.  K4 is forward only, as the JAX kernel is (it has no VJP): it raises
 on an input that requires grad while autograd records.
 
+In bf16, K4 is wgmma on a TMA-loaded halo tile: each output tile is a patch
+of one image by 128 output channels, and each 64-channel chunk of its halo
+is loaded once, has the fused prologue applied once per pixel, and feeds
+all 9 taps.  ``conv_plan`` is the pure-Python mirror of that tiling (the
+patch, the TMA boxes, the stages, the shared memory), which the wrapper
+hands to the C entry and the CPU tests check.  f32 runs on the CUDA cores.
+
 No model of the JAX package calls this kernel (XLA's conv beat it on the
 TPU, so its U-Nets keep ``lax.conv``); the port's U-Nets likewise keep
 ``F.conv2d``, and these entry points are the only way into K4.
@@ -24,14 +31,16 @@ TPU, so its U-Nets keep ``lax.conv``); the port's U-Nets likewise keep
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from .. import _build
 
-__all__ = ["conv3x3", "gn_silu_conv3x3", "reference_conv3x3", "supported"]
+__all__ = ["ConvPlan", "conv3x3", "conv_plan", "gn_silu_conv3x3", "reference_conv3x3",
+           "supported"]
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def supported(n, h, w, cin, cout) -> bool:
@@ -40,6 +49,48 @@ def supported(n, h, w, cin, cout) -> bool:
     ``supported`` takes (channels multiples of 128)."""
     return (min(n, h, w) >= 1 and cin >= 8 and cout >= 8
             and cin % 8 == 0 and cout % 8 == 0)
+
+
+# The bf16 kernel's constants (csrc/conv3x3.cu)
+CONV_M = 256          # output pixels per tile: two consumer warpgroups x 128
+CONV_N = 128          # output channels per tile
+CONV_K = 64           # input channels per chunk: one 128-byte row of a halo pixel
+HALO_MAX = 352        # halo pixels a stage holds
+HALO_STAGES = 3
+B_STAGES = 5
+MAX_BOX = 256         # TMA box dimension limit
+MAX_TILE_W = 32       # widest patch
+EPI_BYTES = 8 * 16 * 32 * 2  # epilogue staging: 16 x 32 bf16 per consumer warp
+SMEM_LIMIT = 232448   # dynamic shared memory a block may use on the H100
+
+
+class ConvPlan(NamedTuple):
+    """The bf16 kernel's tiling of one call."""
+    tile_h: int       # patch rows
+    tile_w: int       # patch columns
+    tiles_y: int      # patches down an image
+    tiles_x: int      # patches across an image
+    co_tiles: int     # output-channel tiles
+    tiles: int        # output tiles of the call
+    chunks: int       # 64-channel chunks of Cin
+    halo_box: tuple   # TMA box over x [N, H, W, Cin], innermost first
+    w_box: tuple      # TMA box over w as [3 * 3, Cout, Cin], innermost first
+    smem: int         # dynamic shared memory of a block
+
+
+def conv_plan(n, h, w, cin, cout) -> ConvPlan:
+    """The patch of one output tile: whole rows up to 32 columns (wider
+    images are cut into 32-column patches), as many rows as 256 pixels and a
+    halo stage of 352 pixels allow, at most the image's."""
+    tile_w = min(w, MAX_TILE_W)
+    tile_h = max(1, min(h, CONV_M // tile_w, HALO_MAX // (tile_w + 2) - 2))
+    tiles_y, tiles_x = -(-h // tile_h), -(-w // tile_w)
+    co_tiles = -(-cout // CONV_N)
+    smem = 1024 + HALO_STAGES * HALO_MAX * CONV_K * 2 + B_STAGES * CONV_N * CONV_K * 2
+    smem += 8 * (3 * HALO_STAGES + 2 * B_STAGES) + EPI_BYTES
+    return ConvPlan(tile_h, tile_w, tiles_y, tiles_x, co_tiles, n * tiles_y * tiles_x * co_tiles,
+                    -(-cin // CONV_K), (CONV_K, tile_w + 2, tile_h + 2, 1), (CONV_K, CONV_N, 1),
+                    smem)
 
 
 def reference_conv3x3(x, w, bias=None, a=None, b=None):
@@ -70,7 +121,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _launch(x, w, bias, a, b):
     """K4 on CUDA tensors; returns out, [N, H, W, Cout] in x's dtype."""
-    if x.dim() != 4 or x.dtype not in _DTYPE_CODES:
+    if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be a float32 or bfloat16 [N, H, W, Cin], got "
                         f"{tuple(x.shape)} {x.dtype}")
     n, h, wd, cin = x.shape
@@ -92,19 +143,27 @@ def _launch(x, w, bias, a, b):
     if fuse and (tuple(a.shape) != (n, cin) or tuple(b.shape) != (n, cin)):
         raise ValueError(f"a and b must be [{n}, {cin}], got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
-    x, w = _aligned(x), _aligned(w.to(x.dtype))
     bias = _aligned(bias.float() if bias is not None
                     else torch.zeros(cout, dtype=torch.float32, device=x.device))
     if fuse:
         a, b = _aligned(a.float()), _aligned(b.float())
+    x = _aligned(x)
     out = torch.empty(n, h, wd, cout, dtype=x.dtype, device=x.device)
+    ab = (a.data_ptr() if fuse else None, b.data_ptr() if fuse else None)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dst_conv3x3(x.data_ptr(), a.data_ptr() if fuse else None,
-                              b.data_ptr() if fuse else None, w.data_ptr(), bias.data_ptr(),
-                              out.data_ptr(), n, h, wd, cin, cout, int(fuse),
-                              _DTYPE_CODES[x.dtype], stream)
+        if x.dtype == torch.bfloat16:
+            # K-major B for wgmma: w as [3, 3, Cout, Cin]
+            wt = _aligned(w.to(x.dtype).permute(0, 1, 3, 2))
+            plan = conv_plan(n, h, wd, cin, cout)
+            err = lib.dst_conv3x3_bf16(x.data_ptr(), *ab, wt.data_ptr(), bias.data_ptr(),
+                                       out.data_ptr(), n, h, wd, cin, cout, int(fuse),
+                                       plan.tile_h, plan.tile_w, stream)
+        else:
+            w = _aligned(w.to(x.dtype))
+            err = lib.dst_conv3x3_f32(x.data_ptr(), *ab, w.data_ptr(), bias.data_ptr(),
+                                      out.data_ptr(), n, h, wd, cin, cout, int(fuse), stream)
     _build.check(lib, err, "conv3x3")
     conv3x3.launches += 1
     return out

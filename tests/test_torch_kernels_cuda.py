@@ -13,7 +13,8 @@ route that takes them; K3 at odd group sizes and ragged H * W, on both of
 its routes (the cluster slab at every cluster size, and the streamed
 pass); K4 (the
 direct 3x3 conv) at aligned, ragged and multi-image-tile shapes through both
-entry points.
+entry points, and its bf16 kernel (wgmma on a TMA-loaded halo tile) at every
+patch plan, two runs bit-identical.
 
 Marked ``cuda``: without a CUDA device each test skips.  The file imports no
 jax package module, so it also runs where flax is not installed:
@@ -673,6 +674,42 @@ def test_conv_kernel_matches_plain(cuda, n, h, w, cin, cout, dtype, fused):
     assert got.dtype == dt and got.shape == (n, h, w, cout)
     bound = CONV_TOL[dt] * ref.float().abs().max().item()
     assert (got.float() - ref.float()).abs().max().item() <= bound
+
+
+# The bf16 kernel (wgmma on a TMA-loaded halo tile) across its patch plans:
+# W of one pixel, below, at and above the 32-column patch, and cut into
+# 32-column patches up to W + 2 > 256; Cin below, between and above the
+# 64-channel chunk; Cout below, at and above the 128-channel tile and ending
+# inside a 32-channel epilogue pass
+WGMMA_WIDTHS = [1, 5, 8, 31, 32, 33, 64, 300]
+WGMMA_CHANNELS = [(8, 120), (72, 384), (128, 8), (256, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", WGMMA_WIDTHS)
+@pytest.mark.parametrize("cin,cout", WGMMA_CHANNELS)
+@pytest.mark.parametrize("fused", [False, True], ids=["conv3x3", "gn_silu_conv3x3"])
+def test_conv_bf16_wgmma_kernel_matches_plain(cuda, w, cin, cout, fused):
+    n, h = 2, 9 if w <= 64 else 3
+    x, wt, bias, a, b = _conv_inputs(n, h, w, cin, cout, torch.bfloat16, seed=w + cin + cout)
+    if fused:
+        def run():
+            return C.gn_silu_conv3x3(x, a, b, wt, bias)
+        ref = C.reference_conv3x3(x, wt, bias, a, b)
+    else:
+        def run():
+            return C.conv3x3(x, wt, bias)
+        ref = C.reference_conv3x3(x, wt, bias)
+    before = C.conv3x3.launches
+    got = run()
+    assert C.conv3x3.launches == before + 1
+    again = run()
+    torch.cuda.synchronize()
+    assert C.conv3x3.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == (n, h, w, cout)
+    bound = CONV_TOL[torch.bfloat16] * ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= bound
+    assert torch.equal(got, again)  # a fixed order of sums, no atomics
 
 
 @pytest.mark.cuda
