@@ -318,18 +318,14 @@ def _float64_torch():
         torch.Tensor.float, torch.Tensor.to = to_float, to
 
 
-def test_amed_train_step_matches_jax_with_sgd(nets):
-    """One AMED trajectory on the ImageNet-64 tier's net, bound without
-    labels on both sides, SGD(0.1) (the update is linear in the gradient).
-    Each side's own f32 spread is measured here, layer by layer: jitted
-    against eager JAX, the port's f32 step against its f64 step, and the
-    jitted JAX step against the same step with x64 on and f64 params and
-    latents (the JAX package's explicit f32 casts stay).  The port's f32
-    params are held to both the jitted and the eager JAX step within twice
-    the largest of the three (floor 5e-5 of the largest move), and so is the
-    port's f64 step: a port that computed another function would sit far
-    from both."""
-    net, params, _ = nets
+def _amed_sgd_steps(net, params):
+    """One SGD(0.1) AMED step on the ImageNet-64 tier's net, bound without
+    labels, five ways: the JAX step jitted, eagerly and jitted with x64 on
+    (f64 params and latents; the JAX package's explicit f32 casts stay), and
+    the port's step in f32 and in f64.  Returns (loss of the port's f32
+    step, loss of the jitted JAX step, the largest move of the port's f32
+    params, {layer: {"kernel" / "bias": {way: array}}}), kernels as the JAX
+    package lays them out."""
     port = _unit_port()
     name = TA.bottleneck_module_name(LABELS, RES)
     den = JA.bind_with_bottleneck(net, params, name)
@@ -362,8 +358,6 @@ def test_amed_train_step_matches_jax_with_sgd(nets):
     step = TT.make_amed_train_step(pred_t, TA.bind_with_bottleneck(port), cfg,
                                    torch.optim.SGD(pred_t.parameters(), lr=0.1))
     loss_t = float(step(torch.from_numpy(lat))["loss"])
-    loss_j = float(metrics["loss"])
-    assert math.isfinite(loss_t) and abs(loss_t - loss_j) <= 1e-4 * abs(loss_j)
     _, _, pred64 = _predictors(3, scale_dir=cfg.scale_dir, scale_time=cfg.scale_time)
     pred64 = pred64.double()
     with _float64_torch():
@@ -373,19 +367,58 @@ def test_amed_train_step_matches_jax_with_sgd(nets):
     state, state64 = pred_t.state_dict(), pred64.state_dict()
     moved = max(np.abs(state[f"{layer}.weight"].numpy() - leaves["kernel"].T).max()
                 for layer, leaves in p0.items())
-    assert moved > 1.0
     new, eager = jax.tree.map(np.asarray, new), jax.tree.map(np.asarray, eager)
-    for layer, leaves in new.items():
-        ours = {"kernel": state[f"{layer}.weight"].numpy().T, "bias": state[f"{layer}.bias"].numpy()}
-        ours64 = {"kernel": state64[f"{layer}.weight"].numpy().T,
-                  "bias": state64[f"{layer}.bias"].numpy()}
-        spread = max(max(np.abs(leaves[k] - eager[layer][k]).max(),
-                         np.abs(ours[k] - ours64[k]).max(),
-                         np.abs(leaves[k] - new64[layer][k]).max()) for k in ("kernel", "bias"))
-        atol = max(2 * spread, 5e-5 * moved)
-        for k in ("kernel", "bias"):
-            for got, tag in ((ours[k], ""), (ours64[k], " (port f64)")):
-                np.testing.assert_allclose(got, leaves[k], rtol=0, atol=atol,
-                                           err_msg=f"{layer} {k}{tag}")
-                np.testing.assert_allclose(got, eager[layer][k], rtol=0, atol=atol,
-                                           err_msg=f"{layer} {k}{tag} (eager)")
+    steps = {}
+    for layer in new:
+        steps[layer] = {k: {"jit": new[layer][k], "eager": eager[layer][k],
+                            "jit64": new64[layer][k],
+                            "port": state[f"{layer}.{w}"].numpy().T,
+                            "port64": state64[f"{layer}.{w}"].numpy().T}
+                        for k, w in (("kernel", "weight"), ("bias", "bias"))}
+    return loss_t, float(metrics["loss"]), moved, steps
+
+
+def _spread(ways) -> float:
+    """A layer parameter's own f32 spread: the largest of jitted vs eager
+    JAX, the port's f32 vs f64 step and the JAX f32 vs x64 step."""
+    gap = lambda a, b: np.abs(ways[a] - ways[b]).max()
+    return max(gap("jit", "eager"), gap("port", "port64"), gap("jit", "jit64"))
+
+
+def test_amed_train_step_matches_jax_with_sgd(nets):
+    """One AMED trajectory on the ImageNet-64 tier's net, bound without
+    labels on both sides, SGD(0.1) (the update is linear in the gradient).
+    Each side's own f32 spread is measured here, layer by layer: jitted
+    against eager JAX, the port's f32 step against its f64 step, and the
+    jitted JAX step against the same step with x64 on and f64 params and
+    latents (the JAX package's explicit f32 casts stay).  The port's f32
+    params are held to both the jitted and the eager JAX step within twice
+    the largest of the three (floor 5e-5 of the largest move), and so is the
+    port's f64 step: a port that computed another function would sit far
+    from both."""
+    net, params, _ = nets
+    loss_t, loss_j, moved, steps = _amed_sgd_steps(net, params)
+    assert math.isfinite(loss_t) and abs(loss_t - loss_j) <= 1e-4 * abs(loss_j)
+    assert moved > 1.0
+    for layer, params_of in steps.items():
+        atol = max(2 * max(_spread(ways) for ways in params_of.values()), 5e-5 * moved)
+        for k, ways in params_of.items():
+            for way in ("port", "port64"):
+                for ref in ("jit", "eager"):
+                    np.testing.assert_allclose(ways[way], ways[ref], rtol=0, atol=atol,
+                                               err_msg=f"{layer} {k}: {way} vs {ref}")
+
+
+if __name__ == "__main__":
+    # each layer's gaps between the ways of the SGD step, as shares of the
+    # largest move: JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_dhariwal.py
+    torch.set_num_threads(1)
+    port = _unit_port()
+    _, _, moved, steps = _amed_sgd_steps(_jax_net(), params_to_jax(port.state_dict()))
+    pairs = [("port", "jit"), ("port", "eager"), ("jit", "eager"), ("port", "port64"),
+             ("jit", "jit64"), ("port64", "jit"), ("port64", "eager")]
+    print(f"largest move {moved:.6g}")
+    for layer, params_of in steps.items():
+        for k, ways in params_of.items():
+            print(f"{layer} {k}: " + ", ".join(
+                f"{a} vs {b} {np.abs(ways[a] - ways[b]).max() / moved:.3g}" for a, b in pairs))
