@@ -15,8 +15,9 @@ Phases, each printing as it goes and then its seconds:
    HMMA (tensor-core) instructions of each bf16 and f32 K1 / K1c and K2 /
    K2c instantiation in the library's SASS (``cuobjdump -sass``): each must
    have some (bf16 K2: HMMA.16816.F32.BF16; f32: HMMA.1688.F32.TF32) and
-   spill nothing; each bf16 K4 instantiation (plain and fused) must run on
-   wgmma (HGMMA.*BF16) and spill nothing, its registers printed.  At head
+   spill nothing; each K4 instantiation (plain and fused) must run on
+   wgmma (bf16: HGMMA.*BF16; f32: HGMMA.*TF32) and spill nothing, its
+   registers printed, with any ptxas line about wgmma.  At head
    dims below 128 K1 / K2 stand in for the JAX
    package's packed and streamed twins (K1b, K2p, K2b).
 3. K1 against its plain PyTorch version at the CIFAR-10 path's shapes, on
@@ -149,15 +150,18 @@ Phases, each printing as it goes and then its seconds:
    through ``bind_with_bottleneck(..., cfg_doubled=True)``.
 26. ``torch.profiler`` over one guided bf16 SD U-Net call at batch 16.
 27. K4 through its entry points (no JAX path calls its Pallas twin):
-   ``conv3x3`` and ``gn_silu_conv3x3`` once each at the two bf16 main shapes
-   with the counts set to 0 (its launches), then each at CIFAR-10's
-   [256, 32, 32, 256] -> 256 and FFHQ's [256, 64, 64, 128] -> 128 in bf16,
-   CIFAR's in f32 and a ragged [3, 7, 5, 128] -> 384 in both, against
+   ``conv3x3`` and ``gn_silu_conv3x3`` once each at the two main shapes in
+   bf16, then in f32, with the counts set to 0 before each dtype (its
+   launches, and the f32 split kernel's), then each at CIFAR-10's
+   [256, 32, 32, 256] -> 256 and FFHQ's [256, 64, 64, 128] -> 128 and a
+   ragged [3, 7, 5, 128] -> 384, in bf16 and f32, against
    ``reference_conv3x3`` (f32 1e-5, bf16 2^-7 of max|plain out|; b ~ 0.5,
-   so a wrong halo shows), two runs bit-identical, timed against the plain
-   version and ``F.conv2d`` (cuDNN, TF32 off; after a SiLU pass for the
-   fused entry point) with the rate in TFLOP/s; at the bf16 main shapes
-   also the wrapper's copy of w for the wgmma kernel and its host time.
+   so a wrong halo shows; matmuls and cuDNN with TF32 off), two runs
+   bit-identical, timed against the plain version and ``F.conv2d`` (after a
+   SiLU pass for the fused entry point) with the rate in TFLOP/s and the
+   bound (f32: 3xTF32, the CUDA cores' beside); at the main shapes also the
+   wrapper's w copy (bf16) or the split kernel (f32, bit-equal to
+   ``split_tf32``) and its host time.
 28. FFHQ-64 (BASELINE config 2's net) at full width: D in f32 against the
    all-plain model (1e-4 * max, exactly 6 K1 and 95 K3 per forward); bf16
    sampling at batch 256 through every registry solver (DEIS tab and rhoab,
@@ -184,9 +188,10 @@ phase 19 at that shape), K3 at the CIFAR-10, LSUN LDM, ImageNet-64 and VQ
 decode shapes with its route there (launches of phases 5, 18, 12 and 18's
 decode), K1 and K2 at SD's head
 dims (launches of phases 24 and 25), K1c and K2c (launches of phase 25) and
-K4 (launches of its entry points in phase 27), each with its error and
-times at that path's main shape and its bound on this card (the f32
-attention kernels': 3xTF32 on the tensor cores).  Every profile (phases 4,
+K4 in bf16 and in f32 and the f32 K4's split of w (launches of its entry
+points in phase 27), each with its error and times at that path's main
+shape and its bound on this card (the f32 attention kernels' and the f32
+K4's: 3xTF32 on the tensor cores).  Every profile (phases 4,
 5, 13, 14, 20, 23, 26, 28) checks that no attention forward and no
 attention backward ran on the CUDA cores, that its trace holds every
 kernel of the repo that the wrappers launched in the profiled call (K3's
@@ -419,13 +424,15 @@ SD_FLAT_SHAPES = [(2 * SD_BATCH_GPU * SD_HEADS, 4096, 40, torch.float32),
 
 # K4, the direct 3x3 conv (no JAX path calls it: its entry points are the
 # path).  (N, H, W, Cin, Cout, dtype): CIFAR-10's 32x32 level at the sampling
-# batch (the shape the JAX kernel's docstring measured; the first is the main
-# one), FFHQ's 64x64 level, CIFAR's level in f32, and a ragged shape whose
-# 128-pixel tiles span images.  Each runs through conv3x3 and gn_silu_conv3x3
-# with b ~ 0.5, so a halo of silu(b) in place of 0 would show.
+# batch (the shape the JAX kernel's docstring measured; the first of each
+# dtype is its main one) and FFHQ's 64x64 level, in bf16 and f32, and a
+# ragged shape (Cout ends inside an output-channel tile).  Each runs through
+# conv3x3 and gn_silu_conv3x3 with b ~ 0.5, so a halo of silu(b) in place of
+# 0 would show.
 CONV_SHAPES = [(BATCH, 32, 32, 256, 256, torch.bfloat16),
                (BATCH, 64, 64, 128, 128, torch.bfloat16),
                (BATCH, 32, 32, 256, 256, torch.float32),
+               (BATCH, 64, 64, 128, 128, torch.float32),
                (3, 7, 5, 128, 384, torch.bfloat16),
                (3, 7, 5, 128, 384, torch.float32)]
 # Tolerance of K4 relative to max|plain out|: f32 1e-5 (both sum in f32 in
@@ -539,7 +546,7 @@ PROFILE_MARGIN_S = 0.05
 # The repo's own kernels by name: each wrapper launch runs one of them, K3
 # one (its cluster slab) or two (its streamed pass), as its route says
 OUR_KERNELS = re.compile(r"flash_(fwd|bwd)_\w*kernel|gn_(slab|stream_stats|stream_apply)_kernel"
-                         r"|conv3x3_(f32|bf16_wgmma)_kernel")
+                         r"|conv3x3_(f32|bf16)_wgmma_kernel|conv3x3_split_w_kernel")
 
 
 def _trace(fn) -> tuple:
@@ -664,7 +671,7 @@ def phase_build() -> None:
     # K2c one (flash_bwd_{dq,dkv}_bf16_kernel<padded d, load mode> in bf16,
     # flash_bwd_{dq,dkv}_tf32[_flat]_kernel<padded d, load mode> in f32) to 0
     # spill bytes and some HMMA in its SASS (K2 in bf16: HMMA.16816.F32.BF16;
-    # f32: HMMA.1688.F32.TF32), and each bf16 K4 one to HGMMA (wgmma)
+    # f32: HMMA.1688.F32.TF32), and each K4 one to HGMMA (wgmma)
     log = _build.build_log or _build.library_path().with_suffix(".log").read_text()
     fwd_re = re.compile(r"(flash_fwd_tc_kernel|flash_fwd_tf32_kernel|flash_fwd_tf32_flat_kernel)"
                         r"ILi(\d+)ELi(\d)EE")
@@ -675,7 +682,7 @@ def phase_build() -> None:
         fwd = fwd_re.search(line)
         bk = bwd_re.search(line)
         gn = re.search(r"(gn_[a-z_]+_kernel)(I(13__nv_bfloat16|f)((?:Li\d+E)*)E)?", line)
-        conv = re.search(r"(conv3x3_(?:bf16_wgmma|f32)_kernel)ILb([01])E", line)
+        conv = re.search(r"(conv3x3_(?:bf16|f32)_wgmma_kernel)ILb([01])E", line)
         if compiling:
             current = None
         if fwd and compiling:
@@ -694,6 +701,8 @@ def phase_build() -> None:
             current = (conv.group(1), "fused" if conv.group(2) == "1" else "plain")
             convs[current] = {}
             print(f"[build] {current[0]}<{current[1]}>:")
+        elif current in convs and re.search(r"C75\d\d|serializ|inject", line):
+            print(f"[build]   {line.strip()}")
         elif "registers" in line or "spill" in line:
             print(f"[build]   {line.strip()}")
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -745,25 +754,26 @@ def phase_build() -> None:
               f"in its SASS ({', '.join(sorted(bwd_kinds.get(key, ())))})")
         _check(want in bwd_kinds.get(key, ()), f"K2 {key} has no {want} instruction")
         _check(got.get("spill") == 0, f"K2 {key} spills registers")
-    # bf16 K4: conv3x3_bf16_wgmma_kernel<plain> and <fused> on wgmma
-    # (HGMMA.64x128x16.F32.BF16), no spills; ptxas reports the launch's
-    # 168 registers a thread, which setmaxnreg splits into 56 (warpgroup 0)
-    # and 224 (the two consumer warpgroups)
+    # K4: conv3x3_{bf16,f32}_wgmma_kernel<plain> and <fused> on wgmma
+    # (HGMMA.64x128x16.F32.BF16, HGMMA.64x64x8.F32.TF32), no spills; ptxas
+    # reports the launch's 168 registers a thread, which setmaxnreg splits
+    # into 56 (warpgroup 0) and 224 (the two consumer warpgroups)
     conv_kinds = {}
     for name, (n, kind) in sass.items():
-        m = re.search(r"(conv3x3_bf16_wgmma_kernel)ILb([01])E", name)
+        m = re.search(r"(conv3x3_(?:bf16|f32)_wgmma_kernel)ILb([01])E", name)
         if m:
             conv_kinds[(m.group(1), "fused" if m.group(2) == "1" else "plain")] = (n, kind)
-    bf16_convs = sorted(key for key in convs if "bf16" in key[0])
-    _check(len(bf16_convs) == 2, f"expected 2 bf16 K4 instantiations, ptxas compiled {bf16_convs}")
-    for key in bf16_convs:
-        n, kind = conv_kinds.get(key, (0, set()))
-        print(f"[build] {key[0]}<{key[1]}>: {convs[key].get('registers')} registers, "
-              f"{convs[key].get('spill', 'unknown')} spill bytes, {n} HGMMA instructions in its "
-              f"SASS ({', '.join(sorted(kind))})")
-        _check(any(re.fullmatch(r"HGMMA\.\S*BF16", k) for k in kind),
-               f"K4 {key} has no HGMMA.*BF16 instruction")
-        _check(convs[key].get("spill") == 0, f"K4 {key} spills registers")
+    for dtype, want in (("bf16", "BF16"), ("f32", "TF32")):
+        keys = sorted(key for key in convs if dtype in key[0])
+        _check(len(keys) == 2, f"expected 2 {dtype} K4 instantiations, ptxas compiled {keys}")
+        for key in keys:
+            n, kind = conv_kinds.get(key, (0, set()))
+            print(f"[build] {key[0]}<{key[1]}>: {convs[key].get('registers')} registers, "
+                  f"{convs[key].get('spill', 'unknown')} spill bytes, {n} HGMMA instructions in "
+                  f"its SASS ({', '.join(sorted(kind))})")
+            _check(any(re.fullmatch(rf"HGMMA\.\S*{want}", k) for k in kind),
+                   f"K4 {key} has no HGMMA.*{want} instruction")
+            _check(convs[key].get("spill") == 0, f"K4 {key} spills registers")
 
 
 def _bwd_name(key) -> str:
@@ -963,7 +973,7 @@ def phase_denoiser_f32() -> None:
 _COUNTED = {"k1": A.flash_attention_mh, "dq": A.flash_attention_bwd_dq,
             "dkv": A.flash_attention_bwd_dkv, "gn": G.groupnorm_silu,
             "k1c": A.flash_attention, "dqc": A.flash_attention_flat_bwd_dq,
-            "dkvc": A.flash_attention_flat_bwd_dkv, "k4": C.conv3x3}
+            "dkvc": A.flash_attention_flat_bwd_dkv, "k4": C.conv3x3, "k4s": C.split_w}
 
 
 def _reset_counts() -> None:
@@ -2017,16 +2027,29 @@ def phase_sd_amed(workdir: str) -> dict:
     return counts
 
 
-def _conv_bound(n: int, h: int, w: int, cin: int, cout: int, dtype, fused: bool) -> tuple:
+def _conv_bound(n: int, h: int, w: int, cin: int, cout: int, dtype, fused: bool,
+                cuda_cores: bool = False) -> tuple:
     """(bound_ms, bound_by) of one K4 call: 2 * 9 * Cin flops per output
-    element on the tensor cores (bf16) or the CUDA cores (f32), against x, w,
-    the f32 bias (and a, b) read once and out written once."""
+    element on the tensor cores (bf16; f32 in 3xTF32, three TF32 products
+    each, as ``_attention_bound``; or with ``cuda_cores`` one f32 product
+    on the CUDA cores, the bound of the kernel that 3xTF32 replaced),
+    against x, w, the f32 bias (and a, b) read once and out written once."""
     elt = torch.empty((), dtype=dtype).element_size()
     flops = 2 * n * h * w * cout * 9 * cin
     nbytes = (n * h * w * (cin + cout) + 9 * cin * cout) * elt + 4 * cout
     nbytes += 2 * 4 * n * cin if fused else 0
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    if dtype == torch.float32 and not cuda_cores:
+        t_ops = 3 * flops / PEAK_TF32_FLOPS
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _split_bound(cin: int, cout: int) -> tuple:
+    """(bound_ms, bound_by) of one split of w: w read once, w_hi and w_lo
+    written once (its few integer operations per weight are far below)."""
+    return 3 * 9 * cin * cout * 4 / PEAK_BYTES_PER_S * 1e3, "bytes"
 
 
 def _conv_inputs(n, h, w, cin, cout, dtype, g):
@@ -2039,36 +2062,72 @@ def _conv_inputs(n, h, w, cin, cout, dtype, g):
     return x, wt, bias, a, b
 
 
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _split_check(wt, reps: int) -> dict:
+    """The split kernel (``split_w``) against its plain version
+    (``split_tf32`` of w transposed) on the same w: bit-equal, and the
+    kernels-line fields (no PyTorch call computes the split: library
+    null)."""
+    hi, lo = C.split_w(wt)
+    phi, plo = C.split_tf32(wt.transpose(2, 3))
+    torch.cuda.synchronize()
+    err = max((hi - phi).abs().max().item(), (lo - plo).abs().max().item())
+    same = all(torch.equal(u.contiguous().view(torch.int32), v.contiguous().view(torch.int32))
+               for u, v in ((hi, phi), (lo, plo)))
+    times = _turns({"kernel": lambda: C.split_w(wt),
+                    "plain": lambda: C.split_tf32(wt.transpose(2, 3))}, reps=reps, warmup=2)
+    cin, cout = wt.shape[2:]
+    bound_ms, bound_by = _split_bound(cin, cout)
+    print(f"[K4]   the split of w [3, 3, {cin}, {cout}]: bit-equal to split_tf32 {same} (max abs "
+          f"diff {err:.3g}); kernel {times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    _check(same, "the split kernel differs from split_tf32")
+    return dict(max_abs_err=err, ms=times["kernel"], plain_ms=times["plain"], library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 @torch.no_grad()
 def phase_conv_kernel() -> tuple:
     """K4 through its entry points: first the path, ``conv3x3`` and
-    ``gn_silu_conv3x3`` once each at the two bf16 main shapes with the counts
-    set to 0 just before; then each entry point at every ``CONV_SHAPES``
-    shape against ``reference_conv3x3``, run twice (bit-identical), and
-    timed against the plain version and ``F.conv2d`` (cuDNN, TF32 off) on
-    the channels-last NCHW view.  Returns (the path's K4 launches, the
-    kernels-line fields of the first shape's ``conv3x3``)."""
+    ``gn_silu_conv3x3`` once each at the two main shapes of each dtype with
+    the counts set to 0 just before each dtype's run; then each entry point
+    at every ``CONV_SHAPES`` shape against ``reference_conv3x3``, run twice
+    (bit-identical), and timed against the plain version and ``F.conv2d``
+    (cuDNN, TF32 off) on the channels-last NCHW view.  Returns (the path's
+    K4 launches by dtype and the split kernel's, the kernels-line fields of
+    each dtype's first shape's ``conv3x3`` and of the split)."""
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
     g = torch.Generator("cuda").manual_seed(11)
-    mains = CONV_SHAPES[:2]
-    inputs = [_conv_inputs(*shape, g) for shape in mains]
-    _reset_counts()
-    for x, wt, bias, a, b in inputs:
-        C.conv3x3(x, wt, bias)
-        C.gn_silu_conv3x3(x, a, b, wt, bias)
-    torch.cuda.synchronize()
-    counts = _counts()
-    print(f"[K4] the entry points once each at {len(mains)} shapes: launches {counts}")
-    _check(counts == _only(k4=2 * len(mains)), "K4 launch counts of its entry points")
-    del inputs
+    launches = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        mains = [shape for shape in CONV_SHAPES if shape[5] == dtype and shape[0] == BATCH]
+        inputs = [_conv_inputs(*shape, g) for shape in mains]
+        _reset_counts()
+        for x, wt, bias, a, b in inputs:
+            C.conv3x3(x, wt, bias)
+            C.gn_silu_conv3x3(x, a, b, wt, bias)
+        torch.cuda.synchronize()
+        counts = _counts()
+        name = _dtype_name(dtype)
+        print(f"[K4] the entry points once each at {len(mains)} {name} shapes: launches {counts}")
+        split = 2 * len(mains) if dtype == torch.float32 else 0
+        _check(counts == _only(k4=2 * len(mains), k4s=split), f"K4 {name} launch counts")
+        launches[name] = counts["k4"]
+        if split:
+            launches["split"] = counts["k4s"]
+        del inputs
 
-    main = None
+    main = {}
     for n, h, w, cin, cout, dtype in CONV_SHAPES:
         x, wt, bias, a, b = _conv_inputs(n, h, w, cin, cout, dtype, g)
         x_nchw = x.permute(0, 3, 1, 2)  # channels-last memory, as cuDNN takes it
         w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         a4, b4 = a[:, :, None, None], b[:, :, None, None]
-        name = str(dtype).replace("torch.", "")
+        name = _dtype_name(dtype)
         for fused in (False, True):
             if fused:
                 def kernel():
@@ -2100,6 +2159,12 @@ def phase_conv_kernel() -> tuple:
             times = _turns({"kernel": kernel, "plain": plain, "library": library}, reps=reps,
                            warmup=2)
             bound_ms, bound_by = _conv_bound(n, h, w, cin, cout, dtype, fused)
+            if dtype == torch.float32:
+                cc_ms, _ = _conv_bound(n, h, w, cin, cout, dtype, fused, cuda_cores=True)
+                bound = (f"bound {bound_ms:.4f} ms ({bound_by}, 3xTF32 at "
+                         f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s; on the CUDA cores {cc_ms:.4f} ms)")
+            else:
+                bound = f"bound {bound_ms:.4f} ms ({bound_by})"
             flops = 2 * n * h * w * cout * 9 * cin
             what = "gn_silu_conv3x3" if fused else "conv3x3"
             print(f"[K4] {what} [{n}, {h}, {w}, {cin}] -> {cout} {name}: max abs err {err:.3g} "
@@ -2107,30 +2172,36 @@ def phase_conv_kernel() -> tuple:
                   f"bit-identical {same}); K4 "
                   f"{times['kernel']:.4f} ms ({flops / times['kernel'] / 1e9:.2f} TFLOP/s), "
                   f"plain {times['plain']:.4f} ms, F.conv2d{' after the SiLU pass' if fused else ''}"
-                  f" {times['library']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                  f" {times['library']:.4f} ms, {bound}")
             _check(err <= tol, f"K4 disagrees with the plain version at "
                                f"{(what, n, h, w, cin, cout, name)}")
             _check(same, f"two K4 runs differ at {(what, n, h, w, cin, cout, name)}")
-            if dtype == torch.bfloat16 and not fused and n * h * w >= 1 << 16:
+            if not fused and n * h * w >= 1 << 16:
                 # the wrapper's own costs at this shape: the [3, 3, Cout, Cin]
-                # copy of w that the wgmma kernel's B takes (device time), and
+                # copy of w that the bf16 kernel's B takes, or the f32
+                # kernel's split of w (device time, also inside K4's), and
                 # the host time of one call (the TMA maps are encoded per call)
-                wt_ms = _turns({"wt": lambda: wt.permute(0, 1, 3, 2).contiguous()}, reps=reps,
-                               warmup=2)["wt"]
+                if dtype == torch.bfloat16:
+                    wt_ms = _turns({"wt": lambda: wt.permute(0, 1, 3, 2).contiguous()},
+                                   reps=reps, warmup=2)["wt"]
+                    print(f"[K4]   of it: the w copy {wt_ms:.4f} ms on the device")
+                else:
+                    fields = _split_check(wt, reps)
+                    main.setdefault("split", fields)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 for _ in range(reps):
                     kernel()
                 host_us = (time.perf_counter() - t0) / reps * 1e6
                 torch.cuda.synchronize()
-                print(f"[K4]   of it: the w copy {wt_ms:.4f} ms on the device; host time per "
-                      f"call {host_us:.1f} us (TMA maps encoded per call)")
-            if main is None:
-                main = dict(max_abs_err=err, ms=times["kernel"], plain_ms=times["plain"],
-                            library_ms=times["library"], bound_ms=bound_ms, bound_by=bound_by)
+                print(f"[K4]   host time per call {host_us:.1f} us (TMA maps encoded per call)")
+            if name not in main:
+                main[name] = dict(max_abs_err=err, ms=times["kernel"], plain_ms=times["plain"],
+                                  library_ms=times["library"], bound_ms=bound_ms,
+                                  bound_by=bound_by)
         del x, wt, x_nchw, w_oihw
         torch.cuda.empty_cache()
-    return counts["k4"], main
+    return launches, main
 
 
 def _ffhq_inputs(n: int):
@@ -2400,7 +2471,9 @@ def main() -> int:
                     ("K1 on SD", sd_launches), ("K2 dQ on SD", sd_amed["dq"]),
                     ("K2 dK/dV on SD", sd_amed["dkv"]), ("K1c on SD", sd_amed["k1c"]),
                     ("K2c dQ on SD", sd_amed["dqc"]), ("K2c dK/dV on SD", sd_amed["dkvc"]),
-                    ("K4 through its entry points", k4_launches),
+                    ("K4 bf16 through its entry points", k4_launches["bfloat16"]),
+                    ("K4 f32 through its entry points", k4_launches["float32"]),
+                    ("K4 f32's split of w", k4_launches["split"]),
                     ("K1 on FFHQ-64", ffhq_launches)):
         _check(n > 0, f"{name} was not launched on its path")
     print(f"[time] whole run: {time.perf_counter() - t_start:.2f} s")
@@ -2411,6 +2484,8 @@ def main() -> int:
                               "diff_sampler_tpu_torch/csrc/flash_attn_bwd_tf32.cu")
     k2_16 = k2["bfloat16"]
     tpu = "diff_sampler_tpu/ops/pallas_attention.py"
+    conv, tpu_conv = ("diff_sampler_tpu_torch/csrc/conv3x3.cu",
+                      "diff_sampler_tpu/ops/pallas_conv.py")
     print(json.dumps({"kernels": [
         _kernel_entry("flash_attention_mh (K1, multi-head flash-attention forward)", fwd,
                       f"{tpu}:157", launches, k1["main"]),
@@ -2469,11 +2544,18 @@ def main() -> int:
         _kernel_entry("flash_attention_flat_bwd_dkv (K2c, flat flash-attention backward, "
                       "dK/dV, in 3xTF32, SD f32 AMED path)", bwd32, f"{tpu}:994",
                       sd_amed["dkvc"], sd_k2c["dkv"]),
-        _kernel_entry("conv3x3 / gn_silu_conv3x3 (K4, 3x3 conv with a fused GroupNorm-affine "
-                      "+ SiLU prologue; bf16: wgmma on a TMA-loaded halo tile, the prologue once "
-                      "per staged pixel; its entry points, no JAX path)",
-                      "diff_sampler_tpu_torch/csrc/conv3x3.cu",
-                      "diff_sampler_tpu/ops/pallas_conv.py:53", k4_launches, k4),
+        _kernel_entry("conv3x3 / gn_silu_conv3x3 in bf16 (K4, 3x3 conv with a fused "
+                      "GroupNorm-affine + SiLU prologue: wgmma on a TMA-loaded halo tile, the "
+                      "prologue once per staged pixel; its entry points, no JAX path)", conv,
+                      f"{tpu_conv}:53", k4_launches["bfloat16"], k4["bfloat16"]),
+        _kernel_entry("conv3x3 / gn_silu_conv3x3 in f32 (K4 in 3xTF32 on wgmma over the same "
+                      "TMA halo tile: A split into TF32 hi / lo in registers, three products a "
+                      "k8 step, fresh accumulators folded in f32 per chunk; its entry points, no "
+                      "JAX path)", conv, f"{tpu_conv}:53", k4_launches["float32"],
+                      k4["float32"]),
+        _kernel_entry("split_w (K4 f32's TF32 split of w into K-major hi / lo, one launch per "
+                      "f32 K4 call; its entry points, no JAX path)", conv, f"{tpu_conv}:53",
+                      k4_launches["split"], k4["split"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -124,12 +124,15 @@ def _declare(lib) -> None:
     # dtype, vec, cluster, threads, smem
     lib.dst_groupnorm_active_clusters.argtypes = [i] * 5
     lib.dst_groupnorm_active_clusters.restype = i
-    # x, a, b, w, bias, out; n, h, w, cin, cout, fuse; the bf16 entry then
+    # x, a, b, w (f32: w_hi, w_lo), bias, out; n, h, w, cin, cout, fuse, then
     # the patch (tile_h, tile_w)
-    lib.dst_conv3x3_f32.argtypes = [p] * 6 + [i] * 6 + [p]
+    lib.dst_conv3x3_f32.argtypes = [p] * 7 + [i] * 8 + [p]
     lib.dst_conv3x3_f32.restype = i
     lib.dst_conv3x3_bf16.argtypes = [p] * 6 + [i] * 8 + [p]
     lib.dst_conv3x3_bf16.restype = i
+    # w, w_hi, w_lo; cin, cout
+    lib.dst_conv3x3_split_w.argtypes = [p] * 3 + [i] * 2 + [p]
+    lib.dst_conv3x3_split_w.restype = i
     lib.dst_error_string.argtypes = [i]
     lib.dst_error_string.restype = ctypes.c_char_p
 

@@ -9,8 +9,8 @@
 // the result rounded to x's dtype.  The SAME padding lies outside the
 // prologue: a pixel outside the image is 0, not silu(b).  The TPU kernel
 // zeroes a padded VMEM copy of the block, writes the prologue's output into
-// its interior and takes the 9 shifted products from it; the bf16 kernel
-// here does the same in shared memory.
+// its interior and takes the 9 shifted products from it; the kernels here
+// do the same in shared memory.
 //
 // bf16: wgmma on a TMA-loaded halo tile (conv3x3_bf16_wgmma_kernel).  An
 // implicit GEMM, M = output pixels, N = Cout, K = 9 * Cin.
@@ -53,26 +53,55 @@
 //     warp in shared memory, 16 rows x 32 channels at a time, so each lane
 //     stores 16 contiguous bytes of an output row.
 //
-// f32: CUDA-core FMAs (not TF32, so that it holds to 1e-5 of the plain
-// version); register-staged double buffer, the prologue applied on the way
-// to shared memory, each thread 8 x 8 outputs, 8-channel chunks, 128-pixel x
-// 128-channel tiles; the halo is masked per load.
+// f32: 3xTF32 wgmma on the same halo-tile pipeline
+// (conv3x3_f32_wgmma_kernel), where the differences are:
+//   * Halo.  A chunk is 32 f32 channels, again one 128-byte row a pixel, so
+//     the stage, the swizzle and the ldmatrix addresses are bf16's.
+//     ldmatrix.x4.b16 loads wgmma's TF32 m64k8 A fragment (each 32-bit
+//     element as two b16 halves of one row); a k8 step is 32 bytes into the
+//     row, as bf16's k16 step.  The prologue runs in f32 and is not rounded.
+//   * Split.  A is split into TF32 hi and lo in registers (cvt.rna, as
+//     mma.cuh::split_tf32).  w is split once per call by
+//     conv3x3_split_w_kernel into w_hi and w_lo, each [3, 3, Cout, Cin],
+//     whose [64 Cout, 32 Cin] tiles (8 KB each) the TMA ring brings together.
+//   * Products.  wgmma.m64n64k8 TF32, three per k8 step as mma_3xtf32
+//     orders them: lo(a) hi(w), hi(a) lo(w), then hi(a) hi(w); lo lo (2^-22
+//     of a product) is dropped.
+//   * Accumulation.  The tensor cores truncate as they accumulate, so a run
+//     of kFoldTaps taps (12 products a tap) goes into fresh accumulators,
+//     scale-d 0 on its first product, which are then added to the f32 sums,
+//     rounded to nearest.  Main and fresh sums of 256 pixels x 128 channels
+//     would take all 256 registers of every consumer thread: a tile is 256
+//     pixels x 64 channels, 32 + 32 sums per m64 tile, two m64 tiles per
+//     consumer warpgroup, A's hi and lo double-buffered across the wgmma
+//     groups (one group per k8 step: 2 tiles x 3 products).
+//   * Epilogue.  The bias is added in f32 and each lane stores its two
+//     channels of a row, 8 bytes (four lanes fill a 32-byte sector), with
+//     no staging.
 //
 // Bound: operations.  CIFAR-10's [256, 32, 32, 256] -> 256 and FFHQ's
 // [256, 64, 64, 128] -> 128 are each 309 GFLOP: 0.313 ms on the tensor
-// cores' 989 TFLOP/s in bf16 (their bytes take 0.08 / 0.16 ms), 4.6 ms on
-// the CUDA cores' 67 TFLOP/s in f32.  What limits the bf16 kernel below
-// that: shared memory, which at the peak rate would serve ~117 of its 128
-// bytes a clock (wgmma reads each 16 x 128 B tile once per m64 tile, 1/64
-// B a FLOP; the ldmatrix of A 1/128; the TMA writes ~1/240); the tile's
-// epilogue, through which the tensor cores wait; in the fused entry, the
-// MUFU rate of the three prologue warps (two MUFU ops a value).
+// cores' 989 TFLOP/s in bf16 (their bytes take 0.08 / 0.16 ms); in f32
+// three TF32 products each at 495 TFLOP/s, 1.874 ms (4.6 ms on the CUDA
+// cores' 67 TFLOP/s; bytes 0.16 / 0.32 ms).  What limits the bf16 kernel
+// below that: shared memory, which at the peak rate would serve ~117 of its
+// 128 bytes a clock (wgmma reads each 16 x 128 B tile once per m64 tile,
+// 1/64 B a FLOP; the ldmatrix of A 1/128; the TMA writes ~1/240); the
+// tile's epilogue, through which the tensor cores wait; in the fused entry,
+// the MUFU rate of the three prologue warps (two MUFU ops a value).  The
+// f32 kernel at the TF32 rate: wgmma's B reads 1/32 B a FLOP from shared
+// memory (64 of its 128 bytes a clock); each fold drains a warpgroup's
+// wgmma pipeline, which the other consumer warpgroup covers; the TMA loads
+// from L2 (w's two tiles per tap, and the halo once per 64-channel output
+// tile) ~14 bytes a clock per SM at that rate; the split of A, ~12 ALU ops
+// a thread per three wgmma.
 //
-// Shapes: Cin and Cout multiples of 8 (one 16-byte vector holds 8 bf16
-// channels), any N, H, W >= 1.  Layouts: x contiguous [N, H, W, Cin]; w
-// contiguous [3, 3, Cin, Cout] (f32) or [3, 3, Cout, Cin] (bf16) in x's
-// dtype; a, b f32 [N, Cin] (fused only); bias f32 [Cout]; out contiguous
-// [N, H, W, Cout]; every pointer 16-byte aligned.
+// Shapes: Cin and Cout multiples of 8 (16-byte TMA strides; one 16-byte
+// vector holds 8 bf16 channels), any N, H, W >= 1.  Layouts: x contiguous
+// [N, H, W, Cin]; w contiguous [3, 3, Cout, Cin] (bf16; f32: w_hi and w_lo
+// from the split, which takes w [3, 3, Cin, Cout]); a, b f32 [N, Cin] (fused
+// only); bias f32 [Cout]; out contiguous [N, H, W, Cout]; every pointer
+// 16-byte aligned.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -127,7 +156,9 @@ struct Tile {
   int n, y0, x0, n0;
 };
 
-// tile t: output channels fastest, then patch columns, rows, images
+// tile t of kN output channels: output channels fastest, then patch
+// columns, rows, images
+template <int kN>
 __device__ __forceinline__ Tile tile_of(const ConvGeom& g, int t) {
   Tile r;
   const int co = t % g.co_tiles;
@@ -138,8 +169,73 @@ __device__ __forceinline__ Tile tile_of(const ConvGeom& g, int t) {
   r.n = t / g.tiles_y;
   r.y0 = ty * g.tile_h;
   r.x0 = tx * g.tile_w;
-  r.n0 = co * kConvN;
+  r.n0 = co * kN;
   return r;
+}
+
+// The pipeline's mbarriers, in shared memory: per halo stage "full" (its
+// TMA load has landed), "ready" (the prologue has run; fused only) and
+// "empty" (the consumer warps are done with it); per B stage "full" and
+// "empty"
+template <int kBS>
+struct ConvBarriers {
+  uint64_t hfull[kHaloStages], hready[kHaloStages], hempty[kHaloStages];
+  uint64_t bfull[kBS], bempty[kBS];
+
+  __device__ void init() {
+    for (int s = 0; s < kHaloStages; ++s) {
+      mbar_init(hfull + s, 1);
+      mbar_init(hready + s, kPrologueThreads);
+      mbar_init(hempty + s, kConsumerWarps);
+    }
+    for (int s = 0; s < kBS; ++s) {
+      mbar_init(bfull + s, 1);
+      mbar_init(bempty + s, kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+};
+
+static_assert(sizeof(ConvBarriers<kBStages>) == kBarBytes, "the bf16 kernel's barriers");
+
+// The producer, lane 0 of warp 0: every TMA load of the block's items
+// ((tile, chunk of kK input channels) pairs, chunks fastest), each halo two
+// items ahead, each tap's B tiles (kBTile bytes from each of the kMaps
+// weight maps) as the ring of kBS stages allows
+template <int kK, int kBS, int kBTile, int kMaps, typename TileAt>
+__device__ __forceinline__ void conv_produce(const CUtensorMap* xmap,
+                                             const CUtensorMap* const (&wmaps)[kMaps],
+                                             unsigned char* halo, unsigned char* btile,
+                                             ConvBarriers<kBS>& bar, const ConvGeom& g, int items,
+                                             TileAt tile_at) {
+  prefetch_tensormap(xmap);
+  for (int i = 0; i < kMaps; ++i) prefetch_tensormap(wmaps[i]);
+  const uint32_t halo_bytes = (g.tile_h + 2) * (g.tile_w + 2) * 128;  // 128-byte rows
+  auto load_halo = [&](int j) {
+    const int s = j % kHaloStages;
+    mbar_wait(bar.hempty + s, ((j / kHaloStages) & 1) ^ 1);
+    const Tile t = tile_at(j);
+    mbar_expect_tx(bar.hfull + s, halo_bytes);
+    tma_load_4d(halo + s * kHaloBytes, xmap, bar.hfull + s, (j % g.kc) * kK, t.x0 - 1, t.y0 - 1,
+                t.n);
+  };
+  load_halo(0);
+  if (items > 1) load_halo(1);
+  int bi = 0;
+  for (int j = 0; j < items; ++j) {
+    const Tile t = tile_at(j);
+    const int c0 = (j % g.kc) * kK;
+    for (int tap = 0; tap < 9; ++tap, ++bi) {
+      // by now the consumers have begun item j and released item j-1's
+      // halo stage, which item j+2 takes
+      if (tap == kBS && j + 2 < items) load_halo(j + 2);
+      const int s = bi % kBS;
+      mbar_wait(bar.bempty + s, ((bi / kBS) & 1) ^ 1);
+      mbar_expect_tx(bar.bfull + s, kMaps * kBTile);
+      for (int i = 0; i < kMaps; ++i)
+        tma_load_3d(btile + (s * kMaps + i) * kBTile, wmaps[i], bar.bfull + s, c0, t.n0, tap);
+    }
+  }
 }
 
 template <bool kFuse>
@@ -153,63 +249,23 @@ conv3x3_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   unsigned char* halo = smem;                               // [kHaloStages][kHaloBytes]
   unsigned char* btile = smem + kHaloStages * kHaloBytes;   // [kBStages][kBBytes]
   unsigned char* epi = btile + kBStages * kBBytes;          // [kConsumerWarps][1 KB]
-  uint64_t* hfull = reinterpret_cast<uint64_t*>(epi + kEpiBytes);
-  uint64_t* hready = hfull + kHaloStages;  // the prologue has run (fused)
-  uint64_t* hempty = hready + kHaloStages;
-  uint64_t* bfull = hempty + kHaloStages;
-  uint64_t* bempty = bfull + kBStages;
+  auto& bar = *reinterpret_cast<ConvBarriers<kBStages>*>(epi + kEpiBytes);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kHaloStages; ++s) {
-      mbar_init(hfull + s, 1);
-      mbar_init(hready + s, kPrologueThreads);
-      mbar_init(hempty + s, kConsumerWarps);
-    }
-    for (int s = 0; s < kBStages; ++s) {
-      mbar_init(bfull + s, 1);
-      mbar_init(bempty + s, kConsumerWarps);
-    }
-    mbar_fence_init();
-  }
+  if (threadIdx.x == 0) bar.init();
   __syncthreads();
 
   // the block's items: (tile, 64-channel chunk) pairs of tiles blockIdx.x,
   // blockIdx.x + gridDim.x, ..., chunks fastest
   const int items = g.kc * ((g.tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1);
-  auto tile_at = [&](int j) { return tile_of(g, blockIdx.x + (j / g.kc) * gridDim.x); };
+  auto tile_at = [&](int j) { return tile_of<kConvN>(g, blockIdx.x + (j / g.kc) * gridDim.x); };
 
   if (warp < 4) {
     setmaxnreg_dec<kProducerRegs>();
     if (warp == 0) {
       if (lane != 0) return;
-      prefetch_tensormap(&xmap);
-      prefetch_tensormap(&wmap);
-      const uint32_t halo_bytes = (g.tile_h + 2) * (g.tile_w + 2) * kConvK * 2;
-      auto load_halo = [&](int j) {
-        const int s = j % kHaloStages;
-        mbar_wait(hempty + s, ((j / kHaloStages) & 1) ^ 1);
-        const Tile t = tile_at(j);
-        mbar_expect_tx(hfull + s, halo_bytes);
-        tma_load_4d(halo + s * kHaloBytes, &xmap, hfull + s, (j % g.kc) * kConvK, t.x0 - 1,
-                    t.y0 - 1, t.n);
-      };
-      load_halo(0);
-      if (items > 1) load_halo(1);
-      int bi = 0;
-      for (int j = 0; j < items; ++j) {
-        const Tile t = tile_at(j);
-        const int c0 = (j % g.kc) * kConvK;
-        for (int tap = 0; tap < 9; ++tap, ++bi) {
-          // by now the consumers have begun item j and released item j-1's
-          // halo stage, which item j+2 takes
-          if (tap == kBStages && j + 2 < items) load_halo(j + 2);
-          const int s = bi % kBStages;
-          mbar_wait(bempty + s, ((bi / kBStages) & 1) ^ 1);
-          mbar_expect_tx(bfull + s, kBBytes);
-          tma_load_3d(btile + s * kBBytes, &wmap, bfull + s, c0, t.n0, tap);
-        }
-      }
+      const CUtensorMap* const wmaps[1] = {&wmap};
+      conv_produce<kConvK, kBStages, kBBytes>(&xmap, wmaps, halo, btile, bar, g, items, tile_at);
     } else if (kFuse) {
       // the prologue, once per staged pixel: thread i takes channels
       // 8 (i % 8) .. +7 of halo pixels i / 8, i / 8 + 12, ..., kProloguePixels
@@ -224,7 +280,7 @@ conv3x3_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         const Tile t = tile_at(j);
         const int ch = (j % g.kc) * kConvK + 8 * k;
         unsigned char* base = halo + s * kHaloBytes;
-        mbar_wait(hfull + s, (j / kHaloStages) & 1);
+        mbar_wait(bar.hfull + s, (j / kHaloStages) & 1);
         if (ch < g.cin) {  // channels past Cin stay 0
           float av[8], bv[8];
           const long long ab = static_cast<long long>(t.n) * g.cin + ch;
@@ -263,7 +319,7 @@ conv3x3_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
           }
         }
         fence_proxy_async();  // the next TMA load into this stage comes after these writes
-        mbar_arrive(hready + s);
+        mbar_arrive(bar.hready + s);
       }
     }
   } else {
@@ -294,7 +350,7 @@ conv3x3_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
       for (int c = 0; c < g.kc; ++c, ++j) {
         const int hs = j % kHaloStages;
-        mbar_wait((kFuse ? hready : hfull) + hs, (j / kHaloStages) & 1);
+        mbar_wait((kFuse ? bar.hready : bar.hfull) + hs, (j / kHaloStages) & 1);
         const uint32_t hbase = halo_s + hs * kHaloBytes;
 #pragma unroll
         for (int tap = 0; tap < 9; ++tap, ++bi) {
@@ -308,7 +364,7 @@ conv3x3_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
             sw[mi] = p & 7u;
           }
           const uint64_t desc = wgmma_desc_sw128(b_s + bs * kBBytes);
-          mbar_wait(bfull + bs, (bi / kBStages) & 1);
+          mbar_wait(bar.bfull + bs, (bi / kBStages) & 1);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
 #pragma unroll
@@ -329,8 +385,8 @@ conv3x3_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
             wgmma_wait<1>();  // the group before this one has retired
             if (h == 0) {
               if (lane == 0) {
-                if (pend_b >= 0) mbar_arrive(bempty + pend_b);
-                if (pend_h >= 0) mbar_arrive(hempty + pend_h);
+                if (pend_b >= 0) mbar_arrive(bar.bempty + pend_b);
+                if (pend_h >= 0) mbar_arrive(bar.hempty + pend_h);
               }
               pend_b = pend_h = -1;
             }
@@ -343,15 +399,15 @@ conv3x3_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       // epilogue: bias, bf16
       wgmma_wait<0>();
       if (lane == 0) {
-        mbar_arrive(bempty + pend_b);
-        mbar_arrive(hempty + pend_h);
+        mbar_arrive(bar.bempty + pend_b);
+        mbar_arrive(bar.hempty + pend_h);
       }
       pend_b = pend_h = -1;
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
         for (int i = 0; i < 64; ++i) fence_operand(acc[mi][i]);
-      const Tile t = tile_of(g, tile);
+      const Tile t = tile_of<kConvN>(g, tile);
       // through shared memory, 16 rows x 32 channels of a warp at a time, so
       // each lane stores 16 bytes of one output row; the 16-byte chunks of a
       // staged row are swizzled by (row / 2) % 4, so neither pass conflicts
@@ -402,130 +458,252 @@ conv3x3_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// f32: 3xTF32 wgmma on the same halo tile
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 256;
-constexpr int kBM = 128;           // output pixels per block
-constexpr int kBN = 128;           // output channels per block
-constexpr int kBK32 = 8;           // input channels per step
-constexpr int kPad32 = kBM + 4;    // row stride of both tiles in floats
+constexpr int kConvN32 = 64;         // output channels per tile
+constexpr int kConvK32 = 32;         // input channels per chunk (one 128-byte row)
+constexpr int kBStages32 = 5;
+constexpr int kBTile32 = kConvN32 * kConvK32 * 4;  // 8192: the tile of w_hi, or of w_lo
+constexpr int kBBytes32 = 2 * kBTile32;            // 16384: both
+constexpr int kBarBytes32 = 8 * (3 * kHaloStages + 2 * kBStages32);
+constexpr int kSmemConv32 =
+    1024 + kHaloStages * kHaloBytes + kBStages32 * kBBytes32 + kBarBytes32;
+static_assert(sizeof(ConvBarriers<kBStages32>) == kBarBytes32, "the f32 kernel's barriers");
+// The tensor cores truncate as they accumulate, so each run of products goes
+// into fresh accumulators (scale-d 0 on its first product), which are then
+// added to the f32 sums, rounded to nearest: a run is kFoldTaps taps (the
+// last run of a chunk ends at tap 8), 12 products a tap.  Runs of a chunk
+// keep the error at ~1/4 of the tolerance and cost no time measured against
+// shorter ones (cli/conv_variants.py); a tile in one run misses it.
+constexpr int kFoldTaps = 9;
 
 template <bool kFuse>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                   const float* __restrict__ b, const float* __restrict__ w,
-                   const float* __restrict__ bias, float* __restrict__ out, int N, int H,
-                   int W, int Cin, int Cout) {
-  __shared__ __align__(16) float As[2][kBK32 * kPad32];  // [k][pixel]
-  __shared__ __align__(16) float Bs[2][kBK32 * kPad32];  // [k][cout]
+__global__ void __launch_bounds__(kConvThreads, 1)
+conv3x3_f32_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap hmap,
+                         const __grid_constant__ CUtensorMap lmap, const float* __restrict__ a,
+                         const float* __restrict__ b, const float* __restrict__ bias,
+                         float* __restrict__ out, const ConvGeom g) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  unsigned char* halo = smem;                               // [kHaloStages][kHaloBytes]
+  unsigned char* btile = smem + kHaloStages * kHaloBytes;   // [kBStages32][w_hi, w_lo]
+  auto& bar = *reinterpret_cast<ConvBarriers<kBStages32>*>(btile + kBStages32 * kBBytes32);
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;  // outputs: pixels ty*8 .. +7, couts tx*8 .. +7
-  const long long HW = static_cast<long long>(H) * W;
-  const long long M = N * HW;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * kBN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) bar.init();
+  __syncthreads();
 
-  // A loads: pixel tid/2 of the tile, channels 4*(tid%2) .. +3
-  const int a_row = tid >> 1, a_vec = tid & 1;
-  const long long am = m0 + a_row;
-  const bool arow_ok = am < M;
-  const long long amm = arow_ok ? am : 0;
-  const int an = static_cast<int>(amm / HW);
-  const long long arem = amm - an * HW;
-  const int ay = static_cast<int>(arem / W);
-  const int ax = static_cast<int>(arem - static_cast<long long>(ay) * W);
-  // B loads: chunk row tid/32, couts 4*(tid%32) .. +3
-  const int b_row = tid >> 5, b_vec = tid & 31;
+  // the block's items: (tile, 32-channel chunk) pairs, chunks fastest
+  const int items = g.kc * ((g.tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1);
+  auto tile_at = [&](int j) {
+    return tile_of<kConvN32>(g, blockIdx.x + (j / g.kc) * gridDim.x);
+  };
 
-  const int kc = Cin / kBK32;
-  const int steps = 9 * kc;
-
-  float4 xa, av, bv, wb;
-  bool ok;
-
-  auto load = [&](int s) {
-    const int tap = s / kc, c0 = (s - tap * kc) * kBK32;
-    const int dy = tap / 3, dx = tap - 3 * (tap / 3);
-    const int c = c0 + 4 * a_vec;
-    const int yy = ay + dy - 1, xx = ax + dx - 1;
-    ok = arow_ok && yy >= 0 && yy < H && xx >= 0 && xx < W;
-    xa = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ok) {
-      xa = *reinterpret_cast<const float4*>(
-          x + ((static_cast<long long>(an) * H + yy) * W + xx) * Cin + c);
-      if (kFuse) {
-        const long long ab = static_cast<long long>(an) * Cin + c;
-        av = *reinterpret_cast<const float4*>(a + ab);
-        bv = *reinterpret_cast<const float4*>(b + ab);
+  if (warp < 4) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 0) {
+      if (lane != 0) return;
+      const CUtensorMap* const wmaps[2] = {&hmap, &lmap};
+      conv_produce<kConvK32, kBStages32, kBTile32>(&xmap, wmaps, halo, btile, bar, g, items,
+                                                   tile_at);
+    } else if (kFuse) {
+      // the prologue in f32, once per staged pixel: thread i takes channels
+      // 4 (i % 8) .. +3 of halo pixels i / 8, i / 8 + 12, ...
+      const int tid = threadIdx.x - 32, k = tid & 7;
+      const int hw2 = g.tile_w + 2, pixels = (g.tile_h + 2) * hw2;
+      const uint32_t inv = (65536u + hw2 - 1) / hw2;  // as in bf16
+      constexpr int kStep = kPrologueThreads / 8;
+      for (int j = 0; j < items; ++j) {
+        const int s = j % kHaloStages;
+        const Tile t = tile_at(j);
+        const int ch = (j % g.kc) * kConvK32 + 4 * k;
+        unsigned char* base = halo + s * kHaloBytes;
+        mbar_wait(bar.hfull + s, (j / kHaloStages) & 1);
+        if (ch < g.cin) {  // all four channels inside Cin, or all past it
+          const long long ab = static_cast<long long>(t.n) * g.cin + ch;
+          const float4 av = __ldg(reinterpret_cast<const float4*>(a + ab));
+          const float4 bv = __ldg(reinterpret_cast<const float4*>(b + ab));
+          for (int p = tid >> 3; p < pixels; p += kProloguePixels * kStep) {
+            int pp[kProloguePixels];
+            bool in[kProloguePixels];
+            float4 v[kProloguePixels];
+#pragma unroll
+            for (int u = 0; u < kProloguePixels; ++u) {
+              pp[u] = p + u * kStep;
+              const int hr = (pp[u] * inv) >> 16, hc = pp[u] - hr * hw2;
+              const int yy = t.y0 - 1 + hr, xx = t.x0 - 1 + hc;
+              in[u] = pp[u] < pixels && yy >= 0 && yy < g.h && xx >= 0 && xx < g.w;
+              v[u] = *reinterpret_cast<const float4*>(
+                  base + swz128_offset(pp[u] < pixels ? pp[u] : p, k));
+            }
+#pragma unroll
+            for (int u = 0; u < kProloguePixels; ++u) {
+              v[u].x = silu_fast(v[u].x * av.x + bv.x);
+              v[u].y = silu_fast(v[u].y * av.y + bv.y);
+              v[u].z = silu_fast(v[u].z * av.z + bv.z);
+              v[u].w = silu_fast(v[u].w * av.w + bv.w);
+              if (in[u]) *reinterpret_cast<float4*>(base + swz128_offset(pp[u], k)) = v[u];
+            }
+          }
+        }
+        fence_proxy_async();
+        mbar_arrive(bar.hready + s);
       }
     }
-    const int co = n0 + 4 * b_vec;
-    wb = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (co < Cout)
-      wb = *reinterpret_cast<const float4*>(
-          w + (static_cast<long long>(tap) * Cin + c0 + b_row) * Cout + co);
-  };
-
-  auto store = [&](int buf) {
-    float v[4] = {xa.x, xa.y, xa.z, xa.w};
-    if (kFuse && ok) {
-      const float ap[4] = {av.x, av.y, av.z, av.w}, bp[4] = {bv.x, bv.y, bv.z, bv.w};
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = (warp >> 2) - 1, wl = warp & 3;
+    const int hw2 = g.tile_w + 2;
+    // this lane's ldmatrix rows, as in bf16
+    int p0[2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = silu_fast(v[j] * ap[j] + bp[j]);
+    for (int mi = 0; mi < 2; ++mi) {
+      const int m = wg * 128 + mi * 64 + wl * 16 + (lane & 15);
+      const int r = m / g.tile_w, c = m - r * g.tile_w;
+      p0[mi] = r < g.tile_h ? r * hw2 + c : 0;
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) As[buf][(4 * a_vec + j) * kPad32 + a_row] = v[j];
-    *reinterpret_cast<float4*>(&Bs[buf][b_row * kPad32 + 4 * b_vec]) = wb;
-  };
+    const uint32_t khalf = lane >> 4;  // ldmatrix: lanes 16-31 give k 4-7 of a k8 step
+    const uint32_t halo_s = smem_addr(halo), b_s = smem_addr(btile);
 
-  float acc[8][8];
+    float acc[2][32], part[2][32];  // [m64 tile]: the f32 sums; the run's fresh sums
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      for (int i = 0; i < 32; ++i) acc[mi][i] = part[mi][i] = 0.f;
+    uint32_t ah[2][2][4], al[2][2][4];  // [group parity][m64 tile]: A's TF32 hi and lo
+    auto release = [&](int sb, int sh) {
+      if (lane == 0) {
+        if (sb >= 0) mbar_arrive(bar.bempty + sb);
+        if (sh >= 0) mbar_arrive(bar.hempty + sh);
+      }
+    };
+    // pend_*: stages to release once the group that last read them retires
+    int j = 0, bi = 0, pend_b = -1, pend_h = -1;
+    for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
+      for (int c = 0; c < g.kc; ++c, ++j) {
+        const int hs = j % kHaloStages;
+        mbar_wait((kFuse ? bar.hready : bar.hfull) + hs, (j / kHaloStages) & 1);
+        const uint32_t hbase = halo_s + hs * kHaloBytes;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap, ++bi) {
+          const int bs = bi % kBStages32;
+          const int shift = (tap / 3) * hw2 + tap % 3;
+          uint32_t row[2], sw[2];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            const uint32_t p = p0[mi] + shift;
+            row[mi] = hbase + p * 128u;
+            sw[mi] = p & 7u;
+          }
+          const uint64_t dhi = wgmma_desc_sw128(b_s + bs * kBBytes32);
+          const uint64_t dlo = wgmma_desc_sw128(b_s + bs * kBBytes32 + kBTile32);
+          const bool starts = tap % kFoldTaps == 0;
+          const bool ends = tap % kFoldTaps == kFoldTaps - 1 || tap == 8;
+          mbar_wait(bar.bfull + bs, (bi / kBStages32) & 1);
+          // one wgmma group per k8 step: 2 m64 tiles x 3 products
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const int u = kk & 1;
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              uint32_t raw[4];
+              ldmatrix_x4_at(raw, row[mi] + ((((2 * kk) | khalf) ^ sw[mi]) << 4));
+              split_tf32(raw, ah[u][mi], al[u][mi]);
+            }
+            wgmma_fence();
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              // as mma_3xtf32: the small products first; a run's first
+              // product overwrites the last run's sums
+              wgmma_m64n64k8_tf32_rs(part[mi], al[u][mi], dhi + 2 * kk, kk > 0 || !starts);
+              wgmma_m64n64k8_tf32_rs(part[mi], ah[u][mi], dlo + 2 * kk, true);
+              wgmma_m64n64k8_tf32_rs(part[mi], ah[u][mi], dhi + 2 * kk, true);
+            }
+            wgmma_commit();
+            // this group is the last to read B stage bs, and at tap 8 halo stage hs
+            const int last_b = kk == 3 ? bs : -1, last_h = kk == 3 && tap == 8 ? hs : -1;
+            if (kk == 3 && ends) {
+              wgmma_wait<0>();
+              release(pend_b, pend_h);
+              release(last_b, last_h);
+              pend_b = pend_h = -1;
+#pragma unroll
+              for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                for (int i = 0; i < 32; ++i) {
+                  fence_operand(part[mi][i]);
+                  acc[mi][i] += part[mi][i];
+                }
+            } else {
+              wgmma_wait<1>();  // the group before this one has retired
+              release(pend_b, pend_h);
+              pend_b = last_b, pend_h = last_h;
+            }
+          }
+        }
+      }
 
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int s = 0; s < steps; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < steps) load(s + 1);
+      // epilogue: bias, then f32 straight from the sums: a lane's two
+      // channels of a row are 8 bytes, four lanes one 32-byte sector
+      const Tile t = tile_of<kConvN32>(g, tile);
+      const int g8 = lane >> 2, t4 = lane & 3;
+      float2 bv[kConvN32 / 8];
 #pragma unroll
-    for (int k = 0; k < kBK32; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][k * kPad32 + ty * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][k * kPad32 + ty * 8 + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][k * kPad32 + tx * 8]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][k * kPad32 + tx * 8 + 4]);
-      const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      for (int jn = 0; jn < kConvN32 / 8; ++jn) {
+        const int cj = t.n0 + 8 * jn + 2 * t4;
+        bv[jn] = cj < g.cout ? __ldg(reinterpret_cast<const float2*>(bias + cj))
+                             : make_float2(0.f, 0.f);
+      }
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+        for (int half = 0; half < 2; ++half) {
+          const int m = wg * 128 + mi * 64 + wl * 16 + g8 + 8 * half;
+          const int r = m / g.tile_w, cc = m - r * g.tile_w;
+          const int y = t.y0 + r, x = t.x0 + cc;
+          if (r < g.tile_h && y < g.h && x < g.w) {
+            float* o = out + ((static_cast<long long>(t.n) * g.h + y) * g.w + x) * g.cout + t.n0 +
+                       2 * t4;
+#pragma unroll
+            for (int jn = 0; jn < kConvN32 / 8; ++jn)
+              if (t.n0 + 8 * jn < g.cout)  // Cout may end inside the tile
+                *reinterpret_cast<float2*>(o + 8 * jn) =
+                    make_float2(acc[mi][4 * jn + 2 * half] + bv[jn].x,
+                                acc[mi][4 * jn + 2 * half + 1] + bv[jn].y);
+          }
+        }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[mi][i] = 0.f;
     }
-    if (s + 1 < steps) store(buf ^ 1);
-    __syncthreads();
-  }
-
-  const int col = n0 + tx * 8;
-  if (col >= Cout) return;
-  const float4 bias0 = *reinterpret_cast<const float4*>(bias + col);
-  const float4 bias1 = *reinterpret_cast<const float4*>(bias + col + 4);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long row = m0 + ty * 8 + i;
-    if (row >= M) break;
-    float* o = out + row * Cout + col;
-    *reinterpret_cast<float4*>(o) = make_float4(acc[i][0] + bias0.x, acc[i][1] + bias0.y,
-                                                acc[i][2] + bias0.z, acc[i][3] + bias0.w);
-    *reinterpret_cast<float4*>(o + 4) = make_float4(acc[i][4] + bias1.x, acc[i][5] + bias1.y,
-                                                    acc[i][6] + bias1.z, acc[i][7] + bias1.w);
   }
 }
 
-
+// w [3, 3, Cin, Cout] f32 -> its TF32 split (mma.cuh::split_tf32) w_hi,
+// w_lo, each [9, Cout, Cin] (K-major for wgmma's B), through a 32 x 32
+// shared-memory tile per tap, so that reads and writes are both coalesced
+__global__ void __launch_bounds__(256)
+conv3x3_split_w_kernel(const float* __restrict__ w, float* __restrict__ w_hi,
+                       float* __restrict__ w_lo, int cin, int cout) {
+  __shared__ float tile[32][33];
+  const int tap = blockIdx.z, ci0 = blockIdx.y * 32, co0 = blockIdx.x * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int i = ty; i < 32; i += 8)
+    if (ci0 + i < cin && co0 + tx < cout)
+      tile[i][tx] = w[(static_cast<long long>(tap) * cin + ci0 + i) * cout + co0 + tx];
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8)
+    if (co0 + i < cout && ci0 + tx < cin) {
+      uint32_t hi, lo;
+      split_tf32(tile[tx][i], hi, lo);
+      const long long o = (static_cast<long long>(tap) * cout + co0 + i) * cin + ci0 + tx;
+      w_hi[o] = __uint_as_float(hi);
+      w_lo[o] = __uint_as_float(lo);
+    }
+}
 
 // cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint so that
 // the library links without -lcuda
@@ -547,17 +725,16 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a bf16 tensor map with the 128-byte swizzle, zeros out of bounds; dims
-// and box innermost first, strides in bytes for dims 1..rank-1
-bool encode_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                 const cuuint64_t* strides, const cuuint32_t* box) {
+// a tensor map with the 128-byte swizzle, zeros out of bounds; dims and
+// box innermost first, strides in bytes for dims 1..rank-1
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiledFn fn = encode_tiled();
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-             CUDA_SUCCESS;
+         fn(map, type, rank, const_cast<void*>(base), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 int sm_count() {
@@ -570,27 +747,90 @@ int sm_count() {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// The geometry of a call on a tile_h x tile_w patch plan
+// (ops/conv.py::conv_plan) with tile_n output channels a tile and chunk
+// input channels a halo load, and the TMA maps of x's halo ([N, H, W, Cin]
+// in boxes of [1, tile_h + 2, tile_w + 2, chunk]) and of each of the nw
+// weight tensors ([9, Cout, Cin] in boxes of [1, tile_n, chunk]), elements
+// of elt bytes.  False for a shape, patch or pointer the kernels refuse.
+bool conv_setup(ConvGeom& g, CUtensorMap* xmap, CUtensorMap* wmaps, const void* x,
+                const void* const* ws, int nw, const void* a, const void* b, const void* bias,
+                const void* out, int n, int h, int wd, int cin, int cout, int fuse, int tile_h,
+                int tile_w, CUtensorMapDataType type, int elt, int tile_n, int chunk) {
+  if (n < 1 || h < 1 || wd < 1 || cin < 8 || cout < 8 || cin % 8 || cout % 8 || tile_h < 1 ||
+      tile_w < 1 || tile_h * tile_w > kConvM || (tile_h + 2) * (tile_w + 2) > kHaloMax ||
+      tile_w + 2 > kMaxBox || tile_h + 2 > kMaxBox || !aligned16(x) || !aligned16(bias) ||
+      !aligned16(out) || (fuse && (!aligned16(a) || !aligned16(b))))
+    return false;
+  g.n = n, g.h = h, g.w = wd, g.cin = cin, g.cout = cout;
+  g.tile_h = tile_h, g.tile_w = tile_w;
+  g.tiles_x = (wd + tile_w - 1) / tile_w;
+  g.tiles_y = (h + tile_h - 1) / tile_h;
+  g.co_tiles = (cout + tile_n - 1) / tile_n;
+  g.kc = (cin + chunk - 1) / chunk;
+  const long long tiles = static_cast<long long>(n) * g.tiles_y * g.tiles_x * g.co_tiles;
+  if (tiles >= (1ll << 31)) return false;
+  g.tiles = static_cast<int>(tiles);
+  const cuuint64_t xdims[4] = {static_cast<cuuint64_t>(cin), static_cast<cuuint64_t>(wd),
+                               static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(n)};
+  const cuuint64_t xstrides[3] = {1ull * elt * cin, 1ull * elt * cin * wd,
+                                  1ull * elt * cin * wd * h};
+  const cuuint32_t xbox[4] = {static_cast<cuuint32_t>(chunk), static_cast<cuuint32_t>(tile_w + 2),
+                              static_cast<cuuint32_t>(tile_h + 2), 1};
+  const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(cin), static_cast<cuuint64_t>(cout), 9};
+  const cuuint64_t wstrides[2] = {1ull * elt * cin, 1ull * elt * cin * cout};
+  const cuuint32_t wbox[3] = {static_cast<cuuint32_t>(chunk), static_cast<cuuint32_t>(tile_n), 1};
+  if (!encode_map(xmap, type, x, 4, xdims, xstrides, xbox)) return false;
+  for (int i = 0; i < nw; ++i)
+    if (!aligned16(ws[i]) || !encode_map(wmaps + i, type, ws[i], 3, wdims, wstrides, wbox))
+      return false;
+  return true;
+}
+
+// one persistent block of kConvThreads per SM, at most one per tile
+template <typename Kernel, typename... Args>
+int launch_persistent(Kernel kernel, int smem, const ConvGeom& g, void* stream, Args... args) {
+  const int sms = sm_count();
+  if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid = static_cast<unsigned>(g.tiles < sms ? g.tiles : sms);
+  kernel<<<grid, kConvThreads, smem, static_cast<cudaStream_t>(stream)>>>(args..., g);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// f32 K4.  a and b are read only when fuse is 1.
-extern "C" int dst_conv3x3_f32(const void* x, const void* a, const void* b, const void* w,
-                               const void* bias, void* out, int n, int h, int wd, int cin,
-                               int cout, int fuse, void* stream) {
-  if (n < 1 || h < 1 || wd < 1 || cin < 8 || cout < 8 || cin % 8 || cout % 8)
+// f32 K4 on a tile_h x tile_w patch plan (ops/conv.py::conv_plan); w_hi and
+// w_lo are the TF32 split of w as [3, 3, Cout, Cin] (dst_conv3x3_split_w).
+// a and b are read only when fuse is 1.  Refuses a patch its halo stage or
+// TMA's boxes cannot hold.
+extern "C" int dst_conv3x3_f32(const void* x, const void* a, const void* b, const void* w_hi,
+                               const void* w_lo, const void* bias, void* out, int n, int h,
+                               int wd, int cin, int cout, int fuse, int tile_h, int tile_w,
+                               void* stream) {
+  ConvGeom g;
+  CUtensorMap xmap, wmaps[2];
+  const void* ws[2] = {w_hi, w_lo};
+  if (!conv_setup(g, &xmap, wmaps, x, ws, 2, a, b, bias, out, n, h, wd, cin, cout, fuse, tile_h,
+                  tile_w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, kConvN32, kConvK32))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long m = static_cast<long long>(n) * h * wd;
-  const dim3 grid(static_cast<unsigned>((m + kBM - 1) / kBM), (cout + kBN - 1) / kBN);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xx = static_cast<const float*>(x);
-  const float* af = static_cast<const float*>(a);
-  const float* bf = static_cast<const float*>(b);
-  const float* ww = static_cast<const float*>(w);
-  const float* bi = static_cast<const float*>(bias);
-  float* o = static_cast<float*>(out);
-  if (fuse)
-    conv3x3_f32_kernel<true><<<grid, kThreads, 0, s>>>(xx, af, bf, ww, bi, o, n, h, wd, cin, cout);
-  else
-    conv3x3_f32_kernel<false><<<grid, kThreads, 0, s>>>(xx, af, bf, ww, bi, o, n, h, wd, cin, cout);
+  return launch_persistent(fuse ? conv3x3_f32_wgmma_kernel<true> : conv3x3_f32_wgmma_kernel<false>,
+                           kSmemConv32, g, stream, xmap, wmaps[0], wmaps[1],
+                           static_cast<const float*>(a), static_cast<const float*>(b),
+                           static_cast<const float*>(bias), static_cast<float*>(out));
+}
+
+// w [3, 3, Cin, Cout] f32 -> w_hi, w_lo, each [3, 3, Cout, Cin]: the TF32
+// split that dst_conv3x3_f32 takes
+extern "C" int dst_conv3x3_split_w(const void* w, void* w_hi, void* w_lo, int cin, int cout,
+                                   void* stream) {
+  if (cin < 1 || cout < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((cout + 31) / 32, (cin + 31) / 32, 9);
+  conv3x3_split_w_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(w), static_cast<float*>(w_hi), static_cast<float*>(w_lo), cin,
+      cout);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -600,43 +840,13 @@ extern "C" int dst_conv3x3_f32(const void* x, const void* a, const void* b, cons
 extern "C" int dst_conv3x3_bf16(const void* x, const void* a, const void* b, const void* wt,
                                 const void* bias, void* out, int n, int h, int wd, int cin,
                                 int cout, int fuse, int tile_h, int tile_w, void* stream) {
-  if (n < 1 || h < 1 || wd < 1 || cin < 8 || cout < 8 || cin % 8 || cout % 8 || tile_h < 1 ||
-      tile_w < 1 || tile_h * tile_w > kConvM || (tile_h + 2) * (tile_w + 2) > kHaloMax ||
-      tile_w + 2 > kMaxBox || tile_h + 2 > kMaxBox || !aligned16(x) || !aligned16(wt) ||
-      !aligned16(bias) || !aligned16(out) || (fuse && (!aligned16(a) || !aligned16(b))))
-    return static_cast<int>(cudaErrorInvalidValue);
   ConvGeom g;
-  g.n = n, g.h = h, g.w = wd, g.cin = cin, g.cout = cout;
-  g.tile_h = tile_h, g.tile_w = tile_w;
-  g.tiles_x = (wd + tile_w - 1) / tile_w;
-  g.tiles_y = (h + tile_h - 1) / tile_h;
-  g.co_tiles = (cout + kConvN - 1) / kConvN;
-  g.kc = (cin + kConvK - 1) / kConvK;
-  const long long tiles = static_cast<long long>(n) * g.tiles_y * g.tiles_x * g.co_tiles;
-  const int sms = sm_count();
-  if (tiles >= (1ll << 31) || sms < 1) return static_cast<int>(cudaErrorInvalidValue);
-  g.tiles = static_cast<int>(tiles);
-
   CUtensorMap xmap, wmap;
-  const cuuint64_t xdims[4] = {static_cast<cuuint64_t>(cin), static_cast<cuuint64_t>(wd),
-                               static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(n)};
-  const cuuint64_t xstrides[3] = {2ull * cin, 2ull * cin * wd, 2ull * cin * wd * h};
-  const cuuint32_t xbox[4] = {kConvK, static_cast<cuuint32_t>(tile_w + 2),
-                              static_cast<cuuint32_t>(tile_h + 2), 1};
-  const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(cin), static_cast<cuuint64_t>(cout), 9};
-  const cuuint64_t wstrides[2] = {2ull * cin, 2ull * cin * cout};
-  const cuuint32_t wbox[3] = {kConvK, kConvN, 1};
-  if (!encode_bf16(&xmap, x, 4, xdims, xstrides, xbox) ||
-      !encode_bf16(&wmap, wt, 3, wdims, wstrides, wbox))
+  if (!conv_setup(g, &xmap, &wmap, x, &wt, 1, a, b, bias, out, n, h, wd, cin, cout, fuse, tile_h,
+                  tile_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, kConvN, kConvK))
     return static_cast<int>(cudaErrorInvalidValue);
-
-  auto kernel = fuse ? conv3x3_bf16_wgmma_kernel<true> : conv3x3_bf16_wgmma_kernel<false>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemConv);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  kernel<<<grid, kConvThreads, kSmemConv, static_cast<cudaStream_t>(stream)>>>(
-      xmap, wmap, static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), g);
-  return static_cast<int>(cudaGetLastError());
+  return launch_persistent(
+      fuse ? conv3x3_bf16_wgmma_kernel<true> : conv3x3_bf16_wgmma_kernel<false>, kSmemConv, g,
+      stream, xmap, wmap, static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out));
 }

@@ -1,22 +1,25 @@
-// Hopper building blocks for sm_90a (conv3x3.cu: bf16 K4): mbarriers, TMA
-// tensor loads, wgmma descriptors and the m64n128k16 bf16 product with A
-// from registers.  Kernels that stage tiles with TMA and multiply them with
-// wgmma share these: the ring of shared-memory stages filled by one thread's
-// cp.async.bulk.tensor against "full" mbarriers (transaction bytes), released
-// through "empty" mbarriers that the consumer warps arrive on.
+// Hopper building blocks for sm_90a (conv3x3.cu: K4): mbarriers, TMA tensor
+// loads, wgmma descriptors, the m64n128k16 bf16 product and the m64n64k8
+// TF32 product with A from registers.  Kernels that stage tiles with TMA and
+// multiply them with wgmma share these: the ring of shared-memory stages
+// filled by one thread's cp.async.bulk.tensor against "full" mbarriers
+// (transaction bytes), released through "empty" mbarriers that the consumer
+// warps arrive on.
 //
 // Swizzle: a TMA box whose inner dimension is 128 bytes, loaded with
 // CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte aligned stage, puts the 16-byte
 // chunk j of its 128-byte row r at chunk j ^ (r % 8) of that row
 // (swz128_offset).  wgmma reads such a tile through a descriptor with layout
 // type 1 (128-byte swizzle), rows 128 bytes apart in groups of 8 (stride
-// byte offset 1024); the k16 step kk of a K-major operand starts 32 * kk
-// bytes into the row.
+// byte offset 1024); the k16 step kk of a K-major bf16 operand, or the k8
+// step of a TF32 one, starts 32 * kk bytes into the row.
 //
-// wgmma.m64nNk16 with A in registers: warp w of the warpgroup holds rows
-// 16w .. 16w+15 of A and D.  A's four registers are mma.sync m16n8k16's A
-// fragment (mma.cuh), which ldmatrix.x4 loads; D's register 4j + e holds
-// (row g + 8 * (e / 2), col 8j + 2t + e % 2) with g = lane / 4, t = lane % 4.
+// wgmma.m64nNk16 (bf16) and m64nNk8 (TF32, K-major operands only) with A in
+// registers: warp w of the warpgroup holds rows 16w .. 16w+15 of A and D.
+// A's four registers are mma.sync m16n8k16's A fragment, or m16n8k8's TF32
+// one (mma.cuh); ldmatrix.x4 loads either, each 32-bit TF32 element as two
+// b16 halves of one row.  D's register 4j + e holds (row g + 8 * (e / 2),
+// col 8j + 2t + e % 2) with g = lane / 4, t = lane % 4.
 // The products run asynchronously: A's registers and D stay in use until
 // wgmma_wait retires their group.
 
@@ -162,6 +165,27 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_rs(float* d, const uint32_
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(static_cast<uint32_t>(accumulate)));
+}
+
+// d[32] = A (64 x 8 TF32, registers) * B (8 x 64 TF32, K-major in shared
+// memory) + (accumulate ? d : 0)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float* d, const uint32_t* a,
+                                                       uint64_t desc_b, bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(static_cast<uint32_t>(accumulate)));
 }

@@ -17,12 +17,16 @@ tensor on the CPU; on a CUDA tensor they launch K4 (``csrc/conv3x3.cu``) or
 raise.  K4 is forward only, as the JAX kernel is (it has no VJP): it raises
 on an input that requires grad while autograd records.
 
-In bf16, K4 is wgmma on a TMA-loaded halo tile: each output tile is a patch
-of one image by 128 output channels, and each 64-channel chunk of its halo
-is loaded once, has the fused prologue applied once per pixel, and feeds
-all 9 taps.  ``conv_plan`` is the pure-Python mirror of that tiling (the
-patch, the TMA boxes, the stages, the shared memory), which the wrapper
-hands to the C entry and the CPU tests check.  f32 runs on the CUDA cores.
+K4 is wgmma on a TMA-loaded halo tile: each output tile is a patch of one
+image by 128 output channels (bf16) or 64 (f32), and each chunk of its halo
+(64 bf16 or 32 f32 channels, one 128-byte row a pixel) is loaded once, has
+the fused prologue applied once per pixel, and feeds all 9 taps.
+``conv_plan`` is the pure-Python mirror of that tiling (the patch, the TMA
+boxes, the stages, the shared memory), which the wrapper hands to the C
+entry and the CPU tests check.  f32 runs in 3xTF32: x and w are each split
+into TF32 hi and lo (``split_tf32``, cvt.rna), and each product is summed as
+lo hi + hi lo + hi hi.  The wrapper splits w on the card with
+``split_w`` (one more launch a call), A is split in registers.
 
 No model of the JAX package calls this kernel (XLA's conv beat it on the
 TPU, so its U-Nets keep ``lax.conv``); the port's U-Nets likewise keep
@@ -39,7 +43,7 @@ import torch.nn.functional as F
 from .. import _build
 
 __all__ = ["ConvPlan", "conv3x3", "conv_plan", "gn_silu_conv3x3", "reference_conv3x3",
-           "supported"]
+           "split_tf32", "split_w", "supported"]
 
 
 
@@ -51,7 +55,8 @@ def supported(n, h, w, cin, cout) -> bool:
             and cin % 8 == 0 and cout % 8 == 0)
 
 
-# The bf16 kernel's constants (csrc/conv3x3.cu)
+# The kernels' constants (csrc/conv3x3.cu): bf16, and the f32 kernel's where
+# they differ (*32)
 CONV_M = 256          # output pixels per tile: two consumer warpgroups x 128
 CONV_N = 128          # output channels per tile
 CONV_K = 64           # input channels per chunk: one 128-byte row of a halo pixel
@@ -61,11 +66,14 @@ B_STAGES = 5
 MAX_BOX = 256         # TMA box dimension limit
 MAX_TILE_W = 32       # widest patch
 EPI_BYTES = 8 * 16 * 32 * 2  # epilogue staging: 16 x 32 bf16 per consumer warp
+CONV_N32 = 64         # f32: output channels per tile
+CONV_K32 = 32         # f32: input channels per chunk, again one 128-byte row
+B_STAGES32 = 5        # f32: a stage holds the tiles of w_hi and w_lo
 SMEM_LIMIT = 232448   # dynamic shared memory a block may use on the H100
 
 
 class ConvPlan(NamedTuple):
-    """The bf16 kernel's tiling of one call."""
+    """The kernel's tiling of one call."""
     tile_h: int       # patch rows
     tile_w: int       # patch columns
     tiles_y: int      # patches down an image
@@ -76,21 +84,68 @@ class ConvPlan(NamedTuple):
     halo_box: tuple   # TMA box over x [N, H, W, Cin], innermost first
     w_box: tuple      # TMA box over w as [3 * 3, Cout, Cin], innermost first
     smem: int         # dynamic shared memory of a block
+    tile_n: int       # output channels per tile
+    chunk: int        # input channels per chunk
 
 
-def conv_plan(n, h, w, cin, cout) -> ConvPlan:
+def conv_plan(n, h, w, cin, cout, dtype=torch.bfloat16) -> ConvPlan:
     """The patch of one output tile: whole rows up to 32 columns (wider
     images are cut into 32-column patches), as many rows as 256 pixels and a
-    halo stage of 352 pixels allow, at most the image's."""
+    halo stage of 352 pixels allow, at most the image's; in ``dtype``'s
+    output-channel tile and chunk."""
     tile_w = min(w, MAX_TILE_W)
     tile_h = max(1, min(h, CONV_M // tile_w, HALO_MAX // (tile_w + 2) - 2))
     tiles_y, tiles_x = -(-h // tile_h), -(-w // tile_w)
-    co_tiles = -(-cout // CONV_N)
-    smem = 1024 + HALO_STAGES * HALO_MAX * CONV_K * 2 + B_STAGES * CONV_N * CONV_K * 2
-    smem += 8 * (3 * HALO_STAGES + 2 * B_STAGES) + EPI_BYTES
+    f32 = dtype == torch.float32
+    tile_n, chunk, b_stages = ((CONV_N32, CONV_K32, B_STAGES32) if f32
+                               else (CONV_N, CONV_K, B_STAGES))
+    co_tiles = -(-cout // tile_n)
+    # a halo pixel and a row of a w tile are 128 bytes; f32 stages w_hi and
+    # w_lo and stores its outputs with no staging
+    smem = 1024 + HALO_STAGES * HALO_MAX * 128 + b_stages * (2 if f32 else 1) * tile_n * 128
+    smem += 8 * (3 * HALO_STAGES + 2 * b_stages) + (0 if f32 else EPI_BYTES)
     return ConvPlan(tile_h, tile_w, tiles_y, tiles_x, co_tiles, n * tiles_y * tiles_x * co_tiles,
-                    -(-cin // CONV_K), (CONV_K, tile_w + 2, tile_h + 2, 1), (CONV_K, CONV_N, 1),
-                    smem)
+                    -(-cin // chunk), (chunk, tile_w + 2, tile_h + 2, 1), (chunk, tile_n, 1),
+                    smem, tile_n, chunk)
+
+
+def split_tf32(t: torch.Tensor) -> tuple:
+    """(hi, lo) of an f32 tensor as the kernels split it
+    (``csrc/mma.cuh::split_tf32``): hi is t rounded to TF32's 10-bit
+    mantissa, to nearest with ties away from zero (cvt.rna.tf32.f32), and lo
+    the same rounding of t - hi (exact in f32).  In int32 bit operations:
+    adding half a TF32 step to the magnitude bits carries into the exponent
+    where it must; inf and nan pass as they are.  The plain version of the
+    split kernel."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        rounded = (bits + 0x1000) & -0x2000
+        finite = (bits & 0x7F800000) != 0x7F800000
+        return torch.where(finite, rounded, bits).view(torch.float32)
+
+    t = t.float()
+    hi = rna(t)
+    return hi, rna(t - hi)
+
+
+def split_w(w: torch.Tensor) -> tuple:
+    """(w_hi, w_lo), each [3, 3, Cout, Cin], of an f32 w [3, 3, Cin, Cout]:
+    the TF32 split (``split_tf32``) of w transposed, as the f32 K4 takes it.
+    The split kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if w.dim() != 4 or tuple(w.shape[:2]) != (3, 3) or w.dtype != torch.float32:
+        raise ValueError(f"w must be a float32 [3, 3, Cin, Cout], got {tuple(w.shape)} {w.dtype}")
+    cin, cout = w.shape[2:]
+    if w.device.type == "cpu":
+        return split_tf32(w.transpose(2, 3))
+    w = _aligned(w)
+    out = torch.empty(2, 3, 3, cout, cin, dtype=torch.float32, device=w.device)
+    lib = _build.load_library()
+    with torch.cuda.device(w.device):
+        err = lib.dst_conv3x3_split_w(w.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), cin,
+                                      cout, torch.cuda.current_stream(w.device).cuda_stream)
+    _build.check(lib, err, "split_w")
+    split_w.launches += 1
+    return out[0], out[1]
 
 
 def reference_conv3x3(x, w, bias=None, a=None, b=None):
@@ -153,17 +208,18 @@ def _launch(x, w, bias, a, b):
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        plan = conv_plan(n, h, wd, cin, cout, x.dtype)
         if x.dtype == torch.bfloat16:
             # K-major B for wgmma: w as [3, 3, Cout, Cin]
             wt = _aligned(w.to(x.dtype).permute(0, 1, 3, 2))
-            plan = conv_plan(n, h, wd, cin, cout)
             err = lib.dst_conv3x3_bf16(x.data_ptr(), *ab, wt.data_ptr(), bias.data_ptr(),
                                        out.data_ptr(), n, h, wd, cin, cout, int(fuse),
                                        plan.tile_h, plan.tile_w, stream)
         else:
-            w = _aligned(w.to(x.dtype))
-            err = lib.dst_conv3x3_f32(x.data_ptr(), *ab, w.data_ptr(), bias.data_ptr(),
-                                      out.data_ptr(), n, h, wd, cin, cout, int(fuse), stream)
+            w_hi, w_lo = split_w(w.float())
+            err = lib.dst_conv3x3_f32(x.data_ptr(), *ab, w_hi.data_ptr(), w_lo.data_ptr(),
+                                      bias.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
+                                      int(fuse), plan.tile_h, plan.tile_w, stream)
     _build.check(lib, err, "conv3x3")
     conv3x3.launches += 1
     return out
@@ -189,3 +245,4 @@ def gn_silu_conv3x3(x, a, b, w, bias=None):
 
 
 conv3x3.launches = 0  # K4 launches through either entry point since the last reset
+split_w.launches = 0  # split-kernel launches (one per f32 K4 call) since the last reset

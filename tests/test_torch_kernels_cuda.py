@@ -13,8 +13,9 @@ route that takes them; K3 at odd group sizes and ragged H * W, on both of
 its routes (the cluster slab at every cluster size, and the streamed
 pass); K4 (the
 direct 3x3 conv) at aligned, ragged and multi-image-tile shapes through both
-entry points, and its bf16 kernel (wgmma on a TMA-loaded halo tile) at every
-patch plan, two runs bit-identical.
+entry points, and its bf16 and f32 kernels (wgmma on a TMA-loaded halo tile;
+f32 in 3xTF32) at every patch plan, two runs bit-identical, with the f32
+kernel's split of w bit-equal to ``split_tf32``.
 
 Marked ``cuda``: without a CUDA device each test skips.  The file imports no
 jax package module, so it also runs where flax is not installed:
@@ -29,9 +30,9 @@ to max|plain grad|: f32 1e-4 (at T = 1, where dq and dk are zero in exact
 arithmetic, relative to the call's largest plain grad); bf16 2^-6 (both
 sides round P, dS and the grads to bf16 from f32 values that may differ in
 the last bit).  K4,
-relative to max|plain out|: f32 1e-5 (both sum in f32, in other orders);
-bf16 2^-7, one bf16 step of the largest output for an element whose f32
-sums straddle a rounding boundary.
+relative to max|plain out|: f32 1e-5 (both sum in f32, in other orders; the
+kernel's 3xTF32 products lose ~2^-22 each); bf16 2^-7, one bf16 step of the
+largest output for an element whose f32 sums straddle a rounding boundary.
 """
 
 import pytest
@@ -676,11 +677,12 @@ def test_conv_kernel_matches_plain(cuda, n, h, w, cin, cout, dtype, fused):
     assert (got.float() - ref.float()).abs().max().item() <= bound
 
 
-# The bf16 kernel (wgmma on a TMA-loaded halo tile) across its patch plans:
+# The wgmma kernels (on a TMA-loaded halo tile) across their patch plans:
 # W of one pixel, below, at and above the 32-column patch, and cut into
 # 32-column patches up to W + 2 > 256; Cin below, between and above the
-# 64-channel chunk; Cout below, at and above the 128-channel tile and ending
-# inside a 32-channel epilogue pass
+# chunk (64 bf16 or 32 f32 channels); Cout below, at and above the
+# output-channel tile (128 bf16, 64 f32) and ending inside it, and inside a
+# 32-channel epilogue pass (bf16)
 WGMMA_WIDTHS = [1, 5, 8, 31, 32, 33, 64, 300]
 WGMMA_CHANNELS = [(8, 120), (72, 384), (128, 8), (256, 128)]
 
@@ -690,8 +692,23 @@ WGMMA_CHANNELS = [(8, 120), (72, 384), (128, 8), (256, 128)]
 @pytest.mark.parametrize("cin,cout", WGMMA_CHANNELS)
 @pytest.mark.parametrize("fused", [False, True], ids=["conv3x3", "gn_silu_conv3x3"])
 def test_conv_bf16_wgmma_kernel_matches_plain(cuda, w, cin, cout, fused):
+    _wgmma_kernel_matches_plain(w, cin, cout, fused, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", WGMMA_WIDTHS)
+@pytest.mark.parametrize("cin,cout", WGMMA_CHANNELS)
+@pytest.mark.parametrize("fused", [False, True], ids=["conv3x3", "gn_silu_conv3x3"])
+def test_conv_f32_wgmma_kernel_matches_plain(cuda, w, cin, cout, fused):
+    """The 3xTF32 kernel; each call also launches the split of w once."""
+    before = C.split_w.launches
+    _wgmma_kernel_matches_plain(w, cin, cout, fused, torch.float32)
+    assert C.split_w.launches == before + 2
+
+
+def _wgmma_kernel_matches_plain(w, cin, cout, fused, dtype):
     n, h = 2, 9 if w <= 64 else 3
-    x, wt, bias, a, b = _conv_inputs(n, h, w, cin, cout, torch.bfloat16, seed=w + cin + cout)
+    x, wt, bias, a, b = _conv_inputs(n, h, w, cin, cout, dtype, seed=w + cin + cout)
     if fused:
         def run():
             return C.gn_silu_conv3x3(x, a, b, wt, bias)
@@ -706,10 +723,34 @@ def test_conv_bf16_wgmma_kernel_matches_plain(cuda, w, cin, cout, fused):
     again = run()
     torch.cuda.synchronize()
     assert C.conv3x3.launches == before + 2
-    assert got.dtype == torch.bfloat16 and got.shape == (n, h, w, cout)
-    bound = CONV_TOL[torch.bfloat16] * ref.float().abs().max().item()
+    assert got.dtype == dtype and got.shape == (n, h, w, cout)
+    bound = CONV_TOL[dtype] * ref.float().abs().max().item()
     assert (got.float() - ref.float()).abs().max().item() <= bound
     assert torch.equal(got, again)  # a fixed order of sums, no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(8, 120), (72, 384), (256, 256)])
+def test_conv_split_w_kernel_matches_split_tf32(cuda, cin, cout):
+    """The split kernel is bit-equal to its plain version, ties (away from
+    zero), negatives, subnormals, +-0 and large magnitudes included; the
+    CPU tensor takes the plain version and counts no launch."""
+    g = torch.Generator("cuda").manual_seed(cin + cout)
+    w = torch.randn(3, 3, cin, cout, generator=g, device="cuda") / (3 * cin ** 0.5)
+    special = torch.tensor([0.0, -0.0, 1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11, 1e-40,
+                            -3e-39, 2 ** -126, 3e38, -1e30, 65504.0, 1 - 2 ** -24], device="cuda")
+    w.view(-1)[: special.numel()] = special
+    before = C.split_w.launches
+    hi, lo = C.split_w(w)
+    torch.cuda.synchronize()
+    assert C.split_w.launches == before + 1
+    want_hi, want_lo = C.split_tf32(w.transpose(2, 3))
+    assert hi.shape == lo.shape == (3, 3, cout, cin)
+    for got, want in ((hi, want_hi), (lo, want_lo)):
+        assert torch.equal(got.view(torch.int32), want.contiguous().view(torch.int32))
+    cpu = C.split_w(w.cpu())
+    assert C.split_w.launches == before + 1
+    assert torch.equal(cpu[0], want_hi.cpu()) and torch.equal(cpu[1], want_lo.cpu())
 
 
 @pytest.mark.cuda
