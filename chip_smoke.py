@@ -175,6 +175,33 @@ Phases, each printing as it goes and then its seconds:
    form, the search seconds, and images/s on the found schedule.
 30. The same on the LSUN-Bedroom LDM (BASELINE config 4) in bf16 at batch 64,
    ``--afs=False``, then sampling and the VQ decode of 64 seeds.
+31. Checkpoint loading at full width: the 56M-parameter CIFAR-10
+   EDMPrecond from seed 0, redrawn at unit scale, written as EDM's ``.pkl``
+   (a plain pickle of {'ema': module}, legacy storages) and as a torch zip
+   of its state_dict into a temporary directory; ``create_model('cifar10',
+   path)`` on each, with the file's size, the host seconds and MB/s: every
+   tensor bit-equal, D at batch 64 in f32 bit-equal to the source net's
+   (6 K1 and 73 K3); then ``cli.sample --model_path=<.pkl>`` at NFE 5,
+   batch 256, bf16, its PNGs byte for byte ``generate``'s images, with
+   exactly 30 K1 and 365 K3 launches.
+32. Stable Diffusion from a checkpoint with text: a full-width SD v1.5
+   checkpoint in ``v1-5-pruned-emaonly.ckpt``'s layout from seeded random
+   weights in f16 storages (``model.diffusion_model.*``, the KL
+   ``first_stage_model`` encoder, decoder, ``quant_conv`` and
+   ``post_quant_conv``, ``cond_stage_model.transformer.text_model.*`` with
+   ``position_ids``, the EMA counters and the DDPM buffers), a synthetic
+   BPE merges file through $CLIP_BPE_VOCAB and a 64-row captions CSV in
+   ``./models``, all in a temporary directory; ``create_model('ms_coco',
+   path)``: its load seconds and MB/s, every loaded tensor bit-equal to the
+   file's, the text tower bound; the tower in f32 (TF32 off) on 64 prompts,
+   timed, against its own CPU run at 1e-4 * max|out|; ``cli.sample`` with
+   ``--prompt`` and with a caption per seed, batch 8, ipndm NFE 5, bf16,
+   guidance 7.5, each byte for byte ``generate`` on
+   ``get_learned_conditioning``'s contexts with its latents/s with and
+   without the text encode, and exactly 80 K1 (SD's 16 sites at d = 40 /
+   80 / 160) and the U-Net's and decoder's K3; two AMED iterations through
+   ``train_amed.build_trainer`` on the checkpoint and the captions (f32, K1,
+   K1c, K2 and K2c launched as in phase 25).
 
 The last three lines are the card's name and power limit, a JSON object on
 the kernels and ``{"ok": true, "device": {...}}``.  The JSON lists K1 and
@@ -204,10 +231,12 @@ exits non-zero with no result; so does a machine without CUDA.
 from __future__ import annotations
 
 import contextlib
+import copy
 import glob
 import json
 import math
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -224,7 +253,9 @@ from diff_sampler_tpu_torch.cli import train_amed as cli_train_amed
 from diff_sampler_tpu_torch.models import adm, layers
 from diff_sampler_tpu_torch.models.convert import params_to_jax
 from diff_sampler_tpu_torch.models.factory import create_model, init_params
+from diff_sampler_tpu_torch.models.ldm import reference_state_dict
 from diff_sampler_tpu_torch.models.precond import bind
+from diff_sampler_tpu_torch.models.text import FrozenCLIPEmbedder
 from diff_sampler_tpu_torch.ops import attention as A
 from diff_sampler_tpu_torch.ops import conv as C
 from diff_sampler_tpu_torch.ops import groupnorm as G
@@ -1941,21 +1972,12 @@ def phase_sd_profile(pre, ctx, uc) -> None:
              lambda: pre(x, sigma, ctx, uc), {"K1": SD_SITES, "K1c": 0, "K3": gn})
 
 
-def phase_sd_amed(workdir: str) -> dict:
-    """The SD AMED trainer as ``cli.train_amed --dataset_name=ms_coco
-    --guidance_type=cfg --guidance_rate=7.5`` builds it (``build_trainer``),
-    f32, for ``SD_AMED_ITERS`` iterations at batch ``SD_AMED_BATCH`` (the
-    CLI's integer --total_kimg would run 125), then AMED sampling at NFE 5
-    with the trained predictor through ``bind_with_bottleneck(...,
-    cfg_doubled=True)``.  Returns the training's counts."""
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = AMEDConfig(dataset_name=SD, num_steps=AMED_STEPS, afs=SD_AMED_AFS,
-                     batch=SD_AMED_BATCH, batch_gpu=SD_BATCH_GPU, guidance_type="cfg",
-                     guidance_rate=SD_GUIDANCE)
-    module, cfg, pred, step, context_fn = cli_train_amed.build_trainer(cfg, "random", "cuda")
-    ld = module.latent_diffusion
-    gn = _gn_sites(ld.unet)
+def _sd_amed_iterations(tag: str, cfg, pred, step, context_fn, gn: int) -> dict:
+    """``SD_AMED_ITERS`` iterations of an SD AMED train step at batch
+    ``SD_AMED_BATCH`` (microbatch ``SD_BATCH_GPU``) with the contexts of
+    ``context_fn``, the counts set to 0 just before: finite losses, a
+    predictor that moves, and exactly the K1 / K1c / K2 / K2c / K3 launches
+    of the guided f32 U-Net calls.  Returns the counts."""
     fresh = {k: v.clone() for k, v in pred.state_dict().items()}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1985,16 +2007,37 @@ def phase_sd_amed(workdir: str) -> dict:
                  dqc=SD_FLAT_SITES * segments * micro, dkvc=SD_FLAT_SITES * segments * micro)
     moved = max((pred.state_dict()[k] - v).abs().max().item() for k, v in fresh.items())
     kimg = SD_AMED_ITERS * SD_AMED_BATCH / 1000
-    print(f"[SD AMED] build_trainer(ms_coco, guidance_type=cfg, guidance_rate={SD_GUIDANCE}): "
+    print(f"[{tag}] build_trainer(ms_coco, guidance_type=cfg, guidance_rate={SD_GUIDANCE}): "
           f"batch {SD_AMED_BATCH}, batch_gpu {SD_BATCH_GPU} (a guided U-Net call of "
           f"{2 * SD_BATCH_GPU}), f32 net, afs {SD_AMED_AFS}, {SD_AMED_ITERS} iterations: "
           f"{host_s:.3f} s host clock, {device_s:.3f} s CUDA events ({device_s / kimg:.3f} "
           f"s/kimg); torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB; losses per step "
           f"{losses}; predictor moved by max abs {moved:.4g}")
-    print(f"[SD AMED] launches {counts}, expected {want}")
-    _check(all(math.isfinite(x) for row in losses for x in row), "SD AMED: losses not finite")
-    _check(moved > 0, "SD AMED: the predictor did not move")
-    _check(counts == want, "launch counts of the SD AMED training")
+    print(f"[{tag}] launches {counts}, expected {want}")
+    _check(all(math.isfinite(x) for row in losses for x in row), f"{tag}: losses not finite")
+    _check(moved > 0, f"{tag}: the predictor did not move")
+    _check(counts == want, f"launch counts of the {tag} training")
+    return counts
+
+
+def phase_sd_amed(workdir: str) -> dict:
+    """The SD AMED trainer as ``cli.train_amed --dataset_name=ms_coco
+    --guidance_type=cfg --guidance_rate=7.5`` builds it (``build_trainer``),
+    f32, for ``SD_AMED_ITERS`` iterations at batch ``SD_AMED_BATCH`` (the
+    CLI's integer --total_kimg would run 125), then AMED sampling at NFE 5
+    with the trained predictor through ``bind_with_bottleneck(...,
+    cfg_doubled=True)``.  Returns the training's counts."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = AMEDConfig(dataset_name=SD, num_steps=AMED_STEPS, afs=SD_AMED_AFS,
+                     batch=SD_AMED_BATCH, batch_gpu=SD_BATCH_GPU, guidance_type="cfg",
+                     guidance_rate=SD_GUIDANCE)
+    module, cfg, pred, step, context_fn = cli_train_amed.build_trainer(cfg, "random", "cuda")
+    ld = module.latent_diffusion
+    gn = _gn_sites(ld.unet)
+    counts = _sd_amed_iterations("SD AMED", cfg, pred, step, context_fn, gn)
+    segments = AMED_STEPS - 1
+    mh_sites = SD_SITES - SD_FLAT_SITES
 
     run_dir = os.path.join(workdir, "sd_amed")
     os.makedirs(run_dir)
@@ -2388,6 +2431,319 @@ def phase_gits_ldm() -> dict:
     return dict(dp_list=res["dp_list"], seconds=res["gits_seconds"], rate=rate)
 
 
+# Phase 31: CIFAR-10 from its checkpoint files
+CKPT_D_BATCH = 64  # D of the loaded net against the source net, f32
+
+# Phase 32: Stable Diffusion from a checkpoint file, with its text tower
+SD_CKPT_STORAGE = torch.float16  # the file's storages: half of the 4.3 GB f32 file
+SD_TEXT_BATCH = 64  # prompts per text-encoder call: the CLI's chunk of captions
+SD_PROMPT = "a photograph of an astronaut riding a horse on the moon"
+_WORDS = dict(
+    adj=["small", "red", "old", "wooden", "busy", "quiet", "white", "large"],
+    noun=["cat", "dog", "train", "kitchen", "street", "horse", "table", "person"],
+    prep=["on", "near", "in", "beside"],
+    place=["mat", "station", "park", "window", "beach", "city", "field", "road"])
+
+
+def _captions(n: int, seed: int = 0) -> list:
+    """n MS-COCO-like captions drawn from a seed."""
+    rng = np.random.RandomState(seed)
+    return [" ".join(["a", *(str(rng.choice(_WORDS[k])) for k in ("adj", "noun", "prep")),
+                      "the", str(rng.choice(_WORDS["place"]))]) for _ in range(n)]
+
+
+def _merges(texts) -> list:
+    """A BPE merge table under which each word of ``texts`` is one token:
+    each word's characters merged left to right, the last with ``</w>``."""
+    out = []
+    for word in dict.fromkeys(w for t in texts for w in t.lower().split()):
+        parts = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(parts) > 1:
+            out.append((parts[0], parts[1]))
+            parts = [parts[0] + parts[1]] + parts[2:]
+    return list(dict.fromkeys(out))
+
+
+def _kl_encoder_shapes(ch=128, ch_mult=(1, 2, 4, 4), num_res_blocks=2, z=8) -> dict:
+    """The reference KL encoder's state_dict shapes (model.py Encoder, SD
+    v1.5's ``first_stage_config``): what an SD checkpoint holds and the
+    port leaves out."""
+    shapes = {"conv_in.weight": (ch, 3, 3, 3), "conv_in.bias": (ch,)}
+
+    def conv(name, cout, cin, k):
+        shapes.update({f"{name}.weight": (cout, cin, k, k), f"{name}.bias": (cout,)})
+
+    def resnet(name, cin, cout):
+        for norm, c in (("norm1", cin), ("norm2", cout)):
+            shapes.update({f"{name}.{norm}.weight": (c,), f"{name}.{norm}.bias": (c,)})
+        conv(f"{name}.conv1", cout, cin, 3)
+        conv(f"{name}.conv2", cout, cout, 3)
+        if cin != cout:
+            conv(f"{name}.nin_shortcut", cout, cin, 1)
+
+    block_in = ch
+    for i, mult in enumerate(ch_mult):
+        for j in range(num_res_blocks):
+            resnet(f"down.{i}.block.{j}", block_in, ch * mult)
+            block_in = ch * mult
+        if i != len(ch_mult) - 1:
+            conv(f"down.{i}.downsample.conv", block_in, block_in, 3)
+    resnet("mid.block_1", block_in, block_in)
+    shapes.update({"mid.attn_1.norm.weight": (block_in,), "mid.attn_1.norm.bias": (block_in,)})
+    for name in ("q", "k", "v", "proj_out"):
+        conv(f"mid.attn_1.{name}", block_in, block_in, 1)
+    resnet("mid.block_2", block_in, block_in)
+    shapes.update({"norm_out.weight": (block_in,), "norm_out.bias": (block_in,)})
+    conv("conv_out", z, block_in, 3)
+    return shapes
+
+
+def _sd_checkpoint_extras(alphas: np.ndarray) -> dict:
+    """What ``v1-5-pruned-emaonly.ckpt`` holds beside the weights the port
+    loads: the KL encoder and ``quant_conv`` (seeded random, f16), the EMA
+    counters, the DDPM schedule buffers and the text tower's position_ids."""
+    g = torch.Generator().manual_seed(32)
+    out = {f"first_stage_model.encoder.{k}": torch.randn(shape, generator=g).to(SD_CKPT_STORAGE)
+           for k, shape in _kl_encoder_shapes().items()}
+    out["first_stage_model.quant_conv.weight"] = torch.randn(8, 8, 1, 1, generator=g).half()
+    out["first_stage_model.quant_conv.bias"] = torch.zeros(8, dtype=torch.float16)
+    out["model_ema.decay"] = torch.tensor(0.9999)
+    out["model_ema.num_updates"] = torch.tensor(0, dtype=torch.int32)
+    a = torch.from_numpy(alphas).float()
+    betas = 1 - a / torch.cat([torch.ones(1), a[:-1]])
+    out.update({"betas": betas, "alphas_cumprod": a,
+                "alphas_cumprod_prev": torch.cat([torch.ones(1), a[:-1]]),
+                "sqrt_alphas_cumprod": a.sqrt(), "sqrt_one_minus_alphas_cumprod": (1 - a).sqrt(),
+                "log_one_minus_alphas_cumprod": (1 - a).log(),
+                "sqrt_recip_alphas_cumprod": a.rsqrt(), "sqrt_recipm1_alphas_cumprod": (1 / a - 1).sqrt(),
+                "posterior_variance": betas, "posterior_log_variance_clipped": betas.log(),
+                "posterior_mean_coef1": betas, "posterior_mean_coef2": betas})
+    out["cond_stage_model.transformer.text_model.embeddings.position_ids"] = torch.arange(77)[None]
+    return out
+
+
+def _load_timed(tag: str, dataset: str, path: str, **kwargs):
+    """(``create_model(dataset, path, ...)`` on the card, its host seconds),
+    printed with the file's MB/s."""
+    mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    out = create_model(dataset, path, device="cuda", **kwargs)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    print(f"[{tag}] create_model({dataset!r}, {os.path.basename(path)}) of {mb:.2f} MB: "
+          f"{load_s:.3f} s host clock, {mb / load_s:.1f} MB/s")
+    return out, load_s
+
+
+@torch.no_grad()
+def phase_checkpoint_edm(workdir: str) -> dict:
+    """Phase 31: the full-width CIFAR-10 EDMPrecond (seeded, redrawn at
+    unit scale) written as EDM's ``.pkl`` (a plain pickle of {'ema':
+    module}, legacy storages) and as a torch zip of its state_dict, each
+    loaded by ``create_model('cifar10', path)``: every tensor bit-equal, D
+    at batch 64 in f32 bit-equal to the source net's, with K1 and K3; then
+    ``cli.sample --model_path=<.pkl>`` at NFE 5, batch 256, bf16, its PNGs
+    byte for byte ``generate``'s images.  Returns the CLI run's counts."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    src, _ = create_model("cifar10", "random", device="cuda")
+    _redraw_unit_scale(src, seed=31, device="cuda")
+    want = {k: v.cpu() for k, v in src.state_dict().items()}
+    files = {"pkl": os.path.join(workdir, "edm-cifar10-32x32-uncond-vp.pkl"),
+             "pt": os.path.join(workdir, "cifar10-state_dict.pt")}
+    t0 = time.perf_counter()
+    with open(files["pkl"], "wb") as f:
+        pickle.dump({"ema": copy.deepcopy(src).cpu(), "augment_pipe": None}, f)
+    torch.save(want, files["pt"])
+    print(f"[ckpt EDM] {sum(v.numel() for v in src.parameters()) / 1e6:.1f}M parameters; both "
+          f"files written in {time.perf_counter() - t0:.3f} s")
+    sigma = torch.tensor(np.geomspace(0.002, 80.0, CKPT_D_BATCH), dtype=torch.float32,
+                         device="cuda")
+    x = stacked_randn(range(CKPT_D_BATCH), (32, 32, 3), device="cuda") * sigma[:, None, None, None]
+    torch.backends.cudnn.deterministic = True  # the same cuDNN algorithms for both nets
+    d_src = src(x, sigma)
+    for kind, path in files.items():
+        (module, source), _ = _load_timed(f"ckpt EDM {kind}", "cifar10", path)
+        got = module.state_dict()
+        same = sum(torch.equal(got[k].cpu(), v) for k, v in want.items())
+        _reset_counts()
+        d = module(x, sigma)
+        counts = _counts()
+        print(f"[ckpt EDM {kind}] {same} of {len(want)} tensors bit-equal to the source; D at "
+              f"batch {CKPT_D_BATCH} f32: max abs diff from the source net "
+              f"{(d - d_src).abs().max().item():.3g}, max|D - c_skip x| "
+              f"{(d - x * 0.25 / (sigma[:, None, None, None] ** 2 + 0.25)).abs().max().item():.3g}"
+              f"; launches {counts}")
+        _check(source == "edm" and same == len(want), f"ckpt EDM {kind}: tensors differ")
+        _check(torch.equal(d, d_src), f"ckpt EDM {kind}: D differs from the source net's")
+        _check(counts == _only(k1=ATTENTION_SITES, gn=CIFAR_GN_SITES),
+               f"ckpt EDM {kind}: launches {counts}")
+    del src, module
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    (module, _), _ = _load_timed("ckpt EDM bf16", "cifar10", files["pkl"], dtype=torch.bfloat16)
+    images = generate(bind(module), range(BATCH), (32, 32, 3),
+                      SolverConfig(solver="ipndm", num_steps=6), max_batch_size=BATCH,
+                      device="cuda")
+    nfe = 5
+    _reset_counts()
+    t0 = time.perf_counter()
+    _check_cli_pngs("ckpt EDM", ["--dataset_name=cifar10", f"--model_path={files['pkl']}",
+                                 "--solver=ipndm", "--num_steps=6", "--bf16=True"], images)
+    counts = _counts()
+    print(f"[ckpt EDM] cli.sample --model_path=<.pkl>, ipndm NFE {nfe}, batch {BATCH}, bf16: "
+          f"{time.perf_counter() - t0:.3f} s host clock with the load; launches {counts}")
+    _check(counts == _only(k1=ATTENTION_SITES * nfe, gn=CIFAR_GN_SITES * nfe),
+           f"ckpt EDM CLI: launches {counts}")
+    return counts
+
+
+def _timed_generate(den, seeds, per_seed_cond=None):
+    """SD bf16 sampling at batch SD_BATCH, ipndm NFE 5 on the discrete
+    schedule: (latents, CUDA-event seconds)."""
+    cfg = SolverConfig(solver="ipndm", num_steps=6, schedule_type="discrete", schedule_rho=1.0)
+    start, end = _events()
+    start.record()
+    latents = generate(den, seeds, SD_LATENT, cfg, max_batch_size=SD_BATCH, device="cuda",
+                       per_seed_cond=per_seed_cond)
+    end.record()
+    torch.cuda.synchronize()
+    return latents, start.elapsed_time(end) / 1000
+
+
+def _host_timed(fn):
+    """(fn(), its host seconds up to a synchronize)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_checkpoint_sd(workdir: str) -> dict:
+    """Phase 32: a full-width SD v1.5 checkpoint in
+    ``v1-5-pruned-emaonly.ckpt``'s layout from seeded random weights (f16
+    storages), a synthetic BPE merges file through $CLIP_BPE_VOCAB and a
+    64-row captions CSV in an offline root; ``create_model('ms_coco',
+    path)`` binds the text tower, which runs in f32 on 64 prompts against its
+    own CPU run; ``cli.sample`` with ``--prompt`` and with per-seed captions
+    (batch 8, NFE 5, bf16, guidance 7.5), byte for byte ``generate`` on
+    ``get_learned_conditioning``'s contexts; two AMED iterations through
+    ``build_trainer`` on the checkpoint and the captions.  Returns the
+    launch counts of the two CLI runs and of the AMED run."""
+    path = os.path.join(workdir, "v1-5-pruned-emaonly.ckpt")
+    csv = os.path.join(workdir, "models", "MS-COCO_val2014_30k_captions.csv")
+    vocab = os.path.join(workdir, "merges.txt")
+    captions = _captions(SD_TEXT_BATCH)
+    os.makedirs(os.path.dirname(csv))
+    with open(csv, "w") as f:
+        f.write("image_id,id,text\n" + "".join(f'{i},{i},"{c}"\n' for i, c in enumerate(captions)))
+    merges = _merges(captions + [SD_PROMPT])
+    with open(vocab, "w") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    pre, _ = create_model(SD, "random", device="cuda")
+    src = pre.latent_diffusion
+    src.cond_stage_model = init_params(FrozenCLIPEmbedder(device="cuda"), seed=1)
+    sd = {k: v.to("cpu", SD_CKPT_STORAGE) for k, v in reference_state_dict(src).items()}
+    want = {k: v.to(SD_CKPT_STORAGE).float() for k, v in src.state_dict().items()}
+    sd.update(_sd_checkpoint_extras(src.alphas_cumprod))
+    torch.save({"state_dict": sd, "global_step": 840000}, path)
+    n_loaded = sum(v.numel() for v in want.values())
+    print(f"[ckpt SD] {len(sd)} tensors ({n_loaded / 1e6:.1f}M loaded by the port, "
+          f"{sum(v.numel() for v in sd.values()) / 1e6:.1f}M in all) in {SD_CKPT_STORAGE} "
+          f"storages, {os.path.getsize(path) / 1e9:.3f} GB, written in "
+          f"{time.perf_counter() - t0:.3f} s with the random init; vocab {len(merges)} merges")
+    del pre, src, sd
+    torch.cuda.empty_cache()
+
+    old_vocab = os.environ.get("CLIP_BPE_VOCAB")
+    os.environ["CLIP_BPE_VOCAB"] = vocab
+    try:
+        (pre, source), load_s = _load_timed("ckpt SD", SD, path, guidance_rate=SD_GUIDANCE,
+                                            dtype=torch.bfloat16)
+        ld = pre.latent_diffusion
+        got = ld.state_dict()
+        same = sum(torch.equal(got[k], v) for k, v in want.items())
+        print(f"[ckpt SD] {same} of {len(want)} tensors bit-equal to the file's")
+        _check(source == "sd" and isinstance(ld.cond_stage_fn, FrozenCLIPEmbedder),
+               "ckpt SD: no text encoder bound")
+        _check(same == len(want), "ckpt SD: loaded tensors differ from the file's")
+        del want, got
+
+        # the text tower, f32, TF32 off, on the card and on the CPU
+        enc = ld.cond_stage_model
+        ids = enc.tokenize(captions)
+        out = enc.encode_ids(ids)
+        ms = _time_ms(lambda: enc.encode_ids(ids), reps=10, warmup=2)
+        _, host_s = _host_timed(lambda: ld.get_learned_conditioning(captions))
+        ref, cpu_s = _host_timed(lambda: copy.deepcopy(enc).cpu().encode_ids(ids))
+        err = (out.cpu() - ref).abs().max().item()
+        print(f"[ckpt SD] text tower f32 on {SD_TEXT_BATCH} prompts x 77 tokens: {ms:.4f} ms "
+              f"(CUDA events), {host_s * 1e3:.2f} ms host clock with the tokenizer; max abs diff "
+              f"from its CPU run {err:.3g} (tol 1e-4 * max|out| = "
+              f"{1e-4 * ref.abs().max().item():.3g}; the CPU run {cpu_s:.2f} s)")
+        _check(out.shape == (SD_TEXT_BATCH, 77, 768) and bool(torch.isfinite(out).all()),
+               "ckpt SD: text contexts not finite")
+        _check(err <= 1e-4 * ref.abs().max().item(), "ckpt SD: the tower on the card differs")
+
+        # sampling through the CLI: a prompt, then a caption per seed
+        seeds = list(range(SD_BATCH))
+        gn = _gn_sites(ld.unet) * 5 + _gn_sites(ld.first_stage)
+        (uc, ctx), enc_s = _host_timed(lambda: (ld.get_learned_conditioning([""]),
+                                                ld.get_learned_conditioning([SD_PROMPT])))
+        runs = {"prompt": (bind(pre, condition=ctx, unconditional_condition=uc), None, enc_s)}
+        rows, rows_s = _host_timed(lambda: ld.get_learned_conditioning(
+            [captions[s % len(captions)] for s in seeds]))
+        runs["captions"] = (bind(pre, unconditional_condition=uc), rows, rows_s + enc_s)
+        counts = {}
+        for name, (den, per_seed, encode_s) in runs.items():
+            _timed_generate(den, seeds, per_seed)  # warm-up
+            latents, sample_s = _timed_generate(den, seeds, per_seed)
+            images = ld.decode_in_chunks(latents, chunk=DECODE_CHUNK)
+            print(f"[ckpt SD {name}] ipndm NFE 5, batch {SD_BATCH}, bf16, guidance {SD_GUIDANCE}: "
+                  f"{SD_BATCH / sample_s:.3f} latents/s (CUDA events, {sample_s:.4f} s), "
+                  f"{SD_BATCH / (sample_s + encode_s):.3f} latents/s with the text encode "
+                  f"({encode_s * 1e3:.2f} ms host clock)")
+            argv = [f"--dataset_name={SD}", f"--model_path={path}", "--solver=ipndm",
+                    "--num_steps=6", "--bf16=True", f"--guidance_rate={SD_GUIDANCE}"]
+            if name == "prompt":
+                argv.append(f"--prompt={SD_PROMPT}")
+            _reset_counts()
+            with contextlib.chdir(workdir):  # the captions CSV in ./models
+                cli_s = _host_timed(lambda: _check_cli_pngs(f"ckpt SD {name}", argv, images,
+                                                            batch=SD_BATCH))[1]
+            counts[name] = _counts()
+            print(f"[ckpt SD {name}] cli.sample: {cli_s:.3f} s host clock with the load; "
+                  f"launches {counts[name]}")
+            _check(counts[name] == _only(k1=SD_SITES * 5, gn=gn),
+                   f"ckpt SD {name} CLI: launches {counts[name]}")
+        del pre, ld, enc, den, runs
+        torch.cuda.empty_cache()
+
+        # AMED on the checkpoint, with the captions
+        cfg = AMEDConfig(dataset_name=SD, num_steps=AMED_STEPS, afs=SD_AMED_AFS,
+                         batch=SD_AMED_BATCH, batch_gpu=SD_BATCH_GPU, guidance_type="cfg",
+                         guidance_rate=SD_GUIDANCE)
+        (module, cfg, pred, step, context_fn), build_s = _host_timed(
+            lambda: cli_train_amed.build_trainer(cfg, path, "cuda", prompt_path=csv))
+        print(f"[ckpt SD AMED] build_trainer with the checkpoint and {csv}: {build_s:.3f} s")
+        _check(module.latent_diffusion.cond_stage_fn is not None, "ckpt SD AMED: no encoder")
+        counts["amed"] = _sd_amed_iterations("ckpt SD AMED", cfg, pred, step, context_fn,
+                                             _gn_sites(module.latent_diffusion.unet))
+        del module, pred, step, context_fn
+        torch.cuda.empty_cache()
+    finally:
+        if old_vocab is None:
+            os.environ.pop("CLIP_BPE_VOCAB", None)
+        else:
+            os.environ["CLIP_BPE_VOCAB"] = old_vocab
+    print(f"[ckpt SD] load {load_s:.3f} s; text encode {ms:.4f} ms per {SD_TEXT_BATCH} prompts")
+    return counts
+
+
 def _kernel_entry(name, source, replaces, launches, fields) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **{k: fields[k] for k in (
@@ -2460,6 +2816,12 @@ def main() -> int:
                               "profile", phase_ffhq)
     _phase("phase 29, GITS on CIFAR-10 through the CLI", phase_gits_cifar)
     _phase("phase 30, GITS on the LSUN LDM through the CLI", phase_gits_ldm)
+    with tempfile.TemporaryDirectory() as workdir:
+        ckpt_edm = _phase("phase 31, CIFAR-10 from its checkpoint files", phase_checkpoint_edm,
+                          workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        ckpt_sd = _phase("phase 32, Stable Diffusion from a checkpoint, with its text tower",
+                         phase_checkpoint_sd, workdir)
     for name, n in (("K1", launches), ("K2 dQ", amed["dq"]), ("K2 dK/dV", amed["dkv"]),
                     ("K1 on ImageNet-64", in64_launches),
                     ("K2 dQ on ImageNet-64", in64_amed["dq"]),
@@ -2474,7 +2836,16 @@ def main() -> int:
                     ("K4 bf16 through its entry points", k4_launches["bfloat16"]),
                     ("K4 f32 through its entry points", k4_launches["float32"]),
                     ("K4 f32's split of w", k4_launches["split"]),
-                    ("K1 on FFHQ-64", ffhq_launches)):
+                    ("K1 on FFHQ-64", ffhq_launches),
+                    ("K1 on CIFAR-10 from its .pkl", ckpt_edm["k1"]),
+                    ("K3 on CIFAR-10 from its .pkl", ckpt_edm["gn"]),
+                    ("K1 on SD from its checkpoint, --prompt", ckpt_sd["prompt"]["k1"]),
+                    ("K1 on SD from its checkpoint, captions", ckpt_sd["captions"]["k1"]),
+                    ("K3 on SD from its checkpoint", ckpt_sd["captions"]["gn"]),
+                    ("K1 f32 on SD AMED with captions", ckpt_sd["amed"]["k1"]),
+                    ("K1c on SD AMED with captions", ckpt_sd["amed"]["k1c"]),
+                    ("K2 dQ f32 on SD AMED with captions", ckpt_sd["amed"]["dq"]),
+                    ("K2 dK/dV f32 on SD AMED with captions", ckpt_sd["amed"]["dkv"])):
         _check(n > 0, f"{name} was not launched on its path")
     print(f"[time] whole run: {time.perf_counter() - t_start:.2f} s")
     print(smi)

@@ -1,13 +1,17 @@
 """Sampling CLI of the port: seeds -> per-seed PNGs, a grid or a trajectory.
 
-Counterpart of ``diff_sampler_tpu/cli/sample.py`` for the pixel EDM tiers
-and the unconditional latent tiers, with random weights.  It takes the JAX
-CLI's solver, schedule and GITS flags (the reference's SOLVER_FLAGS,
-SCHEDULE_FLAGS, ADDITIONAL_FLAGS and GITS_FLAGS):
+Counterpart of ``diff_sampler_tpu/cli/sample.py`` for the pixel EDM tiers,
+the unconditional latent tiers and Stable Diffusion, on random weights or a
+reference checkpoint.  It takes the JAX CLI's solver, schedule, guidance and
+GITS flags (the reference's SOLVER_FLAGS, SCHEDULE_FLAGS, ADDITIONAL_FLAGS,
+GUIDANCE_FLAGS and GITS_FLAGS):
 
   python -m diff_sampler_tpu_torch.cli.sample --dataset_name=cifar10 \\
       --model_path=random --solver=ipndm --num_steps=6 --seeds=0-255 \\
       --batch=256 --bf16=True --device=cuda --outdir=out/
+  # a reference checkpoint: EDM's .pkl, or None for the zoo's file in
+  # ./src, ./models or ./checkpoints (nothing is downloaded)
+  ... --dataset_name=cifar10 --model_path=edm-cifar10-32x32-uncond-vp.pkl
   # UniPC on FFHQ-64, one grid
   ... --dataset_name=ffhq --solver=unipc --variant=bh2 --grid=True
   # GITS: search the schedule before sampling
@@ -15,24 +19,33 @@ SCHEDULE_FLAGS, ADDITIONAL_FLAGS and GITS_FLAGS):
   python -m diff_sampler_tpu_torch.cli.sample --dataset_name=lsun_bedroom_ldm \\
       --model_path=random --solver=ipndm --num_steps=6 --seeds=0-63 \\
       --bf16=True --device=cuda --outdir=out/
+  # Stable Diffusion v1.5 from its checkpoint, one prompt under guidance 7.5
+  python -m diff_sampler_tpu_torch.cli.sample --dataset_name=ms_coco \\
+      --model_path=v1-5-pruned-emaonly.ckpt --prompt="a photograph of an astronaut" \\
+      --guidance_rate=7.5 --seeds=0-7 --batch=8 --bf16=True --device=cuda
 
-The pixel tiers default to the poly-7 schedule.  A latent tier samples 64x64
+The pixel tiers default to the poly-7 schedule.  A latent tier samples
 latents on the model's ``discrete`` schedule (rho 1) where the schedule is
 left at ``polynomial`` and no ``--t_steps`` is given, then decodes them
-through its VQ first stage, 16 at a time in f32, to 256x256 PNGs; it refuses
+through its first stage, 16 at a time in f32, to PNGs; it refuses
 ``--return_inters`` (the trajectory lives in latent space).
+
+Stable Diffusion (``ms_coco``) needs the checkpoint's CLIP text encoder
+(random weights have none) and a CLIP BPE vocab file
+(``utils.bpe.find_vocab_file``: ``$CLIP_BPE_VOCAB``, ``assets/``,
+``~/.cache/clip``).  With ``--prompt`` every seed gets that prompt's
+context; without, seed s gets MS-COCO caption ``s % len(captions)`` from
+the zoo's captions CSV (``MS-COCO_val2014_30k_captions.csv`` in an offline
+root), encoded 64 at a time.  At ``--guidance_rate`` other than 1 each net
+call also runs the empty prompt's context (classifier-free guidance).
 
 With ``--dp=True`` the GITS search runs first, on that schedule at
 ``--num_steps_tea`` points with the ``--solver_tea`` teacher over
-``--num_warmup`` seeds, and sampling then takes its ``dp_list`` of the
-teacher's schedule.  ``--return_inters=True`` writes ``trajectory.npz`` (key
-``xs``, [num_points, N, H, W, C]), or with ``--grid=True`` renders every
-point into ``grid.png``.
-
-Stable Diffusion (``ms_coco``) needs prompts and the CLIP text encoder,
-which come with a later slice: until then it samples through the library,
-``bind(precond, condition=ctx, unconditional_condition=uc)`` -> ``generate``
--> ``latent_diffusion.decode_in_chunks``, and this CLI refuses it.
+``--num_warmup`` seeds (on SD without ``--prompt``, warmup seed i with
+caption i), and sampling then takes its ``dp_list`` of the teacher's
+schedule.  ``--return_inters=True`` writes ``trajectory.npz`` (key ``xs``,
+[num_points, N, H, W, C]), or with ``--grid=True`` renders every point into
+``grid.png``.
 
 A class-conditional net (``--dataset_name=imagenet64``) samples each seed
 with its own random class label, as the JAX CLI does.  With ``--predictor``
@@ -60,11 +73,13 @@ from ..gits.search import GITSConfig, gits_schedule
 from ..models.convert import load_jax_params
 from ..models.factory import EDM_ARCHS, LDM_CONFIGS, create_model
 from ..models.precond import CFGPrecond, bind
+from ..models.zoo import find_file
 from ..ops import get_schedule
 from ..sampling import SolverConfig, generate, generate_batches, to_uint8
 from ..solvers import SOLVER_REGISTRY
 from ..solvers.amed import AMED_SOLVER_REGISTRY, bind_with_bottleneck
 from ..training.amed import AMEDConfig, predictor_from_config
+from ..training.conditioning import load_captions
 from ..utils import checkpoint as ckpt
 from ..utils.image import parse_int_list, save_grid, save_images
 
@@ -83,7 +98,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset_name", required=True,
                    choices=sorted(EDM_ARCHS) + sorted(LDM_CONFIGS))
     p.add_argument("--model_path", default="random",
-                   help="'random' (seeded random weights); checkpoints are not ported yet")
+                   help="'random' (seeded random weights), a reference checkpoint file "
+                        "(.pkl / .pt / .ckpt), or None for the zoo's file in the offline roots")
     p.add_argument("--predictor", default=None,
                    help="AMED predictor: run dir, predictor.npz, or experiment number")
     p.add_argument("--batch", dest="max_batch_size", type=int, default=64)
@@ -118,6 +134,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--variant", choices=["bh1", "bh2"], default="bh2")
     p.add_argument("--deis_mode", choices=["tab", "rhoab"], default="tab")
     p.add_argument("--r", type=float, default=0.5)
+    # GUIDANCE_FLAGS
+    p.add_argument("--guidance_type", choices=["cg", "cfg", "uncond"], default=None,
+                   help="ms_coco: cfg (classifier-free, the only kind it has)")
+    p.add_argument("--guidance_rate", type=float, default=1.0)
+    p.add_argument("--prompt", default=None,
+                   help="ms_coco: one prompt for every seed [default: a caption per seed]")
     # GITS_FLAGS
     p.add_argument("--dp", type=_bool, default=False, help="run the GITS schedule search")
     p.add_argument("--metric", choices=["l1", "l2", "dev"], default="dev")
@@ -132,10 +154,14 @@ def main(argv=None) -> dict:
     """Runs the CLI; returns what a caller may check: the GITS ``dp_list``
     and search seconds (None without ``--dp``) and the output directory."""
     args = _parser().parse_args(argv)
+    if args.model_path == "None":
+        args.model_path = None
     if args.dataset_name == "ms_coco":
-        raise NotImplementedError("ms_coco sampling needs --prompt and the CLIP text encoder "
-                                  "(ROADMAP slice 4); sample it through the library: bind(pre, "
-                                  "condition=ctx, unconditional_condition=uc) -> generate")
+        if args.guidance_type not in (None, "cfg"):
+            raise ValueError("ms_coco samples with classifier-free guidance: --guidance_type=cfg")
+    elif args.guidance_type is not None or args.prompt is not None:
+        raise NotImplementedError("--guidance_type and --prompt apply to ms_coco here; "
+                                  "classifier guidance comes with ROADMAP slice 3")
     latent = args.dataset_name in LDM_CONFIGS
     if args.return_inters and latent:
         raise ValueError("--return_inters is not supported for latent models: the trajectory "
@@ -145,8 +171,8 @@ def main(argv=None) -> dict:
         raise RuntimeError("--device=cuda but CUDA is not available (pass --device=cpu)")
     seeds = parse_int_list(args.seeds)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    module, source = create_model(args.dataset_name, args.model_path, dtype=dtype,
-                                  device=device)
+    module, source = create_model(args.dataset_name, args.model_path,
+                                  guidance_rate=args.guidance_rate, dtype=dtype, device=device)
     shape = (module.img_resolution, module.img_resolution, module.img_channels)
     summary = dict(dp_list=None, gits_seconds=None, outdir=None)
     if args.predictor is not None:
@@ -154,7 +180,21 @@ def main(argv=None) -> dict:
                                          args.max_batch_size, args.outdir, args.grid,
                                          args.subdirs, args.dataset_name, device)
         return summary
-    den = bind(module)
+    cond, per_seed_cond, captions = {}, None, None
+    if source == "sd":
+        ld = module.latent_diffusion
+        if ld.cond_stage_fn is None:
+            raise ValueError("ms_coco sampling needs the checkpoint's CLIP text encoder: pass "
+                             "--model_path (the 'random' weights have none)")
+        if args.prompt is None:
+            # one MS-COCO caption per seed (sample.py:171-180, 276-291)
+            captions = load_captions(find_file("prompts"))
+            per_seed_cond = _encode(ld, [captions[s % len(captions)] for s in seeds])
+        else:
+            cond["condition"] = ld.get_learned_conditioning([args.prompt])
+        if args.guidance_rate != 1.0:
+            cond["unconditional_condition"] = ld.get_learned_conditioning([""])
+    den = bind(module, **cond)
     # a latent tier samples on the model's discrete schedule, unless a
     # schedule or a sigma list was asked for; the GITS teacher runs on it too
     if latent and args.schedule_type == "polynomial" and args.t_steps is None:
@@ -166,8 +206,18 @@ def main(argv=None) -> dict:
                           solver=args.solver, metric=args.metric, coeff=args.coeff,
                           schedule_type=args.schedule_type, schedule_rho=args.schedule_rho,
                           afs=args.afs, batch_size=args.max_batch_size)
+        gits_kw = {}
+        if captions is not None:
+            # the warmup trajectories run on captions too (gits_utils.py:63-110):
+            # warmup seed i with caption i
+            uc = cond.get("unconditional_condition")
+            gits_kw = dict(
+                per_seed_cond=_encode(ld, [captions[i % len(captions)]
+                                           for i in range(args.num_warmup)]),
+                denoise_with_cond=lambda x, t, c: module(x, t, condition=c,
+                                                         unconditional_condition=uc))
         t0 = time.perf_counter()
-        dp_list, dp_sigmas = gits_schedule(den, shape, gcfg, device=device)
+        dp_list, dp_sigmas = gits_schedule(den, shape, gcfg, device=device, **gits_kw)
         summary.update(dp_list=dp_list, gits_seconds=time.perf_counter() - t0)
         print(f"GITS search: {summary['gits_seconds']:.1f}s ({gcfg.num_warmup} warmup x "
               f"{gcfg.num_steps_tea - 1}-step {gcfg.solver_tea} teacher)")
@@ -188,9 +238,9 @@ def main(argv=None) -> dict:
           f"device: {device}")
     out_base = args.outdir or f"samples/{args.dataset_name}-{args.solver}-{args.num_steps}"
     summary["outdir"] = out_base
-    if source == "ldm":
+    if latent:
         latents = generate(den, seeds, shape, cfg, max_batch_size=args.max_batch_size,
-                           device=device)
+                           device=device, per_seed_cond=per_seed_cond)
         _decode_and_save(module, latents, seeds, out_base, args.grid, args.subdirs)
         return summary
 
@@ -218,6 +268,13 @@ def main(argv=None) -> dict:
     else:
         _save(images, seeds, out_base, args.grid, args.subdirs)
     return summary
+
+
+def _encode(ld, texts, chunk: int = 64) -> torch.Tensor:
+    """The text encoder's contexts of ``texts``, ``chunk`` at a time, on the
+    host (a context per seed of a long seed list would crowd the card)."""
+    return torch.cat([ld.get_learned_conditioning(texts[i:i + chunk]).cpu()
+                      for i in range(0, len(texts), chunk)])
 
 
 def _save(images, seeds, out_base, grid, subdirs):

@@ -17,8 +17,14 @@ conditional half), with the same options and defaults:
   python -m diff_sampler_tpu_torch.cli.train_amed --dataset_name=ms_coco \\
       --guidance_type=cfg --guidance_rate=7.5 --model_path=random --batch=8 --device=cuda
 
-Without a CLIP text encoder (a later slice of the port) the contexts are the
-JAX package's seeded random stand-ins (``training/conditioning.py``).
+On an SD checkpoint (``--model_path``) with ``--prompt_path`` naming the
+MS-COCO captions CSV, each iteration's contexts encode random captions with
+the checkpoint's CLIP text encoder and the unconditional context is the
+empty prompt's; without captions or a text encoder (``--model_path=random``)
+they are the JAX package's seeded random stand-ins
+(``training/conditioning.py``).  ``--model_path`` is ``random``, a
+reference checkpoint file, or omitted for the zoo's file in ``./src``,
+``./models`` or ``./checkpoints`` (``models.zoo``; nothing is downloaded).
 
 The run directory ``<outdir>/<id>-<desc>/`` gets ``predictor_config.json``
 (written after the model's sigma range is set: sampling restores every
@@ -67,7 +73,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--outdir", default="./exps")
     p.add_argument("--total_kimg", type=int, default=10)
     p.add_argument("--model_path", default=None,
-                   help="'random' (seeded random weights); checkpoints are not ported yet")
+                   help="'random' (seeded random weights), a reference checkpoint file, or "
+                        "omitted for the zoo's file in the offline roots")
     p.add_argument("--num_steps", type=int, default=4)
     p.add_argument("--sampler_stu", choices=["amed", "euler", "ipndm", "dpm", "dpmpp"],
                    default="amed")

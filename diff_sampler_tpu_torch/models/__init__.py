@@ -1,1 +1,2 @@
-"""Models of the port: layers, SongUNet, EDMPrecond, factory, converter."""
+"""Models of the port: layers, U-Nets, preconditioners, text towers, factory,
+checkpoint loader and zoo, converter."""

@@ -8,8 +8,10 @@ with ``_LN``, self- and cross-attention and GEGLU) with the AMED bottleneck
 tap (the middle block's output), the ``_VAEBase`` resnet and mid-attention,
 ``VAEDecoder``, ``VQModel`` (nearest-codebook quantisation, then decode),
 ``AutoencoderKL`` (decode), ``LatentDiffusion`` (``scale_factor``,
-``conditioning_key``) and ``LDM_CONFIGS``.  The VAE encoders, the
-diagonal-Gaussian posterior and the CLIP text tower come with later slices.
+``conditioning_key``, the text encoder and ``get_learned_conditioning``),
+``LDM_CONFIGS``, and the loading of a reference checkpoint
+(``load_ldm_checkpoint``, the split of ``ldm_state_dict_to_params``).  The
+VAE encoders and the diagonal-Gaussian posterior come with a later slice.
 
 Module paths are the reference's torch state_dict names
 (``input_blocks.1.0.in_layers.0.weight``,
@@ -34,7 +36,8 @@ from . import adm
 from .adm import _GN, _Conv, _Linear, _lecun_normal, legacy_attention, timestep_embedding
 
 __all__ = ["LDMUNet", "SpatialTransformer", "VAEDecoder", "VQModel", "AutoencoderKL",
-           "LatentDiffusion", "LDM_CONFIGS", "build_latent_diffusion", "linear_alphas_cumprod"]
+           "LatentDiffusion", "LDM_CONFIGS", "build_latent_diffusion", "linear_alphas_cumprod",
+           "load_ldm_checkpoint", "reference_state_dict", "checkpoint_ignores"]
 
 
 def linear_alphas_cumprod(linear_start: float, linear_end: float,
@@ -494,17 +497,26 @@ class LatentDiffusion(nn.Module):
     eps-predicting U-Net (``apply_model``, with the text context as ``cond``
     under ``conditioning_key="crossattn"``), the first stage
     (``decode_first_stage``: a KL stage's latents are divided by
-    ``scale_factor`` first, a VQ stage's decode as they are) and the
-    linear-beta ``alphas_cumprod`` table."""
+    ``scale_factor`` first, a VQ stage's decode as they are), the
+    linear-beta ``alphas_cumprod`` table and, where a checkpoint carries
+    one, the text encoder ``cond_stage_model`` (prompts -> contexts;
+    ``get_learned_conditioning``)."""
 
     def __init__(self, unet: LDMUNet, first_stage: nn.Module, alphas_cumprod: np.ndarray,
-                 scale_factor: float = 1.0, conditioning_key: Optional[str] = None):
+                 scale_factor: float = 1.0, conditioning_key: Optional[str] = None,
+                 cond_stage_model: Optional[nn.Module] = None):
         super().__init__()
         self.unet = unet
         self.first_stage = first_stage
         self.alphas_cumprod = np.asarray(alphas_cumprod, np.float64)
         self.scale_factor = scale_factor
         self.conditioning_key = conditioning_key
+        self.cond_stage_model = cond_stage_model
+
+    @property
+    def cond_stage_fn(self):
+        """The bound text encoder (prompts -> contexts), or None."""
+        return self.cond_stage_model
 
     def apply_model(self, x, t, cond=None):
         if self.conditioning_key is None or cond is None:
@@ -515,6 +527,14 @@ class LatentDiffusion(nn.Module):
         if isinstance(self.first_stage, AutoencoderKL):
             z = z / self.scale_factor
         return self.first_stage.decode(z)
+
+    def get_learned_conditioning(self, prompts) -> torch.Tensor:
+        """Prompts -> the text encoder's contexts [B, 77, context_dim] (f32,
+        on the encoder's device)."""
+        if self.cond_stage_model is None:
+            raise RuntimeError("no text encoder bound: the encoder comes with a checkpoint "
+                               "(its cond_stage_model.* weights); random weights have none")
+        return self.cond_stage_model(prompts)
 
     @torch.no_grad()
     def decode_in_chunks(self, latents: np.ndarray, chunk: int = 16) -> np.ndarray:
@@ -567,14 +587,99 @@ LDM_CONFIGS = {
 }
 
 
-def build_latent_diffusion(dataset_name: str, *, dtype: torch.dtype = torch.float32,
-                           seed: int = 0, device="cuda") -> LatentDiffusion:
-    """The LatentDiffusion stack of a config with random weights, in eval
-    mode: the U-Net and decoder drawn from one generator seeded with
-    ``seed`` (``factory.init_params``), the post-quant conv the identity and
-    a VQ stage's codebook ``RandomState(0).randn(n_embed, z_channels)``, as
-    the JAX package's random init makes them.  The first stage is decode
-    only: its encoder (``double_z``) comes with a later slice."""
+# The reference checkpoint's name prefixes -> the port's module paths
+# (diff_sampler_tpu/models/ldm.py::ldm_state_dict_to_params splits a
+# checkpoint along the same lines)
+_CHECKPOINT_NAMES = (
+    ("model.diffusion_model.", "unet."),
+    ("first_stage_model.decoder.", "first_stage.decoder."),
+    ("first_stage_model.post_quant_conv.", "first_stage.post_quant_conv."),
+    ("first_stage_model.quantize.embedding.weight", "first_stage.codebook"),
+    ("cond_stage_model.", "cond_stage_model."),
+)
+# Parts of a reference LDM / SD checkpoint that the port does not load: the
+# first stage's encoder and quant_conv (the KL encode of the SFD slice),
+# the EMA copy, the text tower's position_ids (a constant arange), and the
+# top-level DDPM buffers (the port recomputes alphas_cumprod from the config)
+CHECKPOINT_IGNORED_PREFIXES = ("first_stage_model.encoder.", "first_stage_model.quant_conv.",
+                               "model_ema.")
+CHECKPOINT_IGNORED_KEYS = (
+    "cond_stage_model.transformer.text_model.embeddings.position_ids",
+    "betas", "alphas_cumprod", "alphas_cumprod_prev", "sqrt_alphas_cumprod",
+    "sqrt_one_minus_alphas_cumprod", "log_one_minus_alphas_cumprod",
+    "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod", "posterior_variance",
+    "posterior_log_variance_clipped", "posterior_mean_coef1", "posterior_mean_coef2",
+    "scale_factor")
+
+
+def checkpoint_ignores(key: str) -> bool:
+    """Whether a reference checkpoint key is one the port leaves out."""
+    return key in CHECKPOINT_IGNORED_KEYS or key.startswith(CHECKPOINT_IGNORED_PREFIXES)
+
+
+def _port_name(key: str) -> Optional[str]:
+    for ref, port in _CHECKPOINT_NAMES:
+        if key.startswith(ref) and not checkpoint_ignores(key):
+            return port + key[len(ref):]
+    return None
+
+
+def load_ldm_checkpoint(ld: LatentDiffusion, state_dict) -> LatentDiffusion:
+    """Load a reference LDM / SD checkpoint state_dict into ``ld`` in place.
+    Every key of ``ld`` must be in the checkpoint and every checkpoint key
+    must load, apart from the ones ``checkpoint_ignores`` names.  The legacy
+    attention's Conv1d weights [O, I, 1] load into the port's 1x1 convs."""
+    own = ld.state_dict()
+    sd, unmatched = {}, []
+    for key, val in state_dict.items():
+        name = _port_name(key)
+        if name not in own:
+            if not checkpoint_ignores(key):
+                unmatched.append(key)
+            continue
+        if val.dim() == 3 and own[name].dim() == 4:
+            val = val[..., None]
+        sd[name] = val
+    missing = sorted(set(own) - set(sd))
+    if unmatched or missing:
+        raise KeyError(f"the checkpoint does not match the {type(ld.unet).__name__} stack: "
+                       f"checkpoint keys it has no place for {unmatched[:20]} "
+                       f"({len(unmatched)}), module keys the checkpoint lacks {missing[:20]} "
+                       f"({len(missing)})")
+    ld.load_state_dict(sd)
+    return ld
+
+
+def reference_state_dict(ld: LatentDiffusion) -> dict:
+    """``ld``'s weights under the reference checkpoint's names (the inverse
+    of ``load_ldm_checkpoint``; the legacy attention's 1x1 convs as Conv1d
+    weights [O, I, 1]), e.g. to write a checkpoint in the reference's
+    layout."""
+    out = {}
+    legacy = {f"unet.{name}.{p}" for name, m in ld.unet.named_modules()
+              if isinstance(m, AttentionBlock) for p in ("qkv.weight", "proj_out.weight")}
+    for key, val in ld.state_dict().items():
+        ref, port = next((r, p) for r, p in _CHECKPOINT_NAMES if key.startswith(p))
+        out[ref + key[len(port):]] = val[..., 0] if key in legacy else val
+    return out
+
+
+def build_latent_diffusion(dataset_name: str, *, state_dict=None,
+                           dtype: torch.dtype = torch.float32, seed: int = 0,
+                           device="cuda") -> LatentDiffusion:
+    """The LatentDiffusion stack of a config, in eval mode.
+
+    With ``state_dict`` (a reference checkpoint's, ``models.torch_import``)
+    its weights load through ``load_ldm_checkpoint``, and a crossattn
+    config whose checkpoint carries ``cond_stage_model.*`` gets the CLIP
+    text encoder (``models.text.FrozenCLIPEmbedder``), as the JAX package's
+    ``build_ldm_model`` binds it.  Without, random weights: the U-Net and
+    decoder drawn from one generator seeded with ``seed``
+    (``factory.init_params``), the post-quant conv the identity and a VQ
+    stage's codebook ``RandomState(0).randn(n_embed, z_channels)``, as the
+    JAX package's random init makes them, and no text encoder.  The first
+    stage is decode only: its encoder (``double_z``) comes with a later
+    slice."""
     from .factory import init_params
 
     cfg = LDM_CONFIGS[dataset_name]
@@ -592,9 +697,18 @@ def build_latent_diffusion(dataset_name: str, *, dtype: torch.dtype = torch.floa
         first = VQModel(decoder, cfg.get("n_embed", 16), zc, device=device)
     else:
         first = AutoencoderKL(decoder, cfg["embed_dim"], zc, device=device)
+    text = None
+    if (state_dict is not None and cfg["conditioning_key"] == "crossattn"
+            and any(k.startswith("cond_stage_model.") for k in state_dict)):
+        from .text import FrozenCLIPEmbedder
+
+        text = FrozenCLIPEmbedder(device=device).requires_grad_(False)
     ld = LatentDiffusion(unet, first, linear_alphas_cumprod(
         cfg["linear_start"], cfg["linear_end"], cfg["timesteps"]),
-        scale_factor=cfg["scale_factor"], conditioning_key=cfg["conditioning_key"])
+        scale_factor=cfg["scale_factor"], conditioning_key=cfg["conditioning_key"],
+        cond_stage_model=text)
+    if state_dict is not None:
+        return load_ldm_checkpoint(ld, state_dict).eval()
     init_params(ld, seed=seed)
     with torch.no_grad():
         first.post_quant_conv.weight.copy_(torch.eye(zc)[:, :, None, None])

@@ -215,9 +215,10 @@ class CFGPrecond:
 
 @dataclasses.dataclass
 class BoundDenoiser:
-    """``denoise(x, t) -> D(x, t)``, the callable the samplers take; the
-    ``bind`` of a conditional net also takes ``denoise(x, t, class_labels)``
-    (``sampling.generate`` calls it so with each batch's labels).
+    """``denoise(x, t) -> D(x, t)``, the callable the samplers take; a
+    ``bind``-ed net also takes ``denoise(x, t, c)``, c the class labels or a
+    CFGPrecond's condition (``sampling.generate`` calls it so with each
+    batch's labels or per-seed rows).
     ``sigma_fn`` / ``sigma_inv_fn``: a discrete-time net's sigma maps, which
     its ``discrete`` schedule needs (None for an EDM net)."""
 
@@ -234,16 +235,20 @@ class BoundDenoiser:
 def bind(precond, class_labels=None, **cond) -> BoundDenoiser:
     """The sampling denoiser of a preconditioner: its forward, run without
     autograd.  EDMPrecond: with ``class_labels`` bound (None: a conditional
-    net gets zero one-hot rows, as in the JAX package).  CFGPrecond: with
-    its conditioning keywords (``condition=``, ``unconditional_condition=``)
-    bound and its sigma maps carried; it takes no labels.  The module must
-    be in eval mode, so that dropout is off."""
+    net gets zero one-hot rows, as in the JAX package); labels passed to
+    the call replace them.  CFGPrecond: with its conditioning keywords
+    (``condition=``, ``unconditional_condition=``) bound and its sigma maps
+    carried; a condition passed to the call (``generate``'s per-seed rows)
+    replaces the bound one.  The module must be in eval mode, so that
+    dropout is off."""
     if precond.training:
         raise ValueError("bind() needs the module in eval mode: call .eval() first")
     if isinstance(precond, CFGPrecond):
         @torch.no_grad()
-        def cfg_fn(x, t, labels=None):
-            return precond(x, t, **cond)
+        def cfg_fn(x, t, condition=None):
+            if condition is None:
+                return precond(x, t, **cond)
+            return precond(x, t, **{**cond, "condition": condition})
 
         return BoundDenoiser(cfg_fn, precond.sigma_min, precond.sigma_max, precond.sigma,
                              precond.sigma_inv)

@@ -116,7 +116,8 @@ def _start_copy_to_host(x: torch.Tensor):
 def generate(denoise: BoundDenoiser, seeds: Sequence[int], sample_shape: Tuple[int, ...],
              cfg: SolverConfig, *, max_batch_size: int = 64, device="cuda",
              label_dim: int = 0, class_idx: Optional[int] = None,
-             return_inters: bool = False, batch_callback=None) -> np.ndarray:
+             per_seed_cond=None, return_inters: bool = False,
+             batch_callback=None) -> np.ndarray:
     """Generate one sample per seed with the solver of ``cfg``,
     ``max_batch_size`` at a time (``generate_batches``).
 
@@ -125,12 +126,16 @@ def generate(denoise: BoundDenoiser, seeds: Sequence[int], sample_shape: Tuple[i
     whole trajectory [num_points, len(seeds), *sample_shape], x_T and the
     final sample included.
 
-    The denoiser is called as ``denoise(x, t, class_labels)``, as a
-    ``bind``-ed EDMPrecond takes it: None for an unconditional net
-    (``label_dim=0``); else one-hot labels drawn per seed
-    (``stacked_randint``: seed i gets the same class at any batch split, as
-    the reference's ``sample.py`` and the JAX package draw them), or
-    ``class_idx`` for every seed."""
+    The denoiser is called as ``denoise(x, t, c)``, as a ``bind``-ed
+    preconditioner takes it.  For an EDMPrecond ``c`` is the class labels:
+    None for an unconditional net (``label_dim=0``); else one-hot labels
+    drawn per seed (``stacked_randint``: seed i gets the same class at any
+    batch split, as the reference's ``sample.py`` and the JAX package draw
+    them), or ``class_idx`` for every seed.  With ``per_seed_cond`` (one
+    conditioning row per seed, e.g. SD's caption contexts [len(seeds), 77,
+    768], numpy or a tensor) ``c`` is each batch's rows, padded as the
+    latents are (the JAX package's ``generate(per_seed_cond=...)``); a bound
+    CFGPrecond takes them as its ``condition``."""
     def sample_fn(latents, labels):
         den = dataclasses.replace(denoise, fn=lambda x, t: denoise(x, t, labels))
         out = build_sample_fn(den, cfg, return_inters=return_inters)(latents)
@@ -138,7 +143,7 @@ def generate(denoise: BoundDenoiser, seeds: Sequence[int], sample_shape: Tuple[i
 
     return generate_batches(sample_fn, seeds, sample_shape, max_batch_size=max_batch_size,
                             device=device, label_dim=label_dim, class_idx=class_idx,
-                            batch_callback=batch_callback)
+                            per_seed_cond=per_seed_cond, batch_callback=batch_callback)
 
 
 def _labels(seeds, label_dim: int, class_idx: Optional[int], device) -> torch.Tensor:
@@ -153,13 +158,15 @@ def _labels(seeds, label_dim: int, class_idx: Optional[int], device) -> torch.Te
 
 def generate_batches(sample_fn: Callable, seeds: Sequence[int], sample_shape: Tuple[int, ...],
                      *, max_batch_size: int = 64, device="cuda", label_dim: int = 0,
-                     class_idx: Optional[int] = None, batch_callback=None) -> np.ndarray:
+                     class_idx: Optional[int] = None, per_seed_cond=None,
+                     batch_callback=None) -> np.ndarray:
     """``sample_fn(latents, labels) -> samples`` on each batch of per-seed
     latents, ``max_batch_size`` at a time; returns [len(seeds),
     *sample_shape] f32, or [P, len(seeds), *sample_shape] where ``sample_fn``
     returns a trajectory [P, B, *sample_shape]: the chunks join along the
-    batch axis.  ``labels`` is None when ``label_dim`` is 0, else the
-    per-seed one-hot labels of ``generate``, padded as the latents are.
+    batch axis.  ``labels`` is the batch's rows of ``per_seed_cond`` where
+    given, else None when ``label_dim`` is 0, else the per-seed one-hot
+    labels of ``generate``, padded as the latents are.
 
     One batch stays in flight: batch i+1 is enqueued on the device before
     the host waits for batch i, so the host's copy and ``batch_callback``
@@ -171,6 +178,10 @@ def generate_batches(sample_fn: Callable, seeds: Sequence[int], sample_shape: Tu
     seeds = np.asarray(list(seeds), dtype=np.int64)
     n = len(seeds)
     batch = max(1, min(max_batch_size, n))
+    if per_seed_cond is not None:
+        if len(per_seed_cond) != n:
+            raise ValueError(f"per_seed_cond has {len(per_seed_cond)} rows for {n} seeds")
+        per_seed_cond = torch.as_tensor(per_seed_cond)  # stays where it is: rows move per batch
     out = None
 
     def drain(pending):
@@ -193,7 +204,14 @@ def generate_batches(sample_fn: Callable, seeds: Sequence[int], sample_shape: Tu
         pad = batch - len(chunk)
         chunk_p = np.concatenate([chunk, chunk[-1:].repeat(pad)]) if pad else chunk
         latents = stacked_randn(chunk_p.tolist(), sample_shape, device=device)
-        labels = _labels(chunk_p.tolist(), label_dim, class_idx, device) if label_dim else None
+        if per_seed_cond is not None:
+            # rows by position in the seed list, the last one repeated as padding
+            pos = np.minimum(np.arange(start, start + batch), start + len(chunk) - 1)
+            labels = per_seed_cond[torch.as_tensor(pos, device=per_seed_cond.device)].to(device)
+        elif label_dim:
+            labels = _labels(chunk_p.tolist(), label_dim, class_idx, device)
+        else:
+            labels = None
         x = sample_fn(latents, labels)
         host, done = _start_copy_to_host(x)
         if pending is not None:

@@ -5,12 +5,13 @@ Counterpart of ``diff_sampler_tpu/training/conditioning.py``.  The reference
 draws random captions from the MS-COCO 30k CSV each iteration and encodes
 them with the checkpoint's CLIP text tower
 (``amed-solver-main/training/training_loop.py:118-126,173-180``); the CFG
-unconditional context is the empty-string encoding (:175-177).  Without a
-text encoder, as with the random-weight models, the JAX package falls back to
-seeded random contexts of the right shape, and so does the port, whose CLIP
-text tower comes with a later slice: every context here is that fallback,
-drawn with numpy exactly as the JAX package draws it.  A captions file that
-is named is still read, so a wrong path fails as it does there.
+unconditional context is the empty-string encoding (:175-177).  A model
+loaded from an SD checkpoint carries that tower
+(``LatentDiffusion.get_learned_conditioning``), and with a captions file
+both contexts are its encodings, the captions drawn with numpy exactly as
+the JAX package draws them.  Without captions or without a text encoder
+(the random-weight models have none), both fall back to seeded random
+contexts of the right shape, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,30 +45,49 @@ def _ctx_dim(ld) -> int:
     return ld.unet.context_dim or 768
 
 
+def _encode(ld, texts) -> np.ndarray:
+    return ld.get_learned_conditioning(texts).float().cpu().numpy()
+
+
 def make_caption_context_fn(ld, prompts_path: Optional[str], batch: int, seed: int,
                             verbose: bool = True) -> Callable[[int], np.ndarray]:
-    """Per-iteration context sampler: it -> [batch, 77, context_dim] float32,
-    ``RandomState((seed + it) % 2**31).randn`` (no text encoder is ported)."""
+    """Per-iteration context sampler: it -> [batch, 77, context_dim] float32.
+    With a captions file and a bound text encoder: the encodings of
+    ``batch`` captions drawn by ``RandomState((seed + it) % 2**31)``;
+    otherwise seeded random contexts from the same generator."""
     captions = load_captions(prompts_path)
     dim = _ctx_dim(ld)
+    if captions is None or ld.cond_stage_fn is None:
+        if verbose:
+            what = "no captions" if captions is None else "no text encoder"
+            print(f"WARNING: {what} -- using seeded random contexts (smoke mode)")
+
+        def random_ctx(it: int) -> np.ndarray:
+            rng = np.random.RandomState((seed + it) % (1 << 31))
+            return rng.randn(batch, CLIP_SEQ_LEN, dim).astype(np.float32)
+
+        return random_ctx
+
     if verbose:
-        got = f"{len(captions)} captions but " if captions is not None else "no captions, "
-        print(f"WARNING: {got}no text encoder -- using seeded random contexts (smoke mode)")
+        print(f"Loaded {len(captions)} captions from {prompts_path}")
 
-    def random_ctx(it: int) -> np.ndarray:
+    def encode_ctx(it: int) -> np.ndarray:
         rng = np.random.RandomState((seed + it) % (1 << 31))
-        return rng.randn(batch, CLIP_SEQ_LEN, dim).astype(np.float32)
+        return _encode(ld, [captions[i] for i in rng.randint(len(captions), size=batch)])
 
-    return random_ctx
+    return encode_ctx
 
 
 def make_uncond_context(ld, mb: int, guidance_rate: float,
                         seed: int = 0) -> Optional[np.ndarray]:
-    """The CFG unconditional context [mb, 77, context_dim], or None when
-    guidance is off (guidance_rate 1.0 never doubles the batch): without a
-    text encoder, one fixed seeded row ``RandomState(seed).randn`` repeated."""
+    """The CFG unconditional context [mb, 77, context_dim] f32, or None when
+    guidance is off (guidance_rate 1.0 never doubles the batch): the empty
+    prompt's encoding, or without a text encoder one fixed seeded row
+    ``RandomState(seed).randn`` repeated."""
     if guidance_rate == 1.0:
         return None
     dim = _ctx_dim(ld)
-    one = np.random.RandomState(seed).randn(1, CLIP_SEQ_LEN, dim).astype(np.float32)
-    return np.broadcast_to(one, (mb, CLIP_SEQ_LEN, dim)).copy()
+    if ld.cond_stage_fn is None:
+        one = np.random.RandomState(seed).randn(1, CLIP_SEQ_LEN, dim).astype(np.float32)
+        return np.broadcast_to(one, (mb, CLIP_SEQ_LEN, dim)).copy()
+    return _encode(ld, mb * [""])

@@ -1,1 +1,2 @@
-"""Host helpers of the port: per-seed RNG and image IO."""
+"""Host helpers of the port: per-seed RNG, image IO, checkpoints, training stats,
+profiling and the CLIP BPE tokenizer."""

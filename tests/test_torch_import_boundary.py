@@ -47,4 +47,6 @@ def test_port_imports_with_jax_and_flax_blocked():
             "diff_sampler_tpu_torch.training.conditioning", "diff_sampler_tpu_torch.training.amed",
             "diff_sampler_tpu_torch.cli.train_amed", "diff_sampler_tpu_torch.ops.conv",
             "diff_sampler_tpu_torch.ops.geometry", "diff_sampler_tpu_torch.models.analytic",
-            "diff_sampler_tpu_torch.gits", "diff_sampler_tpu_torch.gits.search"} <= names
+            "diff_sampler_tpu_torch.gits", "diff_sampler_tpu_torch.gits.search",
+            "diff_sampler_tpu_torch.models.torch_import", "diff_sampler_tpu_torch.models.zoo",
+            "diff_sampler_tpu_torch.models.text", "diff_sampler_tpu_torch.utils.bpe"} <= names

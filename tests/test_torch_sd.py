@@ -11,10 +11,17 @@ and contexts are numpy draws handed to both sides.  f32 on the CPU, where
 the port's GroupNorm and attention take their plain versions (kernels K3,
 K1 / K2 and K1c / K2c run on the card).
 
+From a checkpoint: a tiny SD checkpoint in ``v1-5-pruned-emaonly.ckpt``'s
+layout with a tiny CLIP text tower (tests/test_torch_checkpoint.py writes
+it) drives the sampling CLI with ``--prompt``, with per-seed captions and
+with ``--dp``, each byte for byte ``generate`` on
+``get_learned_conditioning``'s contexts, and AMED on encoded captions.
+
 Bounds: the LayerNorm, GEGLU feed-forward, self- and cross-attention and the
 spatial transformer 1e-5 * max; the conditioning draws and the param
 conversion exact; the U-Net, its bottleneck, the KL decode, D(x, sigma) under
-guidance 7.5, the pooled tap and ``generate`` 2e-5 * max (deeper stacks sum
+guidance 7.5, the pooled tap and ``generate`` (with bound or per-seed
+contexts) 2e-5 * max (deeper stacks sum
 more f32 terms in other orders); one SGD AMED step: loss within 1e-4
 relative, params within 5e-4 of the step's largest move (as
 tests/test_torch_ldm.py).
@@ -31,6 +38,7 @@ import optax
 import pytest
 import torch
 
+from diff_sampler_tpu import sampling as JSAMP
 from diff_sampler_tpu.models import ldm as JL
 from diff_sampler_tpu.models import precond as JP
 from diff_sampler_tpu.models.factory import _capture_middle_lazy
@@ -44,13 +52,17 @@ from diff_sampler_tpu_torch.cli import sample as cli_sample
 from diff_sampler_tpu_torch.cli import train_amed as cli_train
 from diff_sampler_tpu_torch.models import factory
 from diff_sampler_tpu_torch.models import ldm as TL
+from diff_sampler_tpu_torch.gits.search import GITSConfig, gits_schedule
+from diff_sampler_tpu_torch.models import text as TTX
 from diff_sampler_tpu_torch.models.convert import load_jax_params, load_ldm_jax_params
 from diff_sampler_tpu_torch.models.precond import bind
 from diff_sampler_tpu_torch.solvers import amed as TA
 from diff_sampler_tpu_torch.training import amed as TT
 from diff_sampler_tpu_torch.training import conditioning as TC
 from diff_sampler_tpu_torch.utils import checkpoint as ckpt
+from diff_sampler_tpu_torch.utils.image import encode_png
 from diff_sampler_tpu_torch.utils.rng import stacked_randn
+from test_torch_checkpoint import patch_tiny_sd, write_ldm_checkpoint
 
 RES, CTX_DIM, TOKENS = 16, 16, 5
 TINY = dict(
@@ -430,5 +442,175 @@ def test_train_amed_cli_trains_sd_with_guidance(tiny_cli, capsys):
                                             unconditional_condition=uc)
     x = fn(stacked_randn([0, 1, 2], (8, 8, 4), device="cpu"))
     assert x.shape == (3, 8, 8, 4) and torch.isfinite(x).all()
-    with pytest.raises(NotImplementedError, match="text encoder"):
+    with pytest.raises(ValueError, match="text encoder"):  # random weights have none
         cli_sample.main(["--dataset_name=ms_coco", "--device=cpu"])
+
+
+def test_generate_with_per_seed_contexts_matches_jax(tiers, monkeypatch):
+    """``generate(per_seed_cond=...)``: one context row per seed, padded and
+    chunked as the latents are (3 seeds at batch 2), against the JAX
+    package's ``generate(per_seed_cond=..., denoise_with_labels=...)`` on the
+    port's per-seed latents (its own generator draws others)."""
+    pre_t, pre_j, _ = tiers
+    monkeypatch.setattr(JSAMP, "stacked_randn", lambda seeds, shape, *a: jnp.asarray(
+        stacked_randn(np.asarray(seeds).tolist(), shape, device="cpu").numpy()))
+    seeds, rows, uc = [3, 1, 4], _ctx(24, n=3), _ctx(25, n=1)
+    cfg = S.SolverConfig(solver="euler", num_steps=3, schedule_type="discrete",
+                         schedule_rho=1.0)
+    got = S.generate(bind(pre_t, unconditional_condition=torch.from_numpy(uc)), seeds,
+                     (RES, RES, 4), cfg, max_batch_size=2, device="cpu", per_seed_cond=rows)
+    jcfg = JSAMP.SolverConfig(solver="euler", num_steps=3, schedule_type="discrete",
+                              schedule_rho=1.0)
+    want = JSAMP.generate(
+        JP.bind(pre_j), seeds, (RES, RES, 4), jcfg, max_batch_size=2, sigma_fn=pre_j.sigma,
+        sigma_inv_fn=pre_j.sigma_inv, per_seed_cond=rows,
+        denoise_with_labels=lambda x, t, c: pre_j(
+            x, t, condition=c, unconditional_condition=jnp.broadcast_to(uc, c.shape)))
+    _close(got, want, what="per-seed rows")
+    one = S.generate(bind(pre_t, condition=torch.from_numpy(rows[1:2]),
+                          unconditional_condition=torch.from_numpy(uc)), seeds[1:2],
+                     (RES, RES, 4), cfg, device="cpu")
+    np.testing.assert_array_equal(one[0], got[1])  # a row is its own seed's and context's
+    with pytest.raises(ValueError, match="2 rows for 3 seeds"):
+        S.generate(bind(pre_t), seeds, (RES, RES, 4), cfg, device="cpu", per_seed_cond=rows[:2])
+
+
+CAPTIONS = ["a cat on the mat", "low photo of a dog", "the café"]
+
+
+@pytest.fixture
+def sd_checkpoint(tiny_cli, monkeypatch, tmp_path):
+    """The CLI's stand-in net with a tiny CLIP text tower (a synthetic BPE
+    vocab through $CLIP_BPE_VOCAB), every weight redrawn at unit scale,
+    written as ``v1-5-pruned-emaonly.ckpt`` is laid out; the captions CSV in
+    an offline root of the working directory.  Returns the checkpoint path."""
+    patch_tiny_sd(monkeypatch, TINY_CLI, tmp_path)
+    src = TL.build_latent_diffusion("ms_coco", device="cpu")
+    src.cond_stage_model = factory.init_params(TTX.FrozenCLIPEmbedder(device="cpu"))
+    _redraw_unit_scale(src, seed=26)
+    path = str(tmp_path / "sd.ckpt")
+    write_ldm_checkpoint(path, src, TINY_CLI)
+    os.makedirs("models")
+    with open(os.path.join("models", "MS-COCO_val2014_30k_captions.csv"), "w") as f:
+        f.write("image_id,id,text\n" + "".join(f'{i},{i},"{c}"\n' for i, c in enumerate(CAPTIONS)))
+    return path
+
+
+def _pngs(outdir, seeds):
+    out = []
+    for seed in seeds:
+        with open(os.path.join(outdir, f"{seed - seed % 1000:06d}", f"{seed:06d}.png"), "rb") as f:
+            out.append(f.read())
+    return out
+
+
+def test_sample_cli_runs_sd_from_a_checkpoint_with_prompt_and_captions(sd_checkpoint):
+    """``cli/sample.py --dataset_name=ms_coco --model_path=<file>``: with
+    ``--prompt`` every seed gets the prompt's context, without it seed s gets
+    caption s % 3; under guidance 7.5 both add the empty prompt's context.
+    The PNGs are ``generate`` on ``get_learned_conditioning``'s contexts,
+    decoded, byte for byte (5 seeds at batch 2)."""
+    seeds = list(range(5))
+    common = [f"--model_path={sd_checkpoint}", f"--guidance_rate={GUIDANCE}", "--solver=euler",
+              "--num_steps=3", "--seeds=0-4", "--batch=2", "--device=cpu"]
+    cli_sample.main(["--dataset_name=ms_coco", "--prompt=a photo of the cat",
+                     "--outdir=prompt", *common])
+    cli_sample.main(["--dataset_name=ms_coco", "--guidance_type=cfg", "--outdir=captions",
+                     *common])
+    pre, source = factory.create_model("ms_coco", sd_checkpoint, guidance_rate=GUIDANCE,
+                                       device="cpu")
+    ld = pre.latent_diffusion
+    assert source == "sd" and ld.cond_stage_fn is not None
+    uc = ld.get_learned_conditioning([""])
+    cfg = S.SolverConfig(solver="euler", num_steps=3, schedule_type="discrete",
+                         schedule_rho=1.0)
+    runs = {"prompt": dict(den=bind(pre, condition=ld.get_learned_conditioning(
+                ["a photo of the cat"]), unconditional_condition=uc)),
+            "captions": dict(den=bind(pre, unconditional_condition=uc), per_seed_cond=(
+                ld.get_learned_conditioning([CAPTIONS[s % 3] for s in seeds])))}
+    images = {}
+    for name, kw in runs.items():
+        latents = S.generate(kw.pop("den"), seeds, (8, 8, 4), cfg, max_batch_size=2,
+                             device="cpu", **kw)
+        images[name] = S.to_uint8(ld.decode_in_chunks(latents))
+        assert _pngs(name, seeds) == [encode_png(im) for im in images[name]], name
+    assert (images["prompt"] != images["captions"]).any()
+    assert (images["captions"][0] != images["captions"][3]).any()  # same caption, other seed
+    with pytest.raises(ValueError, match="guidance_type=cfg"):
+        cli_sample.main(["--dataset_name=ms_coco", "--guidance_type=uncond", *common])
+    with pytest.raises(NotImplementedError, match="apply to ms_coco"):
+        cli_sample.main(["--dataset_name=lsun_bedroom_ldm", "--prompt=a cat", "--device=cpu"])
+
+
+def test_sample_cli_gits_on_sd_runs_the_warmup_on_captions(sd_checkpoint):
+    """``--dp=True`` without ``--prompt``: warmup seed i runs on caption
+    i % 3, through ``gits_schedule(per_seed_cond=..., denoise_with_cond=...)``."""
+    out = cli_sample.main(["--dataset_name=ms_coco", f"--model_path={sd_checkpoint}",
+                           f"--guidance_rate={GUIDANCE}", "--dp=True", "--num_steps=3",
+                           "--num_steps_tea=5", "--num_warmup=4", "--solver=euler",
+                           "--solver_tea=euler", "--seeds=0-1", "--batch=2", "--device=cpu",
+                           "--outdir=gits"])
+    pre, _ = factory.create_model("ms_coco", sd_checkpoint, guidance_rate=GUIDANCE,
+                                  device="cpu")
+    ld = pre.latent_diffusion
+    uc = ld.get_learned_conditioning([""])
+    gcfg = GITSConfig(num_steps=3, num_steps_tea=5, num_warmup=4, solver_tea="euler",
+                      solver="euler", schedule_type="discrete", schedule_rho=1.0, batch_size=2)
+    dp_list, _, cost = gits_schedule(
+        bind(pre, unconditional_condition=uc), (8, 8, 4), gcfg, device="cpu", return_cost=True,
+        per_seed_cond=ld.get_learned_conditioning([CAPTIONS[i % 3] for i in range(4)]),
+        denoise_with_cond=lambda x, t, c: pre(x, t, condition=c, unconditional_condition=uc))
+    assert out["dp_list"] == dp_list and np.isfinite(cost).all()
+
+
+def test_amed_trains_on_encoded_captions_drawn_as_jax_draws(sd_checkpoint, capsys):
+    """With a bound text encoder and the captions file, AMED's context
+    function encodes the captions the JAX one draws (the same RandomState
+    draws, seen through a recording encoder on the JAX side), and the
+    unconditional context is the empty prompt's; ``build_trainer`` takes
+    the checkpoint and the captions and trains a step on them."""
+    csv = os.path.join("models", "MS-COCO_val2014_30k_captions.csv")
+    pre, _ = factory.create_model("ms_coco", sd_checkpoint, guidance_rate=GUIDANCE,
+                                  device="cpu")
+    ld = pre.latent_diffusion
+    seen_t, seen_j = [], []
+    real = ld.get_learned_conditioning
+
+    def spy(texts):
+        seen_t.append(list(texts))
+        return real(texts)
+
+    ld.get_learned_conditioning = spy
+
+    class JaxLD:  # the JAX context sampler's view of a LatentDiffusion
+        unet = ld.unet
+
+        @staticmethod
+        def cond_stage_fn(texts):
+            raise AssertionError("the JAX sampler encodes through get_learned_conditioning")
+
+        @staticmethod
+        def get_learned_conditioning(texts):
+            seen_j.append(list(texts))
+            return np.zeros((len(texts), 77, CTX_DIM), np.float32)
+
+    for batch, seed, it in ((4, 0, 0), (3, 9, 5)):
+        got = TC.make_caption_context_fn(ld, csv, batch, seed, verbose=False)(it)
+        JC.make_caption_context_fn(JaxLD, csv, batch, seed, verbose=False)(it)
+        assert got.shape == (batch, 77, CTX_DIM) and got.dtype == np.float32
+        np.testing.assert_array_equal(got, real(seen_t[-1]).numpy())
+    uc = TC.make_uncond_context(ld, 2, GUIDANCE)
+    JC.make_uncond_context(JaxLD, 2, GUIDANCE)
+    assert seen_t == seen_j and seen_t[-1] == ["", ""] and len(set(map(tuple, seen_t))) == 3
+    np.testing.assert_array_equal(uc, real(["", ""]).numpy())
+    del ld.get_learned_conditioning
+
+    cfg = cli_train.AMEDConfig(dataset_name="ms_coco", num_steps=2, batch=2, batch_gpu=2,
+                               guidance_type="cfg", guidance_rate=GUIDANCE)
+    module, cfg, _, step, context_fn = cli_train.build_trainer(cfg, sd_checkpoint, "cpu",
+                                                               prompt_path=csv)
+    assert "Loaded 3 captions" in capsys.readouterr().out
+    assert module.latent_diffusion.cond_stage_fn is not None
+    metrics = step(stacked_randn([0, 1], (8, 8, 4), device="cpu"),
+                   torch.from_numpy(context_fn(0)))
+    assert math.isfinite(float(metrics["loss"]))

@@ -155,5 +155,5 @@ def test_create_model_random_is_seeded_and_eval():
     assert source == "edm" and not a.training
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="some.pkl"):  # a missing checkpoint file raises
         create_model("cifar10", "some.pkl", device="cpu")
