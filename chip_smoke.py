@@ -177,7 +177,9 @@ Phases, each printing as it goes and then its seconds:
    ``--afs=False``, then sampling and the VQ decode of 64 seeds.
 31. Checkpoint loading at full width: the 56M-parameter CIFAR-10
    EDMPrecond from seed 0, redrawn at unit scale, written as EDM's ``.pkl``
-   (a plain pickle of {'ema': module}, legacy storages) and as a torch zip
+   (a plain pickle of {'ema': module}, legacy storages, every module below
+   torch's containers pickled through ``torch_utils.persistence`` as EDM's
+   layer classes are) and as a torch zip
    of its state_dict into a temporary directory; ``create_model('cifar10',
    path)`` on each, with the file's size, the host seconds and MB/s: every
    tensor bit-equal, D at batch 64 in f32 bit-equal to the source net's
@@ -242,6 +244,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -2535,11 +2538,63 @@ def _load_timed(tag: str, dataset: str, path: str, **kwargs):
     return out, load_s
 
 
+def _dump_edm_pkl(obj, f) -> int:
+    """``pickle.dump(obj, f)`` as EDM's ``.pkl`` holds its nets: every
+    module class outside torch (EDM decorates each of its layer classes with
+    ``persistence.persistent_class``) reduces to
+    ``torch_utils.persistence._reconstruct_persistent_obj(meta)``, the
+    module's __dict__ in ``meta['state']`` and no BUILD; torch's own modules
+    (ModuleDict, Dropout) pickle plainly.  The reconstruct function is a
+    stand-in under EDM's module name while the dump runs, and raises if
+    anything calls it.  Returns the number of modules wrapped."""
+    pkg, mod = types.ModuleType("torch_utils"), types.ModuleType("torch_utils.persistence")
+
+    def _reconstruct_persistent_obj(meta):
+        raise RuntimeError("the loader ran the reconstruct function")
+
+    _reconstruct_persistent_obj.__module__ = mod.__name__
+    _reconstruct_persistent_obj.__qualname__ = "_reconstruct_persistent_obj"
+    mod._reconstruct_persistent_obj, pkg.persistence = _reconstruct_persistent_obj, mod
+    wrapped = {}
+
+    def persistent(cls):
+        if cls not in wrapped:
+            def __reduce__(self):  # torch_utils/persistence.py's Decorator.__reduce__
+                fields = list(super(wrapped[cls], self).__reduce__())
+                fields += [None] * max(3 - len(fields), 0)
+                meta = dict(type="class", version=6, module_src="raise SystemExit",
+                            class_name=f"training.networks.{cls.__name__}", state=fields[2])
+                return (_reconstruct_persistent_obj, (meta,), None, *fields[3:])
+
+            wrapped[cls] = type(cls.__name__, (cls,), {"__reduce__": __reduce__})
+        return wrapped[cls]
+
+    mods = [m for r in obj.values() if isinstance(r, torch.nn.Module) for m in r.modules()
+            if not type(m).__module__.startswith("torch.")]
+    classes = [type(m) for m in mods]
+    saved = {k: sys.modules.get(k) for k in (pkg.__name__, mod.__name__)}
+    sys.modules.update({pkg.__name__: pkg, mod.__name__: mod})
+    try:
+        for m in mods:
+            m.__class__ = persistent(type(m))
+        pickle.dump(obj, f)
+    finally:
+        for m, cls in zip(mods, classes):
+            m.__class__ = cls
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    return len(mods)
+
+
 @torch.no_grad()
 def phase_checkpoint_edm(workdir: str) -> dict:
     """Phase 31: the full-width CIFAR-10 EDMPrecond (seeded, redrawn at
     unit scale) written as EDM's ``.pkl`` (a plain pickle of {'ema':
-    module}, legacy storages) and as a torch zip of its state_dict, each
+    module}, legacy storages, each module persistence-wrapped:
+    ``_dump_edm_pkl``) and as a torch zip of its state_dict, each
     loaded by ``create_model('cifar10', path)``: every tensor bit-equal, D
     at batch 64 in f32 bit-equal to the source net's, with K1 and K3; then
     ``cli.sample --model_path=<.pkl>`` at NFE 5, batch 256, bf16, its PNGs
@@ -2553,10 +2608,12 @@ def phase_checkpoint_edm(workdir: str) -> dict:
              "pt": os.path.join(workdir, "cifar10-state_dict.pt")}
     t0 = time.perf_counter()
     with open(files["pkl"], "wb") as f:
-        pickle.dump({"ema": copy.deepcopy(src).cpu(), "augment_pipe": None}, f)
+        wrapped = _dump_edm_pkl({"ema": copy.deepcopy(src).cpu(), "augment_pipe": None}, f)
     torch.save(want, files["pt"])
     print(f"[ckpt EDM] {sum(v.numel() for v in src.parameters()) / 1e6:.1f}M parameters; both "
-          f"files written in {time.perf_counter() - t0:.3f} s")
+          f"files written in {time.perf_counter() - t0:.3f} s; the .pkl pickles {wrapped} "
+          f"modules through torch_utils.persistence, as EDM's snapshots do")
+    _check(wrapped > 100, f"ckpt EDM: only {wrapped} modules persistence-wrapped")
     sigma = torch.tensor(np.geomspace(0.002, 80.0, CKPT_D_BATCH), dtype=torch.float32,
                          device="cuda")
     x = stacked_randn(range(CKPT_D_BATCH), (32, 32, 3), device="cuda") * sigma[:, None, None, None]
@@ -2668,7 +2725,7 @@ def phase_checkpoint_sd(workdir: str) -> dict:
         got = ld.state_dict()
         same = sum(torch.equal(got[k], v) for k, v in want.items())
         print(f"[ckpt SD] {same} of {len(want)} tensors bit-equal to the file's")
-        _check(source == "sd" and isinstance(ld.cond_stage_fn, FrozenCLIPEmbedder),
+        _check(source == "sd" and isinstance(ld.cond_stage_model, FrozenCLIPEmbedder),
                "ckpt SD: no text encoder bound")
         _check(same == len(want), "ckpt SD: loaded tensors differ from the file's")
         del want, got
@@ -2730,7 +2787,7 @@ def phase_checkpoint_sd(workdir: str) -> dict:
         (module, cfg, pred, step, context_fn), build_s = _host_timed(
             lambda: cli_train_amed.build_trainer(cfg, path, "cuda", prompt_path=csv))
         print(f"[ckpt SD AMED] build_trainer with the checkpoint and {csv}: {build_s:.3f} s")
-        _check(module.latent_diffusion.cond_stage_fn is not None, "ckpt SD AMED: no encoder")
+        _check(module.latent_diffusion.cond_stage_model is not None, "ckpt SD AMED: no encoder")
         counts["amed"] = _sd_amed_iterations("ckpt SD AMED", cfg, pred, step, context_fn,
                                              _gn_sites(module.latent_diffusion.unet))
         del module, pred, step, context_fn

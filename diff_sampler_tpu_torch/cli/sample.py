@@ -51,8 +51,9 @@ A class-conditional net (``--dataset_name=imagenet64``) samples each seed
 with its own random class label, as the JAX CLI does.  With ``--predictor``
 (an AMED run directory, its ``predictor.npz`` or the experiment number
 under ``./exps``) it samples with the trained AMED predictor instead, and
-every solver setting comes from the predictor's config sidecar; the net is
-bound without labels there, as the JAX CLI binds an EDM net for AMED.
+every solver setting comes from the predictor's config sidecar; an EDM net
+is bound without labels there, as the JAX CLI binds it for AMED, and Stable
+Diffusion samples on the prompt or caption contexts above.
 
 PNG writes of a pixel tier's batch i run on the host while the device
 samples batch i+1 (``sampling.generate``'s batch callback); a latent tier, a
@@ -135,7 +136,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--deis_mode", choices=["tab", "rhoab"], default="tab")
     p.add_argument("--r", type=float, default=0.5)
     # GUIDANCE_FLAGS
-    p.add_argument("--guidance_type", choices=["cg", "cfg", "uncond"], default=None,
+    p.add_argument("--guidance_type", choices=["cfg"], default=None,
                    help="ms_coco: cfg (classifier-free, the only kind it has)")
     p.add_argument("--guidance_rate", type=float, default=1.0)
     p.add_argument("--prompt", default=None,
@@ -156,10 +157,8 @@ def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
     if args.model_path == "None":
         args.model_path = None
-    if args.dataset_name == "ms_coco":
-        if args.guidance_type not in (None, "cfg"):
-            raise ValueError("ms_coco samples with classifier-free guidance: --guidance_type=cfg")
-    elif args.guidance_type is not None or args.prompt is not None:
+    if args.dataset_name != "ms_coco" and (args.guidance_type is not None
+                                           or args.prompt is not None):
         raise NotImplementedError("--guidance_type and --prompt apply to ms_coco here; "
                                   "classifier guidance comes with ROADMAP slice 3")
     latent = args.dataset_name in LDM_CONFIGS
@@ -175,25 +174,26 @@ def main(argv=None) -> dict:
                                   guidance_rate=args.guidance_rate, dtype=dtype, device=device)
     shape = (module.img_resolution, module.img_resolution, module.img_channels)
     summary = dict(dp_list=None, gits_seconds=None, outdir=None)
-    if args.predictor is not None:
-        summary["outdir"] = _amed_sample(module, args.predictor, seeds, shape,
-                                         args.max_batch_size, args.outdir, args.grid,
-                                         args.subdirs, args.dataset_name, device)
-        return summary
     cond, per_seed_cond, captions = {}, None, None
     if source == "sd":
         ld = module.latent_diffusion
-        if ld.cond_stage_fn is None:
+        if ld.cond_stage_model is None:
             raise ValueError("ms_coco sampling needs the checkpoint's CLIP text encoder: pass "
                              "--model_path (the 'random' weights have none)")
         if args.prompt is None:
             # one MS-COCO caption per seed (sample.py:171-180, 276-291)
             captions = load_captions(find_file("prompts"))
-            per_seed_cond = _encode(ld, [captions[s % len(captions)] for s in seeds])
+            per_seed_cond = ld.encode_in_chunks([captions[s % len(captions)] for s in seeds])
         else:
             cond["condition"] = ld.get_learned_conditioning([args.prompt])
         if args.guidance_rate != 1.0:
             cond["unconditional_condition"] = ld.get_learned_conditioning([""])
+    if args.predictor is not None:
+        summary["outdir"] = _amed_sample(module, args.predictor, seeds, shape,
+                                         args.max_batch_size, args.outdir, args.grid,
+                                         args.subdirs, args.dataset_name, device, cond,
+                                         per_seed_cond)
+        return summary
     den = bind(module, **cond)
     # a latent tier samples on the model's discrete schedule, unless a
     # schedule or a sigma list was asked for; the GITS teacher runs on it too
@@ -212,8 +212,8 @@ def main(argv=None) -> dict:
             # warmup seed i with caption i
             uc = cond.get("unconditional_condition")
             gits_kw = dict(
-                per_seed_cond=_encode(ld, [captions[i % len(captions)]
-                                           for i in range(args.num_warmup)]),
+                per_seed_cond=ld.encode_in_chunks([captions[i % len(captions)]
+                                                   for i in range(args.num_warmup)]),
                 denoise_with_cond=lambda x, t, c: module(x, t, condition=c,
                                                          unconditional_condition=uc))
         t0 = time.perf_counter()
@@ -270,13 +270,6 @@ def main(argv=None) -> dict:
     return summary
 
 
-def _encode(ld, texts, chunk: int = 64) -> torch.Tensor:
-    """The text encoder's contexts of ``texts``, ``chunk`` at a time, on the
-    host (a context per seed of a long seed list would crowd the card)."""
-    return torch.cat([ld.get_learned_conditioning(texts[i:i + chunk]).cpu()
-                      for i in range(0, len(texts), chunk)])
-
-
 def _save(images, seeds, out_base, grid, subdirs):
     """[-1, 1] images to ``{out_base}/grid.png`` or to per-seed PNGs."""
     images = to_uint8(images)
@@ -317,10 +310,12 @@ def _resolve_snapshot(path_or_exp, outdir_base="./exps"):
 
 
 def build_amed_sample_fn(module, predictor, device, cfg_doubled: bool = False, **cond):
-    """(``latents -> samples`` under ``torch.no_grad``, its AMEDConfig) for
-    an AMED predictor (run dir, .npz or experiment number) over ``module``,
-    bound with ``cond`` as ``bind_with_bottleneck`` binds it: every solver
-    setting comes from the predictor's config sidecar."""
+    """(``(latents, condition=None) -> samples`` under ``torch.no_grad``,
+    its AMEDConfig) for an AMED predictor (run dir, .npz or experiment
+    number) over ``module``, bound with ``cond`` as ``bind_with_bottleneck``
+    binds it; a ``condition`` passed to the call (a batch's per-seed
+    contexts) replaces the bound one.  Every solver setting comes from the
+    predictor's config sidecar."""
     npz, cfg_dict = _resolve_snapshot(predictor)
     cfg = AMEDConfig(**{k: v for k, v in cfg_dict.items()
                         if k in AMEDConfig.__dataclass_fields__})
@@ -333,25 +328,33 @@ def build_amed_sample_fn(module, predictor, device, cfg_doubled: bool = False, *
     sampler = AMED_SOLVER_REGISTRY[cfg.sampler_stu]
 
     @torch.no_grad()
-    def sample_fn(latents):
-        return sampler(den_b, pred, latents, t_steps, afs=cfg.afs, max_order=cfg.max_order,
+    def sample_fn(latents, condition=None):
+        den = den_b if condition is None else bind_with_bottleneck(
+            module, cfg_doubled=cfg_doubled, **{**cond, "condition": condition})
+        return sampler(den, pred, latents, t_steps, afs=cfg.afs, max_order=cfg.max_order,
                        predict_x0=cfg.predict_x0, lower_order_final=cfg.lower_order_final).x
 
     return sample_fn, cfg
 
 
 def _amed_sample(module, predictor, seeds, shape, max_batch_size, outdir, grid, subdirs,
-                 dataset_name, device) -> str:
+                 dataset_name, device, cond, per_seed_cond) -> str:
     """AMED sampling with every setting from the predictor's config;
-    returns the output directory."""
-    sample_fn, cfg = build_amed_sample_fn(module, predictor, device)
+    returns the output directory.  Stable Diffusion samples on the contexts
+    ``main`` built (``cond``: the prompt's and the empty prompt's;
+    ``per_seed_cond``: a caption's per seed), the batch doubled under
+    guidance as the trainer doubles it."""
+    cfg_doubled = (isinstance(module, CFGPrecond) and module.guidance_rate != 1.0
+                   and cond.get("unconditional_condition") is not None)
+    sample_fn, cfg = build_amed_sample_fn(module, predictor, device, cfg_doubled=cfg_doubled,
+                                          **cond)
     nfe = 2 * (cfg.num_steps - 1) - (1 if cfg.afs else 0)
     print(f"AMED: student={cfg.sampler_stu} steps={cfg.num_steps} NFE={nfe} "
           f"(restored from predictor config) | device: {device}")
     out_base = outdir or f"samples/{dataset_name}-amed-{cfg.sampler_stu}"
     if isinstance(module, CFGPrecond):
-        latents = generate_batches(lambda latents, _: sample_fn(latents), seeds, shape,
-                                   max_batch_size=max_batch_size, device=device)
+        latents = generate_batches(sample_fn, seeds, shape, max_batch_size=max_batch_size,
+                                   device=device, per_seed_cond=per_seed_cond)
         _decode_and_save(module, latents, seeds, out_base, grid, subdirs)
         return out_base
 

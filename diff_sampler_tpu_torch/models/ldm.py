@@ -513,11 +513,6 @@ class LatentDiffusion(nn.Module):
         self.conditioning_key = conditioning_key
         self.cond_stage_model = cond_stage_model
 
-    @property
-    def cond_stage_fn(self):
-        """The bound text encoder (prompts -> contexts), or None."""
-        return self.cond_stage_model
-
     def apply_model(self, x, t, cond=None):
         if self.conditioning_key is None or cond is None:
             return self.unet(x, t)
@@ -535,6 +530,14 @@ class LatentDiffusion(nn.Module):
             raise RuntimeError("no text encoder bound: the encoder comes with a checkpoint "
                                "(its cond_stage_model.* weights); random weights have none")
         return self.cond_stage_model(prompts)
+
+    @torch.no_grad()
+    def encode_in_chunks(self, prompts, chunk: int = 64) -> torch.Tensor:
+        """The contexts of ``prompts``, ``chunk`` at a time, gathered on the
+        host in f32 [N, 77, context_dim] (a context per seed of a long seed
+        list would crowd the card)."""
+        return torch.cat([self.get_learned_conditioning(prompts[i:i + chunk]).float().cpu()
+                          for i in range(0, len(prompts), chunk)])
 
     @torch.no_grad()
     def decode_in_chunks(self, latents: np.ndarray, chunk: int = 16) -> np.ndarray:

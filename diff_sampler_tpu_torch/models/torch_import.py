@@ -256,8 +256,9 @@ def load_torch_file(path: str) -> Any:
 
 def _walk_module_stub(stub, prefix: str, out: Dict[str, torch.Tensor]) -> None:
     """Collect ``_parameters`` / ``_buffers`` from a pickled nn.Module tree
-    (a module pickles its __dict__: _parameters, _buffers, _modules)."""
-    state = stub.state if isinstance(stub, _ObjStub) else stub
+    (a module pickles its __dict__: _parameters, _buffers, _modules); the
+    top module and every child are read through ``_module_state``."""
+    state = _module_state(stub)
     if not isinstance(state, dict):
         return
     for group in ("_parameters", "_buffers"):
@@ -268,20 +269,27 @@ def _walk_module_stub(stub, prefix: str, out: Dict[str, torch.Tensor]) -> None:
         _walk_module_stub(sub, f"{prefix}.{name}" if prefix else str(name), out)
 
 
-def _module_state(stub: _ObjStub):
-    """Where a stub's module state lives: its BUILD state (a plain module
-    pickle), the ``state`` entry of it, or, for an object that
-    ``torch_utils.persistence`` pickled (``_reconstruct_persistent_obj(meta)``,
-    with no BUILD), the ``state`` of its one argument ``meta``."""
-    state = stub.state if isinstance(stub.state, dict) else {}
-    inner = state.get("state")
-    if isinstance(inner, (dict, _ObjStub)):
-        return inner
-    if not state and len(stub.args) == 1 and isinstance(stub.args[0], dict):
-        meta = stub.args[0].get("state")
-        if isinstance(meta, (dict, _ObjStub)):
-            return meta
-    return stub
+def _module_state(obj):
+    """The __dict__ of a pickled module: a stub's BUILD state (a plain
+    module pickle), the ``state`` entry of it, or, for an object that
+    ``torch_utils.persistence`` pickled (``_reconstruct_persistent_obj(meta)``
+    with no BUILD; EDM wraps every layer class so, each child too), the
+    ``state`` of its one argument ``meta``.  A dict is its own state; a
+    stub whose state leads back to itself has none."""
+    seen = set()
+    while isinstance(obj, _ObjStub) and id(obj) not in seen:
+        seen.add(id(obj))
+        state = obj.state if isinstance(obj.state, dict) else {}
+        if "_modules" in state or "_parameters" in state:
+            return state
+        if isinstance(state.get("state"), (dict, _ObjStub)):
+            obj = state["state"]
+        elif (not state and len(obj.args) == 1 and isinstance(obj.args[0], dict)
+              and isinstance(obj.args[0].get("state"), (dict, _ObjStub))):
+            obj = obj.args[0]["state"]
+        else:
+            return state
+    return obj
 
 
 def _as_f32(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -299,7 +307,7 @@ def torch_state_dict(obj) -> Dict[str, torch.Tensor]:
         return _as_f32(obj)
     if isinstance(obj, _ObjStub):
         out: Dict[str, torch.Tensor] = {}
-        _walk_module_stub(_module_state(obj), "", out)
+        _walk_module_stub(obj, "", out)
         if out:
             return _as_f32(out)
         raise ValueError(f"no tensors found in pickled object {obj._qualname}")

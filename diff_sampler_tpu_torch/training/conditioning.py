@@ -45,10 +45,6 @@ def _ctx_dim(ld) -> int:
     return ld.unet.context_dim or 768
 
 
-def _encode(ld, texts) -> np.ndarray:
-    return ld.get_learned_conditioning(texts).float().cpu().numpy()
-
-
 def make_caption_context_fn(ld, prompts_path: Optional[str], batch: int, seed: int,
                             verbose: bool = True) -> Callable[[int], np.ndarray]:
     """Per-iteration context sampler: it -> [batch, 77, context_dim] float32.
@@ -57,7 +53,7 @@ def make_caption_context_fn(ld, prompts_path: Optional[str], batch: int, seed: i
     otherwise seeded random contexts from the same generator."""
     captions = load_captions(prompts_path)
     dim = _ctx_dim(ld)
-    if captions is None or ld.cond_stage_fn is None:
+    if captions is None or ld.cond_stage_model is None:
         if verbose:
             what = "no captions" if captions is None else "no text encoder"
             print(f"WARNING: {what} -- using seeded random contexts (smoke mode)")
@@ -73,7 +69,8 @@ def make_caption_context_fn(ld, prompts_path: Optional[str], batch: int, seed: i
 
     def encode_ctx(it: int) -> np.ndarray:
         rng = np.random.RandomState((seed + it) % (1 << 31))
-        return _encode(ld, [captions[i] for i in rng.randint(len(captions), size=batch)])
+        drawn = rng.randint(len(captions), size=batch)
+        return ld.encode_in_chunks([captions[i] for i in drawn]).numpy()
 
     return encode_ctx
 
@@ -87,7 +84,7 @@ def make_uncond_context(ld, mb: int, guidance_rate: float,
     if guidance_rate == 1.0:
         return None
     dim = _ctx_dim(ld)
-    if ld.cond_stage_fn is None:
+    if ld.cond_stage_model is None:
         one = np.random.RandomState(seed).randn(1, CLIP_SEQ_LEN, dim).astype(np.float32)
         return np.broadcast_to(one, (mb, CLIP_SEQ_LEN, dim)).copy()
-    return _encode(ld, mb * [""])
+    return ld.encode_in_chunks(mb * [""]).numpy()

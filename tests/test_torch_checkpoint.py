@@ -270,11 +270,15 @@ def test_a_pickle_that_would_run_code_loads_inert(tmp_path, fmt):
     _same(got, want)
 
 
-def test_persistence_wrapped_module_loads_where_the_jax_loader_cannot(tmp_path):
-    """EDM's ``.pkl`` pickles its nets through ``torch_utils.persistence``:
-    ``_reconstruct_persistent_obj(meta)`` with the module's __dict__ in
-    ``meta['state']`` and no BUILD.  The port walks ``meta['state']``; the
-    JAX loader looks at the (empty) BUILD state and raises (ROADMAP Queue 3)."""
+def dump_edm_pkl(obj, f) -> int:
+    """``pickle.dump(obj, f)`` as EDM's ``.pkl`` holds its nets: every
+    module class outside torch (EDM decorates each of its layer classes with
+    ``persistence.persistent_class``) reduces to
+    ``torch_utils.persistence._reconstruct_persistent_obj(meta)``, the
+    module's __dict__ in ``meta['state']`` and no BUILD; torch's own modules
+    (ModuleDict, Dropout) pickle plainly.  The reconstruct function is a
+    stand-in under EDM's module name while the dump runs, and raises if
+    anything calls it.  Returns the number of modules wrapped."""
     pkg, mod = types.ModuleType("torch_utils"), types.ModuleType("torch_utils.persistence")
 
     def _reconstruct_persistent_obj(meta):
@@ -283,25 +287,68 @@ def test_persistence_wrapped_module_loads_where_the_jax_loader_cannot(tmp_path):
     _reconstruct_persistent_obj.__module__ = mod.__name__
     _reconstruct_persistent_obj.__qualname__ = "_reconstruct_persistent_obj"
     mod._reconstruct_persistent_obj, pkg.persistence = _reconstruct_persistent_obj, mod
-    net = _net()
+    wrapped = {}
 
-    class Persistent(torch.nn.Module):
-        def __reduce__(self):
-            meta = dict(type="class", version=6, module_src="raise SystemExit",
-                        class_name="training.networks.Net", state=dict(net.__dict__))
-            return (_reconstruct_persistent_obj, (meta,))
+    def persistent(cls):
+        if cls not in wrapped:
+            def __reduce__(self):  # torch_utils/persistence.py's Decorator.__reduce__
+                fields = list(super(wrapped[cls], self).__reduce__())
+                fields += [None] * max(3 - len(fields), 0)
+                meta = dict(type="class", version=6, module_src="raise SystemExit",
+                            class_name=f"training.networks.{cls.__name__}", state=fields[2])
+                return (_reconstruct_persistent_obj, (meta,), None, *fields[3:])
 
-    path = tmp_path / "edm.pkl"
+            wrapped[cls] = type(cls.__name__, (cls,), {"__reduce__": __reduce__})
+        return wrapped[cls]
+
+    roots = obj.values() if isinstance(obj, dict) else [obj]
+    mods = [m for r in roots if isinstance(r, torch.nn.Module) for m in r.modules()
+            if not type(m).__module__.startswith("torch.")]
+    classes = [type(m) for m in mods]
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(sys.modules, "torch_utils", pkg)
         mp.setitem(sys.modules, "torch_utils.persistence", mod)
-        with open(path, "wb") as f:
-            pickle.dump({"ema": Persistent(), "loss_fn": None}, f)
-    got = TI.torch_state_dict(TI.load_torch_file(str(path)))
-    source = net.state_dict()
+        try:
+            for m in mods:
+                m.__class__ = persistent(type(m))
+            pickle.dump(obj, f)
+        finally:
+            for m, cls in zip(mods, classes):
+                m.__class__ = cls
+    return len(mods)
+
+
+def test_persistence_wrapped_module_loads_where_the_jax_loader_cannot(tmp_path, monkeypatch):
+    """EDM's ``.pkl`` pickles each of its nets' modules through
+    ``torch_utils.persistence`` (``dump_edm_pkl``): EDMPrecond, SongUNet,
+    each UNetBlock and each Conv2d / Linear / GroupNorm below the plain
+    ModuleDicts.  The port walks ``meta['state']`` at every level, loads
+    every tensor bit-equal, and ``create_model`` gives the source net's D
+    exactly; the JAX loader looks at the (empty) BUILD state and raises
+    (ROADMAP Queue 3)."""
+    monkeypatch.setitem(factory.EDM_ARCHS, "tiny16", EDM_TINY)
+    src = factory.build_edm_model("tiny16", device="cpu")
+    _redraw_unit_scale(src, seed=3)
+    path = tmp_path / "edm.pkl"
+    with open(path, "wb") as f:
+        n = dump_edm_pkl({"ema": src, "loss_fn": None, "augment_pipe": None}, f)
+    assert n > 20 and type(src).__name__ == "EDMPrecond"
+    loaded = TI.load_torch_file(str(path))
+    top = loaded["ema"]
+    assert type(top).__name__ == "_reconstruct_persistent_obj" and top.state == {}
+    child = top.args[0]["state"]["_modules"]["model"]  # the SongUNet: wrapped too
+    assert type(child).__name__ == "_reconstruct_persistent_obj" and child.state == {}
+    got = TI.torch_state_dict(loaded)
+    source = src.state_dict()
     assert set(got) == set(source)
     for k, v in source.items():
-        assert torch.equal(got[k], v.float() if v.is_floating_point() else v), k
+        assert torch.equal(got[k], v), k
+    port, kind = factory.create_model("tiny16", str(path), device="cpu")
+    sigma = torch.tensor([0.02, 0.5, 5.0, 40.0])
+    x = torch.from_numpy(np.random.RandomState(4).randn(4, 16, 16, 3).astype(np.float32))
+    with torch.no_grad():
+        assert kind == "edm" and torch.equal(port(x * sigma[:, None, None, None], sigma),
+                                             src(x * sigma[:, None, None, None], sigma))
     with pytest.raises(ValueError, match="no tensors found"):
         JI.torch_state_dict(JI.load_torch_file(str(path)))
 
@@ -490,7 +537,7 @@ def test_ldm_d_from_a_checkpoint_matches_jax(tmp_path, monkeypatch):
     assert TI.load_torch_file(str(path))["state_dict"][
         "model.diffusion_model.middle_block.1.qkv.weight"].dim() == 3
     pre_t, source = factory.create_model("lsun_bedroom_ldm", str(path), device="cpu")
-    assert source == "ldm" and pre_t.latent_diffusion.cond_stage_fn is None
+    assert source == "ldm" and pre_t.latent_diffusion.cond_stage_model is None
     for k, v in src.state_dict().items():
         assert torch.equal(pre_t.latent_diffusion.state_dict()[k], v), k
     pre_j, _ = JF.build_ldm_model("lsun_bedroom_ldm", str(path))
@@ -514,7 +561,7 @@ def test_sd_d_from_a_checkpoint_matches_jax(tmp_path, monkeypatch):
     pre_t, source = factory.create_model("ms_coco", str(path), guidance_rate=GUIDANCE,
                                          device="cpu")
     ld_t = pre_t.latent_diffusion
-    assert source == "sd" and isinstance(ld_t.cond_stage_fn, TTX.FrozenCLIPEmbedder)
+    assert source == "sd" and isinstance(ld_t.cond_stage_model, TTX.FrozenCLIPEmbedder)
     assert not any(p.requires_grad for p in ld_t.cond_stage_model.parameters())
     for k, v in src.state_dict().items():
         assert torch.equal(ld_t.state_dict()[k], v), k
@@ -595,7 +642,6 @@ def test_full_width_cifar10_and_sd_checkpoint_keys_all_load():
     sd.update({f"cond_stage_model.transformer.{k}": v for k, v in clip.state_dict().items()})
     sd.update({k: v.to("meta") for k, v in ldm_extras(cfg, text=True).items()})
     loaded = TL.build_latent_diffusion("ms_coco", state_dict=sd, device="meta")
-    assert isinstance(loaded.cond_stage_fn, TTX.FrozenCLIPEmbedder)
+    assert isinstance(loaded.cond_stage_model, TTX.FrozenCLIPEmbedder)
     left = sorted(k for k in sd if TL.checkpoint_ignores(k))
     assert left == sorted(ldm_extras(cfg, text=True))
-    print(sum(v.numel() for k, v in sd.items() if k not in left))

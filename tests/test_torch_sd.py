@@ -27,6 +27,7 @@ relative, params within 5e-4 of the step's largest move (as
 tests/test_torch_ldm.py).
 """
 
+import dataclasses
 import math
 import os
 
@@ -55,6 +56,7 @@ from diff_sampler_tpu_torch.models import ldm as TL
 from diff_sampler_tpu_torch.gits.search import GITSConfig, gits_schedule
 from diff_sampler_tpu_torch.models import text as TTX
 from diff_sampler_tpu_torch.models.convert import load_jax_params, load_ldm_jax_params
+from diff_sampler_tpu_torch.models.convert import params_to_jax
 from diff_sampler_tpu_torch.models.precond import bind
 from diff_sampler_tpu_torch.solvers import amed as TA
 from diff_sampler_tpu_torch.training import amed as TT
@@ -520,7 +522,7 @@ def test_sample_cli_runs_sd_from_a_checkpoint_with_prompt_and_captions(sd_checkp
     pre, source = factory.create_model("ms_coco", sd_checkpoint, guidance_rate=GUIDANCE,
                                        device="cpu")
     ld = pre.latent_diffusion
-    assert source == "sd" and ld.cond_stage_fn is not None
+    assert source == "sd" and ld.cond_stage_model is not None
     uc = ld.get_learned_conditioning([""])
     cfg = S.SolverConfig(solver="euler", num_steps=3, schedule_type="discrete",
                          schedule_rho=1.0)
@@ -536,7 +538,7 @@ def test_sample_cli_runs_sd_from_a_checkpoint_with_prompt_and_captions(sd_checkp
         assert _pngs(name, seeds) == [encode_png(im) for im in images[name]], name
     assert (images["prompt"] != images["captions"]).any()
     assert (images["captions"][0] != images["captions"][3]).any()  # same caption, other seed
-    with pytest.raises(ValueError, match="guidance_type=cfg"):
+    with pytest.raises(SystemExit):  # classifier-free guidance is the only kind
         cli_sample.main(["--dataset_name=ms_coco", "--guidance_type=uncond", *common])
     with pytest.raises(NotImplementedError, match="apply to ms_coco"):
         cli_sample.main(["--dataset_name=lsun_bedroom_ldm", "--prompt=a cat", "--device=cpu"])
@@ -610,7 +612,51 @@ def test_amed_trains_on_encoded_captions_drawn_as_jax_draws(sd_checkpoint, capsy
     module, cfg, _, step, context_fn = cli_train.build_trainer(cfg, sd_checkpoint, "cpu",
                                                                prompt_path=csv)
     assert "Loaded 3 captions" in capsys.readouterr().out
-    assert module.latent_diffusion.cond_stage_fn is not None
+    assert module.latent_diffusion.cond_stage_model is not None
     metrics = step(stacked_randn([0, 1], (8, 8, 4), device="cpu"),
                    torch.from_numpy(context_fn(0)))
     assert math.isfinite(float(metrics["loss"]))
+
+
+def test_sample_cli_amed_on_sd_binds_the_prompt_and_caption_contexts(sd_checkpoint):
+    """``cli/sample.py --predictor`` on ``ms_coco`` samples on the contexts
+    the plain path builds: with ``--prompt`` the prompt's, without it a
+    caption per seed, and under guidance 7.5 the empty prompt's too, the
+    batch doubled (``cfg_doubled``) as the trainer doubles it.  The PNGs are
+    ``build_amed_sample_fn`` on ``get_learned_conditioning``'s contexts,
+    decoded, byte for byte (5 seeds at batch 2).  Without an encoder
+    (random weights) it raises."""
+    pre, _ = factory.create_model("ms_coco", sd_checkpoint, guidance_rate=GUIDANCE,
+                                  device="cpu")
+    cfg = dataclasses.replace(
+        cli_train.AMEDConfig(dataset_name="ms_coco", num_steps=3, guidance_type="cfg",
+                             guidance_rate=GUIDANCE),
+        sigma_min=float(pre.sigma_min), sigma_max=float(pre.sigma_max))
+    os.makedirs("run")
+    ckpt.save_config(os.path.join("run", "predictor_config.json"), cfg)
+    pred = factory.init_params(cli_train.predictor_from_config(cfg, device="cpu"), seed=3)
+    ckpt.save_params(os.path.join("run", "predictor.npz"), params_to_jax(pred.state_dict()))
+    seeds = list(range(5))
+    common = [f"--model_path={sd_checkpoint}", f"--guidance_rate={GUIDANCE}", "--predictor=run",
+              "--seeds=0-4", "--batch=2", "--device=cpu"]
+    cli_sample.main(["--dataset_name=ms_coco", "--prompt=a photo of the cat",
+                     "--outdir=prompt", *common])
+    cli_sample.main(["--dataset_name=ms_coco", "--outdir=captions", *common])
+    ld = pre.latent_diffusion
+    uc = ld.get_learned_conditioning([""])
+    runs = {"prompt": dict(condition=ld.get_learned_conditioning(["a photo of the cat"])),
+            "captions": dict(per_seed_cond=ld.get_learned_conditioning(
+                [CAPTIONS[s % 3] for s in seeds]))}
+    images = {}
+    for name, kw in runs.items():
+        rows = kw.pop("per_seed_cond", None)
+        fn, _ = cli_sample.build_amed_sample_fn(pre, "run", "cpu", cfg_doubled=True,
+                                                unconditional_condition=uc, **kw)
+        latents = S.generate_batches(fn, seeds, (8, 8, 4), max_batch_size=2, device="cpu",
+                                     per_seed_cond=rows)
+        images[name] = S.to_uint8(ld.decode_in_chunks(latents))
+        assert _pngs(name, seeds) == [encode_png(im) for im in images[name]], name
+    assert (images["prompt"] != images["captions"]).any()
+    assert (images["captions"][0] != images["captions"][3]).any()  # same caption, other seed
+    with pytest.raises(ValueError, match="text encoder"):  # random weights have none
+        cli_sample.main(["--dataset_name=ms_coco", "--predictor=run", "--device=cpu"])
