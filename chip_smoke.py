@@ -204,6 +204,26 @@ Phases, each printing as it goes and then its seconds:
    80 / 160) and the U-Net's and decoder's K3; two AMED iterations through
    ``train_amed.build_trainer`` on the checkpoint and the captions (f32, K1,
    K1c, K2 and K2c launched as in phase 25).
+33. FID and PRDC of CIFAR-10 samples (run after phase 31, in its directory):
+   a synthetic CIFAR-10 python tarball (5 batches of 2,000 uint8 images from
+   the seed) through ``cli.dataset_tool`` to a zip of 10,000 PNGs and
+   dataset.json; a random Inception detector (He-scaled convs, BN of order
+   one, from a numpy seed) written as a torch zip of a torchvision-named
+   state_dict and as a plain pickle of a module tree in TF graph order, both
+   imports equal; the detector on the card (f32, TF32 off inside it while
+   the caller's flags are on) against its CPU run on 16 images at 32 px
+   through both preprocessing paths, within 1e-4 * max|f|; ``fid ref`` of
+   the dataset and ``fid calc`` of the dataset against it, |FID| <= 1e-3 *
+   trace(sigma), and bit-equal to ``compute_fid`` on stats built in this
+   process; 10,000 samples of phase 31's ``.pkl`` through ``cli.sample``
+   (ipndm NFE 5, batch 256, bf16; exact K1 / K3 launches), ``fid calc`` of
+   them with its host seconds split into PNG decode, features and sqrtm,
+   ``prdc calc --num 5000`` with the graph-order pickle, whose decisions
+   must equal float64 ones (numpy, spot-checked against
+   ``scipy.spatial.distance.cdist``) but for pairs within 1e-5 of their
+   radius (counted); the detector's images/s at batch 250 against its f32
+   bound (FLOPs from its conv shapes over 67 TFLOP/s); the seconds of
+   dataset_tool, fid and prdc.
 
 The last three lines are the card's name and power limit, a JSON object on
 the kernels and ``{"ok": true, "device": {...}}``.  The JSON lists K1 and
@@ -218,7 +238,10 @@ decode shapes with its route there (launches of phases 5, 18, 12 and 18's
 decode), K1 and K2 at SD's head
 dims (launches of phases 24 and 25), K1c and K2c (launches of phase 25) and
 K4 in bf16 and in f32 and the f32 K4's split of w (launches of its entry
-points in phase 27), each with its error and times at that path's main
+points in phase 27), K1 and K3 on the CIFAR-10 samples that phase 33
+scores (its launches; the evaluation path itself adds no kernel: the
+detector's convs, its pools, FID's moments and PRDC's distances are
+PyTorch calls, as they are XLA ops in the JAX package), each with its error and times at that path's main
 shape and its bound on this card (the f32 attention kernels' and the f32
 K4's: 3xTF32 on the tensor cores).  Every profile (phases 4,
 5, 13, 14, 20, 23, 26, 28) checks that no attention forward and no
@@ -235,6 +258,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import glob
+import io
 import json
 import math
 import os
@@ -242,6 +266,7 @@ import pickle
 import re
 import subprocess
 import sys
+import tarfile
 import tempfile
 import time
 import types
@@ -251,13 +276,24 @@ import torch
 import torch.nn.functional as F
 
 from diff_sampler_tpu_torch import _build
+from diff_sampler_tpu_torch.cli import dataset_tool as cli_dataset_tool
+from diff_sampler_tpu_torch.cli import fid as cli_fid
+from diff_sampler_tpu_torch.cli import prdc as cli_prdc
 from diff_sampler_tpu_torch.cli import sample as cli_sample
 from diff_sampler_tpu_torch.cli import train_amed as cli_train_amed
+from diff_sampler_tpu_torch.eval import prdc as P
+from diff_sampler_tpu_torch.eval.dataset import ImageFolderDataset
+from diff_sampler_tpu_torch.eval.fid import (calculate_stats, compute_fid, load_stats,
+                                             make_inception_feature_fn)
+from diff_sampler_tpu_torch.eval.inception import (CONV_UNITS_GRAPH_ORDER, InceptionV3FID,
+                                                   import_inception_state_dict,
+                                                   import_nvidia_inception_pickle)
 from diff_sampler_tpu_torch.models import adm, layers
 from diff_sampler_tpu_torch.models.convert import params_to_jax
 from diff_sampler_tpu_torch.models.factory import create_model, init_params
 from diff_sampler_tpu_torch.models.ldm import reference_state_dict
 from diff_sampler_tpu_torch.models.precond import bind
+from diff_sampler_tpu_torch.models.torch_import import load_torch_file, torch_state_dict
 from diff_sampler_tpu_torch.models.text import FrozenCLIPEmbedder
 from diff_sampler_tpu_torch.ops import attention as A
 from diff_sampler_tpu_torch.ops import conv as C
@@ -2436,6 +2472,7 @@ def phase_gits_ldm() -> dict:
 
 # Phase 31: CIFAR-10 from its checkpoint files
 CKPT_D_BATCH = 64  # D of the loaded net against the source net, f32
+EDM_PKL = "edm-cifar10-32x32-uncond-vp.pkl"  # phase 31 writes it, phase 33 samples from it
 
 # Phase 32: Stable Diffusion from a checkpoint file, with its text tower
 SD_CKPT_STORAGE = torch.float16  # the file's storages: half of the 4.3 GB f32 file
@@ -2604,7 +2641,7 @@ def phase_checkpoint_edm(workdir: str) -> dict:
     src, _ = create_model("cifar10", "random", device="cuda")
     _redraw_unit_scale(src, seed=31, device="cuda")
     want = {k: v.cpu() for k, v in src.state_dict().items()}
-    files = {"pkl": os.path.join(workdir, "edm-cifar10-32x32-uncond-vp.pkl"),
+    files = {"pkl": os.path.join(workdir, EDM_PKL),
              "pt": os.path.join(workdir, "cifar10-state_dict.pt")}
     t0 = time.perf_counter()
     with open(files["pkl"], "wb") as f:
@@ -2801,6 +2838,289 @@ def phase_checkpoint_sd(workdir: str) -> dict:
     return counts
 
 
+# Phase 33: FID and PRDC of CIFAR-10 samples
+EVAL_TRAIN_BATCHES = 5  # data_batch_1..5 of the synthetic CIFAR-10 tarball
+EVAL_BATCH_IMAGES = 2000  # images per data_batch: 10,000 in the dataset zip
+EVAL_SAMPLES = 10000  # CIFAR-10 samples scored: fid calc's --strict-count holds at 10k
+DETECTOR_BATCH = 250
+DETECTOR_CHECK_IMAGES = 16  # card against CPU, 32 px, both preprocessing paths
+DETECTOR_TOL = 1e-4  # of max|CPU features|: both sum in f32 in other orders
+PRDC_NUM = 5000
+PRDC_NEAR = 1e-5  # a pair this close (relative) to its radius may decide either way
+FID_SELF_TOL = 1e-3  # |FID(dataset, its own reference stats)| <= this * trace(sigma)
+
+
+class _GraphUnit(torch.nn.Module):
+    """One conv unit of an NVIDIA-style detector pickle: a kernel and its
+    BN vectors under TF-ish names (the automap's input)."""
+
+    def __init__(self, weight, gamma, beta, mean, var):
+        super().__init__()
+        self.weight = torch.nn.Parameter(weight)
+        for name, v in (("gamma", gamma), ("beta", beta), ("moving_mean", mean),
+                        ("moving_variance", var)):
+            self.register_buffer(name, v)
+
+
+def _random_inception(seed: int) -> dict:
+    """The detector's state_dict from a numpy seed: He-scaled convs (std
+    sqrt(2 / fan_in)), BN scale and var in [0.8, 1.2], bias and mean
+    0.05 N(0, 1), so that activations stay of order one."""
+    rng = np.random.RandomState(seed)
+    sd = {}
+    for key, ref in InceptionV3FID().state_dict().items():
+        shape, leaf = tuple(ref.shape), key.rsplit(".", 1)[1]
+        if ref.dim() == 4:
+            arr = rng.randn(*shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        elif leaf in ("weight", "running_var"):
+            arr = rng.uniform(0.8, 1.2, shape)
+        else:
+            arr = 0.05 * rng.randn(*shape)
+        sd[key] = torch.from_numpy(arr.astype(np.float32))
+    return sd
+
+
+def _write_detectors(sd: dict, workdir: str) -> tuple:
+    """``sd`` as a torch zip of a torchvision-named state_dict (with
+    ``num_batches_tracked`` and the 1008-way ``fc`` head) and as a plain
+    pickle of a module tree in TF graph order (the NVIDIA layout the
+    automap reads, the head last).  Returns (.pth path, .pkl path)."""
+    g = torch.Generator().manual_seed(1008)
+    head = {"fc.weight": torch.randn(1008, 2048, generator=g), "fc.bias": torch.zeros(1008)}
+    named = dict(sd, **head, **{k.replace("running_var", "num_batches_tracked"): torch.tensor(0)
+                                for k in sd if k.endswith("running_var")})
+    pth = os.path.join(workdir, "pt_inception-2015-12-05.pth")
+    torch.save(named, pth)
+    units = torch.nn.Sequential(*[
+        _GraphUnit(*(sd[f"{'.'.join(path)}.{leaf}"] for leaf in (
+            "conv.weight", "bn.weight", "bn.bias", "bn.running_mean", "bn.running_var")))
+        for path in CONV_UNITS_GRAPH_ORDER])
+    units.add_module("output", torch.nn.Linear(2048, 1008))
+    pkl = os.path.join(workdir, "inception-2015-12-05.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(units, f)
+    return pth, pkl
+
+
+def _cifar10_tarball(path: str, seed: int) -> None:
+    """CIFAR-10's python tarball layout: data_batch_1..5, each a pickle of
+    {'data': uint8 [n, 3072] (CHW rows), 'labels': [n]}."""
+    rng = np.random.RandomState(seed)
+    with tarfile.open(path, "w:gz") as tar:
+        for i in range(1, EVAL_TRAIN_BATCHES + 1):
+            blob = pickle.dumps({"data": rng.randint(0, 256, (EVAL_BATCH_IMAGES, 3072),
+                                                     dtype=np.uint8),
+                                 "labels": rng.randint(0, 10, EVAL_BATCH_IMAGES).tolist()})
+            info = tarfile.TarInfo(f"cifar-10-batches-py/data_batch_{i}")
+            info.size = len(blob)
+            tar.addfile(info, io.BytesIO(blob))
+
+
+def _detector_flops(net) -> int:
+    """FLOPs of one 299 px image: 2 * Cout * Cin * kh * kw * Ho * Wo over
+    the convs, read from their shapes in one forward."""
+    flops = []
+
+    def hook(conv, _inp, out):
+        flops.append(2 * out[0].numel() * conv.weight[0].numel())
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    with torch.inference_mode():
+        net(torch.zeros(1, 299, 299, 3, dtype=torch.uint8,
+                        device=next(net.parameters()).device))
+    for h in handles:
+        h.remove()
+    return sum(flops)
+
+
+def _prdc_f64(real: np.ndarray, fake: np.ndarray, k: int) -> tuple:
+    """(d_rf, real radii, fake radii) in float64 numpy: ``x^2 - 2 x y^T +
+    y^2`` (its rows spot-checked against ``scipy.spatial.distance.cdist``),
+    the radius the (k + 1)-th smallest distance, self included."""
+    from scipy.spatial.distance import cdist
+
+    def dist(a, b):
+        d2 = (a * a).sum(1)[:, None] - 2.0 * (a @ b.T) + (b * b).sum(1)[None, :]
+        return np.sqrt(np.maximum(d2, 0.0))
+
+    r, f = real.astype(np.float64), fake.astype(np.float64)
+    d_rf = dist(r, f)
+    spot = cdist(r[:64], f)
+    _check(np.abs(d_rf[:64] - spot).max() <= 1e-9 * spot.max(),
+           "PRDC: the float64 formula disagrees with cdist")
+    return (d_rf, np.partition(dist(r, r), k, axis=1)[:, k],
+            np.partition(dist(f, f), k, axis=1)[:, k])
+
+
+def _prdc_gate(tag: str, real: np.ndarray, fake: np.ndarray, k: int, cli_out: dict = None
+               ) -> int:
+    """The port's precision / recall / density / coverage decisions (its f32
+    distances and radii on the card) against float64 ones on the same
+    features: equal but for pairs within PRDC_NEAR relative of their radius.
+    The CLI's metrics, where given, must be the port's.  Returns the count
+    of near pairs."""
+    d_rf = P.pairwise_distances(real, fake)
+    real_r, fake_r = P.knn_radii(real, k), P.knn_radii(fake, k)
+    d64, real64, fake64 = _prdc_f64(real, fake, k)
+    decisions = {"precision": (d_rf < real_r[:, None], d64 < real64[:, None],
+                               np.abs(d64 - real64[:, None]) <= PRDC_NEAR * real64[:, None]),
+                 "recall": (d_rf < fake_r[None, :], d64 < fake64[None, :],
+                            np.abs(d64 - fake64[None, :]) <= PRDC_NEAR * fake64[None, :])}
+    m32, m64 = d_rf.min(axis=1), d64.min(axis=1)
+    decisions["coverage"] = (m32 < real_r, m64 < real64,
+                             np.abs(m64 - real64) <= PRDC_NEAR * real64)
+    near = 0
+    for name, (port, exact, close) in decisions.items():
+        flips = int((port != exact).sum())
+        bad = int(((port != exact) & ~close).sum())
+        near += int(close.sum())
+        print(f"[eval PRDC {tag}] {name}: {flips} decisions differ from float64, {bad} of them "
+              f"outside {PRDC_NEAR:g} of the radius; {int(close.sum())} pairs within it")
+        _check(bad == 0, f"PRDC {name}: {bad} decisions differ from float64 away from the radius")
+    p_dec, r_dec, c_dec = (decisions[n][0] for n in ("precision", "recall", "coverage"))
+    port = dict(precision=float(p_dec.any(axis=0).mean()), recall=float(r_dec.any(axis=1).mean()),
+                density=float((1.0 / k) * p_dec.sum(axis=0).mean()),
+                coverage=float(c_dec.mean()))
+    print(f"[eval PRDC {tag}] the port's metrics on its decisions: {port}")
+    if cli_out is not None:
+        _check(all(cli_out[n] == v for n, v in port.items()),
+               f"PRDC: the CLI's {[cli_out[n] for n in port]} are not the port's {port}")
+    return near
+
+
+def phase_eval(workdir: str, pkl_path: str) -> dict:
+    """Phase 33: FID and PRDC of CIFAR-10 samples.  A synthetic CIFAR-10
+    tarball (10,000 images from a seed) -> ``cli.dataset_tool`` -> a zip of
+    PNGs; a random Inception detector (``_random_inception``) written as a
+    torchvision-named torch zip and as an NVIDIA-style graph-order pickle,
+    the two imports equal; the detector on the card against its CPU run
+    (both preprocessing paths); ``fid ref`` of the dataset, ``fid calc`` of
+    the dataset against it (FID ~ 0) and again in the process (bit-equal);
+    10,000 samples of phase 31's ``.pkl`` through ``cli.sample`` (ipndm NFE
+    5, batch 256, bf16; K1 / K3 counted), ``fid calc`` and ``prdc calc
+    --num 5000`` of them, PRDC held to float64; the detector's images/s at
+    batch 250 against its f32 bound.  Returns the sampling's counts."""
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    tarball = os.path.join(workdir, "cifar-10-python.tar.gz")
+    data_zip = os.path.join(workdir, "cifar10-32x32.zip")
+    _cifar10_tarball(tarball, seed=33)
+    (count, tool_s) = _host_timed(lambda: cli_dataset_tool.main([f"--source={tarball}",
+                                                                 f"--dest={data_zip}"]))
+    print(f"[eval] dataset_tool: {count} PNGs and dataset.json from the CIFAR-10 tarball in "
+          f"{tool_s:.3f} s host clock ({os.path.getsize(data_zip) / 1e6:.2f} MB)")
+    _check(count == EVAL_TRAIN_BATCHES * EVAL_BATCH_IMAGES, f"dataset_tool wrote {count} images")
+
+    sd = _random_inception(seed=2015)
+    pth, pkl = _write_detectors(sd, workdir)
+    by_name = import_inception_state_dict(torch_state_dict(load_torch_file(pth)))
+    by_order, report = import_nvidia_inception_pickle(pkl)
+    same = sum(torch.equal(by_name[k], by_order[k]) for k in by_order)
+    print(f"[eval] detector imports: {len(by_name)} tensors by name from the torch zip, "
+          f"{report['n_units']} conv units by the automap of the graph-order pickle, {same} "
+          f"equal; unused {report['unused']}")
+    _check(by_name.keys() == by_order.keys() == sd.keys() and same == len(sd)
+           and all(torch.equal(by_name[k], v) for k, v in sd.items())
+           and report["unused"] == ["output.weight", "output.bias"],
+           "the two detector imports differ")
+
+    imgs = np.random.RandomState(34).randint(0, 256, (DETECTOR_CHECK_IMAGES, 32, 32, 3),
+                                             dtype=np.uint8)
+    errs = {}
+    for tf in (True, False):  # the default path's net stays on the card for the timing
+        net = InceptionV3FID(tf_preprocessing=tf)
+        net.load_state_dict(sd)
+        with torch.inference_mode():
+            want = net.eval()(torch.from_numpy(imgs))
+            got = net.cuda()(torch.from_numpy(imgs).cuda()).cpu()
+        errs[tf] = (got - want).abs().max().item() / want.abs().max().item()
+        print(f"[eval] detector {'TF' if tf else 'default'} preprocessing, {len(imgs)} images "
+              f"at 32 px: max|f| {want.abs().max().item():.4f}, mean f "
+              f"{want.mean().item():.4f}; card vs CPU max abs err {errs[tf]:.3g} of max|f| "
+              f"(gate {DETECTOR_TOL:g})")
+        _check(errs[tf] <= DETECTOR_TOL and torch.isfinite(got).all().item(),
+               f"detector on the card vs CPU: {errs[tf]:.3g}")
+    _check((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+           == (True, True), "the detector left the caller's TF32 flags changed")
+
+    flops = _detector_flops(net)
+    x = torch.from_numpy(np.random.RandomState(35).randint(
+        0, 256, (DETECTOR_BATCH, 32, 32, 3), dtype=np.uint8)).cuda()
+    with torch.inference_mode():
+        batch_ms = _time_ms(lambda: net(x), reps=5, warmup=2)
+    bound_ms = max(DETECTOR_BATCH * flops / PEAK_FLOPS[torch.float32],
+                   sum(v.numel() * 4 for v in sd.values()) / PEAK_BYTES_PER_S) * 1e3
+    print(f"[eval] detector at batch {DETECTOR_BATCH}, f32 (TF32 off), 32 px input: "
+          f"{batch_ms:.4f} ms a batch, {DETECTOR_BATCH / batch_ms * 1e3:.1f} images/s; "
+          f"{flops / 1e9:.4f} GFLOP an image from its conv shapes, bound {bound_ms:.4f} ms "
+          f"(operations, 67 TFLOP/s f32), {bound_ms / batch_ms:.3f} of it")
+    del net, x
+    torch.cuda.empty_cache()
+
+    ref = os.path.join(workdir, "cifar10-ref.npz")
+    torch.backends.cudnn.deterministic = True  # the CLI and the process pick the same convs
+    (ref_out, ref_s) = _host_timed(lambda: cli_fid.main([
+        "ref", f"--data={data_zip}", f"--dest={ref}", f"--batch={DETECTOR_BATCH}",
+        f"--inception={pth}"]))
+    trace = float(np.trace(ref_out["sigma"]))
+    (self_out, self_s) = _host_timed(lambda: cli_fid.main([
+        "calc", f"--images={data_zip}", f"--ref={ref}", f"--num={EVAL_SAMPLES}",
+        f"--batch={DETECTOR_BATCH}", f"--inception={pth}"]))
+    print(f"[eval] fid ref of the dataset: {ref_s:.3f} s; fid calc of the dataset against it: "
+          f"{self_s:.3f} s, FID {self_out['fid']!r} (trace(sigma) {trace:.6g}, gate "
+          f"{FID_SELF_TOL:g} of it)")
+    _check(abs(self_out["fid"]) <= FID_SELF_TOL * trace, f"FID of the dataset against itself "
+           f"{self_out['fid']!r}")
+    ds = ImageFolderDataset(data_zip, max_size=EVAL_SAMPLES)
+    mu, sigma = calculate_stats(make_inception_feature_fn(by_name),
+                                (im for im, _ in ds.batches(DETECTOR_BATCH)))
+    fid_here = compute_fid(mu, sigma, *load_stats(ref))
+    print(f"[eval] the same FID from stats built in this process: {fid_here!r}")
+    _check(fid_here == self_out["fid"] and np.array_equal(mu, self_out["mu"])
+           and np.array_equal(sigma, self_out["sigma"]),
+           "the CLI's FID is not the process's compute_fid")
+    torch.backends.cudnn.deterministic = False
+
+    samples = os.path.join(workdir, "samples")
+    nfe, batches = 5, math.ceil(EVAL_SAMPLES / BATCH)
+    _reset_counts()
+    (_, sample_s) = _host_timed(lambda: cli_sample.main([
+        "--dataset_name=cifar10", f"--model_path={pkl_path}", "--solver=ipndm",
+        "--num_steps=6", f"--seeds=0-{EVAL_SAMPLES - 1}", f"--batch={BATCH}", "--bf16=True",
+        "--device=cuda", f"--outdir={samples}"]))
+    counts = _counts()
+    print(f"[eval] cli.sample: {EVAL_SAMPLES} CIFAR-10 PNGs, ipndm NFE {nfe}, batch {BATCH}, "
+          f"bf16, in {sample_s:.3f} s host clock with the load ({EVAL_SAMPLES / sample_s:.1f} "
+          f"images/s); launches {counts}")
+    _check(counts == _only(k1=ATTENTION_SITES * nfe * batches, gn=CIFAR_GN_SITES * nfe * batches),
+           f"eval sampling: launches {counts}")
+    (fid_out, fid_s) = _host_timed(lambda: cli_fid.main([
+        "calc", f"--images={samples}", f"--ref={ref}", f"--batch={DETECTOR_BATCH}",
+        f"--inception={pth}", f"--num={EVAL_SAMPLES}"]))
+    print(f"[eval] fid calc of the samples: {fid_s:.3f} s host clock: PNG decode "
+          f"{fid_out['decode']:.3f} s, features and moments {fid_out['features']:.3f} s, sqrtm "
+          f"{fid_out['sqrtm']:.3f} s; FID {fid_out['fid']!r} (random detector and net)")
+    _check(np.isfinite(fid_out["fid"]) and fid_out["fid"] > 0, f"FID {fid_out['fid']!r}")
+    (prdc_out, prdc_s) = _host_timed(lambda: cli_prdc.main([
+        "calc", f"--images={samples}", f"--images_ref={data_zip}", f"--num={PRDC_NUM}",
+        f"--batch={DETECTOR_BATCH}", f"--inception={pkl}"]))
+    print(f"[eval] prdc calc --num {PRDC_NUM} with the graph-order .pkl (TF preprocessing): "
+          f"{prdc_s:.3f} s host clock; " + ", ".join(
+              f"{k} {prdc_out[k]!r}" for k in ("precision", "recall", "density", "coverage")))
+    _check(prdc_out["real"].shape == prdc_out["fake"].shape == (PRDC_NUM, 2048),
+           "PRDC features' shapes")
+    near = _prdc_gate("CLI", prdc_out["real"], prdc_out["fake"], 5, prdc_out)
+    # samples of random weights lie far from the data: the halves of the
+    # dataset's features are a pair whose decisions are not all one way
+    half = PRDC_NUM // 2
+    near += _prdc_gate("dataset halves", prdc_out["real"][:half], prdc_out["real"][half:], 5)
+    print(f"[eval] PRDC: {near} pairs within {PRDC_NEAR:g} of their radius; the rest decide as "
+          f"in float64")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    return counts
+
+
 def _kernel_entry(name, source, replaces, launches, fields) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **{k: fields[k] for k in (
@@ -2876,6 +3196,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         ckpt_edm = _phase("phase 31, CIFAR-10 from its checkpoint files", phase_checkpoint_edm,
                           workdir)
+        eval_counts = _phase("phase 33, FID and PRDC of CIFAR-10 samples", phase_eval, workdir,
+                             os.path.join(workdir, EDM_PKL))
     with tempfile.TemporaryDirectory() as workdir:
         ckpt_sd = _phase("phase 32, Stable Diffusion from a checkpoint, with its text tower",
                          phase_checkpoint_sd, workdir)
@@ -2902,7 +3224,9 @@ def main() -> int:
                     ("K1 f32 on SD AMED with captions", ckpt_sd["amed"]["k1"]),
                     ("K1c on SD AMED with captions", ckpt_sd["amed"]["k1c"]),
                     ("K2 dQ f32 on SD AMED with captions", ckpt_sd["amed"]["dq"]),
-                    ("K2 dK/dV f32 on SD AMED with captions", ckpt_sd["amed"]["dkv"])):
+                    ("K2 dK/dV f32 on SD AMED with captions", ckpt_sd["amed"]["dkv"]),
+                    ("K1 on the CIFAR-10 samples for FID", eval_counts["k1"]),
+                    ("K3 on the CIFAR-10 samples for FID", eval_counts["gn"])):
         _check(n > 0, f"{name} was not launched on its path")
     print(f"[time] whole run: {time.perf_counter() - t_start:.2f} s")
     print(smi)
@@ -2972,6 +3296,14 @@ def main() -> int:
         _kernel_entry("flash_attention_flat_bwd_dkv (K2c, flat flash-attention backward, "
                       "dK/dV, in 3xTF32, SD f32 AMED path)", bwd32, f"{tpu}:994",
                       sd_amed["dkvc"], sd_k2c["dkv"]),
+        _kernel_entry("flash_attention_mh (K1, CIFAR-10 samples scored by FID / PRDC: launches of "
+                      "phase 33, times of phase 3)", fwd, f"{tpu}:157", eval_counts["k1"],
+                      k1["main"]),
+        _kernel_entry(f"groupnorm_silu (K3, CIFAR-10 samples scored by FID / PRDC, route "
+                      f"{k3['CIFAR-10']['route']}: launches of phase 33, times of phase 15)",
+                      "diff_sampler_tpu_torch/csrc/groupnorm.cu",
+                      "diff_sampler_tpu/ops/pallas_groupnorm.py:29", eval_counts["gn"],
+                      k3["CIFAR-10"]),
         _kernel_entry("conv3x3 / gn_silu_conv3x3 in bf16 (K4, 3x3 conv with a fused "
                       "GroupNorm-affine + SiLU prologue: wgmma on a TMA-loaded halo tile, the "
                       "prologue once per staged pixel; its entry points, no JAX path)", conv,

@@ -10,7 +10,9 @@ its KL decode), and AMED (predictor training through the frozen net, AMED
 sampling) on an NVIDIA Hopper card, with hand-written kernels built from
 ``csrc/`` at first use.  Every tier runs on random weights from a seed or
 on the reference's checkpoint files, read by a restricted unpickler that
-runs none of their code; nothing is downloaded.  Its entry points run on the card unless the caller passes
+runs none of their code; nothing is downloaded.  Samples are scored by FID
+and PRDC through the FID Inception-V3 detector, against reference
+statistics of a dataset zip that its dataset tool builds.  Its entry points run on the card unless the caller passes
 ``device="cpu"``.  It imports torch and nothing of the JAX package: the
 noise schedules and multistep coefficients are its own copies of that
 package's numpy code.
@@ -26,9 +28,11 @@ Subpackages mirror the JAX package's module names:
   solvers  - samplers, AMED predictor and samplers
   gits     - the GITS schedule search
   training - AMED trainer, SD's conditioning contexts
+  eval     - the FID Inception-V3 detector and its importers, FID, PRDC,
+             the image dataset reader
   utils    - per-seed RNG, image IO, checkpoints, training stats, timing,
-             the CLIP BPE tokenizer
-  cli      - sample, train_amed
+             the CLIP BPE tokenizer, a read-only LMDB reader
+  cli      - sample, train_amed, fid, prdc, dataset_tool
 """
 
 __version__ = "0.1.0"

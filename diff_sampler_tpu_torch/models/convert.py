@@ -22,6 +22,10 @@ U-Net as it is: the spatial transformers' bias-free ``to_q`` / ``to_k`` /
 LayerNorms ``norm1``-``norm3`` (``scale`` / ``bias``), ``proj_in`` /
 ``proj_out``, and the KL stage's ``post_quant_conv``.
 
+``inception_state_dict_from_jax`` carries the JAX package's FID
+Inception-V3 params (``bn_scale`` / ``bn_bias`` / ``bn_mean`` / ``bn_var``
+beside each conv) to the port's detector, which has torchvision's names.
+
 The JAX params are nested dicts of numpy arrays (``np.asarray`` of each leaf
 of a Flax params tree), so this module needs no jax.
 """
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "params_to_jax", "load_jax_params", "load_ldm_jax_params",
-           "absent_from_jax"]
+           "absent_from_jax", "inception_state_dict_from_jax"]
 
 _SPLIT_PREFIXES = ("enc_", "dec_")
 # U-Net level names after the prefix: ``16x16_block0``, ``8x8_aux_norm``...
@@ -167,3 +171,27 @@ def load_ldm_jax_params(ld: torch.nn.Module, trees: Mapping[str, Any]) -> torch.
                        f"unused {unused}")
     ld.load_state_dict(sd)
     return ld
+
+
+_INCEPTION_BN = {"bn_scale": "weight", "bn_bias": "bias", "bn_mean": "running_mean",
+                 "bn_var": "running_var"}
+
+
+def inception_state_dict_from_jax(params: Mapping[str, Any], prefix: str = ""
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``InceptionV3FID`` params (numpy leaves) as the
+    port's ``eval.inception.InceptionV3FID`` state_dict: each unit's
+    ``conv.kernel`` HWIO -> ``conv.weight`` OIHW, and ``bn_scale`` /
+    ``bn_bias`` / ``bn_mean`` / ``bn_var`` -> ``bn.weight`` / ``bias`` /
+    ``running_mean`` / ``running_var``."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in params.items():
+        if key == "conv":
+            arr = np.asarray(val["kernel"], np.float32).transpose(3, 2, 0, 1)
+            out[f"{prefix}conv.weight"] = torch.from_numpy(np.ascontiguousarray(arr))
+        elif key in _INCEPTION_BN:
+            out[f"{prefix}bn.{_INCEPTION_BN[key]}"] = torch.from_numpy(
+                np.array(val, np.float32))
+        else:
+            out.update(inception_state_dict_from_jax(val, f"{prefix}{key}."))
+    return out

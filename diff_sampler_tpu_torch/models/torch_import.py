@@ -238,20 +238,42 @@ def _materialize(obj):
     return obj
 
 
+def _load_archive(zf: zipfile.ZipFile, where: str) -> Any:
+    pkl_name = next((n for n in zf.namelist() if n.endswith("data.pkl")), None)
+    if pkl_name is None:
+        raise ValueError(f"{where} is a zip without a data.pkl member: not a torch archive")
+    root = pkl_name[: -len("/data.pkl")]
+    with zf.open(pkl_name) as f:
+        return _SafeUnpickler(io.BytesIO(f.read()), zf, root).load()
+
+
 def load_torch_file(path: str) -> Any:
     """A torch checkpoint, unpickled without running any code from it: a
     torch zip archive or a plain pickle.  Returns the object with CPU
-    torch tensors (each storage's own dtype; bf16 as f32)."""
+    torch tensors (each storage's own dtype; bf16 as f32).
+
+    A zip without ``data.pkl`` that holds exactly one ``*.ckpt`` member (the
+    latent-diffusion distribution archives: ``model.ckpt`` and
+    ``config.yaml``) loads that member, itself a torch zip; with none or
+    several such members it raises and names the members."""
     if not zipfile.is_zipfile(path):
         with open(path, "rb") as f:
             obj = _SafePlainUnpickler(f).load()
         return _materialize(obj)
     with zipfile.ZipFile(path) as zf:
-        pkl_name = next(n for n in zf.namelist() if n.endswith("data.pkl"))
-        root = pkl_name[: -len("/data.pkl")]
-        with zf.open(pkl_name) as f:
-            obj = _SafeUnpickler(io.BytesIO(f.read()), zf, root).load()
-    return _materialize(obj)
+        names = zf.namelist()
+        if any(n.endswith("data.pkl") for n in names):
+            return _materialize(_load_archive(zf, path))
+        ckpts = [n for n in names if n.endswith(".ckpt")]
+        if len(ckpts) != 1:
+            raise ValueError(f"{path} is neither a torch archive (no data.pkl) nor an archive "
+                             f"of one .ckpt; its members: {names}")
+        inner = io.BytesIO(zf.read(ckpts[0]))
+    where = f"{path}/{ckpts[0]}"
+    if not zipfile.is_zipfile(inner):
+        raise ValueError(f"{where} is not a torch zip archive")
+    with zipfile.ZipFile(inner) as zf:
+        return _materialize(_load_archive(zf, where))
 
 
 def _walk_module_stub(stub, prefix: str, out: Dict[str, torch.Tensor]) -> None:

@@ -1,2 +1,2 @@
 """Host helpers of the port: per-seed RNG, image IO, checkpoints, training stats,
-profiling and the CLIP BPE tokenizer."""
+profiling, the CLIP BPE tokenizer and a read-only LMDB reader."""

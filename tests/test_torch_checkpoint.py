@@ -20,12 +20,14 @@ of a CIFAR-10 and an SD v1.5 checkpoint is matched, and only the named
 ignores are left over.
 """
 
+import io
 import math
 import os
 import pickle
 import socket
 import sys
 import types
+import zipfile
 
 import jax
 import jax.numpy as jnp
@@ -549,6 +551,62 @@ def test_ldm_d_from_a_checkpoint_matches_jax(tmp_path, monkeypatch):
     z = np.random.RandomState(4).randn(2, 8, 8, 3).astype(np.float32)
     _close(pre_t.latent_diffusion.decode_in_chunks(z),
            pre_j.latent_diffusion.decode_first_stage(jnp.asarray(z)), what="VQ decode")
+
+
+def test_ldm_zoo_archive_loads_its_inner_ckpt(tmp_path, monkeypatch):
+    """The zoo's LSUN archive (``lsun_bedrooms.zip``: ``model.ckpt`` and
+    ``config.yaml``, no ``data.pkl``) in ``./checkpoints``:
+    ``create_model(name, None)`` opens the one ``.ckpt`` member and gives
+    the D of the JAX package loaded from that inner file, whose own loader
+    cannot open the archive (reference fault 5)."""
+    monkeypatch.setitem(TL.LDM_CONFIGS, "lsun_bedroom_ldm", LDM_TINY)
+    monkeypatch.setitem(JL.LDM_CONFIGS, "lsun_bedroom_ldm", LDM_TINY)
+    src = _port_from_jax("lsun_bedroom_ldm", seed=8)
+    inner = tmp_path / "model.ckpt"
+    write_ldm_checkpoint(inner, src, LDM_TINY, scalars=False)
+    os.makedirs(tmp_path / "work" / "checkpoints")
+    with zipfile.ZipFile(tmp_path / "work" / "checkpoints" / "lsun_bedrooms.zip", "w") as zf:
+        zf.write(inner, "model.ckpt")
+        zf.writestr("config.yaml", "model:\n  target: ldm.models.diffusion.ddpm.LatentDiffusion\n")
+    monkeypatch.chdir(tmp_path / "work")
+    pre_t, source = factory.create_model("lsun_bedroom_ldm", None, device="cpu")
+    assert source == "ldm"
+    for k, v in src.state_dict().items():
+        assert torch.equal(pre_t.latent_diffusion.state_dict()[k], v), k
+    with pytest.raises(StopIteration):
+        JI.load_torch_file(os.path.join("checkpoints", "lsun_bedrooms.zip"))
+    pre_j, _ = JF.build_ldm_model("lsun_bedroom_ldm", str(inner))
+    s = np.array([0.3, 9.0], np.float32)
+    x = np.random.RandomState(9).randn(2, 8, 8, 3).astype(np.float32) * s[:, None, None, None]
+    want = jax.jit(JP.bind(pre_j).fn)(jnp.asarray(x), jnp.asarray(s))
+    _close(bind(pre_t)(torch.from_numpy(x), torch.from_numpy(s)).numpy(), want, what="D")
+
+
+@pytest.mark.parametrize("members", [["config.yaml"], ["a.ckpt", "b.ckpt", "config.yaml"],
+                                     ["inner-zip.ckpt"], ["archive/version"]])
+def test_zip_without_a_torch_archive_raises_naming_its_members(tmp_path, members):
+    """A zip with no ``data.pkl`` and not exactly one ``.ckpt`` member raises
+    and names the members; a single ``.ckpt`` that is no torch archive, and
+    a torch-like archive without ``data.pkl``, raise with the path."""
+    path = tmp_path / "x.zip"
+    with zipfile.ZipFile(path, "w") as zf:
+        for name in members:
+            if name == "inner-zip.ckpt":
+                buf = io.BytesIO()
+                with zipfile.ZipFile(buf, "w") as inner:
+                    inner.writestr("archive/version", "3")
+                zf.writestr(name, buf.getvalue())
+            else:
+                zf.writestr(name, "x")
+    with pytest.raises(ValueError) as err:
+        TI.load_torch_file(str(path))
+    msg = str(err.value)
+    assert str(path) in msg
+    if members == ["inner-zip.ckpt"]:
+        assert "x.zip/inner-zip.ckpt" in msg and "data.pkl" in msg
+    else:
+        for name in members:
+            assert name in msg
 
 
 def test_sd_d_from_a_checkpoint_matches_jax(tmp_path, monkeypatch):

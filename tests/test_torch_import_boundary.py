@@ -49,4 +49,9 @@ def test_port_imports_with_jax_and_flax_blocked():
             "diff_sampler_tpu_torch.ops.geometry", "diff_sampler_tpu_torch.models.analytic",
             "diff_sampler_tpu_torch.gits", "diff_sampler_tpu_torch.gits.search",
             "diff_sampler_tpu_torch.models.torch_import", "diff_sampler_tpu_torch.models.zoo",
-            "diff_sampler_tpu_torch.models.text", "diff_sampler_tpu_torch.utils.bpe"} <= names
+            "diff_sampler_tpu_torch.models.text", "diff_sampler_tpu_torch.utils.bpe",
+            "diff_sampler_tpu_torch.eval", "diff_sampler_tpu_torch.eval.dataset",
+            "diff_sampler_tpu_torch.eval.inception", "diff_sampler_tpu_torch.eval.fid",
+            "diff_sampler_tpu_torch.eval.prdc", "diff_sampler_tpu_torch.cli.fid",
+            "diff_sampler_tpu_torch.cli.prdc", "diff_sampler_tpu_torch.cli.dataset_tool",
+            "diff_sampler_tpu_torch.utils.lmdb_reader"} <= names
