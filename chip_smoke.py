@@ -224,12 +224,45 @@ Phases, each printing as it goes and then its seconds:
    radius (counted); the detector's images/s at batch 250 against its f32
    bound (FLOPs from its conv shapes over 67 TFLOP/s); the seconds of
    dataset_tool, fid and prdc.
+34. LSUN-Bedroom 256 (the consistency-models ADMUNet under CMPrecond):
+   (a) K1 and K2 against their plain versions at the 256 px tiers'
+   attention shapes (the U-Net's and the classifier's legacy views at d=64,
+   bf16 at batch 8 and f32 at the AMED microbatch; the attention pool's
+   new-order views at the ragged T=65) and K3 at their GroupNorm shapes
+   ([8, 256, 256, 256], on the stream route, down to [8, 8, 8, 1024]), as
+   phases 3, 6 and 15; (b) the full-width f32 D and its input gradient with
+   K1 + K2 + K3 against the all-plain model (unit-scale weights, TF32 off,
+   batch 4), 1e-4 * max, exact launches; (c) bf16 sampling through
+   ``generate`` at NFE 5 and 10, batch 8 (images/sec, exact launches,
+   per-seed rows) and the sampling CLI's PNGs; (d) AMED through
+   ``train_amed.build_trainer`` at batch 16 in microbatches of 8, f32, two
+   iterations (s/kimg, peak memory, exact K1 / K2 f32 launches), then
+   ``cli.sample --predictor`` from the saved predictor.  Each prints its
+   peak memory.
+35. ImageNet-256 with classifier guidance (the ADMUNet and its noisy
+   classifier under CGPrecond): (a) the full-width f32 D, and the
+   classifier's gradient alone, against the all-plain model (batch 4, TF32
+   off), exact launches; (b) bf16 sampling with integer per-seed labels at
+   NFE 5 and 10, batch 8, through ``generate`` and the CLI with
+   ``--guidance_type=cg``: every call launches the bf16 K2 (dQ and dK/dV)
+   through the classifier's gradient, counted; one call split by CUDA
+   events into the U-Net, the classifier's forward and its backward, and
+   one profiled; (c) the AMED step on imagenet256 raises the attention
+   kernels' second-order refusal instead of training.
+36. The three tiers from reference-layout files written from seeded
+   full-width nets in f16 storages, the attention's 1x1 convs as Conv1d
+   [O, I, 1]: ``edm_bedroom256_ema.pt`` and ``256x256_diffusion.pt`` +
+   ``256x256_classifier.pt``, found by the zoo's resolver in
+   ./checkpoints, and a ``lsun_cat`` file by its path; each loaded
+   strictly through ``create_model`` (host seconds, MB/s), every tensor
+   bit-equal to the file's, D bit-equal to that of ``torch.load``'s
+   weights.
 
 The last three lines are the card's name and power limit, a JSON object on
 the kernels and ``{"ok": true, "device": {...}}``.  The JSON lists K1 and
 K2 at the CIFAR-10 paths (d=256, launches of phases 5 and 8), K2 in bf16
-at its phase 6 main shape (no path launches it: the launches of phase 6's
-bf16 checks), K1 and K2 at
+on the ImageNet-256 classifier-guidance path (launches of phase 35, times
+at the classifier's T=1024 level), K1 and K2 at
 the ImageNet-64 paths (d=64, in place of K1b and K2p, launches of phases 12
 and 13), the f32 K1 (3xTF32) at the CIFAR-10, ImageNet-64 and SD AMED
 paths (launches of phases 8, 13 and 25), K2 at the LSUN LDM's T=1024 level (in place of K2b, launches of
@@ -241,10 +274,12 @@ K4 in bf16 and in f32 and the f32 K4's split of w (launches of its entry
 points in phase 27), K1 and K3 on the CIFAR-10 samples that phase 33
 scores (its launches; the evaluation path itself adds no kernel: the
 detector's convs, its pools, FID's moments and PRDC's distances are
-PyTorch calls, as they are XLA ops in the JAX package), each with its error and times at that path's main
+PyTorch calls, as they are XLA ops in the JAX package), K1 and K3 on both
+256 px tiers and K1 / K2 in f32 on the CM AMED path (launches of phases 34
+and 35), each with its error and times at that path's main
 shape and its bound on this card (the f32 attention kernels' and the f32
 K4's: 3xTF32 on the tensor cores).  Every profile (phases 4,
-5, 13, 14, 20, 23, 26, 28) checks that no attention forward and no
+5, 13, 14, 20, 23, 26, 28, 35) checks that no attention forward and no
 attention backward ran on the CUDA cores, that its trace holds every
 kernel of the repo that the wrappers launched in the profiled call (K3's
 one or two a launch, as its wrapper counts them by route), and prints K3's
@@ -534,6 +569,38 @@ GITS_ARGS = ["--dp=True", "--num_steps=6", "--num_steps_tea=61", "--num_warmup=2
              "--metric=dev", "--coeff=1.15", "--solver_tea=ipndm", "--solver=ipndm"]
 
 
+# The 256 px pixel tiers: lsun_bedroom (the consistency-models ADMUNet under
+# CMPrecond) and imagenet256 (the ADMUNet with its noisy classifier under
+# CGPrecond).  Attention at 32x32, 16x16 and 8x8 in heads of 64: the U-Net's
+# legacy views [B, T, H, 64] at T=1024 H=8, T=256 H=16, T=64 H=16 (5, 5 and
+# 6 sites); the classifier's at T=1024 H=4, T=256 H=8, T=64 H=8 (2, 2 and 3)
+# and its attention pool's new-order views at T=65 H=8.  K3 from [B, 256,
+# 256, 256] (one sample 33.5 MB in bf16: the stream route) down to [B, 8, 8,
+# 1024].
+CM, CG = "lsun_bedroom", "imagenet256"
+ADM_SHAPE = (256, 256, 3)
+ADM_BATCH = 8  # sampling batch (a CG call runs the net and the classifier on it)
+ADM_NFE_STEPS = [(5, 6), (10, 11)]
+ADM_CHECK_BATCH = 4  # the f32 parity of the full-width nets against the all-plain ones
+ADM_AMED_BATCH = 16  # trajectories per CM AMED iteration, f32
+ADM_BATCH_GPU = 8  # its microbatch
+ADM_AMED_ITERS = 2
+ADM_UNET_LEVELS = [(1024, 8), (256, 16), (64, 16)]  # (T, H) at d=64
+ADM_CLS_LEVELS = [(1024, 4), (256, 8), (64, 8)]
+ADM_K1_SHAPES = ([(ADM_BATCH, t, h, 64, torch.bfloat16) for t, h in ADM_UNET_LEVELS]
+                 + [(ADM_BATCH, t, h, 64, torch.bfloat16) for t, h in ADM_CLS_LEVELS]
+                 + [(ADM_BATCH_GPU, t, h, 64, torch.float32) for t, h in ADM_UNET_LEVELS])
+ADM_K2_SHAPES = ([(ADM_BATCH, t, h, 64, torch.bfloat16) for t, h in ADM_CLS_LEVELS]
+                 + [(ADM_BATCH_GPU, t, h, 64, torch.float32) for t, h in ADM_UNET_LEVELS])
+ADM_POOL_SHAPES = [(ADM_BATCH, 65, 8, 64, torch.bfloat16),
+                   (ADM_CHECK_BATCH, 65, 8, 64, torch.float32)]
+ADM_GN_SHAPES = [(ADM_BATCH, 256, 256, 256, torch.bfloat16, 1e-5, True),
+                 (ADM_BATCH, 256, 256, 256, torch.bfloat16, 1e-5, False),  # scale-shift
+                 (ADM_BATCH, 256, 256, 128, torch.bfloat16, 1e-5, True),  # the classifier
+                 (ADM_BATCH, 8, 8, 1024, torch.bfloat16, 1e-5, True),
+                 (ADM_BATCH_GPU, 256, 256, 256, torch.float32, 1e-5, True)]
+ADM_GN_ENTRIES = {"256 px": (ADM_BATCH, 256, 256, 256, torch.bfloat16)}
+
 def _check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
@@ -613,45 +680,101 @@ def _bound_text(kind: str, b: int, t: int, h: int, d: int, dtype) -> str:
 # to the next (kernels then seem to start before their launch): with no idle
 # margin the kernels at either edge of the window are dropped from the trace.
 PROFILE_MARGIN_S = 0.05
+# ``_profile``'s traces of one call, in turn, until one holds a kernel
+# record for each launch call of the call: (idle margin in s, calls of
+# ``fn`` before it in the same trace, whether the caching allocator returns
+# its free blocks to the card before the trace).  A trace on an H100 loses
+# the kernel records of its first launches, none early in a run of this
+# script and 1-44 late in it, whatever the margin (0.05, 0.25 and 1 s
+# alike); in the classifier-guided call two of them were the repo's
+# kernels.  A first call of ``fn`` in the same trace takes that loss, and
+# its records are left out.  A count that a wrapper gets wrong is wrong in
+# every trace.
+PROFILE_TRACES = ((0.25, 1, False), (0.25, 2, False), (0.25, 2, True))
+# Host-side launch calls, each of which the trace pairs with its kernel's
+# record by their correlation id
+LAUNCH_CALLS = re.compile(r"^(cudaLaunchKernel|cudaLaunchCooperativeKernel|cuLaunchKernel)")
 # The repo's own kernels by name: each wrapper launch runs one of them, K3
 # one (its cluster slab) or two (its streamed pass), as its route says
 OUR_KERNELS = re.compile(r"flash_(fwd|bwd)_\w*kernel|gn_(slab|stream_stats|stream_apply)_kernel"
                          r"|conv3x3_(f32|bf16)_wgmma_kernel|conv3x3_split_w_kernel")
 
 
-def _trace(fn) -> tuple:
-    """(Chrome-trace events, CUDA-event ms, host s, launch-to-start gap us) of
-    one call of ``fn`` under ``torch.profiler``, with ``PROFILE_MARGIN_S``
-    of idle device time on each side; the gap is the smallest device start
-    less its host launch over the kernels (negative: the clocks disagree)."""
+def _trace(fn, margin_s: float = PROFILE_MARGIN_S, primers: int = 0,
+           free_cache: bool = False):
+    """One call of ``fn`` under ``torch.profiler``, with ``margin_s`` of idle
+    device time on each side, after ``primers`` calls of ``fn`` in the same
+    trace whose device records are left out (``free_cache``: after
+    ``torch.cuda.empty_cache()``, before the trace).  Returns its Chrome-trace
+    events, CUDA-event ms, host s, the launch-to-start gap in us (the
+    smallest device start less its host launch over the kernels; negative:
+    the clocks disagree), lost (the ms after the call's first launch call of
+    each of its launch calls that has no kernel record in the trace),
+    primer_lost (the primers' launch calls with no kernel record), and the
+    call's launches by wrapper (``_counts``) and K3 kernels."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     start, end = _events()
     torch.cuda.synchronize()
+    if free_cache:
+        torch.cuda.empty_cache()
     with torch.profiler.profile(activities=activities) as prof:
-        time.sleep(PROFILE_MARGIN_S)
+        for _ in range(primers):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(margin_s)
+        before, gn_before = _counts(), G.groupnorm_silu.kernels
         t0 = time.perf_counter()
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
-        time.sleep(PROFILE_MARGIN_S)
+        launched = {name: n - before[name] for name, n in _counts().items()}
+        gn_kernels = G.groupnorm_silu.kernels - gn_before
+        time.sleep(margin_s)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
-                 if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
-    gaps = [float(e["ts"]) - launch_ts[e["args"]["correlation"]] for e in events
-            if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in launch_ts]
-    return events, start.elapsed_time(end), host_s, min(gaps, default=float("nan"))
+
+    def corr(e):
+        return e.get("args", {}).get("correlation")
+
+    runtime = sorted((e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")),
+                     key=lambda e: float(e["ts"]))
+    recorded = {corr(e) for e in events if e.get("cat") == "kernel"}
+    primer_lost = 0
+    last = max((i for i, e in enumerate(runtime) if LAUNCH_CALLS.match(e["name"])), default=0)
+    if primers and last > 0:
+        # the primers' host calls end at the widest idle stretch between two
+        # host calls before the call's last launch: the margin before the call
+        ends = np.maximum.accumulate([float(e["ts"]) + float(e.get("dur", 0))
+                                      for e in runtime[:last]])
+        starts = np.array([float(e["ts"]) for e in runtime[1:last + 1]])
+        cut = 1 + int(np.argmax(starts - ends))
+        primed, runtime = runtime[:cut], runtime[cut:]
+        primer_lost = sum(1 for e in primed
+                          if LAUNCH_CALLS.match(e["name"]) and corr(e) not in recorded)
+        left_out = {corr(e) for e in primed}
+        events = [e for e in events if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset")
+                  or corr(e) is None or corr(e) not in left_out]
+    launch_ts = {corr(e): float(e["ts"]) for e in runtime if corr(e) is not None}
+    gaps = [float(e["ts"]) - launch_ts[corr(e)] for e in events
+            if e.get("cat") == "kernel" and corr(e) in launch_ts]
+    calls = [e for e in runtime if LAUNCH_CALLS.match(e["name"])]
+    first = float(calls[0]["ts"]) if calls else 0.0
+    lost = [(float(e["ts"]) - first) / 1e3 for e in calls if corr(e) not in recorded]
+    return types.SimpleNamespace(
+        events=events, cuda_ms=start.elapsed_time(end), host_s=host_s,
+        gap_us=min(gaps, default=float("nan")), lost=lost, primer_lost=primer_lost,
+        launched=launched, gn_kernels=gn_kernels)
 
 
 def _kernel_names(fn) -> list:
     """The device kernels of one call of ``fn``, by name (torch.profiler)."""
     fn()
-    events = _trace(fn)[0]
+    events = _trace(fn).events
     return sorted({e["name"] for e in events if e.get("cat") == "kernel"})
 
 
@@ -1508,14 +1631,28 @@ def _profile(tag: str, fn, want_calls: dict, grad: bool = False) -> dict:
     every one to the tensor cores: bf16, and f32 in 3xTF32)."""
     with contextlib.nullcontext() if grad else torch.no_grad():
         fn()  # warm-up
-        before, gn_before = _counts(), G.groupnorm_silu.kernels
-        events, cuda_ms, host_s, gap_us = _trace(fn)
-        launched = {name: n - before[name] for name, n in _counts().items()}
-        gn_kernels = G.groupnorm_silu.kernels - gn_before
-    # the trace against the wrappers' own counts: K3 runs one or two kernels a
-    # launch, as its routes say
-    ours = sum(1 for e in events if e.get("cat") == "kernel" and OUR_KERNELS.search(e["name"]))
-    want_ours = sum(launched.values()) - launched["gn"] + gn_kernels
+        traces = []
+        for attempt, (margin, primers, free_cache) in enumerate(PROFILE_TRACES, 1):
+            tr = _trace(fn, margin, primers, free_cache)
+            # the trace against the wrappers' own counts: K3 runs one or two
+            # kernels a launch, as its routes say
+            ours = sum(1 for e in tr.events
+                       if e.get("cat") == "kernel" and OUR_KERNELS.search(e["name"]))
+            want_ours = sum(tr.launched.values()) - tr.launched["gn"] + tr.gn_kernels
+            traces.append((ours != want_ours, len(tr.lost), attempt, tr, ours, want_ours))
+            if ours == want_ours and not tr.lost:
+                break
+            print(f"[{tag}] trace {attempt} ({margin} s margins, {primers} primer calls, "
+                  f"cache {'freed' if free_cache else 'kept'}): "
+                  f"{ours} of the repo's kernels, its wrappers launched {want_ours}; "
+                  f"{len(tr.lost)} launch calls of the call have no kernel record, at ms "
+                  f"{[round(t, 3) for t in tr.lost[:6]]} after its first; "
+                  f"{tr.primer_lost} of the primers' have none")
+    # the trace kept: one that holds each of the repo's kernels, if any does,
+    # with the fewest launch calls lost
+    _, _, attempt, tr, ours, want_ours = min(traces, key=lambda t: t[:3])
+    events, launched, gn_kernels = tr.events, tr.launched, tr.gn_kernels
+    cuda_ms, host_s, gap_us, lost = tr.cuda_ms, tr.host_s, tr.gap_us, tr.lost
     out = device_breakdown(events)
     cuda_core_fwd = sum(1 for e in events if e.get("cat") == "kernel"
                         and re.search(r"flash_fwd_(flat_)?kernel", e.get("name", "")))
@@ -1532,7 +1669,8 @@ def _profile(tag: str, fn, want_calls: dict, grad: bool = False) -> dict:
     print(f"[{tag}]   attention forwards on the CUDA cores: {cuda_core_fwd}, attention "
           f"backwards on the CUDA cores: {cuda_core_bwd}")
     print(f"[{tag}]   the repo's kernels in the trace: {ours}, launched by their wrappers: "
-          f"{want_ours}; smallest launch-to-start gap {gap_us:.3f} us")
+          f"{want_ours} (trace {attempt}); launch calls with no kernel record: {len(lost)}; "
+          f"smallest launch-to-start gap {gap_us:.3f} us")
     k3 = out["categories"]["K3"]
     print(f"[{tag}]   K3: {launched['gn']} launches, {gn_kernels} kernels "
           f"({gn_kernels - launched['gn']} on the stream route), {k3['ms']:.3f} ms, share of "
@@ -1618,13 +1756,17 @@ GN_ENTRIES = {"CIFAR-10": (BATCH, 32, 32, 256, torch.bfloat16),
 
 
 def phase_groupnorm_kernel() -> dict:
-    """K3 against its plain version at ``GN_SHAPES``, on its route and, where
+    return _gn_checks(GN_SHAPES, GN_ENTRIES, seed=7)
+
+
+def _gn_checks(shapes, wanted: dict, seed: int) -> dict:
+    """K3 against its plain version at ``shapes``, on its route and, where
     both apply, on the other one (the same gates, timed on the same data);
-    returns the kernels-line fields of ``GN_ENTRIES``' shapes, with the
+    returns the kernels-line fields of ``wanted``'s shapes, with the
     route."""
-    g = torch.Generator("cuda").manual_seed(7)
+    g = torch.Generator("cuda").manual_seed(seed)
     entries = {}
-    for n, h, w, c, dtype, eps, silu in GN_SHAPES:
+    for n, h, w, c, dtype, eps, silu in shapes:
         x = (torch.randn(n, h, w, c, generator=g, device="cuda") * 3 + 1).to(dtype)
         scale = 1 + 0.5 * torch.randn(c, generator=g, device="cuda")
         bias = torch.randn(c, generator=g, device="cuda")
@@ -1676,7 +1818,7 @@ def phase_groupnorm_kernel() -> dict:
                   f"{_gn_route_text(other, dtype, n, -(-h * w // other.rows))}; max abs err "
                   f"{errs['other']:.3g}, two runs bit-identical; {times['other']:.4f} ms "
                   f"({nbytes / times['other'] / 1e6:.1f} GB/s)")
-        for label, shape in GN_ENTRIES.items():
+        for label, shape in wanted.items():
             if shape == (n, h, w, c, dtype) and label not in entries:
                 entries[label] = dict(
                     max_abs_err=errs["route"], ms=times["kernel"], plain_ms=times["plain"],
@@ -1685,7 +1827,7 @@ def phase_groupnorm_kernel() -> dict:
                     else f"slab, clusters of {route.cluster}")
         del x, x_nchw
     torch.cuda.empty_cache()
-    _check(set(entries) == set(GN_ENTRIES), f"GN_SHAPES lacks {set(GN_ENTRIES) - set(entries)}")
+    _check(set(entries) == set(wanted), f"the K3 shapes lack {set(wanted) - set(entries)}")
     return entries
 
 
@@ -2011,12 +2153,13 @@ def phase_sd_profile(pre, ctx, uc) -> None:
              lambda: pre(x, sigma, ctx, uc), {"K1": SD_SITES, "K1c": 0, "K3": gn})
 
 
-def _sd_amed_iterations(tag: str, cfg, pred, step, context_fn, gn: int) -> dict:
-    """``SD_AMED_ITERS`` iterations of an SD AMED train step at batch
-    ``SD_AMED_BATCH`` (microbatch ``SD_BATCH_GPU``) with the contexts of
-    ``context_fn``, the counts set to 0 just before: finite losses, a
-    predictor that moves, and exactly the K1 / K1c / K2 / K2c / K3 launches
-    of the guided f32 U-Net calls.  Returns the counts."""
+def _trainer_iterations(tag: str, cfg, pred, step, shape, iters: int, want: dict,
+                        cond_fn=None) -> dict:
+    """``iters`` iterations of a train step of ``build_trainer`` on latents
+    of ``shape`` (with ``cond_fn(it)``'s conditioning where given), the
+    counts set to 0 just before: finite losses, a predictor that moves,
+    exactly ``want``'s launches; prints s/kimg and the peak memory.
+    Returns the counts."""
     fresh = {k: v.clone() for k, v in pred.state_dict().items()}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2026,17 +2169,35 @@ def _sd_amed_iterations(tag: str, cfg, pred, step, context_fn, gn: int) -> dict:
     start, end = _events()
     t0 = time.perf_counter()
     start.record()
-    for it in range(SD_AMED_ITERS):
-        latents = stacked_randn(range(it * cfg.batch, (it + 1) * cfg.batch), SD_LATENT,
+    for it in range(iters):
+        latents = stacked_randn(range(it * cfg.batch, (it + 1) * cfg.batch), shape,
                                 device="cuda")
-        metrics = step(latents, torch.from_numpy(context_fn(it)).cuda())
-        losses.append(metrics["loss_per_step"].cpu().tolist())
+        cond = () if cond_fn is None else (torch.as_tensor(cond_fn(it), device="cuda"),)
+        losses.append(step(latents, *cond)["loss_per_step"].cpu().tolist())
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     device_s = start.elapsed_time(end) / 1000
     counts = _counts()
-    peak = torch.cuda.max_memory_allocated()
+    moved = max((pred.state_dict()[k] - v).abs().max().item() for k, v in fresh.items())
+    kimg = iters * cfg.batch / 1000
+    print(f"[{tag}] build_trainer({cfg.dataset_name}): batch {cfg.batch}, batch_gpu "
+          f"{cfg.batch_gpu}, f32 net, afs {cfg.afs}, {iters} iterations: {host_s:.3f} s "
+          f"host clock, {device_s:.3f} s CUDA events ({device_s / kimg:.3f} s/kimg); "
+          f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"losses per step {losses}; predictor moved by max abs {moved:.4g}")
+    print(f"[{tag}] launches {counts}, expected {want}")
+    _check(all(math.isfinite(x) for row in losses for x in row), f"{tag}: losses not finite")
+    _check(moved > 0, f"{tag}: the predictor did not move")
+    _check(counts == want, f"launch counts of the {tag} training")
+    return counts
+
+
+def _sd_amed_iterations(tag: str, cfg, pred, step, context_fn, gn: int) -> dict:
+    """``SD_AMED_ITERS`` iterations of an SD AMED train step at batch
+    ``SD_AMED_BATCH`` (microbatch ``SD_BATCH_GPU``) with the contexts of
+    ``context_fn`` (``_trainer_iterations``), exactly the K1 / K1c / K2 /
+    K2c / K3 launches of the guided f32 U-Net calls.  Returns the counts."""
     segments = AMED_STEPS - 1
     micro = SD_AMED_ITERS * SD_AMED_BATCH // SD_BATCH_GPU
     calls = (2 * 2 * segments + 2 * segments - (1 if SD_AMED_AFS else 0)) * micro
@@ -2044,19 +2205,9 @@ def _sd_amed_iterations(tag: str, cfg, pred, step, context_fn, gn: int) -> dict:
     want = _only(k1=mh_sites * calls, k1c=SD_FLAT_SITES * calls, gn=gn * calls,
                  dq=mh_sites * segments * micro, dkv=mh_sites * segments * micro,
                  dqc=SD_FLAT_SITES * segments * micro, dkvc=SD_FLAT_SITES * segments * micro)
-    moved = max((pred.state_dict()[k] - v).abs().max().item() for k, v in fresh.items())
-    kimg = SD_AMED_ITERS * SD_AMED_BATCH / 1000
-    print(f"[{tag}] build_trainer(ms_coco, guidance_type=cfg, guidance_rate={SD_GUIDANCE}): "
-          f"batch {SD_AMED_BATCH}, batch_gpu {SD_BATCH_GPU} (a guided U-Net call of "
-          f"{2 * SD_BATCH_GPU}), f32 net, afs {SD_AMED_AFS}, {SD_AMED_ITERS} iterations: "
-          f"{host_s:.3f} s host clock, {device_s:.3f} s CUDA events ({device_s / kimg:.3f} "
-          f"s/kimg); torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB; losses per step "
-          f"{losses}; predictor moved by max abs {moved:.4g}")
-    print(f"[{tag}] launches {counts}, expected {want}")
-    _check(all(math.isfinite(x) for row in losses for x in row), f"{tag}: losses not finite")
-    _check(moved > 0, f"{tag}: the predictor did not move")
-    _check(counts == want, f"launch counts of the {tag} training")
-    return counts
+    print(f"[{tag}] guidance_type=cfg, guidance_rate={SD_GUIDANCE}: a guided U-Net call of "
+          f"{2 * SD_BATCH_GPU}")
+    return _trainer_iterations(tag, cfg, pred, step, SD_LATENT, SD_AMED_ITERS, want, context_fn)
 
 
 def phase_sd_amed(workdir: str) -> dict:
@@ -3121,6 +3272,307 @@ def phase_eval(workdir: str, pkl_path: str) -> dict:
     return counts
 
 
+def _new_order_views(b, t, h, d, dtype, g):
+    """q, k, v as ``models.adm.new_order_attention`` hands them to sdpa:
+    strided views of one [B, T, 3, H, d] projection (token stride 3Hd, the
+    attention pool's qkv_proj)."""
+    qkv = torch.randn(b, t, 3 * h * d, generator=g, device="cuda").to(dtype)
+    return qkv.reshape(b, t, 3, h, d).unbind(2)
+
+
+def _attention_sites(module) -> int:
+    """Attention calls of one forward of an ADM net: its attention blocks
+    and, in the classifier, its attention pool."""
+    return sum(isinstance(m, (adm.AttentionBlock, adm.AttentionPool2d)) for m in module.modules())
+
+
+def _peak(tag: str) -> None:
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{tag}] torch.cuda.max_memory_allocated {peak:.3f} GiB", flush=True)
+
+
+def phase_adm_kernels() -> dict:
+    """K1 and K2 at the 256 px tiers' attention shapes (the U-Net's and the
+    classifier's legacy views, the attention pool's new-order views at the
+    ragged T=65), K3 at their GroupNorm shapes; returns the kernels-line
+    fields."""
+    k1 = _k1_checks("ADM K1", ADM_K1_SHAPES, _legacy_views, seed=40, reps=5, warmup=2)
+    _k1_checks("ADM pool K1", ADM_POOL_SHAPES, _new_order_views, seed=41, reps=5, warmup=2)
+    k2 = _k2_checks("ADM K2", ADM_K2_SHAPES, _legacy_views, seed=42)
+    _k2_checks("ADM pool K2", ADM_POOL_SHAPES, _new_order_views, seed=43)
+    return dict(k1=k1, k2=k2, gn=_gn_checks(ADM_GN_SHAPES, ADM_GN_ENTRIES, seed=44))
+
+
+def _adm_inputs(n: int, sigmas, seed: int = 0):
+    """x at ``sigmas`` in turn, those sigmas, a cotangent, integer labels."""
+    sigma = torch.tensor([sigmas[i % len(sigmas)] for i in range(n)], device="cuda")
+    x = stacked_randn(range(seed, seed + n), ADM_SHAPE, device="cuda") * sigma[:, None, None, None]
+    cot = stacked_randn(range(seed + 100, seed + 100 + n), ADM_SHAPE, device="cuda")
+    labels = torch.arange(n, device="cuda") * 97 % 1000
+    return x, sigma, cot, labels
+
+
+def _adm_model(name: str, dtype, unit_scale: bool = False):
+    """The full-width 256 px tier from random weights, on the card
+    (``unit_scale``: every weight redrawn at unit scale, TF32 off, for the
+    f32 parity); prints its sites and parameters."""
+    pre, source = create_model(name, "random", dtype=dtype, device="cuda")
+    _check(source == {CM: "cm", CG: "adm"}[name], f"{name}'s model source is {source}")
+    nets = [pre.net] + ([pre.classifier] if name == CG else [])
+    if unit_scale:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for i, net in enumerate(nets):
+            _redraw_unit_scale(net, seed=1 + i, device="cuda")
+    print(f"[{name}] " + "; ".join(
+        f"{type(net).__name__} {sum(p.numel() for p in net.parameters()) / 1e6:.1f}M parameters, "
+        f"{_attention_sites(net)} attention and {_gn_sites(net)} GroupNorm calls a forward"
+        for net in nets))
+    return pre
+
+
+def _cm_per_call(pre) -> dict:
+    return dict(k1=_attention_sites(pre.net), gn=_gn_sites(pre.net))
+
+
+def _cg_per_call(pre) -> dict:
+    """One CGPrecond call: the U-Net's forward, the classifier's forward and
+    its backward (one K2 pair per attention call; K3's backward is plain)."""
+    cls = _attention_sites(pre.classifier)
+    return dict(k1=_attention_sites(pre.net) + cls, gn=_gn_sites(pre.net) + _gn_sites(
+        pre.classifier), dq=cls, dkv=cls)
+
+
+def phase_cm_denoiser_and_gradient() -> None:
+    pre = _adm_model(CM, torch.float32, unit_scale=True)
+    x0, sigma0, cot, _ = _adm_inputs(ADM_CHECK_BATCH, [80.0, 10.0, 1.0, 0.1])
+    per = _cm_per_call(pre)
+
+    def forward():
+        with torch.no_grad():
+            return pre(x0, sigma0)
+
+    torch.cuda.reset_peak_memory_stats()
+    _plain_vs_kernels("CM D f32", _plain_net_patches(adm), forward=forward, per_forward=per,
+                      grads=_grads_fn(pre, x0, sigma0, cot),
+                      per_backward=dict(per, dq=per["k1"], dkv=per["k1"]))
+    _peak("CM D f32")
+    del pre
+    torch.cuda.empty_cache()
+
+
+def phase_cm_sampling() -> dict:
+    """bf16 sampling through ``generate`` at NFE 5 and 10, batch 8, then the
+    sampling CLI on the same seeds.  Returns the counts."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pre = _adm_model(CM, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    images, counts, _ = _drive_sampling("CM main", bind(pre), ADM_SHAPE, _cm_per_call(pre),
+                                        batch=ADM_BATCH, nfe_steps=ADM_NFE_STEPS)
+    _peak("CM main")
+    _check_cli_pngs("CM main", [f"--dataset_name={CM}", "--model_path=random", "--solver=ipndm",
+                                f"--num_steps={ADM_NFE_STEPS[0][1]}", "--bf16=True"], images,
+                    batch=ADM_BATCH)
+    del pre
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_cm_amed(workdir: str) -> dict:
+    """The CM AMED trainer as ``cli.train_amed --dataset_name=lsun_bedroom
+    --batch_gpu=8`` builds it (``build_trainer``; the CLI's integer
+    --total_kimg would run 63 iterations at batch 16), f32, for two
+    iterations, then ``cli.sample --predictor`` from its saved predictor.
+    Returns the training's counts."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = AMEDConfig(dataset_name=CM, num_steps=AMED_STEPS, batch=ADM_AMED_BATCH,
+                     batch_gpu=ADM_BATCH_GPU)
+    module, cfg, pred, step, cond_fn = cli_train_amed.build_trainer(cfg, "random", "cuda")
+    _check(cond_fn is None, "the CM trainer takes no conditioning")
+    per = _cm_per_call(module)
+    segments = AMED_STEPS - 1
+    micro = ADM_AMED_ITERS * ADM_AMED_BATCH // ADM_BATCH_GPU
+    # per microbatch: the heun teacher 2 calls per fine step, 2 fine steps a
+    # segment; the amed student 2 calls a segment, the second differentiated
+    calls = (2 * 2 * segments + 2 * segments) * micro
+    want = _only(**_per_calls(per, calls), dq=per["k1"] * segments * micro,
+                 dkv=per["k1"] * segments * micro)
+    counts = _trainer_iterations("CM AMED", cfg, pred, step, ADM_SHAPE, ADM_AMED_ITERS, want)
+    run_dir = os.path.join(workdir, "cm_amed")
+    os.makedirs(run_dir)
+    ckpt.save_config(os.path.join(run_dir, "predictor_config.json"), cfg)
+    ckpt.save_params(os.path.join(run_dir, "predictor.npz"), params_to_jax(pred.state_dict()))
+    del module, step, pred
+    torch.cuda.empty_cache()
+    _sample_with_predictor("CM AMED", CM, run_dir, os.path.join(workdir, "cm_amed_samples"),
+                           ADM_SHAPE, nfe=2 * segments, per_call=per, batch=ADM_BATCH)
+    return counts
+
+
+def phase_cg_denoiser() -> None:
+    """The full-width f32 CGPrecond (net and classifier, unit-scale weights,
+    TF32 off): D, and the classifier's gradient alone, with K1 + K2 + K3
+    against the all-plain model."""
+    pre = _adm_model(CG, torch.float32, unit_scale=True)
+    x, sigma, _, labels = _adm_inputs(ADM_CHECK_BATCH, [1.0, 0.3, 0.1, 0.02])
+    per = _cg_per_call(pre)
+    den = bind(pre)
+    torch.cuda.reset_peak_memory_stats()
+    d = den(x, sigma, labels)
+    print(f"[CG D f32] sigma {sigma.tolist()}, labels {labels.tolist()}: share of D inside the "
+          f"clamp (|D| < 1) {(d.abs() < 1).float().mean().item():.4f}")
+    _plain_vs_kernels("CG D f32", _plain_net_patches(adm), forward=lambda: den(x, sigma, labels),
+                      per_forward=per)
+    x_in = x / (sigma[:, None, None, None] ** 2 + 1).sqrt()
+    t = (pre.M - 1) * pre.sigma_inv(sigma)
+    cls = dict(k1=per["dq"], gn=_gn_sites(pre.classifier), dq=per["dq"], dkv=per["dq"])
+    _plain_vs_kernels("CG classifier gradient f32", _plain_net_patches(adm),
+                      forward=lambda: pre._cond_grad(x_in, t, labels), per_forward=cls)
+    _peak("CG D f32")
+    del pre, den
+    torch.cuda.empty_cache()
+
+
+def phase_cg_sampling() -> dict:
+    """bf16 classifier-guided sampling through ``generate`` with integer
+    labels at NFE 5 and 10, batch 8: every net call launches the bf16 K2
+    through the classifier's gradient; then the sampling CLI with
+    ``--guidance_type=cg``, one CG call split into the U-Net, the
+    classifier's forward and its backward (CUDA events), and one profiled
+    call.  Returns the counts."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pre = _adm_model(CG, torch.bfloat16)
+    per = _cg_per_call(pre)
+    torch.cuda.reset_peak_memory_stats()
+    images, counts, _ = _drive_sampling("CG main", bind(pre), ADM_SHAPE, per, label_dim=1000,
+                                        batch=ADM_BATCH, nfe_steps=ADM_NFE_STEPS,
+                                        label_kind="int")
+    _peak("CG main")
+    print(f"[CG main] bf16 K2 launches on this path: dQ {counts['dq']}, dK/dV {counts['dkv']}")
+    _check(counts["dq"] > 0 and counts["dkv"] > 0, "CG sampling launched no bf16 K2")
+    _check_cli_pngs("CG main", [f"--dataset_name={CG}", "--model_path=random", "--solver=ipndm",
+                                f"--num_steps={ADM_NFE_STEPS[0][1]}", "--bf16=True",
+                                "--guidance_type=cg"], images, batch=ADM_BATCH)
+    x, sigma, _, labels = _adm_inputs(ADM_BATCH, [2.5])
+    x_in = x / math.sqrt(2.5 ** 2 + 1)
+    t = (pre.M - 1) * pre.sigma_inv(sigma)
+
+    def classifier_fwd():
+        with torch.no_grad():
+            return pre.classifier_fn(x_in, t)
+
+    with torch.no_grad():
+        times = _turns({"CG call": lambda: pre(x, sigma, labels),
+                        "U-Net forward": lambda: pre.model_fn(x_in, t, labels),
+                        "classifier forward": classifier_fwd,
+                        "classifier forward + backward": lambda: pre._cond_grad(x_in, t, labels)},
+                       reps=5, warmup=2)
+    print(f"[CG split] one bf16 CG call at batch {ADM_BATCH} (CUDA events, in turns): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f"; classifier backward "
+          f"{times['classifier forward + backward'] - times['classifier forward']:.3f} ms")
+    _profile(f"CG profile, one batch-{ADM_BATCH} bf16 call", lambda: pre(x, sigma, labels),
+             {"K1": per["k1"], "K2 dQ": per["dq"], "K2 dK/dV": per["dkv"], "K3": per["gn"]})
+    del pre
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_cg_amed_refusal() -> None:
+    """The AMED step on imagenet256 differentiates the student's loss
+    through the classifier's gradient: on the card the attention kernels'
+    backward refuses the second order with a named error, and the predictor
+    does not move."""
+    cfg = AMEDConfig(dataset_name=CG, num_steps=2, batch=2, guidance_type="cg")
+    module, cfg, pred, step, label_fn = cli_train_amed.build_trainer(cfg, "random", "cuda")
+    fresh = {k: v.clone() for k, v in pred.state_dict().items()}
+    try:
+        step(stacked_randn(range(2), ADM_SHAPE, device="cuda"), label_fn(0))
+    except RuntimeError as e:
+        message = str(e)
+    else:
+        message = None
+    print(f"[CG AMED] the step raised: {message}")
+    _check(message is not None and "second-order gradient through attention kernel K2" in message
+           and "JAX package" in message, "the imagenet256 AMED step trained on the card")
+    _check(all(torch.equal(pred.state_dict()[k], v) for k, v in fresh.items()),
+           "the predictor moved before the refusal")
+    del module, step, pred
+    torch.cuda.empty_cache()
+
+
+def phase_adm_checkpoints(workdir: str) -> None:
+    """The three tiers from reference-layout files written here from seeded
+    random full-width nets in f16 storages (the attention's 1x1 convs as
+    Conv1d [O, I, 1]): ``checkpoints/edm_bedroom256_ema.pt``,
+    ``checkpoints/256x256_diffusion.pt`` with ``256x256_classifier.pt``, and
+    ``lsun_cat.pt``; each loaded strictly through ``create_model`` (the zoo's
+    resolver from ./checkpoints, lsun_cat by its path), every tensor
+    bit-equal to the file's, D (f32, TF32 off, batch 2) bit-equal to that of
+    the same tiers loaded by ``torch.load`` of the file (cuDNN deterministic:
+    CG's D holds the classifier's input gradient, whose conv backward may
+    otherwise take an algorithm that sums in any order)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    here = os.getcwd()
+    os.chdir(workdir)
+    try:
+        os.makedirs("checkpoints")
+        files = {"edm_bedroom256_ema.pt": ("net", CM, 5),
+                 "256x256_diffusion.pt": ("net", CG, 6),
+                 "256x256_classifier.pt": ("classifier", CG, 7)}
+        for fname, (part, name, seed) in files.items():
+            src = getattr(create_model(name, "random", device="cuda")[0], part)
+            sd = {k: v.to(torch.float16).cpu() for k, v in adm.reference_state_dict(src).items()}
+            _check(any(v.dim() == 3 for v in sd.values()), f"{fname} holds no Conv1d weight")
+            t0 = time.perf_counter()
+            torch.save(sd, os.path.join("checkpoints", fname))
+            size = os.path.getsize(os.path.join("checkpoints", fname))
+            print(f"[ADM files] wrote {fname}: {len(sd)} tensors, {size / 1e6:.1f} MB, "
+                  f"{time.perf_counter() - t0:.3f} s")
+            del src, sd
+        os.link(os.path.join("checkpoints", "edm_bedroom256_ema.pt"), "lsun_cat.pt")
+        x, sigma, _, labels = _adm_inputs(2, [7.0, 0.4])
+        for name, path in ((CM, None), ("lsun_cat", "lsun_cat.pt"), (CG, None)):
+            parts = {"net": "edm_bedroom256_ema.pt" if name != CG else "256x256_diffusion.pt"}
+            if name == CG:
+                parts["classifier"] = "256x256_classifier.pt"
+            mb = sum(os.path.getsize(os.path.join("checkpoints", f)) for f in parts.values()) / 1e6
+            t0 = time.perf_counter()
+            pre, _ = create_model(name, path, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            print(f"[ADM files] create_model({name!r}, {path!r}) of {mb:.1f} MB: {load_s:.3f} s "
+                  f"host clock, {mb / load_s:.1f} MB/s")
+            direct = create_model(CM if name == "lsun_cat" else name, "random", device="cuda")[0]
+            for part, fname in parts.items():
+                sd = torch.load(os.path.join("checkpoints", fname), weights_only=True)
+                adm.load_adm_checkpoint(getattr(direct, part), {k: v.float() for k, v in
+                                                                sd.items()})
+                got = adm.reference_state_dict(getattr(pre, part))
+                _check(set(got) == set(sd) and all(torch.equal(got[k].cpu(), sd[k].float())
+                                                   for k in sd),
+                       f"{name}: {fname} did not load bit-equal")
+            with torch.no_grad():
+                d_file = bind(pre)(x, sigma, labels if name == CG else None)
+                d_direct = bind(direct)(x, sigma, labels if name == CG else None)
+            torch.cuda.synchronize()
+            print(f"[ADM files] {name}: every tensor bit-equal to the file's; D max "
+                  f"{d_direct.abs().max().item():.4g}, bit-equal to torch.load's: "
+                  f"{torch.equal(d_file, d_direct)}")
+            _check(torch.isfinite(d_file).all().item() and torch.equal(d_file, d_direct),
+                   f"{name}: D from the file differs from D of torch.load's weights")
+            del pre, direct
+            torch.cuda.empty_cache()
+    finally:
+        os.chdir(here)
+        torch.backends.cudnn.deterministic = False
+
+
 def _kernel_entry(name, source, replaces, launches, fields) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **{k: fields[k] for k in (
@@ -3201,6 +3653,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         ckpt_sd = _phase("phase 32, Stable Diffusion from a checkpoint, with its text tower",
                          phase_checkpoint_sd, workdir)
+    adm_k = _phase("phase 34a, K1 / K2 / K3 at the 256 px shapes", phase_adm_kernels)
+    _phase("phase 34b, LSUN-Bedroom 256 (CM) D and gradient f32",
+           phase_cm_denoiser_and_gradient)
+    cm_counts = _phase("phase 34c, LSUN-Bedroom 256 sampling and CLI", phase_cm_sampling)
+    with tempfile.TemporaryDirectory() as workdir:
+        cm_amed = _phase("phase 34d, LSUN-Bedroom 256 AMED", phase_cm_amed, workdir)
+    _phase("phase 35a, ImageNet-256 classifier-guided D f32", phase_cg_denoiser)
+    cg_counts = _phase("phase 35b, ImageNet-256 classifier-guided sampling, CLI, split, profile",
+                       phase_cg_sampling)
+    _phase("phase 35c, the ImageNet-256 AMED step refuses on the card", phase_cg_amed_refusal)
+    with tempfile.TemporaryDirectory() as workdir:
+        _phase("phase 36, the 256 px tiers from checkpoint files", phase_adm_checkpoints,
+               workdir)
     for name, n in (("K1", launches), ("K2 dQ", amed["dq"]), ("K2 dK/dV", amed["dkv"]),
                     ("K1 on ImageNet-64", in64_launches),
                     ("K2 dQ on ImageNet-64", in64_amed["dq"]),
@@ -3226,7 +3691,17 @@ def main() -> int:
                     ("K2 dQ f32 on SD AMED with captions", ckpt_sd["amed"]["dq"]),
                     ("K2 dK/dV f32 on SD AMED with captions", ckpt_sd["amed"]["dkv"]),
                     ("K1 on the CIFAR-10 samples for FID", eval_counts["k1"]),
-                    ("K3 on the CIFAR-10 samples for FID", eval_counts["gn"])):
+                    ("K3 on the CIFAR-10 samples for FID", eval_counts["gn"]),
+                    ("K1 on LSUN-Bedroom 256", cm_counts["k1"]),
+                    ("K3 on LSUN-Bedroom 256", cm_counts["gn"]),
+                    ("K1 f32 on LSUN-Bedroom 256 AMED", cm_amed["k1"]),
+                    ("K2 dQ f32 on LSUN-Bedroom 256 AMED", cm_amed["dq"]),
+                    ("K2 dK/dV f32 on LSUN-Bedroom 256 AMED", cm_amed["dkv"]),
+                    ("K1 on ImageNet-256 with classifier guidance", cg_counts["k1"]),
+                    ("K3 on ImageNet-256 with classifier guidance", cg_counts["gn"]),
+                    ("K2 dQ bf16 on ImageNet-256 with classifier guidance", cg_counts["dq"]),
+                    ("K2 dK/dV bf16 on ImageNet-256 with classifier guidance",
+                     cg_counts["dkv"])):
         _check(n > 0, f"{name} was not launched on its path")
     print(f"[time] whole run: {time.perf_counter() - t_start:.2f} s")
     print(smi)
@@ -3234,7 +3709,6 @@ def main() -> int:
                               "diff_sampler_tpu_torch/csrc/flash_attn_fwd_tf32.cu",
                               "diff_sampler_tpu_torch/csrc/flash_attn_bwd.cu",
                               "diff_sampler_tpu_torch/csrc/flash_attn_bwd_tf32.cu")
-    k2_16 = k2["bfloat16"]
     tpu = "diff_sampler_tpu/ops/pallas_attention.py"
     conv, tpu_conv = ("diff_sampler_tpu_torch/csrc/conv3x3.cu",
                       "diff_sampler_tpu/ops/pallas_conv.py")
@@ -3250,11 +3724,13 @@ def main() -> int:
                       "3xTF32 on the tensor cores, CIFAR-10 AMED path)", bwd32, f"{tpu}:554",
                       amed["dkv"], k2["main"]["dkv"]),
         _kernel_entry("flash_attention_bwd_dq in bf16 (K2, flash-attention backward, dQ, on the "
-                      "tensor cores; no path launches it: launches of phase 6's bf16 checks)",
-                      bwd, f"{tpu}:406", k2_16["dq"]["launches"], k2_16["dq"]),
+                      "tensor cores; ImageNet-256 classifier-guidance sampling path: the bf16 "
+                      "classifier's gradient, at its T=1024 H=4 d=64 level)",
+                      bwd, f"{tpu}:406", cg_counts["dq"], adm_k["k2"]["bfloat16"]["dq"]),
         _kernel_entry("flash_attention_bwd_dkv in bf16 (K2, flash-attention backward, dK/dV, on "
-                      "the tensor cores; no path launches it: launches of phase 6's bf16 checks)",
-                      bwd, f"{tpu}:554", k2_16["dkv"]["launches"], k2_16["dkv"]),
+                      "the tensor cores; ImageNet-256 classifier-guidance sampling path: the bf16 "
+                      "classifier's gradient, at its T=1024 H=4 d=64 level)",
+                      bwd, f"{tpu}:554", cg_counts["dkv"], adm_k["k2"]["bfloat16"]["dkv"]),
         _kernel_entry("flash_attention_mh at d=64 (K1 in place of K1b, ImageNet-64 path)",
                       fwd, f"{tpu}:227", in64_launches, in64_k1["main"]),
         _kernel_entry("flash_attention_mh in f32 at d=64 (K1 in 3xTF32 in place of K1b, "
@@ -3304,6 +3780,28 @@ def main() -> int:
                       "diff_sampler_tpu_torch/csrc/groupnorm.cu",
                       "diff_sampler_tpu/ops/pallas_groupnorm.py:29", eval_counts["gn"],
                       k3["CIFAR-10"]),
+        _kernel_entry("flash_attention_mh at the 256 px U-Net's d=64 (K1, LSUN-Bedroom 256 CM "
+                      "bf16 sampling path, legacy views at T=1024 H=8)", fwd, f"{tpu}:227",
+                      cm_counts["k1"], adm_k["k1"]["bfloat16"]),
+        _kernel_entry("flash_attention_mh at the 256 px U-Net's and classifier's d=64 (K1, "
+                      "ImageNet-256 classifier-guidance bf16 sampling path, the attention pool's "
+                      "T=65 included; times at the U-Net's T=1024 H=8)", fwd, f"{tpu}:227",
+                      cg_counts["k1"], adm_k["k1"]["bfloat16"]),
+        _kernel_entry("flash_attention_mh in f32 at the 256 px U-Net's d=64 (K1 in 3xTF32, "
+                      "LSUN-Bedroom 256 CM f32 AMED path)", fwd32, f"{tpu}:227", cm_amed["k1"],
+                      adm_k["k1"]["float32"]),
+        _kernel_entry("flash_attention_bwd_dq in f32 at the 256 px U-Net's d=64 (K2 dQ in "
+                      "3xTF32, LSUN-Bedroom 256 CM f32 AMED path)", bwd32, f"{tpu}:441",
+                      cm_amed["dq"], adm_k["k2"]["float32"]["dq"]),
+        _kernel_entry("flash_attention_bwd_dkv in f32 at the 256 px U-Net's d=64 (K2 dK/dV in "
+                      "3xTF32, LSUN-Bedroom 256 CM f32 AMED path)", bwd32, f"{tpu}:491",
+                      cm_amed["dkv"], adm_k["k2"]["float32"]["dkv"]),
+        *(_kernel_entry(f"groupnorm_silu (K3, {label} bf16 sampling path at [8, 256, 256, 256], "
+                        f"route {adm_k['gn']['256 px']['route']})",
+                        "diff_sampler_tpu_torch/csrc/groupnorm.cu",
+                        "diff_sampler_tpu/ops/pallas_groupnorm.py:29", n, adm_k["gn"]["256 px"])
+          for label, n in (("LSUN-Bedroom 256 CM", cm_counts["gn"]),
+                           ("ImageNet-256 classifier-guidance", cg_counts["gn"]))),
         _kernel_entry("conv3x3 / gn_silu_conv3x3 in bf16 (K4, 3x3 conv with a fused "
                       "GroupNorm-affine + SiLU prologue: wgmma on a TMA-loaded halo tile, the "
                       "prologue once per staged pixel; its entry points, no JAX path)", conv,

@@ -1,8 +1,10 @@
 """Sampling CLI of the port: seeds -> per-seed PNGs, a grid or a trajectory.
 
 Counterpart of ``diff_sampler_tpu/cli/sample.py`` for the pixel EDM tiers,
-the unconditional latent tiers and Stable Diffusion, on random weights or a
-reference checkpoint.  It takes the JAX CLI's solver, schedule, guidance and
+the 256 px pixel tiers (the consistency-models ``lsun_bedroom`` /
+``lsun_cat`` and the classifier-guided ``imagenet256``), the unconditional
+latent tiers and Stable Diffusion, on random weights or a reference
+checkpoint.  It takes the JAX CLI's solver, schedule, guidance and
 GITS flags (the reference's SOLVER_FLAGS, SCHEDULE_FLAGS, ADDITIONAL_FLAGS,
 GUIDANCE_FLAGS and GITS_FLAGS):
 
@@ -19,6 +21,10 @@ GUIDANCE_FLAGS and GITS_FLAGS):
   python -m diff_sampler_tpu_torch.cli.sample --dataset_name=lsun_bedroom_ldm \\
       --model_path=random --solver=ipndm --num_steps=6 --seeds=0-63 \\
       --bf16=True --device=cuda --outdir=out/
+  # ImageNet-256 ADM under classifier guidance (the classifier file is found
+  # beside the model's, or in the offline roots)
+  ... --dataset_name=imagenet256 --model_path=256x256_diffusion.pt \
+      --guidance_type=cg --guidance_rate=1.0 --bf16=True
   # Stable Diffusion v1.5 from its checkpoint, one prompt under guidance 7.5
   python -m diff_sampler_tpu_torch.cli.sample --dataset_name=ms_coco \\
       --model_path=v1-5-pruned-emaonly.ckpt --prompt="a photograph of an astronaut" \\
@@ -47,13 +53,17 @@ schedule.  ``--return_inters=True`` writes ``trajectory.npz`` (key ``xs``,
 [num_points, N, H, W, C]), or with ``--grid=True`` renders every point into
 ``grid.png``.
 
-A class-conditional net (``--dataset_name=imagenet64``) samples each seed
-with its own random class label, as the JAX CLI does.  With ``--predictor``
+A class-conditional net samples each seed with its own random class label,
+as the JAX CLI does: one-hot for ``imagenet64``, an integer for
+``imagenet256``, whose noisy classifier then guides every net call at
+``--guidance_rate`` (``--guidance_type=cg`` names that guidance; the JAX CLI
+ignores the flag on the pixel tiers).  With ``--predictor``
 (an AMED run directory, its ``predictor.npz`` or the experiment number
 under ``./exps``) it samples with the trained AMED predictor instead, and
 every solver setting comes from the predictor's config sidecar; an EDM net
-is bound without labels there, as the JAX CLI binds it for AMED, and Stable
-Diffusion samples on the prompt or caption contexts above.
+is bound without labels there, as the JAX CLI binds it for AMED,
+``imagenet256`` takes each seed's integer label, and Stable Diffusion
+samples on the prompt or caption contexts above.
 
 PNG writes of a pixel tier's batch i run on the host while the device
 samples batch i+1 (``sampling.generate``'s batch callback); a latent tier, a
@@ -72,8 +82,8 @@ import torch
 
 from ..gits.search import GITSConfig, gits_schedule
 from ..models.convert import load_jax_params
-from ..models.factory import EDM_ARCHS, LDM_CONFIGS, create_model
-from ..models.precond import CFGPrecond, bind
+from ..models.factory import ADM_TIERS, EDM_ARCHS, LDM_CONFIGS, create_model
+from ..models.precond import CFGPrecond, CGPrecond, bind
 from ..models.zoo import find_file
 from ..ops import get_schedule
 from ..sampling import SolverConfig, generate, generate_batches, to_uint8
@@ -97,7 +107,7 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m diff_sampler_tpu_torch.cli.sample",
                                 description=__doc__.split("\n\n")[0])
     p.add_argument("--dataset_name", required=True,
-                   choices=sorted(EDM_ARCHS) + sorted(LDM_CONFIGS))
+                   choices=sorted(EDM_ARCHS) + sorted(ADM_TIERS) + sorted(LDM_CONFIGS))
     p.add_argument("--model_path", default="random",
                    help="'random' (seeded random weights), a reference checkpoint file "
                         "(.pkl / .pt / .ckpt), or None for the zoo's file in the offline roots")
@@ -136,8 +146,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--deis_mode", choices=["tab", "rhoab"], default="tab")
     p.add_argument("--r", type=float, default=0.5)
     # GUIDANCE_FLAGS
-    p.add_argument("--guidance_type", choices=["cfg"], default=None,
-                   help="ms_coco: cfg (classifier-free, the only kind it has)")
+    p.add_argument("--guidance_type", choices=["cfg", "cg"], default=None,
+                   help="ms_coco: cfg (classifier-free); imagenet256: cg (classifier guidance)")
     p.add_argument("--guidance_rate", type=float, default=1.0)
     p.add_argument("--prompt", default=None,
                    help="ms_coco: one prompt for every seed [default: a caption per seed]")
@@ -157,10 +167,15 @@ def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
     if args.model_path == "None":
         args.model_path = None
-    if args.dataset_name != "ms_coco" and (args.guidance_type is not None
+    if args.dataset_name != "ms_coco" and (args.guidance_type == "cfg"
                                            or args.prompt is not None):
-        raise NotImplementedError("--guidance_type and --prompt apply to ms_coco here; "
-                                  "classifier guidance comes with ROADMAP slice 3")
+        raise NotImplementedError("--prompt and --guidance_type=cfg apply to ms_coco only")
+    if args.dataset_name != "imagenet256" and args.guidance_type == "cg":
+        raise NotImplementedError("--guidance_type=cg applies to imagenet256 only (its noisy "
+                                  "classifier)")
+    if args.dp and args.dataset_name == "imagenet256":
+        raise NotImplementedError("GITS on imagenet256: its warmup trajectories would need "
+                                  "class labels, which the JAX CLI does not bind either")
     latent = args.dataset_name in LDM_CONFIGS
     if args.return_inters and latent:
         raise ValueError("--return_inters is not supported for latent models: the trajectory "
@@ -252,6 +267,7 @@ def main(argv=None) -> dict:
 
     images = generate(den, seeds, shape, cfg, max_batch_size=args.max_batch_size,
                       device=device, label_dim=module.label_dim,
+                      label_kind="int" if source == "adm" else "onehot",
                       return_inters=args.return_inters,
                       batch_callback=save_batch if stream else None)
     if args.return_inters:
@@ -314,8 +330,8 @@ def build_amed_sample_fn(module, predictor, device, cfg_doubled: bool = False, *
     its AMEDConfig) for an AMED predictor (run dir, .npz or experiment
     number) over ``module``, bound with ``cond`` as ``bind_with_bottleneck``
     binds it; a ``condition`` passed to the call (a batch's per-seed
-    contexts) replaces the bound one.  Every solver setting comes from the
-    predictor's config sidecar."""
+    contexts, or a CGPrecond's integer labels) replaces the bound one.
+    Every solver setting comes from the predictor's config sidecar."""
     npz, cfg_dict = _resolve_snapshot(predictor)
     cfg = AMEDConfig(**{k: v for k, v in cfg_dict.items()
                         if k in AMEDConfig.__dataclass_fields__})
@@ -327,10 +343,12 @@ def build_amed_sample_fn(module, predictor, device, cfg_doubled: bool = False, *
                            sigma_inv_fn=den_b.sigma_inv_fn)
     sampler = AMED_SOLVER_REGISTRY[cfg.sampler_stu]
 
+    key = "class_labels" if isinstance(module, CGPrecond) else "condition"
+
     @torch.no_grad()
     def sample_fn(latents, condition=None):
         den = den_b if condition is None else bind_with_bottleneck(
-            module, cfg_doubled=cfg_doubled, **{**cond, "condition": condition})
+            module, cfg_doubled=cfg_doubled, **{**cond, key: condition})
         return sampler(den, pred, latents, t_steps, afs=cfg.afs, max_order=cfg.max_order,
                        predict_x0=cfg.predict_x0, lower_order_final=cfg.lower_order_final).x
 
@@ -362,9 +380,11 @@ def _amed_sample(module, predictor, seeds, shape, max_batch_size, outdir, grid, 
         save_images(to_uint8(chunk), seeds[start:start + len(chunk)], out_base,
                     subdirs=subdirs)
 
-    # the net is bound without labels (see the module docstring)
-    images = generate_batches(lambda latents, _: sample_fn(latents), seeds, shape,
-                              max_batch_size=max_batch_size, device=device,
+    # an EDM net is bound without labels (see the module docstring), a
+    # CGPrecond with each seed's integer label
+    images = generate_batches(sample_fn, seeds, shape, max_batch_size=max_batch_size,
+                              device=device, label_dim=module.label_dim if isinstance(
+                                  module, CGPrecond) else 0, label_kind="int",
                               batch_callback=None if grid else save_batch)
     if grid:
         _save(images, seeds, out_base, True, subdirs)

@@ -2,7 +2,11 @@
 
 Counterpart of ``diff_sampler_tpu/cli/train_amed.py`` for the pixel EDM tier
 (cifar10, ffhq, afhqv2, and the class-conditional imagenet64, whose net is
-bound without labels as in the JAX CLI), the unconditional latent tier
+bound without labels as in the JAX CLI), the 256 px pixel tiers
+(lsun_bedroom and lsun_cat, the consistency-models net, the bottleneck its
+middle block; imagenet256 under classifier guidance at ``--guidance_rate``,
+with one random class label per trajectory, seeded as the latents are), the
+unconditional latent tier
 (lsun_bedroom_ldm, ffhq_ldm: trajectories of 64x64x3 latents, the bottleneck
 the U-Net's middle block) and Stable Diffusion (ms_coco, with
 ``--guidance_type=cfg``: each iteration draws one text context per
@@ -16,6 +20,8 @@ conditional half), with the same options and defaults:
       --model_path=random --batch=512 --batch_gpu=128 --afs=True --device=cuda
   python -m diff_sampler_tpu_torch.cli.train_amed --dataset_name=ms_coco \\
       --guidance_type=cfg --guidance_rate=7.5 --model_path=random --batch=8 --device=cuda
+  python -m diff_sampler_tpu_torch.cli.train_amed --dataset_name=lsun_bedroom \
+      --model_path=random --batch=32 --batch_gpu=8 --device=cuda
 
 On an SD checkpoint (``--model_path``) with ``--prompt_path`` naming the
 MS-COCO captions CSV, each iteration's contexts encode random captions with
@@ -25,6 +31,12 @@ they are the JAX package's seeded random stand-ins
 (``training/conditioning.py``).  ``--model_path`` is ``random``, a
 reference checkpoint file, or omitted for the zoo's file in ``./src``,
 ``./models`` or ``./checkpoints`` (``models.zoo``; nothing is downloaded).
+
+AMED on imagenet256 differentiates the student's loss through the
+classifier's gradient, a second-order derivative through its attention: on
+the CPU the plain attention gives it, on the card the attention kernels
+refuse it (``ops.attention``), as the JAX package's Pallas attention has no
+second-order path either.
 
 The run directory ``<outdir>/<id>-<desc>/`` gets ``predictor_config.json``
 (written after the model's sigma range is set: sampling restores every
@@ -44,29 +56,22 @@ import numpy as np
 import torch
 
 from ..models.convert import params_to_jax
-from ..models.factory import EDM_ARCHS, LDM_CONFIGS, create_model, init_params
+from ..models.factory import ADM_TIERS, EDM_ARCHS, LDM_CONFIGS, create_model, init_params
 from ..solvers.amed import bind_with_bottleneck
 from ..training.amed import AMEDConfig, make_amed_train_step, predictor_from_config
 from ..training.conditioning import make_caption_context_fn, make_uncond_context
 from ..utils import checkpoint as ckpt
 from ..utils import stats as training_stats
 from ..utils.profiling import Timer
-from ..utils.rng import stacked_randn
+from ..utils.rng import stacked_randint, stacked_randn
 from .sample import _bool
-
-# Tiers of the JAX CLI that later slices of the port bring (ROADMAP.md Queue 1).
-_LATER_TIERS = {
-    "lsun_bedroom": "slice 3 (ADM/CM 256 px)",
-    "lsun_cat": "slice 3 (ADM/CM 256 px)",
-    "imagenet256": "slice 3 (ADM/CM 256 px)",
-}
 
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m diff_sampler_tpu_torch.cli.train_amed",
                                 description=__doc__.split("\n\n")[0])
     p.add_argument("--dataset_name", required=True,
-                   choices=sorted(EDM_ARCHS) + sorted(LDM_CONFIGS) + sorted(_LATER_TIERS))
+                   choices=sorted(EDM_ARCHS) + sorted(ADM_TIERS) + sorted(LDM_CONFIGS))
     p.add_argument("--guidance_type", choices=["cg", "cfg", "uncond"], default=None)
     p.add_argument("--guidance_rate", type=float, default=1.0)
     p.add_argument("--prompt_path", default=None)
@@ -108,15 +113,27 @@ def _parser() -> argparse.ArgumentParser:
 
 def build_trainer(cfg: AMEDConfig, model_path, device, seed: int = 0, prompt_path=None):
     """(frozen net, ``cfg`` with the net's sigma range, predictor from
-    ``seed``, its train step with Adam as ``optax.adam``, and for Stable
-    Diffusion the per-iteration context sampler ``it -> [batch, 77, 768]``
-    numpy that the step takes as its second argument, else None)."""
+    ``seed``, its train step with Adam as ``optax.adam``, and the
+    per-iteration conditioning ``it -> [batch, ...]`` that the step takes as
+    its second argument: Stable Diffusion's contexts [batch, 77, 768] (numpy),
+    imagenet256's integer labels [batch] (one per trajectory, drawn by
+    ``stacked_randint`` from the trajectory's seed ``seed + index``), else
+    None)."""
     module, source = create_model(cfg.dataset_name, model_path,
                                   guidance_rate=cfg.guidance_rate, device=device)
     cfg = dataclasses.replace(cfg, sigma_min=float(module.sigma_min),
                               sigma_max=float(module.sigma_max))
     pred = init_params(predictor_from_config(cfg, device=device), seed=seed)
     optimizer = torch.optim.Adam(pred.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    if source == "adm":
+        def label_fn(it):
+            seeds = np.arange(it * cfg.batch, (it + 1) * cfg.batch) + seed
+            return stacked_randint(seeds.tolist(), (), 0, module.label_dim, device=device)
+
+        return module, cfg, pred, make_amed_train_step(
+            pred, None, cfg, optimizer,
+            denoise_factory=lambda labels: bind_with_bottleneck(module, class_labels=labels)
+        ), label_fn
     if source != "sd":
         return module, cfg, pred, make_amed_train_step(pred, bind_with_bottleneck(module), cfg,
                                                        optimizer), None
@@ -146,18 +163,16 @@ def _make_text_conditioning(ld, prompt_path, batch, mb, guidance_rate, seed):
 def main(argv=None) -> str:
     """Runs the training; returns the run directory (None on a dry run)."""
     args = _parser().parse_args(argv)
-    if args.dataset_name in _LATER_TIERS:
-        raise NotImplementedError(f"--dataset_name={args.dataset_name} is not ported yet: it "
-                                  f"comes with ROADMAP {_LATER_TIERS[args.dataset_name]}")
     if args.tp > 1 or args.sp > 1 or args.fsdp:
         raise NotImplementedError("--tp/--sp/--fsdp are not ported yet: they come with "
                                   "ROADMAP slice 10 (parallelism)")
     if args.dataset_name == "ms_coco":
         if args.guidance_type != "cfg":
             raise ValueError("ms_coco trains with --guidance_type=cfg")
-    elif args.guidance_type is not None or args.prompt_path is not None:
-        raise NotImplementedError("--guidance_type and --prompt_path apply to ms_coco here; "
-                                  "classifier guidance comes with ROADMAP slice 3")
+    elif args.prompt_path is not None or args.guidance_type not in (
+            (None, "cg") if args.dataset_name == "imagenet256" else (None,)):
+        raise NotImplementedError("--guidance_type and --prompt_path apply to ms_coco (cfg) "
+                                  "and imagenet256 (cg, its classifier guidance) only")
     for name in ("total_kimg", "num_steps", "batch", "batch_gpu", "tick"):
         value = getattr(args, name)
         if value is not None and value < (2 if name == "num_steps" else 1):
@@ -205,7 +220,7 @@ def main(argv=None) -> str:
         while cur_nimg < cfg.total_kimg * 1000:
             batch_seeds = np.arange(it * cfg.batch, (it + 1) * cfg.batch) + args.seed
             latents = stacked_randn(batch_seeds.tolist(), (res, res, chn), device=device)
-            cond = () if context_fn is None else (torch.from_numpy(context_fn(it)).to(device),)
+            cond = () if context_fn is None else (torch.as_tensor(context_fn(it), device=device),)
             metrics = train_step(latents, *cond)
             training_stats.report("Loss/loss", metrics["loss_per_step"].cpu().numpy())
             cur_nimg += cfg.batch

@@ -22,6 +22,14 @@ U-Net as it is: the spatial transformers' bias-free ``to_q`` / ``to_k`` /
 LayerNorms ``norm1``-``norm3`` (``scale`` / ``bias``), ``proj_in`` /
 ``proj_out``, and the KL stage's ``post_quant_conv``.
 
+``load_adm_jax_params`` loads the JAX package's ADM param trees
+(``ADMUNet`` / ``ADMClassifier``, named by the reference's paths with '.' ->
+'_' by ``adm_state_dict_to_params``) the same way, walking the port's own
+names: ``in_layers``, ``emb_layers``, ``skip_connection``, ``proj_out``,
+``qkv_proj``, ``c_proj`` and ``positional_embedding`` hold '_' themselves.
+``label_emb_weight`` is the table as it is, ``out_2_positional_embedding``
+the transpose of the port's [C, T].
+
 ``inception_state_dict_from_jax`` carries the JAX package's FID
 Inception-V3 params (``bn_scale`` / ``bn_bias`` / ``bn_mean`` / ``bn_var``
 beside each conv) to the port's detector, which has torchvision's names.
@@ -39,7 +47,7 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "params_to_jax", "load_jax_params", "load_ldm_jax_params",
-           "absent_from_jax", "inception_state_dict_from_jax"]
+           "load_adm_jax_params", "absent_from_jax", "inception_state_dict_from_jax"]
 
 _SPLIT_PREFIXES = ("enc_", "dec_")
 # U-Net level names after the prefix: ``16x16_block0``, ``8x8_aux_norm``...
@@ -171,6 +179,37 @@ def load_ldm_jax_params(ld: torch.nn.Module, trees: Mapping[str, Any]) -> torch.
                        f"unused {unused}")
     ld.load_state_dict(sd)
     return ld
+
+
+def load_adm_jax_params(module: torch.nn.Module, params: Mapping[str, Any]) -> torch.nn.Module:
+    """Load the JAX package's ``ADMUNet`` / ``ADMClassifier`` params into the
+    port's module of the same settings in place.  Every state_dict key must
+    be found and every JAX entry used."""
+    sd, used, missing = {}, set(), []
+    for key, ref in module.state_dict().items():
+        path, leaf = key.rsplit(".", 1)
+        flat = key.replace(".", "_")
+        if flat in ("label_emb_weight", "out_2_positional_embedding") and flat in params:
+            arr = np.asarray(params[flat], np.float32)
+            arr = arr.T if leaf == "positional_embedding" else arr
+            used.add(flat)
+        else:
+            name = path.replace(".", "_")
+            if name not in params:
+                missing.append(key)
+                continue
+            used.add(name)
+            arr = _unmechanical(params[name], leaf, ref.dim())
+        if arr.shape != tuple(ref.shape):
+            raise ValueError(f"{key}: the JAX params give {arr.shape}, the module has "
+                             f"{tuple(ref.shape)}")
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    unused = sorted(set(params) - used)
+    if missing or unused:
+        raise KeyError(f"JAX params do not match the module: missing {missing}, "
+                       f"unused {unused}")
+    module.load_state_dict(sd)
+    return module
 
 
 _INCEPTION_BN = {"bn_scale": "weight", "bn_bias": "bias", "bn_mean": "running_mean",

@@ -33,7 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import adm
-from .adm import _GN, _Conv, _Linear, _lecun_normal, legacy_attention, timestep_embedding
+from .adm import (_GN, AttentionBlock, Downsample, ResBlock, Upsample, _Conv, _Linear,
+                  _lecun_normal, timestep_embedding)
 
 __all__ = ["LDMUNet", "SpatialTransformer", "VAEDecoder", "VQModel", "AutoencoderKL",
            "LatentDiffusion", "LDM_CONFIGS", "build_latent_diffusion", "linear_alphas_cumprod",
@@ -51,12 +52,6 @@ def linear_alphas_cumprod(linear_start: float, linear_end: float,
 def _GN6(channels: int, device=None) -> _GN:
     """The LDM modules' GroupNorm: 32 groups, eps 1e-6."""
     return _GN(channels, eps=1e-6, device=device)
-
-
-def _upsample_nearest(x):
-    """2x nearest-neighbour upsampling of NHWC."""
-    n, h, w, c = x.shape
-    return x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c)
 
 
 # ---------------------------------------------------------------------------
@@ -197,65 +192,9 @@ class SpatialTransformer(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Latent U-Net (openaimodel.py UNetModel)
+# Latent U-Net (openaimodel.py UNetModel): its ResBlock, AttentionBlock,
+# Downsample and Upsample are the ADM family's (models.adm)
 # ---------------------------------------------------------------------------
-
-
-class ResBlock(nn.Module):
-    """in_layers (GN, SiLU, conv), emb_layers (SiLU, linear), out_layers (GN,
-    SiLU, dropout, conv), skip_connection: the reference's indices name the
-    layers that hold parameters."""
-
-    def __init__(self, cin: int, cout: int, emb_dim: int, device=None):
-        super().__init__()
-        self.in_layers = nn.ModuleDict({"0": _GN(cin, device=device),
-                                        "2": _Conv(cin, cout, 3, device=device)})
-        self.emb_layers = nn.ModuleDict({"1": _Linear(emb_dim, cout, device=device)})
-        self.out_layers = nn.ModuleDict({"0": _GN(cout, device=device),
-                                         "3": _Conv(cout, cout, 3, device=device)})
-        self.skip_connection = _Conv(cin, cout, 1, device=device) if cin != cout else None
-
-    def forward(self, x, emb):
-        h = self.in_layers["2"](self.in_layers["0"](x, apply_silu=True))
-        h = h + self.emb_layers["1"](F.silu(emb))[:, None, None, :].to(h.dtype)
-        h = self.out_layers["3"](self.out_layers["0"](h, apply_silu=True))
-        return (self.skip_connection(x) if self.skip_connection is not None else x) + h
-
-
-class AttentionBlock(nn.Module):
-    """GroupNorm, 1x1 qkv conv, legacy multi-head attention, 1x1 proj_out,
-    residual."""
-
-    def __init__(self, ch: int, num_heads: int, device=None):
-        super().__init__()
-        self.num_heads = num_heads
-        self.norm = _GN(ch, device=device)
-        self.qkv = _Conv(ch, 3 * ch, 1, device=device)
-        self.proj_out = _Conv(ch, ch, 1, device=device)
-
-    def forward(self, x):
-        n, h, w, c = x.shape
-        a = self.qkv(self.norm(x)).reshape(n, h * w, 3 * c)
-        a = legacy_attention(a, self.num_heads)
-        return x + self.proj_out(a.reshape(n, h, w, c))
-
-
-class Downsample(nn.Module):
-    def __init__(self, ch: int, device=None):
-        super().__init__()
-        self.op = _Conv(ch, ch, 3, stride=2, device=device)
-
-    def forward(self, x):
-        return self.op(x)
-
-
-class Upsample(nn.Module):
-    def __init__(self, ch: int, device=None):
-        super().__init__()
-        self.conv = _Conv(ch, ch, 3, device=device)
-
-    def forward(self, x):
-        return self.conv(_upsample_nearest(x))
 
 
 def _run(block: nn.ModuleList, h, emb, context):

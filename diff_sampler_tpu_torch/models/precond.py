@@ -1,9 +1,11 @@
 """Preconditioners and the bound denoiser the samplers consume.
 
 Counterpart of ``diff_sampler_tpu/models/precond.py``: ``EDMPrecond`` over
-SongUNet or DhariwalUNet, ``CFGPrecond`` (the latent tiers' discrete-time
-wrapper, with its ``interpolate_fn`` sigma maps), ``BoundDenoiser`` and
-``bind``.  The CM and CG preconditioners come with the ADM / CM 256 px tier.
+SongUNet or DhariwalUNet, ``CMPrecond`` (the consistency-models LSUN nets),
+``CGPrecond`` (ADM with classifier guidance, the class-score gradient taken
+with ``torch.autograd.grad``), ``CFGPrecond`` (the latent tiers'
+discrete-time wrapper, with its ``interpolate_fn`` sigma maps),
+``BoundDenoiser`` and ``bind``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from torch import nn
 
 from .unets import DhariwalUNet, SongUNet
 
-__all__ = ["EDMPrecond", "CFGPrecond", "BoundDenoiser", "bind", "interpolate_fn"]
+__all__ = ["EDMPrecond", "CMPrecond", "CGPrecond", "CFGPrecond", "BoundDenoiser", "bind",
+           "interpolate_fn"]
 
 MODEL_TYPES = {"SongUNet": SongUNet, "DhariwalUNet": DhariwalUNet}
 
@@ -79,6 +82,154 @@ class EDMPrecond(nn.Module):
             return c_skip * x + c_out * f_x.float()
         f_x, tap = f_x
         return c_skip * x + c_out * f_x.float(), tap
+
+
+def _bcast_sigma(sigma, x) -> torch.Tensor:
+    """sigma (a scalar or [N]) as f32 [N or 1, 1, 1, 1] on x's device."""
+    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
+    return sigma.reshape((-1,) + (1,) * (x.dim() - 1))
+
+
+def _any_training(*modules) -> bool:
+    return any(m is not None and m.training for m in modules)
+
+
+@dataclasses.dataclass
+class CMPrecond:
+    """The consistency-models wrapper (the reference's ``CMPrecond``): EDM's
+    c_skip / c_out / c_in with the net's time input ``1000 * log(sigma) / 4``
+    (negative below sigma 1).
+
+    ``model_fn(x_scaled, rescaled_t, class_labels)`` returns the net's output
+    F_x; ``model_fn_bottleneck`` (F_x, the middle block's output) for AMED.
+    ``net`` is the module they run (the factory sets it): ``bind`` checks its
+    eval mode and ``bind_with_bottleneck`` freezes it."""
+
+    model_fn: Callable
+    img_resolution: int
+    img_channels: int
+    label_dim: int = 0
+    sigma_min: float = 0.002
+    sigma_max: float = 80.0
+    sigma_data: float = 0.5
+    model_fn_bottleneck: Optional[Callable] = None
+    net: Optional[nn.Module] = None
+
+    @property
+    def training(self) -> bool:
+        return _any_training(self.net)
+
+    def _coeffs(self, x, sigma):
+        sigma = _bcast_sigma(sigma, x)
+        sd = self.sigma_data
+        c_skip = sd ** 2 / (sigma ** 2 + sd ** 2)
+        c_out = sigma * sd / torch.sqrt(sigma ** 2 + sd ** 2)
+        c_in = 1.0 / torch.sqrt(sd ** 2 + sigma ** 2)
+        rescaled_t = 1000.0 * torch.log(sigma.reshape(-1)) / 4.0
+        if rescaled_t.shape[0] == 1:
+            rescaled_t = rescaled_t.expand(x.shape[0])
+        return c_skip, c_out, c_in, rescaled_t
+
+    def __call__(self, x, sigma, class_labels=None):
+        c_skip, c_out, c_in, rescaled_t = self._coeffs(x, sigma)
+        return c_skip * x + c_out * self.model_fn(c_in * x, rescaled_t, class_labels)
+
+    def with_bottleneck(self, x, sigma, class_labels=None):
+        """(D(x, sigma), the raw middle-block activation) for AMED."""
+        if self.model_fn_bottleneck is None:
+            raise ValueError("build the model with bottleneck capture (models.factory)")
+        c_skip, c_out, c_in, rescaled_t = self._coeffs(x, sigma)
+        f_x, act = self.model_fn_bottleneck(c_in * x, rescaled_t, class_labels)
+        return c_skip * x + c_out * f_x, act
+
+
+@dataclasses.dataclass
+class CGPrecond:
+    """ADM with classifier guidance (the reference's ``CGPrecond``) on the
+    VP schedule (beta_d 19.9, beta_min 0.1, M 1000): D(x, sigma) = clamp(x -
+    sigma * eps, -1, 1), where eps is the net's first ``img_channels`` output
+    channels (the rest is its learned variance) less sqrt(1 - alpha_bar)
+    times ``guidance_rate`` times the gradient of log p(y | x_in) by x_in,
+    the noisy classifier's log-softmax at the integer labels y.
+
+    ``model_fn(x_scaled, c_noise, y)`` predicts eps; ``classifier_fn(x_scaled,
+    c_noise)`` gives logits; ``model_fn_bottleneck`` (eps, the middle
+    block's output) for AMED.  ``net`` and ``classifier`` are the modules
+    they run (the factory sets them).  ``sigma_min`` / ``sigma_max`` are
+    sigma(epsilon_t) and sigma(1) in f32, as the JAX package computes them
+    (its float64 is f32 without x64)."""
+
+    model_fn: Callable
+    classifier_fn: Callable
+    img_resolution: int
+    img_channels: int
+    label_dim: int
+    guidance_rate: float = 1.0
+    beta_d: float = 19.9
+    beta_min: float = 0.1
+    M: int = 1000
+    epsilon_t: float = 1e-3
+    model_fn_bottleneck: Optional[Callable] = None
+    net: Optional[nn.Module] = None
+    classifier: Optional[nn.Module] = None
+
+    def __post_init__(self):
+        self.sigma_min = float(self.sigma(self.epsilon_t))
+        self.sigma_max = float(self.sigma(1.0))
+
+    @property
+    def training(self) -> bool:
+        return _any_training(self.net, self.classifier)
+
+    def sigma(self, t):
+        t = torch.as_tensor(t, dtype=torch.float32)
+        return torch.sqrt(torch.exp(0.5 * self.beta_d * t ** 2 + self.beta_min * t) - 1.0)
+
+    def sigma_inv(self, sigma):
+        sigma = torch.as_tensor(sigma, dtype=torch.float32)
+        return (torch.sqrt(self.beta_min ** 2 + 2 * self.beta_d * torch.log(1 + sigma ** 2))
+                - self.beta_min) / self.beta_d
+
+    def _cond_grad(self, x_in, t, y):
+        """guidance_rate * d sum(log p(y | x_in)) / d x_in.  Every sampler
+        runs under ``torch.no_grad``, so the gradient is taken under
+        ``torch.enable_grad``; its graph is kept (``create_graph``) only
+        when the caller is itself differentiating, e.g. AMED's student,
+        which then differentiates through it a second time."""
+        outer = torch.is_grad_enabled() and (x_in.requires_grad or t.requires_grad)
+        with torch.enable_grad():
+            xv = x_in if outer and x_in.requires_grad else x_in.detach().requires_grad_(True)
+            logp = torch.log_softmax(self.classifier_fn(xv, t), dim=-1)
+            selected = logp.gather(1, y.reshape(-1, 1).long()).sum()
+            grad, = torch.autograd.grad(selected, xv, create_graph=outer)
+        return grad * self.guidance_rate
+
+    def __call__(self, x, sigma, class_labels=None):
+        return self._denoise(x, sigma, class_labels, self.model_fn)[0]
+
+    def with_bottleneck(self, x, sigma, class_labels=None):
+        """(D(x, sigma), the raw middle-block activation) for AMED."""
+        if self.model_fn_bottleneck is None:
+            raise ValueError("build the model with bottleneck capture (models.factory)")
+        return self._denoise(x, sigma, class_labels, None, self.model_fn_bottleneck)
+
+    def _denoise(self, x, sigma, class_labels, model_fn, model_fn_b=None):
+        if class_labels is None:
+            raise ValueError("CGPrecond needs integer class labels")
+        sigma = _bcast_sigma(sigma, x)
+        c_in = 1.0 / torch.sqrt(sigma ** 2 + 1.0)
+        c_noise = (self.M - 1) * self.sigma_inv(sigma).reshape(-1)
+        if c_noise.shape[0] == 1:
+            c_noise = c_noise.expand(x.shape[0])
+        x_in = c_in * x
+        if model_fn_b is not None:
+            eps, act = model_fn_b(x_in, c_noise, class_labels)
+        else:
+            eps, act = model_fn(x_in, c_noise, class_labels), None
+        eps = eps[..., :self.img_channels]
+        alpha_bar = 1.0 / (1.0 + sigma ** 2)
+        eps = eps - torch.sqrt(1.0 - alpha_bar) * self._cond_grad(x_in, c_noise, class_labels)
+        return torch.clamp(x - sigma * eps, -1.0, 1.0), act
 
 
 def interpolate_fn(x, xp, yp):
@@ -234,9 +385,11 @@ class BoundDenoiser:
 
 def bind(precond, class_labels=None, **cond) -> BoundDenoiser:
     """The sampling denoiser of a preconditioner: its forward, run without
-    autograd.  EDMPrecond: with ``class_labels`` bound (None: a conditional
-    net gets zero one-hot rows, as in the JAX package); labels passed to
-    the call replace them.  CFGPrecond: with its conditioning keywords
+    autograd (CGPrecond takes its class-score gradient under
+    ``torch.enable_grad`` all the same).  EDMPrecond, CMPrecond, CGPrecond:
+    with ``class_labels`` bound (an EDMPrecond's None: a conditional net gets
+    zero one-hot rows, as in the JAX package; a CGPrecond's: integer labels
+    [N]); labels passed to the call replace them.  CFGPrecond: with its conditioning keywords
     (``condition=``, ``unconditional_condition=``) bound and its sigma maps
     carried; a condition passed to the call (``generate``'s per-seed rows)
     replaces the bound one.  The module must be in eval mode, so that

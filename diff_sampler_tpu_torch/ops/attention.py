@@ -40,7 +40,13 @@ gather elsewhere.
 K2c) where ``takes_flat_kernel`` says the JAX ``sdpa`` takes its flat
 kernel.  Under ``torch.no_grad``, or on inputs that need no gradient, a
 Function records no graph, so what it saves is freed with its output's
-context.
+context.  The kernels' backward is not itself differentiable: on the card a
+backward that autograd records (``torch.autograd.grad(...,
+create_graph=True)`` through attention whose inputs need a gradient, as an
+AMED step through classifier guidance takes it) raises rather than drop the
+second-order term, as the JAX package has no second-order path through its
+Pallas attention either.  On the CPU such a backward is the plain forward's
+own VJP, recorded, so the second order is exact there.
 
 Layout: q, k, v are [B, T, H, d] (the token layout of the U-Nets); they may
 be strided views, such as the interleaved split of the qkv projection.
@@ -553,6 +559,27 @@ def flash_attention_bwd(q, k, v, out, lse, do, scale):
             *flash_attention_flat_bwd_dkv(q, k, v, do, lse, delta, scale))
 
 
+def _recorded_backward(plain, kernels: str, ctx, q, k, v, do):
+    """The backward of a call that autograd records for a second
+    differentiation (``create_graph``).  On a CPU tensor: the plain
+    forward's own VJP, recomputed from the saved q, k and v, whose result is
+    differentiable in every input (the saved lse is a constant to autograd,
+    so the plain backward pieces would drop its dependence on q and k).  On
+    the card it raises: the kernels' backward is not differentiable."""
+    if q.device.type != "cpu":
+        raise RuntimeError(
+            f"a second-order gradient through attention kernel {kernels}: the kernels' "
+            f"backward is not differentiable, so the result would silently lack the "
+            f"second-order term; the JAX package has no second-order path through its Pallas "
+            f"attention either (jax.grad of a jax.grad through it raises)")
+    need = ctx.needs_input_grad[:3]
+    with torch.enable_grad():
+        out = plain(q, k, v, ctx.scale)[0]
+        got = iter(torch.autograd.grad(out, [t for t, n in zip((q, k, v), need) if n],
+                                       do.to(out.dtype), create_graph=True))
+    return (*(next(got) if n else None for n in need), None)
+
+
 class _FlashAttentionMH(torch.autograd.Function):
     """K1 forward, K2 backward (the plain versions on the CPU)."""
 
@@ -566,6 +593,9 @@ class _FlashAttentionMH(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            return _recorded_backward(reference_sdpa, "K2 (flash_attention_bwd_dq / "
+                                      "flash_attention_bwd_dkv)", ctx, q, k, v, do)
         return (*flash_attention_mh_bwd(q, k, v, out, lse, do, ctx.scale), None)
 
 
@@ -583,6 +613,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            return _recorded_backward(reference_flash_attention, "K2c (flash_attention_flat_"
+                                      "bwd_dq / flash_attention_flat_bwd_dkv)", ctx, q, k, v, do)
         return (*flash_attention_bwd(q, k, v, out, lse, do, ctx.scale), None)
 
 

@@ -15,7 +15,8 @@ statistics in exact two-pass sums (the plain version's E[x^2] - E[x]^2 in f32
 is the less precise of the two), so the two agree to f32 rounding, not bit for
 bit.  Under autograd K3 runs inside ``_GroupNormK3``, whose backward is the
 plain version's VJP recomputed from the saved x, scale and bias: the JAX
-package's ``_gn_bwd``, which has no kernel either.
+package's ``_gn_bwd``, which has no kernel either.  That backward is itself
+differentiable, so a second-order gradient through K3 is exact.
 
 ``gn_route`` picks K3's design for a shape, mirroring the constants of the C
 source: ``slab`` (one kernel, one thread-block cluster of 1-16 blocks per
@@ -236,11 +237,15 @@ class _GroupNormK3(torch.autograd.Function):
     def backward(ctx, g):
         x, scale, bias = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
+        # a backward that autograd records (create_graph) recomputes from the
+        # saved tensors themselves, so that its result is differentiable
+        create = torch.is_grad_enabled()
         with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n) for t, n in zip((x, scale, bias), need)]
+            leaves = [t if create else t.detach().requires_grad_(n)
+                      for t, n in zip((x, scale, bias), need)]
             out = reference_groupnorm_silu(*leaves, **ctx.args)
             wrt = [t for t, n in zip(leaves, need) if n]
-            got = iter(torch.autograd.grad(out, wrt, g))
+            got = iter(torch.autograd.grad(out, wrt, g, create_graph=create))
         return (*(next(got) if n else None for n in need), None, None, None)
 
 

@@ -115,7 +115,7 @@ def _start_copy_to_host(x: torch.Tensor):
 
 def generate(denoise: BoundDenoiser, seeds: Sequence[int], sample_shape: Tuple[int, ...],
              cfg: SolverConfig, *, max_batch_size: int = 64, device="cuda",
-             label_dim: int = 0, class_idx: Optional[int] = None,
+             label_dim: int = 0, label_kind: str = "onehot", class_idx: Optional[int] = None,
              per_seed_cond=None, return_inters: bool = False,
              batch_callback=None) -> np.ndarray:
     """Generate one sample per seed with the solver of ``cfg``,
@@ -127,11 +127,13 @@ def generate(denoise: BoundDenoiser, seeds: Sequence[int], sample_shape: Tuple[i
     final sample included.
 
     The denoiser is called as ``denoise(x, t, c)``, as a ``bind``-ed
-    preconditioner takes it.  For an EDMPrecond ``c`` is the class labels:
-    None for an unconditional net (``label_dim=0``); else one-hot labels
-    drawn per seed (``stacked_randint``: seed i gets the same class at any
-    batch split, as the reference's ``sample.py`` and the JAX package draw
-    them), or ``class_idx`` for every seed.  With ``per_seed_cond`` (one
+    preconditioner takes it.  For a pixel tier ``c`` is the class labels:
+    None for an unconditional net (``label_dim=0``); else labels drawn per
+    seed (``stacked_randint``: seed i gets the same class at any batch
+    split, as the reference's ``sample.py`` and the JAX package draw them),
+    or ``class_idx`` for every seed, one-hot f32 [B, label_dim] for an
+    EDMPrecond (``label_kind="onehot"``) or int64 [B] for a CGPrecond
+    (``label_kind="int"``).  With ``per_seed_cond`` (one
     conditioning row per seed, e.g. SD's caption contexts [len(seeds), 77,
     768], numpy or a tensor) ``c`` is each batch's rows, padded as the
     latents are (the JAX package's ``generate(per_seed_cond=...)``); a bound
@@ -142,31 +144,35 @@ def generate(denoise: BoundDenoiser, seeds: Sequence[int], sample_shape: Tuple[i
         return out.xs if return_inters else out
 
     return generate_batches(sample_fn, seeds, sample_shape, max_batch_size=max_batch_size,
-                            device=device, label_dim=label_dim, class_idx=class_idx,
-                            per_seed_cond=per_seed_cond, batch_callback=batch_callback)
+                            device=device, label_dim=label_dim, label_kind=label_kind,
+                            class_idx=class_idx, per_seed_cond=per_seed_cond,
+                            batch_callback=batch_callback)
 
 
-def _labels(seeds, label_dim: int, class_idx: Optional[int], device) -> torch.Tensor:
-    """One-hot f32 [len(seeds), label_dim]: each seed's own class, or
-    ``class_idx`` for every seed."""
+def _labels(seeds, label_dim: int, kind: str, class_idx: Optional[int], device) -> torch.Tensor:
+    """Each seed's own class, or ``class_idx`` for every seed: one-hot f32
+    [len(seeds), label_dim] (``kind="onehot"``) or int64 [len(seeds)]
+    (``kind="int"``)."""
+    if kind not in ("onehot", "int"):
+        raise ValueError(f"label_kind {kind!r}: 'onehot' or 'int'")
     if class_idx is not None:
         idx = torch.full((len(seeds),), int(class_idx), dtype=torch.int64, device=device)
     else:
         idx = stacked_randint(seeds, (), 0, label_dim, device=device)
-    return F.one_hot(idx, label_dim).float()
+    return idx if kind == "int" else F.one_hot(idx, label_dim).float()
 
 
 def generate_batches(sample_fn: Callable, seeds: Sequence[int], sample_shape: Tuple[int, ...],
                      *, max_batch_size: int = 64, device="cuda", label_dim: int = 0,
-                     class_idx: Optional[int] = None, per_seed_cond=None,
-                     batch_callback=None) -> np.ndarray:
+                     label_kind: str = "onehot", class_idx: Optional[int] = None,
+                     per_seed_cond=None, batch_callback=None) -> np.ndarray:
     """``sample_fn(latents, labels) -> samples`` on each batch of per-seed
     latents, ``max_batch_size`` at a time; returns [len(seeds),
     *sample_shape] f32, or [P, len(seeds), *sample_shape] where ``sample_fn``
     returns a trajectory [P, B, *sample_shape]: the chunks join along the
     batch axis.  ``labels`` is the batch's rows of ``per_seed_cond`` where
-    given, else None when ``label_dim`` is 0, else the per-seed one-hot
-    labels of ``generate``, padded as the latents are.
+    given, else None when ``label_dim`` is 0, else the per-seed labels of
+    ``generate`` (``label_kind``), padded as the latents are.
 
     One batch stays in flight: batch i+1 is enqueued on the device before
     the host waits for batch i, so the host's copy and ``batch_callback``
@@ -209,7 +215,7 @@ def generate_batches(sample_fn: Callable, seeds: Sequence[int], sample_shape: Tu
             pos = np.minimum(np.arange(start, start + batch), start + len(chunk) - 1)
             labels = per_seed_cond[torch.as_tensor(pos, device=per_seed_cond.device)].to(device)
         elif label_dim:
-            labels = _labels(chunk_p.tolist(), label_dim, class_idx, device)
+            labels = _labels(chunk_p.tolist(), label_dim, label_kind, class_idx, device)
         else:
             labels = None
         x = sample_fn(latents, labels)

@@ -1,15 +1,15 @@
 """AMED: a trainable per-step midpoint predictor and the samplers it drives.
 
-Counterpart of ``diff_sampler_tpu/solvers/amed.py`` for the EDM tier:
+Counterpart of ``diff_sampler_tpu/solvers/amed.py``:
 
   * ``AMEDPredictor``: the small MLP that maps the channel-pooled U-Net
     bottleneck (8x8 = 64 values) and (t_cur, t_next) embeddings to r (the
     geometric-midpoint exponent), scale_dir (c_n) and scale_time (a_n);
   * the bottleneck tap: ``EDMPrecond.with_bottleneck`` returns the encoder
     activation explicitly (the JAX package uses ``capture_intermediates``,
-    the reference a forward hook), ``CFGPrecond.with_bottleneck`` the latent
-    U-Net's middle block (under doubled-batch guidance, its conditional
-    half);
+    the reference a forward hook); ``CMPrecond``, ``CGPrecond`` and
+    ``CFGPrecond`` return their U-Net's middle block (under doubled-batch
+    guidance, its conditional half);
   * the AMED solver and the euler / ipndm / dpm / dpmpp plugins, which insert
     a predicted midpoint into every step (two denoiser calls per step).
 
@@ -32,6 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..models.layers import Linear, positional_embedding
+from ..models.precond import CFGPrecond, CGPrecond, CMPrecond
 from .samplers import SampleResult, dynamic_thresholding
 
 __all__ = [
@@ -141,38 +142,46 @@ def _pool_bottleneck(act, cfg_doubled: bool = False):
 def bind_with_bottleneck(precond, cfg_doubled: bool = False, **cond) -> BottleneckDenoiser:
     """Bind a preconditioner so each call can also yield the channel-pooled
     bottleneck: an EDMPrecond at ``bottleneck_module_name`` (without
-    conditioning), a CFGPrecond (the latent tiers) at its U-Net's middle
-    block, with its conditioning keywords (``condition=``,
-    ``unconditional_condition=``) bound; under doubled-batch guidance
-    ``cfg_doubled`` pools the conditional half.  The
-    net is frozen in place: every parameter stops requiring a gradient, so a
-    backward through it computes input gradients only.  It must be in eval
-    mode (dropout off)."""
+    conditioning); a CMPrecond or CGPrecond (the 256 px pixel tiers) at its
+    ADMUNet's middle block, a CGPrecond with its integer ``class_labels=``
+    bound; a CFGPrecond (the latent tiers) at its U-Net's middle block,
+    with its conditioning keywords (``condition=``,
+    ``unconditional_condition=``) bound and its sigma maps carried; under
+    doubled-batch guidance ``cfg_doubled`` pools the conditional half.  The
+    nets are frozen in place: every parameter stops requiring a gradient,
+    so a backward through them computes input gradients only.  They must be
+    in eval mode (dropout off)."""
     if precond.training:
         raise ValueError("bind_with_bottleneck() needs the module in eval mode: call .eval()")
-    if not isinstance(precond, nn.Module):  # CFGPrecond over its LatentDiffusion
+    maps = ()
+    if isinstance(precond, CFGPrecond):
         precond.latent_diffusion.requires_grad_(False)
+        maps = (precond.sigma, precond.sigma_inv)
+    elif isinstance(precond, (CMPrecond, CGPrecond)):
+        for net in (precond.net, getattr(precond, "classifier", None)):
+            if net is not None:
+                net.requires_grad_(False)
+    else:
+        if cfg_doubled or cond:
+            raise TypeError("an EDMPrecond is bound without conditioning (the AMED trainer "
+                            "binds the EDM nets without labels)")
+        precond.requires_grad_(False)
+        name = bottleneck_module_name(precond.label_dim, precond.img_resolution)
 
-        def fn_cfg(x, t):
-            out, act = precond.with_bottleneck(x, t, **cond)
-            return out, _pool_bottleneck(act, cfg_doubled)
+        def fn(x, t):
+            out, act = precond.with_bottleneck(x, t, name)
+            return out, _pool_bottleneck(act)
 
-        def plain_cfg(x, t):
-            return precond(x, t, **cond)
+        return BottleneckDenoiser(fn, precond, precond.sigma_min, precond.sigma_max)
 
-        return BottleneckDenoiser(fn_cfg, plain_cfg, precond.sigma_min, precond.sigma_max,
-                                  precond.sigma, precond.sigma_inv)
-    if cfg_doubled or cond:
-        raise TypeError("an EDMPrecond is bound without conditioning (the AMED trainer binds "
-                        "the EDM nets without labels)")
-    precond.requires_grad_(False)
-    name = bottleneck_module_name(precond.label_dim, precond.img_resolution)
+    def fn_tap(x, t):
+        out, act = precond.with_bottleneck(x, t, **cond)
+        return out, _pool_bottleneck(act, cfg_doubled)
 
-    def fn(x, t):
-        out, act = precond.with_bottleneck(x, t, name)
-        return out, _pool_bottleneck(act)
+    def plain(x, t):
+        return precond(x, t, **cond)
 
-    return BottleneckDenoiser(fn, precond, precond.sigma_min, precond.sigma_max)
+    return BottleneckDenoiser(fn_tap, plain, precond.sigma_min, precond.sigma_max, *maps)
 
 
 _AB = [

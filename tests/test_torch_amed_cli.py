@@ -134,9 +134,10 @@ def test_sample_predictor_restores_the_sidecar(tiny_cifar, tmp_path, monkeypatch
             assert f.read() == encode_png(want[i])
 
 
-def test_train_amed_rejects_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        cli_train.main(["--dataset_name=imagenet256", f"--outdir={tmp_path}"])
+def test_train_amed_rejects_what_is_not_ported(tmp_path, capsys):
+    for name in ("lsun_bedroom", "lsun_cat", "imagenet256"):  # ported: a dry run passes
+        cli_train.main([f"--dataset_name={name}", "-n", f"--outdir={tmp_path}"])
+        assert f'"dataset_name": "{name}"' in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="slice 10"):
         cli_train.main(["--dataset_name=cifar10", "--tp=2", f"--outdir={tmp_path}"])
     assert not os.listdir(tmp_path)

@@ -15,7 +15,9 @@ pass); K4 (the
 direct 3x3 conv) at aligned, ragged and multi-image-tile shapes through both
 entry points, and its bf16 and f32 kernels (wgmma on a TMA-loaded halo tile;
 f32 in 3xTF32) at every patch plan, two runs bit-identical, with the f32
-kernel's split of w bit-equal to ``split_tf32``.
+kernel's split of w bit-equal to ``split_tf32``; K1 / K2 at the ImageNet-256
+classifier's attention pool (T = 65 on new-order views), and the refusal of a
+second-order gradient through K2 / K2c (K3's is exact).
 
 Marked ``cuda``: without a CUDA device each test skips.  The file imports no
 jax package module, so it also runs where flax is not installed:
@@ -414,6 +416,73 @@ def test_backward_kernel_at_the_k2b_shape_on_legacy_views(cuda, dtype):
         bound = rel * y.float().abs().max().item()
         assert (x.float() - y.float()).abs().max().item() <= bound, name
         assert torch.equal(x, z), name
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_at_the_attention_pool_on_new_order_views(cuda, dtype):
+    """K1 and K2 at the ImageNet-256 classifier's attention pool: T = 8 * 8 +
+    1 = 65 tokens (ragged against every tile), 8 heads of 64, q / k / v the
+    new-order views of one [B, T, 3, H, d] projection (token stride 3Hd),
+    dO not contiguous; two backward runs bit-identical."""
+    dt = getattr(torch, dtype)
+    b, t, h, d = 8, 65, 8, 64
+    g = torch.Generator("cuda").manual_seed(7)
+    q, k, v = torch.randn(b, t, 3 * h * d, generator=g, device="cuda").to(dt).reshape(
+        b, t, 3, h, d).unbind(2)
+    assert q.stride() == (t * 3 * h * d, 3 * h * d, d, 1)
+    do = torch.randn(b, h, t, d, generator=g, device="cuda").to(dt).transpose(1, 2)
+    out, lse = A.flash_attention_mh(q, k, v, d ** -0.5)
+    ref_out, ref_lse = A.reference_sdpa(q, k, v, d ** -0.5)
+    tol = 1e-5 if dt == torch.float32 else 2 ** -5 * min(1.0, ref_out.float().abs().max().item())
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-5
+    got = A.flash_attention_mh_bwd(q, k, v, out, lse, do, d ** -0.5)
+    again = A.flash_attention_mh_bwd(q, k, v, out, lse, do, d ** -0.5)
+    ref = A.reference_sdpa_bwd(q, k, v, out, lse, do, d ** -0.5)
+    rel = 1e-4 if dt == torch.float32 else 2 ** -6
+    for name, x, y, z in zip("qkv", got, ref, again):
+        bound = rel * y.float().abs().max().item()
+        assert (x.float() - y.float()).abs().max().item() <= bound, name
+        assert torch.equal(x, z), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flat", [False, True], ids=["K2", "K2c"])
+def test_a_second_order_gradient_through_the_kernels_raises(cuda, flat):
+    """A backward through K1 / K2 (K1c / K2c) that autograd records for a
+    second differentiation raises, naming the kernel, instead of returning
+    a gradient without its second-order term; a first-order backward runs.
+    On the CPU the same second order is exact (tests/test_torch_adm_tiers.py)."""
+    g = torch.Generator("cuda").manual_seed(8)
+    shape = (2, 4096, 8, 40) if flat else (2, 256, 2, 64)
+    q, k, v = (torch.randn(*shape, generator=g, device="cuda").requires_grad_()
+               for _ in range(3))
+    assert A.takes_flat_kernel(shape[1], shape[2], shape[3], torch.float32) == flat
+    out = A.sdpa(q, k, v)
+    first, = torch.autograd.grad(out.square().sum(), q, retain_graph=True)
+    assert torch.isfinite(first).all()
+    with pytest.raises(RuntimeError, match="second-order gradient through attention kernel "
+                                           + ("K2c" if flat else "K2") + ".*JAX package"):
+        torch.autograd.grad(out.square().sum(), q, create_graph=True)
+
+
+@pytest.mark.cuda
+def test_groupnorm_second_order_gradient_is_the_plain_ones(cuda):
+    """K3's backward is the plain VJP, recorded under ``create_graph``: the
+    second derivative through K3 equals the plain version's."""
+    x, scale, bias = _gn_inputs(2, 5, 7, 64, torch.float32, seed=9)
+    cot = torch.randn_like(x)
+
+    def second(fn):
+        xv = x.clone().requires_grad_()
+        gx, = torch.autograd.grad((fn(xv, scale, bias, groups=32) * cot).sum(), xv,
+                                  create_graph=True)
+        return torch.autograd.grad(gx.square().sum(), xv)[0]
+
+    got, want = second(G.groupnorm_silu), second(G.reference_groupnorm_silu)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
 # GroupNorm (K3) at the group sizes of the LSUN LDM (7, 21, 49 channels per
