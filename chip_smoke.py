@@ -257,6 +257,40 @@ Phases, each printing as it goes and then its seconds:
    strictly through ``create_model`` (host seconds, MB/s), every tensor
    bit-equal to the file's, D bit-equal to that of ``torch.load``'s
    weights.
+37. SFD on CIFAR-10 at full width, f32: (a) one segment's weight gradient
+   at batch 8 (unit-scale weights, TF32 off, remat on) with K1 + K2 + K3
+   against the all-plain student at 1e-4 * max, with exactly the launches
+   of the forward and of remat's recompute (each block's K1 and K3 again in
+   the backward); the same gradient with remat and without, bit-equal
+   (cuDNN deterministic); one primed profile of the segment, every K1 / K2
+   in its trace; K1 / K2 f32 at the student's [128, 256, 1, 256] and K3 f32
+   at its [128, 32, 32, 256] against their plain versions and the library;
+   (b) ``cli.train_sfd`` at batch 128 with its defaults (4 steps, M=3, the
+   dpmpp teacher, AFS, remat) for 1 kimg: s/kimg, peak memory, losses,
+   exactly the predicted launches, the student moved; (c) one SFD-v
+   iteration (num_steps drawn as the CLI draws it): the step-condition
+   modules train, Adam counts num_steps - 2 updates, exact launches; (d)
+   ``cli.sample`` from the run dir (euler at the restored 4 steps with
+   AFS), its PNGs byte for byte ``generate`` on the snapshot's student, with
+   and without ``--skip_tuning``.
+38. The LSUN LDM student (274M f32 U-Net, remat off) through
+   ``cli.train_sfd`` at batch 512 in microbatches of 128 (3 steps, M=1):
+   s/kimg, peak memory, exact launches (K2's by (T, H)); then
+   ``cli.sample`` from the run dir (the stack rebuilt from the training's
+   model path, the U-Net swapped, the discrete schedule), its PNGs byte for
+   byte ``generate`` + the VQ decode.
+39. (After phase 32, in its directory.) The 860M SD student as
+   ``cli.train_sfd`` builds it from phase 32's f16 checkpoint (its text
+   tower, guidance 7.5, trained at 1.0): its segment gradient at batch 2
+   on caption contexts against the all-plain U-Net (TF32 off, 1e-4 * max,
+   exact K1 / K1c / K2 / K2c / K3 launches); K1 / K2 and K1c / K2c f32 at
+   the microbatch's shapes; one ``make_ldm_train_step`` iteration at batch
+   8 in 2 microbatches of 4 (s/iteration, peak memory, exact launches); a
+   snapshot (its params) and its training_options.json naming the
+   checkpoint; then
+   ``cli.sample --model_path=0`` (the experiment number) with a caption
+   per seed, bf16, guidance 7.5, its PNGs byte for byte ``generate`` + the
+   KL decode on the snapshot's U-Net.
 
 The last three lines are the card's name and power limit, a JSON object on
 the kernels and ``{"ok": true, "device": {...}}``.  The JSON lists K1 and
@@ -276,7 +310,9 @@ scores (its launches; the evaluation path itself adds no kernel: the
 detector's convs, its pools, FID's moments and PRDC's distances are
 PyTorch calls, as they are XLA ops in the JAX package), K1 and K3 on both
 256 px tiers and K1 / K2 in f32 on the CM AMED path (launches of phases 34
-and 35), each with its error and times at that path's main
+and 35), the f32 K1 / K2 (K1c / K2c on SD) and K3 on the SFD students'
+paths (launches of phases 37-39; the LDM's times those of phase 16), each
+with its error and times at that path's main
 shape and its bound on this card (the f32 attention kernels' and the f32
 K4's: 3xTF32 on the tensor cores).  Every profile (phases 4,
 5, 13, 14, 20, 23, 26, 28, 35) checks that no attention forward and no
@@ -292,6 +328,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import glob
 import io
 import json
@@ -316,6 +353,7 @@ from diff_sampler_tpu_torch.cli import fid as cli_fid
 from diff_sampler_tpu_torch.cli import prdc as cli_prdc
 from diff_sampler_tpu_torch.cli import sample as cli_sample
 from diff_sampler_tpu_torch.cli import train_amed as cli_train_amed
+from diff_sampler_tpu_torch.cli import train_sfd as cli_train_sfd
 from diff_sampler_tpu_torch.eval import prdc as P
 from diff_sampler_tpu_torch.eval.dataset import ImageFolderDataset
 from diff_sampler_tpu_torch.eval.fid import (calculate_stats, compute_fid, load_stats,
@@ -323,9 +361,10 @@ from diff_sampler_tpu_torch.eval.fid import (calculate_stats, compute_fid, load_
 from diff_sampler_tpu_torch.eval.inception import (CONV_UNITS_GRAPH_ORDER, InceptionV3FID,
                                                    import_inception_state_dict,
                                                    import_nvidia_inception_pickle)
-from diff_sampler_tpu_torch.models import adm, layers
-from diff_sampler_tpu_torch.models.convert import params_to_jax
-from diff_sampler_tpu_torch.models.factory import create_model, init_params
+from diff_sampler_tpu_torch.models import adm, convert, layers, unets
+from diff_sampler_tpu_torch.models.convert import absent_from_jax, load_jax_params, params_to_jax
+from diff_sampler_tpu_torch.models.factory import (build_edm_model, build_ldm_model, create_model,
+                                                   init_params)
 from diff_sampler_tpu_torch.models.ldm import reference_state_dict
 from diff_sampler_tpu_torch.models.precond import bind
 from diff_sampler_tpu_torch.models.torch_import import load_torch_file, torch_state_dict
@@ -333,11 +372,16 @@ from diff_sampler_tpu_torch.models.text import FrozenCLIPEmbedder
 from diff_sampler_tpu_torch.ops import attention as A
 from diff_sampler_tpu_torch.ops import conv as C
 from diff_sampler_tpu_torch.ops import groupnorm as G
+from diff_sampler_tpu_torch.ops.schedules import get_schedule
 from diff_sampler_tpu_torch.sampling import SolverConfig, generate, to_uint8
 from diff_sampler_tpu_torch.solvers import SOLVER_REGISTRY
 from diff_sampler_tpu_torch.training.amed import AMEDConfig, predictor_from_config
-from diff_sampler_tpu_torch.training.conditioning import (make_caption_context_fn,
+from diff_sampler_tpu_torch.training.conditioning import (load_captions, make_caption_context_fn,
                                                           make_uncond_context)
+from diff_sampler_tpu_torch.training.sfd import SFDConfig
+from diff_sampler_tpu_torch.training.sfd import adam_count as sfd_adam_count
+from diff_sampler_tpu_torch.training.sfd import make_ldm_train_step as make_sfd_ldm_train_step
+from diff_sampler_tpu_torch.training.sfd import make_train_step as make_sfd_train_step
 from diff_sampler_tpu_torch.utils import checkpoint as ckpt
 from diff_sampler_tpu_torch.utils.image import encode_png, save_grid
 from diff_sampler_tpu_torch.utils.profiling import device_breakdown
@@ -1834,11 +1878,12 @@ def _gn_checks(shapes, wanted: dict, seed: int) -> dict:
 def phase_ldm_attention_kernels() -> tuple:
     """K1 at the LDM's attention shapes and K2 at K2b's and K2p's, on the
     legacy views, and K2 in bf16 at the ADM-G classifier's attention levels
-    on the same views; returns the K2 fields at K2b's shape."""
-    _k1_checks("LDM K1", LDM_K1_SHAPES, _legacy_views, seed=8, reps=5, warmup=2)
+    on the same views; returns the K1 fields (by dtype, as ``_k1_checks``)
+    and the K2 fields at K2b's shape."""
+    k1 = _k1_checks("LDM K1", LDM_K1_SHAPES, _legacy_views, seed=8, reps=5, warmup=2)
     k2b = _k2_checks("LDM K2", LDM_K2_SHAPES, _legacy_views, seed=9)
     _k2_checks("ADM-G K2", ADMG_K2_SHAPES, _legacy_views, seed=13)
-    return k2b
+    return k1, k2b
 
 
 def phase_ldm_denoiser_and_gradient() -> None:
@@ -1967,7 +2012,7 @@ def phase_sd_attention_kernels() -> tuple:
     return k1, _k2_checks("SD K2", SD_K2_SHAPES, _sd_views, seed=11)
 
 
-def phase_sd_flat_kernels() -> tuple:
+def phase_sd_flat_kernels(shapes=SD_FLAT_SHAPES, tag: str = "SD K1c/K2c") -> tuple:
     """K1c and K2c against their plain versions at ``SD_FLAT_SHAPES``: K1's
     and K2's gates, K2c two runs bit-identical; CUDA events in turns against
     the plain versions, ``F.scaled_dot_product_attention`` (its backward for
@@ -1975,7 +2020,7 @@ def phase_sd_flat_kernels() -> tuple:
     kernels-line fields of K1c and of K2c at the main shape."""
     g = torch.Generator("cuda").manual_seed(12)
     main = None
-    for b, t, d, dtype in SD_FLAT_SHAPES:
+    for b, t, d, dtype in shapes:
         q, k, v, do = (torch.randn(b, t, d, generator=g, device="cuda").to(dtype)
                        for _ in range(4))
         scale = d ** -0.5
@@ -2008,18 +2053,18 @@ def phase_sd_flat_kernels() -> tuple:
         bwd = _flat_backward_times(q, k, v, out, lse, do, delta, scale)
         bound_ms, bound_by = _attention_bound("fwd", b, t, 1, d, dtype)
         name = str(dtype).replace("torch.", "")
-        print(f"[SD K1c/K2c] flat B={b} T={t} d={d} {name}: out err {err_out:.3g} (tol "
+        print(f"[{tag}] flat B={b} T={t} d={d} {name}: out err {err_out:.3g} (tol "
               f"{tol:.3g}), lse err {err_lse:.3g} (tol {LSE_TOL:.3g}); dq err {errs[0]:.3g} "
               f"(tol {tols[0]:.3g}), dk {errs[1]:.3g} (tol {tols[1]:.3g}), dv {errs[2]:.3g} "
               f"(tol {tols[2]:.3g}); two runs bit-identical: K1c {same_fwd}, K2c {same}; K1c "
               f"route {route.kernel}, padded d {route.padded_d}, {route.load}, "
               f"{route.block_q} x {route.block_k} tiles, {route.warps} warps")
-        print(f"[SD K1c/K2c]   K1c {fwd['kernel']:.4f} ms, plain {fwd['plain']:.4f} ms, "
+        print(f"[{tag}]   K1c {fwd['kernel']:.4f} ms, plain {fwd['plain']:.4f} ms, "
               f"F.scaled_dot_product_attention {fwd['library']:.4f} ms, K1 on the same data as "
               f"[{b // heads}, {t}, {heads}, {d}] views {fwd['K1']:.4f} ms, bound "
               f"{_bound_text('fwd', b, t, 1, d, dtype)}; "
               f"{2 * 2 * b * t * t * d / fwd['kernel'] / 1e9:.2f} TFLOP/s; K2c {_fmt_times(bwd)}")
-        print(f"[SD K1c/K2c]   K2c {_bwd_route_text(A.bwd_route(q, k, v, do), bwd, b, t, 1, d, dtype)}")
+        print(f"[{tag}]   K2c {_bwd_route_text(A.bwd_route(q, k, v, do), bwd, b, t, 1, d, dtype)}")
         _check(err_out <= tol and err_lse <= LSE_TOL,
                f"K1c disagrees with the plain version at {(b, t, d, name)}")
         _check(same_fwd, f"K1c is not deterministic at {(b, t, d, name)}")
@@ -3573,6 +3618,440 @@ def phase_adm_checkpoints(workdir: str) -> None:
         torch.backends.cudnn.deterministic = False
 
 
+# Phases 37-39: SFD distillation.  The students train at full width in f32
+# through ``cli.train_sfd`` (or ``make_ldm_train_step`` for the 860M SD
+# U-Net), at the CLI's defaults: 4 steps, M=3, the dpmpp teacher (13 points,
+# 12 net calls a trajectory), AFS (segment 0 analytic: 2 differentiated net
+# calls a trajectory), Adam at 5e-5.
+SFD_BATCH = 128  # CIFAR-10 trajectories an iteration (--batch)
+SFD_STEPS, SFD_M = 4, 3
+SFD_KIMG = 1
+SFD_ITERS = math.ceil(SFD_KIMG * 1000 / SFD_BATCH)  # 8
+SFD_CHECK_BATCH = 8  # the segment gradient against the all-plain student
+SFD_TEA_CALLS = (SFD_M + 1) * (SFD_STEPS - 1)  # dpmpp: one net call a fine step
+SFD_STU_CALLS = SFD_STEPS - 2  # differentiated: every segment but AFS's
+SFD_K_SHAPES = [(SFD_BATCH, 256, 1, 256, torch.float32)]  # CIFAR-10's main attention level
+SFD_GN_SHAPE = (SFD_BATCH, 32, 32, 256, torch.float32, 1e-6, False)  # its 32x32 GroupNorm
+# The LSUN LDM student through the CLI: 2 iterations of 512 in microbatches
+# of 128, 3 steps and M=1 (5 teacher points, one differentiated call each)
+SFD_LDM_ARGS = ["--batch=512", "--batch_gpu=128", "--num_steps=3", "--m=1",
+                "--total_kimg=1", "--guidance_type=uncond"]
+SFD_LDM_ITERS, SFD_LDM_MICRO = 2, 4
+# The 860M SD student: one iteration of 8 trajectories in 2 microbatches of 4
+# on caption contexts (the CLI forces an effective 128, 16 rounds); its
+# segment gradient against the all-plain U-Net at batch 2
+SFD_SD_BATCH, SFD_SD_ACC, SFD_SD_CHECK_BATCH = 8, 2, 2
+SFD_SD_K_SHAPES = [(SFD_SD_BATCH // SFD_SD_ACC, 1024, SD_HEADS, 80, torch.float32)]
+SFD_SD_FLAT_SHAPES = [(SFD_SD_BATCH // SFD_SD_ACC * SD_HEADS, 4096, 40, torch.float32)]
+
+
+def _remat_sites(module) -> dict:
+    """The K1 and K3 launches that ``remat`` adds to one backward of an EDM
+    U-Net: the attention and GroupNorm calls inside its blocks, which the
+    backward recomputes."""
+    blocks = [m for m in module.modules() if isinstance(m, unets.UNetBlock)]
+    return dict(k1=sum(1 for b in blocks if b.num_heads),
+                gn=sum(isinstance(m, layers.GroupNorm) for b in blocks for m in b.modules()))
+
+
+def _segment_grads(denoise, params, x, tc, tn, tea):
+    """The gradient of one SFD segment's loss, sum|x + (tn - tc) (x - D(x,
+    tc)) / tc - tea| / batch, by ``params`` (the train step's segment)."""
+    def grads():
+        stu = x + (tn - tc) * (x - denoise(x, tc)) / tc
+        return torch.autograd.grad((stu - tea).abs().sum() / x.shape[0], params)
+
+    return grads
+
+
+def _param_grads_vs_plain(tag: str, grads_fn, patches, want: dict) -> list:
+    """``grads_fn``'s weight gradients with the kernels (exactly ``want``'s
+    launches) against the same with ``patches``' plain versions, at 1e-4 *
+    max over every weight; prints the worst tensor.  Returns the kernels'."""
+    _reset_counts()
+    got = grads_fn()
+    counts = _counts()
+    real = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    try:
+        for mod, name, plain in patches:
+            setattr(mod, name, plain)
+        ref = grads_fn()
+    finally:
+        for mod, name, fn in real:
+            setattr(mod, name, fn)
+    torch.cuda.synchronize()
+    errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
+    scales = [r.abs().max().item() for r in ref]
+    err, scale = max(errs), max(scales)
+    worst = max(range(len(errs)), key=lambda i: errs[i] / max(scales[i], 1e-30))
+    print(f"[{tag}] d loss / d weights ({len(ref)} tensors, "
+          f"{sum(r.numel() for r in ref) / 1e6:.1f}M): max {scale:.4g}, kernels vs plain "
+          f"attention + GroupNorm max abs err {err:.3g} (tol 1e-4 * max = {1e-4 * scale:.3g}); "
+          f"worst tensor {errs[worst]:.3g} of its max {scales[worst]:.3g}; launches {counts}")
+    _check(all(torch.isfinite(g).all().item() for g in got), f"{tag}: gradient not finite")
+    _check(err <= 1e-4 * scale, f"{tag}: the segment gradient with the kernels disagrees")
+    _check(counts == _only(**want), f"{tag}: launches {counts}, expected {want} and no other")
+    del ref
+    return got
+
+
+def _sfd_cli(tag: str, argv: list, want: dict, kimg: float) -> tuple:
+    """``cli.train_sfd`` as a user runs it (torch's default precision
+    flags), the counts set to 0 and the peak memory cleared just before:
+    s/kimg, peak memory, finite losses, the run dir's files, exactly
+    ``want``'s launches.  Returns (run dir, launches)."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    start, end = _events()
+    t0 = time.perf_counter()
+    start.record()
+    run_dir = cli_train_sfd.main([*argv, "--device=cuda"])
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    device_s = start.elapsed_time(end) / 1000
+    counts = _counts()
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        ticks = [json.loads(line) for line in f]
+    losses = [t["Loss/loss"]["mean"] for t in ticks]
+    print(f"[{tag}] train_sfd {' '.join(argv[:-1])}: whole CLI call {host_s:.3f} s host "
+          f"clock, {device_s:.3f} s CUDA events ({device_s / kimg:.3f} s/kimg); per-tick "
+          f"sec/kimg (host clock) {[round(t['sec_per_kimg'], 3) for t in ticks]}; "
+          f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"losses per tick {losses}; launches {counts}, expected {want}")
+    _check(ticks and all(math.isfinite(x) for x in losses), f"{tag}: losses not finite")
+    files = sorted(os.listdir(run_dir))
+    _check("training_options.json" in files and any(f.startswith("snapshot-") for f in files),
+           f"{tag}: run dir holds {files}")
+    _check(counts == _only(**want), f"{tag}: launches of the training")
+    return run_dir, counts
+
+
+def _snapshot_moved(tag: str, run_dir: str, fresh) -> None:
+    """The run's last snapshot differs from the student it started from."""
+    snap = sorted(f for f in os.listdir(run_dir) if f.startswith("snapshot-"))[-1]
+    saved = ckpt.flatten_params(ckpt.load_params(os.path.join(run_dir, snap))["params"])
+    start = ckpt.flatten_params(fresh)
+    moved = max(float(np.abs(v - start[k]).max()) for k, v in saved.items())
+    print(f"[{tag}] {snap}: params moved by max abs {moved:.4g} from the start")
+    _check(moved > 0, f"{tag}: the student did not move")
+
+
+def phase_sfd_cifar(workdir: str) -> dict:
+    """Phase 37, SFD on CIFAR-10 at full width in f32: (a) one segment's
+    weight gradient at batch 8 (unit-scale weights, TF32 off, remat on)
+    with K1 + K2 + K3 against the all-plain student at 1e-4 * max, exact
+    launches (the recompute's included); remat against plain bit-equal
+    (cuDNN deterministic); one primed profile of the segment; K1 / K2 f32
+    at the student's [128, 256, 1, 256]; (b) ``cli.train_sfd`` at batch
+    128, remat, AFS, 1 kimg: s/kimg, peak memory, losses, exact launches;
+    (c) one SFD-v iteration (num_steps drawn as the CLI draws it); (d)
+    ``cli.sample`` from the run dir, byte for byte ``generate`` on the
+    snapshot's student, with and without ``--skip_tuning``.  Returns the
+    kernels-line fields and the training's launches."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    student = init_params(build_edm_model("cifar10", sigma_min=0.006, remat=True,
+                                          device="cuda"))
+    _redraw_unit_scale(student, seed=1, device="cuda")
+    params = [p for n, p in student.named_parameters() if not absent_from_jax(n)]
+    t = torch.tensor(get_schedule(SFD_STEPS, 0.006, 80.0), dtype=torch.float32, device="cuda")
+    x = stacked_randn(range(SFD_CHECK_BATCH), (32, 32, 3), device="cuda") * t[1]
+    tea = stacked_randn(range(100, 100 + SFD_CHECK_BATCH), (32, 32, 3), device="cuda") * t[2]
+    grads_fn = _segment_grads(lambda x, s: student(x, s), params, x, t[1], t[2], tea)
+    re = _remat_sites(student.model)
+    per = dict(k1=ATTENTION_SITES + re["k1"], dq=ATTENTION_SITES, dkv=ATTENTION_SITES,
+               gn=CIFAR_GN_SITES + re["gn"])
+    print(f"[SFD CIFAR-10] f32 student, {sum(p.numel() for p in params) / 1e6:.1f}M trained "
+          f"parameters, remat: the backward recomputes {re['k1']} K1 and {re['gn']} K3 of its "
+          f"{ATTENTION_SITES} and {CIFAR_GN_SITES}; segment 1 (sigma {t[1].item():.4f} -> "
+          f"{t[2].item():.4f}) at batch {SFD_CHECK_BATCH}")
+    got = _param_grads_vs_plain("SFD CIFAR-10 segment gradient", grads_fn,
+                                _plain_net_patches(layers), per)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with_remat = grads_fn()
+        student.model.remat = False
+        _reset_counts()
+        plain = grads_fn()
+        plain_counts = _counts()
+        student.model.remat = True
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = all(torch.equal(a, b) for a, b in zip(with_remat, plain))
+    print(f"[SFD CIFAR-10] remat vs plain (cudnn.deterministic): bit-equal {same}; without "
+          f"remat {plain_counts}")
+    _check(same, "SFD CIFAR-10: the gradient with remat differs from the plain one")
+    _check(plain_counts == _only(k1=ATTENTION_SITES, dq=ATTENTION_SITES, dkv=ATTENTION_SITES,
+                                 gn=CIFAR_GN_SITES), "SFD CIFAR-10: launches without remat")
+    del got, with_remat, plain
+    _profile(f"SFD segment profile, one f32 segment gradient at batch {SFD_CHECK_BATCH}",
+             grads_fn, {"K1": per["k1"], "K2 dQ": per["dq"], "K2 dK/dV": per["dkv"],
+                        "K3": per["gn"]}, grad=True)
+    del student, params, grads_fn
+    torch.cuda.empty_cache()
+    k1 = _k1_checks("SFD K1", SFD_K_SHAPES, _qkv_views, seed=60, reps=5, warmup=2)
+    k2 = _k2_checks("SFD K2", SFD_K_SHAPES, _qkv_views, seed=61)
+    k3 = _gn_checks([SFD_GN_SHAPE], {"SFD": SFD_GN_SHAPE[:5]}, seed=64)["SFD"]
+
+    # (b) the CLI
+    it_calls = SFD_TEA_CALLS + SFD_STU_CALLS
+    want = dict(k1=SFD_ITERS * (it_calls * ATTENTION_SITES + SFD_STU_CALLS * re["k1"]),
+                gn=SFD_ITERS * (it_calls * CIFAR_GN_SITES + SFD_STU_CALLS * re["gn"]),
+                dq=SFD_ITERS * SFD_STU_CALLS * ATTENTION_SITES,
+                dkv=SFD_ITERS * SFD_STU_CALLS * ATTENTION_SITES)
+    run_dir, counts = _sfd_cli("SFD CIFAR-10", [
+        "--dataset_name=cifar10", "--model_path=random", f"--batch={SFD_BATCH}",
+        f"--total_kimg={SFD_KIMG}", f"--outdir={os.path.join(workdir, 'exps')}"],
+        want, SFD_ITERS * SFD_BATCH / 1000)
+    fresh = init_params(build_edm_model("cifar10", device="cuda"))
+    _snapshot_moved("SFD CIFAR-10", run_dir, params_to_jax(fresh.state_dict()))
+    del fresh
+
+    # (c) one SFD-v iteration
+    n = int(np.random.RandomState(0).randint(4, 8))
+    cfg = SFDConfig(num_steps=n, M=2 if n == 3 else 3, afs=True, use_step_condition=True,
+                    sigma_min=0.006)
+    student = init_params(build_edm_model("cifar10", use_step_condition=True, sigma_min=0.006,
+                                          remat=True, device="cuda"))
+    teacher = copy.deepcopy(student).requires_grad_(False)
+    for name, p in student.named_parameters():
+        p.requires_grad_(not absent_from_jax(name))
+    opt = torch.optim.Adam([p for p in student.parameters() if p.requires_grad], lr=5e-5,
+                           betas=(0.9, 0.999), eps=1e-8)
+    step = make_sfd_train_step(student, teacher, cfg, opt)
+    before = {k: v.clone() for k, v in student.state_dict().items() if "step" in k}
+    _reset_counts()
+    lat = stacked_randn(range(SFD_BATCH), (32, 32, 3), device="cuda")
+    start, end = _events()
+    start.record()
+    losses = step(lat)["loss_per_step"].tolist()
+    end.record()
+    torch.cuda.synchronize()
+    v_counts = _counts()
+    tea_calls, stu_calls = (cfg.M + 1) * (n - 1), n - 2
+    v_want = _only(k1=(tea_calls + stu_calls) * ATTENTION_SITES + stu_calls * re["k1"],
+                   gn=(tea_calls + stu_calls) * CIFAR_GN_SITES + stu_calls * re["gn"],
+                   dq=stu_calls * ATTENTION_SITES, dkv=stu_calls * ATTENTION_SITES)
+    moved = max((student.state_dict()[k] - v).abs().max().item() for k, v in before.items())
+    print(f"[SFD-v CIFAR-10] one iteration at num_steps {n} (M {cfg.M}), batch {SFD_BATCH}: "
+          f"{start.elapsed_time(end) / 1000:.3f} s CUDA events; losses {losses}; the "
+          f"step-condition modules moved by {moved:.4g}; Adam count {sfd_adam_count(opt)}; "
+          f"launches {v_counts}, expected {v_want}")
+    _check(all(math.isfinite(x) for x in losses), "SFD-v: losses not finite")
+    _check(moved > 0 and sfd_adam_count(opt) == n - 2, "SFD-v: the step condition did not train")
+    _check(v_counts == v_want, "SFD-v: launch counts")
+    del student, teacher, opt, step
+    torch.cuda.empty_cache()
+
+    # (d) sampling from the run dir
+    snap = sorted(f for f in os.listdir(run_dir) if f.startswith("snapshot-"))[-1]
+    loaded = load_jax_params(init_params(build_edm_model("cifar10", device="cuda")),
+                             ckpt.load_params(os.path.join(run_dir, snap))["params"])
+    cfg = SolverConfig(solver="euler", num_steps=SFD_STEPS, afs=True)
+    nfe = cfg.nfe()
+    for skip in (False, True):
+        images = generate(bind(loaded, **({"skip_tuning": True} if skip else {})),
+                          list(range(BATCH)), (32, 32, 3), cfg, max_batch_size=BATCH,
+                          device="cuda")
+        _reset_counts()
+        _check_cli_pngs(f"SFD sample, skip_tuning {skip}", [
+            "--dataset_name=cifar10", f"--model_path={run_dir}", f"--skip_tuning={skip}"],
+            images)
+        got = _counts()
+        print(f"[SFD sample, skip_tuning {skip}] euler NFE {nfe} (restored), f32: launches {got}")
+        _check(got == _only(k1=ATTENTION_SITES * nfe, gn=CIFAR_GN_SITES * nfe),
+               "SFD sample: launch counts")
+    del loaded
+    torch.cuda.empty_cache()
+    return dict(k1=k1["main"], k2=k2["main"], k3=k3, counts=counts)
+
+
+def phase_sfd_ldm(workdir: str) -> dict:
+    """Phase 38, the LSUN LDM student (274M f32 U-Net) through
+    ``cli.train_sfd`` in microbatches (``SFD_LDM_ARGS``; remat off, the
+    latent tiers' default): s/kimg, peak memory, exact launches (by (T, H)
+    for K2); then ``cli.sample`` from the run dir, its PNGs byte for byte
+    ``generate`` + the VQ decode on the snapshot's U-Net.  Returns the
+    training's launches and K2's at T=1024."""
+    calls = SFD_LDM_ITERS * SFD_LDM_MICRO * (2 * 2 + 1)  # 4 teacher calls, 1 differentiated
+    diff = SFD_LDM_ITERS * SFD_LDM_MICRO
+    want = dict(k1=calls * LDM_SITES, gn=calls * LDM_GN_SITES, dq=diff * LDM_SITES,
+                dkv=diff * LDM_SITES)
+    run_dir, counts = _sfd_cli("SFD LDM", [
+        f"--dataset_name={LDM}", "--model_path=random", *SFD_LDM_ARGS,
+        f"--outdir={os.path.join(workdir, 'exps')}"], want, SFD_LDM_ITERS * 512 / 1000)
+    at_1024 = {k: A.flash_attention_bwd_dq.launches_by_shape.get((1024, 14), 0)
+               if k == "dq" else A.flash_attention_bwd_dkv.launches_by_shape.get((1024, 14), 0)
+               for k in ("dq", "dkv")}
+    print(f"[SFD LDM] K2 launches by (T, H): dQ {A.flash_attention_bwd_dq.launches_by_shape}, "
+          f"dK/dV {A.flash_attention_bwd_dkv.launches_by_shape}")
+    _check(at_1024["dq"] > 0 and at_1024["dkv"] > 0, "SFD LDM: no K2 at T=1024")
+    pre, _ = create_model(LDM, "random", device="cuda")
+    fresh = convert.ldm_params_to_jax(pre.latent_diffusion.unet.state_dict())
+    _snapshot_moved("SFD LDM", run_dir, fresh)
+    snap = sorted(f for f in os.listdir(run_dir) if f.startswith("snapshot-"))[-1]
+    unet = pre.latent_diffusion.unet
+    unet.load_state_dict(convert.ldm_params_from_jax(
+        ckpt.load_params(os.path.join(run_dir, snap))["params"], unet.state_dict()))
+    cfg = SolverConfig(solver="euler", num_steps=3, afs=True, schedule_type="discrete",
+                       schedule_rho=1.0)
+    latents = generate(bind(pre), list(range(LDM_BATCH)), LDM_LATENT, cfg,
+                       max_batch_size=LDM_BATCH, device="cuda")
+    images = pre.latent_diffusion.decode_in_chunks(latents, chunk=DECODE_CHUNK)
+    _reset_counts()
+    _check_cli_pngs("SFD LDM sample", [f"--dataset_name={LDM}", f"--model_path={run_dir}"],
+                    images, batch=LDM_BATCH)
+    got = _counts()
+    nfe = cfg.nfe()
+    want_s = _only(k1=LDM_SITES * nfe, gn=LDM_GN_SITES * nfe
+                   + DECODE_GN_SITES * LDM_BATCH // DECODE_CHUNK)
+    print(f"[SFD LDM sample] euler NFE {nfe} on the discrete schedule (restored), f32, and the "
+          f"decode: launches {got}, expected {want_s}")
+    _check(got == want_s, "SFD LDM sample: launch counts")
+    del pre, unet
+    torch.cuda.empty_cache()
+    return dict(counts=counts, at_1024=at_1024)
+
+
+def phase_sfd_sd(workdir: str) -> dict:
+    """Phase 39 (in phase 32's directory: its f16 SD checkpoint, BPE merges
+    and captions CSV), the 860M SD student as ``cli.train_sfd`` builds it
+    (``_create_latent_student`` on the checkpoint, guidance 7.5, trained at
+    1.0): its segment gradient at batch 2 on caption contexts against the
+    all-plain U-Net (TF32 off, 1e-4 * max, exact K1 / K1c / K2 / K2c / K3
+    launches); K1 / K2 and K1c / K2c f32 at the microbatch's shapes; one
+    ``make_ldm_train_step`` iteration at batch 8 in 2 microbatches of 4 on
+    caption contexts (s/iteration, peak memory, exact launches); a snapshot
+    and its training_options.json naming the checkpoint; ``cli.sample``
+    from that run dir (bf16, guidance 7.5, a caption per seed), byte for byte
+    ``generate`` + the KL decode on the snapshot's U-Net.  Returns the
+    launches and the kernels-line fields."""
+    path = os.path.join(workdir, "v1-5-pruned-emaonly.ckpt")
+    csv = os.path.join(workdir, "models", "MS-COCO_val2014_30k_captions.csv")
+    old_vocab = os.environ.get("CLIP_BPE_VOCAB")
+    os.environ["CLIP_BPE_VOCAB"] = os.path.join(workdir, "merges.txt")
+    try:
+        return _sfd_sd(workdir, path, csv)
+    finally:
+        if old_vocab is None:
+            os.environ.pop("CLIP_BPE_VOCAB", None)
+        else:
+            os.environ["CLIP_BPE_VOCAB"] = old_vocab
+
+
+def _sfd_sd(workdir: str, path: str, csv: str) -> dict:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pre, student = cli_train_sfd._create_latent_student(SD, path, "cfg", SD_GUIDANCE, False,
+                                                        "cuda")
+    ld = pre.latent_diffusion
+    print(f"[SFD SD] the student from {path}: {time.perf_counter() - t0:.3f} s host clock; "
+          f"{sum(p.numel() for _, p in student.named) / 1e6:.1f}M trained parameters; text "
+          f"tower bound: {ld.cond_stage_model is not None}")
+    _check(ld.cond_stage_model is not None, "SFD SD: no text encoder")
+    context_fn = make_caption_context_fn(ld, csv, SFD_SD_BATCH, seed=0)
+    ctx = torch.as_tensor(context_fn(0), device="cuda")
+    train_pre = dataclasses.replace(pre, guidance_rate=1.0)
+    train_pre.sigma_min, train_pre.sigma_max = pre.sigma_min, pre.sigma_max
+    t = torch.tensor(get_schedule(SFD_STEPS, pre.sigma_min, pre.sigma_max),
+                     dtype=torch.float32, device="cuda")
+    n = SFD_SD_CHECK_BATCH
+    x = stacked_randn(range(n), SD_LATENT, device="cuda") * t[1]
+    tea = stacked_randn(range(100, 100 + n), SD_LATENT, device="cuda") * t[2]
+    unet = student.module
+    params = [p for _, p in student.named]
+    grads_fn = _segment_grads(lambda xs, s: train_pre.denoise_with(
+        lambda a, b, c: unet(a, b, c), xs, s, condition=ctx[:n]), params, x, t[1], t[2], tea)
+    gn = _gn_sites(unet)
+    mh = SD_SITES - SD_FLAT_SITES
+    got = _param_grads_vs_plain("SFD SD segment gradient", grads_fn, _plain_net_patches(adm),
+                                dict(k1=mh, k1c=SD_FLAT_SITES, gn=gn, dq=mh, dkv=mh,
+                                     dqc=SD_FLAT_SITES, dkvc=SD_FLAT_SITES))
+    del got, grads_fn
+    torch.cuda.empty_cache()
+    k1 = _k1_checks("SFD SD K1", SFD_SD_K_SHAPES, _sd_views, seed=62, reps=5, warmup=2)
+    k2 = _k2_checks("SFD SD K2", SFD_SD_K_SHAPES, _sd_views, seed=63)
+    k1c, k2c = phase_sd_flat_kernels(SFD_SD_FLAT_SHAPES, "SFD SD K1c/K2c")
+
+    # one iteration at batch 8 in 2 microbatches, the CLI's optimizer and schedule
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = SFDConfig(num_steps=SFD_STEPS, M=SFD_M, afs=True, sigma_min=0.006)
+    opt = torch.optim.Adam(params, lr=5e-5, betas=(0.9, 0.999), eps=1e-8)
+    step = make_sfd_ldm_train_step(unet, student.teacher, pre, cfg, opt, n_acc=SFD_SD_ACC)
+    lat = stacked_randn(range(SFD_SD_BATCH), SD_LATENT, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    start, end = _events()
+    start.record()
+    losses = step(lat, ctx)["loss_per_step"].tolist()
+    end.record()
+    torch.cuda.synchronize()
+    counts = _counts()
+    calls = SFD_SD_ACC * (SFD_TEA_CALLS + SFD_STU_CALLS)
+    diff = SFD_SD_ACC * SFD_STU_CALLS
+    want = _only(k1=calls * mh, k1c=calls * SD_FLAT_SITES, gn=calls * gn, dq=diff * mh,
+                 dkv=diff * mh, dqc=diff * SD_FLAT_SITES, dkvc=diff * SD_FLAT_SITES)
+    print(f"[SFD SD] one iteration, batch {SFD_SD_BATCH} in {SFD_SD_ACC} microbatches, f32, "
+          f"caption contexts: {start.elapsed_time(end) / 1000:.3f} s CUDA events; "
+          f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"losses {losses}; Adam count {sfd_adam_count(opt)}; launches {counts}, expected {want}")
+    _check(all(math.isfinite(x) for x in losses), "SFD SD: losses not finite")
+    _check(counts == want, "SFD SD: launch counts of the iteration")
+    run_dir = os.path.join(workdir, "exps", "00000-ms_coco-4step-dpmpp3")
+    os.makedirs(run_dir)
+    ckpt.save_config(os.path.join(run_dir, "training_options.json"), dict(
+        dataset_name=SD, batch=SFD_SD_BATCH, lr=5e-5, total_kimg=1, seed=0, model_path=path,
+        guidance_type="cfg", guidance_rate=SD_GUIDANCE, **dataclasses.asdict(cfg)))
+    # the snapshot's params and cur_nimg, as save_snapshot writes them less
+    # Adam's moments (6.9 GB more to write; the CPU tests hold the latent
+    # snapshot's moments and resume), which sampling does not read
+    trained = convert.ldm_params_to_jax(unet.state_dict())
+    _, save_s = _host_timed(lambda: ckpt.save_params(
+        os.path.join(run_dir, "snapshot-000000.npz"), trained,
+        meta={"cur_nimg": np.asarray([SFD_SD_BATCH])}))
+    print(f"[SFD SD] wrote the snapshot's params: {save_s:.3f} s host clock")
+    del pre, ld, student, unet, params, opt, step
+    torch.cuda.empty_cache()
+
+    # sampling from the run dir: bf16, guidance 7.5, a caption per seed
+    torch.backends.cudnn.allow_tf32 = True
+    pre = build_ldm_model(SD, path, guidance_rate=SD_GUIDANCE, dtype=torch.bfloat16,
+                          device="cuda")
+    ld = pre.latent_diffusion
+    ld.unet.load_state_dict(convert.ldm_params_from_jax(trained, ld.unet.state_dict()))
+    del trained
+    seeds = list(range(SD_BATCH))
+    captions = load_captions(csv)
+    rows = ld.encode_in_chunks([captions[s % len(captions)] for s in seeds])
+    uc = ld.get_learned_conditioning([""])
+    cfg_s = SolverConfig(solver="euler", num_steps=SFD_STEPS, afs=True,
+                         schedule_type="discrete", schedule_rho=1.0)
+    latents = generate(bind(pre, unconditional_condition=uc), seeds, SD_LATENT, cfg_s,
+                       max_batch_size=SD_BATCH, device="cuda", per_seed_cond=rows)
+    images = ld.decode_in_chunks(latents, chunk=DECODE_CHUNK)
+    nfe = cfg_s.nfe()
+    want_s = _only(k1=SD_SITES * nfe, gn=_gn_sites(ld.unet) * nfe + _gn_sites(ld.first_stage))
+    del pre, ld
+    torch.cuda.empty_cache()
+    _reset_counts()
+    with contextlib.chdir(workdir):  # the captions CSV in ./models
+        _check_cli_pngs("SFD SD sample", [f"--dataset_name={SD}", "--model_path=0",
+                                          "--bf16=True"], images, batch=SD_BATCH)
+    got = _counts()
+    print(f"[SFD SD sample] euler NFE {nfe} (restored), guidance {SD_GUIDANCE}, bf16, and the "
+          f"KL decode: launches {got}, expected {want_s}")
+    _check(got == want_s, "SFD SD sample: launch counts")
+    return dict(counts=counts, k1=k1["main"], k2=k2["main"], k1c=k1c, k2c=k2c)
+
+
 def _kernel_entry(name, source, replaces, launches, fields) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **{k: fields[k] for k in (
@@ -3622,7 +4101,8 @@ def main() -> int:
         in64_amed = _phase("phase 13, ImageNet-64 AMED", phase_in64_amed, workdir)
     k3 = _phase("phase 15, K3 at the LSUN LDM, CIFAR-10 and ImageNet-64 shapes",
                 phase_groupnorm_kernel)
-    k2b = _phase("phase 16, K1 / K2 at the LSUN LDM shapes", phase_ldm_attention_kernels)
+    ldm_k1, k2b = _phase("phase 16, K1 / K2 at the LSUN LDM shapes",
+                         phase_ldm_attention_kernels)
     _phase("phase 17, LSUN LDM D and gradient f32", phase_ldm_denoiser_and_gradient)
     ldm_gn, vq_gn, pre = _phase("phase 18, LSUN LDM sampling and decode", phase_ldm_sampling)
     _phase("phase 20, LSUN LDM profile", phase_ldm_profile, pre)
@@ -3653,6 +4133,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         ckpt_sd = _phase("phase 32, Stable Diffusion from a checkpoint, with its text tower",
                          phase_checkpoint_sd, workdir)
+        sfd_sd = _phase("phase 39, the SD student from phase 32's checkpoint", phase_sfd_sd,
+                        workdir)
     adm_k = _phase("phase 34a, K1 / K2 / K3 at the 256 px shapes", phase_adm_kernels)
     _phase("phase 34b, LSUN-Bedroom 256 (CM) D and gradient f32",
            phase_cm_denoiser_and_gradient)
@@ -3666,6 +4148,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         _phase("phase 36, the 256 px tiers from checkpoint files", phase_adm_checkpoints,
                workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        sfd = _phase("phase 37, SFD on CIFAR-10 through train_sfd", phase_sfd_cifar, workdir)
+        sfd_ldm = _phase("phase 38, the LSUN LDM student through train_sfd", phase_sfd_ldm,
+                         workdir)
     for name, n in (("K1", launches), ("K2 dQ", amed["dq"]), ("K2 dK/dV", amed["dkv"]),
                     ("K1 on ImageNet-64", in64_launches),
                     ("K2 dQ on ImageNet-64", in64_amed["dq"]),
@@ -3701,7 +4187,21 @@ def main() -> int:
                     ("K3 on ImageNet-256 with classifier guidance", cg_counts["gn"]),
                     ("K2 dQ bf16 on ImageNet-256 with classifier guidance", cg_counts["dq"]),
                     ("K2 dK/dV bf16 on ImageNet-256 with classifier guidance",
-                     cg_counts["dkv"])):
+                     cg_counts["dkv"]),
+                    ("K1 f32 on the CIFAR-10 SFD student", sfd["counts"]["k1"]),
+                    ("K2 dQ f32 on the CIFAR-10 SFD student", sfd["counts"]["dq"]),
+                    ("K2 dK/dV f32 on the CIFAR-10 SFD student", sfd["counts"]["dkv"]),
+                    ("K3 f32 on the CIFAR-10 SFD student", sfd["counts"]["gn"]),
+                    ("K1 f32 on the LSUN LDM SFD student", sfd_ldm["counts"]["k1"]),
+                    ("K2 dQ f32 on the LSUN LDM SFD student at T=1024", sfd_ldm["at_1024"]["dq"]),
+                    ("K2 dK/dV f32 on the LSUN LDM SFD student at T=1024",
+                     sfd_ldm["at_1024"]["dkv"]),
+                    ("K1 f32 on the SD SFD student", sfd_sd["counts"]["k1"]),
+                    ("K1c on the SD SFD student", sfd_sd["counts"]["k1c"]),
+                    ("K2 dQ f32 on the SD SFD student", sfd_sd["counts"]["dq"]),
+                    ("K2 dK/dV f32 on the SD SFD student", sfd_sd["counts"]["dkv"]),
+                    ("K2c dQ on the SD SFD student", sfd_sd["counts"]["dqc"]),
+                    ("K2c dK/dV on the SD SFD student", sfd_sd["counts"]["dkvc"])):
         _check(n > 0, f"{name} was not launched on its path")
     print(f"[time] whole run: {time.perf_counter() - t_start:.2f} s")
     print(smi)
@@ -3802,6 +4302,48 @@ def main() -> int:
                         "diff_sampler_tpu/ops/pallas_groupnorm.py:29", n, adm_k["gn"]["256 px"])
           for label, n in (("LSUN-Bedroom 256 CM", cm_counts["gn"]),
                            ("ImageNet-256 classifier-guidance", cg_counts["gn"]))),
+        _kernel_entry("flash_attention_mh in f32 at the CIFAR-10 SFD student's [128, 256, 1, 256] "
+                      "(K1 in 3xTF32; phase 37: train_sfd at batch 128, the forward of every "
+                      "net call and remat's recompute)", fwd32, f"{tpu}:157", sfd["counts"]["k1"],
+                      sfd["k1"]),
+        _kernel_entry("flash_attention_bwd_dq in f32 at the CIFAR-10 SFD student's [128, 256, 1, "
+                      "256] (K2 dQ in 3xTF32, phase 37)", bwd32, f"{tpu}:406",
+                      sfd["counts"]["dq"], sfd["k2"]["dq"]),
+        _kernel_entry("flash_attention_bwd_dkv in f32 at the CIFAR-10 SFD student's [128, 256, 1, "
+                      "256] (K2 dK/dV in 3xTF32, phase 37)", bwd32, f"{tpu}:554",
+                      sfd["counts"]["dkv"], sfd["k2"]["dkv"]),
+        _kernel_entry(f"groupnorm_silu in f32 (K3 on the CIFAR-10 SFD student at [128, 32, 32, "
+                      f"256], route {sfd['k3']['route']}, phase 37)",
+                      "diff_sampler_tpu_torch/csrc/groupnorm.cu",
+                      "diff_sampler_tpu/ops/pallas_groupnorm.py:29", sfd["counts"]["gn"],
+                      sfd["k3"]),
+        _kernel_entry("flash_attention_mh in f32 at d=32 (K1 in 3xTF32 in place of K1b, LSUN LDM "
+                      "SFD student in microbatches of 128, phase 38; times at T=1024 H=14 of "
+                      "phase 16)", fwd32, f"{tpu}:227", sfd_ldm["counts"]["k1"],
+                      ldm_k1["float32"]),
+        _kernel_entry("flash_attention_bwd_dq in f32 at T=1024 H=14 d=32 (K2 dQ in 3xTF32 in "
+                      "place of K2b, LSUN LDM SFD student, phase 38; times of phase 16)", bwd32,
+                      f"{tpu}:699", sfd_ldm["at_1024"]["dq"], k2b["main"]["dq"]),
+        _kernel_entry("flash_attention_bwd_dkv in f32 at T=1024 H=14 d=32 (K2 dK/dV in 3xTF32 in "
+                      "place of K2b, LSUN LDM SFD student, phase 38; times of phase 16)", bwd32,
+                      f"{tpu}:757", sfd_ldm["at_1024"]["dkv"], k2b["main"]["dkv"]),
+        _kernel_entry("flash_attention_mh in f32 at d=80/160 (K1 in 3xTF32, SD SFD student's "
+                      "microbatch of 4, phase 39; times at [4, 1024, 8, 80])", fwd32,
+                      f"{tpu}:157", sfd_sd["counts"]["k1"], sfd_sd["k1"]),
+        _kernel_entry("flash_attention_bwd_dq in f32 at d=80/160 (K2 dQ in 3xTF32, SD SFD "
+                      "student, phase 39)", bwd32, f"{tpu}:406", sfd_sd["counts"]["dq"],
+                      sfd_sd["k2"]["dq"]),
+        _kernel_entry("flash_attention_bwd_dkv in f32 at d=80/160 (K2 dK/dV in 3xTF32, SD SFD "
+                      "student, phase 39)", bwd32, f"{tpu}:554", sfd_sd["counts"]["dkv"],
+                      sfd_sd["k2"]["dkv"]),
+        _kernel_entry("flash_attention (K1c in 3xTF32 at the SD SFD student's flat [32, 4096, "
+                      "40], phase 39)", fwd32, f"{tpu}:49", sfd_sd["counts"]["k1c"],
+                      sfd_sd["k1c"]),
+        _kernel_entry("flash_attention_flat_bwd_dq (K2c dQ in 3xTF32, SD SFD student, phase 39)",
+                      bwd32, f"{tpu}:960", sfd_sd["counts"]["dqc"], sfd_sd["k2c"]["dq"]),
+        _kernel_entry("flash_attention_flat_bwd_dkv (K2c dK/dV in 3xTF32, SD SFD student, "
+                      "phase 39)", bwd32, f"{tpu}:994", sfd_sd["counts"]["dkvc"],
+                      sfd_sd["k2c"]["dkv"]),
         _kernel_entry("conv3x3 / gn_silu_conv3x3 in bf16 (K4, 3x3 conv with a fused "
                       "GroupNorm-affine + SiLU prologue: wgmma on a TMA-loaded halo tile, the "
                       "prologue once per staged pixel; its entry points, no JAX path)", conv,

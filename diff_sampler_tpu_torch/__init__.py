@@ -6,8 +6,10 @@ ipndm / ipndm_v / deis / dpmpp / unipc samplers, per-seed generation and
 labels, PNG, grid and trajectory output, the GITS schedule search -- the
 latent tiers (the LSUN-Bedroom LDM with its VQ decode, Stable Diffusion v1.5
 with classifier-free guidance over the contexts of its CLIP text tower and
-its KL decode), and AMED (predictor training through the frozen net, AMED
-sampling) on an NVIDIA Hopper card, with hand-written kernels built from
+its KL decode), AMED (predictor training through the frozen net, AMED
+sampling) and SFD distillation (the pixel and latent students, SFD-v's
+step condition, block recompute, sampling from their snapshots) on an
+NVIDIA Hopper card, with hand-written kernels built from
 ``csrc/`` at first use.  Every tier runs on random weights from a seed or
 on the reference's checkpoint files, read by a restricted unpickler that
 runs none of their code; nothing is downloaded.  Samples are scored by FID
@@ -27,12 +29,12 @@ Subpackages mirror the JAX package's module names:
              JAX-params converter, analytic denoisers
   solvers  - samplers, AMED predictor and samplers
   gits     - the GITS schedule search
-  training - AMED trainer, SD's conditioning contexts
+  training - AMED and SFD trainers, SD's conditioning contexts
   eval     - the FID Inception-V3 detector and its importers, FID, PRDC,
              the image dataset reader
   utils    - per-seed RNG, image IO, checkpoints, training stats, timing,
              the CLIP BPE tokenizer, a read-only LMDB reader
-  cli      - sample, train_amed, fid, prdc, dataset_tool
+  cli      - sample, train_amed, train_sfd, fid, prdc, dataset_tool
 """
 
 __version__ = "0.1.0"

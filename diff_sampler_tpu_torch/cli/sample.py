@@ -65,6 +65,20 @@ is bound without labels there, as the JAX CLI binds it for AMED,
 ``imagenet256`` takes each seed's integer label, and Stable Diffusion
 samples on the prompt or caption contexts above.
 
+An SFD student samples from ``--model_path`` set to one of its snapshots
+(``snapshot-*.npz``), its run directory (the last snapshot) or its
+experiment number under ``./exps``: an EDM student is rebuilt with its
+step-condition modules where it has them, a latent one from the original
+checkpoint that its ``training_options.json`` names, its U-Net then
+swapped for the snapshot's; the solver becomes euler, and num_steps
+(unless the student is SFD-v's), the schedule and AFS come from
+``training_options.json``, as in the JAX CLI.  As there, an SFD-v
+student samples without its step condition.  ``--skip_tuning=True``
+scales an EDM net's decoder skips (SFD's inference-time tuning):
+
+  python -m diff_sampler_tpu_torch.cli.sample --dataset_name=cifar10 \
+      --model_path=exps/00000-cifar10-4step-dpmpp3 --skip_tuning=True --seeds=0-63
+
 PNG writes of a pixel tier's batch i run on the host while the device
 samples batch i+1 (``sampling.generate``'s batch callback); a latent tier, a
 grid and a trajectory are written after sampling.
@@ -81,8 +95,9 @@ import numpy as np
 import torch
 
 from ..gits.search import GITSConfig, gits_schedule
-from ..models.convert import load_jax_params
-from ..models.factory import ADM_TIERS, EDM_ARCHS, LDM_CONFIGS, create_model
+from ..models.convert import ldm_params_from_jax, load_jax_params
+from ..models.factory import (ADM_TIERS, EDM_ARCHS, LDM_CONFIGS, build_edm_model,
+                              build_ldm_model, create_model, init_params)
 from ..models.precond import CFGPrecond, CGPrecond, bind
 from ..models.zoo import find_file
 from ..ops import get_schedule
@@ -110,7 +125,8 @@ def _parser() -> argparse.ArgumentParser:
                    choices=sorted(EDM_ARCHS) + sorted(ADM_TIERS) + sorted(LDM_CONFIGS))
     p.add_argument("--model_path", default="random",
                    help="'random' (seeded random weights), a reference checkpoint file "
-                        "(.pkl / .pt / .ckpt), or None for the zoo's file in the offline roots")
+                        "(.pkl / .pt / .ckpt), None for the zoo's file in the offline roots, "
+                        "or an SFD snapshot .npz, its run dir or experiment number")
     p.add_argument("--predictor", default=None,
                    help="AMED predictor: run dir, predictor.npz, or experiment number")
     p.add_argument("--batch", dest="max_batch_size", type=int, default=64)
@@ -145,6 +161,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--variant", choices=["bh1", "bh2"], default="bh2")
     p.add_argument("--deis_mode", choices=["tab", "rhoab"], default="tab")
     p.add_argument("--r", type=float, default=0.5)
+    p.add_argument("--skip_tuning", type=_bool, default=False,
+                   help="SFD's inference-time skip scaling (an EDM net)")
     # GUIDANCE_FLAGS
     p.add_argument("--guidance_type", choices=["cfg", "cg"], default=None,
                    help="ms_coco: cfg (classifier-free); imagenet256: cg (classifier guidance)")
@@ -173,6 +191,9 @@ def main(argv=None) -> dict:
     if args.dataset_name != "imagenet256" and args.guidance_type == "cg":
         raise NotImplementedError("--guidance_type=cg applies to imagenet256 only (its noisy "
                                   "classifier)")
+    if args.skip_tuning and (args.dataset_name not in EDM_ARCHS or args.predictor is not None):
+        raise NotImplementedError("--skip_tuning applies to plain sampling of an EDM net "
+                                  "(SongUNet / DhariwalUNet)")
     if args.dp and args.dataset_name == "imagenet256":
         raise NotImplementedError("GITS on imagenet256: its warmup trajectories would need "
                                   "class labels, which the JAX CLI does not bind either")
@@ -185,8 +206,12 @@ def main(argv=None) -> dict:
         raise RuntimeError("--device=cuda but CUDA is not available (pass --device=cpu)")
     seeds = parse_int_list(args.seeds)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    module, source = create_model(args.dataset_name, args.model_path,
-                                  guidance_rate=args.guidance_rate, dtype=dtype, device=device)
+    if _is_snapshot(args.model_path):
+        module, source = _sfd_student(args, dtype, device)
+    else:
+        module, source = create_model(args.dataset_name, args.model_path,
+                                      guidance_rate=args.guidance_rate, dtype=dtype,
+                                      device=device)
     shape = (module.img_resolution, module.img_resolution, module.img_channels)
     summary = dict(dp_list=None, gits_seconds=None, outdir=None)
     cond, per_seed_cond, captions = {}, None, None
@@ -209,7 +234,7 @@ def main(argv=None) -> dict:
                                          args.subdirs, args.dataset_name, device, cond,
                                          per_seed_cond)
         return summary
-    den = bind(module, **cond)
+    den = bind(module, **cond, **({"skip_tuning": True} if args.skip_tuning else {}))
     # a latent tier samples on the model's discrete schedule, unless a
     # schedule or a sigma list was asked for; the GITS teacher runs on it too
     if latent and args.schedule_type == "polynomial" and args.t_steps is None:
@@ -308,15 +333,81 @@ def _decode_and_save(module, latents, seeds, out_base, grid=False, subdirs=True)
           f"{out_base}")
 
 
-def _resolve_snapshot(path_or_exp, outdir_base="./exps"):
-    """AMED run dir / its predictor.npz / experiment number under
-    ``outdir_base`` -> (npz path, the run's predictor_config.json)."""
+def _run_path(path_or_exp, outdir_base: str) -> str:
+    """A path as it is, or experiment number n -> its run dir in
+    ``outdir_base``."""
     path = str(path_or_exp)
     if path.isdigit():
         run_dir = ckpt.find_run_dir(outdir_base, int(path))
         if run_dir is None:
             raise FileNotFoundError(f"no experiment #{path} in {outdir_base}")
         path = run_dir
+    return path
+
+
+def _is_snapshot(model_path) -> bool:
+    """Whether ``--model_path`` names an SFD snapshot, run dir or experiment
+    number."""
+    return model_path is not None and (model_path.endswith(".npz") or model_path.isdigit()
+                                       or os.path.isdir(model_path))
+
+
+def _resolve_sfd_snapshot(path_or_exp, outdir_base="./exps"):
+    """SFD run dir (its last snapshot) / snapshot .npz / experiment number
+    under ``outdir_base`` -> (npz path, the run's training_options.json, or
+    {} where there is none beside the snapshot)."""
+    path = _run_path(path_or_exp, outdir_base)
+    if os.path.isdir(path):
+        snaps = sorted(f for f in os.listdir(path)
+                       if f.startswith("snapshot-") and f.endswith(".npz"))
+        if not snaps:
+            raise FileNotFoundError(f"no snapshot-*.npz in {path}")
+        path = os.path.join(path, snaps[-1])
+    cfg_path = os.path.join(os.path.dirname(path), "training_options.json")
+    return path, ckpt.load_config(cfg_path) if os.path.isfile(cfg_path) else {}
+
+
+def _sfd_student(args, dtype, device):
+    """(module, source) of an SFD snapshot, ``args``' solver settings
+    restored from its training options (sfd sample.py:110-135): a latent
+    student is the LDM / SD stack of the original checkpoint with the
+    snapshot's U-Net; an EDM one is built with its step-condition modules
+    (at the sampling sigma_min, 0.002)."""
+    npz, restored = _resolve_sfd_snapshot(args.model_path)
+    params = ckpt.load_params(npz)["params"]
+    if args.dataset_name in LDM_CONFIGS:
+        rate = restored.get("guidance_rate", args.guidance_rate)
+        module = build_ldm_model(args.dataset_name, restored.get("model_path"),
+                                 guidance_rate=rate or 1.0, dtype=dtype, device=device)
+        unet = module.latent_diffusion.unet
+        unet.load_state_dict(ldm_params_from_jax(params, unet.state_dict()))
+        args.guidance_rate = rate
+        source = "sd" if args.dataset_name == "ms_coco" else "ldm"
+    elif args.dataset_name in EDM_ARCHS:
+        module = init_params(build_edm_model(
+            args.dataset_name, use_step_condition=restored.get("use_step_condition", False),
+            dtype=dtype, device=device))
+        load_jax_params(module, params)
+        source = "edm"
+    else:
+        raise NotImplementedError(f"{args.dataset_name} has no SFD student")
+    if restored:
+        # --num_steps is honoured only for SFD-v
+        if not restored.get("use_step_condition", False):
+            args.num_steps = restored.get("num_steps", args.num_steps)
+        args.solver = "euler"
+        args.schedule_type = restored.get("schedule_type", args.schedule_type)
+        args.schedule_rho = restored.get("schedule_rho", args.schedule_rho)
+        args.afs = restored.get("afs", args.afs)
+        print(f"Restored SFD sampling settings: num_steps={args.num_steps} "
+              f"schedule={args.schedule_type}({args.schedule_rho}) afs={args.afs}")
+    return module, source
+
+
+def _resolve_snapshot(path_or_exp, outdir_base="./exps"):
+    """AMED run dir / its predictor.npz / experiment number under
+    ``outdir_base`` -> (npz path, the run's predictor_config.json)."""
+    path = _run_path(path_or_exp, outdir_base)
     npz = os.path.join(path, "predictor.npz") if os.path.isdir(path) else path
     cfg_path = os.path.join(os.path.dirname(npz), "predictor_config.json")
     if not os.path.isfile(cfg_path):

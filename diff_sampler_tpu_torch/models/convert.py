@@ -9,7 +9,10 @@
   * ``enc_16x16_block0`` -> ``enc.16x16_block0`` (and ``dec_*`` alike)
 
 ``params_to_jax`` is its inverse, for modules the port trains (the AMED
-predictor), whose params the JAX package then loads.
+predictor, SFD's EDM students), whose params the JAX package then loads.
+The names need no case of their own for SFD-v's modules: ``affine_step``,
+``map_step_layer0`` / ``map_step_layer1`` and a Fourier ``map_step``'s
+``freqs`` (a buffer here, a param there) carry over as any layer's do.
 
 ``load_ldm_jax_params`` loads the JAX package's latent-diffusion param trees
 (``unet``, ``decoder``, ``post_quant_conv`` and, for a VQ first stage,
@@ -21,6 +24,10 @@ U-Net as it is: the spatial transformers' bias-free ``to_q`` / ``to_k`` /
 ``to_v`` kernels, ``to_out_0``, ``ff_net_0_proj``, ``ff_net_2``, the
 LayerNorms ``norm1``-``norm3`` (``scale`` / ``bias``), ``proj_in`` /
 ``proj_out``, and the KL stage's ``post_quant_conv``.
+
+``ldm_params_to_jax`` / ``ldm_params_from_jax`` carry a latent U-Net's
+state_dict (or any tensors under its names, such as Adam's moments) to
+the JAX package's flat ``unet`` tree and back: SFD's latent students.
 
 ``load_adm_jax_params`` loads the JAX package's ADM param trees
 (``ADMUNet`` / ``ADMClassifier``, named by the reference's paths with '.' ->
@@ -47,7 +54,8 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "params_to_jax", "load_jax_params", "load_ldm_jax_params",
-           "load_adm_jax_params", "absent_from_jax", "inception_state_dict_from_jax"]
+           "ldm_params_to_jax", "ldm_params_from_jax", "load_adm_jax_params", "absent_from_jax",
+           "inception_state_dict_from_jax"]
 
 _SPLIT_PREFIXES = ("enc_", "dec_")
 # U-Net level names after the prefix: ``16x16_block0``, ``8x8_aux_norm``...
@@ -149,18 +157,16 @@ def _unmechanical(node: Mapping[str, Any], leaf: str, ndim: int) -> np.ndarray:
     return np.asarray(node["scale"], np.float32)
 
 
-def load_ldm_jax_params(ld: torch.nn.Module, trees: Mapping[str, Any]) -> torch.nn.Module:
-    """Load the JAX package's LatentDiffusion param trees (``unet``,
-    ``decoder``, ``post_quant_conv`` and a VQ stage's ``codebook``) into the
-    port's ``models.ldm.LatentDiffusion`` (VQ or KL) in place.  Every
-    state_dict key must be found and every JAX module used."""
-    flat = {**{f"unet_{k}": v for k, v in trees["unet"].items()},
-            **{f"first_stage_decoder_{k}": v for k, v in trees["decoder"].items()},
-            "first_stage_post_quant_conv": trees["post_quant_conv"]}
+def _from_mechanical(flat: Mapping[str, Any], like: Mapping[str, torch.Tensor],
+                     special: Mapping[str, Any] = None) -> Dict[str, torch.Tensor]:
+    """{state_dict key of ``like``: tensor} from JAX modules named by the
+    key's path with '.' -> '_' (``special`` gives some keys' arrays as they
+    are).  Every key must be found and every JAX module used."""
+    special = special or {}
     sd, used, missing = {}, set(), []
-    for key, ref in ld.state_dict().items():
-        if key == "first_stage.codebook":
-            sd[key] = torch.from_numpy(np.array(trees["codebook"], np.float32))
+    for key, ref in like.items():
+        if key in special:
+            sd[key] = torch.from_numpy(np.array(special[key], np.float32))
             continue
         path, leaf = key.rsplit(".", 1)
         name = path.replace(".", "_")
@@ -177,8 +183,48 @@ def load_ldm_jax_params(ld: torch.nn.Module, trees: Mapping[str, Any]) -> torch.
     if missing or unused:
         raise KeyError(f"JAX params do not match the module: missing {missing}, "
                        f"unused {unused}")
-    ld.load_state_dict(sd)
+    return sd
+
+
+def load_ldm_jax_params(ld: torch.nn.Module, trees: Mapping[str, Any]) -> torch.nn.Module:
+    """Load the JAX package's LatentDiffusion param trees (``unet``,
+    ``decoder``, ``post_quant_conv`` and a VQ stage's ``codebook``) into the
+    port's ``models.ldm.LatentDiffusion`` (VQ or KL) in place.  Every
+    state_dict key must be found and every JAX module used."""
+    flat = {**{f"unet_{k}": v for k, v in trees["unet"].items()},
+            **{f"first_stage_decoder_{k}": v for k, v in trees["decoder"].items()},
+            "first_stage_post_quant_conv": trees["post_quant_conv"]}
+    special = {"first_stage.codebook": trees["codebook"]} if "codebook" in trees else {}
+    ld.load_state_dict(_from_mechanical(flat, ld.state_dict(), special))
     return ld
+
+
+def ldm_params_from_jax(tree: Mapping[str, Any], like: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """The JAX package's flat latent U-Net tree (``ld.unet_params``: modules
+    named by the reference's paths with '.' -> '_') as tensors under the
+    keys of ``like`` (the port's ``LDMUNet.state_dict()``, or the names of
+    its trainable tensors); every key found, every JAX module used."""
+    return _from_mechanical(tree, like)
+
+
+def ldm_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """A latent U-Net's state_dict (or tensors under its names) as the JAX
+    package's flat ``unet`` tree: conv weights OIHW -> HWIO ``kernel``,
+    linear weights -> (in, out) ``kernel``, 1-D weights -> ``scale``."""
+    out: Dict[str, Any] = {}
+    for key, val in state_dict.items():
+        path, leaf = key.rsplit(".", 1)
+        arr = val.detach().cpu().float().numpy()
+        if leaf == "weight":
+            if arr.ndim == 4:
+                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:
+                leaf, arr = "kernel", arr.T
+            else:
+                leaf = "scale"
+        out.setdefault(path.replace(".", "_"), {})[leaf] = np.ascontiguousarray(arr)
+    return out
 
 
 def load_adm_jax_params(module: torch.nn.Module, params: Mapping[str, Any]) -> torch.nn.Module:

@@ -61,15 +61,24 @@ EDM_ARCHS["afhqv2"] = EDM_ARCHS["ffhq"]
 ADM_TIERS = {"lsun_bedroom": "cm", "lsun_cat": "cm", "imagenet256": "adm"}
 
 
-def build_edm_model(dataset_name: str, *, dtype: torch.dtype = torch.float32,
-                    sigma_min: Optional[float] = None, sigma_max: float = 80.0,
+def build_edm_model(dataset_name: str, *, use_step_condition: bool = False,
+                    dtype: torch.dtype = torch.float32, sigma_min: Optional[float] = None,
+                    sigma_max: float = 80.0, remat: bool = False,
                     device="cuda") -> EDMPrecond:
     """The EDMPrecond module of a dataset, in eval mode, with its parameters
     allocated on ``device`` but not yet initialised (``init_params`` or
-    ``convert.load_jax_params`` fills them)."""
+    ``convert.load_jax_params`` fills them).  ``use_step_condition`` adds
+    SFD-v's step-condition modules, ``remat`` recomputes each block in the
+    backward; an SFD student is built with ``sigma_min=0.006`` (sfd
+    training_loop.py:83-84), sampling keeps 0.002."""
     interface, kwargs = EDM_ARCHS[dataset_name]
+    kwargs = dict(kwargs)
+    if use_step_condition:
+        kwargs["use_step_condition"] = True
+    if remat:
+        kwargs["remat"] = True
     return EDMPrecond(sigma_min=sigma_min if sigma_min is not None else 0.002,
-                      sigma_max=sigma_max, dtype=dtype, model_kwargs=dict(kwargs),
+                      sigma_max=sigma_max, dtype=dtype, model_kwargs=kwargs,
                       device=device, **interface).eval()
 
 
@@ -114,7 +123,7 @@ def _load(model_path: Optional[str], dataset_name: str):
 
 def build_ldm_model(dataset_name: str, model_path: Optional[str] = "random", *,
                     guidance_rate: float = 1.0, dtype: torch.dtype = torch.float32,
-                    device="cuda") -> CFGPrecond:
+                    remat: bool = False, device="cuda") -> CFGPrecond:
     """An LDM / SD checkpoint -> CFGPrecond over its LatentDiffusion stack
     (``precond.latent_diffusion``), as the JAX package's ``build_ldm_model``
     (sfd training_loop.py:86-108): ``ms_coco`` (Stable Diffusion) under
@@ -123,10 +132,10 @@ def build_ldm_model(dataset_name: str, model_path: Optional[str] = "random", *,
     unconditional LDMs with sigma_min 0.006 (:94, 99).  ``dtype`` is the
     U-Net's compute dtype; the first stage and the text encoder (bound where
     an SD checkpoint carries it) run in f32.  ``model_path`` as in
-    ``create_model``."""
+    ``create_model``; ``remat`` the U-Net's (``LDMUNet``)."""
     state_dict = None if model_path == "random" else _load(model_path, dataset_name)
     ld = build_latent_diffusion(dataset_name, state_dict=state_dict, dtype=dtype,
-                                device=device)
+                                remat=remat, device=device)
     del state_dict
     common = dict(alphas_cumprod=ld.alphas_cumprod, img_resolution=ld.unet.image_size,
                   img_channels=ld.unet.in_channels, latent_diffusion=ld)

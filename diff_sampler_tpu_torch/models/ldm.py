@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import adm
 from .adm import (_GN, AttentionBlock, Downsample, ResBlock, Upsample, _Conv, _Linear,
@@ -197,14 +198,22 @@ class SpatialTransformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _run(block: nn.ModuleList, h, emb, context):
+def _run(block: nn.ModuleList, h, emb, context, remat: bool = False):
+    """One U-Net block's layers; with ``remat`` while autograd records, each
+    res block and attention layer recomputes its activations in the backward
+    (the JAX package's ``nn.remat`` of ``_res_step`` / ``_attn_step``)."""
+    remat = remat and torch.is_grad_enabled()
     for layer in block:
         if isinstance(layer, ResBlock):
-            h = layer(h, emb)
+            args = (h, emb)
         elif isinstance(layer, SpatialTransformer):
-            h = layer(h, context)
+            args = (h, context)
         else:
-            h = layer(h)
+            args = (h,)
+        if remat and isinstance(layer, (ResBlock, SpatialTransformer, AttentionBlock)):
+            h = checkpoint(layer, *args, use_reentrant=False)
+        else:
+            h = layer(*args)
     return h
 
 
@@ -217,7 +226,8 @@ class LDMUNet(nn.Module):
     ``dtype`` is the compute dtype of the blocks and of the context
     (parameters stay f32 and are cast per layer); the time embedding runs in
     f32, and the output norm and conv in the input's dtype, as in the JAX
-    module."""
+    module.  ``remat``: recompute each res block and attention layer in the
+    backward instead of storing its activations (SFD's training memory)."""
 
     def __init__(self, image_size: int, in_channels: int, out_channels: int,
                  model_channels: int, num_res_blocks: int = 2,
@@ -225,8 +235,10 @@ class LDMUNet(nn.Module):
                  channel_mult: Sequence[int] = (1, 2, 4, 4), num_heads: int = -1,
                  num_head_channels: int = -1, use_spatial_transformer: bool = False,
                  transformer_depth: int = 1, context_dim: Optional[int] = None,
-                 legacy: bool = True, dtype: torch.dtype = torch.float32, device=None):
+                 legacy: bool = True, dtype: torch.dtype = torch.float32, remat: bool = False,
+                 device=None):
         super().__init__()
+        self.remat = remat
         self.image_size, self.in_channels, self.out_channels = image_size, in_channels, out_channels
         self.model_channels = model_channels
         self.context_dim = context_dim
@@ -294,12 +306,12 @@ class LDMUNet(nn.Module):
             context = context.to(self.dtype)
         hs = []
         for block in self.input_blocks:
-            h = _run(block, h, emb, context)
+            h = _run(block, h, emb, context, self.remat)
             hs.append(h)
-        h = _run(self.middle_block, h, emb, context)
+        h = _run(self.middle_block, h, emb, context, self.remat)
         bottleneck = h
         for block in self.output_blocks:
-            h = _run(block, torch.cat([h, hs.pop()], dim=-1), emb, context)
+            h = _run(block, torch.cat([h, hs.pop()], dim=-1), emb, context, self.remat)
         out = self.out["2"](self.out["0"](h.to(x.dtype), apply_silu=True))
         if return_bottleneck:
             return out, bottleneck
@@ -608,7 +620,7 @@ def reference_state_dict(ld: LatentDiffusion) -> dict:
 
 def build_latent_diffusion(dataset_name: str, *, state_dict=None,
                            dtype: torch.dtype = torch.float32, seed: int = 0,
-                           device="cuda") -> LatentDiffusion:
+                           remat: bool = False, device="cuda") -> LatentDiffusion:
     """The LatentDiffusion stack of a config, in eval mode.
 
     With ``state_dict`` (a reference checkpoint's, ``models.torch_import``)
@@ -621,7 +633,7 @@ def build_latent_diffusion(dataset_name: str, *, state_dict=None,
     stage's codebook ``RandomState(0).randn(n_embed, z_channels)``, as the
     JAX package's random init makes them, and no text encoder.  The first
     stage is decode only: its encoder (``double_z``) comes with a later
-    slice."""
+    slice.  ``remat``: the U-Net's (``LDMUNet``)."""
     from .factory import init_params
 
     cfg = LDM_CONFIGS[dataset_name]
@@ -633,7 +645,7 @@ def build_latent_diffusion(dataset_name: str, *, state_dict=None,
                                   f"'crossattn' (a context for the U-Net) is ported")
     vae = {k: v for k, v in cfg["vae"].items() if k != "double_z"}
     zc = vae["z_channels"]
-    unet = LDMUNet(dtype=dtype, device=device, **cfg["unet"])
+    unet = LDMUNet(dtype=dtype, remat=remat, device=device, **cfg["unet"])
     decoder = VAEDecoder(out_ch=3, device=device, **vae)
     if cfg["first_stage"] == "vq":
         first = VQModel(decoder, cfg.get("n_embed", 16), zc, device=device)

@@ -47,12 +47,20 @@ class EDMPrecond(nn.Module):
             out_channels=img_channels, label_dim=label_dim, device=device,
             **(model_kwargs or {}))
 
-    def forward(self, x, sigma, class_labels=None):
+    def forward(self, x, sigma, class_labels=None, *, step_condition=None,
+                skip_tuning: bool = False):
         """x: [N, H, W, C]; sigma: a scalar or [N] (float or tensor);
         class_labels: one-hot [N, label_dim] or [1, label_dim], or None.  As
         in the JAX package, an unconditional net ignores them and a
-        conditional one takes None as a zero one-hot row for every sample."""
-        return self._precondition(x, sigma, class_labels, None)
+        conditional one takes None as a zero one-hot row for every sample.
+        ``step_condition``: SFD-v's step count (a scalar or [N], made f32;
+        the inner net must be built with ``use_step_condition``) or None;
+        ``skip_tuning``: SFD's skip-connection scaling."""
+        if step_condition is not None:
+            step_condition = torch.as_tensor(step_condition, dtype=torch.float32,
+                                             device=x.device).reshape(-1)
+        return self._precondition(x, sigma, class_labels, None, step_condition=step_condition,
+                                  skip_tuning=skip_tuning)
 
     def with_bottleneck(self, x, sigma, module_name: str, class_labels=None):
         """(D(x, sigma), the raw output activation of the inner model's
@@ -67,7 +75,7 @@ class EDMPrecond(nn.Module):
             return torch.zeros((1, self.label_dim), dtype=torch.float32, device=device)
         return class_labels.float().reshape(-1, self.label_dim)
 
-    def _precondition(self, x, sigma, class_labels, bottleneck):
+    def _precondition(self, x, sigma, class_labels, bottleneck, **sfd):
         x = x.float()
         class_labels = self._labels(class_labels, x.device)
         sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device).reshape(-1, 1, 1, 1)
@@ -77,7 +85,7 @@ class EDMPrecond(nn.Module):
         c_in = 1 / (sd ** 2 + sigma ** 2).sqrt()
         c_noise = sigma.log() / 4
         f_x = self.model((c_in * x).to(self.dtype), c_noise.reshape(-1), class_labels,
-                         bottleneck=bottleneck)
+                         bottleneck=bottleneck, **sfd)
         if bottleneck is None:
             return c_skip * x + c_out * f_x.float()
         f_x, tap = f_x
@@ -406,10 +414,12 @@ def bind(precond, class_labels=None, **cond) -> BoundDenoiser:
         return BoundDenoiser(cfg_fn, precond.sigma_min, precond.sigma_max, precond.sigma,
                              precond.sigma_inv)
 
+    if cond and not isinstance(precond, EDMPrecond):
+        raise TypeError(f"{type(precond).__name__} takes no {sorted(cond)}")
     bound = class_labels
 
     @torch.no_grad()
     def fn(x, t, class_labels=None):
-        return precond(x, t, bound if class_labels is None else class_labels)
+        return precond(x, t, bound if class_labels is None else class_labels, **cond)
 
     return BoundDenoiser(fn, precond.sigma_min, precond.sigma_max)

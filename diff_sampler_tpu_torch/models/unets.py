@@ -4,9 +4,15 @@
 Counterpart of ``diff_sampler_tpu/models/unets.py``.  Module names are the
 reference state_dict's: ``enc.16x16_block0.conv0.weight``,
 ``map_layer0.weight``, ``map_label.weight``, ... so a reference checkpoint
-loads with no rewrite.  The nets are for inference and for gradients
-through a frozen net: dropout, label dropout and the SFD extensions (step
-condition, skip tuning, rematerialisation) are not ported yet.
+loads with no rewrite.  The SFD extensions are the JAX package's: with
+``use_step_condition`` each block has a second embedding modulation
+``affine_step``, fed by a ``map_step`` tower (the noise embedding of the
+step count, ``map_step_layer0`` / ``map_step_layer1``) when the call passes
+``step_condition``; ``skip_tuning`` scales each skip tensor the decoder
+concatenates by 0.75 + 0.25 * i / n_skips; ``remat`` recomputes each block
+in the backward (``torch.utils.checkpoint``) instead of storing its
+activations.  Dropout and label dropout are not ported: no JAX CLI path
+reaches them (the nets run deterministic, SFD's students too).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import Conv2d, FourierEmbedding, GroupNorm, Linear, attention, positional_embedding
 
@@ -33,7 +40,7 @@ class UNetBlock(nn.Module):
                  resample_filter: Sequence[float] = (1, 1), resample_proj: bool = False,
                  adaptive_scale: bool = True, init: Optional[Dict] = None,
                  init_zero: Optional[Dict] = None, init_attn: Optional[Dict] = None,
-                 device=None):
+                 use_step_condition: bool = False, device=None):
         super().__init__()
         init = dict(init or {})
         init_zero = dict(init_zero) if init_zero is not None else dict(init_weight=0)
@@ -46,8 +53,11 @@ class UNetBlock(nn.Module):
         self.norm0 = GroupNorm(in_channels, eps=eps, device=device)
         self.conv0 = Conv2d(in_channels, out_channels, kernel=3, up=up, down=down,
                             resample_filter=resample_filter, device=device, **init)
-        self.affine = Linear(emb_channels, out_channels * (2 if adaptive_scale else 1),
-                             device=device, **init)
+        n_aff = out_channels * (2 if adaptive_scale else 1)
+        self.affine = Linear(emb_channels, n_aff, device=device, **init)
+        # SFD's second modulation, by the step-condition embedding
+        self.affine_step = (Linear(emb_channels, n_aff, device=device, **init)
+                            if use_step_condition else None)
         self.norm1 = GroupNorm(out_channels, eps=eps, device=device)
         self.dropout = nn.Dropout(dropout)
         self.conv1 = Conv2d(out_channels, out_channels, kernel=3, device=device, **init_zero)
@@ -63,22 +73,47 @@ class UNetBlock(nn.Module):
             self.proj = Conv2d(out_channels, out_channels, kernel=1, device=device,
                                **init_zero)
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, emb_step=None):
+        """``emb_step``: the step-condition embedding (a block built with
+        ``use_step_condition``), or None for no second modulation."""
         orig = x
         x = self.conv0(F.silu(self.norm0(x)))
         params = self.affine(emb)[:, None, None, :].to(x.dtype)
+        params_step = None
+        if emb_step is not None:
+            params_step = self.affine_step(emb_step)[:, None, None, :].to(x.dtype)
         if self.adaptive_scale:
             scale, shift = params.chunk(2, dim=-1)
-            x = F.silu(shift + self.norm1(x) * (scale + 1))
+            x = shift + self.norm1(x) * (scale + 1)
+            if params_step is not None:
+                scale_s, shift_s = params_step.chunk(2, dim=-1)
+                x = shift_s + x * (scale_s + 1)
+            x = F.silu(x)
         else:
             # the embedding is added before the norm
-            x = F.silu(self.norm1(x + params))
+            add = params if params_step is None else params + params_step
+            x = F.silu(self.norm1(x + add))
         x = self.conv1(self.dropout(x))
         x = (x + (self.skip(orig) if self.skip is not None else orig)) * self.skip_scale
         if self.num_heads:
             a = attention(self.qkv(self.norm2(x)), self.num_heads)
             x = (x + self.proj(a)) * self.skip_scale
         return x
+
+
+def _block(layer: UNetBlock, remat: bool, x, emb, emb_step):
+    """One block; with ``remat`` while autograd records, its activations are
+    recomputed in the backward instead of stored (the JAX package's
+    ``nn.remat`` per block)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(layer, x, emb, emb_step, use_reentrant=False)
+    return layer(x, emb, emb_step)
+
+
+def _tuned_skip(s, skip_tuning: bool, count: int, n_skips: int):
+    """SFD's skip tuning: the decoder's ``count``-th skip tensor scaled by
+    0.75 + 0.25 * count / n_skips."""
+    return (0.75 + (1.0 - 0.75) / n_skips * count) * s if skip_tuning else s
 
 
 def _song_layout(img_resolution, in_channels, out_channels, model_channels,
@@ -152,7 +187,8 @@ class SongUNet(nn.Module):
                  dropout: float = 0.10, label_dropout: float = 0.0,
                  embedding_type: str = "positional", channel_mult_noise: int = 1,
                  encoder_type: str = "standard", decoder_type: str = "standard",
-                 resample_filter: Sequence[float] = (1, 1), device=None):
+                 resample_filter: Sequence[float] = (1, 1), use_step_condition: bool = False,
+                 remat: bool = False, device=None):
         if label_dim:
             raise NotImplementedError("class-conditional SongUNet is not ported yet")
         if embedding_type not in ("positional", "fourier"):
@@ -167,8 +203,10 @@ class SongUNet(nn.Module):
                             skip_scale=math.sqrt(0.5), eps=1e-6,
                             resample_filter=resample_filter, resample_proj=True,
                             adaptive_scale=False, init=init, init_zero=init_zero,
-                            init_attn=init_attn, device=device)
+                            init_attn=init_attn, use_step_condition=use_step_condition,
+                            device=device)
         self.noise_channels = noise_channels
+        self.remat = remat
 
         # Mapping tower.
         self.map_noise = (FourierEmbedding(noise_channels, device=device)
@@ -177,6 +215,13 @@ class SongUNet(nn.Module):
                                    **init) if augment_dim else None)
         self.map_layer0 = Linear(noise_channels, emb_channels, device=device, **init)
         self.map_layer1 = Linear(emb_channels, emb_channels, device=device, **init)
+        # SFD-v's step-condition tower: the noise embedding of the step count
+        self.map_step = self.map_step_layer0 = self.map_step_layer1 = None
+        if use_step_condition:
+            if embedding_type == "fourier":
+                self.map_step = FourierEmbedding(noise_channels, device=device)
+            self.map_step_layer0 = Linear(noise_channels, emb_channels, device=device, **init)
+            self.map_step_layer1 = Linear(emb_channels, emb_channels, device=device, **init)
 
         enc_layout, dec_layout = _song_layout(
             img_resolution, in_channels, out_channels, model_channels, tuple(channel_mult),
@@ -213,21 +258,32 @@ class SongUNet(nn.Module):
                 self.dec[name] = UNetBlock(kw["cin"], kw["cout"], up=kw["up"],
                                            attention=kw["attn"], **block_kwargs)
 
-    def forward(self, x, noise_labels, class_labels=None, bottleneck: Optional[str] = None):
+    def _noise_embed(self, fourier, v):
+        emb = fourier(v) if fourier is not None else positional_embedding(
+            v, self.noise_channels, endpoint=True)
+        return emb.reshape(emb.shape[0], 2, -1).flip(1).reshape(emb.shape)  # swap sin/cos
+
+    def forward(self, x, noise_labels, class_labels=None, bottleneck: Optional[str] = None, *,
+                step_condition=None, skip_tuning: bool = False):
         """x: [N, H, W, C] in the compute dtype; noise_labels: [N] or [1];
         class_labels: None (the net is unconditional).
 
         ``bottleneck`` names an encoder layer by its JAX module name (e.g.
         ``enc_8x8_block3``, the AMED tap); the call then returns
         (output, that layer's output activation) -- the explicit counterpart
-        of the JAX package's ``capture_intermediates``."""
-        if self.map_noise is not None:
-            emb = self.map_noise(noise_labels)
-        else:
-            emb = positional_embedding(noise_labels, self.noise_channels, endpoint=True)
-        emb = emb.reshape(emb.shape[0], 2, -1).flip(1).reshape(emb.shape)  # swap sin/cos
+        of the JAX package's ``capture_intermediates``.
+        ``step_condition``: SFD-v's step count, [N] or [1] f32 (a net built
+        with ``use_step_condition``), else None; ``skip_tuning``: scale the
+        decoder's skip tensors (SFD)."""
+        emb = self._noise_embed(self.map_noise, noise_labels)
         emb = F.silu(self.map_layer0(emb))
         emb = F.silu(self.map_layer1(emb))
+        emb_step = None
+        if step_condition is not None:
+            if self.map_step_layer0 is None:
+                raise ValueError("step_condition needs a net built with use_step_condition")
+            es = self._noise_embed(self.map_step, step_condition)
+            emb_step = F.silu(self.map_step_layer1(F.silu(self.map_step_layer0(es))))
 
         skips = []
         aux = x
@@ -241,11 +297,12 @@ class SongUNet(nn.Module):
             elif kind == "aux_residual":
                 x = skips[-1] = aux = (x + layer(aux)) / math.sqrt(2)
             else:
-                x = layer(x, emb) if kind == "block" else layer(x)
+                x = _block(layer, self.remat, x, emb, emb_step) if kind == "block" else layer(x)
                 skips.append(x)
             if bottleneck == f"enc_{name}":
                 tap = x
 
+        n_skips, count = len(skips), 0
         aux = tmp = None
         for name, kind in self.dec_layout:
             layer = self.dec[name]
@@ -258,8 +315,10 @@ class SongUNet(nn.Module):
                 aux = tmp if aux is None else tmp + aux
             else:
                 if x.shape[-1] != layer.norm0.weight.shape[0]:
-                    x = torch.cat([x, skips.pop()], dim=-1)
-                x = layer(x, emb)
+                    x = torch.cat([x, _tuned_skip(skips.pop(), skip_tuning, count, n_skips)],
+                                  dim=-1)
+                    count += 1
+                x = _block(layer, self.remat, x, emb, emb_step)
         if bottleneck is None:
             return aux
         if tap is None:
@@ -328,15 +387,18 @@ class DhariwalUNet(nn.Module):
                  label_dim: int = 0, augment_dim: int = 0, model_channels: int = 192,
                  channel_mult: Sequence[int] = (1, 2, 3, 4), channel_mult_emb: int = 4,
                  num_blocks: int = 3, attn_resolutions: Sequence[int] = (32, 16, 8),
-                 dropout: float = 0.10, label_dropout: float = 0.0, device=None):
+                 dropout: float = 0.10, label_dropout: float = 0.0,
+                 use_step_condition: bool = False, remat: bool = False, device=None):
         super().__init__()
         emb_channels = model_channels * channel_mult_emb
         init = dict(init_mode="kaiming_uniform", init_weight=math.sqrt(1 / 3),
                     init_bias=math.sqrt(1 / 3))
         init_zero = dict(init_mode="kaiming_uniform", init_weight=0.0, init_bias=0.0)
         block_kwargs = dict(emb_channels=emb_channels, channels_per_head=64, dropout=dropout,
-                            init=init, init_zero=init_zero, device=device)
+                            init=init, init_zero=init_zero,
+                            use_step_condition=use_step_condition, device=device)
         self.model_channels = model_channels
+        self.remat = remat
 
         # Mapping tower.
         self.map_augment = (Linear(augment_dim, model_channels, bias=False, device=device,
@@ -346,6 +408,11 @@ class DhariwalUNet(nn.Module):
         self.map_label = (Linear(label_dim, emb_channels, bias=False, init_mode="kaiming_normal",
                                  init_weight=math.sqrt(label_dim), device=device)
                           if label_dim else None)
+        # SFD-v's step-condition tower
+        self.map_step_layer0 = self.map_step_layer1 = None
+        if use_step_condition:
+            self.map_step_layer0 = Linear(model_channels, emb_channels, device=device, **init)
+            self.map_step_layer1 = Linear(emb_channels, emb_channels, device=device, **init)
 
         enc_layout, dec_layout = _dhariwal_layout(
             img_resolution, in_channels, model_channels, tuple(channel_mult), num_blocks,
@@ -367,14 +434,16 @@ class DhariwalUNet(nn.Module):
         self.out_norm = GroupNorm(cout, device=device)
         self.out_conv = Conv2d(cout, out_channels, kernel=3, device=device, **init_zero)
 
-    def forward(self, x, noise_labels, class_labels=None, bottleneck: Optional[str] = None):
+    def forward(self, x, noise_labels, class_labels=None, bottleneck: Optional[str] = None, *,
+                step_condition=None, skip_tuning: bool = False):
         """x: [N, H, W, C] in the compute dtype; noise_labels: [N] or [1];
         class_labels: [N, label_dim] or [1, label_dim] (one-hot rows; a
         conditional net needs them, ``EDMPrecond`` supplies zeros).
 
         ``bottleneck`` names an encoder layer by its JAX module name (the
         AMED tap of a conditional net is ``enc_8x8_block2``); the call then
-        returns (output, that layer's output activation)."""
+        returns (output, that layer's output activation).
+        ``step_condition`` and ``skip_tuning`` as in ``SongUNet``."""
         emb = positional_embedding(noise_labels, self.model_channels)
         emb = F.silu(self.map_layer0(emb))
         emb = self.map_layer1(emb)
@@ -383,20 +452,28 @@ class DhariwalUNet(nn.Module):
                 raise ValueError("a class-conditional DhariwalUNet needs class_labels")
             emb = emb + self.map_label(class_labels.to(emb.dtype))
         emb = F.silu(emb)
+        emb_step = None
+        if step_condition is not None:
+            if self.map_step_layer0 is None:
+                raise ValueError("step_condition needs a net built with use_step_condition")
+            es = positional_embedding(step_condition, self.model_channels)
+            emb_step = F.silu(self.map_step_layer1(F.silu(self.map_step_layer0(es))))
 
         skips = []
         tap = None
         for name, kind in self.enc_layout:
             layer = self.enc[name]
-            x = layer(x, emb) if kind == "block" else layer(x)
+            x = _block(layer, self.remat, x, emb, emb_step) if kind == "block" else layer(x)
             skips.append(x)
             if bottleneck == f"enc_{name}":
                 tap = x
+        n_skips, count = len(skips), 0
         for name in self.dec_layout:
             layer = self.dec[name]
             if x.shape[-1] != layer.norm0.weight.shape[0]:
-                x = torch.cat([x, skips.pop()], dim=-1)
-            x = layer(x, emb)
+                x = torch.cat([x, _tuned_skip(skips.pop(), skip_tuning, count, n_skips)], dim=-1)
+                count += 1
+            x = _block(layer, self.remat, x, emb, emb_step)
         x = self.out_conv(F.silu(self.out_norm(x)))
         if bottleneck is None:
             return x

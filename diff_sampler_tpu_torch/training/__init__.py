@@ -1,1 +1,1 @@
-"""Training loops of the port (AMED so far)."""
+"""Training loops of the port: AMED and SFD distillation."""

@@ -7,6 +7,11 @@ tree under ``params``), and every run config is a JSON sidecar: the same
 files as the JAX package's, so a predictor saved by either package loads in
 the other.  Run directories are ``<base>/<5-digit id>-<desc>``, numbered
 upward and found again by number.
+
+A training snapshot (``snapshot-XXXXXX.npz``) is the JAX package's: the
+params under ``params``, the state of ``optax.adam`` (learning-rate
+schedule included) under ``opt_state`` as its ``jax.tree.leaves`` keyed
+``000000``, ``000001``, ... (``adam_state_leaves``), and ``meta/cur_nimg``.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 __all__ = ["save_params", "load_params", "save_config", "load_config",
-           "create_run_dir", "find_run_dir", "flatten_params", "unflatten_params"]
+           "create_run_dir", "find_run_dir", "flatten_params", "unflatten_params",
+           "tree_leaf_paths", "adam_state_leaves", "adam_state_from_leaves"]
 
 _SEP = "/"
 
@@ -98,3 +104,61 @@ def find_run_dir(base: str, number: int) -> Optional[str]:
         if m and int(m.group(1)) == number:
             return os.path.join(base, d)
     return None
+
+
+def tree_leaf_paths(tree: Dict, prefix: tuple = ()) -> list:
+    """The paths of a nested dict's leaves in ``jax.tree.leaves`` order
+    (keys sorted at every level)."""
+    out = []
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out += tree_leaf_paths(tree[k], prefix + (k,))
+        else:
+            out.append(prefix + (k,))
+    return out
+
+
+def _at(tree: Dict, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def adam_state_leaves(count: int, mu: Dict, nu: Dict) -> Dict[str, np.ndarray]:
+    """The leaves of ``optax.adam(schedule)``'s state, (ScaleByAdamState(count,
+    mu, nu), ScaleByScheduleState(count)), keyed by their zero-padded index
+    as the JAX CLI saves them: count, mu's leaves, nu's leaves, count (int32
+    scalars; mu and nu in the params' layout)."""
+    paths = tree_leaf_paths(mu)
+    leaves = [np.asarray(count, np.int32)]
+    leaves += [np.asarray(_at(mu, p), np.float32) for p in paths]
+    leaves += [np.asarray(_at(nu, p), np.float32) for p in paths]
+    leaves.append(np.asarray(count, np.int32))
+    return {f"{i:06d}": leaf for i, leaf in enumerate(leaves)}
+
+
+def adam_state_from_leaves(leaves: Dict[str, np.ndarray], like: Dict) -> tuple:
+    """(count, mu, nu) from ``adam_state_leaves``'s dict, mu and nu shaped
+    as the params tree ``like``; the two counts must agree."""
+    paths = tree_leaf_paths(like)
+    flat = [leaves[k] for k in sorted(leaves)]
+    if len(flat) != 2 * len(paths) + 2:
+        raise ValueError(f"{len(flat)} optimizer leaves for {len(paths)} params: not the "
+                         f"state of optax.adam with a schedule")
+    count = int(flat[0])
+    if int(flat[-1]) != count:
+        raise ValueError(f"Adam's count {count} and the schedule's {int(flat[-1])} differ")
+
+    def tree(arrays):
+        out: Dict = {}
+        for p, a in zip(paths, arrays):
+            if a.shape != np.shape(_at(like, p)):
+                raise ValueError(f"{'/'.join(p)}: moment {a.shape}, param "
+                                 f"{np.shape(_at(like, p))}")
+            node = out
+            for k in p[:-1]:
+                node = node.setdefault(k, {})
+            node[p[-1]] = a
+        return out
+
+    return count, tree(flat[1:1 + len(paths)]), tree(flat[1 + len(paths):-1])

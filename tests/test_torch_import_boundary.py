@@ -54,4 +54,5 @@ def test_port_imports_with_jax_and_flax_blocked():
             "diff_sampler_tpu_torch.eval.inception", "diff_sampler_tpu_torch.eval.fid",
             "diff_sampler_tpu_torch.eval.prdc", "diff_sampler_tpu_torch.cli.fid",
             "diff_sampler_tpu_torch.cli.prdc", "diff_sampler_tpu_torch.cli.dataset_tool",
-            "diff_sampler_tpu_torch.utils.lmdb_reader"} <= names
+            "diff_sampler_tpu_torch.utils.lmdb_reader", "diff_sampler_tpu_torch.training.sfd",
+            "diff_sampler_tpu_torch.cli.train_sfd"} <= names
