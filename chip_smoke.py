@@ -291,6 +291,34 @@ Phases, each printing as it goes and then its seconds:
    ``cli.sample --model_path=0`` (the experiment number) with a caption
    per seed, bf16, guidance 7.5, its PNGs byte for byte ``generate`` + the
    KL decode on the snapshot's U-Net.
+40. (After phases 32 and 33, in 32's directory.) The CLIP score at the
+   width of the reference's detector, OpenCLIP ViT-g-14: a seeded open_clip
+   state_dict in f16 storages (``open_clip_pytorch_model.bin``, 1366.7M
+   params) loaded through ``make_openclip_encoders`` (host seconds, MB/s,
+   every tensor bit-equal to the file's); both towers in f32 (TF32 off) on
+   4 images and 4 prompts against the same modules in float64 on the card;
+   each tower's device time at batch 64 against its f32 bound (FLOPs from
+   the shapes over 67 TFLOP/s) and the vision attention's share of its
+   tower (T=257, 16 heads of 88); ``cli.clip_score`` on 256 seeded 512 x
+   512 PNGs (the downscale) and on 256 of phase 33's 32 x 32 samples (the
+   upscale) against a 256-row captions CSV tokenised by phase 32's vocab;
+   the same pairs scored in this process (equal to the CLI's) and their
+   images/s.  No kernel of the repo runs there (counted).
+41. The trajectory analyzer on the full-width CIFAR-10 net in f32 (random
+   weights redrawn at unit scale, loaded from a file the phase writes):
+   ``cli.analyze_trajectories`` at 21 steps and batch 16, again with
+   ``--num_images=1024`` (its statistics against the per-sample statistics
+   of its 64 batches combined in float64 on the host),
+   ``cli.analyze_extend --mode=sampling`` (euler, 201 steps) and
+   ``--mode=low_rank_mog``; every number finite, exact K1 / K3 launches; K1
+   and K3 in f32 at the analyzer's [16, ...] shapes against their plain
+   versions and the library.
+42. (After phase 8, in its directory.) ``export_amed_schedule`` of phase 8's
+   saved predictor over the full-width CIFAR-10 net (16 probe seeds, exact
+   K1 / K3 launches): every r in (0, 1), every t_mid between its sigmas,
+   the saved JSON read back equal.  Every ``train_amed`` and ``train_sfd``
+   run (phases 8, 13, 19, 37, 38) holds a ``log.txt`` with every line its
+   CLI printed.
 
 The last three lines are the card's name and power limit, a JSON object on
 the kernels and ``{"ok": true, "device": {...}}``.  The JSON lists K1 and
@@ -311,7 +339,9 @@ detector's convs, its pools, FID's moments and PRDC's distances are
 PyTorch calls, as they are XLA ops in the JAX package), K1 and K3 on both
 256 px tiers and K1 / K2 in f32 on the CM AMED path (launches of phases 34
 and 35), the f32 K1 / K2 (K1c / K2c on SD) and K3 on the SFD students'
-paths (launches of phases 37-39; the LDM's times those of phase 16), each
+paths (launches of phases 37-39; the LDM's times those of phase 16), K1
+and K3 in f32 on the trajectory analyzer's and the AMED export's paths
+(launches of phases 41 and 42, times at the analyzer's shapes), each
 with its error and times at that path's main
 shape and its bound on this card (the f32 attention kernels' and the f32
 K4's: 3xTF32 on the tensor cores).  Every profile (phases 4,
@@ -348,6 +378,10 @@ import torch
 import torch.nn.functional as F
 
 from diff_sampler_tpu_torch import _build
+from diff_sampler_tpu_torch import analysis
+from diff_sampler_tpu_torch.cli import analyze_extend as cli_analyze_extend
+from diff_sampler_tpu_torch.cli import analyze_trajectories as cli_analyze_trajectories
+from diff_sampler_tpu_torch.cli import clip_score as cli_clip_score
 from diff_sampler_tpu_torch.cli import dataset_tool as cli_dataset_tool
 from diff_sampler_tpu_torch.cli import fid as cli_fid
 from diff_sampler_tpu_torch.cli import prdc as cli_prdc
@@ -355,26 +389,35 @@ from diff_sampler_tpu_torch.cli import sample as cli_sample
 from diff_sampler_tpu_torch.cli import train_amed as cli_train_amed
 from diff_sampler_tpu_torch.cli import train_sfd as cli_train_sfd
 from diff_sampler_tpu_torch.eval import prdc as P
+from diff_sampler_tpu_torch.eval.clip_score import (clip_preprocess, clip_score,
+                                                    make_openclip_encoders)
 from diff_sampler_tpu_torch.eval.dataset import ImageFolderDataset
 from diff_sampler_tpu_torch.eval.fid import (calculate_stats, compute_fid, load_stats,
                                              make_inception_feature_fn)
 from diff_sampler_tpu_torch.eval.inception import (CONV_UNITS_GRAPH_ORDER, InceptionV3FID,
-                                                   import_inception_state_dict,
+                                                   exact_f32, import_inception_state_dict,
                                                    import_nvidia_inception_pickle)
+from diff_sampler_tpu_torch.integrations.amed_export import (export_amed_schedule,
+                                                             save_amed_schedule)
 from diff_sampler_tpu_torch.models import adm, convert, layers, unets
 from diff_sampler_tpu_torch.models.convert import absent_from_jax, load_jax_params, params_to_jax
 from diff_sampler_tpu_torch.models.factory import (build_edm_model, build_ldm_model, create_model,
                                                    init_params)
 from diff_sampler_tpu_torch.models.ldm import reference_state_dict
+from diff_sampler_tpu_torch.models.openclip import OpenCLIP, OpenCLIPConfig
+from diff_sampler_tpu_torch.models.openclip import attention as openclip_attention
 from diff_sampler_tpu_torch.models.precond import bind
 from diff_sampler_tpu_torch.models.torch_import import load_torch_file, torch_state_dict
 from diff_sampler_tpu_torch.models.text import FrozenCLIPEmbedder
 from diff_sampler_tpu_torch.ops import attention as A
 from diff_sampler_tpu_torch.ops import conv as C
 from diff_sampler_tpu_torch.ops import groupnorm as G
+from diff_sampler_tpu_torch.ops.geometry import (trajectory_curvature, trajectory_deviation,
+                                                 trajectory_lengths)
 from diff_sampler_tpu_torch.ops.schedules import get_schedule
 from diff_sampler_tpu_torch.sampling import SolverConfig, generate, to_uint8
 from diff_sampler_tpu_torch.solvers import SOLVER_REGISTRY
+from diff_sampler_tpu_torch.solvers.amed import bind_with_bottleneck
 from diff_sampler_tpu_torch.training.amed import AMEDConfig, predictor_from_config
 from diff_sampler_tpu_torch.training.conditioning import (load_captions, make_caption_context_fn,
                                                           make_uncond_context)
@@ -1406,7 +1449,9 @@ def _train_amed(tag: str, argv: list, batch_gpu) -> tuple:
     start, end = _events()
     t0 = time.perf_counter()
     start.record()
-    run_dir = cli_train_amed.main(argv)
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        run_dir = cli_train_amed.main(argv)
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
@@ -1425,8 +1470,9 @@ def _train_amed(tag: str, argv: list, batch_gpu) -> tuple:
     losses = [tk["Loss/loss"]["mean"] for tk in ticks]
     _check(len(ticks) == AMED_ITERS and all(math.isfinite(x) for x in losses),
            f"{tag}: losses {losses} are not finite")
-    for name in ("predictor_config.json", "stats.jsonl", "predictor.npz"):
+    for name in ("predictor_config.json", "stats.jsonl", "predictor.npz", "log.txt"):
         _check(os.path.isfile(os.path.join(run_dir, name)), f"train_amed wrote no {name}")
+    _check_log_txt(tag, run_dir, tee.copy.getvalue())
     # the predictor moved: its saved weights differ from a fresh init's
     cfg = AMEDConfig(**ckpt.load_config(os.path.join(run_dir, "predictor_config.json")))
     fresh = init_params(predictor_from_config(cfg), seed=0)
@@ -3709,7 +3755,9 @@ def _sfd_cli(tag: str, argv: list, want: dict, kimg: float) -> tuple:
     start, end = _events()
     t0 = time.perf_counter()
     start.record()
-    run_dir = cli_train_sfd.main([*argv, "--device=cuda"])
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        run_dir = cli_train_sfd.main([*argv, "--device=cuda"])
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
@@ -3728,6 +3776,7 @@ def _sfd_cli(tag: str, argv: list, want: dict, kimg: float) -> tuple:
     _check("training_options.json" in files and any(f.startswith("snapshot-") for f in files),
            f"{tag}: run dir holds {files}")
     _check(counts == _only(**want), f"{tag}: launches of the training")
+    _check_log_txt(tag, run_dir, tee.copy.getvalue())
     return run_dir, counts
 
 
@@ -4052,6 +4101,378 @@ def _sfd_sd(workdir: str, path: str, csv: str) -> dict:
     return dict(counts=counts, k1=k1["main"], k2=k2["main"], k1c=k1c, k2c=k2c)
 
 
+# Phases 40-42: the CLIP score, the trajectory analyzer and the AMED export.
+# Phase 40 runs the reference's CLIP detector, OpenCLIP ViT-g-14
+# (laion2b_s34b_b88k; open_clip's model_configs/ViT-g-14.json) at its full
+# width from a seeded checkpoint in open_clip's layout.
+VITG = OpenCLIPConfig(embed_dim=1024, image_size=224, patch_size=14, vision_width=1408,
+                      vision_layers=40, vision_heads=16, vision_mlp_dim=6144, text_width=1024,
+                      text_layers=24, text_heads=16, text_mlp_dim=4096, vocab_size=49408,
+                      context_length=77)
+CLIP_CKPT_STORAGE = torch.float16  # open_clip_pytorch_model.bin's
+CLIP_IMAGES = 256  # images scored by each CLI run
+CLIP_BATCH = 64  # cli.clip_score's default --batch
+CLIP_CHECK_N = 4  # images and prompts of the f32-vs-float64 gate
+# Tolerance of the f32 towers against the same modules in float64, relative
+# to max|float64 embedding|: f32 sums of up to 6144 terms carried through 40
+# pre-LN blocks came to 1.3e-6 on an H100 (PERF.md); a wrong operation
+# shows at order one.
+CLIP_TOL = 1e-4
+# Phase 41: the analyzer's defaults on the full-width CIFAR-10 net, f32
+ANALYZE_BATCH = 16
+ANALYZE_STEPS = 21  # ipndm: 20 net calls a trajectory
+ANALYZE_IMAGES = 1024
+EXTEND_STEPS = 201  # analyze_extend's default: euler, 200 net calls
+ANALYZE_TOL = 1e-5  # --num_images against the per-sample statistics in float64, of max
+ANALYZE_K_SHAPE = (ANALYZE_BATCH, 256, 1, 256, torch.float32)  # CIFAR-10's attention level
+ANALYZE_GN_SHAPE = (ANALYZE_BATCH, 32, 32, 256, torch.float32, 1e-6, False)  # its 32x32 GN
+
+
+def _vitg_state_dict(seed: int) -> dict:
+    """ViT-g-14's open_clip state_dict (names and shapes of ``OpenCLIP(VITG)``)
+    drawn on the card from ``seed`` and stored in f16: matrices at 1 /
+    sqrt(fan_in), LayerNorm scales 1 + 0.02 N, biases and embeddings 0.02 N,
+    the logit scale ln(1 / 0.07)."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    out = {}
+    for k, v in OpenCLIP(VITG, device="meta").state_dict().items():
+        shape = tuple(v.shape)
+        if k == "logit_scale":
+            val = torch.tensor(math.log(1 / 0.07))
+        elif ("ln_" in k) and k.endswith(".weight"):
+            val = 1 + 0.02 * torch.randn(shape, generator=g, device="cuda")
+        elif len(shape) >= 2 and "embedding" not in k:
+            fan_in = shape[0] if k.endswith(("proj", "projection")) else math.prod(shape[1:])
+            val = torch.randn(shape, generator=g, device="cuda") / math.sqrt(fan_in)
+        else:
+            val = 0.02 * torch.randn(shape, generator=g, device="cuda")
+        out[k] = val.to("cpu", CLIP_CKPT_STORAGE)
+    return out
+
+
+def _tower_flops(width: int, layers: int, mlp: int, tokens: int) -> int:
+    """FLOPs of one sample through a pre-LN transformer tower (2 a
+    multiply-add): the qkv, attention, output and MLP products."""
+    per_layer = (2 * tokens * width * 3 * width + 2 * 2 * tokens * tokens * width
+                 + 2 * tokens * width * width + 2 * 2 * tokens * width * mlp)
+    return layers * per_layer
+
+
+def _vitg_flops() -> dict:
+    c = VITG
+    grid = (c.image_size // c.patch_size) ** 2
+    vision = (_tower_flops(c.vision_width, c.vision_layers, c.vision_mlp_dim, grid + 1)
+              + 2 * grid * 3 * c.patch_size ** 2 * c.vision_width
+              + 2 * c.vision_width * c.embed_dim)
+    text = (_tower_flops(c.text_width, c.text_layers, c.text_mlp_dim, c.context_length)
+            + 2 * c.text_width * c.embed_dim)
+    return {"vision": vision, "text": text}
+
+
+def _write_pngs(outdir: str, n: int, size: int, seed: int) -> None:
+    """n seeded RGB PNGs of size x size: 64 x 64 noise blown up by 8x8
+    blocks (so that they encode quickly), resized on the way in by the
+    score's bicubic."""
+    os.makedirs(outdir)
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        small = rng.randint(0, 256, (size // 8, size // 8, 3), dtype=np.uint8)
+        with open(os.path.join(outdir, f"{i:06d}.png"), "wb") as f:
+            f.write(encode_png(small.repeat(8, 0).repeat(8, 1)))
+
+
+def _clip_score_cli(tag: str, images: str, captions: str, ckpt_path: str) -> float:
+    """``cli.clip_score`` as a user runs it: its score and host seconds."""
+    _reset_counts()
+    score, cli_s = _host_timed(lambda: cli_clip_score.main([
+        f"--images={images}", f"--captions={captions}", f"--checkpoint={ckpt_path}",
+        f"--batch={CLIP_BATCH}", "--device=cuda"]))
+    print(f"[{tag}] cli.clip_score on {CLIP_IMAGES} pairs at batch {CLIP_BATCH}: CLIP score "
+          f"{score:.4f}, {cli_s:.3f} s host clock with the load")
+    _check(math.isfinite(score) and -100 <= score <= 100, f"{tag}: score {score!r}")
+    _check(_counts() == _only(), f"{tag}: the towers launched a kernel of the repo")
+    return score
+
+
+def phase_clip_score(workdir: str, cifar_pngs: str) -> dict:
+    """Phase 40 (after phase 32, in its directory): the CLIP score at the
+    width of OpenCLIP ViT-g-14.  A seeded open_clip state_dict (f16,
+    ``torch.save``) loaded through ``make_openclip_encoders`` (host seconds,
+    MB/s, every tensor bit-equal to the file's); both towers in f32 (TF32
+    off) on 4 images and 4 prompts against the same modules in float64 on
+    the card, within CLIP_TOL; ``cli.clip_score`` on 256 seeded 512 x 512
+    PNGs (the downscale) and on 256 of phase 33's 32 x 32 CIFAR-10 samples
+    (the upscale) against a 256-row captions CSV in phase 32's form, tokenised
+    by phase 32's vocab; the score of the same pairs in this process (equal
+    to the CLI's), images/s, each tower's device time at batch 64 against
+    its f32 bound, and the attention's share of the vision tower (T=257,
+    d=88)."""
+    path = os.path.join(workdir, "open_clip_pytorch_model.bin")
+    captions_csv = os.path.join(workdir, "clip_captions.csv")
+    vocab = os.path.join(workdir, "merges.txt")  # phase 32's
+    captions = _captions(CLIP_IMAGES)
+    with open(captions_csv, "w") as f:
+        f.write("image_id,id,text\n" + "".join(f'{i},{i},"{c}"\n' for i, c in enumerate(captions)))
+    t0 = time.perf_counter()
+    sd = _vitg_state_dict(seed=40)
+    torch.save(sd, path)
+    n_params = sum(v.numel() for v in sd.values())
+    print(f"[CLIP] ViT-g-14 open_clip state_dict: {len(sd)} tensors, {n_params / 1e6:.1f}M "
+          f"params in {CLIP_CKPT_STORAGE} storages, {os.path.getsize(path) / 1e9:.3f} GB, drawn "
+          f"and written in {time.perf_counter() - t0:.3f} s")
+
+    old_vocab = os.environ.get("CLIP_BPE_VOCAB")
+    os.environ["CLIP_BPE_VOCAB"] = vocab
+    try:
+        mb = os.path.getsize(path) / 1e6
+        (image_fn, text_fn), load_s = _host_timed(lambda: make_openclip_encoders(path))
+        print(f"[CLIP] make_openclip_encoders of {mb:.2f} MB: {load_s:.3f} s host clock, "
+              f"{mb / load_s:.1f} MB/s")
+        model = image_fn.__self__.model
+        got = model.state_dict()
+        same = sum(torch.equal(got[k], v.cuda().float()) for k, v in sd.items())
+        _check(model.cfg == VITG and same == len(sd),
+               f"CLIP: config {model.cfg}, {same} of {len(sd)} tensors equal to the file's")
+        del got, sd
+
+        # the towers in f32 against the same modules in float64
+        images = np.random.RandomState(41).randint(0, 256, (CLIP_CHECK_N, 512, 512, 3),
+                                                   dtype=np.uint8)
+        prompts = _captions(CLIP_CHECK_N, seed=41)
+        e_img, e_txt = image_fn(images), text_fn(prompts)
+        ids = torch.as_tensor(image_fn.__self__.tokenizer(prompts)).cuda()
+        m64 = copy.deepcopy(model).double()
+        with torch.no_grad():
+            r_img = m64.encode_image(clip_preprocess(images, VITG.image_size).double())
+            r_txt = m64.encode_text(ids)
+        del m64
+        torch.cuda.empty_cache()
+        errs = {name: ((got.double() - ref).abs().max() / ref.abs().max()).item()
+                for name, got, ref in (("image", e_img, r_img), ("text", e_txt, r_txt))}
+        print(f"[CLIP] f32 towers (TF32 off) against float64 on the card, {CLIP_CHECK_N} images "
+              f"(512 px) and {CLIP_CHECK_N} prompts: max abs err of max|embedding| image "
+              f"{errs['image']:.3g}, text {errs['text']:.3g} (tol {CLIP_TOL:g}); shapes "
+              f"{tuple(e_img.shape)}, {tuple(e_txt.shape)}")
+        _check(e_img.shape == e_txt.shape == (CLIP_CHECK_N, VITG.embed_dim)
+               and max(errs.values()) <= CLIP_TOL, f"CLIP towers vs float64: {errs}")
+
+        # each tower's device time at the CLI's batch, the attention's share
+        g = torch.Generator("cuda").manual_seed(42)
+        pixels = torch.randn(CLIP_BATCH, 224, 224, 3, generator=g, device="cuda")
+        ids64 = torch.as_tensor(image_fn.__self__.tokenizer(_captions(CLIP_BATCH))).cuda()
+        t_vis = (VITG.image_size // VITG.patch_size) ** 2 + 1
+        qkv = torch.randn(3, CLIP_BATCH, t_vis, VITG.vision_width, generator=g, device="cuda")
+        with torch.no_grad(), exact_f32():
+            times = _turns({"vision": lambda: model.encode_image(pixels),
+                            "text": lambda: model.encode_text(ids64),
+                            "attention": lambda: openclip_attention(*qkv, VITG.vision_heads)},
+                           reps=3, warmup=1)
+        flops = _vitg_flops()
+        bound = {k: CLIP_BATCH * flops[k] / PEAK_FLOPS[torch.float32] * 1e3 for k in flops}
+        share = VITG.vision_layers * times["attention"] / times["vision"]
+        for k in ("vision", "text"):
+            print(f"[CLIP] {k} tower at batch {CLIP_BATCH}, f32 (TF32 off): {times[k]:.4f} ms "
+                  f"(CUDA events), {flops[k] / 1e9:.3f} GFLOP a sample from its shapes, bound "
+                  f"{bound[k]:.4f} ms (operations, 67 TFLOP/s f32), {bound[k] / times[k]:.3f} "
+                  f"of it; {CLIP_BATCH / times[k] * 1e3:.1f} samples/s")
+        print(f"[CLIP] vision attention (plain matmul + softmax) at [{CLIP_BATCH}, {t_vis}, "
+              f"{VITG.vision_heads} heads of {VITG.vision_width // VITG.vision_heads}]: "
+              f"{times['attention']:.4f} ms a layer, x {VITG.vision_layers} = {share:.4f} of the "
+              f"vision tower's time")
+
+        # the CLI: the downscale (512 px) and the upscale (CIFAR-10's 32 px)
+        big = os.path.join(workdir, "clip_images_512")
+        _write_pngs(big, CLIP_IMAGES, 512, seed=43)
+        scores = {"512 px": _clip_score_cli("CLIP 512 px", big, captions_csv, path),
+                  "32 px": _clip_score_cli("CLIP 32 px", cifar_pngs, captions_csv, path)}
+        ds = ImageFolderDataset(big)
+        imgs = np.stack([ds[i][0] for i in range(CLIP_IMAGES)])
+        batches = [(imgs[s:s + CLIP_BATCH], captions[s:s + CLIP_BATCH])
+                   for s in range(0, CLIP_IMAGES, CLIP_BATCH)]
+        clip_score(image_fn, text_fn, batches[:1])  # warm-up
+        here, score_s = _host_timed(lambda: clip_score(image_fn, text_fn, batches))
+        print(f"[CLIP] the 512 px pairs scored in this process: {here:.6f} ({score_s:.3f} s host "
+              f"clock for {CLIP_IMAGES} pairs: {CLIP_IMAGES / score_s:.1f} images/s with the "
+              f"preprocessing and the text tower, decoded PNGs in memory)")
+        # the CLI loads its own copy of the towers: cuBLAS may sum in another order
+        _check(abs(here - scores["512 px"]) <= 1e-3, "CLIP: the CLI's score differs")
+    finally:
+        if old_vocab is None:
+            os.environ.pop("CLIP_BPE_VOCAB", None)
+        else:
+            os.environ["CLIP_BPE_VOCAB"] = old_vocab
+    del model, image_fn, text_fn
+    torch.cuda.empty_cache()
+    return dict(scores=scores, images_per_s=CLIP_IMAGES / score_s, times=times, bound=bound,
+                attention_share=share, load_s=load_s, errs=errs)
+
+
+def _finite_report(tag: str, report: dict) -> None:
+    bad = [k for k, v in report.items()
+           if not isinstance(v, str) and not np.isfinite(np.asarray(v, np.float64)).all()]
+    print(f"[{tag}] " + ", ".join(
+        f"{k} {np.round(np.asarray(v, np.float64).mean(), 6)!r}" if not isinstance(v, str)
+        else f"{k} {v}" for k, v in report.items()))
+    _check(not bad, f"{tag}: not finite: {bad}")
+
+
+def _analyzer_cli(tag: str, fn, argv: list, want: dict):
+    _reset_counts()
+    out, host_s = _host_timed(lambda: fn([*argv, "--device=cuda"]))
+    counts = _counts()
+    print(f"[{tag}] {' '.join(argv)}: {host_s:.3f} s host clock; launches {counts}, "
+          f"expected {want}")
+    _check(counts == _only(**want), f"{tag}: launch counts")
+    _finite_report(tag, out)
+    return out, counts
+
+
+def phase_analyzer(workdir: str) -> dict:
+    """Phase 41: the trajectory analyzer on the full-width CIFAR-10 net in
+    f32, its random weights redrawn at unit scale and saved as a checkpoint
+    file that the CLIs load (the init's zero-init convs make D = c_skip * x,
+    whose trajectories are straight lines: curvature 0): ``analyze_trajectories``
+    at 21 steps and batch 16, then with ``--num_images=1024`` (its statistics
+    against the per-sample statistics of each batch's trajectory, taken here
+    from the trajectories the CLI hands to ``batch_stat_sums`` and combined
+    in float64 on the host), ``analyze_extend --mode=sampling``
+    (euler, 201 steps) and ``--mode=low_rank_mog`` (no net: no kernel); every
+    report finite, exact K1 / K3 launches; K1 and K3 in f32 at the
+    analyzer's shapes against their plain versions.  Returns the launches
+    and the kernels' fields."""
+    module, _ = create_model("cifar10", "random", device="cuda")
+    with torch.no_grad():
+        _redraw_unit_scale(module, seed=41, device="cuda")
+    net = os.path.join(workdir, "cifar10-unit-scale.pt")
+    torch.save(module.state_dict(), net)
+    per_call = dict(k1=ATTENTION_SITES, gn=CIFAR_GN_SITES)
+    base = [f"--model_path={net}", f"--num_steps={ANALYZE_STEPS}", f"--batch={ANALYZE_BATCH}"]
+    calls = ANALYZE_STEPS - 1
+    n_batches = math.ceil(ANALYZE_IMAGES / ANALYZE_BATCH)
+    total = dict(k1=0, gn=0)
+    runs = [("analyze_trajectories", cli_analyze_trajectories.main,
+             [*base, f"--outdir={os.path.join(workdir, 'traj')}"], calls),
+            ("analyze_trajectories --num_images", cli_analyze_trajectories.main,
+             [*base, f"--num_images={ANALYZE_IMAGES}",
+              f"--outdir={os.path.join(workdir, 'traj_mp')}"], calls * n_batches),
+            ("analyze_extend sampling", cli_analyze_extend.main,
+             ["--mode=sampling", f"--model_path={net}", "--solver=euler",
+              f"--num_steps={EXTEND_STEPS}",
+              f"--batch={ANALYZE_BATCH}", f"--outdir={os.path.join(workdir, 'ext')}"],
+             EXTEND_STEPS - 1),
+            ("analyze_extend low_rank_mog", cli_analyze_extend.main,
+             ["--mode=low_rank_mog", f"--outdir={os.path.join(workdir, 'ext_mog')}"], 0)]
+    # the --num_images run's per-sample statistics, from the trajectories
+    # the CLI sums, kept in float64 on the host
+    fns = {"magnitude": analysis.trajectory_magnitude, "deviation": trajectory_deviation,
+           "segment_lengths": trajectory_lengths, "direction_cosine": analysis.direction_cosines,
+           "curvature": trajectory_curvature}
+    per_sample = {k: [] for k in [*fns, "denoised_magnitude"]}
+    batch_stat_sums = cli_analyze_trajectories.batch_stat_sums
+
+    def recording(xs, eps, t_steps):
+        for k, stat in fns.items():
+            per_sample[k].append(stat(xs).double().cpu())
+        per_sample["denoised_magnitude"].append(analysis.trajectory_magnitude(
+            analysis.denoised_trajectory(xs, eps, t_steps)).double().cpu())
+        return batch_stat_sums(xs, eps, t_steps)
+
+    reports = {}
+    for tag, fn, argv, n_calls in runs:
+        want = _per_calls(per_call, n_calls) if n_calls else {}
+        if "--num_images" in tag:
+            cli_analyze_trajectories.batch_stat_sums = recording
+        try:
+            reports[tag], counts = _analyzer_cli(tag, fn, argv, want)
+        finally:
+            cli_analyze_trajectories.batch_stat_sums = batch_stat_sums
+        for k in total:
+            total[k] += counts[k]
+    report = reports["analyze_trajectories --num_images"]
+    combined = {k: torch.cat(v).mean(0).numpy() for k, v in per_sample.items()}
+    errs = {k: float(np.abs(np.asarray(report[k]) - v).max() / np.abs(v).max())
+            for k, v in combined.items()}
+    print(f"[analyzer] --num_images={ANALYZE_IMAGES} statistics against the per-sample ones of "
+          f"its {len(per_sample['magnitude'])} batches combined in float64 on the host: max err "
+          f"of max {max(errs.values()):.3g} (tol {ANALYZE_TOL:g}); {errs}")
+    _check(len(per_sample["magnitude"]) == math.ceil(ANALYZE_IMAGES / ANALYZE_BATCH)
+           and sum(len(v) for v in per_sample["magnitude"]) == ANALYZE_IMAGES
+           and max(errs.values()) <= ANALYZE_TOL, "analyzer: --num_images statistics differ")
+    del module
+    torch.cuda.empty_cache()
+    print(f"[analyzer] launches over the four CLI runs: K1 {total['k1']}, K3 {total['gn']}")
+
+    k1 = _k1_checks("analyzer K1", [ANALYZE_K_SHAPE], _qkv_views, seed=70, reps=10, warmup=2)
+    k3 = _gn_checks([ANALYZE_GN_SHAPE], {"analyzer": ANALYZE_GN_SHAPE[:5]}, seed=71)["analyzer"]
+    return dict(counts=total, k1=k1["main"], k3=k3)
+
+
+def phase_amed_export(workdir: str) -> dict:
+    """Phase 42 (after phase 8, in its directory): ``export_amed_schedule``
+    of phase 8's saved predictor over the full-width CIFAR-10 net (16 probe
+    seeds, f32; two K1 / K3 forwards a segment): every r in (0, 1), every
+    t_mid between its two sigmas, the interleaved lists, and
+    ``save_amed_schedule``'s JSON read back equal.  (The log.txt of every
+    ``train_amed`` / ``train_sfd`` run is checked where the run is.)"""
+    run_dir = glob.glob(os.path.join(workdir, "exps", "*-cifar10-*"))[0]
+    cfg = ckpt.load_config(os.path.join(run_dir, "predictor_config.json"))
+    cfg = AMEDConfig(**{k: v for k, v in cfg.items() if k in AMEDConfig.__dataclass_fields__})
+    pred = load_jax_params(predictor_from_config(cfg, device="cuda"),
+                           ckpt.load_params(os.path.join(run_dir, "predictor.npz"))["params"])
+    module, _ = create_model("cifar10", "random", device="cuda")
+    _reset_counts()
+    sched, export_s = _host_timed(lambda: export_amed_schedule(
+        pred.eval(), bind_with_bottleneck(module), (32, 32, 3), cfg.num_steps, cfg.sigma_min,
+        cfg.sigma_max, schedule_type=cfg.schedule_type, schedule_rho=cfg.schedule_rho))
+    counts = _counts()
+    calls = 2 * (cfg.num_steps - 1)
+    want = _only(k1=ATTENTION_SITES * calls, gn=CIFAR_GN_SITES * calls)
+    t, r, t_mid = np.asarray(sched["sigmas"]), np.asarray(sched["r"]), np.asarray(sched["t_mid"])
+    path = os.path.join(workdir, "amed_schedule.json")
+    save_amed_schedule(path, sched)
+    with open(path) as f:
+        back = json.load(f)
+    print(f"[AMED export] {run_dir}: {export_s:.3f} s host clock; sigmas {t.tolist()}, r "
+          f"{r.tolist()}, t_mid {t_mid.tolist()}, scale_dir {sched['scale_dir']}, scale_time "
+          f"{sched['scale_time']}; launches {counts}, expected {want}")
+    _check(np.all((r > 0) & (r < 1)) and np.all((t[1:] < t_mid) & (t_mid < t[:-1])),
+           "AMED export: r outside (0, 1) or a midpoint outside its step")
+    _check(len(sched["scale_dirs_interleaved"]) == 2 * cfg.num_steps - 1 and back == sched,
+           "AMED export: the interleaved lists or the saved JSON")
+    _check(counts == want, "AMED export: launch counts")
+    del module, pred
+    torch.cuda.empty_cache()
+    return counts
+
+
+class _Tee(io.TextIOBase):
+    """A stdout that writes through to another and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.copy = stream, io.StringIO()
+
+    def write(self, text):
+        self.copy.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def _check_log_txt(tag: str, run_dir: str, printed: str) -> None:
+    """The run's log.txt holds every line the CLI printed from "Run dir:" on,
+    in order."""
+    with open(os.path.join(run_dir, "log.txt")) as f:
+        logged = f.read().splitlines()
+    lines = printed.splitlines()
+    lines = lines[next(i for i, line in enumerate(lines) if line.startswith("Run dir:")):]
+    rest = iter(logged)
+    held = all(any(line == got for got in rest) for line in lines)
+    print(f"[{tag}] log.txt: {len(logged)} lines, holding the {len(lines)} lines the CLI "
+          f"printed: {held}")
+    _check(held, f"{tag}: log.txt lacks lines the CLI printed")
+
+
 def _kernel_entry(name, source, replaces, launches, fields) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **{k: fields[k] for k in (
@@ -4089,6 +4510,11 @@ def main() -> int:
     _phase("phase 7, CIFAR-10 gradient f32", phase_gradient_f32)
     with tempfile.TemporaryDirectory() as workdir:
         amed = _phase("phase 8, CIFAR-10 AMED", phase_amed, workdir)
+        export_counts = _phase("phase 42, the AMED export of phase 8's predictor",
+                               phase_amed_export, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        analyzer = _phase("phase 41, the trajectory analyzer on CIFAR-10", phase_analyzer,
+                          workdir)
     in64_k1 = _phase("phase 9, K1 at the ImageNet-64 shapes", phase_in64_kernel)
     in64_k2 = _phase("phase 10, K2 at the ImageNet-64 shapes", phase_in64_backward_kernel)
     _phase("phase 11, ImageNet-64 D and gradient f32", phase_in64_denoiser_and_gradient)
@@ -4125,16 +4551,18 @@ def main() -> int:
                               "profile", phase_ffhq)
     _phase("phase 29, GITS on CIFAR-10 through the CLI", phase_gits_cifar)
     _phase("phase 30, GITS on the LSUN LDM through the CLI", phase_gits_ldm)
-    with tempfile.TemporaryDirectory() as workdir:
+    with tempfile.TemporaryDirectory() as edm_dir:
         ckpt_edm = _phase("phase 31, CIFAR-10 from its checkpoint files", phase_checkpoint_edm,
-                          workdir)
-        eval_counts = _phase("phase 33, FID and PRDC of CIFAR-10 samples", phase_eval, workdir,
-                             os.path.join(workdir, EDM_PKL))
-    with tempfile.TemporaryDirectory() as workdir:
-        ckpt_sd = _phase("phase 32, Stable Diffusion from a checkpoint, with its text tower",
-                         phase_checkpoint_sd, workdir)
-        sfd_sd = _phase("phase 39, the SD student from phase 32's checkpoint", phase_sfd_sd,
-                        workdir)
+                          edm_dir)
+        eval_counts = _phase("phase 33, FID and PRDC of CIFAR-10 samples", phase_eval, edm_dir,
+                             os.path.join(edm_dir, EDM_PKL))
+        with tempfile.TemporaryDirectory() as workdir:
+            ckpt_sd = _phase("phase 32, Stable Diffusion from a checkpoint, with its text tower",
+                             phase_checkpoint_sd, workdir)
+            sfd_sd = _phase("phase 39, the SD student from phase 32's checkpoint", phase_sfd_sd,
+                            workdir)
+            _phase("phase 40, the CLIP score at ViT-g-14's width", phase_clip_score, workdir,
+                   os.path.join(edm_dir, "samples"))
     adm_k = _phase("phase 34a, K1 / K2 / K3 at the 256 px shapes", phase_adm_kernels)
     _phase("phase 34b, LSUN-Bedroom 256 (CM) D and gradient f32",
            phase_cm_denoiser_and_gradient)
@@ -4201,7 +4629,11 @@ def main() -> int:
                     ("K2 dQ f32 on the SD SFD student", sfd_sd["counts"]["dq"]),
                     ("K2 dK/dV f32 on the SD SFD student", sfd_sd["counts"]["dkv"]),
                     ("K2c dQ on the SD SFD student", sfd_sd["counts"]["dqc"]),
-                    ("K2c dK/dV on the SD SFD student", sfd_sd["counts"]["dkvc"])):
+                    ("K2c dK/dV on the SD SFD student", sfd_sd["counts"]["dkvc"]),
+                    ("K1 f32 on the trajectory analyzer", analyzer["counts"]["k1"]),
+                    ("K3 f32 on the trajectory analyzer", analyzer["counts"]["gn"]),
+                    ("K1 f32 on the AMED export", export_counts["k1"]),
+                    ("K3 f32 on the AMED export", export_counts["gn"])):
         _check(n > 0, f"{name} was not launched on its path")
     print(f"[time] whole run: {time.perf_counter() - t_start:.2f} s")
     print(smi)
@@ -4344,6 +4776,22 @@ def main() -> int:
         _kernel_entry("flash_attention_flat_bwd_dkv (K2c dK/dV in 3xTF32, SD SFD student, "
                       "phase 39)", bwd32, f"{tpu}:994", sfd_sd["counts"]["dkvc"],
                       sfd_sd["k2c"]["dkv"]),
+        _kernel_entry("flash_attention_mh in f32 at [16, 256, 1, 256] (K1 in 3xTF32, the "
+                      "trajectory analyzer on CIFAR-10: analyze_trajectories and analyze_extend, "
+                      "phase 41)", fwd32, f"{tpu}:157", analyzer["counts"]["k1"], analyzer["k1"]),
+        _kernel_entry(f"groupnorm_silu in f32 (K3 at [16, 32, 32, 256], route "
+                      f"{analyzer['k3']['route']}, the trajectory analyzer, phase 41)",
+                      "diff_sampler_tpu_torch/csrc/groupnorm.cu",
+                      "diff_sampler_tpu/ops/pallas_groupnorm.py:29", analyzer["counts"]["gn"],
+                      analyzer["k3"]),
+        _kernel_entry("flash_attention_mh in f32 at [16, 256, 1, 256] (K1 in 3xTF32, the AMED "
+                      "export of phase 8's predictor over 16 probe seeds, phase 42; times of "
+                      "phase 41)", fwd32, f"{tpu}:157", export_counts["k1"], analyzer["k1"]),
+        _kernel_entry(f"groupnorm_silu in f32 (K3 at [16, 32, 32, 256], route "
+                      f"{analyzer['k3']['route']}, the AMED export, phase 42; times of phase 41)",
+                      "diff_sampler_tpu_torch/csrc/groupnorm.cu",
+                      "diff_sampler_tpu/ops/pallas_groupnorm.py:29", export_counts["gn"],
+                      analyzer["k3"]),
         _kernel_entry("conv3x3 / gn_silu_conv3x3 in bf16 (K4, 3x3 conv with a fused "
                       "GroupNorm-affine + SiLU prologue: wgmma on a TMA-loaded halo tile, the "
                       "prologue once per staged pixel; its entry points, no JAX path)", conv,

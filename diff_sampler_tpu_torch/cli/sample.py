@@ -99,15 +99,14 @@ from ..models.convert import ldm_params_from_jax, load_jax_params
 from ..models.factory import (ADM_TIERS, EDM_ARCHS, LDM_CONFIGS, build_edm_model,
                               build_ldm_model, create_model, init_params)
 from ..models.precond import CFGPrecond, CGPrecond, bind
-from ..models.zoo import find_file
 from ..ops import get_schedule
 from ..sampling import SolverConfig, generate, generate_batches, to_uint8
 from ..solvers import SOLVER_REGISTRY
 from ..solvers.amed import AMED_SOLVER_REGISTRY, bind_with_bottleneck
 from ..training.amed import AMEDConfig, predictor_from_config
-from ..training.conditioning import load_captions
 from ..utils import checkpoint as ckpt
 from ..utils.image import parse_int_list, save_grid, save_images
+from .clip_score import load_captions
 
 
 def _bool(s: str) -> bool:
@@ -221,8 +220,9 @@ def main(argv=None) -> dict:
             raise ValueError("ms_coco sampling needs the checkpoint's CLIP text encoder: pass "
                              "--model_path (the 'random' weights have none)")
         if args.prompt is None:
-            # one MS-COCO caption per seed (sample.py:171-180, 276-291)
-            captions = load_captions(find_file("prompts"))
+            # one MS-COCO caption per seed (sample.py:171-180, 276-291), read
+            # as UTF-8 with newline="" as the JAX CLI reads them
+            captions = load_captions()
             per_seed_cond = ld.encode_in_chunks([captions[s % len(captions)] for s in seeds])
         else:
             cond["condition"] = ld.get_learned_conditioning([args.prompt])

@@ -40,8 +40,9 @@ second-order path either.
 
 The run directory ``<outdir>/<id>-<desc>/`` gets ``predictor_config.json``
 (written after the model's sigma range is set: sampling restores every
-solver setting from it), ``stats.jsonl`` (one line per tick) and, at the
-end, ``predictor.npz`` in the JAX package's params layout.  The U-Net is
+solver setting from it), ``stats.jsonl`` (one line per tick), ``log.txt``
+(everything the run prints, appended, as the JAX CLI's) and, at the end,
+``predictor.npz`` in the JAX package's params layout.  The U-Net is
 frozen: autograd computes gradients through it, into the predictor only.
 """
 
@@ -62,6 +63,7 @@ from ..training.amed import AMEDConfig, make_amed_train_step, predictor_from_con
 from ..training.conditioning import make_caption_context_fn, make_uncond_context
 from ..utils import checkpoint as ckpt
 from ..utils import stats as training_stats
+from ..utils.logger import Logger
 from ..utils.profiling import Timer
 from ..utils.rng import stacked_randint, stacked_randn
 from .sample import _bool
@@ -201,44 +203,45 @@ def main(argv=None) -> str:
     run_desc = (f"{cfg.dataset_name}-{cfg.num_steps}-{cfg.num_steps}-{cfg.sampler_stu}-"
                 f"{cfg.sampler_tea}" + (f"-{args.desc}" if args.desc else ""))
     run_dir = ckpt.create_run_dir(args.outdir, run_desc)
-    print(f"Run dir: {run_dir}")
+    with Logger(os.path.join(run_dir, "log.txt"), "a"):
+        print(f"Run dir: {run_dir}")
 
-    module, cfg, pred, train_step, context_fn = build_trainer(cfg, args.model_path, device,
-                                                              args.seed, args.prompt_path)
-    # The sidecar describes the schedule the predictor trains on: the
-    # model's sigma range, set before it is written.
-    ckpt.save_config(os.path.join(run_dir, "predictor_config.json"), cfg)
+        module, cfg, pred, train_step, context_fn = build_trainer(cfg, args.model_path, device,
+                                                                  args.seed, args.prompt_path)
+        # The sidecar describes the schedule the predictor trains on: the
+        # model's sigma range, set before it is written.
+        ckpt.save_config(os.path.join(run_dir, "predictor_config.json"), cfg)
 
-    res, chn = module.img_resolution, module.img_channels
-    collector = training_stats.default_collector
-    jsonl = training_stats.JsonlWriter(os.path.join(run_dir, "stats.jsonl"))
-    timer = Timer()
-    cur_nimg, it = 0, 0
-    print(f"Training for {cfg.total_kimg} kimg (batch {cfg.batch}, "
-          f"batch_gpu {cfg.batch_gpu or cfg.batch}) on {device}...")
-    try:
-        while cur_nimg < cfg.total_kimg * 1000:
-            batch_seeds = np.arange(it * cfg.batch, (it + 1) * cfg.batch) + args.seed
-            latents = stacked_randn(batch_seeds.tolist(), (res, res, chn), device=device)
-            cond = () if context_fn is None else (torch.as_tensor(context_fn(it), device=device),)
-            metrics = train_step(latents, *cond)
-            training_stats.report("Loss/loss", metrics["loss_per_step"].cpu().numpy())
-            cur_nimg += cfg.batch
-            it += 1
-            if it % args.tick == 0 or cur_nimg >= cfg.total_kimg * 1000:
-                collector.update()
-                t = timer.tick(cur_nimg)
-                print(f"kimg {cur_nimg / 1e3:<8.2f} loss {collector.mean('Loss/loss'):<12.6f} "
-                      f"sec/kimg {t['sec_per_kimg']:<8.1f}")
-                jsonl.write(collector, kimg=cur_nimg / 1e3, **t)
-                collector.reset()
-    finally:
-        jsonl.close()
-    path = os.path.join(run_dir, "predictor.npz")
-    ckpt.save_params(path, params_to_jax(pred.state_dict()))
-    print(f"Saved {path}")
-    print("Done.")
-    return run_dir
+        res, chn = module.img_resolution, module.img_channels
+        collector = training_stats.default_collector
+        jsonl = training_stats.JsonlWriter(os.path.join(run_dir, "stats.jsonl"))
+        timer = Timer()
+        cur_nimg, it = 0, 0
+        print(f"Training for {cfg.total_kimg} kimg (batch {cfg.batch}, "
+              f"batch_gpu {cfg.batch_gpu or cfg.batch}) on {device}...")
+        try:
+            while cur_nimg < cfg.total_kimg * 1000:
+                batch_seeds = np.arange(it * cfg.batch, (it + 1) * cfg.batch) + args.seed
+                latents = stacked_randn(batch_seeds.tolist(), (res, res, chn), device=device)
+                cond = () if context_fn is None else (torch.as_tensor(context_fn(it), device=device),)
+                metrics = train_step(latents, *cond)
+                training_stats.report("Loss/loss", metrics["loss_per_step"].cpu().numpy())
+                cur_nimg += cfg.batch
+                it += 1
+                if it % args.tick == 0 or cur_nimg >= cfg.total_kimg * 1000:
+                    collector.update()
+                    t = timer.tick(cur_nimg)
+                    print(f"kimg {cur_nimg / 1e3:<8.2f} loss {collector.mean('Loss/loss'):<12.6f} "
+                          f"sec/kimg {t['sec_per_kimg']:<8.1f}")
+                    jsonl.write(collector, kimg=cur_nimg / 1e3, **t)
+                    collector.reset()
+        finally:
+            jsonl.close()
+        path = os.path.join(run_dir, "predictor.npz")
+        ckpt.save_params(path, params_to_jax(pred.state_dict()))
+        print(f"Saved {path}")
+        print("Done.")
+        return run_dir
 
 
 if __name__ == "__main__":

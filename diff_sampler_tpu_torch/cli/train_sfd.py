@@ -37,7 +37,8 @@ the iterations, counted as optax counts its updates).
 
 The run directory ``<outdir>/<id>-<dataset>-<n>step-<teacher><M>/`` gets
 ``training_options.json`` (the JAX CLI's keys: sampling restores the
-solver settings from it), ``stats.jsonl`` (one line per tick) and every
+solver settings from it), ``stats.jsonl`` (one line per tick), ``log.txt``
+(everything the run prints, appended, as the JAX CLI's) and every
 ``--tick`` x ``--snap`` iterations and at the end ``snapshot-<kimg>.npz``
 in the JAX package's layout (``utils/checkpoint.py``): params, Adam's
 moments and count, ``meta/cur_nimg``.  ``--resume=<snapshot>`` restores
@@ -67,6 +68,7 @@ from ..training.conditioning import make_caption_context_fn
 from ..training.sfd import SFDConfig, adam_count, make_ldm_train_step, make_train_step
 from ..utils import checkpoint as ckpt
 from ..utils import stats as training_stats
+from ..utils.logger import Logger
 from ..utils.profiling import Timer
 from ..utils.rng import stacked_randint, stacked_randn
 from .sample import _bool
@@ -295,99 +297,100 @@ def main(argv=None) -> Optional[str]:
         raise RuntimeError("--device=cuda but CUDA is not available (pass --device=cpu)")
 
     run_dir = ckpt.create_run_dir(args.outdir, run_desc)
-    ckpt.save_config(os.path.join(run_dir, "training_options.json"), options)
-    print(f"Run dir: {run_dir}")
-    n_acc, mb = _accumulation(args.dataset_name, args.batch, args.batch_gpu)
-    eff_batch = n_acc * mb
-    if n_acc > 1:
-        print(f"Gradient accumulation: {n_acc} rounds of {mb}")
-    sfdv = args.use_step_condition and not args.is_second_stage and not latent
-    half = _lr_drop_updates(args.total_kimg, eff_batch, args.num_steps, sfdv, args.seed)
+    with Logger(os.path.join(run_dir, "log.txt"), "a"):
+        ckpt.save_config(os.path.join(run_dir, "training_options.json"), options)
+        print(f"Run dir: {run_dir}")
+        n_acc, mb = _accumulation(args.dataset_name, args.batch, args.batch_gpu)
+        eff_batch = n_acc * mb
+        if n_acc > 1:
+            print(f"Gradient accumulation: {n_acc} rounds of {mb}")
+        sfdv = args.use_step_condition and not args.is_second_stage and not latent
+        half = _lr_drop_updates(args.total_kimg, eff_batch, args.num_steps, sfdv, args.seed)
 
-    def lr_schedule(count):
-        return args.lr if count < half else args.lr / 10.0
+        def lr_schedule(count):
+            return args.lr if count < half else args.lr / 10.0
 
-    label_dim, context_fn = 0, None
-    if latent:
-        precond, student = _create_latent_student(args.dataset_name, args.model_path,
-                                                  args.guidance_type, args.guidance_rate,
-                                                  remat, device)
-        res, chn = precond.img_resolution, precond.img_channels
-        if args.dataset_name == "ms_coco":
-            context_fn = make_caption_context_fn(precond.latent_diffusion, args.prompts_path,
-                                                 eff_batch, args.seed)
-    else:
-        student = _create_student(args.dataset_name, args.model_path,
-                                  args.use_step_condition, remat, device)
-        res, chn = student.module.img_resolution, student.module.img_channels
-        label_dim = student.module.label_dim
-    optimizer = torch.optim.Adam([p for _, p in student.named], lr=args.lr,
-                                 betas=(0.9, 0.999), eps=1e-8)
-    start_nimg = 0
-    if args.resume:
-        start_nimg = restore_snapshot(args.resume, student, optimizer)
-        print(f"Resumed from {args.resume} at {start_nimg / 1e3:.1f} kimg "
-              f"({adam_count(optimizer)} updates)")
-
-    def build(c):
+        label_dim, context_fn = 0, None
         if latent:
-            return make_ldm_train_step(student.module, student.teacher, precond, c, optimizer,
-                                       n_acc=n_acc, lr_schedule=lr_schedule)
-        return make_train_step(student.module, student.teacher, c, optimizer, n_acc=n_acc,
-                               lr_schedule=lr_schedule)
+            precond, student = _create_latent_student(args.dataset_name, args.model_path,
+                                                      args.guidance_type, args.guidance_rate,
+                                                      remat, device)
+            res, chn = precond.img_resolution, precond.img_channels
+            if args.dataset_name == "ms_coco":
+                context_fn = make_caption_context_fn(precond.latent_diffusion, args.prompts_path,
+                                                     eff_batch, args.seed)
+        else:
+            student = _create_student(args.dataset_name, args.model_path,
+                                      args.use_step_condition, remat, device)
+            res, chn = student.module.img_resolution, student.module.img_channels
+            label_dim = student.module.label_dim
+        optimizer = torch.optim.Adam([p for _, p in student.named], lr=args.lr,
+                                     betas=(0.9, 0.999), eps=1e-8)
+        start_nimg = 0
+        if args.resume:
+            start_nimg = restore_snapshot(args.resume, student, optimizer)
+            print(f"Resumed from {args.resume} at {start_nimg / 1e3:.1f} kimg "
+                  f"({adam_count(optimizer)} updates)")
 
-    cur_nimg, it = start_nimg, start_nimg // eff_batch
-    if sfdv:
-        # SFD-v: num_steps drawn in [4, 7] per trajectory (training_loop.py:239-244)
-        variants = {n: build(dataclasses.replace(cfg, num_steps=n, M=2 if n == 3 else 3))
-                    for n in range(4, 8)}
-        rng_steps = np.random.RandomState(args.seed)
-        for _ in range(it):  # a resumed run draws on where the unbroken run would
-            rng_steps.randint(4, 8)
+        def build(c):
+            if latent:
+                return make_ldm_train_step(student.module, student.teacher, precond, c, optimizer,
+                                           n_acc=n_acc, lr_schedule=lr_schedule)
+            return make_train_step(student.module, student.teacher, c, optimizer, n_acc=n_acc,
+                                   lr_schedule=lr_schedule)
 
-        def train_step(*a):
-            return variants[int(rng_steps.randint(4, 8))](*a)
-    else:
-        train_step = build(cfg)
+        cur_nimg, it = start_nimg, start_nimg // eff_batch
+        if sfdv:
+            # SFD-v: num_steps drawn in [4, 7] per trajectory (training_loop.py:239-244)
+            variants = {n: build(dataclasses.replace(cfg, num_steps=n, M=2 if n == 3 else 3))
+                        for n in range(4, 8)}
+            rng_steps = np.random.RandomState(args.seed)
+            for _ in range(it):  # a resumed run draws on where the unbroken run would
+                rng_steps.randint(4, 8)
 
-    collector = training_stats.default_collector
-    jsonl = training_stats.JsonlWriter(os.path.join(run_dir, "stats.jsonl"))
-    timer = Timer()
-    total = args.total_kimg * 1000
-    print(f"Training for {args.total_kimg} kimg (batch {eff_batch}) on {device}...")
-    try:
-        while cur_nimg < total:
-            batch_seeds = (np.arange(it * eff_batch, (it + 1) * eff_batch) + args.seed).tolist()
-            latents = stacked_randn(batch_seeds, (res, res, chn), device=device)
-            if context_fn is not None:
-                cond = (torch.as_tensor(context_fn(it), device=device),)
-            elif label_dim:
-                # one random class per trajectory (training_loop.py:181-182)
-                idx = stacked_randint(batch_seeds, (), 0, label_dim, device=device)
-                cond = (F.one_hot(idx, label_dim).float(),)
-            else:
-                cond = ()
-            metrics = train_step(latents, *cond)
-            training_stats.report("Loss/loss", metrics["loss_per_step"].cpu().numpy())
-            cur_nimg += eff_batch
-            it += 1
-            if it % args.tick == 0 or cur_nimg >= total:
-                collector.update()
-                t = timer.tick(cur_nimg)
-                peak = (f" peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f}GiB"
-                        if device.type == "cuda" else "")
-                print(f"kimg {cur_nimg / 1e3:<8.2f} loss {collector.mean('Loss/loss'):<10.4f} "
-                      f"sec/kimg {t['sec_per_kimg']:<8.1f}{peak}")
-                jsonl.write(collector, kimg=cur_nimg / 1e3, **t)
-                collector.reset()
-            if it % (args.tick * args.snap) == 0 or cur_nimg >= total:
-                path = os.path.join(run_dir, f"snapshot-{cur_nimg // 1000:06d}.npz")
-                save_snapshot(path, student, optimizer, cur_nimg)
-                print(f"Saved {path}")
-    finally:
-        jsonl.close()
-    print("Done.")
-    return run_dir
+            def train_step(*a):
+                return variants[int(rng_steps.randint(4, 8))](*a)
+        else:
+            train_step = build(cfg)
+
+        collector = training_stats.default_collector
+        jsonl = training_stats.JsonlWriter(os.path.join(run_dir, "stats.jsonl"))
+        timer = Timer()
+        total = args.total_kimg * 1000
+        print(f"Training for {args.total_kimg} kimg (batch {eff_batch}) on {device}...")
+        try:
+            while cur_nimg < total:
+                batch_seeds = (np.arange(it * eff_batch, (it + 1) * eff_batch) + args.seed).tolist()
+                latents = stacked_randn(batch_seeds, (res, res, chn), device=device)
+                if context_fn is not None:
+                    cond = (torch.as_tensor(context_fn(it), device=device),)
+                elif label_dim:
+                    # one random class per trajectory (training_loop.py:181-182)
+                    idx = stacked_randint(batch_seeds, (), 0, label_dim, device=device)
+                    cond = (F.one_hot(idx, label_dim).float(),)
+                else:
+                    cond = ()
+                metrics = train_step(latents, *cond)
+                training_stats.report("Loss/loss", metrics["loss_per_step"].cpu().numpy())
+                cur_nimg += eff_batch
+                it += 1
+                if it % args.tick == 0 or cur_nimg >= total:
+                    collector.update()
+                    t = timer.tick(cur_nimg)
+                    peak = (f" peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f}GiB"
+                            if device.type == "cuda" else "")
+                    print(f"kimg {cur_nimg / 1e3:<8.2f} loss {collector.mean('Loss/loss'):<10.4f} "
+                          f"sec/kimg {t['sec_per_kimg']:<8.1f}{peak}")
+                    jsonl.write(collector, kimg=cur_nimg / 1e3, **t)
+                    collector.reset()
+                if it % (args.tick * args.snap) == 0 or cur_nimg >= total:
+                    path = os.path.join(run_dir, f"snapshot-{cur_nimg // 1000:06d}.npz")
+                    save_snapshot(path, student, optimizer, cur_nimg)
+                    print(f"Saved {path}")
+        finally:
+            jsonl.close()
+        print("Done.")
+        return run_dir
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""Evaluation of the port: the FID Inception-V3 detector, FID and PRDC, and
-the image dataset reader that feeds them.  The CLIP score of the JAX
-package's ``eval`` is not ported yet."""
+"""Evaluation of the port: the FID Inception-V3 detector, FID and PRDC, the
+CLIP score (``eval.clip_score``, not re-exported here: its function would
+shadow the module), and the image dataset reader that feeds them."""
 
 from .dataset import ImageFolderDataset
 from .fid import (FIDAccumulator, calculate_stats, compute_fid, load_stats,

@@ -74,16 +74,33 @@ def _tf1_resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tenso
     return x.index_select(2, j0) * (1.0 - ww) + x.index_select(2, j1) * ww
 
 
-def _resize_weights(size_in: int, size_out: int, device) -> torch.Tensor:
-    """[size_in, size_out] weights of ``jax.image.resize``'s bilinear
-    resize along one axis (``jax/_src/image/scale.py::compute_weight_mat``
-    with antialias): a triangle kernel on half-pixel sample points, widened
-    by in / out where the axis shrinks, each column normalised, in f32."""
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - x, min=0.0)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel, a = -0.5 (``jax/_src/image/scale.py``
+    ``_fill_keys_cubic_kernel``), in its operation order."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+_RESIZE_KERNELS = {"bilinear": _triangle, "bicubic": _keys_cubic}
+
+
+def _resize_weights(size_in: int, size_out: int, device, method: str = "bilinear"
+                    ) -> torch.Tensor:
+    """[size_in, size_out] weights of ``jax.image.resize`` along one axis
+    (``jax/_src/image/scale.py::compute_weight_mat`` with antialias): the
+    method's kernel on half-pixel sample points, widened by in / out where
+    the axis shrinks, each column normalised over the in-range pixels, in
+    f32."""
     inv_scale = np.float32(1.0 / (size_out / size_in))  # JAX: 1 / scale, scale = out / in
     kernel_scale = max(inv_scale, np.float32(1.0))
     sample = (torch.arange(size_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
     grid = torch.arange(size_in, dtype=torch.float32, device=device)
-    w = torch.clamp(1.0 - (sample[None, :] - grid[:, None]).abs() / kernel_scale, min=0.0)
+    w = _RESIZE_KERNELS[method]((sample[None, :] - grid[:, None]).abs() / kernel_scale)
     total = w.sum(0, keepdim=True)
     w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
                     w / torch.where(total != 0, total, torch.ones_like(total)),
@@ -92,13 +109,16 @@ def _resize_weights(size_in: int, size_out: int, device) -> torch.Tensor:
     return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
-def _resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """``jax.image.resize(x, (N, out_h, out_w, C), "bilinear")`` on NHWC
-    f32: one weighted sum per spatial axis, H then W."""
-    wh = _resize_weights(x.shape[1], out_h, x.device)
-    ww = _resize_weights(x.shape[2], out_w, x.device)
-    x = torch.einsum("nhwc,hH->nHwc", x, wh)
-    return torch.einsum("nhwc,wW->nhWc", x, ww)
+def resize_nhwc(x: torch.Tensor, out_h: int, out_w: int, method: str = "bilinear"
+                ) -> torch.Tensor:
+    """``jax.image.resize(x, (N, out_h, out_w, C), method)`` on NHWC f32
+    (``bilinear`` or Keys' ``bicubic``, antialiased where an axis shrinks):
+    one weighted sum per spatial axis that changes size, H then W."""
+    if out_h != x.shape[1]:
+        x = torch.einsum("nhwc,hH->nHwc", x, _resize_weights(x.shape[1], out_h, x.device, method))
+    if out_w != x.shape[2]:
+        x = torch.einsum("nhwc,wW->nhWc", x, _resize_weights(x.shape[2], out_w, x.device, method))
+    return x
 
 
 class _BN(nn.Module):
@@ -278,7 +298,7 @@ class InceptionV3FID(nn.Module):
             x = (x - 128.0) / 128.0
         else:
             if tuple(x.shape[1:3]) != (299, 299):
-                x = _resize_bilinear(x, 299, 299)
+                x = resize_nhwc(x, 299, 299)
             x = x / 127.5 - 1.0
         return x.permute(0, 3, 1, 2)
 

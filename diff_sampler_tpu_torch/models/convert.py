@@ -41,6 +41,11 @@ the transpose of the port's [C, T].
 Inception-V3 params (``bn_scale`` / ``bn_bias`` / ``bn_mean`` / ``bn_var``
 beside each conv) to the port's detector, which has torchvision's names.
 
+``openclip_state_dict_from_jax`` carries the JAX package's OpenCLIP params
+(``openclip_params_from_state_dict``'s tree: HWIO patch conv, linear
+kernels stored [in, out]) back to open_clip's state_dict names, which the
+port's ``models/openclip.py::OpenCLIP`` carries.
+
 The JAX params are nested dicts of numpy arrays (``np.asarray`` of each leaf
 of a Flax params tree), so this module needs no jax.
 """
@@ -55,7 +60,7 @@ import torch
 
 __all__ = ["params_from_jax", "params_to_jax", "load_jax_params", "load_ldm_jax_params",
            "ldm_params_to_jax", "ldm_params_from_jax", "load_adm_jax_params", "absent_from_jax",
-           "inception_state_dict_from_jax"]
+           "inception_state_dict_from_jax", "openclip_state_dict_from_jax"]
 
 _SPLIT_PREFIXES = ("enc_", "dec_")
 # U-Net level names after the prefix: ``16x16_block0``, ``8x8_aux_norm``...
@@ -279,4 +284,49 @@ def inception_state_dict_from_jax(params: Mapping[str, Any], prefix: str = ""
                 np.array(val, np.float32))
         else:
             out.update(inception_state_dict_from_jax(val, f"{prefix}{key}."))
+    return out
+
+
+def _t(val, *axes) -> torch.Tensor:
+    arr = np.asarray(val, np.float32)
+    return torch.from_numpy(np.ascontiguousarray(arr.transpose(*axes) if axes else arr))
+
+
+def _openclip_blocks(blocks, prefix: str) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for i, p in enumerate(blocks):
+        d = f"{prefix}.resblocks.{i}."
+        for ln in ("ln_1", "ln_2"):
+            out[d + f"{ln}.weight"] = _t(p[ln]["scale"])
+            out[d + f"{ln}.bias"] = _t(p[ln]["bias"])
+        out[d + "attn.in_proj_weight"] = _t(p["attn"]["in_proj_w"], 1, 0)
+        out[d + "attn.in_proj_bias"] = _t(p["attn"]["in_proj_b"])
+        out[d + "attn.out_proj.weight"] = _t(p["attn"]["out_proj_w"], 1, 0)
+        out[d + "attn.out_proj.bias"] = _t(p["attn"]["out_proj_b"])
+        out[d + "mlp.c_fc.weight"] = _t(p["c_fc_w"], 1, 0)
+        out[d + "mlp.c_fc.bias"] = _t(p["c_fc_b"])
+        out[d + "mlp.c_proj.weight"] = _t(p["c_proj_w"], 1, 0)
+        out[d + "mlp.c_proj.bias"] = _t(p["c_proj_b"])
+    return out
+
+
+def openclip_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's OpenCLIP params (``{"visual": ..., "text": ...}``,
+    numpy leaves) as an open_clip state_dict: the patch conv HWIO -> OIHW,
+    each linear kernel [in, out] -> [out, in], LayerNorm ``scale`` ->
+    ``weight``; embeddings and projections as they are.  No ``logit_scale``:
+    the JAX tree has none."""
+    v, t = params["visual"], params["text"]
+    out = {"visual.conv1.weight": _t(v["conv1_w"], 3, 2, 0, 1),
+           "visual.class_embedding": _t(v["class_embedding"]),
+           "visual.positional_embedding": _t(v["positional_embedding"]),
+           "visual.proj": _t(v["proj"]),
+           "token_embedding.weight": _t(t["token_embedding"]),
+           "positional_embedding": _t(t["positional_embedding"]),
+           "text_projection": _t(t["text_projection"])}
+    for name, p in (("visual.ln_pre", v["ln_pre"]), ("visual.ln_post", v["ln_post"]),
+                    ("ln_final", t["ln_final"])):
+        out[f"{name}.weight"], out[f"{name}.bias"] = _t(p["scale"]), _t(p["bias"])
+    out.update(_openclip_blocks(v["resblocks"], "visual.transformer"))
+    out.update(_openclip_blocks(t["resblocks"], "transformer"))
     return out

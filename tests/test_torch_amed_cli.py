@@ -63,7 +63,8 @@ def test_train_amed_run_dir_loads_in_the_jax_package(tiny_cifar, tmp_path):
                           "--num_steps=3", "--total_kimg=1", "--device=cpu",
                           f"--outdir={tmp_path}"])
     assert os.path.basename(run) == "00000-cifar10-3-3-amed-heun"
-    assert sorted(os.listdir(run)) == ["predictor.npz", "predictor_config.json", "stats.jsonl"]
+    assert sorted(os.listdir(run)) == ["log.txt", "predictor.npz", "predictor_config.json",
+                                       "stats.jsonl"]
     cfg = ckpt.load_config(os.path.join(run, "predictor_config.json"))
     assert (cfg["num_steps"], cfg["batch"], cfg["sigma_min"], cfg["sigma_max"]) == (3, 1000,
                                                                                     0.002, 80.0)

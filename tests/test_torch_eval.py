@@ -147,7 +147,7 @@ def test_resizes_match_jax_up_and_down(size_in):
                                         jax_scale._kernels[jax_scale.ResizeMethod.LINEAR], True)
     np.testing.assert_array_equal(TI._resize_weights(size_in, 299, "cpu").numpy(),
                                   np.asarray(want))
-    _close(TI._resize_bilinear(torch.from_numpy(x), 299, 299),
+    _close(TI.resize_nhwc(torch.from_numpy(x), 299, 299),
            jax.image.resize(jnp.asarray(x), (n, 299, 299, 3), "bilinear"), tol=1e-5,
            what="default resize")
     _close(TI._tf1_resize_bilinear(torch.from_numpy(x), 299, 299),

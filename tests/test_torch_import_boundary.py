@@ -55,4 +55,32 @@ def test_port_imports_with_jax_and_flax_blocked():
             "diff_sampler_tpu_torch.eval.prdc", "diff_sampler_tpu_torch.cli.fid",
             "diff_sampler_tpu_torch.cli.prdc", "diff_sampler_tpu_torch.cli.dataset_tool",
             "diff_sampler_tpu_torch.utils.lmdb_reader", "diff_sampler_tpu_torch.training.sfd",
-            "diff_sampler_tpu_torch.cli.train_sfd"} <= names
+            "diff_sampler_tpu_torch.cli.train_sfd", "diff_sampler_tpu_torch.models.openclip",
+            "diff_sampler_tpu_torch.eval.clip_score", "diff_sampler_tpu_torch.cli.clip_score",
+            "diff_sampler_tpu_torch.analysis", "diff_sampler_tpu_torch.cli.analyze_trajectories",
+            "diff_sampler_tpu_torch.cli.analyze_extend", "diff_sampler_tpu_torch.integrations",
+            "diff_sampler_tpu_torch.integrations.amed_export",
+            "diff_sampler_tpu_torch.integrations.diffusers_emulation",
+            "diff_sampler_tpu_torch.utils.logger"} <= names
+
+
+def test_port_copies_match_their_jax_originals():
+    """The copies the port keeps of JAX-package code it may not import:
+    open_clip's head-width table, the diffusers emulator (the class's
+    source, verbatim) and the tee Logger (its methods' source; the port's
+    adds only ``with`` support)."""
+    import inspect
+
+    from diff_sampler_tpu.integrations import diffusers_emulation as jemu
+    from diff_sampler_tpu.models import openclip as jopenclip
+    from diff_sampler_tpu.utils import common as jcommon
+    from diff_sampler_tpu_torch.integrations import diffusers_emulation as temu
+    from diff_sampler_tpu_torch.models import openclip as topenclip
+    from diff_sampler_tpu_torch.utils import logger as tlogger
+
+    assert topenclip._VISION_HEAD_WIDTH == jopenclip._VISION_HEAD_WIDTH
+    assert (inspect.getsource(temu.AMEDDPMSolverMultistepEmulator)
+            == inspect.getsource(jemu.AMEDDPMSolverMultistepEmulator))
+    for name in ("__init__", "write", "flush", "close"):
+        assert (inspect.getsource(getattr(tlogger.Logger, name))
+                == inspect.getsource(getattr(jcommon.Logger, name))), name

@@ -110,8 +110,9 @@ def test_train_sfd_run_dir_loads_in_the_jax_package(cifar_run):
     ``optax.adam(schedule)``'s state (the JAX CLI's --resume path) with
     count 2 (2 iterations of 3 steps under AFS: one update each)."""
     assert os.path.basename(cifar_run) == "00000-cifar10-3step-dpmpp1"
-    assert sorted(os.listdir(cifar_run)) == ["snapshot-000000.npz", "snapshot-000001.npz",
-                                             "stats.jsonl", "training_options.json"]
+    assert sorted(os.listdir(cifar_run)) == ["log.txt", "snapshot-000000.npz",
+                                             "snapshot-000001.npz", "stats.jsonl",
+                                             "training_options.json"]
     opts = ckpt.load_config(os.path.join(cifar_run, "training_options.json"))
     assert (opts["num_steps"], opts["M"], opts["afs"], opts["sigma_min"], opts["batch"]) == (
         3, 1, True, 0.006, 500)
@@ -195,7 +196,7 @@ def test_resume_continues_bit_equal(tiny_tiers, tmp_path):
     whole = _train(tmp_path / "a", *args)
     resumed = _train(tmp_path / "b", *args,
                      f"--resume={os.path.join(whole, 'snapshot-000001.npz')}")
-    assert sorted(os.listdir(resumed)) == ["snapshot-000002.npz", "stats.jsonl",
+    assert sorted(os.listdir(resumed)) == ["log.txt", "snapshot-000002.npz", "stats.jsonl",
                                            "training_options.json"]
     with np.load(os.path.join(whole, "snapshot-000002.npz")) as a, \
             np.load(os.path.join(resumed, "snapshot-000002.npz")) as b:
