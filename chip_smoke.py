@@ -205,8 +205,8 @@ Phases, each printing as it goes and then its seconds:
    ``train_amed.build_trainer`` on the checkpoint and the captions (f32, K1,
    K1c, K2 and K2c launched as in phase 25).
 33. FID and PRDC of CIFAR-10 samples (run after phase 31, in its directory):
-   a synthetic CIFAR-10 python tarball (5 batches of 2,000 uint8 images from
-   the seed) through ``cli.dataset_tool`` to a zip of 10,000 PNGs and
+   a synthetic CIFAR-10 python tarball (5 batches of 1,000 uint8 images from
+   the seed) through ``cli.dataset_tool`` to a zip of 5,000 PNGs and
    dataset.json; a random Inception detector (He-scaled convs, BN of order
    one, from a numpy seed) written as a torch zip of a torchvision-named
    state_dict and as a plain pickle of a module tree in TF graph order, both
@@ -215,7 +215,7 @@ Phases, each printing as it goes and then its seconds:
    through both preprocessing paths, within 1e-4 * max|f|; ``fid ref`` of
    the dataset and ``fid calc`` of the dataset against it, |FID| <= 1e-3 *
    trace(sigma), and bit-equal to ``compute_fid`` on stats built in this
-   process; 10,000 samples of phase 31's ``.pkl`` through ``cli.sample``
+   process; 5,000 samples of phase 31's ``.pkl`` through ``cli.sample``
    (ipndm NFE 5, batch 256, bf16; exact K1 / K3 launches), ``fid calc`` of
    them with its host seconds split into PNG decode, features and sqrtm,
    ``prdc calc --num 5000`` with the graph-order pickle, whose decisions
@@ -307,7 +307,7 @@ Phases, each printing as it goes and then its seconds:
 41. The trajectory analyzer on the full-width CIFAR-10 net in f32 (random
    weights redrawn at unit scale, loaded from a file the phase writes):
    ``cli.analyze_trajectories`` at 21 steps and batch 16, again with
-   ``--num_images=1024`` (its statistics against the per-sample statistics
+   ``--num_images=256`` (its statistics against the per-sample statistics
    of its 64 batches combined in float64 on the host),
    ``cli.analyze_extend --mode=sampling`` (euler, 201 steps) and
    ``--mode=low_rank_mog``; every number finite, exact K1 / K3 launches; K1
@@ -319,6 +319,33 @@ Phases, each printing as it goes and then its seconds:
    the saved JSON read back equal.  Every ``train_amed`` and ``train_sfd``
    run (phases 8, 13, 19, 37, 38) holds a ``log.txt`` with every line its
    CLI printed.
+43. Data and sequence parallelism (``parallel/``, ``ops/ring_attention.py``;
+   after phase 38): one-process references first (the CIFAR-10 sampling
+   CLI at full width, bf16, ipndm NFE 5, seeds 0-511 at batch 256; SD v1.5
+   seeds 0-1, guided 7.5, NFE 5, decoded, in f32 with TF32 off and in bf16;
+   one AMED iteration on CIFAR-10 through ``train_amed.build_trainer`` at
+   batch 512 in microbatches of 256, and one at batch 64, f32, TF32 off),
+   beside which the sampling CLI runs as one process under NCCL (world size
+   1; its PNGs byte-equal to the reference's).  Then, through
+   ``parallel.launch.run_local``, two processes over gloo, each on cuda:0
+   (NCCL refuses two ranks on one card), run the CLI over 2 data ranks
+   (byte-equal PNGs), ``sdpa`` through the ring over one seq group of 2 at
+   SD's [2, 4096, 8, 40] in bf16 and f32 and CIFAR-10's [256, 256, 1, 256]
+   against the plain attention over the whole T (K1's and K2's tolerances
+   on out and dq / dk / dv, exactly 2 K1 and 2 K2 pairs a ring call), SD
+   with the ring (exact launches, the ledger: T = 4096 / 1024 / 256 rang,
+   T = 64 skipped; in f32 its images within one uint8 level of the
+   reference's), one bf16 call on one input with the ring, with the plain
+   attention and with planted faults (SD's guided D at sigma_max and the
+   ImageNet-256 classifier's gradient: the ring within 1.5 times the plain
+   attention's distance from the --sp=1 call, a dropped block beyond it),
+   ImageNet-256 classifier-guided sampling with --sp=2 in bf16 (the
+   classifier's gradient runs K2 on the ring's tiles; exact launches, the
+   ledger), the AMED iteration data parallel and the batch-64 one with
+   --sp=2 (the ring inside the train step, K2 on its tiles; exact launches;
+   each predictor within 1e-4 of its reference's).  Last, K1 and K2 at the
+   ring's tiles on these paths and at SD's tile [2, 2048, 8, 40] beside the
+   whole T=4096, in bf16 and f32, as phases 3 and 6.
 
 The last three lines are the card's name and power limit, a JSON object on
 the kernels and ``{"ok": true, "device": {...}}``.  The JSON lists K1 and
@@ -341,7 +368,9 @@ PyTorch calls, as they are XLA ops in the JAX package), K1 and K3 on both
 and 35), the f32 K1 / K2 (K1c / K2c on SD) and K3 on the SFD students'
 paths (launches of phases 37-39; the LDM's times those of phase 16), K1
 and K3 in f32 on the trajectory analyzer's and the AMED export's paths
-(launches of phases 41 and 42, times at the analyzer's shapes), each
+(launches of phases 41 and 42, times at the analyzer's shapes), K1 and
+K2 in bf16 and f32 at the ring's tiles (launches of phase 43's --sp=2
+paths, rank 0's and the ring's partials only), each
 with its error and times at that path's main
 shape and its bound on this card (the f32 attention kernels' and the f32
 K4's: 3xTF32 on the tensor cores).  Every profile (phases 4,
@@ -370,6 +399,7 @@ import subprocess
 import sys
 import tarfile
 import tempfile
+import threading
 import time
 import types
 
@@ -3082,8 +3112,10 @@ def phase_checkpoint_sd(workdir: str) -> dict:
 
 # Phase 33: FID and PRDC of CIFAR-10 samples
 EVAL_TRAIN_BATCHES = 5  # data_batch_1..5 of the synthetic CIFAR-10 tarball
-EVAL_BATCH_IMAGES = 2000  # images per data_batch: 10,000 in the dataset zip
-EVAL_SAMPLES = 10000  # CIFAR-10 samples scored: fid calc's --strict-count holds at 10k
+EVAL_BATCH_IMAGES = 1000  # images per data_batch: 5,000 in the dataset zip
+# CIFAR-10 samples scored (cut from 10,000 to keep the script's time; fid
+# calc runs with --no-strict-count, which takes any count)
+EVAL_SAMPLES = 5000
 DETECTOR_BATCH = 250
 DETECTOR_CHECK_IMAGES = 16  # card against CPU, 32 px, both preprocessing paths
 DETECTOR_TOL = 1e-4  # of max|CPU features|: both sum in f32 in other orders
@@ -3233,13 +3265,13 @@ def _prdc_gate(tag: str, real: np.ndarray, fake: np.ndarray, k: int, cli_out: di
 
 def phase_eval(workdir: str, pkl_path: str) -> dict:
     """Phase 33: FID and PRDC of CIFAR-10 samples.  A synthetic CIFAR-10
-    tarball (10,000 images from a seed) -> ``cli.dataset_tool`` -> a zip of
+    tarball (5,000 images from a seed) -> ``cli.dataset_tool`` -> a zip of
     PNGs; a random Inception detector (``_random_inception``) written as a
     torchvision-named torch zip and as an NVIDIA-style graph-order pickle,
     the two imports equal; the detector on the card against its CPU run
     (both preprocessing paths); ``fid ref`` of the dataset, ``fid calc`` of
     the dataset against it (FID ~ 0) and again in the process (bit-equal);
-    10,000 samples of phase 31's ``.pkl`` through ``cli.sample`` (ipndm NFE
+    5,000 samples of phase 31's ``.pkl`` through ``cli.sample`` (ipndm NFE
     5, batch 256, bf16; K1 / K3 counted), ``fid calc`` and ``prdc calc
     --num 5000`` of them, PRDC held to float64; the detector's images/s at
     batch 250 against its f32 bound.  Returns the sampling's counts."""
@@ -3308,7 +3340,7 @@ def phase_eval(workdir: str, pkl_path: str) -> dict:
     trace = float(np.trace(ref_out["sigma"]))
     (self_out, self_s) = _host_timed(lambda: cli_fid.main([
         "calc", f"--images={data_zip}", f"--ref={ref}", f"--num={EVAL_SAMPLES}",
-        f"--batch={DETECTOR_BATCH}", f"--inception={pth}"]))
+        "--no-strict-count", f"--batch={DETECTOR_BATCH}", f"--inception={pth}"]))
     print(f"[eval] fid ref of the dataset: {ref_s:.3f} s; fid calc of the dataset against it: "
           f"{self_s:.3f} s, FID {self_out['fid']!r} (trace(sigma) {trace:.6g}, gate "
           f"{FID_SELF_TOL:g} of it)")
@@ -3339,7 +3371,7 @@ def phase_eval(workdir: str, pkl_path: str) -> dict:
            f"eval sampling: launches {counts}")
     (fid_out, fid_s) = _host_timed(lambda: cli_fid.main([
         "calc", f"--images={samples}", f"--ref={ref}", f"--batch={DETECTOR_BATCH}",
-        f"--inception={pth}", f"--num={EVAL_SAMPLES}"]))
+        f"--inception={pth}", f"--num={EVAL_SAMPLES}", "--no-strict-count"]))
     print(f"[eval] fid calc of the samples: {fid_s:.3f} s host clock: PNG decode "
           f"{fid_out['decode']:.3f} s, features and moments {fid_out['features']:.3f} s, sqrtm "
           f"{fid_out['sqrtm']:.3f} s; FID {fid_out['fid']!r} (random detector and net)")
@@ -4121,7 +4153,9 @@ CLIP_TOL = 1e-4
 # Phase 41: the analyzer's defaults on the full-width CIFAR-10 net, f32
 ANALYZE_BATCH = 16
 ANALYZE_STEPS = 21  # ipndm: 20 net calls a trajectory
-ANALYZE_IMAGES = 1024
+# 16 batches: the whole run must stay inside its time limit, and this run
+# is its longest host-bound loop (36 ms a batch-16 forward)
+ANALYZE_IMAGES = 256
 EXTEND_STEPS = 201  # analyze_extend's default: euler, 200 net calls
 ANALYZE_TOL = 1e-5  # --num_images against the per-sample statistics in float64, of max
 ANALYZE_K_SHAPE = (ANALYZE_BATCH, 256, 1, 256, torch.float32)  # CIFAR-10's attention level
@@ -4332,7 +4366,7 @@ def phase_analyzer(workdir: str) -> dict:
     f32, its random weights redrawn at unit scale and saved as a checkpoint
     file that the CLIs load (the init's zero-init convs make D = c_skip * x,
     whose trajectories are straight lines: curvature 0): ``analyze_trajectories``
-    at 21 steps and batch 16, then with ``--num_images=1024`` (its statistics
+    at 21 steps and batch 16, then with ``--num_images=256`` (its statistics
     against the per-sample statistics of each batch's trajectory, taken here
     from the trajectories the CLI hands to ``batch_stat_sums`` and combined
     in float64 on the host), ``analyze_extend --mode=sampling``
@@ -4473,6 +4507,518 @@ def _check_log_txt(tag: str, run_dir: str, printed: str) -> None:
     _check(held, f"{tag}: log.txt lacks lines the CLI printed")
 
 
+# Phase 43: data and sequence parallelism.  Two processes share the one card
+# over gloo (NCCL refuses two ranks on one card), each on cuda:0; one
+# process under NCCL runs the sampling CLI at world size 1.
+P43_SEEDS = 512
+P43_CIFAR_ARGS = ["--dataset_name=cifar10", "--model_path=random", "--solver=ipndm",
+                  "--num_steps=6", "--bf16=True", f"--seeds=0-{P43_SEEDS - 1}",
+                  f"--batch={BATCH}", "--device=cuda", "--subdirs=False"]
+# (B, T, H, d, dtype) of the ring checks over 2 ranks: SD's 64x64 level and
+# CIFAR-10's 16x16 level; each rank's tile is [B, T/2, H, d]
+P43_RING_SHAPES = [(2, 4096, SD_HEADS, 40, torch.bfloat16), (2, 4096, SD_HEADS, 40, torch.float32),
+                   (BATCH, 256, 1, 256, torch.bfloat16), (BATCH, 256, 1, 256, torch.float32)]
+P43_SD_BATCH = 2  # images of the --sp=2 SD runs: 4 a guided U-Net call
+P43_SD_STEPS = 6  # ipndm at NFE 5
+# the ring's ledger over 2 ranks at SD's levels (T=64 stays local)
+P43_SD_RANG = {(2 * P43_SD_BATCH, t, SD_HEADS, d): n * (P43_SD_STEPS - 1)
+               for t, d, n in SD_LEVELS if t >= 256}
+# In bf16 the random SD v1.5 at guidance 7.5 carries any difference in the
+# attention's rounding to images many uint8 levels apart (18 levels on an
+# H100 between --sp=2 and --sp=1, and as many with the plain attention in
+# place of K1; PERF.md), so the one-level gate of the JAX
+# test_sample_cli_sp holds in f32, TF32 off.  In bf16 one call on one input
+# is held instead: SD's guided D at the first step, and the ImageNet-256
+# classifier's gradient (the ring's backward, K2).  The ring's output there
+# may move at most P43_ONE_CALL_FACTOR times as far (mean |difference| over
+# mean |value|) from the --sp=1 call's as the plain attention in place of
+# K1 moves it (the version that K1's gate holds K1 to), and the same call
+# with a planted fault (each visiting block dropped from the combine) must
+# move further than that.  Read on an H100 (PERF.md): the ring 1.013 (SD)
+# and 1.029 (the classifier) times the plain attention's distance, a
+# dropped block 2.27 and 9.16 times, an unweighted combine 1.02 and 3.07
+# times (random SD's attention at sigma_max weighs its two halves nearly
+# alike; the ring checks above hold the combine at K1's tolerance).
+P43_ONE_CALL_FACTOR = 1.5
+# One AMED iteration on CIFAR-10 at batch 512 in microbatches of 256, f32,
+# TF32 off, data parallel over 2 ranks (128 rows a rank) against one
+# process.  The runs sum the rows of a microbatch in other orders and cuDNN
+# may pick other algorithms at 128 rows than at 256; Adam scales each
+# gradient by its own size.
+P43_AMED_BATCH_GPU = 256
+P43_AMED_TOL = 1e-4
+# One AMED iteration on CIFAR-10 with --sp=2 (the ring inside the train
+# step: K1 forward, K2 backward at the T=256 sites; T=64 stays local), at
+# the batch whose [64, 128, 1, 256] blocks the gloo transport moves in
+# tens of ms; against one process at the same batch, P43_AMED_TOL
+P43_SP_AMED_BATCH = 64
+# ImageNet-256 with classifier guidance, bf16, --sp=2: the U-Net's and the
+# classifier's T=1024 / 256 attention rings, and the classifier's gradient
+# runs K2 in bf16 on the ring's tiles
+P43_CG_BATCH = 2
+P43_CG_SIGMA = 2.5
+P43_CG_RANG = {(P43_CG_BATCH, t, h, 64) for levels in (ADM_UNET_LEVELS, ADM_CLS_LEVELS)
+               for t, h in levels if t >= 256}
+# K1 / K2 at the ring's tiles on the paths above (the first of each dtype
+# gives the kernels-line fields), and at SD's 64x64 tile beside the whole T
+P43_TILE_K1 = [(2, 2048, SD_HEADS, 40, torch.bfloat16), (2, 2048, SD_HEADS, 40, torch.float32),
+               (2, 4096, SD_HEADS, 40, torch.bfloat16), (2, 4096, SD_HEADS, 40, torch.float32)]
+P43_TILE_K2 = [(P43_SP_AMED_BATCH, 128, 1, 256, torch.float32),
+               (P43_CG_BATCH, 512, 4, 64, torch.bfloat16),
+               (2, 2048, SD_HEADS, 40, torch.float32), (2, 2048, SD_HEADS, 40, torch.bfloat16),
+               (2, 4096, SD_HEADS, 40, torch.float32), (2, 4096, SD_HEADS, 40, torch.bfloat16)]
+P43_TIMEOUT_S = 400
+
+
+def _p43_sd_sample(pre, layout, dtype):
+    """Seeds 0-1 of SD v1.5 ``pre`` (guided 7.5, seeded contexts, ipndm at
+    NFE 5 on the discrete schedule), its U-Net computing in ``dtype`` (its
+    weights are f32 either way), the ring over ``layout``'s seq groups where
+    it is given; f32 with TF32 off, bf16 with torch's default flags (as
+    phase 24).  Returns (latents, decoded images, launches, the ring's
+    ledger, K3 sites of the U-Net)."""
+    from diff_sampler_tpu_torch.ops import ring_attention as RA
+
+    f32 = dtype == torch.float32
+    torch.backends.cudnn.allow_tf32 = not f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ld = pre.latent_diffusion
+    ld.unet.dtype = dtype
+    ctx, uc = _sd_contexts(ld, P43_SD_BATCH)
+    den = bind(pre, condition=ctx, unconditional_condition=uc)
+    cfg = SolverConfig(solver="ipndm", num_steps=P43_SD_STEPS, schedule_type="discrete",
+                       schedule_rho=1.0)
+    RA.reset_sp_dispatch()
+    RA.set_sp_context(layout)
+    _reset_counts()
+    try:
+        latents = generate(den, range(P43_SD_BATCH), SD_LATENT, cfg,
+                           max_batch_size=P43_SD_BATCH, device="cuda", layout=layout)
+        torch.cuda.synchronize()
+        counts = _counts()
+    finally:
+        RA.set_sp_context(None)
+    ledger = RA.sp_dispatch_counts()
+    images = ld.decode_in_chunks(latents, chunk=DECODE_CHUNK)
+    return latents, images, counts, ledger, _gn_sites(ld.unet)
+
+
+def _p43_amed(layout, batch=AMED_BATCH, batch_gpu=P43_AMED_BATCH_GPU):
+    """One AMED iteration through ``train_amed.build_trainer`` on CIFAR-10
+    at ``batch`` (seeds 0 to batch - 1) in microbatches of ``batch_gpu``,
+    f32, TF32 off, over ``layout`` (None: one process; a layout with seq
+    groups installs the ring, as ``train_amed --sp`` does); returns the
+    predictor's weights by path, the losses per segment, the step's launches
+    (K2's also by (T, H)) and the ring's ledger."""
+    from diff_sampler_tpu_torch.ops import ring_attention as RA
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = AMEDConfig(dataset_name="cifar10", batch=batch, batch_gpu=batch_gpu)
+    module, cfg, pred, step, _ = cli_train_amed.build_trainer(cfg, "random", "cuda", seed=0,
+                                                              layout=layout)
+    latents = stacked_randn(range(batch), (32, 32, 3), device="cuda")
+    RA.reset_sp_dispatch()
+    RA.set_sp_context(layout if layout is not None and layout.sp > 1 else None)
+    torch.cuda.synchronize()
+    _reset_counts()
+    try:
+        losses = step(latents)["loss_per_step"].tolist()
+        torch.cuda.synchronize()
+    finally:
+        RA.set_sp_context(None)
+    by_shape = {name: {repr(k): n for k, n in fn.launches_by_shape.items()}
+                for name, fn in (("dq", A.flash_attention_bwd_dq),
+                                 ("dkv", A.flash_attention_bwd_dkv))}
+    res = dict(losses=losses, counts=_counts(), by_shape=by_shape,
+               rang={repr(k): n for k, n in RA.sp_dispatch_counts()["rang"].items()},
+               weights={k: np.asarray(v) for k, v in
+                        ckpt.flatten_params(params_to_jax(pred.state_dict())).items()})
+    del module, pred, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def _p43_one_call(call, layout) -> dict:
+    """``call()`` (one net call on fixed inputs) without the ring, with the
+    plain attention in place of K1, through the ring over ``layout``, and
+    through the ring with a planted fault: each visiting block dropped from
+    the combine, or the two partials averaged unweighted.  Returns each
+    output's mean |difference| from the first over its mean |value|."""
+    from diff_sampler_tpu_torch.ops import ring_attention as RA
+
+    def dist(x, ref):
+        return ((x.float() - ref.float()).abs().mean() / ref.float().abs().mean()).item()
+
+    ref = call()
+    real_sdpa, real_combine = adm.sdpa, RA._combine
+    adm.sdpa = _plain_sdpa
+    try:
+        out = {"plain": dist(call(), ref)}
+    finally:
+        adm.sdpa = real_sdpa
+    combines = {"ring": real_combine,
+                "dropped block": lambda o_a, lse_a, o_b, lse_b: (o_a, lse_a),
+                "unweighted combine": lambda o_a, lse_a, o_b, lse_b: (
+                    (o_a + o_b) / 2, torch.logaddexp(lse_a, lse_b))}
+    RA.set_sp_context(layout)
+    try:
+        for name, fn in combines.items():
+            RA._combine = fn
+            out[name] = dist(call(), ref)
+    finally:
+        RA._combine = real_combine
+        RA.set_sp_context(None)
+    return out
+
+
+def _p43_sd_one_call(pre, layout) -> dict:
+    """``_p43_one_call`` on SD v1.5's guided D in bf16 at the first step's
+    sigma (sigma_max), on seeds 0-1's latents and the seeded contexts."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ld = pre.latent_diffusion
+    ld.unet.dtype = torch.bfloat16
+    ctx, uc = _sd_contexts(ld, P43_SD_BATCH)
+    den = bind(pre, condition=ctx, unconditional_condition=uc)
+    sigma = torch.full((P43_SD_BATCH,), float(pre.sigma_max), device="cuda")
+    x = stacked_randn(range(P43_SD_BATCH), SD_LATENT, device="cuda") * sigma[:, None, None, None]
+    return _p43_one_call(lambda: den(x, sigma), layout)
+
+
+def _p43_cg(layout) -> dict:
+    """ImageNet-256 with classifier guidance in bf16 (random weights) with
+    the ring over ``layout``: ``_p43_one_call`` on the classifier's gradient
+    at sigma ``P43_CG_SIGMA``, then seeds 0-1 through ``generate`` at NFE 5
+    (integer labels per seed); returns the one-call distances, the
+    sampling's launches (K2's by (T, H)), the ring's ledger, the sites per
+    CG call and the samples."""
+    from diff_sampler_tpu_torch.ops import ring_attention as RA
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pre, _ = create_model(CG, "random", dtype=torch.bfloat16, device="cuda")
+    x, sigma, _, labels = _adm_inputs(P43_CG_BATCH, [P43_CG_SIGMA])
+    x_in = x / math.sqrt(P43_CG_SIGMA ** 2 + 1)
+    t = (pre.M - 1) * pre.sigma_inv(sigma)
+    with torch.no_grad():
+        one_call = _p43_one_call(lambda: pre._cond_grad(x_in, t, labels), layout)
+    cfg = SolverConfig(solver="ipndm", num_steps=P43_SD_STEPS)
+    RA.reset_sp_dispatch()
+    RA.set_sp_context(layout)
+    torch.cuda.synchronize()
+    _reset_counts()
+    try:
+        samples = generate(bind(pre), range(P43_CG_BATCH), ADM_SHAPE, cfg,
+                           max_batch_size=P43_CG_BATCH, device="cuda", label_dim=1000,
+                           label_kind="int", layout=layout)
+        torch.cuda.synchronize()
+    finally:
+        RA.set_sp_context(None)
+    ledger = RA.sp_dispatch_counts()
+    cls_tiles = {(t // 2, h) for t, h in ADM_CLS_LEVELS if t >= 256}
+    res = dict(one_call=one_call, counts=_counts(), per=_cg_per_call(pre),
+               rang={repr(k): n for k, n in ledger["rang"].items()},
+               skipped={repr(k): r for k, r in ledger["skipped"].items()},
+               ledger_ok=(set(ledger["rang"]) == P43_CG_RANG
+                          and all(k[1] < 256 for k in ledger["skipped"])),
+               ring_calls=sum(ledger["rang"].values()),
+               cls_ring_calls=sum(n for k, n in ledger["rang"].items()
+                                  if (k[1], k[2]) in ADM_CLS_LEVELS),
+               ring_k2={name: sum(n for k, n in fn.launches_by_shape.items() if k in cls_tiles)
+                        for name, fn in (("dq", A.flash_attention_bwd_dq),
+                                         ("dkv", A.flash_attention_bwd_dkv))},
+               finite=bool(np.isfinite(samples).all()), shape=list(samples.shape))
+    del pre
+    torch.cuda.empty_cache()
+    return res
+
+
+def _p43_ring_check(b, t, h, d, dtype, seed):
+    """sdpa through the ring (the installed layout) against the plain
+    attention over the whole T on this rank: forward and dq / dk / dv at
+    K1's and K2's tolerances, and exactly n K1 and n K2 pairs."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    q, k, v = _sd_views(b, t, h, d, dtype, g)
+    do = torch.randn(b, t, h, d, generator=g, device="cuda").to(dtype)
+    scale = d ** -0.5
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = A.reference_sdpa(*leaves, scale)[0]
+    ref_grads = torch.autograd.grad(ref, leaves, do)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    torch.cuda.synchronize()
+    _reset_counts()
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    start.record()
+    out = A.sdpa(*leaves, scale)
+    mid.record()
+    grads = torch.autograd.grad(out, leaves, do)
+    end.record()
+    torch.cuda.synchronize()
+    counts = _counts()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = _out_tol(dtype, ref)
+    gerr = [(x.float() - y.float()).abs().max().item() for x, y in zip(grads, ref_grads)]
+    gtol = [K2_TOL[dtype] * y.float().abs().max().item() for y in ref_grads]
+    name = str(dtype).replace("torch.", "")
+    return dict(shape=[b, t, h, d], dtype=name, err=err, tol=tol, grad_err=gerr, grad_tol=gtol,
+                counts=counts, fwd_ms=start.elapsed_time(mid), bwd_ms=mid.elapsed_time(end))
+
+
+def _phase43_rank(workdir: str) -> int:
+    """One of the two gloo processes of phase 43 (``parallel.launch`` sets
+    its DST_* variables): the CIFAR-10 sampling CLI over 2 data ranks, the
+    ring checks, the --sp=2 SD sampling (f32, bf16) and SD's bf16 one-call
+    check over one seq group of 2, the ImageNet-256 classifier-guided
+    sampling with --sp=2, one data-parallel AMED iteration and one with
+    --sp=2; its results go to ``workdir``."""
+    from diff_sampler_tpu_torch.ops import ring_attention as RA
+    from diff_sampler_tpu_torch.parallel import mesh
+
+    mesh.maybe_initialize_distributed("cuda")
+    rank, layout = mesh.process_index(), mesh.make_layout(2)
+    res = dict(backend=layout.backend, world=layout.world, device=str(torch.cuda.current_device()))
+    t0 = time.perf_counter()
+    cli_sample.main([*P43_CIFAR_ARGS, f"--outdir={os.path.join(workdir, 'dp2')}"])
+    res["cifar_s"] = time.perf_counter() - t0
+    RA.set_sp_context(layout)
+    try:
+        res["ring"] = [_p43_ring_check(*shape, seed=430 + i)
+                       for i, shape in enumerate(P43_RING_SHAPES)]
+    finally:
+        RA.set_sp_context(None)
+    res["sd"] = {}
+    pre = _sd_model(torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        t0 = time.perf_counter()
+        latents, images, counts, ledger, gn = _p43_sd_sample(pre, layout, dtype)
+        res["sd"][name] = dict(s=time.perf_counter() - t0, counts=counts, gn=gn,
+                               rang={repr(k): n for k, n in ledger["rang"].items()},
+                               skipped={repr(k): r for k, r in ledger["skipped"].items()})
+        if rank == 0:
+            np.savez(os.path.join(workdir, f"sd_sp2_{name}.npz"), latents=latents,
+                     images=images)
+    res["sd_one_call"] = _p43_sd_one_call(pre, layout)
+    del pre
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["cg"] = _p43_cg(layout)
+    res["cg"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dp = _p43_amed(mesh.make_layout())
+    res.update(amed_s=time.perf_counter() - t0, amed_losses=dp["losses"])
+    t0 = time.perf_counter()
+    sp = _p43_amed(layout, batch=P43_SP_AMED_BATCH, batch_gpu=P43_SP_AMED_BATCH)
+    res["amed_sp"] = dict(s=time.perf_counter() - t0,
+                          **{k: v for k, v in sp.items() if k != "weights"})
+    if rank == 0:
+        np.savez(os.path.join(workdir, "amed2.npz"), **dp["weights"])
+        np.savez(os.path.join(workdir, "amed_sp2.npz"), **sp["weights"])
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_parallel(workdir: str) -> dict:
+    """Phase 43: one-process references, then the NCCL world-1 CLI and the
+    two gloo ranks on the card, held to them; K1 / K2 at the ring's tile."""
+    from diff_sampler_tpu_torch.parallel.launch import run_local
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def _report(tag, results, t0):
+        _check(len(results) > 0, f"{tag}: no process ran")
+        for rank, (code, text) in enumerate(results):
+            lines = text.splitlines()
+            print(f"[{tag}] rank {rank} exited {code} after {time.perf_counter() - t0:.2f} s; "
+                  f"its last lines:\n  " + "\n  ".join(lines[-12 if code == 0 else -60:]))
+            _check(code == 0, f"{tag}: rank {rank} exited {code}")
+
+    def launch(tag, nproc, args, **kw):
+        t0 = time.perf_counter()
+        results = run_local(nproc, args, cwd=root, timeout_s=P43_TIMEOUT_S, **kw)
+        _report(tag, results, t0)
+        return results
+
+    # world size 1 under NCCL (the sampling CLI), in a thread beside the
+    # references: its PNGs byte for byte the reference's
+    nccl = []
+    nccl_thread = threading.Thread(target=lambda: nccl.extend(run_local(
+        1, ["-m", "diff_sampler_tpu_torch.cli.sample", *P43_CIFAR_ARGS,
+            f"--outdir={os.path.join(workdir, 'nccl1')}"], backend="nccl", devices=[0],
+        cwd=root, timeout_s=P43_TIMEOUT_S)))
+    t_nccl = time.perf_counter()
+    nccl_thread.start()
+    # one process, no process group: the references
+    one = os.path.join(workdir, "one")
+    t0 = time.perf_counter()
+    cli_sample.main([*P43_CIFAR_ARGS, f"--outdir={one}"])
+    print(f"[parallel] CIFAR-10 sampling CLI, one process: {time.perf_counter() - t0:.2f} s")
+    sd1 = {}
+    pre = _sd_model(torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        t0 = time.perf_counter()
+        latents, images, counts, _, gn = _p43_sd_sample(pre, None, dtype)
+        want = (_only(k1=(SD_SITES - SD_FLAT_SITES) * (P43_SD_STEPS - 1),
+                      k1c=SD_FLAT_SITES * (P43_SD_STEPS - 1), gn=gn * (P43_SD_STEPS - 1))
+                if dtype == torch.float32 else
+                _only(k1=SD_SITES * (P43_SD_STEPS - 1), gn=gn * (P43_SD_STEPS - 1)))
+        print(f"[parallel] SD v1.5 {name}, one process: {time.perf_counter() - t0:.2f} s, "
+              f"launches {counts}")
+        _check(counts == want, f"SD {name} --sp=1 launches {counts}, expected {want}")
+        sd1[name] = (latents, images)
+    del pre
+    torch.cuda.empty_cache()
+    amed1 = _p43_amed(None)
+    amed_sp1 = _p43_amed(None, batch=P43_SP_AMED_BATCH, batch_gpu=P43_SP_AMED_BATCH)
+    nccl_thread.join()
+    _report("parallel NCCL x1", nccl, t_nccl)
+    _check("processes: 1 (nccl)" in nccl[0][1], "the NCCL run did not start a process group")
+    # two gloo ranks on cuda:0
+    code = "import sys, chip_smoke; sys.exit(chip_smoke._phase43_rank(sys.argv[1]))"
+    launch("parallel gloo x2", 2, ["-c", code, workdir], backend="gloo", devices=[0, 0])
+    ranks = [json.load(open(os.path.join(workdir, f"rank{r}.json"))) for r in range(2)]
+
+    ref = {os.path.basename(p): open(p, "rb").read()
+           for p in glob.glob(os.path.join(one, "*.png"))}
+    for tag in ("nccl1", "dp2"):
+        got = {os.path.basename(p): open(p, "rb").read()
+               for p in glob.glob(os.path.join(workdir, tag, "*.png"))}
+        same = sum(got.get(name) == data for name, data in ref.items())
+        print(f"[parallel] {tag}: {len(got)} PNGs, {same} of {len(ref)} byte-equal to one "
+              f"process's")
+        _check(len(ref) == P43_SEEDS and got.keys() == ref.keys() and same == len(ref),
+               f"{tag}: PNGs differ from one process's")
+    print(f"[parallel] the ranks: backend {ranks[0]['backend']}, world {ranks[0]['world']}, "
+          f"current device cuda:{ranks[0]['device']} / cuda:{ranks[1]['device']}; CIFAR-10 "
+          f"CLI {ranks[0]['cifar_s']:.2f} s (host clock); the ring's blocks go through pinned "
+          f"host memory under gloo")
+    _check(all(r["backend"] == "gloo" and r["world"] == 2 for r in ranks), "gloo ranks")
+
+    for r, rk in enumerate(ranks):
+        for c in rk["ring"]:
+            print(f"[parallel ring] rank {r} {c['shape']} {c['dtype']}: out err {c['err']:.3g} "
+                  f"(tol {c['tol']:.3g}); dq / dk / dv err "
+                  f"{[float(f'{x:.3g}') for x in c['grad_err']]} (tol "
+                  f"{[float(f'{x:.3g}') for x in c['grad_tol']]}); launches {c['counts']}; "
+                  f"forward {c['fwd_ms']:.3f} ms, backward {c['bwd_ms']:.3f} ms (CUDA events, "
+                  f"the gloo transport included)")
+            _check(c["err"] <= c["tol"] and all(e <= t for e, t in
+                                                zip(c["grad_err"], c["grad_tol"])),
+                   f"ring attention disagrees with plain attention at {c['shape']} {c['dtype']}")
+            _check(c["counts"] == _only(k1=2, dq=2, dkv=2),
+                   f"ring at {c['shape']}: launches {c['counts']}, expected 2 K1 and 2 K2 pairs")
+
+    want_rang = {repr(k): n for k, n in P43_SD_RANG.items()}
+    want_skip = [repr((2 * P43_SD_BATCH, 64, SD_HEADS, 160))]
+    for name in ("float32", "bfloat16"):
+        for r, rk in enumerate(ranks):
+            sd = rk["sd"][name]
+            want = _only(k1=(2 * (SD_SITES - 1) + 1) * (P43_SD_STEPS - 1),
+                         gn=sd["gn"] * (P43_SD_STEPS - 1))
+            print(f"[parallel SD --sp=2] {name} rank {r}: {sd['s']:.2f} s; launches "
+                  f"{sd['counts']} (expected {want}); rang {sd['rang']}; skipped "
+                  f"{sd['skipped']}")
+            _check(sd["counts"] == want, f"SD --sp=2 {name} rank {r}: launches {sd['counts']}")
+            _check(sd["rang"] == want_rang and list(sd["skipped"]) == want_skip,
+                   f"SD --sp=2 {name} rank {r}: the ring's ledger")
+        sp2 = np.load(os.path.join(workdir, f"sd_sp2_{name}.npz"))
+        latents1, images1 = sd1[name]
+        levels = np.abs(to_uint8(sp2["images"]).astype(np.int16)
+                        - to_uint8(images1).astype(np.int16))
+        print(f"[parallel SD --sp=2] {name}: latents max abs diff "
+              f"{np.abs(sp2['latents'] - latents1).max():.4g} (max|x| "
+              f"{np.abs(latents1).max():.4g}); decoded images {levels.max()} uint8 levels from "
+              f"--sp=1 at most, {levels.mean():.4f} on average, {(levels > 0).mean():.4f} of "
+              f"the values differ")
+        if name == "float32":
+            _check(levels.max() <= 1, "SD --sp=2 f32 images more than one level from --sp=1")
+        _check(np.isfinite(sp2["images"]).all(), f"SD --sp=2 {name} images are not finite")
+
+    def one_call_gate(tag, got):
+        bar = P43_ONE_CALL_FACTOR * got["plain"]
+        print(f"[parallel one call] {tag}, bf16, mean |difference| over mean |value| from the "
+              f"--sp=1 call: ring {got['ring']:.4g}, plain attention in place of K1 "
+              f"{got['plain']:.4g} (gate {P43_ONE_CALL_FACTOR:g} x: {bar:.4g}); planted faults "
+              f"through the ring: dropped block {got['dropped block']:.4g}, unweighted combine "
+              f"{got['unweighted combine']:.4g}")
+        _check(got["ring"] <= bar, f"{tag}: the ring moved the call {got['ring']:.4g} from "
+                                   f"--sp=1, more than {bar:.4g}")
+        _check(got["dropped block"] > bar, f"{tag}: the gate does not see a dropped block")
+
+    for r, rk in enumerate(ranks):
+        one_call_gate(f"SD v1.5 guided D at sigma_max, rank {r}", rk["sd_one_call"])
+        one_call_gate(f"ImageNet-256 classifier gradient at sigma {P43_CG_SIGMA}, rank {r}",
+                      rk["cg"]["one_call"])
+
+    for r, rk in enumerate(ranks):
+        cg = rk["cg"]
+        per, nfe, cls_rang = cg["per"], P43_SD_STEPS - 1, cg["cls_ring_calls"]
+        want = _only(k1=per["k1"] * nfe + cg["ring_calls"], gn=per["gn"] * nfe,
+                     dq=per["dq"] * nfe + cls_rang, dkv=per["dkv"] * nfe + cls_rang)
+        print(f"[parallel CG --sp=2] ImageNet-256 classifier-guided bf16 sampling, seeds "
+              f"0-{P43_CG_BATCH - 1}, NFE {nfe}, rank {r}: {cg['s']:.2f} s with the set-up; "
+              f"launches {cg['counts']} (expected {want}); K2 at the classifier's ring tiles "
+              f"{cg['ring_k2']} (expected {2 * cls_rang} each); rang {cg['rang']}; skipped "
+              f"{cg['skipped']}; samples {cg['shape']}, finite {cg['finite']}")
+        _check(cg["counts"] == want and all(n == 2 * cls_rang > 0 for n in cg["ring_k2"].values()),
+               f"CG --sp=2 rank {r}: launches {cg['counts']}")
+        _check(cg["ledger_ok"], f"CG --sp=2 rank {r}: the ring's ledger")
+        _check(cg["finite"] and cg["shape"] == [P43_CG_BATCH, *ADM_SHAPE],
+               f"CG --sp=2 rank {r}: samples")
+
+    def amed_diff(one, path):
+        got = dict(np.load(path))
+        scale = max(1.0, max(float(np.abs(x).max()) for x in one["weights"].values()))
+        diff = max(float(np.abs(one["weights"][k] - got[k]).max()) for k in one["weights"])
+        return one["weights"].keys() == got.keys(), diff, scale
+
+    same_keys, diff, scale = amed_diff(amed1, os.path.join(workdir, "amed2.npz"))
+    print(f"[parallel AMED] one iteration at batch {AMED_BATCH} in microbatches of "
+          f"{P43_AMED_BATCH_GPU}, f32, TF32 off: one process {amed1['losses']}, 2 data ranks "
+          f"(128 rows a rank; rank 0's loss, {ranks[0]['amed_s']:.2f} s with the set-up) "
+          f"{ranks[0]['amed_losses']}; predictor max abs diff {diff:.3g} (tol {P43_AMED_TOL} * "
+          f"{scale:.3g})")
+    _check(same_keys and diff <= P43_AMED_TOL * scale,
+           "data-parallel AMED moved away from one process's predictor")
+
+    same_keys, diff, scale = amed_diff(amed_sp1, os.path.join(workdir, "amed_sp2.npz"))
+    print(f"[parallel AMED --sp=2] one iteration at batch {P43_SP_AMED_BATCH}, f32, TF32 off: "
+          f"one process {amed_sp1['losses']}, launches {amed_sp1['counts']}, K2 by (T, H) "
+          f"{amed_sp1['by_shape']}; predictor max abs diff {diff:.3g} (tol {P43_AMED_TOL} * "
+          f"{scale:.3g})")
+    _check(same_keys and diff <= P43_AMED_TOL * scale,
+           "AMED with --sp=2 moved away from one process's predictor")
+    for r, rk in enumerate(ranks):
+        sp = rk["amed_sp"]
+        rang = sum(sp["rang"].values())
+        ring_t, local_t = (repr((256, 1)), repr((64, 1)))
+        one = amed_sp1["counts"]
+        want = _only(**{**one, "k1": one["k1"] + rang,
+                        **{k: one[k] + amed_sp1["by_shape"][k][ring_t] for k in ("dq", "dkv")}})
+        want_by = {k: {repr((128, 1)): 2 * v[ring_t], local_t: v[local_t]}
+                   for k, v in amed_sp1["by_shape"].items()}
+        print(f"[parallel AMED --sp=2] rank {r}: {sp['s']:.2f} s with the set-up; losses "
+              f"{sp['losses']}; launches {sp['counts']} (expected {want}); K2 by (T, H) "
+              f"{sp['by_shape']} (expected {want_by}); rang {sp['rang']}")
+        _check(sp["counts"] == want and sp["by_shape"] == want_by
+               and list(sp["rang"]) == [repr((P43_SP_AMED_BATCH, 256, 1, 256))],
+               f"AMED --sp=2 rank {r}: launches or ledger")
+
+    # K1 / K2 at the ring's tiles on these paths and at SD's tile beside the
+    # whole T, in this process
+    k1 = _k1_checks("ring K1", P43_TILE_K1, _sd_views, seed=431, reps=5, warmup=2)
+    k2 = _k2_checks("ring K2", P43_TILE_K2, _sd_views, seed=432)
+    sd, amed_sp, cg = ranks[0]["sd"], ranks[0]["amed_sp"], ranks[0]["cg"]
+    return dict(k1=k1, k2=k2,
+                sd_k1={name: 2 * sum(sd[name]["rang"].values()) for name in sd},
+                amed_sp={k: amed_sp["by_shape"][k][repr((128, 1))] for k in ("dq", "dkv")},
+                cg=cg["ring_k2"])
+
+
 def _kernel_entry(name, source, replaces, launches, fields) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **{k: fields[k] for k in (
@@ -4580,6 +5126,8 @@ def main() -> int:
         sfd = _phase("phase 37, SFD on CIFAR-10 through train_sfd", phase_sfd_cifar, workdir)
         sfd_ldm = _phase("phase 38, the LSUN LDM student through train_sfd", phase_sfd_ldm,
                          workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        par = _phase("phase 43, data and sequence parallelism", phase_parallel, workdir)
     for name, n in (("K1", launches), ("K2 dQ", amed["dq"]), ("K2 dK/dV", amed["dkv"]),
                     ("K1 on ImageNet-64", in64_launches),
                     ("K2 dQ on ImageNet-64", in64_amed["dq"]),
@@ -4633,7 +5181,13 @@ def main() -> int:
                     ("K1 f32 on the trajectory analyzer", analyzer["counts"]["k1"]),
                     ("K3 f32 on the trajectory analyzer", analyzer["counts"]["gn"]),
                     ("K1 f32 on the AMED export", export_counts["k1"]),
-                    ("K3 f32 on the AMED export", export_counts["gn"])):
+                    ("K3 f32 on the AMED export", export_counts["gn"]),
+                    ("K1 bf16 in the ring on SD --sp=2", par["sd_k1"]["bfloat16"]),
+                    ("K1 f32 in the ring on SD --sp=2", par["sd_k1"]["float32"]),
+                    ("K2 dQ / dK/dV f32 in the ring on CIFAR-10 AMED --sp=2",
+                     min(par["amed_sp"].values())),
+                    ("K2 dQ / dK/dV bf16 in the ring on ImageNet-256 CG --sp=2",
+                     min(par["cg"].values()))):
         _check(n > 0, f"{name} was not launched on its path")
     print(f"[time] whole run: {time.perf_counter() - t_start:.2f} s")
     print(smi)
@@ -4804,6 +5358,32 @@ def main() -> int:
         _kernel_entry("split_w (K4 f32's TF32 split of w into K-major hi / lo, one launch per "
                       "f32 K4 call; its entry points, no JAX path)", conv, f"{tpu_conv}:53",
                       k4_launches["split"], k4["split"]),
+        _kernel_entry("flash_attention_mh in bf16 at the ring's tiles (K1, the ring's partials "
+                      "only: SD v1.5 --sp=2 over two gloo ranks, phase 43, at [4, 2048, 8, 40], "
+                      "[4, 512, 8, 80] and [4, 128, 8, 160]; launches: rank 0's; times at "
+                      "[2, 2048, 8, 40])", fwd, f"{tpu}:227", par["sd_k1"]["bfloat16"],
+                      par["k1"]["bfloat16"]),
+        _kernel_entry("flash_attention_mh in f32 at the ring's tiles (K1 in 3xTF32, the ring's "
+                      "partials only: SD v1.5 --sp=2 in f32, phase 43; launches: rank 0's; times "
+                      "at [2, 2048, 8, 40])", fwd32, f"{tpu}:227", par["sd_k1"]["float32"],
+                      par["k1"]["float32"]),
+        _kernel_entry("flash_attention_bwd_dq in f32 at the ring's tile [64, 128, 1, 256] (K2 dQ "
+                      "in 3xTF32 on delta - g_lse, the partials' backward: the CIFAR-10 AMED "
+                      "--sp=2 train step, phase 43; launches: rank 0's)", bwd32, f"{tpu}:406",
+                      par["amed_sp"]["dq"], par["k2"]["float32"]["dq"]),
+        _kernel_entry("flash_attention_bwd_dkv in f32 at the ring's tile [64, 128, 1, 256] (K2 "
+                      "dK/dV in 3xTF32, the partials' backward: the CIFAR-10 AMED --sp=2 train "
+                      "step, phase 43; launches: rank 0's)", bwd32, f"{tpu}:554",
+                      par["amed_sp"]["dkv"], par["k2"]["float32"]["dkv"]),
+        _kernel_entry("flash_attention_bwd_dq in bf16 at the ring's tiles (K2 dQ on delta - "
+                      "g_lse: the classifier's gradient in ImageNet-256 classifier-guided --sp=2 "
+                      "sampling, phase 43, at [2, 512, 4, 64] and [2, 128, 8, 64]; launches: "
+                      "rank 0's; times at [2, 512, 4, 64])", bwd, f"{tpu}:441", par["cg"]["dq"],
+                      par["k2"]["bfloat16"]["dq"]),
+        _kernel_entry("flash_attention_bwd_dkv in bf16 at the ring's tiles (K2 dK/dV, the "
+                      "classifier's gradient in ImageNet-256 classifier-guided --sp=2 sampling, "
+                      "phase 43; launches: rank 0's; times at [2, 512, 4, 64])", bwd,
+                      f"{tpu}:491", par["cg"]["dkv"], par["k2"]["bfloat16"]["dkv"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

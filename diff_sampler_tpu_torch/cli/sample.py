@@ -82,6 +82,23 @@ scales an EDM net's decoder skips (SFD's inference-time tuning):
 PNG writes of a pixel tier's batch i run on the host while the device
 samples batch i+1 (``sampling.generate``'s batch callback); a latent tier, a
 grid and a trajectory are written after sampling.
+
+Several processes (``parallel.mesh``: ``DST_COORDINATOR``,
+``DST_NUM_PROCESSES``, ``DST_PROCESS_ID``, ``DST_LOCAL_DEVICE_IDS``, or
+torchrun's variables) split each batch of seeds over their data ranks;
+every process gets every image and writes the PNGs of the seeds whose
+index is its rank modulo the process count (the grid and the trajectory
+on process 0), so each file is written once.  ``--sp=n`` groups n
+processes to split each image's attention tokens round a ring
+(``ops/ring_attention.py``; the shapes its gates refuse stay local, and the
+run ends with the ledger of what rang):
+
+  torchrun --nproc_per_node=2 -m diff_sampler_tpu_torch.cli.sample \
+      --dataset_name=cifar10 ... --batch=128
+  torchrun --nproc_per_node=4 -m diff_sampler_tpu_torch.cli.sample \
+      --dataset_name=ms_coco --sp=2 ...
+
+``--tp`` (tensor parallelism) is not ported yet.
 """
 
 from __future__ import annotations
@@ -99,7 +116,9 @@ from ..models.convert import ldm_params_from_jax, load_jax_params
 from ..models.factory import (ADM_TIERS, EDM_ARCHS, LDM_CONFIGS, build_edm_model,
                               build_ldm_model, create_model, init_params)
 from ..models.precond import CFGPrecond, CGPrecond, bind
-from ..ops import get_schedule
+from ..ops import get_schedule, ring_attention
+from ..parallel.mesh import (make_layout, maybe_initialize_distributed, print0,
+                             process_count, process_index, rank_device)
 from ..sampling import SolverConfig, generate, generate_batches, to_uint8
 from ..solvers import SOLVER_REGISTRY
 from ..solvers.amed import AMED_SOLVER_REGISTRY, bind_with_bottleneck
@@ -135,6 +154,14 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--subdirs", type=_bool, default=True,
                    help="PNGs in a subdirectory per 1000 seeds")
     p.add_argument("--bf16", type=_bool, default=False, help="bfloat16 inner model")
+    p.add_argument("--tp", type=int, default=1,
+                   help="Tensor-parallel degree for the latent tiers: shard the U-Net weights "
+                        "over a (data, model) mesh (parallel/tp.py)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="Sequence-parallel degree: ring attention over a (data, seq) mesh shards "
+                        "each image's attention tokens across devices "
+                        "(ops/ring_attention.py); the T=4096 SD latent level is the motivating "
+                        "case")
     p.add_argument("--device", default="cuda")
     # SOLVER_FLAGS
     p.add_argument("--solver", choices=sorted(SOLVER_REGISTRY), default="ipndm")
@@ -182,6 +209,7 @@ def main(argv=None) -> dict:
     """Runs the CLI; returns what a caller may check: the GITS ``dp_list``
     and search seconds (None without ``--dp``) and the output directory."""
     args = _parser().parse_args(argv)
+    check_parallel_flags(args.tp, args.sp)
     if args.model_path == "None":
         args.model_path = None
     if args.dataset_name != "ms_coco" and (args.guidance_type == "cfg"
@@ -203,6 +231,40 @@ def main(argv=None) -> dict:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device=cuda but CUDA is not available (pass --device=cpu)")
+    maybe_initialize_distributed(device)
+    device = rank_device(device)
+    layout = make_layout(args.sp)
+    if args.sp > 1:
+        ring_attention.reset_sp_dispatch()
+        ring_attention.set_sp_context(layout)
+        print0(f"Sequence parallel: ring attention over (data, seq) = ({layout.dp}, "
+               f"{layout.sp})")
+    try:
+        return _main(args, device, layout)
+    finally:
+        if args.sp > 1:
+            ring_attention.log_sp_dispatch(print0)  # which attention shapes rang
+            ring_attention.set_sp_context(None)
+
+
+def check_parallel_flags(tp: int, sp: int, fsdp: bool = False) -> None:
+    """The CLIs' refusals of the parallel flags: the JAX CLIs' mutual
+    exclusions, and ``--tp`` / ``--fsdp``, which the next slice ports."""
+    if tp > 1 and sp > 1:
+        raise ValueError("--tp and --sp are mutually exclusive (one attention sharding at a "
+                         "time)")
+    if fsdp and tp > 1:
+        raise ValueError("--fsdp and --tp are mutually exclusive (one weight sharding at a time)")
+    for flag, on in (("--tp", tp > 1), ("--fsdp", fsdp)):
+        if on:
+            raise NotImplementedError(f"{flag} is not ported yet: it comes with the TP / FSDP "
+                                      "slice (ROADMAP Queue 1)")
+    if sp < 1:
+        raise ValueError(f"--sp={sp} is out of range")
+
+
+def _main(args, device, layout) -> dict:
+    latent = args.dataset_name in LDM_CONFIGS
     seeds = parse_int_list(args.seeds)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     if _is_snapshot(args.model_path):
@@ -232,7 +294,7 @@ def main(argv=None) -> dict:
         summary["outdir"] = _amed_sample(module, args.predictor, seeds, shape,
                                          args.max_batch_size, args.outdir, args.grid,
                                          args.subdirs, args.dataset_name, device, cond,
-                                         per_seed_cond)
+                                         per_seed_cond, layout)
         return summary
     den = bind(module, **cond, **({"skip_tuning": True} if args.skip_tuning else {}))
     # a latent tier samples on the model's discrete schedule, unless a
@@ -259,10 +321,10 @@ def main(argv=None) -> dict:
         t0 = time.perf_counter()
         dp_list, dp_sigmas = gits_schedule(den, shape, gcfg, device=device, **gits_kw)
         summary.update(dp_list=dp_list, gits_seconds=time.perf_counter() - t0)
-        print(f"GITS search: {summary['gits_seconds']:.1f}s ({gcfg.num_warmup} warmup x "
-              f"{gcfg.num_steps_tea - 1}-step {gcfg.solver_tea} teacher)")
-        print(f"GITS dp_list: {dp_list}")
-        print(f"GITS schedule: {np.round(dp_sigmas, 4).tolist()}")
+        print0(f"GITS search: {summary['gits_seconds']:.1f}s ({gcfg.num_warmup} warmup x "
+               f"{gcfg.num_steps_tea - 1}-step {gcfg.solver_tea} teacher)")
+        print0(f"GITS dp_list: {dp_list}")
+        print0(f"GITS schedule: {np.round(dp_sigmas, 4).tolist()}")
         args.num_steps = args.num_steps_tea
     cfg = SolverConfig(
         solver=args.solver, num_steps=args.num_steps, schedule_type=args.schedule_type,
@@ -273,53 +335,65 @@ def main(argv=None) -> dict:
         t_steps=tuple(ast.literal_eval(args.t_steps)) if args.t_steps else None,
         dp_list=tuple(dp_list) if dp_list else None, sigma_min=args.sigma_min,
         sigma_max=args.sigma_max)
-    print(f"Solver: {args.solver} | NFE: {cfg.nfe()} | schedule: "
-          f"{cfg.schedule_type}(rho={cfg.schedule_rho}) | source: {source} | "
-          f"device: {device}")
+    print0(f"Solver: {args.solver} | NFE: {cfg.nfe()} | schedule: "
+           f"{cfg.schedule_type}(rho={cfg.schedule_rho}) | source: {source} | "
+           f"device: {device} | processes: {layout.world} ({layout.backend or 'one'})")
     out_base = args.outdir or f"samples/{args.dataset_name}-{args.solver}-{args.num_steps}"
     summary["outdir"] = out_base
     if latent:
         latents = generate(den, seeds, shape, cfg, max_batch_size=args.max_batch_size,
-                           device=device, per_seed_cond=per_seed_cond)
+                           device=device, per_seed_cond=per_seed_cond, layout=layout)
         _decode_and_save(module, latents, seeds, out_base, args.grid, args.subdirs)
         return summary
 
     stream = not args.return_inters and not args.grid
 
     def save_batch(start, chunk):
-        save_images(to_uint8(chunk), seeds[start:start + len(chunk)], out_base,
-                    subdirs=args.subdirs)
+        _save_mine(chunk, seeds, start, out_base, args.subdirs)
 
     images = generate(den, seeds, shape, cfg, max_batch_size=args.max_batch_size,
                       device=device, label_dim=module.label_dim,
                       label_kind="int" if source == "adm" else "onehot",
                       return_inters=args.return_inters,
-                      batch_callback=save_batch if stream else None)
+                      batch_callback=save_batch if stream else None, layout=layout)
     if args.return_inters:
         # [num_points, N, ...]: the grid renders every point, else the raw array
         if args.grid:
             _save(images.reshape((-1,) + images.shape[2:]),
                   range(images.shape[0] * images.shape[1]), out_base, True, False)
         else:
-            os.makedirs(out_base, exist_ok=True)
-            np.savez(os.path.join(out_base, "trajectory.npz"), xs=images)
-            print(f"Saved trajectory {images.shape} to {out_base}/trajectory.npz")
+            if process_index() == 0:
+                os.makedirs(out_base, exist_ok=True)
+                np.savez(os.path.join(out_base, "trajectory.npz"), xs=images)
+            print0(f"Saved trajectory {images.shape} to {out_base}/trajectory.npz")
     elif stream:
-        print(f"Saved {len(seeds)} images to {out_base} (streamed)")
+        print0(f"Saved {len(seeds)} images to {out_base} (streamed)")
     else:
         _save(images, seeds, out_base, args.grid, args.subdirs)
     return summary
 
 
+def _save_mine(images, seeds, start, out_base, subdirs) -> None:
+    """The PNGs of ``images`` (seeds ``seeds[start:]``, [-1, 1]) whose index in
+    the seed list is this process's rank modulo the process count: every
+    process holds every image, and each file is written once."""
+    pi, pc = process_index(), process_count()
+    mine = [i for i in range(len(images)) if (start + i) % pc == pi]
+    if mine:
+        save_images(to_uint8(images[mine]), [seeds[start + i] for i in mine], out_base,
+                    subdirs=subdirs)
+
+
 def _save(images, seeds, out_base, grid, subdirs):
-    """[-1, 1] images to ``{out_base}/grid.png`` or to per-seed PNGs."""
-    images = to_uint8(images)
+    """[-1, 1] images to ``{out_base}/grid.png`` (process 0) or to per-seed
+    PNGs (``_save_mine``)."""
     if grid:
-        save_grid(images, os.path.join(out_base, "grid.png"))
-        print(f"Saved grid to {out_base}/grid.png")
+        if process_index() == 0:
+            save_grid(to_uint8(images), os.path.join(out_base, "grid.png"))
+        print0(f"Saved grid to {out_base}/grid.png")
     else:
-        save_images(images, seeds, out_base, subdirs=subdirs)
-        print(f"Saved {len(images)} images to {out_base}")
+        _save_mine(images, list(seeds), 0, out_base, subdirs)
+        print0(f"Saved {len(images)} images to {out_base}")
 
 
 def _decode_and_save(module, latents, seeds, out_base, grid=False, subdirs=True):
@@ -328,9 +402,9 @@ def _decode_and_save(module, latents, seeds, out_base, grid=False, subdirs=True)
     if grid:
         _save(images, seeds, out_base, True, subdirs)
         return
-    save_images(to_uint8(images), seeds, out_base, subdirs=subdirs)
-    print(f"Saved {len(seeds)} images ({images.shape[1]}x{images.shape[2]}, decoded) to "
-          f"{out_base}")
+    _save_mine(images, list(seeds), 0, out_base, subdirs)
+    print0(f"Saved {len(seeds)} images ({images.shape[1]}x{images.shape[2]}, decoded) to "
+           f"{out_base}")
 
 
 def _run_path(path_or_exp, outdir_base: str) -> str:
@@ -399,8 +473,8 @@ def _sfd_student(args, dtype, device):
         args.schedule_type = restored.get("schedule_type", args.schedule_type)
         args.schedule_rho = restored.get("schedule_rho", args.schedule_rho)
         args.afs = restored.get("afs", args.afs)
-        print(f"Restored SFD sampling settings: num_steps={args.num_steps} "
-              f"schedule={args.schedule_type}({args.schedule_rho}) afs={args.afs}")
+        print0(f"Restored SFD sampling settings: num_steps={args.num_steps} "
+               f"schedule={args.schedule_type}({args.schedule_rho}) afs={args.afs}")
     return module, source
 
 
@@ -447,7 +521,7 @@ def build_amed_sample_fn(module, predictor, device, cfg_doubled: bool = False, *
 
 
 def _amed_sample(module, predictor, seeds, shape, max_batch_size, outdir, grid, subdirs,
-                 dataset_name, device, cond, per_seed_cond) -> str:
+                 dataset_name, device, cond, per_seed_cond, layout=None) -> str:
     """AMED sampling with every setting from the predictor's config;
     returns the output directory.  Stable Diffusion samples on the contexts
     ``main`` built (``cond``: the prompt's and the empty prompt's;
@@ -458,29 +532,28 @@ def _amed_sample(module, predictor, seeds, shape, max_batch_size, outdir, grid, 
     sample_fn, cfg = build_amed_sample_fn(module, predictor, device, cfg_doubled=cfg_doubled,
                                           **cond)
     nfe = 2 * (cfg.num_steps - 1) - (1 if cfg.afs else 0)
-    print(f"AMED: student={cfg.sampler_stu} steps={cfg.num_steps} NFE={nfe} "
-          f"(restored from predictor config) | device: {device}")
+    print0(f"AMED: student={cfg.sampler_stu} steps={cfg.num_steps} NFE={nfe} "
+           f"(restored from predictor config) | device: {device}")
     out_base = outdir or f"samples/{dataset_name}-amed-{cfg.sampler_stu}"
     if isinstance(module, CFGPrecond):
         latents = generate_batches(sample_fn, seeds, shape, max_batch_size=max_batch_size,
-                                   device=device, per_seed_cond=per_seed_cond)
+                                   device=device, per_seed_cond=per_seed_cond, layout=layout)
         _decode_and_save(module, latents, seeds, out_base, grid, subdirs)
         return out_base
 
     def save_batch(start, chunk):
-        save_images(to_uint8(chunk), seeds[start:start + len(chunk)], out_base,
-                    subdirs=subdirs)
+        _save_mine(chunk, seeds, start, out_base, subdirs)
 
     # an EDM net is bound without labels (see the module docstring), a
     # CGPrecond with each seed's integer label
     images = generate_batches(sample_fn, seeds, shape, max_batch_size=max_batch_size,
                               device=device, label_dim=module.label_dim if isinstance(
                                   module, CGPrecond) else 0, label_kind="int",
-                              batch_callback=None if grid else save_batch)
+                              batch_callback=None if grid else save_batch, layout=layout)
     if grid:
         _save(images, seeds, out_base, True, subdirs)
     else:
-        print(f"Saved {len(seeds)} images to {out_base}")
+        print0(f"Saved {len(seeds)} images to {out_base}")
     return out_base
 
 

@@ -44,6 +44,15 @@ solver setting from it), ``stats.jsonl`` (one line per tick), ``log.txt``
 (everything the run prints, appended, as the JAX CLI's) and, at the end,
 ``predictor.npz`` in the JAX package's params layout.  The U-Net is
 frozen: autograd computes gradients through it, into the predictor only.
+
+Several processes (``parallel.mesh``: the ``DST_*`` variables or torchrun's)
+train data parallel: every process draws the same batch from the same
+seeds, each microbatch (``--batch_gpu``, else the batch) splits
+contiguously over the data ranks, and the predictor's gradients are
+averaged over them before each Adam step; process 0 writes the run's files.
+``--sp=n`` rings each attention over groups of n processes
+(``ops/ring_attention.py``), forward and backward.  ``--tp`` and ``--fsdp``
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -58,6 +67,9 @@ import torch
 
 from ..models.convert import params_to_jax
 from ..models.factory import ADM_TIERS, EDM_ARCHS, LDM_CONFIGS, create_model, init_params
+from ..ops import ring_attention
+from ..parallel.mesh import (make_layout, maybe_initialize_distributed, print0, process_index,
+                             rank_device)
 from ..solvers.amed import bind_with_bottleneck
 from ..training.amed import AMEDConfig, make_amed_train_step, predictor_from_config
 from ..training.conditioning import make_caption_context_fn, make_uncond_context
@@ -66,7 +78,7 @@ from ..utils import stats as training_stats
 from ..utils.logger import Logger
 from ..utils.profiling import Timer
 from ..utils.rng import stacked_randint, stacked_randn
-from .sample import _bool
+from .sample import _bool, check_parallel_flags
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -113,14 +125,16 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def build_trainer(cfg: AMEDConfig, model_path, device, seed: int = 0, prompt_path=None):
+def build_trainer(cfg: AMEDConfig, model_path, device, seed: int = 0, prompt_path=None,
+                  layout=None):
     """(frozen net, ``cfg`` with the net's sigma range, predictor from
     ``seed``, its train step with Adam as ``optax.adam``, and the
     per-iteration conditioning ``it -> [batch, ...]`` that the step takes as
     its second argument: Stable Diffusion's contexts [batch, 77, 768] (numpy),
     imagenet256's integer labels [batch] (one per trajectory, drawn by
     ``stacked_randint`` from the trajectory's seed ``seed + index``), else
-    None)."""
+    None).  ``layout``: the data-parallel layout the step trains over (None:
+    one process)."""
     module, source = create_model(cfg.dataset_name, model_path,
                                   guidance_rate=cfg.guidance_rate, device=device)
     cfg = dataclasses.replace(cfg, sigma_min=float(module.sigma_min),
@@ -134,11 +148,11 @@ def build_trainer(cfg: AMEDConfig, model_path, device, seed: int = 0, prompt_pat
 
         return module, cfg, pred, make_amed_train_step(
             pred, None, cfg, optimizer,
-            denoise_factory=lambda labels: bind_with_bottleneck(module, class_labels=labels)
-        ), label_fn
+            denoise_factory=lambda labels: bind_with_bottleneck(module, class_labels=labels),
+            layout=layout), label_fn
     if source != "sd":
         return module, cfg, pred, make_amed_train_step(pred, bind_with_bottleneck(module), cfg,
-                                                       optimizer), None
+                                                       optimizer, layout=layout), None
     context_fn, uncond = _make_text_conditioning(module.latent_diffusion, prompt_path,
                                                  cfg.batch, cfg.batch_gpu or cfg.batch,
                                                  cfg.guidance_rate, seed)
@@ -150,7 +164,8 @@ def build_trainer(cfg: AMEDConfig, model_path, device, seed: int = 0, prompt_pat
                                     unconditional_condition=uncond)
 
     return module, cfg, pred, make_amed_train_step(pred, None, cfg, optimizer,
-                                                   denoise_factory=denoise_factory), context_fn
+                                                   denoise_factory=denoise_factory,
+                                                   layout=layout), context_fn
 
 
 def _make_text_conditioning(ld, prompt_path, batch, mb, guidance_rate, seed):
@@ -165,9 +180,7 @@ def _make_text_conditioning(ld, prompt_path, batch, mb, guidance_rate, seed):
 def main(argv=None) -> str:
     """Runs the training; returns the run directory (None on a dry run)."""
     args = _parser().parse_args(argv)
-    if args.tp > 1 or args.sp > 1 or args.fsdp:
-        raise NotImplementedError("--tp/--sp/--fsdp are not ported yet: they come with "
-                                  "ROADMAP slice 10 (parallelism)")
+    check_parallel_flags(args.tp, args.sp, args.fsdp)
     if args.dataset_name == "ms_coco":
         if args.guidance_type != "cfg":
             raise ValueError("ms_coco trains with --guidance_type=cfg")
@@ -192,33 +205,48 @@ def main(argv=None) -> str:
                      guidance_type=args.guidance_type, guidance_rate=args.guidance_rate,
                      remat_traj=args.remat_traj)
     if args.dry_run:
-        print("Training options:")
-        print(json.dumps(dataclasses.asdict(cfg), indent=2))
-        print("Dry run; exiting.")
+        print0("Training options:")
+        print0(json.dumps(dataclasses.asdict(cfg), indent=2))
+        print0("Dry run; exiting.")
         return None
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device=cuda but CUDA is not available (pass --device=cpu)")
+    maybe_initialize_distributed(device)
+    device = rank_device(device)
+    layout = make_layout(args.sp)
+    mb = cfg.batch_gpu or cfg.batch
+    if mb % layout.dp:
+        raise ValueError(f"the microbatch of {mb} rows does not split over {layout.dp} data ranks")
 
     run_desc = (f"{cfg.dataset_name}-{cfg.num_steps}-{cfg.num_steps}-{cfg.sampler_stu}-"
                 f"{cfg.sampler_tea}" + (f"-{args.desc}" if args.desc else ""))
     run_dir = ckpt.create_run_dir(args.outdir, run_desc)
-    with Logger(os.path.join(run_dir, "log.txt"), "a"):
-        print(f"Run dir: {run_dir}")
+    rank0 = process_index() == 0
+    with Logger(os.path.join(run_dir, "log.txt") if rank0 else None, "a"):
+        print0(f"Run dir: {run_dir}")
 
         module, cfg, pred, train_step, context_fn = build_trainer(cfg, args.model_path, device,
-                                                                  args.seed, args.prompt_path)
+                                                                  args.seed, args.prompt_path,
+                                                                  layout)
         # The sidecar describes the schedule the predictor trains on: the
         # model's sigma range, set before it is written.
-        ckpt.save_config(os.path.join(run_dir, "predictor_config.json"), cfg)
+        if rank0:
+            ckpt.save_config(os.path.join(run_dir, "predictor_config.json"), cfg)
+        if args.sp > 1:
+            ring_attention.reset_sp_dispatch()
+            ring_attention.set_sp_context(layout)
+            print0(f"Sequence parallel: ring attention over (data, seq) = ({layout.dp}, "
+                   f"{layout.sp})")
 
         res, chn = module.img_resolution, module.img_channels
         collector = training_stats.default_collector
         jsonl = training_stats.JsonlWriter(os.path.join(run_dir, "stats.jsonl"))
         timer = Timer()
         cur_nimg, it = 0, 0
-        print(f"Training for {cfg.total_kimg} kimg (batch {cfg.batch}, "
-              f"batch_gpu {cfg.batch_gpu or cfg.batch}) on {device}...")
+        print0(f"Training for {cfg.total_kimg} kimg (batch {cfg.batch}, "
+               f"batch_gpu {cfg.batch_gpu or cfg.batch}) on {device}, {layout.world} "
+               f"process(es)...")
         try:
             while cur_nimg < cfg.total_kimg * 1000:
                 batch_seeds = np.arange(it * cfg.batch, (it + 1) * cfg.batch) + args.seed
@@ -231,16 +259,20 @@ def main(argv=None) -> str:
                 if it % args.tick == 0 or cur_nimg >= cfg.total_kimg * 1000:
                     collector.update()
                     t = timer.tick(cur_nimg)
-                    print(f"kimg {cur_nimg / 1e3:<8.2f} loss {collector.mean('Loss/loss'):<12.6f} "
-                          f"sec/kimg {t['sec_per_kimg']:<8.1f}")
+                    print0(f"kimg {cur_nimg / 1e3:<8.2f} loss {collector.mean('Loss/loss'):<12.6f} "
+                           f"sec/kimg {t['sec_per_kimg']:<8.1f}")
                     jsonl.write(collector, kimg=cur_nimg / 1e3, **t)
                     collector.reset()
         finally:
             jsonl.close()
+            if args.sp > 1:
+                ring_attention.log_sp_dispatch(print0)
+                ring_attention.set_sp_context(None)
         path = os.path.join(run_dir, "predictor.npz")
-        ckpt.save_params(path, params_to_jax(pred.state_dict()))
-        print(f"Saved {path}")
-        print("Done.")
+        if rank0:
+            ckpt.save_params(path, params_to_jax(pred.state_dict()))
+        print0(f"Saved {path}")
+        print0("Done.")
         return run_dir
 
 

@@ -43,8 +43,15 @@ solver settings from it), ``stats.jsonl`` (one line per tick), ``log.txt``
 in the JAX package's layout (``utils/checkpoint.py``): params, Adam's
 moments and count, ``meta/cur_nimg``.  ``--resume=<snapshot>`` restores
 params, optimizer state and the image count and continues as an unbroken
-run would.  ``--tp`` / ``--sp`` / ``--fsdp`` are refused: parallelism is
-not ported yet.
+run would, at any number of processes.
+
+Several processes (``parallel.mesh``: the ``DST_*`` variables or torchrun's)
+train data parallel: every process draws the same batch from the same
+seeds, each microbatch splits contiguously over the data ranks, and the
+student's gradients are averaged over them before each Adam update;
+process 0 writes the run's files.  ``--sp=n`` rings each attention over
+groups of n processes (``ops/ring_attention.py``), forward and backward.
+``--tp`` and ``--fsdp`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -64,6 +71,9 @@ from ..models.convert import (absent_from_jax, ldm_params_from_jax, ldm_params_t
                               params_from_jax, params_to_jax)
 from ..models.factory import build_edm_model, build_ldm_model, init_params
 from ..models.zoo import find_file, load_checkpoint_params
+from ..ops import ring_attention
+from ..parallel.mesh import (make_layout, maybe_initialize_distributed, print0, process_index,
+                             rank_device)
 from ..training.conditioning import make_caption_context_fn
 from ..training.sfd import SFDConfig, adam_count, make_ldm_train_step, make_train_step
 from ..utils import checkpoint as ckpt
@@ -71,7 +81,7 @@ from ..utils import stats as training_stats
 from ..utils.logger import Logger
 from ..utils.profiling import Timer
 from ..utils.rng import stacked_randint, stacked_randn
-from .sample import _bool
+from .sample import _bool, check_parallel_flags
 
 PIXEL_DATASETS = ("cifar10", "ffhq", "afhqv2", "imagenet64")
 LATENT_DATASETS = ("ms_coco", "lsun_bedroom_ldm", "ffhq_ldm")
@@ -193,7 +203,7 @@ def _create_student(dataset_name, model_path, use_step_condition, remat, device)
     if loaded is not None:
         dropped = _merge(module, loaded)
         if dropped:
-            print(f"Merged {model_path}: {dropped} of its tensors have no place in the student")
+            print0(f"Merged {model_path}: {dropped} of its tensors have no place in the student")
     for name, p in module.named_parameters():
         # map_augment: never applied, absent from the JAX param tree
         p.requires_grad_(not absent_from_jax(name))
@@ -265,9 +275,7 @@ def restore_snapshot(path: str, student: Student, optimizer: torch.optim.Optimiz
 def main(argv=None) -> Optional[str]:
     """Runs the distillation; returns the run directory (None on a dry run)."""
     args = _parser().parse_args(argv)
-    if args.tp > 1 or args.sp > 1 or args.fsdp:
-        raise NotImplementedError("--tp/--sp/--fsdp are not ported yet: they come with "
-                                  "ROADMAP slice 10 (parallelism)")
+    check_parallel_flags(args.tp, args.sp, args.fsdp)
     for name, low in (("total_kimg", 1), ("num_steps", 2), ("M", 0), ("batch", 1),
                       ("batch_gpu", 1), ("tick", 1), ("snap", 1)):
         value = getattr(args, name)
@@ -288,22 +296,29 @@ def main(argv=None) -> Optional[str]:
                    guidance_type=args.guidance_type, guidance_rate=args.guidance_rate,
                    **dataclasses.asdict(cfg))
     if args.dry_run:
-        print("Training options:")
-        print(json.dumps(options, indent=2))
-        print("Dry run; exiting.")
+        print0("Training options:")
+        print0(json.dumps(options, indent=2))
+        print0("Dry run; exiting.")
         return None
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device=cuda but CUDA is not available (pass --device=cpu)")
+    n_acc, mb = _accumulation(args.dataset_name, args.batch, args.batch_gpu)
+    maybe_initialize_distributed(device)
+    device = rank_device(device)
+    layout = make_layout(args.sp)
+    if mb % layout.dp:
+        raise ValueError(f"the microbatch of {mb} rows does not split over {layout.dp} data ranks")
 
     run_dir = ckpt.create_run_dir(args.outdir, run_desc)
-    with Logger(os.path.join(run_dir, "log.txt"), "a"):
-        ckpt.save_config(os.path.join(run_dir, "training_options.json"), options)
-        print(f"Run dir: {run_dir}")
-        n_acc, mb = _accumulation(args.dataset_name, args.batch, args.batch_gpu)
+    rank0 = process_index() == 0
+    with Logger(os.path.join(run_dir, "log.txt") if rank0 else None, "a"):
+        if rank0:
+            ckpt.save_config(os.path.join(run_dir, "training_options.json"), options)
+        print0(f"Run dir: {run_dir}")
         eff_batch = n_acc * mb
         if n_acc > 1:
-            print(f"Gradient accumulation: {n_acc} rounds of {mb}")
+            print0(f"Gradient accumulation: {n_acc} rounds of {mb}")
         sfdv = args.use_step_condition and not args.is_second_stage and not latent
         half = _lr_drop_updates(args.total_kimg, eff_batch, args.num_steps, sfdv, args.seed)
 
@@ -329,15 +344,15 @@ def main(argv=None) -> Optional[str]:
         start_nimg = 0
         if args.resume:
             start_nimg = restore_snapshot(args.resume, student, optimizer)
-            print(f"Resumed from {args.resume} at {start_nimg / 1e3:.1f} kimg "
-                  f"({adam_count(optimizer)} updates)")
+            print0(f"Resumed from {args.resume} at {start_nimg / 1e3:.1f} kimg "
+                   f"({adam_count(optimizer)} updates)")
 
         def build(c):
             if latent:
                 return make_ldm_train_step(student.module, student.teacher, precond, c, optimizer,
-                                           n_acc=n_acc, lr_schedule=lr_schedule)
+                                           n_acc=n_acc, lr_schedule=lr_schedule, layout=layout)
             return make_train_step(student.module, student.teacher, c, optimizer, n_acc=n_acc,
-                                   lr_schedule=lr_schedule)
+                                   lr_schedule=lr_schedule, layout=layout)
 
         cur_nimg, it = start_nimg, start_nimg // eff_batch
         if sfdv:
@@ -357,7 +372,13 @@ def main(argv=None) -> Optional[str]:
         jsonl = training_stats.JsonlWriter(os.path.join(run_dir, "stats.jsonl"))
         timer = Timer()
         total = args.total_kimg * 1000
-        print(f"Training for {args.total_kimg} kimg (batch {eff_batch}) on {device}...")
+        print0(f"Training for {args.total_kimg} kimg (batch {eff_batch}) on {device}, "
+               f"{layout.world} process(es)...")
+        if args.sp > 1:
+            ring_attention.reset_sp_dispatch()
+            ring_attention.set_sp_context(layout)
+            print0(f"Sequence parallel: ring attention over (data, seq) = ({layout.dp}, "
+                   f"{layout.sp})")
         try:
             while cur_nimg < total:
                 batch_seeds = (np.arange(it * eff_batch, (it + 1) * eff_batch) + args.seed).tolist()
@@ -379,17 +400,21 @@ def main(argv=None) -> Optional[str]:
                     t = timer.tick(cur_nimg)
                     peak = (f" peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f}GiB"
                             if device.type == "cuda" else "")
-                    print(f"kimg {cur_nimg / 1e3:<8.2f} loss {collector.mean('Loss/loss'):<10.4f} "
-                          f"sec/kimg {t['sec_per_kimg']:<8.1f}{peak}")
+                    print0(f"kimg {cur_nimg / 1e3:<8.2f} loss {collector.mean('Loss/loss'):<10.4f} "
+                           f"sec/kimg {t['sec_per_kimg']:<8.1f}{peak}")
                     jsonl.write(collector, kimg=cur_nimg / 1e3, **t)
                     collector.reset()
                 if it % (args.tick * args.snap) == 0 or cur_nimg >= total:
                     path = os.path.join(run_dir, f"snapshot-{cur_nimg // 1000:06d}.npz")
-                    save_snapshot(path, student, optimizer, cur_nimg)
-                    print(f"Saved {path}")
+                    if rank0:
+                        save_snapshot(path, student, optimizer, cur_nimg)
+                    print0(f"Saved {path}")
         finally:
             jsonl.close()
-        print("Done.")
+            if args.sp > 1:
+                ring_attention.log_sp_dispatch(print0)
+                ring_attention.set_sp_context(None)
+        print0("Done.")
         return run_dir
 
 

@@ -621,13 +621,21 @@ class _FlashAttention(torch.autograd.Function):
 
 def sdpa(q, k, v, scale=None):
     """Scaled-dot-product attention on [B, T, H, d]; returns [B, T, H, d].
-    On the card every call goes through a kernel, whatever T: K1c forward
-    and K2c backward on [B * H, T, d] copies where ``takes_flat_kernel``
-    holds (as the JAX ``sdpa`` transposes for its flat kernel), K1 and K2 on
-    the views as they are elsewhere."""
+    Where ``ops.ring_attention.set_sp_context`` has installed a layout, the
+    ring over its seq group comes first (``sp_sdpa``, which declines the
+    shapes its gates refuse, as the JAX ``sdpa`` checks its SP context
+    first).  Otherwise, on the card every call goes through a kernel,
+    whatever T: K1c forward and K2c backward on [B * H, T, d] copies where
+    ``takes_flat_kernel`` holds (as the JAX ``sdpa`` transposes for its flat
+    kernel), K1 and K2 on the views as they are elsewhere."""
     b, t, h, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    from . import ring_attention
+
+    out = ring_attention.sp_sdpa(q, k, v, float(scale))
+    if out is not None:
+        return out
     if takes_flat_kernel(t, h, d, q.dtype):
         def flat(x):
             return x.transpose(1, 2).reshape(b * h, t, d)

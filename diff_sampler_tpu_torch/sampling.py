@@ -1,10 +1,13 @@
 """High-level generation API: seeds -> images.
 
-Counterpart of ``diff_sampler_tpu/sampling.py`` on one device.  Image i is
-a pure function of seed i at any batch size: each seed has its own latent
-generator (and, for a class-conditional net, its own label generator), and
-a short last batch is padded by repeating its last seed.  Public shapes stay
-NHWC, as in the JAX package.
+Counterpart of ``diff_sampler_tpu/sampling.py``.  Image i is a pure
+function of seed i at any batch size and any number of processes: each
+seed has its own latent generator (and, for a class-conditional net, its
+own label generator), and a short last batch is padded by repeating its
+last seed.  In a multi-process run each batch splits over the data ranks
+(``parallel.mesh``) and every process gets every seed's result, as the JAX
+``generate`` splits its batch over the mesh's ``data`` axis.  Public shapes
+stay NHWC, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 
 from .models.precond import BoundDenoiser
 from .ops import get_schedule
+from .parallel.mesh import all_gather_cat, make_layout, pad_to_multiple
 from .solvers import count_nfe, get_sampler
 from .utils.rng import stacked_randint, stacked_randn
 
@@ -117,9 +121,9 @@ def generate(denoise: BoundDenoiser, seeds: Sequence[int], sample_shape: Tuple[i
              cfg: SolverConfig, *, max_batch_size: int = 64, device="cuda",
              label_dim: int = 0, label_kind: str = "onehot", class_idx: Optional[int] = None,
              per_seed_cond=None, return_inters: bool = False,
-             batch_callback=None) -> np.ndarray:
+             batch_callback=None, layout=None) -> np.ndarray:
     """Generate one sample per seed with the solver of ``cfg``,
-    ``max_batch_size`` at a time (``generate_batches``).
+    ``max_batch_size`` at a time on each data rank (``generate_batches``).
 
     sample_shape: per-sample shape, e.g. (32, 32, 3) NHWC.  Returns a float32
     numpy array [len(seeds), *sample_shape]; with ``return_inters``, the
@@ -137,7 +141,9 @@ def generate(denoise: BoundDenoiser, seeds: Sequence[int], sample_shape: Tuple[i
     conditioning row per seed, e.g. SD's caption contexts [len(seeds), 77,
     768], numpy or a tensor) ``c`` is each batch's rows, padded as the
     latents are (the JAX package's ``generate(per_seed_cond=...)``); a bound
-    CFGPrecond takes them as its ``condition``."""
+    CFGPrecond takes them as its ``condition``.  ``layout``: the
+    ``parallel.mesh.ParallelLayout`` whose data ranks split the seeds (None:
+    every process a data rank)."""
     def sample_fn(latents, labels):
         den = dataclasses.replace(denoise, fn=lambda x, t: denoise(x, t, labels))
         out = build_sample_fn(den, cfg, return_inters=return_inters)(latents)
@@ -146,7 +152,7 @@ def generate(denoise: BoundDenoiser, seeds: Sequence[int], sample_shape: Tuple[i
     return generate_batches(sample_fn, seeds, sample_shape, max_batch_size=max_batch_size,
                             device=device, label_dim=label_dim, label_kind=label_kind,
                             class_idx=class_idx, per_seed_cond=per_seed_cond,
-                            batch_callback=batch_callback)
+                            batch_callback=batch_callback, layout=layout)
 
 
 def _labels(seeds, label_dim: int, kind: str, class_idx: Optional[int], device) -> torch.Tensor:
@@ -165,7 +171,7 @@ def _labels(seeds, label_dim: int, kind: str, class_idx: Optional[int], device) 
 def generate_batches(sample_fn: Callable, seeds: Sequence[int], sample_shape: Tuple[int, ...],
                      *, max_batch_size: int = 64, device="cuda", label_dim: int = 0,
                      label_kind: str = "onehot", class_idx: Optional[int] = None,
-                     per_seed_cond=None, batch_callback=None) -> np.ndarray:
+                     per_seed_cond=None, batch_callback=None, layout=None) -> np.ndarray:
     """``sample_fn(latents, labels) -> samples`` on each batch of per-seed
     latents, ``max_batch_size`` at a time; returns [len(seeds),
     *sample_shape] f32, or [P, len(seeds), *sample_shape] where ``sample_fn``
@@ -180,10 +186,20 @@ def generate_batches(sample_fn: Callable, seeds: Sequence[int], sample_shape: Tu
     ``batch_callback(start, images)`` gets each batch in seed order with the
     padding stripped (float32 numpy); the result is the same with or
     without it.
+
+    Over dp data ranks (``layout``; None: ``parallel.mesh.make_layout()``,
+    every process a data rank), a batch holds ``max_batch_size`` seeds a
+    rank (at most the seeds padded to a multiple of dp), each rank samples
+    its contiguous share, and the shares are all-gathered over the data
+    group, so every process returns, and calls ``batch_callback`` with,
+    every seed's result; the ranks of one seq group take the same seeds.
     """
+    layout = make_layout() if layout is None else layout
+    dp = layout.dp
     seeds = np.asarray(list(seeds), dtype=np.int64)
     n = len(seeds)
-    batch = max(1, min(max_batch_size, n))
+    batch = max(dp, pad_to_multiple(min(max_batch_size * dp, pad_to_multiple(n, dp)), dp))
+    rows = slice(layout.data_index * (batch // dp), (layout.data_index + 1) * (batch // dp))
     if per_seed_cond is not None:
         if len(per_seed_cond) != n:
             raise ValueError(f"per_seed_cond has {len(per_seed_cond)} rows for {n} seeds")
@@ -209,16 +225,19 @@ def generate_batches(sample_fn: Callable, seeds: Sequence[int], sample_shape: Tu
         chunk = seeds[start:start + batch]
         pad = batch - len(chunk)
         chunk_p = np.concatenate([chunk, chunk[-1:].repeat(pad)]) if pad else chunk
-        latents = stacked_randn(chunk_p.tolist(), sample_shape, device=device)
+        mine = chunk_p[rows].tolist()  # this data rank's share of the batch
+        latents = stacked_randn(mine, sample_shape, device=device)
         if per_seed_cond is not None:
             # rows by position in the seed list, the last one repeated as padding
-            pos = np.minimum(np.arange(start, start + batch), start + len(chunk) - 1)
+            pos = np.minimum(np.arange(start, start + batch), start + len(chunk) - 1)[rows]
             labels = per_seed_cond[torch.as_tensor(pos, device=per_seed_cond.device)].to(device)
         elif label_dim:
-            labels = _labels(chunk_p.tolist(), label_dim, label_kind, class_idx, device)
+            labels = _labels(mine, label_dim, label_kind, class_idx, device)
         else:
             labels = None
         x = sample_fn(latents, labels)
+        # every data rank's share, in seed order (a trajectory's batch axis is 1)
+        x = all_gather_cat(x, layout.data_group, dim=x.dim() - 1 - len(sample_shape))
         host, done = _start_copy_to_host(x)
         if pending is not None:
             drain(pending)  # the device works on this batch meanwhile

@@ -17,7 +17,10 @@ trajectory:
     detached output;
   * loss = sum((student - teacher)^2) / microbatch;
   * a conditional tier (Stable Diffusion) binds its denoiser per
-    microbatch from that microbatch's contexts (``denoise_factory``).
+    microbatch from that microbatch's contexts (``denoise_factory``);
+  * data parallel (``layout``): each microbatch splits contiguously over the
+    data ranks and the summed gradients are averaged over them before the
+    division, as the JAX step's ``data``-sharded batch reduces them.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Optional
 import torch
 
 from ..ops import get_schedule
+from ..parallel.mesh import ParallelLayout, average_gradients, data_rows
 from ..solvers import get_sampler
 from ..solvers.amed import AMEDPredictor, _amed_family
 
@@ -84,7 +88,7 @@ def teacher_slice_indices(num_steps: int, M: int) -> list:
 
 
 def make_amed_train_step(predictor: AMEDPredictor, denoise_b, cfg: AMEDConfig,
-                         optimizer: torch.optim.Optimizer, denoise_factory=None):
+                         optimizer: torch.optim.Optimizer, denoise_factory=None, layout=None):
     """The per-trajectory training step.
 
     denoise_b: a ``BottleneckDenoiser`` over the FROZEN pre-trained net (a
@@ -95,6 +99,9 @@ def make_amed_train_step(predictor: AMEDPredictor, denoise_b, cfg: AMEDConfig,
     contexts); the step then takes them as a second argument and
     ``denoise_b`` may be None (the sigma maps are ``denoise_factory(None)``'s).
     optimizer: over ``predictor.parameters()``; stepped once per segment.
+    layout: a ``parallel.mesh.ParallelLayout``: this rank trains on its data
+    rows of each microbatch (every rank gets the whole batch) and the
+    gradients are averaged over the data group (None: one process).
     Returns ``train_step(latents[, cond]) -> metrics``, latents ~ N(0, 1) of
     shape [batch, H, W, C], cond [batch, ...] split into microbatches as the
     latents are; metrics hold ``loss_per_step`` (a [num_steps - 1] tensor,
@@ -110,6 +117,7 @@ def make_amed_train_step(predictor: AMEDPredictor, denoise_b, cfg: AMEDConfig,
     tea_idx = teacher_slice_indices(cfg.num_steps, cfg.M)
     tea_sampler = get_sampler(cfg.sampler_tea)
     single_step_stu = cfg.sampler_stu in ("euler", "dpm", "amed")
+    layout = layout or ParallelLayout()
     params = [p for p in predictor.parameters() if p.requires_grad]
 
     @torch.no_grad()
@@ -124,11 +132,11 @@ def make_amed_train_step(predictor: AMEDPredictor, denoise_b, cfg: AMEDConfig,
         mb = cfg.batch_gpu or batch
         if batch % mb:
             raise ValueError(f"batch {batch} not divisible by batch_gpu {mb}")
-        micro = list(latents.split(mb))
+        micro = data_rows(latents, mb, layout)
         if denoise_factory is None:
             dens = [denoise_b] * len(micro)
         else:
-            dens = [denoise_factory(c) for c in cond.split(mb)]
+            dens = [denoise_factory(c) for c in data_rows(cond, mb, layout)]
         teas = [teacher_traj(den, lat) for den, lat in zip(dens, micro)]
         t0 = torch.tensor(t_steps[0], dtype=torch.float32, device=latents.device)
         xs = [lat * t0 for lat in micro]
@@ -149,6 +157,7 @@ def make_amed_train_step(predictor: AMEDPredictor, denoise_b, cfg: AMEDConfig,
                 loss.backward()  # sums into .grad across microbatches
                 seg_losses.append(loss.detach())
                 stus.append(res.x.detach())
+            average_gradients(params, layout.data_group)
             with torch.no_grad():
                 for p in params:
                     if p.grad is not None:

@@ -22,7 +22,10 @@ loop over the segments and microbatches where the JAX package runs one
     optimizer's state (its step count included) does not advance;
   * the learning rate: ``lr_schedule(count)``, count the updates made so
     far (optax's ``count``), set on every param group before each update;
-  * SFD-v: ``step_condition = float(num_steps)`` goes to the student only.
+  * SFD-v: ``step_condition = float(num_steps)`` goes to the student only;
+  * data parallel (``layout``): each microbatch splits contiguously over the
+    data ranks, and the summed gradients are averaged over them before the
+    division, as the JAX step's ``data``-sharded batch reduces them.
 
 ``torch.optim.Adam(params, lr, betas=(0.9, 0.999), eps=1e-8)`` is the
 update of ``optax.adam``; ``adam_count`` reads its count.
@@ -41,6 +44,7 @@ import torch
 
 from ..models.precond import BoundDenoiser, bind
 from ..ops import get_schedule
+from ..parallel.mesh import ParallelLayout, average_gradients, data_rows
 from ..solvers import get_sampler
 
 __all__ = ["SFDConfig", "adam_count", "make_train_step", "make_train_step_general",
@@ -85,7 +89,8 @@ def make_train_step_general(student_denoise_fn: Callable, teacher_den_factory: C
                             optimizer: torch.optim.Optimizer, lpips_fn=None, *,
                             sigma_fn=None, sigma_inv_fn=None, n_acc: int = 1,
                             model_source: str = "edm",
-                            lr_schedule: Optional[Callable[[int], float]] = None):
+                            lr_schedule: Optional[Callable[[int], float]] = None,
+                            layout: Optional[ParallelLayout] = None):
     """The per-trajectory SFD training step, generic over the model tier.
 
     student_denoise_fn(x, t, cond) -> D_x, differentiable in ``params``;
@@ -96,7 +101,10 @@ def make_train_step_general(student_denoise_fn: Callable, teacher_den_factory: C
     lpips_fn: optional (a, b) -> [B] perceptual distance, its mean added to
       every element of the final segment's loss in second-stage EDM
       distillation (loss.py:87-88); no CLI passes one;
-    lr_schedule: count -> learning rate (None: the optimizer's own).
+    lr_schedule: count -> learning rate (None: the optimizer's own);
+    layout: a ``parallel.mesh.ParallelLayout``: this rank trains on its data
+      rows of each microbatch (every rank gets the whole batch) and the
+      gradients are averaged over the data group (None: one process).
     Returns ``train_step(latents, cond=None) -> metrics``: latents ~ N(0, 1)
     [B, H, W, C], scaled by ``t_steps[0]`` inside; cond the per-sample
     conditioning (one-hot labels, text contexts [B, T, D]) or None; metrics
@@ -115,6 +123,7 @@ def make_train_step_general(student_denoise_fn: Callable, teacher_den_factory: C
     use_lpips = cfg.is_second_stage and model_source == "edm" and lpips_fn is not None
     params = list(params)
     n_seg = cfg.num_steps - 1
+    layout = layout or ParallelLayout()
 
     @torch.no_grad()
     def teacher_traj(latents, cond):
@@ -139,8 +148,8 @@ def make_train_step_general(student_denoise_fn: Callable, teacher_den_factory: C
         if batch % n_acc:
             raise ValueError(f"batch {batch} not divisible by n_acc {n_acc}")
         mb = batch // n_acc
-        lats = latents.split(mb)
-        conds = [None] * n_acc if cond is None else list(cond.split(mb))
+        lats = data_rows(latents, mb, layout)
+        conds = [None] * n_acc if cond is None else data_rows(cond, mb, layout)
         teas = [teacher_traj(lat, c) for lat, c in zip(lats, conds)]
         f32 = dict(dtype=torch.float32, device=latents.device)
         ts = torch.tensor(t_steps, **f32)
@@ -163,8 +172,12 @@ def make_train_step_general(student_denoise_fn: Callable, teacher_den_factory: C
                 # optimizer's state stays as it is (training_loop.py:282,291)
                 with torch.no_grad():
                     for p in params:
-                        p.grad = (torch.zeros_like(p) if p.grad is None else torch.nan_to_num(
-                            p.grad / n_acc, nan=0.0, posinf=1e5, neginf=-1e5))
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                    average_gradients(params, layout.data_group)
+                    for p in params:
+                        p.grad = torch.nan_to_num(p.grad / n_acc, nan=0.0, posinf=1e5,
+                                                  neginf=-1e5)
                 if lr_schedule is not None:
                     lr = lr_schedule(adam_count(optimizer))
                     for group in optimizer.param_groups:
@@ -186,7 +199,7 @@ def trainable(module: torch.nn.Module) -> list:
 
 
 def make_train_step(student, teacher, cfg: SFDConfig, optimizer: torch.optim.Optimizer,
-                    lpips_fn=None, n_acc: int = 1, lr_schedule=None):
+                    lpips_fn=None, n_acc: int = 1, lr_schedule=None, layout=None):
     """Pixel-space EDM student: ``student`` and ``teacher`` are EDMPreconds
     of one architecture, the teacher a frozen copy (training_loop.py:187),
     both in eval mode (dropout off, as the JAX step runs them
@@ -203,11 +216,12 @@ def make_train_step(student, teacher, cfg: SFDConfig, optimizer: torch.optim.Opt
     return make_train_step_general(student_denoise, lambda labels: bind(teacher,
                                                                         class_labels=labels),
                                    trainable(student), cfg, optimizer, lpips_fn, n_acc=n_acc,
-                                   model_source="edm", lr_schedule=lr_schedule)
+                                   model_source="edm", lr_schedule=lr_schedule, layout=layout)
 
 
 def make_ldm_train_step(student_unet, teacher_unet, precond, cfg: SFDConfig,
-                        optimizer: torch.optim.Optimizer, n_acc: int = 1, lr_schedule=None):
+                        optimizer: torch.optim.Optimizer, n_acc: int = 1, lr_schedule=None,
+                        layout=None):
     """Latent LDM / SD student (sfd training_loop.py:85-110): the trainable
     latent U-Net ``student_unet`` under the CFGPrecond math of ``precond``
     (its discrete sigma maps and narrowed sigma_min / sigma_max), at
@@ -242,4 +256,4 @@ def make_ldm_train_step(student_unet, teacher_unet, precond, cfg: SFDConfig,
     return make_train_step_general(
         student_denoise, teacher_factory, trainable(student_unet), cfg, optimizer,
         sigma_fn=train_precond.sigma, sigma_inv_fn=train_precond.sigma_inv, n_acc=n_acc,
-        model_source="ldm", lr_schedule=lr_schedule)
+        model_source="ldm", lr_schedule=lr_schedule, layout=layout)

@@ -86,13 +86,19 @@ def load_config(path: str) -> Dict:
 
 
 def create_run_dir(base: str, desc: str) -> str:
-    """``<base>/<id>-<desc>/``, the id one above the largest in ``base``."""
-    os.makedirs(base, exist_ok=True)
-    prev = [re.match(r"^(\d{5})-", d) for d in os.listdir(base)]
-    run_id = max((int(m.group(1)) for m in prev if m), default=-1) + 1
-    run_dir = os.path.join(base, f"{run_id:05d}-{desc}")
-    os.makedirs(run_dir)
-    return run_dir
+    """``<base>/<id>-<desc>/``, the id one above the largest in ``base``.  In
+    a multi-process run process 0 picks the id, broadcasts it and alone
+    makes the directory, so that every process names the same one."""
+    from ..parallel.mesh import broadcast_object, process_index
+
+    run_dir = None
+    if process_index() == 0:
+        os.makedirs(base, exist_ok=True)
+        prev = [re.match(r"^(\d{5})-", d) for d in os.listdir(base)]
+        run_id = max((int(m.group(1)) for m in prev if m), default=-1) + 1
+        run_dir = os.path.join(base, f"{run_id:05d}-{desc}")
+        os.makedirs(run_dir)
+    return broadcast_object(run_dir)
 
 
 def find_run_dir(base: str, number: int) -> Optional[str]:

@@ -139,7 +139,7 @@ def test_train_amed_rejects_what_is_not_ported(tmp_path, capsys):
     for name in ("lsun_bedroom", "lsun_cat", "imagenet256"):  # ported: a dry run passes
         cli_train.main([f"--dataset_name={name}", "-n", f"--outdir={tmp_path}"])
         assert f'"dataset_name": "{name}"' in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    with pytest.raises(NotImplementedError, match="--tp is not ported yet"):
         cli_train.main(["--dataset_name=cifar10", "--tp=2", f"--outdir={tmp_path}"])
     assert not os.listdir(tmp_path)
 

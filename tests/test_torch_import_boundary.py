@@ -61,7 +61,9 @@ def test_port_imports_with_jax_and_flax_blocked():
             "diff_sampler_tpu_torch.cli.analyze_extend", "diff_sampler_tpu_torch.integrations",
             "diff_sampler_tpu_torch.integrations.amed_export",
             "diff_sampler_tpu_torch.integrations.diffusers_emulation",
-            "diff_sampler_tpu_torch.utils.logger"} <= names
+            "diff_sampler_tpu_torch.utils.logger", "diff_sampler_tpu_torch.parallel",
+            "diff_sampler_tpu_torch.parallel.mesh", "diff_sampler_tpu_torch.parallel.launch",
+            "diff_sampler_tpu_torch.ops.ring_attention"} <= names
 
 
 def test_port_copies_match_their_jax_originals():

@@ -249,9 +249,10 @@ def test_ms_coco_forces_128_accumulation(tiny_tiers, tmp_path, capsys):
 
 
 REFUSALS = [
-    (["--dataset_name=cifar10", "--tp=2"], NotImplementedError, "--tp/--sp/--fsdp"),
-    (["--dataset_name=cifar10", "--sp=2"], NotImplementedError, "--tp/--sp/--fsdp"),
-    (["--dataset_name=cifar10", "--fsdp"], NotImplementedError, "--tp/--sp/--fsdp"),
+    (["--dataset_name=cifar10", "--tp=2"], NotImplementedError, "--tp is not ported yet"),
+    # --sp is ported: one process does not split into seq groups of 2
+    (["--dataset_name=cifar10", "--sp=2"], ValueError, "seq groups of --sp=2"),
+    (["--dataset_name=cifar10", "--fsdp"], NotImplementedError, "--fsdp is not ported yet"),
     (["--dataset_name=ms_coco"], ValueError, "guidance_type=cfg"),
     (["--dataset_name=lsun_bedroom_ldm", "--guidance_type=cfg"], ValueError,
      "guidance_type=uncond"),
