@@ -170,7 +170,8 @@ Phases, each printing as it goes and then its seconds:
    ``generate``'s images) and ``--return_inters=True`` (trajectory.npz's
    shape); one profiled forward.
 29. GITS on CIFAR-10 through the CLI at the reference's settings (6 steps
-   from a 61-point ipndm teacher, 256 warmup seeds at batch 256, dev metric,
+   from a 61-point ipndm teacher, 64 warmup seeds at batch 256 (the
+   reference's 256 cut for the script's time), dev metric,
    coefficient 1.15), ``--afs=False`` then ``--afs=True``: the dp_list's
    form, the search seconds, and images/s on the found schedule.
 30. The same on the LSUN-Bedroom LDM (BASELINE config 4) in bf16 at batch 64,
@@ -205,8 +206,8 @@ Phases, each printing as it goes and then its seconds:
    ``train_amed.build_trainer`` on the checkpoint and the captions (f32, K1,
    K1c, K2 and K2c launched as in phase 25).
 33. FID and PRDC of CIFAR-10 samples (run after phase 31, in its directory):
-   a synthetic CIFAR-10 python tarball (5 batches of 1,000 uint8 images from
-   the seed) through ``cli.dataset_tool`` to a zip of 5,000 PNGs and
+   a synthetic CIFAR-10 python tarball (5 batches of 500 uint8 images from
+   the seed) through ``cli.dataset_tool`` to a zip of 2,500 PNGs and
    dataset.json; a random Inception detector (He-scaled convs, BN of order
    one, from a numpy seed) written as a torch zip of a torchvision-named
    state_dict and as a plain pickle of a module tree in TF graph order, both
@@ -215,10 +216,10 @@ Phases, each printing as it goes and then its seconds:
    through both preprocessing paths, within 1e-4 * max|f|; ``fid ref`` of
    the dataset and ``fid calc`` of the dataset against it, |FID| <= 1e-3 *
    trace(sigma), and bit-equal to ``compute_fid`` on stats built in this
-   process; 5,000 samples of phase 31's ``.pkl`` through ``cli.sample``
+   process; 2,500 samples of phase 31's ``.pkl`` through ``cli.sample``
    (ipndm NFE 5, batch 256, bf16; exact K1 / K3 launches), ``fid calc`` of
    them with its host seconds split into PNG decode, features and sqrtm,
-   ``prdc calc --num 5000`` with the graph-order pickle, whose decisions
+   ``prdc calc --num 2500`` with the graph-order pickle, whose decisions
    must equal float64 ones (numpy, spot-checked against
    ``scipy.spatial.distance.cdist``) but for pairs within 1e-5 of their
    radius (counted); the detector's images/s at batch 250 against its f32
@@ -307,9 +308,9 @@ Phases, each printing as it goes and then its seconds:
 41. The trajectory analyzer on the full-width CIFAR-10 net in f32 (random
    weights redrawn at unit scale, loaded from a file the phase writes):
    ``cli.analyze_trajectories`` at 21 steps and batch 16, again with
-   ``--num_images=256`` (its statistics against the per-sample statistics
-   of its 64 batches combined in float64 on the host),
-   ``cli.analyze_extend --mode=sampling`` (euler, 201 steps) and
+   ``--num_images=64`` (its statistics against the per-sample statistics
+   of its 4 batches combined in float64 on the host),
+   ``cli.analyze_extend --mode=sampling`` (euler, 101 steps) and
    ``--mode=low_rank_mog``; every number finite, exact K1 / K3 launches; K1
    and K3 in f32 at the analyzer's [16, ...] shapes against their plain
    versions and the library.
@@ -346,6 +347,31 @@ Phases, each printing as it goes and then its seconds:
    each predictor within 1e-4 of its reference's).  Last, K1 and K2 at the
    ring's tiles on these paths and at SD's tile [2, 2048, 8, 40] beside the
    whole T=4096, in bf16 and f32, as phases 3 and 6.
+44. Tensor parallelism and FSDP (``parallel/tp.py``, ``parallel/fsdp.py``).
+   Two gloo processes on cuda:0 form one model group of 2 and, for FSDP,
+   one data group of 2.  They start before phase 33 and run beside phases
+   33 and 32 (gloo's host transport leaves the card idle most of the time;
+   the script joins them before phase 39), and phase 44 proper, after 43,
+   samples the one-process references and holds the ranks' results to them
+   (SD v1.5's: phase 43's one-process f32 run).  The ranks run the CIFAR-10 sampling CLI with
+   --tp=2 (64 seeds, f32, TF32 off, ipndm NFE 5: PNGs within one uint8
+   level of one process's, exact launches), ImageNet-256 classifier
+   guidance with the U-Net and the classifier tp=2-sharded (seeds 0-1, f32,
+   within one level; before it the classifier's bf16 gradient at sigma_max
+   on one call: within 1.5 times one process's bf16 - f32 distance of one
+   process's bf16 call, and beyond it with one row-parallel layer's sum
+   skipped), SD v1.5 with its U-Net tp=2-sharded (seeds 0-1, f32, guided
+   7.5, within one level of phase 43's reference; K1 on 4 of 8 heads), one
+   SFD iteration on CIFAR-10 with --tp=2 and one on SD v1.5 with FSDP
+   (batch 2), and one AMED iteration on the LSUN LDM with FSDP (batch 8),
+   each against a one-process run of the same rows in the same
+   microbatches made first in the rank (weights within 1e-4, Adam's first
+   moment within 1e-4 of its largest entry, the predictor within 1e-4;
+   cuDNN deterministic), with each rank's resident parameter and Adam
+   bytes and its peak memory against one process's, and exact launches.
+   Last, K1 / K2 at the shards' local heads ([2, 1024, 4 / 2, 64]) and K3
+   on a channel slice ([2, 256, 256, 128] in 16 groups), as phases 3, 6
+   and 15.
 
 The last three lines are the card's name and power limit, a JSON object on
 the kernels and ``{"ok": true, "device": {...}}``.  The JSON lists K1 and
@@ -370,7 +396,8 @@ paths (launches of phases 37-39; the LDM's times those of phase 16), K1
 and K3 in f32 on the trajectory analyzer's and the AMED export's paths
 (launches of phases 41 and 42, times at the analyzer's shapes), K1 and
 K2 in bf16 and f32 at the ring's tiles (launches of phase 43's --sp=2
-paths, rank 0's and the ring's partials only), each
+paths, rank 0's and the ring's partials only), K1 / K2 / K3 at the
+--tp=2 shards' local shapes (launches of phase 44's paths, rank 0's), each
 with its error and times at that path's main
 shape and its bound on this card (the f32 attention kernels' and the f32
 K4's: 3xTF32 on the tensor cores).  Every profile (phases 4,
@@ -395,6 +422,7 @@ import math
 import os
 import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tarfile
@@ -431,6 +459,7 @@ from diff_sampler_tpu_torch.integrations.amed_export import (export_amed_schedul
                                                              save_amed_schedule)
 from diff_sampler_tpu_torch.models import adm, convert, layers, unets
 from diff_sampler_tpu_torch.models.convert import absent_from_jax, load_jax_params, params_to_jax
+from diff_sampler_tpu_torch.parallel.mesh import cut, shard_spec
 from diff_sampler_tpu_torch.models.factory import (build_edm_model, build_ldm_model, create_model,
                                                    init_params)
 from diff_sampler_tpu_torch.models.ldm import reference_state_dict
@@ -678,11 +707,12 @@ FFHQ_NFES = [5, 10]
 FFHQ_TRAJ_SEEDS = 64  # the --return_inters CLI run
 
 # GITS through the CLI at the reference's settings (gits-main's README):
-# 6 student steps picked from a 61-point ipndm teacher over 256 warmup seeds,
+# 6 student steps picked from a 61-point ipndm teacher over 64 warmup seeds
+# (the reference's 256, cut to keep the script's time),
 # the "dev" metric at coefficient 1.15.  CIFAR-10 at batch 256, the LSUN LDM
 # (BASELINE config 4) at batch 64 in bf16 with --afs=False (its --afs=True is
 # a known fault of the reference, ROADMAP Queue 3).
-GITS_ARGS = ["--dp=True", "--num_steps=6", "--num_steps_tea=61", "--num_warmup=256",
+GITS_ARGS = ["--dp=True", "--num_steps=6", "--num_steps_tea=61", "--num_warmup=64",
              "--metric=dev", "--coeff=1.15", "--solver_tea=ipndm", "--solver=ipndm"]
 
 
@@ -1852,7 +1882,7 @@ def _gn_route_text(route, dtype, n: int, chunks: int) -> str:
             f"{route.smem} B shared memory a statistics block, 2 kernels")
 
 
-def _gn_other_route(route, n, h, w, c, dtype):
+def _gn_other_route(route, n, h, w, c, dtype, groups: int = 32):
     """The route that K3 does not take at this shape, where both apply: the
     stream route beside a slab, or the smallest cluster of ``G.CLUSTER_SIZES``
     that holds the slab beside the stream route (None where none does)."""
@@ -1861,7 +1891,7 @@ def _gn_other_route(route, n, h, w, c, dtype):
         return G._stream_route(n, hw, c, elt, route.vec)
     for size in G.CLUSTER_SIZES:
         if size <= hw:
-            slab = G._slab_route(n, hw, c, 32, elt, route.vec, size)
+            slab = G._slab_route(n, hw, c, groups, elt, route.vec, size)
             if slab is not None:
                 return slab
     return None
@@ -1879,20 +1909,20 @@ def phase_groupnorm_kernel() -> dict:
     return _gn_checks(GN_SHAPES, GN_ENTRIES, seed=7)
 
 
-def _gn_checks(shapes, wanted: dict, seed: int) -> dict:
+def _gn_checks(shapes, wanted: dict, seed: int, groups: int = 32) -> dict:
     """K3 against its plain version at ``shapes``, on its route and, where
     both apply, on the other one (the same gates, timed on the same data);
     returns the kernels-line fields of ``wanted``'s shapes, with the
-    route."""
+    route.  ``groups``: 32, or 32 / tp at a tensor-parallel channel slice."""
     g = torch.Generator("cuda").manual_seed(seed)
     entries = {}
     for n, h, w, c, dtype, eps, silu in shapes:
         x = (torch.randn(n, h, w, c, generator=g, device="cuda") * 3 + 1).to(dtype)
         scale = 1 + 0.5 * torch.randn(c, generator=g, device="cuda")
         bias = torch.randn(c, generator=g, device="cuda")
-        kw = dict(groups=32, eps=eps, apply_silu=silu)
-        route = G.gn_route(n, h, w, c, dtype)
-        other = _gn_other_route(route, n, h, w, c, dtype)
+        kw = dict(groups=groups, eps=eps, apply_silu=silu)
+        route = G.gn_route(n, h, w, c, dtype, groups=groups)
+        other = _gn_other_route(route, n, h, w, c, dtype, groups)
         ref = G.reference_groupnorm_silu(x, scale, bias, **kw)
         tol = GN_TOL[dtype] * max(1.0, ref.float().abs().max().item())
         name = str(dtype).replace("torch.", "")
@@ -1900,8 +1930,8 @@ def _gn_checks(shapes, wanted: dict, seed: int) -> dict:
         for which, r in (("route", route), ("other", other)):
             if r is None:
                 continue
-            got = G._launch(x, scale, bias, 32, eps, silu, route=r)
-            again = G._launch(x, scale, bias, 32, eps, silu, route=r)
+            got = G._launch(x, scale, bias, groups, eps, silu, route=r)
+            again = G._launch(x, scale, bias, groups, eps, silu, route=r)
             torch.cuda.synchronize()
             errs[which] = (got.float() - ref.float()).abs().max().item()
             same = torch.equal(got, again)
@@ -1914,20 +1944,20 @@ def _gn_checks(shapes, wanted: dict, seed: int) -> dict:
         sc, bi = scale.to(dtype), bias.to(dtype)
 
         def library():
-            y = F.group_norm(x_nchw, 32, sc, bi, eps)
+            y = F.group_norm(x_nchw, groups, sc, bi, eps)
             return F.silu(y) if silu else y
 
         fns = {"kernel": lambda: G.groupnorm_silu(x, scale, bias, **kw),
                "plain": lambda: G.reference_groupnorm_silu(x, scale, bias, **kw),
                "library": library}
         if other is not None:
-            fns["other"] = lambda: G._launch(x, scale, bias, 32, eps, silu, route=other)
+            fns["other"] = lambda: G._launch(x, scale, bias, groups, eps, silu, route=other)
         times = _turns(fns, reps=10, warmup=2)
         bound_ms, bound_by = _groupnorm_bound(n, h, w, c, dtype, silu)
         nbytes = 2 * x.numel() * x.element_size()
         chunks = -(-h * w // route.rows)
         print(f"[K3] [{n}, {h}, {w}, {c}] {name} eps {eps:g} silu {silu} (group size "
-              f"{c // 32}): route {_gn_route_text(route, dtype, n, chunks)}; max abs err "
+              f"{c // groups}): route {_gn_route_text(route, dtype, n, chunks)}; max abs err "
               f"{errs['route']:.3g} (tol {tol:.3g}), two runs bit-identical; K3 "
               f"{times['kernel']:.4f} ms ({nbytes / times['kernel'] / 1e6:.1f} GB/s of x read + "
               f"out written, {bound_ms / times['kernel']:.3f} of the bound), plain "
@@ -2729,7 +2759,7 @@ def phase_gits_cifar() -> dict:
 
 
 def phase_gits_ldm() -> dict:
-    """GITS on the LSUN-Bedroom LDM through the CLI (--afs=False), 256 warmup
+    """GITS on the LSUN-Bedroom LDM through the CLI (--afs=False), 64 warmup
     seeds at batch 64, then sampling and the VQ decode of 64 seeds."""
     argv = ["--dataset_name=lsun_bedroom_ldm", "--model_path=random", "--bf16=True",
             *GITS_ARGS, f"--batch={LDM_BATCH}", f"--seeds=0-{LDM_BATCH - 1}"]
@@ -3112,14 +3142,16 @@ def phase_checkpoint_sd(workdir: str) -> dict:
 
 # Phase 33: FID and PRDC of CIFAR-10 samples
 EVAL_TRAIN_BATCHES = 5  # data_batch_1..5 of the synthetic CIFAR-10 tarball
-EVAL_BATCH_IMAGES = 1000  # images per data_batch: 5,000 in the dataset zip
-# CIFAR-10 samples scored (cut from 10,000 to keep the script's time; fid
-# calc runs with --no-strict-count, which takes any count)
-EVAL_SAMPLES = 5000
+EVAL_BATCH_IMAGES = 500  # images per data_batch: 2,500 in the dataset zip
+# CIFAR-10 samples scored (cut from 10,000 to 5,000, then to 2,500, to keep
+# the script's time, above the detector's 2,048 features so that the
+# covariances keep full rank; fid calc runs with --no-strict-count, which
+# takes any count)
+EVAL_SAMPLES = 2500
 DETECTOR_BATCH = 250
 DETECTOR_CHECK_IMAGES = 16  # card against CPU, 32 px, both preprocessing paths
 DETECTOR_TOL = 1e-4  # of max|CPU features|: both sum in f32 in other orders
-PRDC_NUM = 5000
+PRDC_NUM = 2500
 PRDC_NEAR = 1e-5  # a pair this close (relative) to its radius may decide either way
 FID_SELF_TOL = 1e-3  # |FID(dataset, its own reference stats)| <= this * trace(sigma)
 
@@ -3265,15 +3297,15 @@ def _prdc_gate(tag: str, real: np.ndarray, fake: np.ndarray, k: int, cli_out: di
 
 def phase_eval(workdir: str, pkl_path: str) -> dict:
     """Phase 33: FID and PRDC of CIFAR-10 samples.  A synthetic CIFAR-10
-    tarball (5,000 images from a seed) -> ``cli.dataset_tool`` -> a zip of
+    tarball (2,500 images from a seed) -> ``cli.dataset_tool`` -> a zip of
     PNGs; a random Inception detector (``_random_inception``) written as a
     torchvision-named torch zip and as an NVIDIA-style graph-order pickle,
     the two imports equal; the detector on the card against its CPU run
     (both preprocessing paths); ``fid ref`` of the dataset, ``fid calc`` of
     the dataset against it (FID ~ 0) and again in the process (bit-equal);
-    5,000 samples of phase 31's ``.pkl`` through ``cli.sample`` (ipndm NFE
+    2,500 samples of phase 31's ``.pkl`` through ``cli.sample`` (ipndm NFE
     5, batch 256, bf16; K1 / K3 counted), ``fid calc`` and ``prdc calc
-    --num 5000`` of them, PRDC held to float64; the detector's images/s at
+    --num 2500`` of them, PRDC held to float64; the detector's images/s at
     batch 250 against its f32 bound.  Returns the sampling's counts."""
     flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
@@ -4142,7 +4174,7 @@ VITG = OpenCLIPConfig(embed_dim=1024, image_size=224, patch_size=14, vision_widt
                       text_layers=24, text_heads=16, text_mlp_dim=4096, vocab_size=49408,
                       context_length=77)
 CLIP_CKPT_STORAGE = torch.float16  # open_clip_pytorch_model.bin's
-CLIP_IMAGES = 256  # images scored by each CLI run
+CLIP_IMAGES = 128  # images scored by each CLI run (cut from 256 for the script's time)
 CLIP_BATCH = 64  # cli.clip_score's default --batch
 CLIP_CHECK_N = 4  # images and prompts of the f32-vs-float64 gate
 # Tolerance of the f32 towers against the same modules in float64, relative
@@ -4153,10 +4185,10 @@ CLIP_TOL = 1e-4
 # Phase 41: the analyzer's defaults on the full-width CIFAR-10 net, f32
 ANALYZE_BATCH = 16
 ANALYZE_STEPS = 21  # ipndm: 20 net calls a trajectory
-# 16 batches: the whole run must stay inside its time limit, and this run
+# 4 batches: the whole run must stay inside its time limit, and this run
 # is its longest host-bound loop (36 ms a batch-16 forward)
-ANALYZE_IMAGES = 256
-EXTEND_STEPS = 201  # analyze_extend's default: euler, 200 net calls
+ANALYZE_IMAGES = 64
+EXTEND_STEPS = 101  # analyze_extend: euler, 100 net calls (its default 201, cut)
 ANALYZE_TOL = 1e-5  # --num_images against the per-sample statistics in float64, of max
 ANALYZE_K_SHAPE = (ANALYZE_BATCH, 256, 1, 256, torch.float32)  # CIFAR-10's attention level
 ANALYZE_GN_SHAPE = (ANALYZE_BATCH, 32, 32, 256, torch.float32, 1e-6, False)  # its 32x32 GN
@@ -4366,11 +4398,11 @@ def phase_analyzer(workdir: str) -> dict:
     f32, its random weights redrawn at unit scale and saved as a checkpoint
     file that the CLIs load (the init's zero-init convs make D = c_skip * x,
     whose trajectories are straight lines: curvature 0): ``analyze_trajectories``
-    at 21 steps and batch 16, then with ``--num_images=256`` (its statistics
+    at 21 steps and batch 16, then with ``--num_images=64`` (its statistics
     against the per-sample statistics of each batch's trajectory, taken here
     from the trajectories the CLI hands to ``batch_stat_sums`` and combined
     in float64 on the host), ``analyze_extend --mode=sampling``
-    (euler, 201 steps) and ``--mode=low_rank_mog`` (no net: no kernel); every
+    (euler, 101 steps) and ``--mode=low_rank_mog`` (no net: no kernel); every
     report finite, exact K1 / K3 launches; K1 and K3 in f32 at the
     analyzer's shapes against their plain versions.  Returns the launches
     and the kernels' fields."""
@@ -4510,7 +4542,7 @@ def _check_log_txt(tag: str, run_dir: str, printed: str) -> None:
 # Phase 43: data and sequence parallelism.  Two processes share the one card
 # over gloo (NCCL refuses two ranks on one card), each on cuda:0; one
 # process under NCCL runs the sampling CLI at world size 1.
-P43_SEEDS = 512
+P43_SEEDS = 256  # cut from 512 for the script's time
 P43_CIFAR_ARGS = ["--dataset_name=cifar10", "--model_path=random", "--solver=ipndm",
                   "--num_steps=6", "--bf16=True", f"--seeds=0-{P43_SEEDS - 1}",
                   f"--batch={BATCH}", "--device=cuda", "--subdirs=False"]
@@ -4540,12 +4572,13 @@ P43_SD_RANG = {(2 * P43_SD_BATCH, t, SD_HEADS, d): n * (P43_SD_STEPS - 1)
 # times (random SD's attention at sigma_max weighs its two halves nearly
 # alike; the ring checks above hold the combine at K1's tolerance).
 P43_ONE_CALL_FACTOR = 1.5
-# One AMED iteration on CIFAR-10 at batch 512 in microbatches of 256, f32,
-# TF32 off, data parallel over 2 ranks (128 rows a rank) against one
-# process.  The runs sum the rows of a microbatch in other orders and cuDNN
-# may pick other algorithms at 128 rows than at 256; Adam scales each
-# gradient by its own size.
-P43_AMED_BATCH_GPU = 256
+# One AMED iteration on CIFAR-10 at batch 128 in microbatches of 64 (cut
+# from 512 in 256s for the script's time), f32, TF32 off, data
+# parallel over 2 ranks (32 rows a rank) against one process.  The runs sum
+# the rows of a microbatch in other orders and cuDNN may pick other
+# algorithms at 32 rows than at 64; Adam scales each gradient by its own
+# size.
+P43_AMED_BATCH, P43_AMED_BATCH_GPU = 128, 64
 P43_AMED_TOL = 1e-4
 # One AMED iteration on CIFAR-10 with --sp=2 (the ring inside the train
 # step: K1 forward, K2 backward at the T=256 sites; T=64 stays local), at
@@ -4603,7 +4636,7 @@ def _p43_sd_sample(pre, layout, dtype):
     return latents, images, counts, ledger, _gn_sites(ld.unet)
 
 
-def _p43_amed(layout, batch=AMED_BATCH, batch_gpu=P43_AMED_BATCH_GPU):
+def _p43_amed(layout, batch=P43_AMED_BATCH, batch_gpu=P43_AMED_BATCH_GPU):
     """One AMED iteration through ``train_amed.build_trainer`` on CIFAR-10
     at ``batch`` (seeds 0 to batch - 1) in microbatches of ``batch_gpu``,
     f32, TF32 off, over ``layout`` (None: one process; a layout with seq
@@ -4870,6 +4903,8 @@ def phase_parallel(workdir: str) -> dict:
               f"launches {counts}")
         _check(counts == want, f"SD {name} --sp=1 launches {counts}, expected {want}")
         sd1[name] = (latents, images)
+    np.savez(os.path.join(workdir, "sd_one_float32.npz"), latents=sd1["float32"][0],
+             images=sd1["float32"][1])  # phase 44's reference
     del pre
     torch.cuda.empty_cache()
     amed1 = _p43_amed(None)
@@ -4977,9 +5012,9 @@ def phase_parallel(workdir: str) -> dict:
         return one["weights"].keys() == got.keys(), diff, scale
 
     same_keys, diff, scale = amed_diff(amed1, os.path.join(workdir, "amed2.npz"))
-    print(f"[parallel AMED] one iteration at batch {AMED_BATCH} in microbatches of "
+    print(f"[parallel AMED] one iteration at batch {P43_AMED_BATCH} in microbatches of "
           f"{P43_AMED_BATCH_GPU}, f32, TF32 off: one process {amed1['losses']}, 2 data ranks "
-          f"(128 rows a rank; rank 0's loss, {ranks[0]['amed_s']:.2f} s with the set-up) "
+          f"({P43_AMED_BATCH_GPU // 2} rows a rank; rank 0's loss, {ranks[0]['amed_s']:.2f} s with the set-up) "
           f"{ranks[0]['amed_losses']}; predictor max abs diff {diff:.3g} (tol {P43_AMED_TOL} * "
           f"{scale:.3g})")
     _check(same_keys and diff <= P43_AMED_TOL * scale,
@@ -5017,6 +5052,664 @@ def phase_parallel(workdir: str) -> dict:
                 sd_k1={name: 2 * sum(sd[name]["rang"].values()) for name in sd},
                 amed_sp={k: amed_sp["by_shape"][k][repr((128, 1))] for k in ("dq", "dkv")},
                 cg=cg["ring_k2"])
+
+
+# Phase 44: tensor parallelism and FSDP.  Two gloo processes share the one
+# card (as in phase 43), each on cuda:0, after the one-process references in
+# this process.  The model group of --tp=2 holds both ranks (a data group of
+# one); FSDP's data group holds both (each rank its row of the batch).
+# CIFAR-10's net is redrawn at unit scale and loaded from a file (as phase
+# 41's): at its random init conv1, proj and the output convs start at
+# 1e-5, so D ~ c_skip * x and no row layer or gather would show in a PNG.
+# Its one-level gate has a planted fault that must read beyond it: the
+# ranks' parts of each gathered qkv joined in the wrong order
+P44_CIFAR_NET = "cifar10-unit-scale.pt"
+P44_CIFAR_SEEDS = 64
+P44_FAULT_SEEDS = 8  # the faulty CLI run: the first 8 seeds
+P44_CIFAR_ARGS = ["--dataset_name=cifar10", "--solver=ipndm", "--num_steps=6",
+                  "--device=cuda", "--subdirs=False"]
+P44_CG_BATCH = 2  # ImageNet-256 CG: seeds 0-1, ipndm at NFE 5, f32 and bf16
+P44_CG_ARGS = [f"--dataset_name={CG}", "--model_path=random", "--guidance_type=cg",
+               "--solver=ipndm", "--num_steps=6", f"--seeds=0-{P44_CG_BATCH - 1}",
+               f"--batch={P44_CG_BATCH}", "--device=cuda", "--subdirs=False"]
+# bf16 classifier guidance is held on one call (the classifier's gradient at
+# sigma_max): its distance from the one-process call (mean |difference| over
+# mean |value|) at most P44_ONE_CALL_FACTOR times the one-process call's
+# distance between bf16 and f32; a planted fault (one row-parallel layer's
+# sum over the model group skipped) must read beyond that
+P44_ONE_CALL_FACTOR = 1.5
+# one CIFAR-10 D call in f32 (TF32 off): the shards at most 1e-5 of one
+# process's mean |D| from it (two f32 runs that sum in other orders: ~1e-7),
+# the swapped gather and one conv1 without its sum beyond it
+P44_D_TOL = 1e-5
+# teacher dpmpp: CIFAR-10 at 3 steps with AFS off (2 segments, 2 Adam
+# updates), SD at 2 steps (1 segment, 1 update: 2 teacher calls, the
+# gathers of FSDP through gloo being the time)
+P44_SFD_CFG = {"cifar": SFDConfig(num_steps=3, M=1), "sd": SFDConfig(num_steps=2, M=1)}
+P44_SFD_LR = 5e-5  # train_sfd's default
+P44_SFD_BATCH = {"cifar": 8, "sd": 2}
+P44_AMED_BATCH = 8
+P44_AMED_STEPS = 3
+# The trainings' gates.  Adam's first moment, linear in the gradients, is
+# the gradients' gate: within 1e-4 of its largest entry of one process's
+# (two f32 runs that sum over channels, heads and rows in other orders, TF32
+# off), and a planted fault on each path must read beyond it (CIFAR-10
+# --tp=2: one conv1 without its sum over the model group; SD --fsdp: the
+# reduce-scatter's sum not divided by the data group's size).  Each rank's
+# shards of the weights after the step are held within 1e-4 of the same
+# entries of one process's too, which checks the shards' places (a shard in
+# the wrong place moves a weight by its own scale), not the gradients:
+# Adam's first update moves each weight by about lr whatever its gradient's
+# size, so two runs differ by at most 2 lr = 1e-4 an update there
+P44_TOL = 1e-4
+P44_MOMENT_TOL = 1e-4
+P44_TIMEOUT_S = 600
+# K1 / K2 / K3 at the tp=2 shards' local shapes: ImageNet-256's 32x32 level
+# (the U-Net's 8 heads of 64 and the classifier's 4, two a rank of the latter
+# in bf16 in the one-call gate), and its first level's GroupNorm between the
+# column and the row conv (256 channels, 128 a rank in 16 groups)
+P44_K1_SHAPES = [(P44_CG_BATCH, 1024, 4, 64, torch.float32),
+                 (P44_CG_BATCH, 1024, 2, 64, torch.bfloat16)]
+P44_K2_SHAPES = [(P44_CG_BATCH, 1024, 2, 64, torch.float32),
+                 (P44_CG_BATCH, 1024, 2, 64, torch.bfloat16)]
+P44_GN_SHAPES = [(P44_CG_BATCH, 256, 256, 128, torch.float32, 1e-5, False)]
+
+
+def _p44_flags(f32: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = not f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _p44_sample_cli(args: list, outdir: str) -> dict:
+    """The sampling CLI in f32, TF32 off, the counts set to 0 just before;
+    returns its launches and seconds."""
+    _p44_flags(True)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    cli_sample.main([*args, f"--outdir={outdir}"])
+    torch.cuda.synchronize()
+    return dict(counts=_counts(), s=time.perf_counter() - t0)
+
+
+def _p44_cifar_args(workdir: str, seeds: int, *extra) -> list:
+    """The CIFAR-10 sampling CLI's flags on phase 44's unit-scale net, seeds
+    0 to ``seeds`` - 1 in one batch."""
+    return [*P44_CIFAR_ARGS, f"--model_path={os.path.join(workdir, P44_CIFAR_NET)}",
+            f"--seeds=0-{seeds - 1}", f"--batch={seeds}", *extra]
+
+
+def _p44_write_cifar_net(workdir: str) -> None:
+    """Phase 44's full-width CIFAR-10 EDMPrecond, from seed 0 redrawn at
+    unit scale, saved into ``workdir`` for every process to load."""
+    module, _ = create_model("cifar10", "random", device="cuda")
+    with torch.no_grad():
+        _redraw_unit_scale(module, seed=44, device="cuda")
+    torch.save(module.state_dict(), os.path.join(workdir, P44_CIFAR_NET))
+    del module
+    torch.cuda.empty_cache()
+
+
+def _p44_skip_a_sum(module) -> str:
+    """The planted fault of the CIFAR-10 --tp=2 paths: the row-parallel
+    ``conv1`` of the first attention block that gathers its head runs
+    without its sum over the model group; returns its name."""
+    for name, m in module.named_modules():
+        if isinstance(m, unets.UNetBlock) and m.tp_heads is not None and m.tp_heads.gather:
+            m.conv1.tp_role = None
+            return f"{name}.conv1"
+    raise RuntimeError("no tensor-parallel attention block gathers its heads")
+
+
+@contextlib.contextmanager
+def _p44_patched(owner, name: str, value):
+    """``owner.name`` set to ``value`` inside the block (a planted fault)."""
+    old = vars(owner)[name]
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
+
+
+def _p44_undivided():
+    """The planted fault of the SD --fsdp path, as a patch: FSDP's gradient
+    reduce-scatter summed over the data group and not divided by its size."""
+    from diff_sampler_tpu_torch.parallel import fsdp
+
+    backward = fsdp._GatherShard.backward
+
+    def undivided(ctx, g):
+        grad, _ = backward(ctx, g)
+        return grad * ctx.spec.size, None
+
+    return _p44_patched(fsdp._GatherShard, "backward", staticmethod(undivided))
+
+
+def _p44_swapped_gather():
+    """The planted fault of the gather path, as a patch: the ranks' parts of
+    a gathered projection joined in the wrong order."""
+    from diff_sampler_tpu_torch.parallel import tp
+
+    forward = tp._GatherFromModel.forward
+
+    def swapped(ctx, x, group, rank, size):
+        return torch.cat(forward(ctx, x, group, rank, size).chunk(size, dim=-1)[::-1], dim=-1)
+
+    return _p44_patched(tp._GatherFromModel, "forward", staticmethod(swapped))
+
+
+def _p44_dist(x, ref) -> float:
+    """Mean |difference| over mean |value| of ``ref``."""
+    return ((x.float() - ref.float()).abs().mean() / ref.float().abs().mean()).item()
+
+
+def _p44_cifar_call(workdir: str, layout) -> dict:
+    """D of the unit-scale CIFAR-10 net on one call (f32, TF32 off, batch 8
+    at sigma 80, 10, 1, 0.1) on the tp=2 shards against one process's, then
+    with two planted faults in turn: the gathered parts swapped, one conv1
+    without its sum (``_p44_skip_a_sum``); distances by ``_p44_dist``."""
+    from diff_sampler_tpu_torch.models.factory import shard_pixel_tensor_parallel
+
+    _p44_flags(True)
+    module, source = create_model("cifar10", os.path.join(workdir, P44_CIFAR_NET),
+                                  device="cuda")
+    den = bind(module)
+    sigma = torch.tensor([80.0, 10.0, 1.0, 0.1] * 2, device="cuda")
+    x = stacked_randn(range(8), (32, 32, 3), device="cuda") * sigma[:, None, None, None]
+    with torch.no_grad():
+        ref = den(x, sigma)
+        shard_pixel_tensor_parallel(module, layout, source)
+        got = den(x, sigma)
+        with _p44_swapped_gather():
+            swapped = den(x, sigma)
+        planted = _p44_skip_a_sum(module)
+        skipped = den(x, sigma)
+    return dict(tp=_p44_dist(got, ref), swapped=_p44_dist(swapped, ref), planted=planted,
+                skipped=_p44_dist(skipped, ref))
+
+
+def _p44_cli_fault(workdir: str) -> dict:
+    """The CIFAR-10 sampling CLI with --tp=2 on the first ``P44_FAULT_SEEDS``
+    seeds, with ``_p44_swapped_gather``'s fault; launches and seconds."""
+    with _p44_swapped_gather():
+        return _p44_sample_cli(_p44_cifar_args(workdir, P44_FAULT_SEEDS, "--tp=2"),
+                               os.path.join(workdir, "cifar_fault"))
+
+
+def _p44_sd_student(pre):
+    """train_sfd's latent student (``_create_latent_student``) over the SD
+    stack ``pre`` already built: the U-Net trainable, a frozen copy the
+    teacher."""
+    ld = pre.latent_diffusion
+    ld.requires_grad_(False)
+    unet = ld.unet.requires_grad_(True)
+    return cli_train_sfd.Student(unet, copy.deepcopy(unet).requires_grad_(False),
+                                 list(unet.named_parameters()), None, None)
+
+
+def _p44_sfd(kind: str, layout, source, n_acc: int = 1, fault: bool = False) -> dict:
+    """One SFD iteration through train_sfd's student, shard and train step,
+    f32, TF32 off: the full-width CIFAR-10 SongUNet from the file ``source``
+    (``kind`` "cifar", remat on; tensor parallel over ``layout``'s model
+    group) or SD v1.5's U-Net of the stack ``source`` (``kind`` "sd"; FSDP
+    over ``layout``'s data ranks); None: one process; ``n_acc``
+    microbatches; ``fault``: with the path's planted fault.  Returns the
+    student's weights and Adam's first moment as this rank holds them (one
+    process's on the host, a sharded run's shards on the card, with their
+    shard specs), the resident parameter and Adam bytes, the peak memory,
+    the launches, the losses and the seconds."""
+    _p44_flags(True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batch = P44_SFD_BATCH[kind]
+    if kind == "cifar":
+        student = cli_train_sfd._create_student("cifar10", source, False, True, "cuda")
+        latents, cond = stacked_randn(range(batch), (32, 32, 3), device="cuda"), ()
+    else:
+        student = _p44_sd_student(source)
+        latents = stacked_randn(range(batch), SD_LATENT, device="cuda")
+        cond = (_sd_contexts(source.latent_diffusion, batch)[0],)
+    if layout is not None:
+        cli_train_sfd.shard_student(student, layout, fsdp=kind == "sd")
+    planted, patch = None, contextlib.nullcontext()
+    if fault and kind == "cifar":
+        planted = _p44_skip_a_sum(student.module)
+    elif fault:
+        planted, patch = "the gradient reduce-scatter not divided by 2", _p44_undivided()
+    opt = torch.optim.Adam([p for _, p in student.named], lr=P44_SFD_LR, betas=(0.9, 0.999),
+                           eps=1e-8)
+    if kind == "cifar":
+        step = make_sfd_train_step(student.module, student.teacher, P44_SFD_CFG[kind], opt,
+                                   n_acc=n_acc, layout=layout)
+    else:
+        step = make_sfd_ldm_train_step(student.module, student.teacher, source,
+                                       P44_SFD_CFG[kind], opt, n_acc=n_acc, layout=layout)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with patch:
+        losses = step(latents, *cond)["loss_per_step"].tolist()
+    torch.cuda.synchronize()
+    res = dict(counts=_counts(), s=time.perf_counter() - t0, losses=losses,
+               peak=torch.cuda.max_memory_allocated(), planted=planted)
+    res["param_bytes"] = sum(p.numel() * p.element_size() for m in (student.module,
+                                                                    student.teacher)
+                             for p in m.parameters())
+    res["adam_bytes"] = sum(t.numel() * t.element_size() for st in opt.state.values()
+                            for t in st.values() if torch.is_tensor(t) and t.dim() > 0)
+    # a sharded run's shards stay on the card: gathering SD's 860M weights
+    # and moments whole through gloo would take longer than the step
+    keep = (lambda t: t.detach().cpu()) if layout is None else (lambda t: t.detach().clone())
+    res["weights"] = {n: keep(p) for n, p in student.named}
+    res["mu"] = {n: keep(opt.state[p]["exp_avg"]) for n, p in student.named if p in opt.state}
+    res["specs"] = {n: shard_spec(p) for n, p in student.named}
+    del student, opt, step
+    return res
+
+
+def _p44_against(one: dict, got: dict) -> dict:
+    """``got``'s weights and first moment (this rank's shards) against the
+    same entries of one process's (whole, on the host)."""
+    def apart(ref, mine, spec):
+        ref = ref if spec is None else cut(ref, spec)
+        return float((mine - ref.to(mine.device)).abs().max())
+
+    return dict(diff=max(apart(v, got["weights"][k], got["specs"][k])
+                         for k, v in one["weights"].items()),
+                mu_diff=max(apart(v, got["mu"][k], got["specs"][k])
+                            for k, v in one["mu"].items()),
+                same_keys=got["weights"].keys() == one["weights"].keys()
+                and got["mu"].keys() == one["mu"].keys())
+
+
+def _p44_amed(layout, batch_gpu: int) -> dict:
+    """One AMED iteration on the LSUN LDM through ``train_amed.build_trainer``
+    at batch ``P44_AMED_BATCH`` in microbatches of ``batch_gpu``, f32, TF32
+    off, its frozen U-Net FSDP-sharded over ``layout``'s data ranks (None:
+    one process); the predictor's weights, the U-Net's resident bytes, the
+    peak, the launches, the losses."""
+    _p44_flags(True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = AMEDConfig(dataset_name=LDM, batch=P44_AMED_BATCH, num_steps=P44_AMED_STEPS,
+                     afs=LDM_AMED_AFS, batch_gpu=batch_gpu)
+    module, cfg, pred, step, _ = cli_train_amed.build_trainer(
+        cfg, "random", "cuda", seed=0, layout=layout, fsdp=layout is not None)
+    shape = (module.img_resolution, module.img_resolution, module.img_channels)
+    latents = stacked_randn(range(P44_AMED_BATCH), shape, device="cuda")
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = step(latents)["loss_per_step"].tolist()
+    torch.cuda.synchronize()
+    unet = module.latent_diffusion.unet
+    res = dict(counts=_counts(), s=time.perf_counter() - t0, losses=losses,
+               peak=torch.cuda.max_memory_allocated(),
+               unet_bytes=sum(p.numel() * p.element_size() for p in unet.parameters()),
+               weights={k: np.asarray(v) for k, v in
+                        ckpt.flatten_params(params_to_jax(pred.state_dict())).items()})
+    del module, pred, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def _p44_one_call(pre, shard) -> dict:
+    """The bf16 one-call gate of ImageNet-256 CG on the whole ``pre`` (the
+    classifier's gradient at sigma_max on seeds 0-1): one process's call in
+    bf16 and in f32, then ``shard()`` cuts the nets to their tp=2 shards,
+    the shards' bf16 call, and the same with one row-parallel layer's sum
+    skipped (a planted fault); leaves ``pre`` sharded, in f32, the counts at
+    0 and TF32 off.  Returns the distances (``_p44_dist``) and the
+    launches."""
+    cls = pre.classifier
+    x, sigma, _, labels = _adm_inputs(P44_CG_BATCH, [float(pre.sigma_max)])
+    x_in = x / torch.sqrt(sigma ** 2 + 1)[:, None, None, None]
+    t = (pre.M - 1) * pre.sigma_inv(sigma)
+    with torch.no_grad():
+        _p44_flags(True)
+        ref32 = pre._cond_grad(x_in, t, labels)
+        _p44_flags(False)
+        cls.dtype = torch.bfloat16
+        ref = pre._cond_grad(x_in, t, labels)
+        shard()
+        torch.cuda.synchronize()
+        _reset_counts()
+        got = pre._cond_grad(x_in, t, labels)
+        torch.cuda.synchronize()
+        counts = _counts()
+        row = next(m for m in cls.modules() if getattr(m, "tp_role", None) == "row")
+        row.tp_role = None  # the planted fault: this layer's partial sums not summed
+        fault = pre._cond_grad(x_in, t, labels)
+        row.tp_role = "row"
+        cls.dtype = torch.float32
+    _p44_flags(True)
+    _reset_counts()
+    return dict(tp=_p44_dist(got, ref), bf16_vs_f32=_p44_dist(ref, ref32),
+                fault=_p44_dist(fault, ref), counts=counts,
+                want=_only(k1=_attention_sites(cls), gn=_gn_sites(cls), dq=_attention_sites(cls),
+                           dkv=_attention_sites(cls)))
+
+
+def _p44_cg(layout, outdir: str) -> dict:
+    """ImageNet-256 with classifier guidance (random weights, guidance 1):
+    the sampling CLI in f32 on seeds 0-1 (ipndm at NFE 5, TF32 off), its
+    PNGs into ``outdir``; with ``layout``, with --tp=2 (which cuts the U-Net
+    and the classifier), and before the CLI samples, the bf16 one-call gate
+    (``_p44_one_call``) on the nets it built.  Returns the CLI's launches
+    (its sampling's) and seconds, and the gate's distances and launches."""
+    if layout is None:
+        return _p44_sample_cli(P44_CG_ARGS, outdir)
+    shard, gate = cli_sample.shard_tensor_parallel_model, {}
+
+    def gated(module, source, lay, *args, **kwargs):
+        gate.update(_p44_one_call(module, lambda: shard(module, source, lay, *args, **kwargs)))
+
+    with _p44_patched(cli_sample, "shard_tensor_parallel_model", gated):
+        res = _p44_sample_cli([*P44_CG_ARGS, "--tp=2"], outdir)
+    return dict(res, one_call=gate)
+
+
+def _p44_sd_sample(pre, layout) -> dict:
+    """Seeds 0-1 of SD v1.5 ``pre`` in f32 (TF32 off), guided 7.5 on the
+    seeded contexts, ipndm at NFE 5 on the discrete schedule (phase 43's
+    one-process run), its U-Net cut to the tp=2 shard; launches, latents,
+    images."""
+    from diff_sampler_tpu_torch.models.factory import shard_ldm_tensor_parallel
+
+    _p44_flags(True)
+    ld = pre.latent_diffusion
+    shard_ldm_tensor_parallel(pre, layout)
+    ctx, uc = _sd_contexts(ld, P43_SD_BATCH)
+    den = bind(pre, condition=ctx, unconditional_condition=uc)
+    cfg = SolverConfig(solver="ipndm", num_steps=P43_SD_STEPS, schedule_type="discrete",
+                       schedule_rho=1.0)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    latents = generate(den, range(P43_SD_BATCH), SD_LATENT, cfg, max_batch_size=P43_SD_BATCH,
+                       device="cuda", layout=layout)
+    torch.cuda.synchronize()
+    res = dict(counts=_counts(), s=time.perf_counter() - t0, gn=_gn_sites(ld.unet))
+    res["images"] = ld.decode_in_chunks(latents, chunk=DECODE_CHUNK)
+    res["latents"] = latents
+    return res
+
+
+def _phase44_rank(workdir: str) -> int:
+    """One of the two gloo processes of phase 44 (``parallel.launch`` sets
+    its DST_* variables): the CIFAR-10 sampling CLI with --tp=2 in f32 on
+    the unit-scale net of ``workdir`` (and on its first seeds with a planted
+    fault), the CG bf16 one-call gate and the ImageNet-256 CG sampling CLI
+    with --tp=2, SD v1.5 with the U-Net tp=2-sharded, one SFD iteration with
+    --tp=2 on CIFAR-10 and one with FSDP on SD v1.5 (each also with its
+    planted fault), one AMED iteration on the LSUN LDM with FSDP; results
+    (and rank 0's SD outputs) go to ``workdir``."""
+    from diff_sampler_tpu_torch.parallel import mesh
+
+    mesh.maybe_initialize_distributed("cuda")
+    rank = mesh.process_index()
+    layout_tp, layout_dp = mesh.make_layout(tp=2), mesh.make_layout()
+    res = dict(backend=layout_tp.backend, world=layout_tp.world)
+    res["cifar"] = _p44_sample_cli(_p44_cifar_args(workdir, P44_CIFAR_SEEDS, "--tp=2"),
+                                   os.path.join(workdir, "cifar_tp"))
+    res["cifar_fault"] = _p44_cli_fault(workdir)
+    res["cifar_call"] = _p44_cifar_call(workdir, layout_tp)
+    res["cg"] = _p44_cg(layout_tp, os.path.join(workdir, "cg_tp"))
+    t0 = time.perf_counter()
+    pre = _sd_model(torch.float32)
+    spare = copy.deepcopy(pre.latent_diffusion.unet)
+    sd = _p44_sd_sample(pre, layout_tp)
+    res["sd"] = {k: v for k, v in sd.items() if k not in ("images", "latents")}
+    res["sd"]["setup_s"] = time.perf_counter() - t0 - sd["s"]
+    pre.latent_diffusion.unet = None  # the tp=2 shard; ``spare`` is the whole U-Net
+    torch.cuda.empty_cache()
+    outs = {"sd_tp": dict(latents=sd.pop("latents"), images=sd.pop("images"))}
+    # cuDNN's deterministic algorithms for the trainings, whose weights are
+    # compared after Adam: a nondeterministic weight gradient at rounding
+    # noise may change sign between two runs, and Adam moves such a weight
+    # by lr either way
+    torch.backends.cudnn.deterministic = True
+    # the trainings: each rank runs the one-process reference itself first
+    # (no collective), on the same rows in the same microbatches as the
+    # sharded run's ranks take them (SD: batch 2 as two microbatches of 1
+    # against 1 row a rank; the LDM's AMED: 8 as two of 4 against 4 a
+    # rank), so that the two runs' kernels see the same shapes and data;
+    # then the sharded run with the path's planted fault, then without
+    net = os.path.join(workdir, P44_CIFAR_NET)
+    for kind, layout, n_acc in (("cifar", layout_tp, 1), ("sd", layout_dp, 2)):
+        source = pre if kind == "sd" else net
+        runs = {}
+        for run, lay, acc, fault in (("one", None, n_acc, False), ("fault", layout, 1, True),
+                                     ("got", layout, 1, False)):
+            if kind == "sd":
+                pre.latent_diffusion.unet = spare if run == "got" else copy.deepcopy(spare)
+            runs[run] = _p44_sfd(kind, lay, source, n_acc=acc, fault=fault)
+            if run == "fault":
+                f = runs.pop("fault")
+                runs["planted"] = dict(_p44_against(runs["one"], f), planted=f["planted"],
+                                       losses=f["losses"])
+                del f
+        one, got = runs["one"], runs["got"]
+        res[f"sfd_{kind}"] = dict(
+            one={k: v for k, v in one.items() if k not in ("weights", "mu", "specs")},
+            **{k: v for k, v in got.items() if k not in ("weights", "mu", "specs")},
+            **_p44_against(one, got), fault=runs["planted"],
+            mu_scale=max(float(v.abs().max()) for v in one["mu"].values()))
+        del one, got, runs
+    del pre, spare
+    torch.cuda.empty_cache()
+    amed1 = _p44_amed(None, batch_gpu=P44_AMED_BATCH // 2)
+    t0 = time.perf_counter()
+    amed = _p44_amed(layout_dp, batch_gpu=P44_AMED_BATCH)
+    res["amed"] = dict(one={k: v for k, v in amed1.items() if k != "weights"},
+                       **{k: v for k, v in amed.items() if k != "weights"},
+                       setup_s=time.perf_counter() - t0 - amed["s"],
+                       same_keys=amed["weights"].keys() == amed1["weights"].keys(),
+                       diff=max(float(np.abs(amed1["weights"][k] - amed["weights"][k]).max())
+                                for k in amed1["weights"]),
+                       scale=max(1.0, max(float(np.abs(x).max())
+                                          for x in amed1["weights"].values())))
+    if rank == 0:
+        np.savez(os.path.join(workdir, "sd_tp.npz"), **outs["sd_tp"])
+    with open(os.path.join(workdir, f"p44_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _p44_launch(workdir: str) -> tuple:
+    """Write phase 44's unit-scale CIFAR-10 net into ``workdir``, then start
+    its two gloo ranks on cuda:0 (``_phase44_rank``, results into
+    ``workdir``) from a thread; returns (the thread, the list it fills with
+    the ranks' (exit code, output), the start on the host clock).  The
+    script starts them before phase 33 and joins them before phase 39: they
+    wait on gloo's host transport most of the time, beside phases 33 and
+    32, whose seconds and rates are taken with the ranks on the same card
+    and host (so they are not comparable with those of runs before the
+    ranks ran beside them), then beside phases 35a and 35c, which time
+    nothing, and phase 44's one-process references."""
+    from diff_sampler_tpu_torch.parallel.launch import run_local
+
+    _p44_write_cifar_net(workdir)
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = "import sys, chip_smoke; sys.exit(chip_smoke._phase44_rank(sys.argv[1]))"
+    results = []
+    thread = threading.Thread(target=lambda: results.extend(run_local(
+        2, ["-c", code, workdir], cwd=root, timeout_s=P44_TIMEOUT_S, backend="gloo",
+        devices=[0, 0])))
+    thread.start()
+    return thread, results, time.perf_counter()
+
+
+def phase_p44_references(workdir: str) -> dict:
+    """Phase 44's one-process sampling references: the CIFAR-10 and CG
+    sampling CLIs, their PNGs into ``workdir``; their launches and seconds."""
+    return {"cifar": _p44_sample_cli(_p44_cifar_args(workdir, P44_CIFAR_SEEDS),
+                                     os.path.join(workdir, "cifar_one")),
+            "cg": _p44_cg(None, os.path.join(workdir, "cg_one"))}
+
+
+def phase_tensor_parallel(workdir: str, launched: tuple, one: dict, sd_ref_dir: str) -> dict:
+    """Phase 44: the two gloo ranks that ``_p44_launch`` started (into
+    ``workdir``) held to the one-process references ``one``
+    (``phase_p44_references``) and to those they ran themselves; K1 / K2 /
+    K3 at the tp=2 shards' local shapes.  ``sd_ref_dir``: phase 43's
+    directory, whose one-process SD v1.5 f32 run is the reference."""
+    thread, results, t0 = launched
+    thread.join()
+    print(f"[tp] the ranks ran {time.perf_counter() - t0:.2f} s from their start (before "
+          f"phase 33) to this join")
+    _check(len(results) == 2, "phase 44: the ranks did not run")
+    for rank, (rc, text) in enumerate(results):
+        lines = text.splitlines()
+        print(f"[tp gloo x2] rank {rank} exited {rc} after {time.perf_counter() - t0:.2f} s; "
+              f"its last lines:\n  " + "\n  ".join(lines[-12 if rc == 0 else -60:]))
+        _check(rc == 0, f"phase 44: rank {rank} exited {rc}")
+    ranks = [json.load(open(os.path.join(workdir, f"p44_rank{r}.json"))) for r in range(2)]
+    _check(all(r["backend"] == "gloo" and r["world"] == 2 for r in ranks), "gloo ranks")
+
+    from PIL import Image
+
+    def pngs(tag):
+        return {os.path.basename(p): np.asarray(Image.open(p))
+                for p in sorted(glob.glob(os.path.join(workdir, tag, "*.png")))}
+
+    def levels_apart(ref, got):
+        if not ref or not got.keys() <= ref.keys():
+            return 99
+        return max(int(np.abs(ref[f].astype(np.int16) - got[f].astype(np.int16)).max())
+                   for f in got)
+
+    for name, n in (("cifar", P44_CIFAR_SEEDS), ("cg", P44_CG_BATCH)):
+        ref, got = pngs(f"{name}_one"), pngs(f"{name}_tp")
+        levels = levels_apart(ref, got)
+        what = (f"CIFAR-10 sampling CLI, {n} seeds (the unit-scale net)" if name == "cifar" else
+                f"ImageNet-256 CG sampling CLI, seeds 0-{n - 1} (U-Net and classifier "
+                f"tp=2-sharded)")
+        # the share of uint8 values at 0 or 255: clipped values hide differences
+        clipped = np.mean([np.isin(v, (0, 255)).mean() for v in ref.values()]) if ref else 1.0
+        print(f"[tp] {what}, --tp=2, f32: at most {levels} uint8 levels from one process's "
+              f"(one process's values clipped at 0 or 255: {clipped:.4f}); rank 0 "
+              f"{ranks[0][name]['s']:.2f} s (one process {one[name]['s']:.2f} s); launches per "
+              f"rank {[r[name]['counts'] for r in ranks]} (one process {one[name]['counts']})")
+        _check(levels <= 1 and len(ref) == len(got) == n,
+               f"{name} --tp=2 samples differ from one process's by more than one level")
+        _check(all(r[name]["counts"] == one[name]["counts"] for r in ranks)
+               and one[name]["counts"]["k1"] > 0 and one[name]["counts"]["gn"] > 0,
+               f"{name} --tp=2 launches")
+    # the planted fault through the CLI: the gathered parts swapped
+    ref, fault = pngs("cifar_one"), pngs("cifar_fault")
+    levels = levels_apart(ref, fault)
+    print(f"[tp] CIFAR-10 sampling CLI, --tp=2, seeds 0-{P44_FAULT_SEEDS - 1}, planted fault "
+          f"(the ranks' parts of each gathered qkv joined in the wrong order): {levels} uint8 "
+          f"levels from one process's at most (gate: 1)")
+    _check(len(fault) == P44_FAULT_SEEDS and levels > 1,
+           "the CIFAR-10 --tp=2 one-level gate does not see a wrong gather")
+    for r, rk in enumerate(ranks):
+        c = rk["cifar_call"]
+        print(f"[tp one call] CIFAR-10 D f32 (the unit-scale net, batch 8, sigma 80 / 10 / 1 / "
+              f"0.1), rank {r}: mean |difference| over mean |value| from one process's: --tp=2 "
+              f"(the one head gathered) {c['tp']:.4g} (gate {P44_D_TOL:g}); planted faults: "
+              f"the gathered parts swapped {c['swapped']:.4g}, {c['planted']} without its sum "
+              f"{c['skipped']:.4g}")
+        _check(c["tp"] <= P44_D_TOL, "CIFAR-10 --tp=2 D moved from one process's")
+        _check(min(c["swapped"], c["skipped"]) > P44_D_TOL,
+               "the CIFAR-10 one-call gate does not see a planted fault")
+    for r, rk in enumerate(ranks):
+        c = rk["cg"]["one_call"]
+        bar = P44_ONE_CALL_FACTOR * c["bf16_vs_f32"]
+        print(f"[tp one call] ImageNet-256 classifier gradient at sigma_max, bf16, rank {r}: "
+              f"mean |difference| over mean |value| from one process's bf16 call: --tp=2 "
+              f"{c['tp']:.4g}, one process's f32 call {c['bf16_vs_f32']:.4g} (gate "
+              f"{P44_ONE_CALL_FACTOR:g} x: {bar:.4g}), a row-parallel layer's sum skipped "
+              f"{c['fault']:.4g}; launches {c['counts']} (expected {c['want']})")
+        _check(c["tp"] <= bar, "CG bf16 --tp=2 moved the classifier gradient too far")
+        _check(c["fault"] > bar, "the CG one-call gate does not see a skipped sum")
+        _check(c["counts"] == c["want"], "CG --tp=2 one call: launches")
+
+    sd1 = np.load(os.path.join(sd_ref_dir, "sd_one_float32.npz"))
+    sd2 = np.load(os.path.join(workdir, "sd_tp.npz"))
+    levels = np.abs(to_uint8(sd2["images"]).astype(np.int16)
+                    - to_uint8(sd1["images"]).astype(np.int16))
+    nfe = P43_SD_STEPS - 1
+    heads = SD_HEADS // 2
+    flat = sum(n for t, d, n in SD_LEVELS if A.takes_flat_kernel(t, heads, d, torch.float32))
+    for r, rk in enumerate(ranks):
+        want = _only(k1=(SD_SITES - flat) * nfe, k1c=flat * nfe, gn=rk["sd"]["gn"] * nfe)
+        print(f"[tp SD] SD v1.5 f32 guided 7.5, seeds 0-1, ipndm NFE {nfe}, U-Net tp=2, rank "
+              f"{r}: {rk['sd']['s']:.2f} s sampling ({rk['sd']['setup_s']:.2f} s set-up); "
+              f"launches {rk['sd']['counts']} (expected {want}: {heads} heads a rank)")
+        _check(rk["sd"]["counts"] == want, f"SD --tp=2 rank {r}: launches")
+    print(f"[tp SD] latents max abs diff {np.abs(sd2['latents'] - sd1['latents']).max():.4g}; "
+          f"decoded images {levels.max()} uint8 levels from one process's at most, "
+          f"{levels.mean():.4f} on average")
+    _check(levels.max() <= 1 and np.isfinite(sd2["images"]).all(),
+           "SD --tp=2 f32 images more than one level from one process's")
+
+    for kind, what in (("cifar", "CIFAR-10 --tp=2"), ("sd", "SD v1.5 --fsdp")):
+        for r, rk in enumerate(ranks):
+            s_, one1 = rk[f"sfd_{kind}"], rk[f"sfd_{kind}"]["one"]
+            print(f"[tp SFD] {what}, one iteration at batch {P44_SFD_BATCH[kind]}, f32, TF32 "
+                  f"off, rank {r}: losses {s_['losses']} (one process, the same microbatches "
+                  f"in this rank: {one1['losses']}); student weights max abs diff "
+                  f"{s_['diff']:.3g} (tol {P44_TOL}); Adam's first moment max abs diff "
+                  f"{s_['mu_diff']:.3g} (tol {P44_MOMENT_TOL} x {s_['mu_scale']:.3g}); "
+                  f"parameters resident {s_['param_bytes'] / 2**30:.3f} GiB (student + teacher; "
+                  f"one process {one1['param_bytes'] / 2**30:.3f}), Adam's moments "
+                  f"{s_['adam_bytes'] / 2**30:.3f} GiB (one process "
+                  f"{one1['adam_bytes'] / 2**30:.3f}), peak {s_['peak'] / 2**30:.3f} GiB (one "
+                  f"process {one1['peak'] / 2**30:.3f}); the step {s_['s']:.2f} s (one process "
+                  f"{one1['s']:.2f}); launches {s_['counts']} (one process {one1['counts']})")
+            _check(s_["same_keys"] and s_["diff"] <= P44_TOL
+                   and s_["mu_diff"] <= P44_MOMENT_TOL * s_["mu_scale"],
+                   f"{what} rank {r}: the student moved away from one process's")
+            f = s_["fault"]
+            print(f"[tp SFD] {what}, rank {r}, planted fault ({f['planted']}): Adam's first "
+                  f"moment max abs diff {f['mu_diff']:.3g} (gate {P44_MOMENT_TOL} x "
+                  f"{s_['mu_scale']:.3g}), weights {f['diff']:.3g}; losses {f['losses']}")
+            _check(f["same_keys"] and f["mu_diff"] > P44_MOMENT_TOL * s_["mu_scale"],
+                   f"{what} rank {r}: the first-moment gate does not see the planted fault")
+            _check(s_["param_bytes"] < one1["param_bytes"]
+                   and s_["adam_bytes"] < one1["adam_bytes"], f"{what}: bytes")
+            # each rank runs every site once a call, on its heads or its rows
+            _check(s_["counts"] == one1["counts"]
+                   if kind == "cifar" else all(s_["counts"][k] * 2 == one1["counts"][k]
+                                               for k in s_["counts"]),
+                   f"{what} rank {r}: launches")
+    for r, rk in enumerate(ranks):
+        a, one1 = rk["amed"], rk["amed"]["one"]
+        print(f"[tp AMED] LSUN LDM --fsdp, one iteration at batch {P44_AMED_BATCH}, f32, TF32 "
+              f"off, rank {r}: losses {a['losses']} (one process in microbatches of "
+              f"{P44_AMED_BATCH // 2}, this rank's: {one1['losses']}); predictor max abs diff "
+              f"{a['diff']:.3g} (tol {P44_TOL} * {a['scale']:.3g}, as phase 43's); the frozen "
+              f"U-Net resident {a['unet_bytes'] / 2**30:.3f} GiB (one process "
+              f"{one1['unet_bytes'] / 2**30:.3f}); peak {a['peak'] / 2**30:.3f} GiB (one "
+              f"process {one1['peak'] / 2**30:.3f}); the step {a['s']:.2f} s (one process "
+              f"{one1['s']:.2f}, set-up {a['setup_s']:.2f}); launches {a['counts']} (one "
+              f"process {one1['counts']})")
+        _check(a["same_keys"] and a["diff"] <= P44_TOL * a["scale"], "AMED --fsdp predictor")
+        _check(a["unet_bytes"] < one1["unet_bytes"], "AMED --fsdp bytes")
+        _check(all(a["counts"][k] * 2 == one1["counts"][k] for k in a["counts"]),
+               "AMED --fsdp launches: half the one process's two microbatches")
+
+    # K1 / K2 / K3 at the tp=2 shards' local shapes of these paths
+    k1 = _k1_checks("tp K1", P44_K1_SHAPES, _legacy_views, seed=441, reps=5, warmup=2)
+    k2 = _k2_checks("tp K2", P44_K2_SHAPES, _legacy_views, seed=442)
+    k3 = _gn_checks(P44_GN_SHAPES, {"local": P44_GN_SHAPES[0][:5]}, seed=443, groups=16)
+    r0 = ranks[0]
+    tp_paths = ("cifar", "cg")
+    return dict(k1=k1, k2=k2, k3=k3["local"],
+                k1_f32=sum(r0[p]["counts"]["k1"] for p in tp_paths) + r0["sd"]["counts"]["k1"]
+                + r0["sfd_cifar"]["counts"]["k1"],
+                k1_bf16=r0["cg"]["one_call"]["counts"]["k1"],
+                k2_f32={k: r0["cg"]["counts"][k] + r0["sfd_cifar"]["counts"][k]
+                        for k in ("dq", "dkv")},
+                k2_bf16={k: r0["cg"]["one_call"]["counts"][k] for k in ("dq", "dkv")},
+                gn=sum(r0[p]["counts"]["gn"] for p in tp_paths) + r0["sd"]["counts"]["gn"]
+                + r0["sfd_cifar"]["counts"]["gn"] + r0["cg"]["one_call"]["counts"]["gn"])
 
 
 def _kernel_entry(name, source, replaces, launches, fields) -> dict:
@@ -5100,11 +5793,29 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as edm_dir:
         ckpt_edm = _phase("phase 31, CIFAR-10 from its checkpoint files", phase_checkpoint_edm,
                           edm_dir)
+        # phase 44's two ranks run beside phases 33 and 32, then beside
+        # phases that time nothing (see _p44_launch)
+        p44_dir = tempfile.mkdtemp()
+        p44_ranks = _p44_launch(p44_dir)
         eval_counts = _phase("phase 33, FID and PRDC of CIFAR-10 samples", phase_eval, edm_dir,
                              os.path.join(edm_dir, EDM_PKL))
         with tempfile.TemporaryDirectory() as workdir:
             ckpt_sd = _phase("phase 32, Stable Diffusion from a checkpoint, with its text tower",
                              phase_checkpoint_sd, workdir)
+            # while the ranks finish: phases that time nothing, and phase
+            # 44's one-process references; the precision flags as they were
+            flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.deterministic)
+            _phase("phase 35a, ImageNet-256 classifier-guided D f32", phase_cg_denoiser)
+            _phase("phase 35c, the ImageNet-256 AMED step refuses on the card",
+                   phase_cg_amed_refusal)
+            p44_one = _phase("phase 44's one-process references", phase_p44_references, p44_dir)
+            (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic) = flags
+            t_wait = time.perf_counter()
+            p44_ranks[0].join()  # before phase 39's memory
+            print(f"[time] waiting for phase 44's ranks after phases 32, 35a, 35c and 44's "
+                  f"references: {time.perf_counter() - t_wait:.2f} s", flush=True)
             sfd_sd = _phase("phase 39, the SD student from phase 32's checkpoint", phase_sfd_sd,
                             workdir)
             _phase("phase 40, the CLIP score at ViT-g-14's width", phase_clip_score, workdir,
@@ -5115,10 +5826,8 @@ def main() -> int:
     cm_counts = _phase("phase 34c, LSUN-Bedroom 256 sampling and CLI", phase_cm_sampling)
     with tempfile.TemporaryDirectory() as workdir:
         cm_amed = _phase("phase 34d, LSUN-Bedroom 256 AMED", phase_cm_amed, workdir)
-    _phase("phase 35a, ImageNet-256 classifier-guided D f32", phase_cg_denoiser)
     cg_counts = _phase("phase 35b, ImageNet-256 classifier-guided sampling, CLI, split, profile",
                        phase_cg_sampling)
-    _phase("phase 35c, the ImageNet-256 AMED step refuses on the card", phase_cg_amed_refusal)
     with tempfile.TemporaryDirectory() as workdir:
         _phase("phase 36, the 256 px tiers from checkpoint files", phase_adm_checkpoints,
                workdir)
@@ -5128,6 +5837,10 @@ def main() -> int:
                          workdir)
     with tempfile.TemporaryDirectory() as workdir:
         par = _phase("phase 43, data and sequence parallelism", phase_parallel, workdir)
+        tp = _phase("phase 44, tensor parallelism and FSDP (the ranks ran beside phases 33, "
+                    "32, 35a and 35c)", phase_tensor_parallel, p44_dir, p44_ranks, p44_one,
+                    workdir)
+    shutil.rmtree(p44_dir, ignore_errors=True)
     for name, n in (("K1", launches), ("K2 dQ", amed["dq"]), ("K2 dK/dV", amed["dkv"]),
                     ("K1 on ImageNet-64", in64_launches),
                     ("K2 dQ on ImageNet-64", in64_amed["dq"]),
@@ -5384,6 +6097,35 @@ def main() -> int:
                       "classifier's gradient in ImageNet-256 classifier-guided --sp=2 sampling, "
                       "phase 43; launches: rank 0's; times at [2, 512, 4, 64])", bwd,
                       f"{tpu}:491", par["cg"]["dkv"], par["k2"]["bfloat16"]["dkv"]),
+        _kernel_entry("flash_attention_mh in f32 at the --tp=2 shards (K1 in 3xTF32 on each "
+                      "rank's heads: ImageNet-256 classifier-guided sampling, SD v1.5's 4 of 8 "
+                      "heads, CIFAR-10's gathered qkv, the CIFAR-10 SFD step, phase 44; "
+                      "launches: rank 0's; times at [2, 1024, 4, 64])", fwd32, f"{tpu}:227",
+                      tp["k1_f32"], tp["k1"]["float32"]),
+        _kernel_entry("flash_attention_mh in bf16 at the --tp=2 shards (K1 on each rank's "
+                      "heads: the ImageNet-256 classifier's gradient, phase 44's one-call gate; "
+                      "launches: rank 0's; times at [2, 1024, 2, 64])", fwd, f"{tpu}:227",
+                      tp["k1_bf16"], tp["k1"]["bfloat16"]),
+        _kernel_entry("flash_attention_bwd_dq in f32 at the --tp=2 shards (K2 dQ in 3xTF32: the "
+                      "classifier's gradient on 2 of its 4 heads at 32x32, the CIFAR-10 SFD "
+                      "step, phase 44; launches: rank 0's; times at [2, 1024, 2, 64])", bwd32,
+                      f"{tpu}:441", tp["k2_f32"]["dq"], tp["k2"]["float32"]["dq"]),
+        _kernel_entry("flash_attention_bwd_dkv in f32 at the --tp=2 shards (K2 dK/dV in "
+                      "3xTF32, as the dQ row, phase 44; launches: rank 0's)", bwd32,
+                      f"{tpu}:491", tp["k2_f32"]["dkv"], tp["k2"]["float32"]["dkv"]),
+        _kernel_entry("flash_attention_bwd_dq in bf16 at the --tp=2 shards (K2 dQ: the "
+                      "classifier's gradient, phase 44's one-call gate; launches: rank 0's; "
+                      "times at [2, 1024, 2, 64])", bwd, f"{tpu}:441", tp["k2_bf16"]["dq"],
+                      tp["k2"]["bfloat16"]["dq"]),
+        _kernel_entry("flash_attention_bwd_dkv in bf16 at the --tp=2 shards (K2 dK/dV, as the "
+                      "dQ row, phase 44; launches: rank 0's)", bwd, f"{tpu}:491",
+                      tp["k2_bf16"]["dkv"], tp["k2"]["bfloat16"]["dkv"]),
+        _kernel_entry(f"groupnorm_silu in f32 at the --tp=2 channel slices (K3 on C / 2 "
+                      f"channels in 16 groups between each column and row conv, route "
+                      f"{tp['k3']['route']}: every --tp=2 path of phase 44; launches: rank "
+                      f"0's; times at [2, 256, 256, 128])",
+                      "diff_sampler_tpu_torch/csrc/groupnorm.cu",
+                      "diff_sampler_tpu/ops/pallas_groupnorm.py:29", tp["gn"], tp["k3"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

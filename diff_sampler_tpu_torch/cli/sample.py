@@ -98,7 +98,13 @@ run ends with the ledger of what rang):
   torchrun --nproc_per_node=4 -m diff_sampler_tpu_torch.cli.sample \
       --dataset_name=ms_coco --sp=2 ...
 
-``--tp`` (tensor parallelism) is not ported yet.
+``--tp=n`` shards the U-Net's weights Megatron-style over model groups of n
+processes (``parallel/tp.py``): every pixel and latent tier, the
+ImageNet-256 classifier and an SFD student included; the ranks of one model
+group sample the same seeds, and the data ranks split them:
+
+  torchrun --nproc_per_node=2 -m diff_sampler_tpu_torch.cli.sample \
+      --dataset_name=imagenet256 --guidance_type=cg --tp=2 ...
 """
 
 from __future__ import annotations
@@ -117,7 +123,7 @@ from ..models.factory import (ADM_TIERS, EDM_ARCHS, LDM_CONFIGS, build_edm_model
                               build_ldm_model, create_model, init_params)
 from ..models.precond import CFGPrecond, CGPrecond, bind
 from ..ops import get_schedule, ring_attention
-from ..parallel.mesh import (make_layout, maybe_initialize_distributed, print0,
+from ..parallel.mesh import (check_degrees, make_layout, maybe_initialize_distributed, print0,
                              process_count, process_index, rank_device)
 from ..sampling import SolverConfig, generate, generate_batches, to_uint8
 from ..solvers import SOLVER_REGISTRY
@@ -155,8 +161,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="PNGs in a subdirectory per 1000 seeds")
     p.add_argument("--bf16", type=_bool, default=False, help="bfloat16 inner model")
     p.add_argument("--tp", type=int, default=1,
-                   help="Tensor-parallel degree for the latent tiers: shard the U-Net weights "
-                        "over a (data, model) mesh (parallel/tp.py)")
+                   help="Tensor-parallel degree: shard the U-Net weights (and the imagenet256 "
+                        "classifier's) over a (data, model) mesh (parallel/tp.py)")
     p.add_argument("--sp", type=int, default=1,
                    help="Sequence-parallel degree: ring attention over a (data, seq) mesh shards "
                         "each image's attention tokens across devices "
@@ -233,7 +239,7 @@ def main(argv=None) -> dict:
         raise RuntimeError("--device=cuda but CUDA is not available (pass --device=cpu)")
     maybe_initialize_distributed(device)
     device = rank_device(device)
-    layout = make_layout(args.sp)
+    layout = make_layout(args.sp, args.tp)
     if args.sp > 1:
         ring_attention.reset_sp_dispatch()
         ring_attention.set_sp_context(layout)
@@ -248,19 +254,34 @@ def main(argv=None) -> dict:
 
 
 def check_parallel_flags(tp: int, sp: int, fsdp: bool = False) -> None:
-    """The CLIs' refusals of the parallel flags: the JAX CLIs' mutual
-    exclusions, and ``--tp`` / ``--fsdp``, which the next slice ports."""
-    if tp > 1 and sp > 1:
-        raise ValueError("--tp and --sp are mutually exclusive (one attention sharding at a "
-                         "time)")
+    """The CLIs' refusals of the parallel flags, before any process group
+    exists: the JAX CLIs' mutual exclusions and the degrees' range."""
+    check_degrees(sp, tp)
     if fsdp and tp > 1:
         raise ValueError("--fsdp and --tp are mutually exclusive (one weight sharding at a time)")
-    for flag, on in (("--tp", tp > 1), ("--fsdp", fsdp)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet: it comes with the TP / FSDP "
-                                      "slice (ROADMAP Queue 1)")
-    if sp < 1:
-        raise ValueError(f"--sp={sp} is out of range")
+
+
+def shard_tensor_parallel_model(module, source: str, layout, what: str = "U-Net weights"):
+    """Cut ``module`` (create_model's, of ``source``) to this rank's
+    tensor-parallel shard over ``layout``'s model groups and print the JAX
+    CLIs' line with the port's counts; nothing at tp 1."""
+    if layout.tp == 1:
+        return
+    from ..models.factory import shard_ldm_tensor_parallel, shard_pixel_tensor_parallel
+    from ..parallel.tp import count_sharded, tp_bytes_per_rank
+
+    nets = ((module.latent_diffusion.unet,) if source in ("ldm", "sd") else
+            (module.net, module.classifier) if source == "adm" else
+            (module.net,) if source == "cm" else (module.model,))
+    full = sum(tp_bytes_per_rank(n) for n in nets)
+    if source in ("ldm", "sd"):
+        shard_ldm_tensor_parallel(module, layout)
+    else:
+        shard_pixel_tensor_parallel(module, layout, source)
+    print0(f"Tensor parallel: {what} sharded over mesh {{'data': {layout.dp}, 'model': "
+           f"{layout.tp}}}: {sum(count_sharded(n) for n in nets)} weights, "
+           f"{sum(tp_bytes_per_rank(n) for n in nets) / 2**30:.3f} GiB per rank of "
+           f"{full / 2**30:.3f} GiB")
 
 
 def _main(args, device, layout) -> dict:
@@ -273,6 +294,7 @@ def _main(args, device, layout) -> dict:
         module, source = create_model(args.dataset_name, args.model_path,
                                       guidance_rate=args.guidance_rate, dtype=dtype,
                                       device=device)
+    shard_tensor_parallel_model(module, source, layout)
     shape = (module.img_resolution, module.img_resolution, module.img_channels)
     summary = dict(dp_list=None, gits_seconds=None, outdir=None)
     cond, per_seed_cond, captions = {}, None, None

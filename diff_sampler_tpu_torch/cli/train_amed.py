@@ -51,8 +51,15 @@ seeds, each microbatch (``--batch_gpu``, else the batch) splits
 contiguously over the data ranks, and the predictor's gradients are
 averaged over them before each Adam step; process 0 writes the run's files.
 ``--sp=n`` rings each attention over groups of n processes
-(``ops/ring_attention.py``), forward and backward.  ``--tp`` and ``--fsdp``
-are not ported yet.
+(``ops/ring_attention.py``), forward and backward.  ``--tp=n`` shards the
+frozen net Megatron-style over model groups of n processes
+(``parallel/tp.py``; any tier, the ImageNet-256 classifier included): the
+predictor's gradient reaches it through the shards' backward.  ``--fsdp``
+shards the frozen latent net's weights over the data ranks
+(``parallel/fsdp.py``; the latent tiers only, as in the JAX CLI):
+
+  torchrun --nproc_per_node=2 -m diff_sampler_tpu_torch.cli.train_amed \
+      --dataset_name=lsun_bedroom_ldm --fsdp ...
 """
 
 from __future__ import annotations
@@ -78,7 +85,8 @@ from ..utils import stats as training_stats
 from ..utils.logger import Logger
 from ..utils.profiling import Timer
 from ..utils.rng import stacked_randint, stacked_randn
-from .sample import _bool, check_parallel_flags
+from ..parallel.fsdp import count_sharded_fsdp, fsdp_bytes_per_device, shard_fsdp
+from .sample import _bool, check_parallel_flags, shard_tensor_parallel_model
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -126,17 +134,27 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def build_trainer(cfg: AMEDConfig, model_path, device, seed: int = 0, prompt_path=None,
-                  layout=None):
+                  layout=None, fsdp: bool = False):
     """(frozen net, ``cfg`` with the net's sigma range, predictor from
     ``seed``, its train step with Adam as ``optax.adam``, and the
     per-iteration conditioning ``it -> [batch, ...]`` that the step takes as
     its second argument: Stable Diffusion's contexts [batch, 77, 768] (numpy),
     imagenet256's integer labels [batch] (one per trajectory, drawn by
     ``stacked_randint`` from the trajectory's seed ``seed + index``), else
-    None).  ``layout``: the data-parallel layout the step trains over (None:
-    one process)."""
+    None).  ``layout``: the layout the step trains over (None: one
+    process); with model groups (``--tp``) the frozen net is cut to this
+    rank's tensor-parallel shard.  ``fsdp``: shard a latent tier's frozen
+    U-Net over the data ranks (``--fsdp``)."""
     module, source = create_model(cfg.dataset_name, model_path,
                                   guidance_rate=cfg.guidance_rate, device=device)
+    if layout is not None:
+        shard_tensor_parallel_model(module, source, layout, "frozen net")
+    if fsdp:  # a latent tier's (main refuses the others)
+        unet = module.latent_diffusion.unet
+        specs = shard_fsdp(unet, layout)
+        print0(f"FSDP: frozen net ({count_sharded_fsdp(specs)} weights) sharded "
+               f"1/{layout.dp}: {fsdp_bytes_per_device(unet, specs, layout.dp) / 2**30:.3f} "
+               f"GiB/device resident")
     cfg = dataclasses.replace(cfg, sigma_min=float(module.sigma_min),
                               sigma_max=float(module.sigma_max))
     pred = init_params(predictor_from_config(cfg, device=device), seed=seed)
@@ -181,6 +199,8 @@ def main(argv=None) -> str:
     """Runs the training; returns the run directory (None on a dry run)."""
     args = _parser().parse_args(argv)
     check_parallel_flags(args.tp, args.sp, args.fsdp)
+    if args.fsdp and args.dataset_name not in LDM_CONFIGS:
+        raise ValueError("--fsdp shards the frozen latent net; it applies to ldm/sd tiers only")
     if args.dataset_name == "ms_coco":
         if args.guidance_type != "cfg":
             raise ValueError("ms_coco trains with --guidance_type=cfg")
@@ -214,7 +234,7 @@ def main(argv=None) -> str:
         raise RuntimeError("--device=cuda but CUDA is not available (pass --device=cpu)")
     maybe_initialize_distributed(device)
     device = rank_device(device)
-    layout = make_layout(args.sp)
+    layout = make_layout(args.sp, args.tp)
     mb = cfg.batch_gpu or cfg.batch
     if mb % layout.dp:
         raise ValueError(f"the microbatch of {mb} rows does not split over {layout.dp} data ranks")
@@ -228,7 +248,7 @@ def main(argv=None) -> str:
 
         module, cfg, pred, train_step, context_fn = build_trainer(cfg, args.model_path, device,
                                                                   args.seed, args.prompt_path,
-                                                                  layout)
+                                                                  layout, args.fsdp)
         # The sidecar describes the schedule the predictor trains on: the
         # model's sigma range, set before it is written.
         if rank0:

@@ -51,7 +51,15 @@ seeds, each microbatch splits contiguously over the data ranks, and the
 student's gradients are averaged over them before each Adam update;
 process 0 writes the run's files.  ``--sp=n`` rings each attention over
 groups of n processes (``ops/ring_attention.py``), forward and backward.
-``--tp`` and ``--fsdp`` are not ported yet.
+``--tp=n`` shards the student, the teacher and Adam's moments Megatron-style
+over model groups of n processes (``parallel/tp.py``); ``--fsdp`` shards
+them over the data ranks (``parallel/fsdp.py``), on any tier and with
+``--sp``.  A snapshot holds the whole weights and moments either way
+(gathered, written by process 0), so it loads in one process, and
+``--resume`` cuts them again:
+
+  torchrun --nproc_per_node=2 -m diff_sampler_tpu_torch.cli.train_sfd \
+      --dataset_name=ms_coco --fsdp ...
 """
 
 from __future__ import annotations
@@ -72,8 +80,10 @@ from ..models.convert import (absent_from_jax, ldm_params_from_jax, ldm_params_t
 from ..models.factory import build_edm_model, build_ldm_model, init_params
 from ..models.zoo import find_file, load_checkpoint_params
 from ..ops import ring_attention
-from ..parallel.mesh import (make_layout, maybe_initialize_distributed, print0, process_index,
-                             rank_device)
+from ..parallel.fsdp import count_sharded_fsdp, fsdp_bytes_per_device, shard_fsdp
+from ..parallel.mesh import (cut, make_layout, maybe_initialize_distributed, print0,
+                             process_index, rank_device, shard_spec, whole)
+from ..parallel.tp import count_sharded, shard_tensor_parallel, tp_bytes_per_rank
 from ..training.conditioning import make_caption_context_fn
 from ..training.sfd import SFDConfig, adam_count, make_ldm_train_step, make_train_step
 from ..utils import checkpoint as ckpt
@@ -232,25 +242,59 @@ def _create_latent_student(dataset_name, model_path, guidance_type, guidance_rat
                             lambda tree: ldm_params_from_jax(tree, like))
 
 
+def shard_student(student: Student, layout, fsdp: bool) -> None:
+    """Cut the student and the teacher in place: to this rank's
+    tensor-parallel shard over ``layout``'s model groups (``--tp``), or over
+    its data ranks (``--fsdp``); print the JAX CLI's line.  The optimizer
+    made afterwards keeps its moments on the shards."""
+    if layout.tp > 1:
+        full = tp_bytes_per_rank(student.module)
+        for m in (student.module, student.teacher):
+            shard_tensor_parallel(m, layout)
+        print0(f"Tensor parallel: {count_sharded(student.module)} weights sharded over mesh "
+               f"{{'data': {layout.dp}, 'model': {layout.tp}}} "
+               f"({tp_bytes_per_rank(student.module) / 2**30:.3f} GiB per rank of "
+               f"{full / 2**30:.3f} GiB)")
+    elif fsdp:
+        specs = shard_fsdp(student.module, layout)
+        shard_fsdp(student.teacher, layout)
+        gib = fsdp_bytes_per_device(student.module, specs, layout.dp) / 2**30
+        print0(f"FSDP: {count_sharded_fsdp(specs)} weights sharded 1/{layout.dp} per device "
+               f"({gib:.3f} GiB/device resident vs replicated)")
+
+
 def save_snapshot(path: str, student: Student, optimizer: torch.optim.Optimizer,
-                  cur_nimg: int) -> None:
-    """The JAX CLI's snapshot: params, optax.adam's state leaves, cur_nimg."""
+                  cur_nimg: int, write: bool = True) -> None:
+    """The JAX CLI's snapshot: params, optax.adam's state leaves, cur_nimg.
+    Sharded weights and moments are gathered whole first (a collective:
+    every process calls it); the file is written where ``write``."""
     named = dict(student.named)
 
     def moment(key):
-        return {n: optimizer.state[p][key] if p in optimizer.state else torch.zeros_like(p)
-                for n, p in named.items()}
+        return {n: whole(optimizer.state[p][key], p) if p in optimizer.state
+                else torch.zeros_like(whole(p, p)) for n, p in named.items()}
 
-    ckpt.save_params(path, student.to_jax(named),
-                     opt_state=ckpt.adam_state_leaves(adam_count(optimizer),
-                                                      student.to_jax(moment("exp_avg")),
-                                                      student.to_jax(moment("exp_avg_sq"))),
-                     meta={"cur_nimg": np.asarray([cur_nimg])})
+    params = {n: whole(p, p) for n, p in named.items()}
+    mu, nu = moment("exp_avg"), moment("exp_avg_sq")
+    if write:
+        ckpt.save_params(path, student.to_jax(params),
+                         opt_state=ckpt.adam_state_leaves(adam_count(optimizer),
+                                                          student.to_jax(mu),
+                                                          student.to_jax(nu)),
+                         meta={"cur_nimg": np.asarray([cur_nimg])})
+
+
+def _mine(full: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """This rank's part of the whole tensor ``full`` shaped as ``p``."""
+    spec = shard_spec(p)
+    full = full.to(p.device)
+    return full if spec is None else cut(full, spec)
 
 
 def restore_snapshot(path: str, student: Student, optimizer: torch.optim.Optimizer) -> int:
     """Params, Adam's moments and count from a snapshot into the student and
-    ``optimizer`` in place; returns its cur_nimg (0 without one)."""
+    ``optimizer`` in place (each cut to this rank's shard where the student
+    is sharded); returns its cur_nimg (0 without one)."""
     loaded = ckpt.load_params(path)
     named = dict(student.named)
     weights = student.from_jax(loaded["params"])
@@ -259,15 +303,15 @@ def restore_snapshot(path: str, student: Student, optimizer: torch.optim.Optimiz
         raise KeyError(f"{path} lacks the student's {missing}")
     with torch.no_grad():
         for n, p in named.items():
-            p.copy_(weights[n])
+            p.copy_(_mine(weights[n], p))
     if "opt_state" in loaded:
-        count, mu, nu = ckpt.adam_state_from_leaves(loaded["opt_state"],
-                                                    student.to_jax(named))
+        count, mu, nu = ckpt.adam_state_from_leaves(
+            loaded["opt_state"], student.to_jax({n: weights[n] for n in named}))
         mu, nu = student.from_jax(mu), student.from_jax(nu)
         for n, p in named.items():
             optimizer.state[p] = {"step": torch.tensor(float(count)),
-                                  "exp_avg": mu[n].to(p.device),
-                                  "exp_avg_sq": nu[n].to(p.device)}
+                                  "exp_avg": _mine(mu[n], p),
+                                  "exp_avg_sq": _mine(nu[n], p)}
     meta = loaded.get("meta", {})
     return int(meta["cur_nimg"][0]) if "cur_nimg" in meta else 0
 
@@ -306,7 +350,7 @@ def main(argv=None) -> Optional[str]:
     n_acc, mb = _accumulation(args.dataset_name, args.batch, args.batch_gpu)
     maybe_initialize_distributed(device)
     device = rank_device(device)
-    layout = make_layout(args.sp)
+    layout = make_layout(args.sp, args.tp)
     if mb % layout.dp:
         raise ValueError(f"the microbatch of {mb} rows does not split over {layout.dp} data ranks")
 
@@ -339,6 +383,7 @@ def main(argv=None) -> Optional[str]:
                                       args.use_step_condition, remat, device)
             res, chn = student.module.img_resolution, student.module.img_channels
             label_dim = student.module.label_dim
+        shard_student(student, layout, args.fsdp)
         optimizer = torch.optim.Adam([p for _, p in student.named], lr=args.lr,
                                      betas=(0.9, 0.999), eps=1e-8)
         start_nimg = 0
@@ -406,8 +451,7 @@ def main(argv=None) -> Optional[str]:
                     collector.reset()
                 if it % (args.tick * args.snap) == 0 or cur_nimg >= total:
                     path = os.path.join(run_dir, f"snapshot-{cur_nimg // 1000:06d}.npz")
-                    if rank0:
-                        save_snapshot(path, student, optimizer, cur_nimg)
+                    save_snapshot(path, student, optimizer, cur_nimg, write=rank0)
                     print0(f"Saved {path}")
         finally:
             jsonl.close()

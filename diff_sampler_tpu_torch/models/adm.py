@@ -34,6 +34,7 @@ from torch import nn
 
 from ..ops.attention import sdpa
 from ..ops.groupnorm import groupnorm_silu
+from ..parallel.tp import attend, tp_input, tp_output
 
 __all__ = ["ADMClassifier", "ADMUNet", "AttentionBlock", "AttentionPool2d", "CM_LSUN_SETTING",
            "IMAGENET256_CLASSIFIER_SETTING", "IMAGENET256_SETTING", "ResBlock",
@@ -66,6 +67,7 @@ class _GN(nn.Module):
     def __init__(self, channels: int, eps: float = 1e-5, device=None):
         super().__init__()
         self.eps = eps
+        self.groups = 32  # 32 / tp on a tensor-parallel channel slice
         self.weight = nn.Parameter(torch.empty(channels, device=device))
         self.bias = nn.Parameter(torch.empty(channels, device=device))
 
@@ -75,7 +77,7 @@ class _GN(nn.Module):
         self.bias.zero_()
 
     def forward(self, x, apply_silu: bool = False):
-        return groupnorm_silu(x, self.weight, self.bias, groups=32, eps=self.eps,
+        return groupnorm_silu(x, self.weight, self.bias, groups=self.groups, eps=self.eps,
                               apply_silu=apply_silu)
 
 
@@ -96,10 +98,11 @@ class _Conv(nn.Module):
         self.bias.zero_()
 
     def forward(self, x):
+        x = tp_input(self, x)
         w = self.weight.to(x.dtype)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, self.bias.to(x.dtype), stride=self.stride,
-                     padding=w.shape[-1] // 2)
-        return y.permute(0, 2, 3, 1)
+        return tp_output(self, lambda b: F.conv2d(
+            x.permute(0, 3, 1, 2), w, b, stride=self.stride,
+            padding=w.shape[-1] // 2).permute(0, 2, 3, 1), self.bias.to(x.dtype))
 
 
 class _Linear(nn.Module):
@@ -114,7 +117,9 @@ class _Linear(nn.Module):
         self.bias.zero_()
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        x = tp_input(self, x)
+        w = self.weight.to(x.dtype)
+        return tp_output(self, lambda b: F.linear(x, w, b), self.bias.to(x.dtype))
 
 
 def legacy_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -183,6 +188,17 @@ class ResBlock(nn.Module):
                                          "3": _Conv(cout, cout, 3, device=device)})
         self.skip_connection = _Conv(cin, cout, 1, device=device) if cin != cout else None
 
+    def tp_cut(self, cut, planned, name: str) -> None:
+        """Cut to this rank's shard (``parallel.tp.shard_tensor_parallel``):
+        in_layers.2 column, out_layers.3 row, out_layers.0 and the rows of
+        emb_layers.1 on the rank's channels."""
+        conv_in, conv_out = self.in_layers["2"], self.out_layers["3"]
+        if planned(conv_in, "col") and planned(conv_out, "row"):
+            cut.norm(self.out_layers["0"], f"{name}.out_layers.0", "groups")
+            cut.col(conv_in)
+            cut.col(self.emb_layers["1"], 2 if self.use_scale_shift_norm else 1)
+            cut.row(conv_out)
+
     def forward(self, x, emb):
         h = self.in_layers["0"](x, apply_silu=True)
         if self.up:
@@ -201,7 +217,10 @@ class ResBlock(nn.Module):
 
 class AttentionBlock(nn.Module):
     """GroupNorm, 1x1 qkv conv, multi-head attention (legacy channel order,
-    or with ``new_order`` the (3, head, ch) one), 1x1 proj_out, residual."""
+    or with ``new_order`` the (3, head, ch) one), 1x1 proj_out, residual.
+    Tensor parallel (``parallel/tp.py``): qkv column-parallel, proj_out
+    row-parallel, the attention on this rank's heads (or, where the heads
+    do not divide, on every head of the gathered qkv)."""
 
     def __init__(self, ch: int, num_heads: int, new_order: bool = False, device=None):
         super().__init__()
@@ -210,11 +229,23 @@ class AttentionBlock(nn.Module):
         self.qkv = _Conv(ch, 3 * ch, 1, device=device)
         self.proj_out = _Conv(ch, ch, 1, device=device)
 
+    tp_heads = None  # a parallel.tp.HeadSplit once the block is tensor parallel
+
+    def tp_cut(self, cut, planned, name: str) -> None:
+        """Cut to this rank's shard: qkv column, proj_out row."""
+        if planned(self.qkv, "col") and planned(self.proj_out, "row"):
+            split = cut.heads(self.num_heads)
+            # (3, head, ch): a rank's heads of each of q, k and v
+            cut.col(self.qkv, 3 if self.new_order and not split.gather else 1)
+            cut.row(self.proj_out)
+            self.tp_heads = split
+
     def forward(self, x):
-        n, h, w, c = x.shape
-        a = self.qkv(self.norm(x)).reshape(n, h * w, 3 * c)
-        a = (new_order_attention if self.new_order else legacy_attention)(a, self.num_heads)
-        return x + self.proj_out(a.reshape(n, h, w, c))
+        n, h, w, _ = x.shape
+        a = self.qkv(self.norm(x)).reshape(n, h * w, -1)
+        a = attend(self.tp_heads, new_order_attention if self.new_order else legacy_attention,
+                   self.num_heads, a)
+        return x + self.proj_out(a.reshape(n, h, w, -1))
 
 
 class Downsample(nn.Module):

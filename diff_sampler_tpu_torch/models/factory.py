@@ -32,7 +32,8 @@ from .precond import CFGPrecond, CGPrecond, CMPrecond, EDMPrecond
 from .zoo import CHECKPOINT_URLS, OFFLINE_ROOTS, find_file, load_checkpoint_params
 
 __all__ = ["ADM_TIERS", "EDM_ARCHS", "build_cg_model", "build_cm_model", "build_edm_model",
-           "build_ldm_model", "create_model", "init_params", "load_edm_checkpoint"]
+           "build_ldm_model", "create_model", "init_params", "load_edm_checkpoint",
+           "shard_ldm_tensor_parallel", "shard_pixel_tensor_parallel"]
 
 # dataset -> (interface kwargs, SongUNet / DhariwalUNet kwargs)
 EDM_ARCHS: Dict[str, Tuple[Dict[str, Any], Dict[str, Any]]] = {
@@ -259,3 +260,36 @@ def create_model(dataset_name: str, model_path: Optional[str] = None, *,
     raise NotImplementedError(
         f"model tier for {dataset_name!r} is not ported yet; "
         f"available: {sorted(EDM_ARCHS) + sorted(ADM_TIERS) + sorted(LDM_CONFIGS)}")
+
+
+def shard_ldm_tensor_parallel(precond: CFGPrecond, layout) -> CFGPrecond:
+    """Cut the latent U-Net of ``precond`` in place to this rank's
+    tensor-parallel shard over ``layout``'s model group
+    (``parallel/tp.py``); the eps model and the AMED bottleneck tap call
+    that module, so they run on the shard, and the tap returns the middle
+    block's full (replicated) output.  The first stage and the text encoder
+    stay whole.  Returns ``precond``."""
+    from ..parallel.tp import shard_tensor_parallel
+
+    shard_tensor_parallel(precond.latent_diffusion.unet, layout)
+    return precond
+
+
+def shard_pixel_tensor_parallel(precond, layout, model_source: str):
+    """Tensor-parallel shards for the pixel tiers, as
+    ``shard_ldm_tensor_parallel``: the EDM net (``edm``), the CM U-Net
+    (``cm``), or the ADM U-Net and its noisy classifier (``adm``: the
+    class-score gradient flows back through the classifier's shards).  The
+    denoiser, ``classifier_fn`` and the bottleneck tap call the modules, so
+    they run on the shards.  Returns the module(s) cut, in the order
+    create_model made them."""
+    from ..parallel.tp import shard_tensor_parallel
+
+    if model_source == "edm":
+        return shard_tensor_parallel(precond.model, layout)
+    if model_source == "cm":
+        return shard_tensor_parallel(precond.net, layout)
+    if model_source == "adm":
+        return (shard_tensor_parallel(precond.net, layout),
+                shard_tensor_parallel(precond.classifier, layout))
+    raise ValueError(f"unknown pixel model_source {model_source!r}")

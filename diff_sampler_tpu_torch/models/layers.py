@@ -11,6 +11,9 @@ OIHW, linear weights (out, in), norm ``weight``/``bias``, and the
 Parameters are allocated uninitialised on ``device``;
 ``models.factory.init_params`` fills them from one seeded generator, and
 ``models.convert.load_jax_params`` loads JAX params into them.
+
+``Linear`` and ``Conv2d`` also run as a tensor-parallel column or row shard,
+and ``GroupNorm`` on a channel slice, once ``parallel/tp.py`` has cut them.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from torch import nn
 
 from ..ops.attention import sdpa
 from ..ops.groupnorm import groupnorm_silu
+from ..parallel.tp import tp_input, tp_output
 
 __all__ = [
     "weight_init",
@@ -71,8 +75,10 @@ class Linear(nn.Module):
                             * self.init_bias)
 
     def forward(self, x):
+        x = tp_input(self, x)
+        w = self.weight.to(x.dtype)
         b = self.bias.to(x.dtype) if self.bias is not None else None
-        return F.linear(x, self.weight.to(x.dtype), b)
+        return tp_output(self, lambda bias: F.linear(x, w, bias), b)
 
 
 class Conv2d(nn.Module):
@@ -112,13 +118,18 @@ class Conv2d(nn.Module):
 
     def forward(self, x):
         """x: [N, H, W, C] -> [N, H', W', C']."""
-        x = x.permute(0, 3, 1, 2)  # channels-last NCHW view
+        x = tp_input(self, x).permute(0, 3, 1, 2)  # channels-last NCHW view
         w = self.weight.to(x.dtype) if self.weight is not None else None
         b = self.bias.to(x.dtype) if self.bias is not None else None
+        return tp_output(self, lambda bias: self._conv(x, w, bias), b)
+
+    def _conv(self, x, w, b):
         f = self.resample_filter.to(x.dtype) if self.resample_filter is not None else None
         w_pad = w.shape[-1] // 2 if w is not None else 0
         f_pad = (f.shape[-1] - 1) // 2 if f is not None else 0
-        cin, cout = self.in_channels, self.out_channels
+        # this rank's channels where the layer is a tensor-parallel shard
+        cin = x.shape[1]
+        cout = w.shape[0] if w is not None else cin
 
         if self.fused_resample and self.up and w is not None:
             x = F.conv_transpose2d(x, f.mul(4).tile([cin, 1, 1, 1]), groups=cin, stride=2,
@@ -135,9 +146,8 @@ class Conv2d(nn.Module):
                 x = F.conv2d(x, f.tile([cin, 1, 1, 1]), groups=cin, stride=2, padding=f_pad)
             if w is not None:
                 x = F.conv2d(x, w, padding=w_pad)
-        if b is not None:
-            x = x + b.reshape(1, -1, 1, 1)
-        return x.permute(0, 2, 3, 1)
+        x = x.permute(0, 2, 3, 1)
+        return x if b is None else x + b
 
 
 class GroupNorm(nn.Module):

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.tp import attend, tp_input, tp_output
 from . import adm
 from .adm import (_GN, AttentionBlock, Downsample, ResBlock, Upsample, _Conv, _Linear,
                   _lecun_normal, timestep_embedding)
@@ -91,7 +92,9 @@ class _LinearNoBias(nn.Module):
         self.weight.copy_(_lecun_normal(self.weight.shape, self.weight.shape[1], generator))
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype))
+        x = tp_input(self, x)
+        w = self.weight.to(x.dtype)
+        return tp_output(self, lambda b: F.linear(x, w), None)
 
 
 class CrossAttention(nn.Module):
@@ -111,19 +114,37 @@ class CrossAttention(nn.Module):
         self.to_v = _LinearNoBias(context_dim, inner, device=device)
         self.to_out = nn.ModuleList([_Linear(inner, query_dim, device=device)])
 
+    tp_heads = None  # a parallel.tp.HeadSplit once the block is tensor parallel
+
+    def tp_cut(self, cut, planned, name: str) -> None:
+        """Cut to this rank's shard (``parallel.tp.shard_tensor_parallel``):
+        to_q / to_k / to_v column by heads (k and v over the replicated
+        context), to_out.0 row."""
+        projs = (self.to_q, self.to_k, self.to_v)
+        if all(planned(p, "col") for p in projs) and planned(self.to_out[0], "row"):
+            for p in projs:
+                cut.col(p)
+            cut.row(self.to_out[0])
+            self.tp_heads = cut.heads(self.heads)
+
     def forward(self, x, context=None):
         ctx = x if context is None else context
-        b, n = x.shape[:2]
-        q = self.to_q(x).reshape(b, n, self.heads, self.dim_head)
-        k = self.to_k(ctx).reshape(b, ctx.shape[1], self.heads, self.dim_head)
-        v = self.to_v(ctx).reshape(b, ctx.shape[1], self.heads, self.dim_head)
-        if context is None:  # ``adm.sdpa``: the name the all-plain comparisons swap
+        out = attend(self.tp_heads, lambda q, k, v, heads: self._attention(
+            q, k, v, heads, context is None), self.heads, self.to_q(x), self.to_k(ctx),
+            self.to_v(ctx))
+        return self.to_out[0](out)
+
+    def _attention(self, q, k, v, heads: int, self_attention: bool):
+        """q [b, n, heads * d], k and v [b, m, heads * d] -> [b, n, heads * d]."""
+        (b, n), m, d = q.shape[:2], k.shape[1], self.dim_head
+        q, k, v = q.reshape(b, n, heads, d), k.reshape(b, m, heads, d), v.reshape(b, m, heads, d)
+        if self_attention:  # ``adm.sdpa``: the name the all-plain comparisons swap
             out = adm.sdpa(q, k, v, scale=self.scale)
         else:
             logits = torch.einsum("bihd,bjhd->bhij", (q * self.scale).float(), k.float())
-            w = torch.softmax(logits, dim=-1).to(x.dtype)
+            w = torch.softmax(logits, dim=-1).to(q.dtype)
             out = torch.einsum("bhij,bjhd->bihd", w, v)
-        return self.to_out[0](out.reshape(b, n, self.heads * self.dim_head))
+        return out.reshape(b, n, heads * d)
 
 
 class GEGLU(nn.Module):
@@ -146,6 +167,13 @@ class FeedForward(nn.Module):
         inner = int(dim * mult)
         self.net = nn.ModuleDict({"0": GEGLU(dim, inner, device=device),
                                   "2": _Linear(inner, dim, device=device)})
+
+    def tp_cut(self, cut, planned, name: str) -> None:
+        """Cut to this rank's shard: net.0.proj column, each rank its slice of
+        each half ([a | gate]), net.2 row."""
+        if planned(self.net["0"].proj, "col") and planned(self.net["2"], "row"):
+            cut.col(self.net["0"].proj, 2)
+            cut.row(self.net["2"])
 
     def forward(self, x):
         return self.net["2"](self.net["0"](x))

@@ -11,8 +11,15 @@ step count, ``map_step_layer0`` / ``map_step_layer1``) when the call passes
 ``step_condition``; ``skip_tuning`` scales each skip tensor the decoder
 concatenates by 0.75 + 0.25 * i / n_skips; ``remat`` recomputes each block
 in the backward (``torch.utils.checkpoint``) instead of storing its
-activations.  Dropout and label dropout are not ported: no JAX CLI path
-reaches them (the nets run deterministic, SFD's students too).
+activations.  ``UNetBlock`` holds the reference's ``nn.Dropout`` (at the
+configs' rates: 0.13 on CIFAR-10), which acts only in train mode; every
+path runs the nets in eval mode (``factory.build_edm_model``), where it is
+the identity, as the JAX package runs them deterministic, and ``bind`` and
+the SFD train steps refuse a net in train mode.  Label dropout is not
+ported: no JAX CLI path reaches it.  Tensor parallel (``parallel/tp.py``):
+a block runs on this rank's channels between conv0 and conv1 and on its
+heads (or on every head of the gathered qkv, where tp does not divide
+them) between qkv and proj.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.tp import attend
 from .layers import Conv2d, FourierEmbedding, GroupNorm, Linear, attention, positional_embedding
 
 __all__ = ["UNetBlock", "SongUNet", "DhariwalUNet"]
@@ -47,6 +55,7 @@ class UNetBlock(nn.Module):
         init_attn = dict(init_attn) if init_attn is not None else init
         self.num_heads = (0 if not attention else num_heads if num_heads is not None
                           else out_channels // channels_per_head)
+        self.in_channels = in_channels
         self.skip_scale = skip_scale
         self.adaptive_scale = adaptive_scale
 
@@ -73,6 +82,24 @@ class UNetBlock(nn.Module):
             self.proj = Conv2d(out_channels, out_channels, kernel=1, device=device,
                                **init_zero)
 
+    tp_heads = None  # a parallel.tp.HeadSplit once the block is tensor parallel
+
+    def tp_cut(self, cut, planned, name: str) -> None:
+        """Cut to this rank's shard (``parallel.tp.shard_tensor_parallel``):
+        conv0 column, conv1 row, norm1 and the rows of affine / affine_step
+        on the rank's channels; qkv column, proj row."""
+        if planned(self.conv0, "col") and planned(self.conv1, "row"):
+            cut.norm(self.norm1, f"{name}.norm1", "num_groups")
+            cut.col(self.conv0)
+            for aff in (self.affine, self.affine_step):
+                if aff is not None:
+                    cut.col(aff, 2 if self.adaptive_scale else 1)  # [scale | shift]
+            cut.row(self.conv1)
+        if self.num_heads and planned(self.qkv, "col") and planned(self.proj, "row"):
+            cut.col(self.qkv)
+            cut.row(self.proj)
+            self.tp_heads = cut.heads(self.num_heads)
+
     def forward(self, x, emb, emb_step=None):
         """``emb_step``: the step-condition embedding (a block built with
         ``use_step_condition``), or None for no second modulation."""
@@ -96,7 +123,7 @@ class UNetBlock(nn.Module):
         x = self.conv1(self.dropout(x))
         x = (x + (self.skip(orig) if self.skip is not None else orig)) * self.skip_scale
         if self.num_heads:
-            a = attention(self.qkv(self.norm2(x)), self.num_heads)
+            a = attend(self.tp_heads, attention, self.num_heads, self.qkv(self.norm2(x)))
             x = (x + self.proj(a)) * self.skip_scale
         return x
 
@@ -314,7 +341,7 @@ class SongUNet(nn.Module):
                 tmp = layer(F.silu(tmp))
                 aux = tmp if aux is None else tmp + aux
             else:
-                if x.shape[-1] != layer.norm0.weight.shape[0]:
+                if x.shape[-1] != layer.in_channels:
                     x = torch.cat([x, _tuned_skip(skips.pop(), skip_tuning, count, n_skips)],
                                   dim=-1)
                     count += 1
@@ -470,7 +497,7 @@ class DhariwalUNet(nn.Module):
         n_skips, count = len(skips), 0
         for name in self.dec_layout:
             layer = self.dec[name]
-            if x.shape[-1] != layer.norm0.weight.shape[0]:
+            if x.shape[-1] != layer.in_channels:
                 x = torch.cat([x, _tuned_skip(skips.pop(), skip_tuning, count, n_skips)], dim=-1)
                 count += 1
             x = _block(layer, self.remat, x, emb, emb_step)

@@ -11,11 +11,14 @@ Counterpart of ``diff_sampler_tpu/parallel/mesh.py``, on
     before the optimizer's step (``average_gradients``), in place of the
     reference's DDP;
   * sequence parallelism: the ranks of one seq group hold the same rows and
-    split each attention's tokens among them (``ops/ring_attention.py``).
+    split each attention's tokens among them (``ops/ring_attention.py``);
+  * tensor parallelism: the ranks of one model group hold the same rows and
+    each holds its shard of the U-Net's weights (``parallel/tp.py``).
 
-The processes form a (data, seq) grid laid out as the JAX package's
-``parallel/tp.py::get_mesh_2d`` lays out its devices, the seq index
-varying fastest: ``rank = d * sp + s``.
+The processes form a (data, seq) or a (data, model) grid laid out as the
+JAX package's ``parallel/tp.py::get_mesh_2d`` lays out its devices, the
+inner index varying fastest: ``rank = d * sp + s`` or ``rank = d * tp + m``
+(``--sp`` and ``--tp`` exclude each other, as in the JAX CLIs).
 
 A CLI calls ``maybe_initialize_distributed`` before any device work.  It
 starts a process group when the environment describes one: the JAX
@@ -36,9 +39,10 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["ParallelLayout", "all_gather_cat", "average_gradients", "broadcast_object",
-           "data_rows", "local_device_id", "make_layout", "maybe_initialize_distributed",
-           "pad_to_multiple", "print0", "process_count", "process_index", "rank_device"]
+__all__ = ["ParallelLayout", "ShardSpec", "all_gather_cat", "average_gradients",
+           "broadcast_object", "check_degrees", "cut", "data_rows", "local_device_id",
+           "make_layout", "maybe_initialize_distributed", "pad_to_multiple", "print0",
+           "process_count", "process_index", "rank_device", "shard_spec", "whole"]
 
 
 def local_device_id() -> int:
@@ -118,10 +122,12 @@ def pad_to_multiple(n: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelLayout:
-    """The (data, seq) grid of the processes, ``rank = data_index * sp +
-    seq_index``, and this rank's groups: ``data_group`` holds the ranks of
-    its seq index (one per data row), ``seq_group`` those of its data row.
-    A group of one rank is None: nothing is communicated over it."""
+    """The (data, seq) or (data, model) grid of the processes, ``rank =
+    data_index * inner + inner_index`` with ``inner`` = sp or tp (one of
+    them is 1), and this rank's groups: ``data_group`` holds the ranks of
+    its inner index (one per data row), ``seq_group`` / ``model_group``
+    those of its data row.  A group of one rank is None: nothing is
+    communicated over it."""
 
     sp: int = 1
     rank: int = 0
@@ -129,18 +135,28 @@ class ParallelLayout:
     backend: Optional[str] = None
     data_group: Optional[object] = None
     seq_group: Optional[object] = None
+    tp: int = 1
+    model_group: Optional[object] = None
+
+    @property
+    def inner(self) -> int:
+        return self.sp * self.tp
 
     @property
     def dp(self) -> int:
-        return self.world // self.sp
+        return self.world // self.inner
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.sp
+        return self.rank // self.inner
 
     @property
     def seq_index(self) -> int:
         return self.rank % self.sp
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.tp
 
     @property
     def seq_ranks(self) -> list:
@@ -149,29 +165,46 @@ class ParallelLayout:
         return [d * self.sp + s for s in range(self.sp)]
 
 
-def make_layout(sp: int = 1) -> ParallelLayout:
+def check_degrees(sp: int, tp: int) -> None:
+    """The refusals of a (data, seq) or (data, model) layout's degrees, as
+    the JAX CLIs make them: ``--tp`` and ``--sp`` exclusive, each at least 1."""
+    if sp > 1 and tp > 1:
+        raise ValueError("--tp and --sp are mutually exclusive (one attention sharding at a "
+                         "time)")
+    for flag, value in (("--tp", tp), ("--sp", sp)):
+        if value < 1:
+            raise ValueError(f"{flag}={value} is out of range")
+
+
+def make_layout(sp: int = 1, tp: int = 1) -> ParallelLayout:
     """The layout of the running processes with seq groups of ``sp`` ranks
-    (one process: the trivial layout).  With ``sp`` > 1 every process must
-    call it, in the same order (``dist.new_group`` is collective)."""
+    or model groups of ``tp`` ranks (one process: the trivial layout).  With
+    ``sp`` or ``tp`` > 1 every process must call it, in the same order
+    (``dist.new_group`` is collective)."""
     world, rank = process_count(), process_index()
-    if sp < 1 or world % sp:
-        raise ValueError(f"{world} processes do not split into seq groups of --sp={sp}")
+    check_degrees(sp, tp)
+    inner = sp * tp
+    if world % inner:
+        what = f"model groups of --tp={tp}" if tp > 1 else f"seq groups of --sp={sp}"
+        raise ValueError(f"{world} processes do not split into {what}")
     backend = dist.get_backend() if dist.is_initialized() else None
     if world == 1:
         return ParallelLayout(backend=backend)
-    dp = world // sp
-    if sp == 1:
+    dp = world // inner
+    if inner == 1:
         return ParallelLayout(1, rank, world, backend, dist.group.WORLD, None)
-    data_group = seq_group = None
-    for s in range(sp):
-        g = dist.new_group([d * sp + s for d in range(dp)])
-        if rank % sp == s and dp > 1:
+    data_group = inner_group = None
+    for s in range(inner):
+        g = dist.new_group([d * inner + s for d in range(dp)])
+        if rank % inner == s and dp > 1:
             data_group = g
     for d in range(dp):
-        g = dist.new_group([d * sp + s for s in range(sp)])
-        if rank // sp == d:
-            seq_group = g
-    return ParallelLayout(sp, rank, world, backend, data_group, seq_group)
+        g = dist.new_group([d * inner + s for s in range(inner)])
+        if rank // inner == d:
+            inner_group = g
+    if tp > 1:
+        return ParallelLayout(1, rank, world, backend, data_group, None, tp, inner_group)
+    return ParallelLayout(sp, rank, world, backend, data_group, inner_group)
 
 
 def _size(group) -> int:
@@ -193,11 +226,12 @@ def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 def average_gradients(params: Sequence[torch.Tensor], group) -> None:
     """Replace each parameter's ``.grad`` by its mean over the ranks of
     ``group``, in one all-reduce of the flattened gradients.  Parameters
-    without a gradient are left out; every rank runs the same graph, so the
-    set is the same on every rank."""
+    without a gradient are left out, and so are FSDP shards
+    (``parallel/fsdp.py``), whose backward averaged their gradients already;
+    every rank runs the same graph, so the set is the same on every rank."""
     if _size(group) == 1:
         return
-    params = [p for p in params if p.grad is not None]
+    params = [p for p in params if p.grad is not None and not getattr(p, "fsdp_averaged", False)]
     if not params:
         return
     flat = torch.cat([p.grad.reshape(-1) for p in params])
@@ -229,3 +263,49 @@ def broadcast_object(obj):
     box = [obj]
     dist.broadcast_object_list(box, src=0)
     return box[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """How a parameter is cut over a group of ranks (``parallel/tp.py``'s
+    tensor-parallel shards over the model group, ``parallel/fsdp.py``'s
+    shards over the data group): this rank holds the entries
+    ``index[rank]`` of dimension ``dim`` (of ``full`` entries) of the whole
+    tensor; every rank of ``group`` holds as many."""
+
+    dim: int
+    full: int
+    index: tuple
+    rank: int
+    group: object
+
+    @property
+    def size(self) -> int:
+        return len(self.index)
+
+
+def shard_spec(p: torch.Tensor) -> Optional[ShardSpec]:
+    """The ``ShardSpec`` of a parameter that a sharding cut, else None."""
+    return getattr(p, "dst_shard", None)
+
+
+def cut(full: torch.Tensor, spec: ShardSpec) -> torch.Tensor:
+    """This rank's shard of the whole tensor ``full`` (a copy)."""
+    return full.index_select(spec.dim, spec.index[spec.rank].to(full.device)).contiguous()
+
+
+def whole(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``t`` (the parameter ``p`` itself, or a tensor shaped as it: its
+    gradient, an Adam moment) whole: where ``p`` is a shard, gathered from
+    every rank's part (a collective over the spec's group), else ``t``."""
+    spec = shard_spec(p)
+    if spec is None:
+        return t.detach()
+    parts = [torch.empty_like(t) for _ in range(spec.size)]
+    dist.all_gather(parts, t.detach().contiguous(), group=spec.group)
+    shape = list(t.shape)
+    shape[spec.dim] = spec.full
+    out = t.new_empty(shape)
+    for part, idx in zip(parts, spec.index):
+        out.index_copy_(spec.dim, idx.to(t.device), part)
+    return out

@@ -198,6 +198,15 @@ def trainable(module: torch.nn.Module) -> list:
     return [p for p in module.parameters() if p.requires_grad]
 
 
+def _check_eval(*modules) -> None:
+    """The student and the teacher run deterministic, as the JAX step runs
+    them: a module in train mode (dropout on) is refused, as ``bind``
+    refuses one."""
+    if any(m.training for m in modules):
+        raise ValueError("the SFD train step needs the student and the teacher in eval mode "
+                         "(dropout off): call .eval() first")
+
+
 def make_train_step(student, teacher, cfg: SFDConfig, optimizer: torch.optim.Optimizer,
                     lpips_fn=None, n_acc: int = 1, lr_schedule=None, layout=None):
     """Pixel-space EDM student: ``student`` and ``teacher`` are EDMPreconds
@@ -208,6 +217,7 @@ def make_train_step(student, teacher, cfg: SFDConfig, optimizer: torch.optim.Opt
     optimizer updates the student's trainable parameters.
 
     Returns ``train_step(latents, labels=None) -> metrics``."""
+    _check_eval(student, teacher)
     step_cond = float(cfg.num_steps) if cfg.use_step_condition else None
 
     def student_denoise(x, t, labels):
@@ -233,6 +243,7 @@ def make_ldm_train_step(student_unet, teacher_unet, precond, cfg: SFDConfig,
     Returns ``train_step(latents, context=None) -> metrics``, latents
     [B, res, res, z_channels], context [B, T, D] or None; the loss lives in
     latent space."""
+    _check_eval(student_unet, teacher_unet)
     train_precond = dataclasses.replace(precond, guidance_rate=1.0)
     # replace() reruns __post_init__, which resets the sigma range: restore
     # the narrowed one (the factory sets sigma_min 0.1 for ms_coco)

@@ -139,8 +139,13 @@ def test_train_amed_rejects_what_is_not_ported(tmp_path, capsys):
     for name in ("lsun_bedroom", "lsun_cat", "imagenet256"):  # ported: a dry run passes
         cli_train.main([f"--dataset_name={name}", "-n", f"--outdir={tmp_path}"])
         assert f'"dataset_name": "{name}"' in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="--tp is not ported yet"):
-        cli_train.main(["--dataset_name=cifar10", "--tp=2", f"--outdir={tmp_path}"])
+    # --tp is ported: one process does not split into model groups of 2;
+    # --fsdp is ported for the latent tiers only, as in the JAX CLI
+    with pytest.raises(ValueError, match="model groups of --tp=2"):
+        cli_train.main(["--dataset_name=cifar10", "--tp=2", "--device=cpu",
+                        f"--outdir={tmp_path}"])
+    with pytest.raises(ValueError, match="ldm/sd tiers only"):
+        cli_train.main(["--dataset_name=cifar10", "--fsdp", f"--outdir={tmp_path}"])
     assert not os.listdir(tmp_path)
 
 

@@ -63,6 +63,7 @@ def test_port_imports_with_jax_and_flax_blocked():
             "diff_sampler_tpu_torch.integrations.diffusers_emulation",
             "diff_sampler_tpu_torch.utils.logger", "diff_sampler_tpu_torch.parallel",
             "diff_sampler_tpu_torch.parallel.mesh", "diff_sampler_tpu_torch.parallel.launch",
+            "diff_sampler_tpu_torch.parallel.tp", "diff_sampler_tpu_torch.parallel.fsdp",
             "diff_sampler_tpu_torch.ops.ring_attention"} <= names
 
 

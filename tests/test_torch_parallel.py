@@ -16,8 +16,9 @@ per module fixture, 120 s limit each):
     against one process after 2 iterations, with only process 0's files.
 
 In one process: the launcher's kill on failure and on timeout, the
-environment surface, the layout and the CLIs' refusals of ``--tp`` and
-``--fsdp``.
+environment surface, the layout and the CLIs' refusals of the parallel
+flags (the JAX CLIs' exclusions, and a degree that one process cannot
+split into).
 """
 
 import json
@@ -368,10 +369,10 @@ def test_layout_grid_and_one_process_defaults():
 
 
 REFUSALS = [
-    (cli_sample.main, ["--dataset_name=tiny8", "--tp=2"], NotImplementedError, "--tp is not"),
+    (cli_sample.main, ["--dataset_name=tiny8", "--tp=2"], ValueError, "model groups of --tp=2"),
     (cli_sample.main, ["--dataset_name=tiny8", "--tp=2", "--sp=2"], ValueError,
      "mutually exclusive"),
-    (train_amed.main, ["--dataset_name=cifar10", "--fsdp"], NotImplementedError, "--fsdp is not"),
+    (train_amed.main, ["--dataset_name=cifar10", "--fsdp"], ValueError, "ldm/sd tiers only"),
     (train_amed.main, ["--dataset_name=cifar10", "--tp=2", "--sp=2"], ValueError,
      "mutually exclusive"),
     (train_amed.main, ["--dataset_name=cifar10", "--tp=2", "--fsdp"], ValueError,

@@ -249,10 +249,11 @@ def test_ms_coco_forces_128_accumulation(tiny_tiers, tmp_path, capsys):
 
 
 REFUSALS = [
-    (["--dataset_name=cifar10", "--tp=2"], NotImplementedError, "--tp is not ported yet"),
-    # --sp is ported: one process does not split into seq groups of 2
+    # --tp and --sp are ported: one process does not split into groups of 2
+    (["--dataset_name=cifar10", "--tp=2"], ValueError, "model groups of --tp=2"),
     (["--dataset_name=cifar10", "--sp=2"], ValueError, "seq groups of --sp=2"),
-    (["--dataset_name=cifar10", "--fsdp"], NotImplementedError, "--fsdp is not ported yet"),
+    # --fsdp is ported (one process runs it whole): the JAX CLI's exclusion
+    (["--dataset_name=cifar10", "--fsdp", "--tp=2"], ValueError, "mutually exclusive"),
     (["--dataset_name=ms_coco"], ValueError, "guidance_type=cfg"),
     (["--dataset_name=lsun_bedroom_ldm", "--guidance_type=cfg"], ValueError,
      "guidance_type=uncond"),

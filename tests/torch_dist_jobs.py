@@ -49,6 +49,53 @@ SFD_ARGS = ["--dataset_name=cifar10", "--model_path=random", "--device=cpu", "--
 SFD_SP_ARGS = [*SFD_ARGS[:-2], "--afs=False", "--tick=2", "--snap=2"]
 
 
+# Tensor parallelism and FSDP (tests/test_torch_tp.py, tests/test_torch_fsdp.py):
+# the nets of the forward checks (EDM's SongUNet has one head: the gather
+# path; the Dhariwal net's 128-channel level has 2; the SD-like LDM runs its
+# spatial transformer's heads and GEGLU halves; the legacy LDM has 3 heads of
+# 32, the gather path at an odd count)
+TP_NETS = {
+    "song": ("SongUNet", dict(img_resolution=8, in_channels=3, out_channels=3,
+                              model_channels=8, channel_mult=[1], num_blocks=2,
+                              attn_resolutions=[8], dropout=0.0)),
+    "dhariwal": ("DhariwalUNet", dict(img_resolution=8, in_channels=3, out_channels=3,
+                                      label_dim=4, model_channels=64, channel_mult=[1, 2],
+                                      num_blocks=1, attn_resolutions=[4], dropout=0.0)),
+    "ldm_sd": ("LDMUNet", dict(image_size=8, in_channels=4, out_channels=4, model_channels=32,
+                               attention_resolutions=(2,), num_res_blocks=1, channel_mult=(1, 2),
+                               num_heads=2, use_spatial_transformer=True, transformer_depth=1,
+                               context_dim=24, legacy=False)),
+    "ldm_legacy": ("LDMUNet", dict(image_size=8, in_channels=3, out_channels=3,
+                                   model_channels=96, attention_resolutions=(1,),
+                                   num_res_blocks=1, channel_mult=(1,), num_head_channels=32)),
+}
+TP_SAMPLE = [*DP_SAMPLE, "--tp=2"]
+AMED_LDM_ARGS = ["--dataset_name=lsun_bedroom_ldm", "--model_path=random", "--device=cpu",
+                 "--batch=64", "--batch_gpu=32", "--total_kimg=1", "--num_steps=3", "--tick=8"]
+# FSDP's floor in the jobs: the tiny nets' weights are under the 2^14 elements
+# of the real floor
+FSDP_MIN_ELEMS = 256
+
+
+def build_tp_net(name):
+    """A full net of ``TP_NETS`` on the CPU (its weights uninitialised)."""
+    from diff_sampler_tpu_torch.models import ldm, unets
+
+    kind, kw = TP_NETS[name]
+    cls = ldm.LDMUNet if kind == "LDMUNet" else getattr(unets, kind)
+    return cls(device="cpu", **kw).eval()
+
+
+def tp_net_call(name, net, data):
+    """The forward of ``TP_NETS[name]`` on the test's inputs ``data``."""
+    x, t = torch.as_tensor(data["x"]), torch.as_tensor(data["t"])
+    if name == "ldm_sd":
+        return net(x, t, torch.as_tensor(data["ctx"]))
+    if name == "dhariwal":
+        return net(x, t, torch.as_tensor(data["labels"]))
+    return net(x, t)
+
+
 def patch_tiers():
     """The tiny nets in place of the tiers' full ones (this process only)."""
     from diff_sampler_tpu_torch.models import factory
@@ -231,8 +278,69 @@ def job_train(spec):
         json.dump(runs, f)
 
 
+def job_tp_fsdp(spec):
+    """Tensor parallelism over one model group of 2 (``cases`` "tp"): the
+    forwards of ``TP_NETS`` and the CG class-score gradient on the test's
+    weights and inputs, shard-then-gather, and the CLIs (sample --tp=2,
+    train_amed --tp=2, train_sfd --tp=2 and its --resume); FSDP over 2 data
+    ranks (``cases`` "fsdp"): train_sfd --fsdp, --fsdp --sp=2 and
+    train_amed --fsdp on the tiny LDM."""
+    from diff_sampler_tpu_torch.cli import sample, train_amed, train_sfd
+    from diff_sampler_tpu_torch.models import factory
+    from diff_sampler_tpu_torch.parallel import fsdp, tp
+    from diff_sampler_tpu_torch.parallel.mesh import make_layout
+
+    patch_tiers()
+    out = spec["out"]
+    runs = {}
+    if "tp" in spec["cases"]:
+        layout = make_layout(tp=2)
+        for name in TP_NETS:
+            net = build_tp_net(name)
+            full = {k: torch.as_tensor(v) for k, v in np.load(
+                os.path.join(out, f"weights_{name}.npz")).items()}
+            net.load_state_dict(full)
+            tp.shard_tensor_parallel(net, layout)
+            with torch.no_grad():
+                y = tp_net_call(name, net, np.load(os.path.join(out, f"inputs_{name}.npz")))
+            back = tp.gather_state_dict(net)
+            _save(spec, f"fwd_{name}", out=y.numpy(), sharded=tp.count_sharded(net),
+                  bytes=tp.tp_bytes_per_rank(net),
+                  gathered=all(torch.equal(back[k], v) for k, v in full.items())
+                  and back.keys() == full.keys())
+        factory.IMAGENET256_SETTING = spec["cg_settings"]["net"]
+        factory.IMAGENET256_CLASSIFIER_SETTING = spec["cg_settings"]["classifier"]
+        pre, _ = factory.create_model("imagenet256", "random", guidance_rate=2.0, device="cpu")
+        data = np.load(os.path.join(out, "cg.npz"))
+        pre.net.load_state_dict({k[4:]: torch.as_tensor(v) for k, v in data.items()
+                                 if k.startswith("net.")})
+        pre.classifier.load_state_dict({k[4:]: torch.as_tensor(v) for k, v in data.items()
+                                        if k.startswith("cls.")})
+        factory.shard_pixel_tensor_parallel(pre, layout, "adm")
+        with torch.no_grad():  # as the samplers call it
+            grad = pre._cond_grad(torch.as_tensor(data["x"]), torch.as_tensor(data["t"]),
+                                  torch.as_tensor(data["y"]))
+        _save(spec, "cg", grad=grad.numpy(), sharded=tp.count_sharded(pre.classifier))
+        sample.main([*SAMPLE_ARGS, *TP_SAMPLE, f"--outdir={out}/sample_tp"])
+        runs["amed_tp"] = train_amed.main([*AMED_ARGS, "--tp=2", f"--outdir={out}/amed_tp"])
+        runs["sfd_tp"] = train_sfd.main([*SFD_ARGS, "--tp=2", f"--outdir={out}/sfd_tp"])
+        # resume the first snapshot under --tp: the last must be the unbroken run's
+        runs["sfd_tp_resume"] = train_sfd.main([
+            *SFD_ARGS, "--tp=2", f"--outdir={out}/sfd_tp_resume",
+            f"--resume={runs['sfd_tp']}/snapshot-000000.npz"])
+    if "fsdp" in spec["cases"]:
+        fsdp._MIN_SHARD_ELEMS = FSDP_MIN_ELEMS
+        runs["sfd_fsdp"] = train_sfd.main([*SFD_ARGS, "--fsdp", f"--outdir={out}/sfd_fsdp"])
+        runs["sfd_fsdp_sp"] = train_sfd.main([*SFD_ARGS, "--fsdp", "--sp=2",
+                                              f"--outdir={out}/sfd_fsdp_sp"])
+        runs["amed_fsdp"] = train_amed.main([*AMED_LDM_ARGS, "--fsdp",
+                                             f"--outdir={out}/amed_fsdp"])
+    with open(os.path.join(out, f"runs.rank{_rank()}.json"), "w") as f:
+        json.dump(runs, f)
+
+
 JOBS = {"ring": job_ring, "generate": job_generate, "sample_cli": job_sample_cli,
-        "train": job_train}
+        "train": job_train, "tp_fsdp": job_tp_fsdp}
 
 
 if __name__ == "__main__":
@@ -242,3 +350,7 @@ if __name__ == "__main__":
     maybe_initialize_distributed("cpu", timeout_s=60)
     with open(sys.argv[2]) as f:
         JOBS[sys.argv[1]](json.load(f))
+    # tear the group down before the interpreter does: a gloo group left to
+    # the exit's destructors can abort the process ("terminate called
+    # without an active exception") under load
+    torch.distributed.destroy_process_group()
