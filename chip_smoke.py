@@ -372,6 +372,27 @@ Phases, each printing as it goes and then its seconds:
    Last, K1 / K2 at the shards' local heads ([2, 1024, 4 / 2, 64]) and K3
    on a channel slice ([2, 256, 256, 128] in 16 groups), as phases 3, 6
    and 15.
+45. The last modules of the JAX package.  (a) Beside phase 44's ranks, in
+   phase 32's directory (gates only): SD v1.5 loaded from phase 32's file
+   with its KL encoder (``build_latent_diffusion(..., encoder=True)``), 8
+   images of 512 x 512 encoded in f32, TF32 off: the posterior's mean and
+   logvar and ``decode(encode(x).mode())`` with K3 against the all-plain
+   first stage at 1e-4 * max, exactly 22 K3 launches an encode and 30 in
+   the decode.  After phase 40: one profiled encode (K3's share), the
+   encode's ms with K3, K3 at the encoder's [8, 512, 512, 128] f32.  (b) LPIPS at 224 from a torchvision-layout
+   VGG16 file and an LPIPS-layout heads file: 0 on identical inputs,
+   symmetric, the card against the CPU at 1e-4; CIFAR-10 SFD's second
+   stage through ``training/sfd.py`` with a unit-scale student and teacher
+   (f32, TF32 off, remat): the last segment's weight gradient with LPIPS,
+   K1 / K2 / K3 against the all-plain student at 1e-4 * max, two iterations
+   at batch 128 with LPIPS and one without (s/iteration, exact launches),
+   the LPIPS forward at batch 128 against its f32 bound.  (c) EDM's
+   CIFAR-10 augment pipe on 512 images, the card against the CPU on the
+   same draws at 1e-5; (b)'s student's weight gradient in train mode
+   (dropout 0.13) with the augment labels on 128 of them, K1 / K2 /
+   K3 against the all-plain net on the same dropout masks at 1e-4 * max;
+   one ``ema_update`` over the LSUN LDM U-Net's f32 parameters, bit-equal
+   to the per-tensor formula, against its byte bound.
 
 The last three lines are the card's name and power limit, a JSON object on
 the kernels and ``{"ok": true, "device": {...}}``.  The JSON lists K1 and
@@ -397,7 +418,10 @@ and K3 in f32 on the trajectory analyzer's and the AMED export's paths
 (launches of phases 41 and 42, times at the analyzer's shapes), K1 and
 K2 in bf16 and f32 at the ring's tiles (launches of phase 43's --sp=2
 paths, rank 0's and the ring's partials only), K1 / K2 / K3 at the
---tp=2 shards' local shapes (launches of phase 44's paths, rank 0's), each
+--tp=2 shards' local shapes (launches of phase 44's paths, rank 0's), K3
+at the SD v1.5 KL encoder's shape and K1 / K2 / K3 on phase 45's CIFAR-10
+paths (SFD's second stage with LPIPS, the train-mode gradient with augment
+labels; times of phase 37 at the same shapes), each
 with its error and times at that path's main
 shape and its bound on this card (the f32 attention kernels' and the f32
 K4's: 3xTF32 on the tensor cores).  Every profile (phases 4,
@@ -450,6 +474,7 @@ from diff_sampler_tpu_torch.eval import prdc as P
 from diff_sampler_tpu_torch.eval.clip_score import (clip_preprocess, clip_score,
                                                     make_openclip_encoders)
 from diff_sampler_tpu_torch.eval.dataset import ImageFolderDataset
+from diff_sampler_tpu_torch.eval.lpips import LPIPS, load_lpips_weights
 from diff_sampler_tpu_torch.eval.fid import (calculate_stats, compute_fid, load_stats,
                                              make_inception_feature_fn)
 from diff_sampler_tpu_torch.eval.inception import (CONV_UNITS_GRAPH_ORDER, InceptionV3FID,
@@ -462,15 +487,18 @@ from diff_sampler_tpu_torch.models.convert import absent_from_jax, load_jax_para
 from diff_sampler_tpu_torch.parallel.mesh import cut, shard_spec
 from diff_sampler_tpu_torch.models.factory import (build_edm_model, build_ldm_model, create_model,
                                                    init_params)
-from diff_sampler_tpu_torch.models.ldm import reference_state_dict
+from diff_sampler_tpu_torch.models.ldm import (LDM_CONFIGS, LDMUNet, build_latent_diffusion,
+                                               reference_state_dict)
 from diff_sampler_tpu_torch.models.openclip import OpenCLIP, OpenCLIPConfig
 from diff_sampler_tpu_torch.models.openclip import attention as openclip_attention
 from diff_sampler_tpu_torch.models.precond import bind
 from diff_sampler_tpu_torch.models.torch_import import load_torch_file, torch_state_dict
+from diff_sampler_tpu_torch.models.zoo import load_checkpoint_params
 from diff_sampler_tpu_torch.models.text import FrozenCLIPEmbedder
 from diff_sampler_tpu_torch.ops import attention as A
 from diff_sampler_tpu_torch.ops import conv as C
 from diff_sampler_tpu_torch.ops import groupnorm as G
+from diff_sampler_tpu_torch.ops.augment import AugmentPipe
 from diff_sampler_tpu_torch.ops.geometry import (trajectory_curvature, trajectory_deviation,
                                                  trajectory_lengths)
 from diff_sampler_tpu_torch.ops.schedules import get_schedule
@@ -485,6 +513,7 @@ from diff_sampler_tpu_torch.training.sfd import adam_count as sfd_adam_count
 from diff_sampler_tpu_torch.training.sfd import make_ldm_train_step as make_sfd_ldm_train_step
 from diff_sampler_tpu_torch.training.sfd import make_train_step as make_sfd_train_step
 from diff_sampler_tpu_torch.utils import checkpoint as ckpt
+from diff_sampler_tpu_torch.utils.ema import ema_init, ema_update
 from diff_sampler_tpu_torch.utils.image import encode_png, save_grid
 from diff_sampler_tpu_torch.utils.profiling import device_breakdown
 from diff_sampler_tpu_torch.utils.rng import stacked_randn
@@ -983,11 +1012,12 @@ def _sass_hmma_counts(path: str) -> dict:
     _check(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr[-2000:]}")
     counts, fn = {}, None
     for line in sass.stdout.splitlines():
-        m = re.search(r"Function : (\S+)", line)
+        # the substring tests spare the regexes most of the dump's lines
+        m = "Function : " in line and re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
             counts[fn] = (0, set())
-        elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
+        elif fn is not None and "MMA" in line and re.search(r"\bH(G)?MMA\b", line):
             n, kinds = counts[fn]
             counts[fn] = (n + 1, kinds | {re.search(r"HG?MMA\S*", line).group(0)})
     return counts
@@ -2841,13 +2871,20 @@ def _kl_encoder_shapes(ch=128, ch_mult=(1, 2, 4, 4), num_res_blocks=2, z=8) -> d
 
 
 def _sd_checkpoint_extras(alphas: np.ndarray) -> dict:
-    """What ``v1-5-pruned-emaonly.ckpt`` holds beside the weights the port
-    loads: the KL encoder and ``quant_conv`` (seeded random, f16), the EMA
-    counters, the DDPM schedule buffers and the text tower's position_ids."""
+    """What ``v1-5-pruned-emaonly.ckpt`` holds beside the weights that
+    sampling loads: the KL encoder and ``quant_conv`` (seeded random at unit
+    scale, weights over sqrt(fan_in), f16; phase 45 encodes with them), the
+    EMA counters, the DDPM schedule buffers and the text tower's
+    position_ids."""
     g = torch.Generator().manual_seed(32)
-    out = {f"first_stage_model.encoder.{k}": torch.randn(shape, generator=g).to(SD_CKPT_STORAGE)
+
+    def unit(shape):
+        fan_in = math.prod(shape[1:]) if len(shape) > 1 else 1
+        return (torch.randn(shape, generator=g) / math.sqrt(fan_in)).to(SD_CKPT_STORAGE)
+
+    out = {f"first_stage_model.encoder.{k}": unit(shape)
            for k, shape in _kl_encoder_shapes().items()}
-    out["first_stage_model.quant_conv.weight"] = torch.randn(8, 8, 1, 1, generator=g).half()
+    out["first_stage_model.quant_conv.weight"] = unit((8, 8, 1, 1))
     out["first_stage_model.quant_conv.bias"] = torch.zeros(8, dtype=torch.float16)
     out["model_ema.decay"] = torch.tensor(0.9999)
     out["model_ema.num_updates"] = torch.tensor(0, dtype=torch.int32)
@@ -5712,6 +5749,385 @@ def phase_tensor_parallel(workdir: str, launched: tuple, one: dict, sd_ref_dir: 
                 + r0["sfd_cifar"]["counts"]["gn"] + r0["cg"]["one_call"]["counts"]["gn"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 45: the KL encoder, LPIPS in SFD's second stage, the augment pipe
+# with augment labels and dropout, and the parameter EMA
+# ---------------------------------------------------------------------------
+
+KL_BATCH = 8  # 512 x 512 images an encode
+KL_ENC_GN_SITES = 22  # K3 per SD v1.5 encode: 16 in the down levels, 5 in mid, norm_out
+KL_DEC_GN_SITES = 30  # K3 per KL decode
+KL_GN_SHAPE = (KL_BATCH, 512, 512, 128, torch.float32, 1e-6, True)  # the encoder's main norm
+KL_TOL = 1e-4  # of max|plain|: the moments and the round trip, TF32 off
+LPIPS_ITERS = 2  # second-stage iterations at SFD_BATCH with LPIPS (the second one steady)
+PLAIN_ITERS = 1  # and without it, after them (cuDNN's plans warm): cut for the script's time
+LPIPS_CHECK_N = 2  # image pairs of the premetric gates (card, and card against the CPU)
+LPIPS_ZERO_TOL = 1e-6  # of max d: identical inputs and swapped arguments
+LPIPS_CPU_TOL = 1e-4  # of max|CPU d|
+# EDM's CIFAR-10 pipe (train.py: --augment=0.12 with these probabilities)
+EDM_AUGMENT = dict(p=0.12, xflip=1e8, yflip=1, scale=1, rotate_frac=1, aniso=1,
+                   translate_frac=1)
+AUGMENT_BATCH = 512
+AUGMENT_GRAD_BATCH = 128  # the train-mode weight gradient: the batch's first 128
+WARP_TOL = 1e-5  # of max|CPU|: the card's pipe against the CPU's on the same draws
+
+
+@torch.no_grad()
+def phase_kl_encode(workdir: str) -> dict:
+    """Phase 45a (in phase 32's directory, beside phase 44's ranks: gates
+    only, nothing timed): SD v1.5 from phase 32's f16 checkpoint with its
+    first stage's encoder (``build_latent_diffusion(..., encoder=True)``;
+    the text tower's keys left out), 8 images of 512 x 512 encoded in f32
+    with TF32 off: the posterior's mean and logvar and the round trip
+    ``decode(encode(x).mode())`` with K3 against the all-plain first stage
+    (``reference_groupnorm_silu``) at 1e-4 * max, exactly 22 K3 launches an
+    encode and 30 more in the decode.  Returns the first stage and the
+    images (phase 45 times them) and the launches."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = os.path.join(workdir, "v1-5-pruned-emaonly.ckpt")
+    t0 = time.perf_counter()
+    sd = {k: v for k, v in load_checkpoint_params(path).items()
+          if not k.startswith("cond_stage_model.")}
+    ld = build_latent_diffusion(SD, state_dict=sd, encoder=True, device="cuda")
+    first = ld.first_stage
+    del ld, sd
+    torch.cuda.empty_cache()
+    load_s = time.perf_counter() - t0
+    g = torch.Generator("cuda").manual_seed(45)
+    x = torch.rand((KL_BATCH, *SD_IMAGE), generator=g, device="cuda") * 2 - 1
+    _reset_counts()
+    post = first.encode(x)
+    enc_counts = _counts()
+    round_trip = first.decode(post.mode())
+    counts = _counts()
+    real = adm.groupnorm_silu
+    adm.groupnorm_silu = G.reference_groupnorm_silu
+    try:
+        plain = first.encode(x)
+        plain_round_trip = first.decode(plain.mode())
+    finally:
+        adm.groupnorm_silu = real
+    torch.cuda.synchronize()
+    print(f"[KL encode] SD v1.5 from {os.path.basename(path)} with its encoder (the text tower "
+          f"left out): {load_s:.2f} s host clock; x [{KL_BATCH}, 512, 512, 3] -> the "
+          f"posterior's mean {list(post.mean.shape)}, f32, TF32 off; launches: the encode "
+          f"{enc_counts}, with the round trip's decode {counts}")
+    _check(tuple(post.mean.shape) == (KL_BATCH, 64, 64, 4), "KL encode: latent shape")
+    for name, got, want in (("mean", post.mean, plain.mean), ("logvar", post.logvar,
+                                                              plain.logvar),
+                            ("decode(encode(x).mode())", round_trip, plain_round_trip)):
+        err = (got - want).abs().max().item()
+        bound = KL_TOL * want.abs().max().item()
+        print(f"[KL encode] {name}: max {want.abs().max().item():.4g}, K3 vs the plain GroupNorm "
+              f"max abs err {err:.3g} (tol {KL_TOL:g} * max = {bound:.3g})")
+        _check(torch.isfinite(got).all().item(), f"KL encode: {name} is not finite")
+        _check(err <= bound, f"KL encode: {name} with K3 disagrees with the plain first stage")
+    _check(enc_counts == _only(gn=KL_ENC_GN_SITES), f"KL encode: launches {enc_counts}")
+    _check(counts == _only(gn=KL_ENC_GN_SITES + KL_DEC_GN_SITES),
+           f"KL encode: round-trip launches {counts}")
+    return dict(first=first, x=x, gn=counts["gn"])
+
+
+def _p45_encode_times(kl: dict) -> dict:
+    """Phase 45 (a, after the ranks): one profiled encode (K3's share of its
+    device time, 22 K3 launches in the trace), the encode's ms (CUDA events,
+    warm), and K3 at the encoder's main shape [8, 512, 512, 128] f32 (SiLU,
+    eps 1e-6) against its plain version, the library and its byte bound."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    first, x = kl.pop("first"), kl.pop("x")
+
+    def encode():
+        return first.encode(x).mean
+
+    prof = _profile(f"KL encode profile, one f32 encode of {KL_BATCH} x 512 x 512", encode,
+                    {"K3": KL_ENC_GN_SITES})
+    with torch.no_grad():
+        ms = _time_ms(encode, reps=2, warmup=0)
+    k3_share = prof["categories"]["K3"]["share"]
+    print(f"[KL encode] one encode of {KL_BATCH} images: {ms:.3f} ms (CUDA events, "
+          f"{KL_BATCH / ms * 1e3:.2f} images/s); K3 {prof['categories']['K3']['ms']:.3f} ms, "
+          f"{k3_share:.4f} of the profiled device time")
+    del first, x
+    torch.cuda.empty_cache()
+    k3 = _gn_checks([KL_GN_SHAPE], {"KL encoder": KL_GN_SHAPE[:5]}, seed=450)["KL encoder"]
+    return dict(kl_k3=k3, kl_gn=kl["gn"])
+
+
+def _lpips_files(workdir: str, lp: LPIPS) -> tuple:
+    """Seeded weights in LPIPS's shapes, written as torchvision's VGG16 file
+    (``features.*``: He-normal convs, small biases) and the LPIPS package's
+    heads file (``lin{i}.model.1.weight``, uniform in [0, 1)); returns the
+    two paths."""
+    g = torch.Generator().manual_seed(451)
+    vgg, lin = {}, {}
+    for name, p in lp.state_dict().items():
+        if name.startswith("features.") and name.endswith("weight"):
+            vgg[name] = torch.randn(p.shape, generator=g) * math.sqrt(2.0 / p[0].numel())
+        elif name.startswith("features."):
+            vgg[name] = 0.01 * torch.randn(p.shape, generator=g)
+        else:
+            lin[name] = torch.rand(p.shape, generator=g)
+    paths = os.path.join(workdir, "vgg16-397923af.pth"), os.path.join(workdir, "vgg.pth")
+    for path, sd in zip(paths, (vgg, lin)):
+        torch.save(sd, path)
+    return paths
+
+
+def _lpips_flops(lp: LPIPS, n: int) -> int:
+    """The multiply-adds x 2 of LPIPS's VGG16 convs on n images of
+    ``resize_to`` (x and y: 2n), from the shapes; the rest is elementwise."""
+    size, flops = lp.resize_to, 0
+    for i, conv in enumerate(lp.features.values()):
+        if i in (2, 4, 7, 10):  # an average pool before stages 2-5
+            size //= 2
+        flops += 2 * size * size * conv.weight.numel()
+    return 2 * n * flops
+
+
+def _p45_lpips(workdir: str) -> dict:
+    """Phase 45 (b): LPIPS at 224 from a torchvision-layout VGG16 file and
+    an LPIPS-layout heads file, in f32 with TF32 off as in phase 37: the
+    premetric on the card (0 on identical inputs, symmetric) and against the
+    CPU's on the same weights; the full-width CIFAR-10 student (unit scale,
+    remat) and teacher (another unit-scale draw) of SFD's second stage: the
+    last segment's weight gradient with LPIPS, K1 + K2 + K3 against the
+    all-plain student, 1e-4 * max, exact launches; two iterations at batch
+    128 of ``training/sfd.py``'s step with ``lpips_fn`` and one without
+    (s/iteration, exact launches); the LPIPS forward at batch 128 against
+    its f32 bound.  Returns the launches and the student (phase 45 (c)'s
+    net)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vgg_path, lin_path = _lpips_files(workdir, LPIPS(device="cpu"))
+    lp = load_lpips_weights(LPIPS(device="cuda"), load_torch_file(vgg_path),
+                            load_torch_file(lin_path)).requires_grad_(False)
+    g = torch.Generator("cuda").manual_seed(452)
+    a, b = (torch.rand((LPIPS_CHECK_N, 32, 32, 3), generator=g, device="cuda") * 2 - 1
+            for _ in range(2))
+    with torch.no_grad():
+        d_ab, d_ba, d_aa = lp(a, b), lp(b, a), lp(a, a)
+        d_cpu = copy.deepcopy(lp).cpu()(a.cpu(), b.cpu())
+    top = d_ab.abs().max().item()
+    cpu_err = (d_ab.cpu() - d_cpu).abs().max().item()
+    print(f"[LPIPS] VGG16 + heads from {os.path.basename(vgg_path)} and "
+          f"{os.path.basename(lin_path)}, 32 px pairs resized to 224, f32: d(a, b) "
+          f"{[round(v, 5) for v in d_ab.tolist()]}; max |d(a, a)| {d_aa.abs().max().item():.3g}, "
+          f"max |d(a, b) - d(b, a)| {(d_ab - d_ba).abs().max().item():.3g} (tol "
+          f"{LPIPS_ZERO_TOL:g} * max d); the CPU's on the same weights: max abs err "
+          f"{cpu_err:.3g} (tol {LPIPS_CPU_TOL:g} * max = {LPIPS_CPU_TOL * top:.3g})")
+    _check(top > 0 and torch.isfinite(d_ab).all().item(), "LPIPS: d(a, b) not positive")
+    _check(d_aa.abs().max().item() <= LPIPS_ZERO_TOL * top, "LPIPS: d(a, a) is not 0")
+    _check((d_ab - d_ba).abs().max().item() <= LPIPS_ZERO_TOL * top, "LPIPS is not symmetric")
+    _check(cpu_err <= LPIPS_CPU_TOL * d_cpu.abs().max().item(), "LPIPS: card and CPU disagree")
+
+    student = init_params(build_edm_model("cifar10", sigma_min=0.006, remat=True,
+                                          device="cuda"))
+    _redraw_unit_scale(student, seed=1, device="cuda")
+    teacher = copy.deepcopy(student).requires_grad_(False)
+    _redraw_unit_scale(teacher, seed=2, device="cuda")
+    for name, p in student.named_parameters():
+        p.requires_grad_(not absent_from_jax(name))
+    params = [p for p in student.parameters() if p.requires_grad]
+    cfg = SFDConfig(num_steps=SFD_STEPS, M=SFD_M, afs=True, is_second_stage=True,
+                    sigma_min=0.006)
+    t = torch.tensor(get_schedule(SFD_STEPS, 0.006, 80.0), dtype=torch.float32, device="cuda")
+    opt = torch.optim.Adam(params, lr=5e-5, betas=(0.9, 0.999), eps=1e-8)
+    step = make_sfd_train_step(student, teacher, cfg, opt, lpips_fn=lp)
+    traj = step.teacher_traj(stacked_randn(range(SFD_CHECK_BATCH), (32, 32, 3),
+                                           device="cuda"), None)
+    x, tea = traj[-2], traj[-1]
+
+    def grads():
+        stu = x + (t[-1] - t[-2]) * (x - student(x, t[-2])) / t[-2]
+        elem = (stu - tea).abs() + lp(stu, tea).mean()
+        return torch.autograd.grad(elem.sum() / x.shape[0], params)
+
+    re = _remat_sites(student.model)
+    per = dict(k1=ATTENTION_SITES + re["k1"], dq=ATTENTION_SITES, dkv=ATTENTION_SITES,
+               gn=CIFAR_GN_SITES + re["gn"])
+    print(f"[SFD LPIPS] second stage, the last segment (sigma {t[-2].item():.4f} -> "
+          f"{t[-1].item():.4f}) at batch {SFD_CHECK_BATCH} from the teacher's trajectory, "
+          f"lpips(student, teacher).mean() on every element")
+    got = _param_grads_vs_plain("SFD LPIPS last-segment gradient", grads,
+                                _plain_net_patches(layers), per)
+    del got, traj, x, tea
+
+    it_calls = SFD_TEA_CALLS + SFD_STU_CALLS
+    out = {}
+    for label, fn, iters in (("with LPIPS", lp, LPIPS_ITERS), ("without LPIPS", None,
+                                                               PLAIN_ITERS)):
+        want = _only(k1=iters * (it_calls * ATTENTION_SITES + SFD_STU_CALLS * re["k1"]),
+                     gn=iters * (it_calls * CIFAR_GN_SITES + SFD_STU_CALLS * re["gn"]),
+                     dq=iters * SFD_STU_CALLS * ATTENTION_SITES,
+                     dkv=iters * SFD_STU_CALLS * ATTENTION_SITES)
+        step = make_sfd_train_step(student, teacher, cfg, opt, lpips_fn=fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        secs, losses = [], []
+        for it in range(iters):
+            lat = stacked_randn(range(it * SFD_BATCH, (it + 1) * SFD_BATCH), (32, 32, 3),
+                                device="cuda")
+            start, end = _events()
+            start.record()
+            losses.append(step(lat)["loss"].item())
+            end.record()
+            torch.cuda.synchronize()
+            secs.append(start.elapsed_time(end) / 1000)
+        counts = _counts()
+        print(f"[SFD LPIPS] {label}: {iters} iteration(s) of {SFD_BATCH} (num_steps "
+              f"{SFD_STEPS}, M {SFD_M}, the euler teacher, AFS, remat), s/iteration "
+              f"{[round(v, 4) for v in secs]} (CUDA events; the first with LPIPS includes "
+              f"cuDNN's plans), losses {[round(v, 4) for v in losses]}, torch.cuda.max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {counts}")
+        _check(all(math.isfinite(v) for v in losses), f"SFD LPIPS: {label}: losses not finite")
+        _check(counts == want, f"SFD LPIPS: {label}: launches {counts}, expected {want}")
+        out[label] = dict(secs=secs, counts=counts)
+    a, b = (stacked_randn(range(k, k + SFD_BATCH), (32, 32, 3), device="cuda").clamp(-1, 1)
+            for k in (0, SFD_BATCH))
+    with torch.no_grad():
+        ms = _time_ms(lambda: lp(a, b), reps=3, warmup=1)
+    flops = _lpips_flops(lp, SFD_BATCH)
+    bound = flops / PEAK_FLOPS[torch.float32] * 1e3
+    steady = {k: v["secs"][-1] for k, v in out.items()}
+    print(f"[SFD LPIPS] the LPIPS forward at batch {SFD_BATCH} (2 x {SFD_BATCH} images at 224): "
+          f"{ms:.3f} ms, its f32 bound {bound:.3f} ms ({flops / 1e12:.3f} TFLOP of VGG16 convs "
+          f"over 67 TFLOP/s, TF32 off), {bound / ms:.3f} of it; the second iteration "
+          f"{steady['with LPIPS']:.4f} s with LPIPS, {steady['without LPIPS']:.4f} s without "
+          f"(LPIPS's share {1 - steady['without LPIPS'] / steady['with LPIPS']:.4f})")
+    del teacher, opt, step, lp, a, b
+    torch.cuda.empty_cache()
+    return dict(lpips_counts=out["with LPIPS"]["counts"], net=student)
+
+
+def _p45_augment_and_ema(net) -> dict:
+    """Phase 45 (c): EDM's CIFAR-10 augment pipe on 512 images, the card's
+    result against the CPU's on the same draws (1e-5 * max); one weight
+    gradient of the full-width CIFAR-10 EDMPrecond ``net`` (phase 45 (b)'s
+    student, unit scale, remat off, every weight trained; f32, TF32 off) in
+    train mode (dropout 0.13) on the first 128 augmented images with
+    their augment labels, under EDM's loss, K1 + K2 + K3 against the
+    all-plain net on the same dropout masks (one seeded generator each), 1e-4
+    * max, exact launches; then one ``ema_update`` over the LSUN-Bedroom LDM
+    U-Net's f32 parameters, bit-equal to the plain formula tensor by tensor,
+    timed against its byte bound (read two, write one) and the per-tensor
+    loop."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pipe = AugmentPipe(**EDM_AUGMENT)
+    _check(pipe.label_dim == 9, f"augment pipe: {pipe.label_dim} labels, EDM's augment_dim is 9")
+    g = torch.Generator("cuda").manual_seed(453)
+    images = torch.rand((AUGMENT_BATCH, 32, 32, 3), generator=g, device="cuda") * 2 - 1
+    draws = pipe.draw(AUGMENT_BATCH, 32, 32, g, "cuda")
+    aug = pipe.apply(images, draws)
+    aug_cpu = pipe.apply(images.cpu(), draws.to("cpu"))
+    err = (aug.cpu() - aug_cpu).abs().max().item()
+    bound = WARP_TOL * aug_cpu.abs().max().item()
+    with torch.no_grad():
+        ms = _time_ms(lambda: pipe(images, g), reps=5, warmup=1)
+    moved = (draws.labels != 0).any(1).sum().item()
+    print(f"[augment] EDM's CIFAR-10 pipe {EDM_AUGMENT} on {AUGMENT_BATCH} images: "
+          f"{moved} with a transform, {int((draws.labels[:, 0] == 1).sum().item())} x-flipped; "
+          f"the card against the CPU on the same draws: max abs err {err:.3g} (tol "
+          f"{WARP_TOL:g} * max = {bound:.3g}); one call (draws and apply) {ms:.3f} ms")
+    _check(torch.isfinite(aug).all().item() and err <= bound,
+           "augment pipe: the card's warp disagrees with the CPU's")
+
+    net.model.remat = False
+    net.requires_grad_(True).train()
+    n = AUGMENT_GRAD_BATCH
+    y, labels = aug[:n], draws.labels[:n]
+    sigma = (torch.randn(n, generator=g, device="cuda") * 1.2 - 1.2).exp()  # EDM's P_mean, P_std
+    noisy = y + torch.randn(y.shape, generator=g, device="cuda") * sigma[:, None, None, None]
+    weight = ((sigma ** 2 + 0.25) / (sigma * 0.5) ** 2)[:, None, None, None]
+    params = list(net.parameters())
+
+    def grads():
+        masks = torch.Generator("cuda").manual_seed(454)
+        d = net(noisy, sigma, augment_labels=labels, generator=masks)
+        return torch.autograd.grad((weight * (d - y) ** 2).sum() / n, params)
+
+    print(f"[train mode] the CIFAR-10 EDMPrecond in train mode (dropout "
+          f"{net.model.enc['32x32_block0'].dropout_rate}), EDM's loss at batch {n}, sigma "
+          f"lognormal(-1.2, 1.2), the pipe's augment labels through map_augment")
+    got = _param_grads_vs_plain("train-mode weight gradient", grads, _plain_net_patches(layers),
+                                dict(k1=ATTENTION_SITES, dq=ATTENTION_SITES, dkv=ATTENTION_SITES,
+                                     gn=CIFAR_GN_SITES))
+    train_counts = _counts()
+    aug_grad = got[[name for name, _ in net.named_parameters()].index("model.map_augment.weight")]
+    with torch.no_grad():
+        masks = torch.Generator("cuda").manual_seed(454)
+        d_train = net(noisy, sigma, augment_labels=labels, generator=masks)
+        net.eval()
+        d_eval = net(noisy, sigma, augment_labels=labels)
+    print(f"[train mode] map_augment's gradient max {aug_grad.abs().max().item():.4g}; D in "
+          f"train mode against eval mode: max abs diff {(d_train - d_eval).abs().max().item():.4g}")
+    _check(aug_grad.abs().max().item() > 0, "train mode: the augment labels reach no weight")
+    _check((d_train - d_eval).abs().max().item() > 0, "train mode: dropout did nothing")
+    del net, got, params, aug_grad, d_train, d_eval, images, aug, aug_cpu
+    torch.cuda.empty_cache()
+
+    shapes = {k: p.shape for k, p in LDMUNet(device="meta", **LDM_CONFIGS[LDM]["unet"])
+              .named_parameters()}
+    p0 = {k: torch.randn(shape, generator=g, device="cuda") for k, shape in shapes.items()}
+    p1 = {k: v + 0.01 * torch.randn(v.shape, generator=g, device="cuda") for k, v in p0.items()}
+    state = ema_init(p0)
+    c = torch.ones((), device="cuda")
+    d = torch.clamp((1.0 + c) / (10.0 + c), max=0.9999)
+    want = {k: e - (1.0 - d) * (e - p1[k]) for k, e in p0.items()}
+    state = ema_update(state, p1)
+    same = all(torch.equal(state.params[k], want[k]) for k in want)
+    del want
+    count = sum(v.numel() for v in p0.values())
+    ms = _time_ms(lambda: ema_update(state, p1), reps=10, warmup=2)
+
+    def loop():
+        w = 1.0 - torch.clamp((1.0 + c) / (10.0 + c), max=0.9999)
+        for k, e in state.params.items():
+            e.sub_(w * (e - p1[k]))
+
+    loop_ms = _time_ms(loop, reps=3, warmup=1)
+    nbytes = 3 * 4 * count
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    print(f"[EMA] ema_update over the LSUN-Bedroom LDM U-Net's {len(p0)} f32 tensors "
+          f"({count / 1e6:.1f}M parameters): bit-equal to e - (1 - d) * (e - p) tensor by "
+          f"tensor {same}; {ms:.4f} ms (CUDA events), bound {bound:.4f} ms ({nbytes / 1e9:.3f} "
+          f"GB: the averages and the parameters read, the averages written, over 3.35 TB/s), "
+          f"{bound / ms:.3f} of it; the per-tensor loop {loop_ms:.4f} ms; count "
+          f"{int(state.count)}")
+    _check(same, "EMA: ema_update differs from the plain formula")
+    del p0, p1, state
+    torch.cuda.empty_cache()
+    return dict(train_counts=train_counts)
+
+
+def _p45_attention_rows(sfd: dict, fwd32: str, bwd32: str, tpu: str) -> list:
+    """(name, source, TPU kernel, launch key, fields) of K1 / K2 / K3 in f32
+    at the CIFAR-10 student's [128, ...] shapes, whose times phase 37
+    measured: the rows of phase 45's CIFAR-10 paths."""
+    return [("flash_attention_mh in f32 at [128, 256, 1, 256] (K1 in 3xTF32)", fwd32,
+             f"{tpu}:157", "k1", sfd["k1"]),
+            ("flash_attention_bwd_dq in f32 at [128, 256, 1, 256] (K2 dQ in 3xTF32)", bwd32,
+             f"{tpu}:406", "dq", sfd["k2"]["dq"]),
+            ("flash_attention_bwd_dkv in f32 at [128, 256, 1, 256] (K2 dK/dV in 3xTF32)", bwd32,
+             f"{tpu}:554", "dkv", sfd["k2"]["dkv"]),
+            (f"groupnorm_silu in f32 at [128, 32, 32, 256] (K3, route {sfd['k3']['route']})",
+             "diff_sampler_tpu_torch/csrc/groupnorm.cu",
+             "diff_sampler_tpu/ops/pallas_groupnorm.py:29", "gn", sfd["k3"])]
+
+
+def phase_last_modules(kl: dict, workdir: str) -> dict:
+    """Phase 45 (after phase 40, the ranks joined; 45a's gates ran beside
+    them): the KL encode's times, LPIPS in SFD's second stage, the augment
+    pipe with augment labels and dropout, and the parameter EMA."""
+    out = _p45_encode_times(kl)
+    out.update(_p45_lpips(workdir))
+    out.update(_p45_augment_and_ema(out.pop("net")))
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, fields) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **{k: fields[k] for k in (
@@ -5810,16 +6226,21 @@ def main() -> int:
             _phase("phase 35c, the ImageNet-256 AMED step refuses on the card",
                    phase_cg_amed_refusal)
             p44_one = _phase("phase 44's one-process references", phase_p44_references, p44_dir)
+            kl = _phase("phase 45a, the SD v1.5 KL encode from phase 32's checkpoint (gates)",
+                        phase_kl_encode, workdir)
             (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.deterministic) = flags
             t_wait = time.perf_counter()
             p44_ranks[0].join()  # before phase 39's memory
-            print(f"[time] waiting for phase 44's ranks after phases 32, 35a, 35c and 44's "
-                  f"references: {time.perf_counter() - t_wait:.2f} s", flush=True)
+            print(f"[time] waiting for phase 44's ranks after phases 32, 35a, 35c, 44's "
+                  f"references and 45a: {time.perf_counter() - t_wait:.2f} s", flush=True)
             sfd_sd = _phase("phase 39, the SD student from phase 32's checkpoint", phase_sfd_sd,
                             workdir)
             _phase("phase 40, the CLIP score at ViT-g-14's width", phase_clip_score, workdir,
                    os.path.join(edm_dir, "samples"))
+            p45 = _phase("phase 45, the KL encode's times, LPIPS in SFD's second stage, the "
+                         "augment pipe with augment labels and dropout, the EMA",
+                         phase_last_modules, kl, workdir)
     adm_k = _phase("phase 34a, K1 / K2 / K3 at the 256 px shapes", phase_adm_kernels)
     _phase("phase 34b, LSUN-Bedroom 256 (CM) D and gradient f32",
            phase_cm_denoiser_and_gradient)
@@ -5900,7 +6321,12 @@ def main() -> int:
                     ("K2 dQ / dK/dV f32 in the ring on CIFAR-10 AMED --sp=2",
                      min(par["amed_sp"].values())),
                     ("K2 dQ / dK/dV bf16 in the ring on ImageNet-256 CG --sp=2",
-                     min(par["cg"].values()))):
+                     min(par["cg"].values())),
+                    ("K3 f32 on the SD v1.5 KL encode and its round trip", p45["kl_gn"]),
+                    *((f"{k} f32 on the CIFAR-10 SFD second stage with LPIPS",
+                       p45["lpips_counts"][k]) for k in ("k1", "dq", "dkv", "gn")),
+                    *((f"{k} f32 on the CIFAR-10 train-mode gradient with augment labels",
+                       p45["train_counts"][k]) for k in ("k1", "dq", "dkv", "gn"))):
         _check(n > 0, f"{name} was not launched on its path")
     print(f"[time] whole run: {time.perf_counter() - t_start:.2f} s")
     print(smi)
@@ -6126,6 +6552,20 @@ def main() -> int:
                       f"0's; times at [2, 256, 256, 128])",
                       "diff_sampler_tpu_torch/csrc/groupnorm.cu",
                       "diff_sampler_tpu/ops/pallas_groupnorm.py:29", tp["gn"], tp["k3"]),
+        _kernel_entry(f"groupnorm_silu in f32 at the SD v1.5 KL encoder's [8, 512, 512, 128] (K3, "
+                      f"route {p45['kl_k3']['route']}: the encode's 22 GroupNorms and the round "
+                      f"trip's decode, phase 45)", "diff_sampler_tpu_torch/csrc/groupnorm.cu",
+                      "diff_sampler_tpu/ops/pallas_groupnorm.py:29", p45["kl_gn"], p45["kl_k3"]),
+        *(_kernel_entry(f"{what} (the CIFAR-10 SFD second stage with LPIPS at 224, two "
+                        f"iterations at batch 128 through training/sfd.py, phase 45; times of "
+                        f"phase 37 at the same shape)", src, f"{tpu_src}", p45["lpips_counts"][k],
+                        fields)
+          for what, src, tpu_src, k, fields in _p45_attention_rows(sfd, fwd32, bwd32, tpu)),
+        *(_kernel_entry(f"{what} (the CIFAR-10 EDMPrecond's weight gradient in train mode, "
+                        f"dropout 0.13, with EDM's augment labels at batch 128, phase 45; times "
+                        f"of phase 37 at the same shape)", src, f"{tpu_src}",
+                        p45["train_counts"][k], fields)
+          for what, src, tpu_src, k, fields in _p45_attention_rows(sfd, fwd32, bwd32, tpu)),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

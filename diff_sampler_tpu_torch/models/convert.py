@@ -15,8 +15,9 @@ The names need no case of their own for SFD-v's modules: ``affine_step``,
 ``freqs`` (a buffer here, a param there) carry over as any layer's do.
 
 ``load_ldm_jax_params`` loads the JAX package's latent-diffusion param trees
-(``unet``, ``decoder``, ``post_quant_conv`` and, for a VQ first stage,
-``codebook``), whose modules are named by the reference's state_dict paths
+(``unet``, ``decoder``, ``post_quant_conv``, for a VQ first stage
+``codebook``, and for a KL stage built with its encoder ``encoder`` and
+``quant_conv``), whose modules are named by the reference's state_dict paths
 with '.' -> '_' (``diff_sampler_tpu/models/ldm.py::_mechanical``): it walks
 the port's own state_dict keys and looks each path up with its dots
 replaced, never splitting a JAX name on '_'.  That covers Stable Diffusion's
@@ -41,6 +42,11 @@ the transpose of the port's [C, T].
 Inception-V3 params (``bn_scale`` / ``bn_bias`` / ``bn_mean`` / ``bn_var``
 beside each conv) to the port's detector, which has torchvision's names.
 
+``lpips_state_dict_from_jax`` carries the JAX package's LPIPS params
+(``vgg.conv0``-``conv12`` HWIO kernels, the heads ``lin0``-``lin4`` as [C]
+vectors) to the port's ``eval.lpips.LPIPS``, which has torchvision's
+``features.{i}`` and the LPIPS heads' ``lin{i}.model.1.weight`` names.
+
 ``openclip_state_dict_from_jax`` carries the JAX package's OpenCLIP params
 (``openclip_params_from_state_dict``'s tree: HWIO patch conv, linear
 kernels stored [in, out]) back to open_clip's state_dict names, which the
@@ -60,7 +66,8 @@ import torch
 
 __all__ = ["params_from_jax", "params_to_jax", "load_jax_params", "load_ldm_jax_params",
            "ldm_params_to_jax", "ldm_params_from_jax", "load_adm_jax_params", "absent_from_jax",
-           "inception_state_dict_from_jax", "openclip_state_dict_from_jax"]
+           "inception_state_dict_from_jax", "lpips_state_dict_from_jax",
+           "openclip_state_dict_from_jax"]
 
 _SPLIT_PREFIXES = ("enc_", "dec_")
 # U-Net level names after the prefix: ``16x16_block0``, ``8x8_aux_norm``...
@@ -72,7 +79,8 @@ def absent_from_jax(key: str) -> bool:
     """State_dict keys a JAX params tree never holds: the resample filter
     buffers, which the JAX package recomputes from the config, and
     ``map_augment``, which the JAX init creates only when augment labels are
-    passed (reference checkpoints carry it; sampling never applies it)."""
+    passed (reference checkpoints carry it; sampling passes no augment
+    labels)."""
     parts = key.split(".")
     return parts[-1] == "resample_filter" or parts[-2:] == ["map_augment", "weight"]
 
@@ -193,12 +201,17 @@ def _from_mechanical(flat: Mapping[str, Any], like: Mapping[str, torch.Tensor],
 
 def load_ldm_jax_params(ld: torch.nn.Module, trees: Mapping[str, Any]) -> torch.nn.Module:
     """Load the JAX package's LatentDiffusion param trees (``unet``,
-    ``decoder``, ``post_quant_conv`` and a VQ stage's ``codebook``) into the
-    port's ``models.ldm.LatentDiffusion`` (VQ or KL) in place.  Every
-    state_dict key must be found and every JAX module used."""
+    ``decoder``, ``post_quant_conv``, a VQ stage's ``codebook`` and, where
+    ``ld``'s KL stage has its encoder, ``encoder`` and ``quant_conv``, as
+    ``ldm_state_dict_to_params`` splits a checkpoint) into the port's
+    ``models.ldm.LatentDiffusion`` in place.  Every state_dict key must be
+    found and every JAX module used."""
     flat = {**{f"unet_{k}": v for k, v in trees["unet"].items()},
             **{f"first_stage_decoder_{k}": v for k, v in trees["decoder"].items()},
             "first_stage_post_quant_conv": trees["post_quant_conv"]}
+    if getattr(ld.first_stage, "encoder", None) is not None:
+        flat.update({f"first_stage_encoder_{k}": v for k, v in trees["encoder"].items()})
+        flat["first_stage_quant_conv"] = trees["quant_conv"]
     special = {"first_stage.codebook": trees["codebook"]} if "codebook" in trees else {}
     ld.load_state_dict(_from_mechanical(flat, ld.state_dict(), special))
     return ld
@@ -284,6 +297,23 @@ def inception_state_dict_from_jax(params: Mapping[str, Any], prefix: str = ""
                 np.array(val, np.float32))
         else:
             out.update(inception_state_dict_from_jax(val, f"{prefix}{key}."))
+    return out
+
+
+def lpips_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``LPIPS`` params (numpy leaves) as the port's
+    ``eval.lpips.LPIPS`` state_dict: ``vgg.conv{j}`` HWIO -> the j-th conv
+    of torchvision's ``features`` OIHW, ``lin{i}`` [C] -> ``lin{i}.model.1.weight``
+    [1, C, 1, 1]."""
+    from ..eval.lpips import VGG_CONV_INDICES
+
+    out: Dict[str, torch.Tensor] = {}
+    for j, tv in enumerate(VGG_CONV_INDICES):
+        conv = params["vgg"][f"conv{j}"]
+        out[f"features.{tv}.weight"] = _t(conv["kernel"], 3, 2, 0, 1)
+        out[f"features.{tv}.bias"] = _t(conv["bias"])
+    for i in range(5):
+        out[f"lin{i}.model.1.weight"] = _t(params[f"lin{i}"]).reshape(1, -1, 1, 1)
     return out
 
 

@@ -101,7 +101,8 @@ def load_edm_checkpoint(module: EDMPrecond, state_dict) -> EDMPrecond:
     strictly, with two exemptions: ``resample_filter`` buffers are not
     loaded (the module keeps its own, from the config, as the JAX package
     recomputes them), and the keys ``convert.absent_from_jax`` names may be
-    missing (``map_augment``, which sampling never applies: it is zeroed).
+    missing (``map_augment``, which only augment labels reach and sampling
+    passes none: it is zeroed).
     Any other missing or unexpected key raises."""
     sd = {k: v for k, v in state_dict.items() if k.split(".")[-1] != "resample_filter"}
     missing, unexpected = module.load_state_dict(sd, strict=False)

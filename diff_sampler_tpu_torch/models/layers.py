@@ -38,6 +38,8 @@ __all__ = [
     "attention",
     "positional_embedding",
     "FourierEmbedding",
+    "dropout",
+    "drop_labels",
 ]
 
 
@@ -184,6 +186,33 @@ def attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     q, k, v = qkv.reshape(n, h * w, num_heads, ch, 3).unbind(-1)  # [N, HW, heads, ch]
     out = sdpa(q, k, v, scale=1.0 / math.sqrt(ch))
     return out.reshape(n, h, w, c)
+
+
+def _keep_mask(shape, keep: float, generator, device) -> torch.Tensor:
+    """Bernoulli(``keep``) draws of ``shape`` from ``generator``: uniform <
+    keep, as ``jax.random.bernoulli`` draws them."""
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
+    """Flax's ``nn.Dropout`` with ``deterministic=False``: each element kept
+    with probability 1 - rate and scaled by 1 / (1 - rate), else zero; x as
+    it is at rate 0, zeros at rate 1."""
+    if rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    return torch.where(_keep_mask(x.shape, keep, generator, x.device), x / keep,
+                       torch.zeros_like(x))
+
+
+def drop_labels(labels: torch.Tensor, rate: float, n: int, generator=None) -> torch.Tensor:
+    """Label dropout (``deterministic=False``): ``labels`` times a keep mask
+    [n, 1] drawn with probability 1 - rate per sample."""
+    if rate <= 0.0:
+        return labels
+    return labels * _keep_mask((n, 1), 1.0 - rate, generator, labels.device).to(labels.dtype)
 
 
 def positional_embedding(x: torch.Tensor, num_channels: int, max_positions: int = 10000,

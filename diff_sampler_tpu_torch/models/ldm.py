@@ -6,12 +6,15 @@ Counterpart of ``diff_sampler_tpu/models/ldm.py``: ``LDMUNet`` on both of
 its attention branches (the legacy AttentionBlock, and the SpatialTransformer
 with ``_LN``, self- and cross-attention and GEGLU) with the AMED bottleneck
 tap (the middle block's output), the ``_VAEBase`` resnet and mid-attention,
-``VAEDecoder``, ``VQModel`` (nearest-codebook quantisation, then decode),
-``AutoencoderKL`` (decode), ``LatentDiffusion`` (``scale_factor``,
-``conditioning_key``, the text encoder and ``get_learned_conditioning``),
-``LDM_CONFIGS``, and the loading of a reference checkpoint
-(``load_ldm_checkpoint``, the split of ``ldm_state_dict_to_params``).  The
-VAE encoders and the diagonal-Gaussian posterior come with a later slice.
+``VAEDecoder``, ``VAEEncoder`` (with ``_ConvDownAsym``, the stride-2 conv
+after (0, 1, 0, 1) padding), ``VQModel`` (nearest-codebook quantisation,
+then decode), ``AutoencoderKL`` (decode, and with its encoder ``encode``:
+``quant_conv``, then the ``DiagonalGaussianDistribution`` posterior),
+``LatentDiffusion`` (``scale_factor``, ``conditioning_key``, the text
+encoder and ``get_learned_conditioning``), ``LDM_CONFIGS``, and the loading
+of a reference checkpoint (``load_ldm_checkpoint``, the split of
+``ldm_state_dict_to_params``).  Every GroupNorm of the first stage runs
+through ``ops/groupnorm.py`` (K3 on the card).
 
 Module paths are the reference's torch state_dict names
 (``input_blocks.1.0.in_layers.0.weight``,
@@ -38,9 +41,10 @@ from . import adm
 from .adm import (_GN, AttentionBlock, Downsample, ResBlock, Upsample, _Conv, _Linear,
                   _lecun_normal, timestep_embedding)
 
-__all__ = ["LDMUNet", "SpatialTransformer", "VAEDecoder", "VQModel", "AutoencoderKL",
-           "LatentDiffusion", "LDM_CONFIGS", "build_latent_diffusion", "linear_alphas_cumprod",
-           "load_ldm_checkpoint", "reference_state_dict", "checkpoint_ignores"]
+__all__ = ["LDMUNet", "SpatialTransformer", "VAEDecoder", "VAEEncoder", "VQModel",
+           "AutoencoderKL", "DiagonalGaussianDistribution", "LatentDiffusion", "LDM_CONFIGS",
+           "build_latent_diffusion", "linear_alphas_cumprod", "load_ldm_checkpoint",
+           "reference_state_dict", "checkpoint_ignores"]
 
 
 def linear_alphas_cumprod(linear_start: float, linear_end: float,
@@ -49,6 +53,32 @@ def linear_alphas_cumprod(linear_start: float, linear_end: float,
     betas = np.linspace(linear_start ** 0.5, linear_end ** 0.5, timesteps,
                         dtype=np.float64) ** 2
     return np.cumprod(1.0 - betas)
+
+
+def _standard_normal(like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """N(0, 1) noise of ``like``'s shape, dtype and device, from ``generator``."""
+    return torch.randn(like.shape, generator=generator, dtype=like.dtype, device=like.device)
+
+
+class DiagonalGaussianDistribution:
+    """distributions.py: moments [..., 2 z] -> the (mean, logvar) halves of the
+    last axis, logvar clipped to [-30, 20], std = exp(logvar / 2)."""
+
+    def __init__(self, parameters: torch.Tensor, deterministic: bool = False):
+        self.mean, self.logvar = torch.chunk(parameters, 2, dim=-1)
+        self.logvar = torch.clamp(self.logvar, -30.0, 20.0)
+        self.deterministic = deterministic
+        self.std = torch.exp(0.5 * self.logvar)
+
+    def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """mean + std * N(0, 1) drawn from ``generator`` (the mean where
+        ``deterministic``)."""
+        if self.deterministic:
+            return self.mean
+        return self.mean + self.std * _standard_normal(self.mean, generator)
+
+    def mode(self) -> torch.Tensor:
+        return self.mean
 
 
 def _GN6(channels: int, device=None) -> _GN:
@@ -347,7 +377,7 @@ class LDMUNet(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# VQ first stage (modules/diffusionmodules/model.py, autoencoder.py)
+# VAE first stages (modules/diffusionmodules/model.py, autoencoder.py)
 # ---------------------------------------------------------------------------
 
 
@@ -436,6 +466,71 @@ class VAEDecoder(nn.Module):
         return self.conv_out(self.norm_out(h, apply_silu=True))
 
 
+class _ConvDownAsym(nn.Module):
+    """The encoder's Downsample (model.py:72-77, with_conv): zero padding
+    (0, 1, 0, 1) on H and W, then a stride-2 3x3 conv without padding.  The
+    conv is ``conv`` (the reference's ``down.{i}.downsample.conv``)."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.conv = _Conv(channels, channels, 3, stride=2, device=device)
+
+    def forward(self, x):
+        x = F.pad(x, (0, 0, 0, 1, 0, 1))  # NHWC: one zero column right, one row below
+        w = self.conv.weight.to(x.dtype)
+        return F.conv2d(x.permute(0, 3, 1, 2), w, self.conv.bias.to(x.dtype),
+                        stride=2).permute(0, 2, 3, 1)
+
+
+class VAEEncoder(nn.Module):
+    """model.py Encoder: conv_in, ``down`` levels from the highest resolution
+    (resnets, attention at ``attn_resolutions``, a ``_ConvDownAsym`` below
+    every level but the last), mid (resnet, attention, resnet), norm_out +
+    SiLU, conv_out to 2 * z_channels moments with ``double_z``."""
+
+    def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4),
+                 num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
+                 resolution: int = 256, in_channels: int = 3, z_channels: int = 3,
+                 double_z: bool = False, device=None):
+        super().__init__()
+        dev = dict(device=device)
+        curr_res = resolution
+        self.conv_in = _Conv(in_channels, ch, 3, **dev)
+        block_in = ch
+        down = []
+        for i_level, mult in enumerate(ch_mult):
+            block_out = ch * mult
+            blocks, attns = [], []
+            for _ in range(num_res_blocks):
+                blocks.append(_VAEResnet(block_in, block_out, **dev))
+                block_in = block_out
+                if curr_res in attn_resolutions:
+                    attns.append(_VAEAttn(block_in, **dev))
+            level = nn.ModuleDict({"block": nn.ModuleList(blocks), "attn": nn.ModuleList(attns)})
+            if i_level != len(ch_mult) - 1:
+                level["downsample"] = _ConvDownAsym(block_in, **dev)
+                curr_res //= 2
+            down.append(level)
+        self.down = nn.ModuleList(down)
+        self.mid = nn.ModuleDict({"block_1": _VAEResnet(block_in, block_in, **dev),
+                                  "attn_1": _VAEAttn(block_in, **dev),
+                                  "block_2": _VAEResnet(block_in, block_in, **dev)})
+        self.norm_out = _GN6(block_in, **dev)
+        self.conv_out = _Conv(block_in, 2 * z_channels if double_z else z_channels, 3, **dev)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for level in self.down:
+            for i, block in enumerate(level["block"]):
+                h = block(h)
+                if len(level["attn"]):
+                    h = level["attn"][i](h)
+            if "downsample" in level:
+                h = level["downsample"](h)
+        h = self.mid["block_2"](self.mid["attn_1"](self.mid["block_1"](h)))
+        return self.conv_out(self.norm_out(h, apply_silu=True))
+
+
 class VQModel(nn.Module):
     """The VQ autoencoder's decode path: nearest-codebook quantisation
     (VectorQuantizer2), post_quant_conv, decoder (VQModelInterface.decode
@@ -459,16 +554,31 @@ class VQModel(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """The KL autoencoder's decode path (autoencoder.py AutoencoderKL.decode):
-    post_quant_conv (1x1, embed_dim -> z_channels), then the decoder."""
+    """The KL autoencoder (autoencoder.py AutoencoderKL): ``decode`` is
+    post_quant_conv (1x1, embed_dim -> z_channels), then the decoder; built
+    with an ``encoder`` (a ``double_z`` ``VAEEncoder``), ``encode`` is the
+    encoder, ``quant_conv`` (1x1, 2 z_channels -> 2 embed_dim) and the
+    ``DiagonalGaussianDistribution`` over those moments."""
 
-    def __init__(self, decoder: VAEDecoder, embed_dim: int, z_channels: int, device=None):
+    def __init__(self, decoder: VAEDecoder, embed_dim: int, z_channels: int,
+                 encoder: Optional[VAEEncoder] = None, device=None):
         super().__init__()
         self.decoder = decoder
         self.post_quant_conv = _Conv(embed_dim, z_channels, 1, device=device)
+        self.encoder = encoder
+        self.quant_conv = (_Conv(2 * z_channels, 2 * embed_dim, 1, device=device)
+                           if encoder is not None else None)
 
     def decode(self, z):
         return self.decoder(self.post_quant_conv(z))
+
+    def encode(self, x) -> DiagonalGaussianDistribution:
+        """Images [N, H, W, 3] -> the posterior over latents [N, H/f, W/f,
+        embed_dim]."""
+        if self.encoder is None:
+            raise RuntimeError("this first stage was built without its encoder: "
+                               "build_latent_diffusion(..., encoder=True)")
+        return DiagonalGaussianDistribution(self.quant_conv(self.encoder(x)))
 
 
 class LatentDiffusion(nn.Module):
@@ -577,14 +687,18 @@ _CHECKPOINT_NAMES = (
     ("first_stage_model.decoder.", "first_stage.decoder."),
     ("first_stage_model.post_quant_conv.", "first_stage.post_quant_conv."),
     ("first_stage_model.quantize.embedding.weight", "first_stage.codebook"),
+    ("first_stage_model.encoder.", "first_stage.encoder."),
+    ("first_stage_model.quant_conv.", "first_stage.quant_conv."),
     ("cond_stage_model.", "cond_stage_model."),
 )
+# The first stage's encoder and quant_conv: loaded into a stack built with
+# its encoder (``build_latent_diffusion(..., encoder=True)``), else left out
+ENCODER_PREFIXES = ("first_stage_model.encoder.", "first_stage_model.quant_conv.")
 # Parts of a reference LDM / SD checkpoint that the port does not load: the
-# first stage's encoder and quant_conv (the KL encode of the SFD slice),
-# the EMA copy, the text tower's position_ids (a constant arange), and the
-# top-level DDPM buffers (the port recomputes alphas_cumprod from the config)
-CHECKPOINT_IGNORED_PREFIXES = ("first_stage_model.encoder.", "first_stage_model.quant_conv.",
-                               "model_ema.")
+# encoder's (above) where the stack has none, the EMA copy, the text
+# tower's position_ids (a constant arange), and the top-level DDPM buffers
+# (the port recomputes alphas_cumprod from the config)
+CHECKPOINT_IGNORED_PREFIXES = ENCODER_PREFIXES + ("model_ema.",)
 CHECKPOINT_IGNORED_KEYS = (
     "cond_stage_model.transformer.text_model.embeddings.position_ids",
     "betas", "alphas_cumprod", "alphas_cumprod_prev", "sqrt_alphas_cumprod",
@@ -594,14 +708,17 @@ CHECKPOINT_IGNORED_KEYS = (
     "scale_factor")
 
 
-def checkpoint_ignores(key: str) -> bool:
-    """Whether a reference checkpoint key is one the port leaves out."""
+def checkpoint_ignores(key: str, encoder: bool = False) -> bool:
+    """Whether a reference checkpoint key is one the port leaves out from a
+    stack without (``encoder=False``) or with its first stage's encoder."""
+    if encoder and key.startswith(ENCODER_PREFIXES):
+        return False
     return key in CHECKPOINT_IGNORED_KEYS or key.startswith(CHECKPOINT_IGNORED_PREFIXES)
 
 
-def _port_name(key: str) -> Optional[str]:
+def _port_name(key: str, encoder: bool) -> Optional[str]:
     for ref, port in _CHECKPOINT_NAMES:
-        if key.startswith(ref) and not checkpoint_ignores(key):
+        if key.startswith(ref) and not checkpoint_ignores(key, encoder):
             return port + key[len(ref):]
     return None
 
@@ -609,14 +726,17 @@ def _port_name(key: str) -> Optional[str]:
 def load_ldm_checkpoint(ld: LatentDiffusion, state_dict) -> LatentDiffusion:
     """Load a reference LDM / SD checkpoint state_dict into ``ld`` in place.
     Every key of ``ld`` must be in the checkpoint and every checkpoint key
-    must load, apart from the ones ``checkpoint_ignores`` names.  The legacy
-    attention's Conv1d weights [O, I, 1] load into the port's 1x1 convs."""
+    must load, apart from the ones ``checkpoint_ignores`` names (the
+    encoder's and quant_conv's load where ``ld``'s first stage has an
+    encoder).  The legacy attention's Conv1d weights [O, I, 1] load into
+    the port's 1x1 convs."""
     own = ld.state_dict()
+    encoder = getattr(ld.first_stage, "encoder", None) is not None
     sd, unmatched = {}, []
     for key, val in state_dict.items():
-        name = _port_name(key)
+        name = _port_name(key, encoder)
         if name not in own:
-            if not checkpoint_ignores(key):
+            if not checkpoint_ignores(key, encoder):
                 unmatched.append(key)
             continue
         if val.dim() == 3 and own[name].dim() == 4:
@@ -648,7 +768,8 @@ def reference_state_dict(ld: LatentDiffusion) -> dict:
 
 def build_latent_diffusion(dataset_name: str, *, state_dict=None,
                            dtype: torch.dtype = torch.float32, seed: int = 0,
-                           remat: bool = False, device="cuda") -> LatentDiffusion:
+                           remat: bool = False, encoder: bool = False,
+                           device="cuda") -> LatentDiffusion:
     """The LatentDiffusion stack of a config, in eval mode.
 
     With ``state_dict`` (a reference checkpoint's, ``models.torch_import``)
@@ -659,9 +780,14 @@ def build_latent_diffusion(dataset_name: str, *, state_dict=None,
     decoder drawn from one generator seeded with ``seed``
     (``factory.init_params``), the post-quant conv the identity and a VQ
     stage's codebook ``RandomState(0).randn(n_embed, z_channels)``, as the
-    JAX package's random init makes them, and no text encoder.  The first
-    stage is decode only: its encoder (``double_z``) comes with a later
-    slice.  ``remat``: the U-Net's (``LDMUNet``)."""
+    JAX package's random init makes them, and no text encoder.
+    ``encoder``: a KL first stage gets its ``VAEEncoder`` (``double_z``) and
+    ``quant_conv``, loaded from the checkpoint's ``first_stage_model.encoder.*``
+    and ``quant_conv.*`` (random weights: drawn with the rest, quant_conv the
+    identity), so that ``first_stage.encode`` runs; without it (the
+    default) the stage decodes only and a checkpoint's encoder weights are
+    not loaded.  A VQ stage has no encode, as in the JAX package.
+    ``remat``: the U-Net's (``LDMUNet``)."""
     from .factory import init_params
 
     cfg = LDM_CONFIGS[dataset_name]
@@ -671,6 +797,9 @@ def build_latent_diffusion(dataset_name: str, *, state_dict=None,
     if cfg["conditioning_key"] not in (None, "crossattn"):
         raise NotImplementedError(f"conditioning key {cfg['conditioning_key']!r}: only "
                                   f"'crossattn' (a context for the U-Net) is ported")
+    if encoder and cfg["first_stage"] != "kl":
+        raise ValueError(f"{dataset_name}: only a KL first stage encodes (the JAX package's "
+                         f"VQModel has no encode)")
     vae = {k: v for k, v in cfg["vae"].items() if k != "double_z"}
     zc = vae["z_channels"]
     unet = LDMUNet(dtype=dtype, remat=remat, device=device, **cfg["unet"])
@@ -678,7 +807,9 @@ def build_latent_diffusion(dataset_name: str, *, state_dict=None,
     if cfg["first_stage"] == "vq":
         first = VQModel(decoder, cfg.get("n_embed", 16), zc, device=device)
     else:
-        first = AutoencoderKL(decoder, cfg["embed_dim"], zc, device=device)
+        enc = (VAEEncoder(in_channels=3, double_z=cfg["vae"].get("double_z", False),
+                          device=device, **vae) if encoder else None)
+        first = AutoencoderKL(decoder, cfg["embed_dim"], zc, encoder=enc, device=device)
     text = None
     if (state_dict is not None and cfg["conditioning_key"] == "crossattn"
             and any(k.startswith("cond_stage_model.") for k in state_dict)):
@@ -695,6 +826,10 @@ def build_latent_diffusion(dataset_name: str, *, state_dict=None,
     with torch.no_grad():
         first.post_quant_conv.weight.copy_(torch.eye(zc)[:, :, None, None])
         first.post_quant_conv.bias.zero_()
+        if encoder:
+            first.quant_conv.weight.copy_(torch.eye(*first.quant_conv.weight.shape[:2])[
+                :, :, None, None])
+            first.quant_conv.bias.zero_()
         if cfg["first_stage"] == "vq":
             first.codebook.copy_(torch.from_numpy(
                 np.random.RandomState(0).randn(cfg.get("n_embed", 16), zc).astype(np.float32)))

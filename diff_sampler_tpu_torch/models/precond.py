@@ -48,19 +48,23 @@ class EDMPrecond(nn.Module):
             **(model_kwargs or {}))
 
     def forward(self, x, sigma, class_labels=None, *, step_condition=None,
-                skip_tuning: bool = False):
+                skip_tuning: bool = False, augment_labels=None, generator=None):
         """x: [N, H, W, C]; sigma: a scalar or [N] (float or tensor);
         class_labels: one-hot [N, label_dim] or [1, label_dim], or None.  As
         in the JAX package, an unconditional net ignores them and a
         conditional one takes None as a zero one-hot row for every sample.
         ``step_condition``: SFD-v's step count (a scalar or [N], made f32;
         the inner net must be built with ``use_step_condition``) or None;
-        ``skip_tuning``: SFD's skip-connection scaling."""
+        ``skip_tuning``: SFD's skip-connection scaling; ``augment_labels``:
+        the augment pipe's labels [N, augment_dim] for the inner net's
+        ``map_augment``, or None; ``generator``: the dropout and
+        label-dropout draws of a net in train mode."""
         if step_condition is not None:
             step_condition = torch.as_tensor(step_condition, dtype=torch.float32,
                                              device=x.device).reshape(-1)
         return self._precondition(x, sigma, class_labels, None, step_condition=step_condition,
-                                  skip_tuning=skip_tuning)
+                                  skip_tuning=skip_tuning, augment_labels=augment_labels,
+                                  generator=generator)
 
     def with_bottleneck(self, x, sigma, module_name: str, class_labels=None):
         """(D(x, sigma), the raw output activation of the inner model's

@@ -11,12 +11,20 @@ step count, ``map_step_layer0`` / ``map_step_layer1``) when the call passes
 ``step_condition``; ``skip_tuning`` scales each skip tensor the decoder
 concatenates by 0.75 + 0.25 * i / n_skips; ``remat`` recomputes each block
 in the backward (``torch.utils.checkpoint``) instead of storing its
-activations.  ``UNetBlock`` holds the reference's ``nn.Dropout`` (at the
-configs' rates: 0.13 on CIFAR-10), which acts only in train mode; every
-path runs the nets in eval mode (``factory.build_edm_model``), where it is
-the identity, as the JAX package runs them deterministic, and ``bind`` and
-the SFD train steps refuse a net in train mode.  Label dropout is not
-ported: no JAX CLI path reaches it.  Tensor parallel (``parallel/tp.py``):
+activations.
+
+Train mode (``.train()``, the counterpart of the JAX package's
+``deterministic=False``) turns on ``UNetBlock``'s dropout (at the configs'
+rates: 0.13 on CIFAR-10) and the label dropout of a class-conditional net
+(``class_labels`` times a Bernoulli keep mask [N, 1]), drawn from the
+``generator`` a forward is given (the torch default generator of the
+device where it is None), as Flax draws them (``models.layers.dropout``,
+``drop_labels``).  Every sampling and distillation path runs the nets in
+eval mode (``factory.build_edm_model``), as the JAX package runs them
+deterministic, and ``bind``, the AMED step and the SFD train steps refuse
+a net in train mode.  ``augment_labels`` (the augment pipe's,
+``ops/augment.py``) enter the embedding through ``map_augment`` where the
+net has one.  Tensor parallel (``parallel/tp.py``):
 a block runs on this rank's channels between conv0 and conv1 and on its
 heads (or on every head of the gathered qkv, where tp does not divide
 them) between qkv and proj.
@@ -33,7 +41,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.tp import attend
-from .layers import Conv2d, FourierEmbedding, GroupNorm, Linear, attention, positional_embedding
+from .layers import (Conv2d, FourierEmbedding, GroupNorm, Linear, attention, drop_labels, dropout,
+                     positional_embedding)
 
 __all__ = ["UNetBlock", "SongUNet", "DhariwalUNet"]
 
@@ -68,7 +77,7 @@ class UNetBlock(nn.Module):
         self.affine_step = (Linear(emb_channels, n_aff, device=device, **init)
                             if use_step_condition else None)
         self.norm1 = GroupNorm(out_channels, eps=eps, device=device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout_rate = dropout
         self.conv1 = Conv2d(out_channels, out_channels, kernel=3, device=device, **init_zero)
         self.skip = None
         if out_channels != in_channels or up or down:
@@ -100,9 +109,10 @@ class UNetBlock(nn.Module):
             cut.row(self.proj)
             self.tp_heads = cut.heads(self.num_heads)
 
-    def forward(self, x, emb, emb_step=None):
+    def forward(self, x, emb, emb_step=None, generator=None):
         """``emb_step``: the step-condition embedding (a block built with
-        ``use_step_condition``), or None for no second modulation."""
+        ``use_step_condition``), or None for no second modulation;
+        ``generator``: the dropout's draws in train mode."""
         orig = x
         x = self.conv0(F.silu(self.norm0(x)))
         params = self.affine(emb)[:, None, None, :].to(x.dtype)
@@ -120,7 +130,9 @@ class UNetBlock(nn.Module):
             # the embedding is added before the norm
             add = params if params_step is None else params + params_step
             x = F.silu(self.norm1(x + add))
-        x = self.conv1(self.dropout(x))
+        if self.training:
+            x = dropout(x, self.dropout_rate, generator)
+        x = self.conv1(x)
         x = (x + (self.skip(orig) if self.skip is not None else orig)) * self.skip_scale
         if self.num_heads:
             a = attend(self.tp_heads, attention, self.num_heads, self.qkv(self.norm2(x)))
@@ -128,13 +140,18 @@ class UNetBlock(nn.Module):
         return x
 
 
-def _block(layer: UNetBlock, remat: bool, x, emb, emb_step):
+def _block(layer: UNetBlock, remat: bool, x, emb, emb_step, generator=None):
     """One block; with ``remat`` while autograd records, its activations are
     recomputed in the backward instead of stored (the JAX package's
-    ``nn.remat`` per block)."""
-    if remat and torch.is_grad_enabled():
-        return checkpoint(layer, x, emb, emb_step, use_reentrant=False)
-    return layer(x, emb, emb_step)
+    ``nn.remat`` per block).  A block in train mode draws its dropout mask
+    again in the recompute from the default generator, whose state
+    ``checkpoint`` keeps; an explicit ``generator`` is refused there."""
+    if not (remat and torch.is_grad_enabled()):
+        return layer(x, emb, emb_step, generator)
+    if generator is not None and layer.training:
+        raise ValueError("remat in train mode draws dropout from the default generator: "
+                         "pass generator=None or build the net with remat=False")
+    return checkpoint(layer, x, emb, emb_step, generator, use_reentrant=False)
 
 
 def _tuned_skip(s, skip_tuning: bool, count: int, n_skips: int):
@@ -203,9 +220,10 @@ def _song_layout(img_resolution, in_channels, out_channels, model_channels,
 
 
 class SongUNet(nn.Module):
-    """DDPM++ / NCSN++ U-Net.  ``augment_dim`` creates ``map_augment`` so
-    reference checkpoints load; sampling never applies it.  Class
-    conditioning (``label_dim > 0``) is not ported yet."""
+    """DDPM++ / NCSN++ U-Net, class-conditional through ``map_label`` (on
+    the labels times sqrt(label_dim)) when ``label_dim > 0``.
+    ``augment_dim`` creates ``map_augment``, which the augment labels go
+    through (sampling passes none)."""
 
     def __init__(self, img_resolution: int, in_channels: int, out_channels: int,
                  label_dim: int = 0, augment_dim: int = 0, model_channels: int = 128,
@@ -216,8 +234,6 @@ class SongUNet(nn.Module):
                  encoder_type: str = "standard", decoder_type: str = "standard",
                  resample_filter: Sequence[float] = (1, 1), use_step_condition: bool = False,
                  remat: bool = False, device=None):
-        if label_dim:
-            raise NotImplementedError("class-conditional SongUNet is not ported yet")
         if embedding_type not in ("positional", "fourier"):
             raise ValueError(f"unknown embedding_type {embedding_type!r}")
         super().__init__()
@@ -233,11 +249,14 @@ class SongUNet(nn.Module):
                             init_attn=init_attn, use_step_condition=use_step_condition,
                             device=device)
         self.noise_channels = noise_channels
+        self.label_dropout = label_dropout
         self.remat = remat
 
         # Mapping tower.
         self.map_noise = (FourierEmbedding(noise_channels, device=device)
                           if embedding_type == "fourier" else None)
+        self.map_label = (Linear(label_dim, noise_channels, device=device, **init)
+                          if label_dim else None)
         self.map_augment = (Linear(augment_dim, noise_channels, bias=False, device=device,
                                    **init) if augment_dim else None)
         self.map_layer0 = Linear(noise_channels, emb_channels, device=device, **init)
@@ -291,18 +310,30 @@ class SongUNet(nn.Module):
         return emb.reshape(emb.shape[0], 2, -1).flip(1).reshape(emb.shape)  # swap sin/cos
 
     def forward(self, x, noise_labels, class_labels=None, bottleneck: Optional[str] = None, *,
-                step_condition=None, skip_tuning: bool = False):
+                augment_labels=None, step_condition=None, skip_tuning: bool = False,
+                generator=None):
         """x: [N, H, W, C] in the compute dtype; noise_labels: [N] or [1];
-        class_labels: None (the net is unconditional).
+        class_labels: [N or 1, label_dim] (a conditional net) or None.
 
         ``bottleneck`` names an encoder layer by its JAX module name (e.g.
         ``enc_8x8_block3``, the AMED tap); the call then returns
         (output, that layer's output activation) -- the explicit counterpart
         of the JAX package's ``capture_intermediates``.
-        ``step_condition``: SFD-v's step count, [N] or [1] f32 (a net built
-        with ``use_step_condition``), else None; ``skip_tuning``: scale the
-        decoder's skip tensors (SFD)."""
+        ``augment_labels``: [N, augment_dim] (a net with ``map_augment``) or
+        None; ``step_condition``: SFD-v's step count, [N] or [1] f32 (a net
+        built with ``use_step_condition``), else None; ``skip_tuning``:
+        scale the decoder's skip tensors (SFD); ``generator``: the dropout
+        and label-dropout draws in train mode."""
         emb = self._noise_embed(self.map_noise, noise_labels)
+        if self.map_label is not None:
+            if class_labels is None:
+                raise ValueError("a class-conditional SongUNet needs class_labels")
+            tmp = class_labels.to(emb.dtype)
+            if self.training:
+                tmp = drop_labels(tmp, self.label_dropout, x.shape[0], generator)
+            emb = emb + self.map_label(tmp * math.sqrt(self.map_label.in_features))
+        if self.map_augment is not None and augment_labels is not None:
+            emb = emb + self.map_augment(augment_labels.to(emb.dtype))
         emb = F.silu(self.map_layer0(emb))
         emb = F.silu(self.map_layer1(emb))
         emb_step = None
@@ -324,7 +355,8 @@ class SongUNet(nn.Module):
             elif kind == "aux_residual":
                 x = skips[-1] = aux = (x + layer(aux)) / math.sqrt(2)
             else:
-                x = _block(layer, self.remat, x, emb, emb_step) if kind == "block" else layer(x)
+                x = (_block(layer, self.remat, x, emb, emb_step, generator) if kind == "block"
+                     else layer(x))
                 skips.append(x)
             if bottleneck == f"enc_{name}":
                 tap = x
@@ -345,7 +377,7 @@ class SongUNet(nn.Module):
                     x = torch.cat([x, _tuned_skip(skips.pop(), skip_tuning, count, n_skips)],
                                   dim=-1)
                     count += 1
-                x = _block(layer, self.remat, x, emb, emb_step)
+                x = _block(layer, self.remat, x, emb, emb_step, generator)
         if bottleneck is None:
             return aux
         if tap is None:
@@ -407,8 +439,8 @@ class DhariwalUNet(nn.Module):
     blocks use adaptive scale, eps 1e-5, skip scale 1 and 64 channels per
     attention head; the zero-init layers (``conv1``, ``proj``, ``out_conv``)
     are exactly zero at init; and the net ends with ``out_norm`` -> SiLU ->
-    ``out_conv``.  ``augment_dim`` creates ``map_augment`` so reference
-    checkpoints load; sampling never applies it."""
+    ``out_conv``.  ``augment_dim`` creates ``map_augment`` (zero at init),
+    which the augment labels go through (sampling passes none)."""
 
     def __init__(self, img_resolution: int, in_channels: int, out_channels: int,
                  label_dim: int = 0, augment_dim: int = 0, model_channels: int = 192,
@@ -425,6 +457,7 @@ class DhariwalUNet(nn.Module):
                             init=init, init_zero=init_zero,
                             use_step_condition=use_step_condition, device=device)
         self.model_channels = model_channels
+        self.label_dropout = label_dropout
         self.remat = remat
 
         # Mapping tower.
@@ -462,7 +495,8 @@ class DhariwalUNet(nn.Module):
         self.out_conv = Conv2d(cout, out_channels, kernel=3, device=device, **init_zero)
 
     def forward(self, x, noise_labels, class_labels=None, bottleneck: Optional[str] = None, *,
-                step_condition=None, skip_tuning: bool = False):
+                augment_labels=None, step_condition=None, skip_tuning: bool = False,
+                generator=None):
         """x: [N, H, W, C] in the compute dtype; noise_labels: [N] or [1];
         class_labels: [N, label_dim] or [1, label_dim] (one-hot rows; a
         conditional net needs them, ``EDMPrecond`` supplies zeros).
@@ -470,14 +504,20 @@ class DhariwalUNet(nn.Module):
         ``bottleneck`` names an encoder layer by its JAX module name (the
         AMED tap of a conditional net is ``enc_8x8_block2``); the call then
         returns (output, that layer's output activation).
-        ``step_condition`` and ``skip_tuning`` as in ``SongUNet``."""
+        ``augment_labels``, ``step_condition``, ``skip_tuning`` and
+        ``generator`` as in ``SongUNet``."""
         emb = positional_embedding(noise_labels, self.model_channels)
+        if self.map_augment is not None and augment_labels is not None:
+            emb = emb + self.map_augment(augment_labels.to(emb.dtype))
         emb = F.silu(self.map_layer0(emb))
         emb = self.map_layer1(emb)
         if self.map_label is not None:
             if class_labels is None:
                 raise ValueError("a class-conditional DhariwalUNet needs class_labels")
-            emb = emb + self.map_label(class_labels.to(emb.dtype))
+            tmp = class_labels.to(emb.dtype)
+            if self.training:
+                tmp = drop_labels(tmp, self.label_dropout, x.shape[0], generator)
+            emb = emb + self.map_label(tmp)
         emb = F.silu(emb)
         emb_step = None
         if step_condition is not None:
@@ -490,7 +530,8 @@ class DhariwalUNet(nn.Module):
         tap = None
         for name, kind in self.enc_layout:
             layer = self.enc[name]
-            x = _block(layer, self.remat, x, emb, emb_step) if kind == "block" else layer(x)
+            x = (_block(layer, self.remat, x, emb, emb_step, generator) if kind == "block"
+                 else layer(x))
             skips.append(x)
             if bottleneck == f"enc_{name}":
                 tap = x
@@ -500,7 +541,7 @@ class DhariwalUNet(nn.Module):
             if x.shape[-1] != layer.in_channels:
                 x = torch.cat([x, _tuned_skip(skips.pop(), skip_tuning, count, n_skips)], dim=-1)
                 count += 1
-            x = _block(layer, self.remat, x, emb, emb_step)
+            x = _block(layer, self.remat, x, emb, emb_step, generator)
         x = self.out_conv(F.silu(self.out_norm(x)))
         if bottleneck is None:
             return x

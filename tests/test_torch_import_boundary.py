@@ -64,7 +64,8 @@ def test_port_imports_with_jax_and_flax_blocked():
             "diff_sampler_tpu_torch.utils.logger", "diff_sampler_tpu_torch.parallel",
             "diff_sampler_tpu_torch.parallel.mesh", "diff_sampler_tpu_torch.parallel.launch",
             "diff_sampler_tpu_torch.parallel.tp", "diff_sampler_tpu_torch.parallel.fsdp",
-            "diff_sampler_tpu_torch.ops.ring_attention"} <= names
+            "diff_sampler_tpu_torch.ops.ring_attention", "diff_sampler_tpu_torch.eval.lpips",
+            "diff_sampler_tpu_torch.ops.augment", "diff_sampler_tpu_torch.utils.ema"} <= names
 
 
 def test_port_copies_match_their_jax_originals():
