@@ -1,0 +1,6 @@
+"""The self-attention kernels' share of their roofline in a sampling cell."""
+from perfbench.metrics._shares import roofline
+
+
+def read(t):
+    return roofline(t, "attention")
